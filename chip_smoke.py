@@ -6,11 +6,16 @@
 Run from the repository root (it imports ``src/repro_torch``).  Phases:
 
 1. Device: fails without CUDA; prints the card's name and power limit.
-2. Build: compiles ``src/repro_torch/kernels/csrc/sb_gemm.cu`` with nvcc.
+2. Build: compiles the three kernels of ``src/repro_torch/kernels/csrc/``
+   (``sb_gemm.cu``, ``grouped_gemm.cu``, ``flash_attn.cu``) with nvcc, one
+   process each, all at once.
 3. Kernel vs plain version on the card: the 36 Table II cases (native and
    batched strategies, f32 and bf16, ragged dims), the 8 exceptional cases
    through ``ext_gemm``, the 100-spec layout-fuzz stream (integer-valued,
-   bit-identical), and the native kernel's gradients.
+   bit-identical), and the native kernel's gradients; ``grouped_gemm`` on
+   the grouped cases of ``tests/test_runtime.py`` and the fig14 ragged
+   set; ``flash_attention`` on the grid of ``tests/test_flash_attn.py``,
+   the GQA fold, causal cross attention and strided operands.
 4. Copy-freedom: the kernel path moves no data; the conventional baseline
    makes at least its counted transposes.
 5. Main path: Tucker HOOI on a low-rank-plus-noise float32 tensor of
@@ -20,12 +25,26 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    against its bound, the plain version and one library call.
 7. A profile of one HOOI of each variant: device time by kernel name and
    the device's idle share.
+8. Grouped path at full width: the routed experts of qwen2-moe-a2.7b (60
+   experts, top-4, d_model 2048 -> d_expert 1408) over 4096 tokens with a
+   skewed routing that leaves one expert empty, through ``grouped_matmul``
+   in f32, bf16 and bf16 with weights stored ``(1408, 2048)``; then times.
+9. Attention path at full width: internlm2-20b prefill (48 query heads
+   over 8 KV heads folded into BH = 48, D = 128, S = T = 4096, causal)
+   through ``flash_attention`` in bf16 and f32; then times.
+
+Each path (5, 8, 9) is driven with every kernel's launch count set to 0
+just before it and read just after; launches made to compare or time a
+kernel do not count.
 
 Tolerances: integer-valued inputs are exact under any summation order, so
 they must match bit for bit; float32 results may differ from the plain
 version's by the summation order, 2e-5 of the largest output magnitude;
-bfloat16 inputs keep ~3 digits, 2e-2.  TF32 is switched off for matmuls
-and cuDNN, so the library calls compared against run in full float32.
+bfloat16 inputs keep ~3 digits, 2e-2.  Attention outputs take that
+magnitude per row (see ``row_rel_err``), and at full width the bfloat16
+kernel's distance to the float32 reference may be at most twice the
+plain version's own.  TF32 is switched off for matmuls and cuDNN, so the
+library calls compared against run in full float32.
 
 The last lines of stdout are a JSON ``kernels`` record, the card's name and
 power limit as ``nvidia-smi`` prints them, and the ``{"ok": true, ...}``
@@ -46,10 +65,14 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-#: HBM rate and float32 FMA peak (outside the tensor cores) of an H100 SXM
-#: at 700 W (NVIDIA data sheet); the kernel accumulates with plain FMA.
+#: HBM rate, float32 FMA peak (outside the tensor cores) and dense bf16
+#: tensor-core peak of an H100 SXM at 700 W (NVIDIA data sheet).  A bound
+#: takes the card's peak for the operands' type, whatever units the kernel
+#: uses (the port's kernels accumulate with plain FMA).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+PEAK_FLOP_PER_S = {torch.float32: F32_FLOP_PER_S, torch.bfloat16: 989e12}
+KERNEL_SOURCES = ("sb_gemm", "grouped_gemm", "flash_attn")
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RAGGED_DIMS = {"m": 383, "n": 257, "p": 47, "k": 321}
@@ -65,6 +88,17 @@ def rel_err(got, want) -> float:
     diff = (got.float() - want.float()).abs().max().item() if got.numel() else 0.0
     scale = max(1.0, want.float().abs().max().item() if want.numel() else 0.0)
     return diff / scale
+
+
+def row_rel_err(got, want) -> float:
+    """The worst row's largest absolute difference over that row's largest
+    reference magnitude (rows along the last axis).  An attention output
+    is a weighted mean of ``v``: its scale falls with the row's count of
+    visible keys, so a scale taken over the whole tensor would let most
+    rows differ by several times their own size."""
+    g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    scale = w.abs().amax(dim=1).clamp_min(torch.finfo(torch.float32).tiny)
+    return ((g - w).abs().amax(dim=1) / scale).max().item()
 
 
 def check(ok: bool, what: str) -> None:
@@ -100,12 +134,31 @@ def device_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def build() -> float:
+def build() -> dict:
+    """Build every kernel source at once (nvcc runs outside the GIL);
+    returns each one's seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import _build
 
-    t0 = time.perf_counter()
-    _build.load("sb_gemm")
-    return time.perf_counter() - t0
+    def one(name):
+        t0 = time.perf_counter()
+        _build.load(name)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        return dict(zip(KERNEL_SOURCES, pool.map(one, KERNEL_SOURCES)))
+
+
+def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
+    """Least time (ms) for ``nbytes`` moved and ``flops`` done at the card's
+    peaks for ``dtype``, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOP_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 # ------------------------------------------------------------------- phase 3
@@ -184,6 +237,174 @@ def check_grads(dev) -> None:
             err = rel_err(g, r)
             check(err <= TOL[torch.float32], f"grad {spec} {name}: error {err}")
     log(f"grads: execute_native gradients match the plain version on {len(specs)} specs")
+
+
+GROUPED_T8 = {"u": 8, "v": 8, "k": 8}
+#: the grouped shape lists of tests/test_runtime.py:27-32, (m, n, k) each
+RUNTIME_SHAPE_LISTS = [
+    [(5, 17, 9), (12, 3, 33), (1, 1, 1), (40, 20, 8)],
+    [(8, 8, 8)],
+    [(3, 3, 3), (3, 3, 3), (3, 3, 3)],
+    [(33, 7, 65), (2, 31, 4)],
+]
+
+
+def fig14_shapes() -> list:
+    """The ragged set of ``benchmarks/fig14_runtime.py:170-177`` (full run)."""
+    rng = np.random.default_rng(14)
+    shapes = [(int(m), 32, 64) for m in rng.integers(1, 33, size=8)]
+    shapes[0] = (64, 32, 64)
+    return shapes
+
+
+def groups_of(shapes, dev, dtype, seed, ta=False, tb=False, integers=False):
+    """Per-group operands from a numpy seed, stored transposed where
+    flagged (``ta``/``tb`` scalar or per group)."""
+    rng = np.random.default_rng(seed)
+    ta = [ta] * len(shapes) if isinstance(ta, bool) else ta
+    tb = [tb] * len(shapes) if isinstance(tb, bool) else tb
+
+    def draw(shape):
+        x = (rng.integers(-3, 4, shape) if integers else rng.standard_normal(shape))
+        return torch.from_numpy(x.astype(np.float32)).to(dev, dtype)
+
+    As = [draw((k, m) if ta[g] else (m, k)) for g, (m, n, k) in enumerate(shapes)]
+    Bs = [draw((n, k) if tb[g] else (k, n)) for g, (m, n, k) in enumerate(shapes)]
+    return As, Bs
+
+
+def check_grouped_case(As, Bs, tiles, ta=False, tb=False, exact=False) -> float:
+    """``grouped_gemm`` against its plain version on the same packed
+    buffers, and ``grouped_matmul`` against the per-group reference.
+    Returns the largest absolute difference."""
+    from repro_torch.kernels.grouped_gemm import (
+        grouped_gemm, grouped_gemm_packed_ref, grouped_gemm_ref, pack_groups,
+        packed_geometry)
+    from repro_torch.kernels.ops import grouped_matmul
+
+    dt = torch.promote_types(As[0].dtype, Bs[0].dtype)
+    A_flat, B_flat, descs, problems = pack_groups(As, Bs, tiles, trans_a=ta, trans_b=tb)
+    grid, out_rows, out_cols = packed_geometry(problems, tiles)
+    kw = dict(out_cols=out_cols, out_rows=out_rows)
+    got = grouped_gemm(A_flat, B_flat, descs, grid_dims=grid, tiles=tiles, **kw)
+    want = grouped_gemm_packed_ref(A_flat, B_flat, descs, **kw)
+    pairs = [(got[c:c + m, :n], want[c:c + m, :n])
+             for m, n, _, _, _, c, _, _ in descs.tolist()]
+    pairs += list(zip(grouped_matmul(As, Bs, tiles=tiles, trans_a=ta, trans_b=tb),
+                      grouped_gemm_ref(As, Bs, trans_a=ta, trans_b=tb)))
+    torch.cuda.synchronize()
+    worst = 0.0
+    for g, w in pairs:
+        check(g.shape == w.shape and g.dtype == w.dtype, f"grouped: {g.shape} {g.dtype} "
+                                                         f"vs {w.shape} {w.dtype}")
+        if exact:
+            check(torch.equal(g, w), "grouped: integer-valued case not bit-identical")
+        else:
+            err = rel_err(g, w)
+            check(err <= TOL[dt], f"grouped {dt}: error {err}")
+        if g.numel():
+            worst = max(worst, (g.float() - w.float()).abs().max().item())
+    return worst
+
+
+def check_grouped(dev) -> None:
+    n = 0
+    for i, shapes in enumerate(RUNTIME_SHAPE_LISTS):
+        for dt in (torch.float32, torch.bfloat16):
+            check_grouped_case(*groups_of(shapes, dev, dt, seed=i), GROUPED_T8)
+            n += 1
+    for dt in (torch.float32, torch.bfloat16):     # default tiles (8, 128, 128)
+        check_grouped_case(*groups_of([(5, 130, 9), (20, 4, 140)], dev, dt, seed=8), None)
+        n += 1
+    # empty groups (tests/test_runtime.py:121-133): k=0 gives exact zeros
+    rng = np.random.default_rng(3)
+
+    def r(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    As, Bs = [r(4, 0), r(0, 6), r(4, 6), r(4, 6)], [r(0, 5), r(6, 5), r(6, 0), r(6, 5)]
+    check_grouped_case(As, Bs, GROUPED_T8)
+    from repro_torch.kernels.ops import grouped_matmul
+
+    outs = grouped_matmul(As, Bs, tiles=GROUPED_T8)
+    check([tuple(o.shape) for o in outs] == [(4, 5), (0, 5), (4, 0), (4, 5)],
+          "grouped: empty-group shapes")
+    check(bool((outs[0] == 0).all()), "grouped: k=0 group not exact zeros")
+    # per-group layout flags (tests/test_runtime.py:148-154), integer-valued
+    ta, tb = [False, True, True], [False, True, False]
+    shapes = [(5, 9, 7), (6, 4, 7), (12, 130, 9)]
+    check_grouped_case(*groups_of(shapes, dev, torch.float32, seed=7, ta=ta, tb=tb,
+                                  integers=True), None, ta, tb, exact=True)
+    # several kernel tiles and K stages per group, every layout, ragged
+    shapes = [(130, 260, 70), (64, 128, 200), (1, 300, 33), (77, 5, 513)]
+    ta, tb = [True, False, True, False], [False, True, True, False]
+    for dt in (torch.float32, torch.bfloat16):
+        check_grouped_case(*groups_of(shapes, dev, dt, seed=9, ta=ta, tb=tb), GROUPED_T8,
+                           ta, tb)
+    check_grouped_case(*groups_of(shapes, dev, torch.float32, seed=10, ta=ta, tb=tb,
+                                  integers=True), GROUPED_T8, ta, tb, exact=True)
+    # the fig14 ragged set at its tiles
+    for dt in (torch.float32, torch.bfloat16):
+        check_grouped_case(*groups_of(fig14_shapes(), dev, dt, seed=14),
+                           {"u": 8, "v": 32, "k": 32})
+    log(f"grouped_gemm: {n} runtime-test cases (f32 and bf16), empty groups (k=0 exact "
+        f"zeros), trans flags and multi-tile layouts (integer-valued bit-identical), "
+        f"fig14 ragged set: all match the plain version")
+
+
+#: tests/test_flash_attn.py's SHAPES: (bh, s, t, block, d)
+FLASH_SHAPES = [(2, 64, 64, 64, 16), (1, 96, 96, 32, 16), (3, 128, 256, 64, 32),
+                (2, 200, 200, 48, 64)]
+
+
+def qkv_of(rng, bh, s, t, d, dev, dtype):
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+            for shape in ((bh, s, d), (bh, t, d), (bh, t, d))]
+
+
+def check_flash_case(q, k, v, causal) -> float:
+    from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == q.dtype, "flash: shape or dtype")
+    check(bool(torch.isfinite(got).all()), "flash: non-finite output")
+    err = row_rel_err(got, want)
+    check(err <= TOL[q.dtype], f"flash {tuple(q.shape)} {tuple(k.shape)} causal={causal} "
+                               f"{q.dtype}: error {err}")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def check_flash(dev) -> None:
+    rng = np.random.default_rng(11)
+    n = 0
+    for bh, s, t, _, d in FLASH_SHAPES:
+        for causal in (True, False):
+            for dt in (torch.float32, torch.bfloat16):
+                check_flash_case(*qkv_of(rng, bh, s, t, d, dev, dt), causal)
+                n += 1
+    # GQA fold (tests/test_flash_attn.py:61-76): each q head gets its kv head
+    B, G, R, S, D = 2, 2, 3, 64, 16
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dev)
+               for sh in ((B, G, R, S, D), (B, G, S, D), (B, G, S, D)))
+    fold = lambda x: x[:, :, None].expand(B, G, R, S, D).reshape(B * G * R, S, D)
+    check_flash_case(q.reshape(B * G * R, S, D), fold(k), fold(v), True)
+    # causal cross attention, top-left aligned, ragged; every head-dim path
+    for bh, s, t, d in ((2, 100, 300, 128), (2, 300, 100, 128), (1, 70, 70, 256),
+                        (2, 33, 65, 48)):
+        for dt in (torch.float32, torch.bfloat16):
+            check_flash_case(*qkv_of(rng, bh, s, t, d, dev, dt), True)
+    # strided operands: q read from an (S, BH, D) layout, one K/V for all heads
+    q = torch.from_numpy(rng.standard_normal((90, 4, 64)).astype(np.float32)).to(dev)
+    k1, v1 = (torch.from_numpy(rng.standard_normal((1, 120, 64)).astype(np.float32))
+              .to(dev) for _ in range(2))
+    for causal in (True, False):
+        check_flash_case(q.transpose(0, 1), k1.expand(4, 120, 64), v1.expand(4, 120, 64),
+                         causal)
+    log(f"flash_attention: {n} cases of the SHAPES x causal/full x f32/bf16 grid, GQA fold, "
+        f"causal T>S and T<S, D in 48/128/256, strided and broadcast operands: all match "
+        f"the plain version")
 
 
 # ------------------------------------------------------------------- phase 4
@@ -402,6 +623,226 @@ def profile_hooi(T, n_iter: int, variant: str, top: int = 10) -> None:
         log(f"  {us / 1e3:9.3f} ms {100 * us / busy:5.1f}%  x{n:<5d} {name[:80]}")
 
 
+# ------------------------------------------------------------------- phase 8
+#: qwen2-moe-a2.7b's routed experts (src/repro/configs/qwen2_moe_a2p7b.py)
+MOE = dict(n_experts=60, top_k=4, d_model=2048, d_expert=1408, tokens=4096)
+
+
+def moe_counts(seed: int, skewed: bool = True) -> np.ndarray:
+    """Rows per expert for ``MOE["tokens"]`` tokens, each routed to
+    ``top_k`` distinct experts drawn (Gumbel top-k) from a popularity:
+    ``skewed``, Zipf with the last expert never chosen (an assumption with
+    no routing trace behind it), else uniform (what a load-balancing loss
+    aims at)."""
+    rng = np.random.default_rng(seed)
+    E = MOE["n_experts"]
+    pop = 1.0 / np.arange(1, E + 1) if skewed else np.ones(E)
+    if skewed:
+        pop[-1] = 0.0
+    with np.errstate(divide="ignore"):
+        scores = np.log(pop / pop.sum()) + rng.gumbel(size=(MOE["tokens"], E))
+    top = np.argsort(-scores, axis=1)[:, :MOE["top_k"]]
+    return np.bincount(top.ravel(), minlength=E)
+
+
+def time_with(fn, reps: int, counters) -> float:
+    """``cuda_ms`` of ``fn`` with every launch count put back afterwards:
+    timing launches do not count."""
+    saved = [c.launches for c in counters]
+    ms = cuda_ms(fn, reps)
+    for c, n in zip(counters, saved):
+        c.launches = n
+    return ms
+
+
+def grouped_bytes(As, Bs, trans_b: bool, out_dtype) -> int:
+    """Bytes the grouped product ``A_g (m, k) @ B_g`` must move: each group
+    with output reads its A and B once and writes its C once, unpadded; a
+    group with no rows or columns moves nothing (an expert with no tokens
+    reads no weights)."""
+    total = 0
+    for A, B in zip(As, Bs):
+        m, n = A.shape[0], B.shape[0 if trans_b else 1]
+        if m and n:
+            total += nbytes(A, B) + m * n * out_dtype.itemsize
+    return total
+
+
+def grouped_path(dev, seed: int, counters, reps: int = 10) -> dict:
+    """The expert up-projection ``A_g (m_g, 2048) @ W_g (2048, 1408)`` of
+    qwen2-moe-a2.7b through ``grouped_matmul``: under a skewed routing in
+    f32, bf16, and bf16 with the weights stored ``(1408, 2048)``
+    (``trans_b``); under a uniform routing in bf16.  Checks, then times
+    the kernel, the path with its packing, the plain version and library
+    calls.  Returns the skewed bf16 run's record for the kernels line."""
+    from repro_torch.kernels.grouped_gemm import (
+        grouped_gemm, grouped_gemm_packed_ref, grouped_gemm_ref, pack_groups,
+        packed_geometry)
+    from repro_torch.kernels.ops import grouped_matmul
+
+    routings = {"skewed": moe_counts(seed), "uniform": moe_counts(seed, skewed=False)}
+    check(routings["skewed"].min() == 0, "routing left no expert empty")
+    M, K, N = MOE["tokens"] * MOE["top_k"], MOE["d_model"], MOE["d_expert"]
+    for how, counts in routings.items():
+        log(f"moe routing [{how}]: {MOE['tokens']} tokens x top-{MOE['top_k']} = {M} rows "
+            f"over {MOE['n_experts']} experts; rows per expert max {counts.max()}, median "
+            f"{int(np.median(counts))}, min {counts.min()} "
+            f"({int((counts == 0).sum())} empty)")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randn(M, K, device=dev, generator=gen)       # routed rows, by expert
+    W = torch.randn(MOE["n_experts"], K, N, device=dev, generator=gen) * K**-0.5
+    Xb, Wb = X.bfloat16(), W.bfloat16()
+    runs = {"f32": (X, W, False, "skewed"), "bf16": (Xb, Wb, False, "skewed"),
+            "bf16 trans_b": (Xb, Wb.transpose(1, 2).contiguous(), True, "skewed"),
+            "bf16 uniform": (Xb, Wb, False, "uniform")}
+
+    def split(x, counts):
+        offs = np.concatenate([[0], np.cumsum(counts)])
+        return [x[offs[g]:offs[g + 1]] for g in range(len(counts))]
+
+    groups = {name: (split(x, routings[how]), list(w), tb, routings[how])
+              for name, (x, w, tb, how) in runs.items()}
+
+    for c in counters:
+        c.launches = 0
+    outs = {name: grouped_matmul(As, Bs, trans_b=tb) for name, (As, Bs, tb, _) in groups.items()}
+    torch.cuda.synchronize()
+    counted = {c.__name__: c.launches for c in counters}
+    check(counted["grouped_gemm"] == len(runs) and sum(counted.values()) == len(runs),
+          f"grouped path launches {counted}")
+
+    rec = {}
+    for name, (As, Bs, tb, counts) in groups.items():
+        got = outs[name]
+        want = grouped_gemm_ref(As, Bs, trans_b=tb)
+        dt = As[0].dtype
+        check([tuple(o.shape) for o in got] == [(int(c), N) for c in counts],
+              f"moe {name}: output shapes")
+        check(all(bool(torch.isfinite(o).all()) for o in got), f"moe {name}: non-finite")
+        err = max(rel_err(o, w) for o, w in zip(got, want) if o.numel())
+        check(err <= TOL[dt], f"moe {name}: error {err} against the plain version")
+        abs_err = max((o.float() - w.float()).abs().max().item()
+                      for o, w in zip(got, want) if o.numel())
+        del want
+        A_flat, B_flat, descs, problems = pack_groups(As, Bs, trans_b=tb)
+        grid, out_rows, out_cols = packed_geometry(problems)
+        kw = dict(grid_dims=grid, out_cols=out_cols, out_rows=out_rows)
+        ms = time_with(lambda: grouped_gemm(A_flat, B_flat, descs, **kw), reps, counters)
+        path_ms = time_with(lambda: grouped_matmul(As, Bs, trans_b=tb), reps, counters)
+        plain_ms = cuda_ms(lambda: grouped_gemm_packed_ref(
+            A_flat, B_flat, descs, out_cols=out_cols, out_rows=out_rows), reps)
+        loop_ms = cuda_ms(lambda: [a @ (b.T if tb else b) for a, b in zip(As, Bs)], reps)
+        W3 = torch.stack(Bs).transpose(1, 2) if tb else torch.stack(Bs)
+        A_pad = torch.zeros(len(As), int(counts.max()), K, dtype=dt, device=dev)
+        for g, a in enumerate(As):
+            A_pad[g, :a.shape[0]] = a
+        bmm_ms = cuda_ms(lambda: torch.bmm(A_pad, W3), reps)
+        del A_pad
+        lib_ms, lib_note = None, "none (torch._grouped_mm takes bf16 only)"
+        if dt == torch.bfloat16:
+            if hasattr(torch, "_grouped_mm"):
+                x_cat = torch.cat(As)
+                offs_t = torch.tensor(np.cumsum(counts), dtype=torch.int32, device=dev)
+                try:
+                    lib_ms = cuda_ms(lambda: torch._grouped_mm(x_cat, W3, offs=offs_t), reps)
+                    lib_note = f"{lib_ms:.4f} ms"
+                except RuntimeError as exc:   # the yardstick only: the port never calls it
+                    lib_note = f"none ({str(exc).splitlines()[0][:100]})"
+            else:
+                lib_note = "none (torch has no _grouped_mm)"
+        flops = 2 * M * N * K
+        b_ms, by = bound(grouped_bytes(As, Bs, tb, dt), flops, dt)
+        log(f"moe up-projection [{name}] {M}x{K} @ {MOE['n_experts']}x{K}x{N}: kernel "
+            f"{ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s, bound {b_ms:.4f} ms ({by}), "
+            f"{100 * b_ms / ms:.1f}% of bound; grouped_matmul with packing {path_ms:.4f} ms; "
+            f"plain {plain_ms:.4f} ms; library _grouped_mm {lib_note}; per-group "
+            f"torch.matmul loop {loop_ms:.4f} ms; padded-to-largest torch.bmm {bmm_ms:.4f} ms; "
+            f"max abs error {abs_err:.3g}")
+        rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                         library_ms=lib_ms, max_abs_err=abs_err)
+        del A_flat, B_flat
+    same = all(torch.equal(a, b) for a, b in zip(outs["bf16"], outs["bf16 trans_b"]))
+    log(f"moe: trans_b result bit-identical to the plain-layout bf16 result: {same}; "
+        f"path launches {counted}")
+    return {**rec["bf16"], "launches": counted["grouped_gemm"]}
+
+
+# ------------------------------------------------------------------- phase 9
+#: internlm2-20b (src/repro/configs/internlm2_20b.py): 48 query heads over
+#: 8 KV heads, d_model 6144
+ATTN = dict(n_heads=48, n_kv_heads=8, d_model=6144, seq=4096)
+
+
+def attention_path(dev, seed: int, counters, reps: int = 5) -> dict:
+    """internlm2-20b causal prefill through ``flash_attention``, heads
+    folded into BH as a GQA caller does, in bf16 and f32.  Checks, then
+    times the kernel, the plain version and SDPA.  Returns the bf16 run's
+    record for the kernels line."""
+    from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+
+    H, Hkv, S = ATTN["n_heads"], ATTN["n_kv_heads"], ATTN["seq"]
+    D, R = ATTN["d_model"] // H, H // Hkv
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(1, Hkv, R, S, D, device=dev, generator=gen)
+    k, v = (torch.randn(1, Hkv, S, D, device=dev, generator=gen) for _ in range(2))
+
+    def fold(x, dt):   # (1, Hkv, [R,] S, D) -> (H, S, D), each q head its kv head
+        x = x if x.ndim == 5 else x[:, :, None].expand(1, Hkv, R, S, D)
+        return x.reshape(H, S, D).to(dt)
+
+    runs = {name: [fold(x, dt) for x in (q, k, v)]
+            for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    for c in counters:
+        c.launches = 0
+    outs = {name: flash_attention(*qkv, causal=True) for name, qkv in runs.items()}
+    torch.cuda.synchronize()
+    counted = {c.__name__: c.launches for c in counters}
+    check(counted["flash_attention"] == len(runs) and sum(counted.values()) == len(runs),
+          f"attention path launches {counted}")
+
+    # bf16 control: how far rounding to bf16 alone moves the plain version
+    # from the f32 reference; the bf16 kernel may be at most twice as far
+    want32 = flash_attention_ref(*runs["f32"], causal=True)
+    want16 = flash_attention_ref(*runs["bf16"], causal=True)
+    control = row_rel_err(want16, want32)
+    to_f32 = row_rel_err(outs["bf16"], want32)
+    log(f"attention bf16 against the f32 reference, worst row: kernel {to_f32:.4g}, plain "
+        f"version {control:.4g} (the control; limit twice it)")
+    check(to_f32 <= 2 * control, f"attention bf16: kernel {to_f32} from the f32 reference, "
+                                 f"over twice the plain version's {control}")
+    del want16
+
+    rec = {}
+    pairs = S * (S + 1) // 2                   # causal (i, j) pairs with j <= i
+    for name, (qf, kf, vf) in runs.items():
+        got, dt = outs[name], qf.dtype
+        check(tuple(got.shape) == (H, S, D) and got.dtype == dt, f"attention {name}: shape")
+        check(bool(torch.isfinite(got).all()), f"attention {name}: non-finite")
+        want = want32 if dt == torch.float32 else flash_attention_ref(qf, kf, vf, causal=True)
+        err = row_rel_err(got, want)
+        check(err <= TOL[dt], f"attention {name}: worst row's error {err} against the "
+                              f"plain version")
+        abs_err = (got.float() - want.float()).abs().max().item()
+        log(f"attention {name}: worst row's error against the plain version {err:.4g} "
+            f"(limit {TOL[dt]:g}), max abs error {abs_err:.3g}")
+        del want
+        ms = time_with(lambda: flash_attention(qf, kf, vf, causal=True), reps, counters)
+        plain_ms = cuda_ms(lambda: flash_attention_ref(qf, kf, vf, causal=True), 2)
+        q4, k4, v4 = (x.view(1, H, S, D) for x in (qf, kf, vf))
+        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), reps)
+        flops = 4 * H * D * pairs
+        b_ms, by = bound(4 * nbytes(qf), flops, dt)
+        log(f"attention prefill [{name}] BH={H} S=T={S} D={D} causal: kernel {ms:.4f} ms, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, bound {b_ms:.4f} ms ({by}), "
+            f"{100 * b_ms / ms:.2f}% of bound; plain {plain_ms:.4f} ms; SDPA {lib_ms:.4f} ms; "
+            f"max abs error {abs_err:.3g}")
+        rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                         library_ms=lib_ms, max_abs_err=abs_err)
+    log(f"attention: path launches {counted}")
+    return {**rec["bf16"], "launches": counted["flash_attention"]}
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -416,7 +857,11 @@ def main() -> int:
     # outside a checkout of the repository this import fails, before any output
     from repro_torch.core.contract import record_contractions
     from repro_torch.core.tucker import hooi
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.grouped_gemm import grouped_gemm
     from repro_torch.kernels.sb_gemm import native_gemm
+
+    counters = [native_gemm, grouped_gemm, flash_attention]
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -425,12 +870,17 @@ def main() -> int:
     log(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"TF32 off for matmul and cuDNN")
 
-    log(f"build: sb_gemm.cu compiled and loaded in {build():.2f} s")
+    t0 = time.perf_counter()
+    secs = build()
+    log(f"build: {', '.join(f'{n}.cu {t:.2f} s' for n, t in secs.items())}; all compiled "
+        f"and loaded in {time.perf_counter() - t0:.2f} s")
 
     check_table2(dev)
     check_layoutfuzz(dev)
     check_grads(dev)
     check_small_hooi(dev)
+    check_grouped(dev)
+    check_flash(dev)
 
     T, noise_share = low_rank_plus_noise(args.size, RANKS, args.seed, device=dev)
     with record_contractions() as rec:
@@ -438,19 +888,31 @@ def main() -> int:
     working_set = list({s: d for s, d, _ in rec}.items())
     check_copy_freedom(dev, working_set)
 
-    counted, launches = main_path(T, noise_share, args.n_iter, [native_gemm])
+    counted, launches = main_path(T, noise_share, args.n_iter, counters)
+    check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
+          f"HOOI launched another kernel: {counted}")
     tot = time_shapes(launches)
     for variant in VARIANTS:
         profile_hooi(T, args.n_iter, variant)
+    del T
 
-    kernels = [{
-        "name": "native_gemm", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/sb_gemm.cu",
-        "replaces": "src/repro/kernels/sb_gemm.py:87",
-        "launches": counted["native_gemm"], "max_abs_err": tot["max_abs_err"],
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-        "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
-    }]
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    records = {
+        "native_gemm": ("sb_gemm.cu", "sb_gemm.py:87",
+                        {**tot, "launches": counted["native_gemm"]}),
+        "grouped_gemm": ("grouped_gemm.cu", "grouped_gemm.py:248",
+                         grouped_path(dev, args.seed, counters)),
+        "flash_attention": ("flash_attn.cu", "flash_attn.py:79",
+                            attention_path(dev, args.seed, counters)),
+    }
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}",
+                "replaces": f"src/repro/kernels/{tpu}",
+                **{k: rec[k] for k in keys}}
+               for name, (src, tpu, rec) in records.items()]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was launched no time on its path")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,7 @@ NVCC_FLAGS = (
 )
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: dict[str, threading.Lock] = {}
 _LOADED: dict[str, ctypes.CDLL] = {}
 
 
@@ -60,8 +61,12 @@ def library_path(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and open the library of ``csrc/<name>.cu``."""
+    """Build (if needed) and open the library of ``csrc/<name>.cu``.
+
+    Thread-safe; threads that load different names build at once."""
     with _LOCK:
+        name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _LOADED.get(name)
         if lib is not None:
             return lib

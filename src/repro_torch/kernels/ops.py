@@ -16,6 +16,9 @@ with no role assignment (degenerate layouts, unfused multi-mode
 contractions) and plans whose flattening is not a view of the given
 operands route there, so the kernel backend never permutes or copies an
 operand.
+
+``grouped_matmul(As, Bs)`` is the variable-batch entry: ragged per-group
+GEMMs in one launch of :func:`~repro_torch.kernels.grouped_gemm.grouped_gemm`.
 """
 
 from __future__ import annotations
@@ -25,12 +28,14 @@ import torch
 from repro_torch.core.notation import CaseKind, ContractionSpec, parse_spec
 from repro_torch.core.planner import Plan
 from repro_torch.kernels.addressing import DEFAULT_TILES
+from repro_torch.kernels.grouped_gemm import (
+    GROUPED_DEFAULT_TILES, grouped_gemm, pack_groups, packed_geometry)
 from repro_torch.kernels.sb_gemm import native_gemm
 from repro_torch.obs import trace as _trace
 
 __all__ = [
     "execute_plan", "execute_native", "sb_contract", "plan_roles",
-    "EXT_BATCH_TILE",
+    "grouped_matmul", "EXT_BATCH_TILE",
 ]
 
 #: brick depth for the extended-transpose configuration (paper §III-E):
@@ -134,6 +139,61 @@ def _execute_native_impl(cs: ContractionSpec, A, B, out_dtype):
         return _direct(cs, A, B).to(out_dtype)
     return native_gemm(A, B, a_modes=cs.a_modes, b_modes=cs.b_modes,
                        c_modes=cs.c_modes, out_dtype=out_dtype)
+
+
+def grouped_matmul(As, Bs, *, tiles: dict | None = None, out_dtype=None,
+                   trans_a=False, trans_b=False):
+    """Variable-batch GEMM: one kernel launch over ragged groups.
+
+    ``As[g] (m_g, k_g) @ Bs[g] (k_g, n_g)`` for every group in a single
+    :func:`~repro_torch.kernels.grouped_gemm.grouped_gemm` call — each
+    group padded only to its tile multiples, never to the largest group
+    (the serving runtime's ragged decode/prefill batches and a mixture of
+    experts' routed tokens are exactly this shape class).  Returns the
+    list of ``(m_g, n_g)`` results, views of one packed output.
+
+    ``trans_a``/``trans_b`` (scalar or per-group sequence) flag operands
+    stored in transposed layout — ``As[g] (k_g, m_g)`` / ``Bs[g]
+    (n_g, k_g)`` — which the kernel consumes in place via its descriptor
+    table.  Zero-size groups (``m``/``n``/``k`` of 0) are legal: ``k == 0``
+    yields exact zeros.
+
+    ``tiles`` overrides ``u``/``v``/``k`` of
+    :data:`~repro_torch.kernels.grouped_gemm.GROUPED_DEFAULT_TILES`, the
+    packing tiles: each must be a positive multiple of 8.
+    """
+    if not _trace.enabled():
+        return _grouped_matmul_impl(As, Bs, tiles=tiles, out_dtype=out_dtype,
+                                    trans_a=trans_a, trans_b=trans_b)
+    with _trace.span("grouped_matmul", "kernels") as sp:
+        sp.set(n_groups=len(As), tiles=tiles)
+        return _grouped_matmul_impl(As, Bs, tiles=tiles, out_dtype=out_dtype,
+                                    trans_a=trans_a, trans_b=trans_b)
+
+
+def _grouped_matmul_impl(As, Bs, *, tiles, out_dtype, trans_a, trans_b):
+    eff = {**GROUPED_DEFAULT_TILES, **(tiles or {})}
+    bad = set(eff) - {"u", "v", "k"}
+    if bad:
+        raise ValueError(
+            f"unknown grouped tile roles {sorted(bad)}; valid: ('u','v','k')")
+    for role, t in eff.items():
+        if not isinstance(t, int) or isinstance(t, bool) or t < 1 or t % 8:
+            raise ValueError(
+                f"grouped tile {role}={t!r} must be a positive multiple of 8 "
+                f"(each group's block then starts on a 16-byte boundary, for "
+                f"the kernel's 16-byte loads of float32/bfloat16 rows)")
+    A_flat, B_flat, descs, problems = pack_groups(
+        As, Bs, eff, trans_a=trans_a, trans_b=trans_b)
+    grid, out_rows, out_cols = packed_geometry(problems, eff)
+    out = grouped_gemm(
+        A_flat, B_flat, descs, grid_dims=grid, tiles=eff, out_cols=out_cols,
+        out_rows=out_rows, out_dtype=out_dtype)
+    results, row = [], 0
+    for p in problems:
+        results.append(out[row:row + p.m, :p.n])
+        row += -(-p.m // eff["u"]) * eff["u"]
+    return results
 
 
 def _fused_view(x, modes: str, groups, fdims: dict):

@@ -1,0 +1,163 @@
+"""The port's flash attention (``kernels/flash_attn.py``) against the JAX
+package's Pallas kernel, on the same numpy inputs.
+
+The JAX kernel runs in interpret mode with the ``blocks`` of its own tests;
+the port's wrapper takes its plain version on the CPU.  Tolerances are the
+JAX tests': 2e-5 for float32, 2e-2 for bfloat16 (in interpret mode the JAX
+kernel upcasts bfloat16 to float32, so its ``p`` is not rounded to bfloat16
+before ``P·V``; the port's plain version rounds it, as the TPU and CUDA
+kernels do).  The CUDA kernel is held against the plain version on the card
+by ``chip_smoke.py`` and by the ``gpu``-marked test below."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attn import DEFAULT_BLOCKS as JDEFAULT_BLOCKS
+from repro.kernels.flash_attn import flash_attention as jflash
+from repro_torch import interop
+from repro_torch.kernels import flash_attn as fa
+from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+
+# small shapes: one intra-op thread each keeps parallel test workers from
+# oversubscribing the CPU
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _drop_jax_caches():
+    """The JAX side compiles many programs here; drop them when the module
+    ends, so later timing-sensitive tests in the same worker run as alone."""
+    yield
+    jax.clear_caches()
+
+
+TOL = {"f32": 2e-5, "bf16": 2e-2}
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+# tests/test_flash_attn.py's SHAPES: (bh, s, t, block, d)
+SHAPES = [
+    (2, 64, 64, 64, 16),     # aligned, S == T
+    (1, 96, 96, 32, 16),     # ragged blocks
+    (3, 128, 256, 64, 32),   # cross attention T > S
+    (2, 200, 200, 48, 64),   # odd sizes
+]
+
+
+def _qkv(rng, bh, s, t, d):
+    return (rng.standard_normal((bh, s, d)).astype(np.float32),
+            rng.standard_normal((bh, t, d)).astype(np.float32),
+            rng.standard_normal((bh, t, d)).astype(np.float32))
+
+
+def _run_both(qn, kn, vn, *, causal, dtype, blocks):
+    jdt, tdt = DTYPES[dtype]
+    want = jflash(*(jnp.asarray(x, jdt) for x in (qn, kn, vn)), causal=causal,
+                  blocks=blocks)
+    q, k, v = (t.to(tdt) for t in interop.from_numpy((qn, kn, vn), device="cpu"))
+    got = flash_attention(q, k, v, causal=causal, blocks=blocks)
+    assert got.dtype == tdt and tuple(got.shape) == qn.shape
+    return got.float().numpy(), np.asarray(want, np.float32)
+
+
+@pytest.mark.parametrize("bh,s,t,bq,d", SHAPES)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_matches_jax(bh, s, t, bq, d, causal, dtype):
+    """The JAX tests' grid; the causal T > S case, which they skip against
+    their dense oracle, is held here to JAX's top-left mask."""
+    qkv = _qkv(np.random.default_rng(bh * 100 + s), bh, s, t, d)
+    got, want = _run_both(*qkv, causal=causal, dtype=dtype, blocks={"q": bq, "k": bq})
+    np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_gqa_fold_matches_jax():
+    """GQA: fold (B, G, R) into BH with each q head given its kv head's K/V."""
+    rng = np.random.default_rng(1)
+    B, G, R, S, D = 2, 2, 3, 64, 16
+    q = rng.standard_normal((B, G, R, S, D)).astype(np.float32)
+    k = rng.standard_normal((B, G, S, D)).astype(np.float32)
+    v = rng.standard_normal((B, G, S, D)).astype(np.float32)
+    qf = q.reshape(B * G * R, S, D)
+    kf = np.broadcast_to(k[:, :, None], (B, G, R, S, D)).reshape(B * G * R, S, D)
+    vf = np.broadcast_to(v[:, :, None], (B, G, R, S, D)).reshape(B * G * R, S, D)
+    got, want = _run_both(qf, kf, vf, causal=True, dtype="f32", blocks=None)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("s,t", [(40, 72), (72, 40)], ids=["t_gt_s", "t_lt_s"])
+def test_causal_ragged_cross_attention_matches_jax(s, t):
+    """Causal with T != S is top-left aligned (query i sees keys j <= i),
+    with ragged S and T masked, not padded."""
+    qkv = _qkv(np.random.default_rng(s + t), 2, s, t, 32)
+    got, want = _run_both(*qkv, causal=True, dtype="f32", blocks={"q": 16, "k": 16})
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    if s > t:  # rows at or past T - 1 see every key, as in full attention
+        full = flash_attention_ref(*interop.from_numpy(qkv, device="cpu"), causal=False)
+        np.testing.assert_allclose(got[:, t - 1:], full[:, t - 1:].numpy(),
+                                   rtol=2e-5, atol=2e-5)
+
+
+def test_broadcast_kv_is_read_through_its_strides():
+    """One K/V shared by every head (stride 0 along BH) gives the result of
+    the materialised copy."""
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.standard_normal((6, 24, 16)).astype(np.float32))
+    k1, v1 = (torch.from_numpy(rng.standard_normal((1, 24, 16)).astype(np.float32))
+              for _ in range(2))
+    kb, vb = k1.expand(6, 24, 16), v1.expand(6, 24, 16)
+    assert kb.stride(0) == 0
+    got = flash_attention(q, kb, vb)
+    want = flash_attention(q, kb.contiguous(), vb.contiguous())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_defaults_and_constants_equal_jax():
+    assert fa.DEFAULT_BLOCKS == JDEFAULT_BLOCKS
+    assert fa._NEG_INF == -2.0**30
+
+
+def test_wrapper_validates_the_launch_on_the_cpu():
+    x = torch.zeros(2, 8, 16)
+    with pytest.raises(ValueError, match="rank-3"):
+        flash_attention(x[0], x[0], x[0])
+    with pytest.raises(ValueError, match="shapes disagree"):
+        flash_attention(x, torch.zeros(2, 8, 8), x)
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attention(x, x.bfloat16(), x)
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention(x.double(), x.double(), x.double())
+    big = torch.zeros(1, 4, 264)
+    with pytest.raises(ValueError, match="exceeds 256"):
+        flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="unit stride along D"):
+        flash_attention(x, torch.zeros(2, 16, 8).transpose(1, 2), x)
+    with pytest.raises(ValueError, match="roles"):
+        flash_attention(x, x, x, blocks={"kv": 8})
+    assert fa.flash_attention.launches == 0
+
+
+def test_cpu_tensor_takes_the_plain_version():
+    rng = np.random.default_rng(2)
+    q, k, v = interop.from_numpy(_qkv(rng, 2, 16, 16, 8), device="cpu")
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True)
+    assert torch.equal(got, flash_attention_ref(q, k, v, causal=True))
+    assert flash_attention.launches == before
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_version_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
+    rng = np.random.default_rng(5)
+    for bh, s, t, _, d in SHAPES:
+        q, k, v = interop.from_numpy(_qkv(rng, bh, s, t, d))
+        for causal in (True, False):
+            for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+                args = [x.to(dt) for x in (q, k, v)]
+                got = flash_attention(*args, causal=causal)
+                want = flash_attention_ref(*args, causal=causal)
+                torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

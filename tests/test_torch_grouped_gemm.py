@@ -1,0 +1,283 @@
+"""The port's grouped GEMM (``kernels/grouped_gemm.py``, ``ops.grouped_matmul``)
+against the JAX package's, on the same numpy inputs.
+
+Every case of ``TestGroupedGemm`` in ``tests/test_runtime.py`` runs through
+both packages at the JAX tests' tolerances.  On the CPU the port's wrapper
+checks the whole launch (descriptor rows, tile list, bounds) and then takes
+the plain version; the JAX package runs its Pallas kernel in interpret mode.
+The CUDA kernel itself is held against the plain version on the card by
+``chip_smoke.py`` and by the ``gpu``-marked test below."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import grouped_gemm as jgg
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch import interop
+from repro_torch.kernels import grouped_gemm as gg
+from repro_torch.kernels import grouped_matmul, ops, ref
+
+# small shapes: one intra-op thread each keeps parallel test workers from
+# oversubscribing the CPU
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _drop_jax_caches():
+    """The JAX side compiles many programs here; drop them when the module
+    ends, so later timing-sensitive tests in the same worker run as alone."""
+    yield
+    jax.clear_caches()
+
+
+F32 = dict(rtol=1e-5, atol=1e-5)       # tests/test_runtime.py's f32 tolerance
+BF16 = dict(rtol=2e-1, atol=2e-1)      # and its bf16 one
+T8 = {"u": 8, "v": 8, "k": 8}
+
+
+def _rand_groups(shapes, seed=0):
+    rng = np.random.default_rng(seed)
+    As = [rng.standard_normal((m, k)).astype(np.float32) for m, n, k in shapes]
+    Bs = [rng.standard_normal((k, n)).astype(np.float32) for m, n, k in shapes]
+    return As, Bs
+
+
+def _both(As, Bs, jdtype=jnp.float32, tdtype=torch.float32):
+    """The same numpy operands as JAX arrays and as CPU tensors."""
+    jA = [jnp.asarray(a, jdtype) for a in As]
+    jB = [jnp.asarray(b, jdtype) for b in Bs]
+    tA = [t.to(tdtype) for t in interop.from_numpy(As, device="cpu")]
+    tB = [t.to(tdtype) for t in interop.from_numpy(Bs, device="cpu")]
+    return jA, jB, tA, tB
+
+
+SHAPE_LISTS = [
+    [(5, 17, 9), (12, 3, 33), (1, 1, 1), (40, 20, 8)],
+    [(8, 8, 8)],
+    [(3, 3, 3), (3, 3, 3), (3, 3, 3)],
+    [(33, 7, 65), (2, 31, 4)],
+]
+
+
+@pytest.mark.parametrize("shapes", SHAPE_LISTS, ids=str)
+def test_matches_jax(shapes):
+    jA, jB, tA, tB = _both(*_rand_groups(shapes))
+    want = jops.grouped_matmul(jA, jB, tiles=T8)
+    got = grouped_matmul(tA, tB, tiles=T8)
+    for o, w, (m, n, k) in zip(got, want, shapes):
+        assert tuple(o.shape) == (m, n)
+        np.testing.assert_allclose(o.numpy(), np.asarray(w), **F32)
+    for o, r in zip(got, gg.grouped_gemm_ref(tA, tB)):
+        np.testing.assert_allclose(o.numpy(), r.numpy(), **F32)
+
+
+def test_default_tiles_and_bf16_match_jax():
+    shapes = [(5, 130, 9), (20, 4, 140)]
+    jA, jB, tA, tB = _both(*_rand_groups(shapes), jnp.bfloat16, torch.bfloat16)
+    want = jops.grouped_matmul(jA, jB)
+    got = grouped_matmul(tA, tB)
+    for o, w in zip(got, want):
+        assert o.dtype == torch.bfloat16
+        np.testing.assert_allclose(o.float().numpy(), np.asarray(w, np.float32), **BF16)
+
+
+@pytest.mark.parametrize("case", ["matches", "bf16", "padding", "single", "subtile",
+                                  "empty", "trans"])
+def test_pack_groups_equals_jax(case):
+    """The descriptor table equals JAX's field by field, and the packed
+    buffers have JAX's shapes and contents, for every case of this file."""
+    rng = np.random.default_rng(21)
+    ta = tb = False
+    tiles = T8
+    if case == "matches":
+        As, Bs = _rand_groups(SHAPE_LISTS[0])
+    elif case == "bf16":
+        As, Bs = _rand_groups([(5, 130, 9), (20, 4, 140)])
+        tiles = None
+    elif case == "padding":
+        As, Bs = _rand_groups([(256, 8, 8), (1, 8, 8)])
+    elif case == "single":
+        As, Bs = _rand_groups([(13, 29, 7)])
+    elif case == "subtile":
+        As, Bs = _rand_groups([(3, 5, 2), (1, 1, 1)])
+        tiles = None
+    elif case == "empty":
+        As = [rng.standard_normal(s).astype(np.float32) for s in ((4, 0), (0, 6), (4, 6), (4, 6))]
+        Bs = [rng.standard_normal(s).astype(np.float32) for s in ((0, 5), (6, 5), (6, 0), (6, 5))]
+    else:
+        As, Bs, ta, tb = _trans_case()
+        tiles = None
+    jA, jB, tA, tB = _both(As, Bs)
+    jAf, jBf, jd, jp = jgg.pack_groups(jA, jB, tiles, trans_a=ta, trans_b=tb)
+    tAf, tBf, td, tp = gg.pack_groups(tA, tB, tiles, trans_a=ta, trans_b=tb)
+    assert td.dtype == torch.int32 and td.device.type == "cpu"
+    assert np.array_equal(td.numpy(), np.asarray(jd))
+    assert tuple(tAf.shape) == tuple(jAf.shape) and tuple(tBf.shape) == tuple(jBf.shape)
+    assert np.array_equal(tAf.numpy(), np.asarray(jAf))
+    assert np.array_equal(tBf.numpy(), np.asarray(jBf))
+    assert [(p.m, p.n, p.k) for p in tp] == [(p.m, p.n, p.k) for p in jp]
+    assert gg.DESC_FIELDS == jgg.DESC_FIELDS
+    assert gg.GROUPED_DEFAULT_TILES == jgg.GROUPED_DEFAULT_TILES
+
+
+@pytest.mark.parametrize("shapes,tiles", [
+    (SHAPE_LISTS[0], T8),
+    (SHAPE_LISTS[3], {"u": 8, "v": 32, "k": 32}),
+    ([(5, 130, 9), (20, 4, 140)], None),
+], ids=["t8", "t32", "default"])
+def test_packed_ref_equals_pallas_on_jax_buffers(shapes, tiles):
+    """The plain version of the packed function, fed JAX's own packed
+    buffers and table, equals ``grouped_gemm_pallas`` wherever a group's
+    block lies."""
+    jA, jB, _, _ = _both(*_rand_groups(shapes, seed=5))
+    A_flat, B_flat, descs, problems = jgg.pack_groups(jA, jB, tiles)
+    eff = {**jgg.GROUPED_DEFAULT_TILES, **(tiles or {})}
+    grid, out_rows, out_cols = gg.packed_geometry(problems, eff)
+    want = np.asarray(jgg.grouped_gemm_pallas(
+        A_flat, B_flat, descs, grid_dims=grid, tiles=eff, out_cols=out_cols,
+        out_rows=out_rows))
+    tA, tB, td = interop.from_numpy(
+        (np.asarray(A_flat), np.asarray(B_flat), np.asarray(descs)), device="cpu")
+    plain = gg.grouped_gemm_packed_ref(tA, tB, td, out_cols=out_cols, out_rows=out_rows)
+    wrapped = gg.grouped_gemm(tA, tB, td, grid_dims=grid, tiles=eff, out_cols=out_cols,
+                              out_rows=out_rows)
+    assert torch.equal(plain, wrapped)
+    for m, n, _, _, _, c_off, _, _ in np.asarray(descs).tolist():
+        np.testing.assert_allclose(plain[c_off:c_off + m, :n].numpy(),
+                                   want[c_off:c_off + m, :n], **F32)
+
+
+REJECTIONS = {
+    "k mismatch": lambda A: grouped_matmul([A], [torch.zeros(5, 4)]),
+    "no groups": lambda A: grouped_matmul([], []),
+    "tile not a multiple of 8": lambda A: grouped_matmul([A], [A], tiles={"u": 7}),
+    "unknown role": lambda A: grouped_matmul([A], [A], tiles={"b": 8}),
+    "flag arity": lambda A: grouped_matmul([A], [A], trans_a=[True, False]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REJECTIONS))
+def test_rejects_bad_groups_and_tiles(case):
+    with pytest.raises(ValueError):
+        REJECTIONS[case](torch.zeros(4, 4))
+
+
+def test_single_group_matches_jax():
+    jA, jB, tA, tB = _both(*_rand_groups([(13, 29, 7)]))
+    (want,) = jops.grouped_matmul(jA, jB, tiles=T8)
+    (got,) = grouped_matmul(tA, tB, tiles=T8)
+    assert tuple(got.shape) == (13, 29)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    (r,) = ref.ref_grouped_gemm(tA, tB)
+    np.testing.assert_allclose(got.numpy(), r.numpy(), **F32)
+
+
+def test_all_sub_tile_group_matches_jax():
+    jA, jB, tA, tB = _both(*_rand_groups([(3, 5, 2), (1, 1, 1)]))
+    want = jops.grouped_matmul(jA, jB)
+    got = grouped_matmul(tA, tB)
+    for o, w in zip(got, want):
+        assert tuple(o.shape) == tuple(w.shape)
+        np.testing.assert_allclose(o.numpy(), np.asarray(w), **F32)
+
+
+def test_empty_groups_match_jax():
+    rng = np.random.default_rng(3)
+    As = [rng.standard_normal(s).astype(np.float32) for s in ((4, 0), (0, 6), (4, 6), (4, 6))]
+    Bs = [rng.standard_normal(s).astype(np.float32) for s in ((0, 5), (6, 5), (6, 0), (6, 5))]
+    jA, jB, tA, tB = _both(As, Bs)
+    want = jops.grouped_matmul(jA, jB, tiles=T8)
+    got = grouped_matmul(tA, tB, tiles=T8)
+    assert [tuple(o.shape) for o in got] == [(4, 5), (0, 5), (4, 0), (4, 5)]
+    assert torch.all(got[0] == 0.0)      # k=0 → exact zeros
+    for o, w in zip(got, want):
+        np.testing.assert_allclose(o.numpy(), np.asarray(w), **F32)
+    (empty,) = grouped_matmul([torch.zeros(0, 0)], [torch.zeros(0, 0)])
+    assert tuple(empty.shape) == (0, 0)
+
+
+def _trans_case():
+    rng = np.random.default_rng(7)
+
+    def r(*s):
+        return rng.integers(-3, 4, s).astype(np.float32)
+
+    # group 0 plain; group 1 both stored transposed; group 2 A only
+    As = [r(5, 7), r(7, 6), r(9, 12)]
+    Bs = [r(7, 9), r(4, 7), r(9, 130)]
+    return As, Bs, [False, True, True], [False, True, False]
+
+
+def test_trans_flags_bit_identical_to_jax():
+    As, Bs, ta, tb = _trans_case()
+    jA, jB, tA, tB = _both(As, Bs)
+    want = jops.grouped_matmul(jA, jB, trans_a=ta, trans_b=tb)
+    got = grouped_matmul(tA, tB, trans_a=ta, trans_b=tb)
+    assert [tuple(o.shape) for o in got] == [(5, 9), (6, 4), (12, 130)]
+    for g, (o, w) in enumerate(zip(got, want)):
+        assert np.array_equal(o.numpy(), np.asarray(w)), g
+    refs = ref.ref_grouped_gemm(tA, tB, trans_a=ta, trans_b=tb)
+    jrefs = jref.ref_grouped_gemm(jA, jB, trans_a=ta, trans_b=tb)
+    for o, r, jr in zip(got, refs, jrefs):
+        assert torch.equal(o, r) and np.array_equal(r.numpy(), np.asarray(jr))
+    _, _, descs, _ = gg.pack_groups(tA, tB, trans_a=ta, trans_b=tb)
+    i_ta, i_tb = gg.DESC_FIELDS.index("trans_a"), gg.DESC_FIELDS.index("trans_b")
+    assert descs[:, i_ta].tolist() == [0, 1, 1]
+    assert descs[:, i_tb].tolist() == [0, 1, 0]
+
+
+def test_wrapper_validates_the_launch_on_the_cpu():
+    """What the kernel would be told is checked before the CPU takes the
+    plain version: the table's shape, the 8-multiples of the 16-byte row
+    loads, grid coverage and the buffers' bounds."""
+    A, B = torch.zeros(16, 16), torch.zeros(16, 16)
+    ok = torch.tensor([[8, 8, 8, 0, 0, 0, 0, 0]], dtype=torch.int32)
+    kw = dict(grid_dims=(1, 1, 1), tiles=T8, out_cols=8, out_rows=8)
+    assert tuple(gg.grouped_gemm(A, B, ok, **kw).shape) == (8, 8)
+    with pytest.raises(ValueError, match=r"\(G, 8\)"):
+        gg.grouped_gemm(A, B, ok[:, :6], **kw)
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        gg.grouped_gemm(A.double(), B, ok, **kw)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gg.grouped_gemm(A, B, torch.tensor([[8, 8, 4, 0, 0, 0, 0, 0]]), **kw)
+    with pytest.raises(ValueError, match="grid_dims"):
+        gg.grouped_gemm(A, B, ok, **{**kw, "tiles": {"u": 8, "v": 8, "k": 4}})
+    with pytest.raises(ValueError, match="reaches past"):
+        gg.grouped_gemm(A, B, torch.tensor([[8, 8, 8, 12, 0, 0, 0, 0]]), **kw)
+    with pytest.raises(ValueError, match="row stride"):
+        gg.grouped_gemm(torch.zeros(16, 12), B, ok, **kw)
+    with pytest.raises(ValueError, match="unit stride"):
+        gg.grouped_gemm(A.T[:, ::2], B, ok, **kw)
+    assert gg.grouped_gemm.launches == 0
+
+
+def test_cpu_tensors_take_the_plain_version():
+    As, Bs = _rand_groups([(5, 17, 9), (12, 3, 33)], seed=9)
+    tA, tB = interop.from_numpy((As, Bs), device="cpu")
+    before = gg.grouped_gemm.launches
+    got = ops.grouped_matmul(tA, tB, tiles=T8)
+    assert all(o.device.type == "cpu" for o in got)
+    assert gg.grouped_gemm.launches == before
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_version_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
+    As, Bs = _rand_groups(SHAPE_LISTS[0] + [(130, 260, 70)], seed=4)
+    for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        tA = [t.to(dt) for t in interop.from_numpy(As)]
+        tB = [t.to(dt) for t in interop.from_numpy(Bs)]
+        A_flat, B_flat, descs, problems = gg.pack_groups(tA, tB, T8)
+        grid, out_rows, out_cols = gg.packed_geometry(problems, T8)
+        kw = dict(out_cols=out_cols, out_rows=out_rows)
+        got = gg.grouped_gemm(A_flat, B_flat, descs, grid_dims=grid, tiles=T8, **kw)
+        want = gg.grouped_gemm_packed_ref(A_flat, B_flat, descs, **kw)
+        torch.cuda.synchronize()
+        for m, n, *_, c_off, _, _ in descs.tolist():
+            torch.testing.assert_close(got[c_off:c_off + m, :n].float(),
+                                       want[c_off:c_off + m, :n].float(), rtol=tol, atol=tol)

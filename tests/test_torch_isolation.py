@@ -15,7 +15,7 @@ import torch
 from repro_torch import interop
 from repro_torch.core.contract import contract
 from repro_torch.core.table2 import CASES
-from repro_torch.kernels import _build, sb_gemm
+from repro_torch.kernels import _build, flash_attn, grouped_gemm, grouped_matmul, sb_gemm
 
 # small shapes: one intra-op thread each keeps parallel test workers from
 # oversubscribing the CPU
@@ -92,6 +92,46 @@ def test_kernel_path_calls_no_library_gemm(monkeypatch):
             assert torch.allclose(got, want, rtol=1e-5, atol=1e-5), (label, strategy)
 
 
+def test_new_kernel_paths_call_no_library_gemm_or_attention(monkeypatch):
+    """With the library GEMMs and SDPA made to raise, ``grouped_matmul`` and
+    ``flash_attention`` still compute: packing, the tile list and the
+    wrappers multiply nothing; only the plain versions (taken here because
+    the tensors lie on the CPU, and swapped for einsum ones) may."""
+    einsum = torch.einsum
+    real_gg, real_fa = grouped_gemm.grouped_gemm_packed_ref, flash_attn.flash_attention_ref
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("library GEMM or attention on a kernel path")
+
+    def gg_plain(A_flat, B_flat, descs, *, out_cols, out_rows=None, out_dtype=None):
+        with monkeypatch.context() as m:
+            m.setattr(torch.Tensor, "__matmul__", lambda a, b: einsum("ik,kj->ij", a, b))
+            return real_gg(A_flat, B_flat, descs, out_cols=out_cols, out_rows=out_rows,
+                           out_dtype=out_dtype)
+
+    def fa_plain(q, k, v, *, causal=True):
+        with monkeypatch.context() as m:
+            m.setattr(torch, "einsum", einsum)
+            return real_fa(q, k, v, causal=causal)
+
+    monkeypatch.setattr(grouped_gemm, "grouped_gemm_packed_ref", gg_plain)
+    monkeypatch.setattr(flash_attn, "flash_attention_ref", fa_plain)
+    for name in ("einsum", "matmul", "mm", "bmm", "tensordot", "baddbmm", "addmm",
+                 "_grouped_mm"):
+        monkeypatch.setattr(torch, name, forbidden)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", forbidden)
+    monkeypatch.setattr(torch.nn.functional, "scaled_dot_product_attention", forbidden)
+    rng = np.random.default_rng(1)
+    As = [torch.from_numpy(rng.standard_normal((m, 6)).astype(np.float32)) for m in (3, 9)]
+    Bs = [torch.from_numpy(rng.standard_normal((6, 5)).astype(np.float32)) for _ in range(2)]
+    outs = grouped_matmul(As, Bs, tiles={"u": 8, "v": 8, "k": 8})
+    for o, a, b in zip(outs, As, Bs):
+        assert torch.allclose(o, einsum("ik,kj->ij", a, b), rtol=1e-5, atol=1e-5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 5, 8)).astype(np.float32))
+               for _ in range(3))
+    assert flash_attn.flash_attention(q, k, v).shape == (2, 5, 8)
+
+
 def test_cpu_tensor_takes_the_plain_version():
     A, B = torch.randn(3, 4), torch.randn(4, 5)
     before = sb_gemm.native_gemm.launches
@@ -131,3 +171,28 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("sb_gemm")
     assert _build.library_path("sb_gemm").parent.parent == tmp_path / "build"
+
+
+def test_cpu_tensors_take_the_plain_versions_of_the_new_kernels(monkeypatch, tmp_path):
+    """``grouped_matmul`` and ``flash_attention`` on CPU tensors take their
+    plain versions and launch nothing; building their kernels without
+    ``nvcc`` raises the clear error rather than falling back."""
+    gg_before = grouped_gemm.grouped_gemm.launches
+    fa_before = flash_attn.flash_attention.launches
+    A, B = torch.randn(5, 9), torch.randn(9, 7)
+    (got,) = grouped_matmul([A], [B], tiles={"u": 8, "v": 8, "k": 8})
+    assert got.device.type == "cpu"
+    torch.testing.assert_close(got, A @ B, rtol=1e-5, atol=1e-5)
+    q, k, v = torch.randn(2, 6, 8), torch.randn(2, 6, 8), torch.randn(2, 6, 8)
+    out = flash_attn.flash_attention(q, k, v)
+    assert torch.equal(out, flash_attn.flash_attention_ref(q, k, v))
+    assert grouped_gemm.grouped_gemm.launches == gg_before
+    assert flash_attn.flash_attention.launches == fa_before
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build, "build_root", lambda: tmp_path / "build")
+    monkeypatch.setattr(_build, "_LOADED", {})
+    for name in ("grouped_gemm", "flash_attn"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.load(name)
