@@ -8,14 +8,17 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
 1. Device: fails without CUDA; prints the card's name and power limit.
 2. Build: compiles the three kernels of ``src/repro_torch/kernels/csrc/``
    (``sb_gemm.cu``, ``grouped_gemm.cu``, ``flash_attn.cu``) with nvcc, one
-   process each, all at once.
+   process each, all at once; prints the wgmma attention kernel's
+   registers, spills and shared memory.
 3. Kernel vs plain version on the card: the 36 Table II cases (native and
    batched strategies, f32 and bf16, ragged dims), the 8 exceptional cases
    through ``ext_gemm``, the 100-spec layout-fuzz stream (integer-valued,
    bit-identical), and the native kernel's gradients; ``grouped_gemm`` on
    the grouped cases of ``tests/test_runtime.py`` and the fig14 ragged
    set; ``flash_attention`` on the grid of ``tests/test_flash_attn.py``,
-   the GQA fold, causal cross attention and strided operands.
+   the GQA fold, causal cross attention, wide-range scores and strided
+   operands, each case held to the route it must take (``wgmma`` for every
+   bf16 layout TMA can read, ``fma`` otherwise).
 4. Copy-freedom: the kernel path moves no data; the conventional baseline
    makes at least its counted transposes.
 5. Main path: Tucker HOOI on a low-rank-plus-noise float32 tensor of
@@ -30,8 +33,9 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    skewed routing that leaves one expert empty, through ``grouped_matmul``
    in f32, bf16 and bf16 with weights stored ``(1408, 2048)``; then times.
 9. Attention path at full width: internlm2-20b prefill (48 query heads
-   over 8 KV heads folded into BH = 48, D = 128, S = T = 4096, causal)
-   through ``flash_attention`` in bf16 and f32; then times.
+   over 8 KV heads folded into BH = 48, D = 128, S = T = 4096) through
+   ``flash_attention``: causal in bf16 and f32, non-causal in bf16; then
+   times.  Both bf16 runs must take the ``wgmma`` route.
 
 Each path (5, 8, 9) is driven with every kernel's launch count set to 0
 just before it and read just after; launches made to compare or time a
@@ -362,49 +366,95 @@ def qkv_of(rng, bh, s, t, d, dev, dtype):
             for shape in ((bh, s, d), (bh, t, d), (bh, t, d))]
 
 
-def check_flash_case(q, k, v, causal) -> float:
+def check_flash_case(q, k, v, causal, route) -> float:
+    """One ``flash_attention`` call against its plain version; ``route`` is
+    the route it must launch."""
     from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
 
+    before = dict(flash_attention.launches_by_route)
     got = flash_attention(q, k, v, causal=causal)
     want = flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
+    what = f"flash {tuple(q.shape)}{q.stride()} {tuple(k.shape)}{k.stride()} causal={causal} {q.dtype}"
+    ran = {r: n - before[r] for r, n in flash_attention.launches_by_route.items()}
+    check(ran == {r: int(r == route) for r in ran}, f"{what}: launched {ran}, not {route}")
     check(got.shape == want.shape and got.dtype == q.dtype, "flash: shape or dtype")
-    check(bool(torch.isfinite(got).all()), "flash: non-finite output")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
     err = row_rel_err(got, want)
-    check(err <= TOL[q.dtype], f"flash {tuple(q.shape)} {tuple(k.shape)} causal={causal} "
-                               f"{q.dtype}: error {err}")
+    check(err <= TOL[q.dtype], f"{what}: error {err}")
     return (got.float() - want.float()).abs().max().item()
+
+
+def flash_kernel_info() -> None:
+    """Registers, spills and shared memory of the built wgmma kernels; the
+    shared memory must be what ``wgmma_tiles`` plans."""
+    from repro_torch.kernels.flash_attn import wgmma_info, wgmma_tiles
+
+    for D in (64, 128, 256):
+        info, plan = wgmma_info(D), wgmma_tiles(D)
+        check(info["smem_bytes"] == plan["smem_bytes"],
+              f"flash wgmma DP={plan['dp']}: kernel smem {info['smem_bytes']} != planned "
+              f"{plan['smem_bytes']}")
+        log(f"flash_attn.cu wgmma DP={plan['dp']} BK={plan['bk']} stages={plan['stages']}: "
+            f"{info['registers']} registers/thread at launch (then setmaxnreg: producer 40, "
+            f"consumers 232), {info['spill_bytes']} bytes spilled (local)/thread, "
+            f"{info['smem_bytes']} bytes dynamic shared memory/block")
 
 
 def check_flash(dev) -> None:
     rng = np.random.default_rng(11)
+    bf16, f32 = torch.bfloat16, torch.float32
+    route = {f32: "fma", bf16: "wgmma"}
     n = 0
     for bh, s, t, _, d in FLASH_SHAPES:
         for causal in (True, False):
-            for dt in (torch.float32, torch.bfloat16):
-                check_flash_case(*qkv_of(rng, bh, s, t, d, dev, dt), causal)
+            for dt in (f32, bf16):
+                check_flash_case(*qkv_of(rng, bh, s, t, d, dev, dt), causal, route[dt])
                 n += 1
     # GQA fold (tests/test_flash_attn.py:61-76): each q head gets its kv head
     B, G, R, S, D = 2, 2, 3, 64, 16
     q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dev)
                for sh in ((B, G, R, S, D), (B, G, S, D), (B, G, S, D)))
     fold = lambda x: x[:, :, None].expand(B, G, R, S, D).reshape(B * G * R, S, D)
-    check_flash_case(q.reshape(B * G * R, S, D), fold(k), fold(v), True)
+    for dt in (f32, bf16):
+        check_flash_case(q.reshape(B * G * R, S, D).to(dt), fold(k).to(dt), fold(v).to(dt),
+                         True, route[dt])
     # causal cross attention, top-left aligned, ragged; every head-dim path
+    # (160: a padded head dim whose last 64-column box lies past D)
     for bh, s, t, d in ((2, 100, 300, 128), (2, 300, 100, 128), (1, 70, 70, 256),
-                        (2, 33, 65, 48)):
-        for dt in (torch.float32, torch.bfloat16):
-            check_flash_case(*qkv_of(rng, bh, s, t, d, dev, dt), True)
+                        (2, 33, 65, 48), (1, 130, 200, 160)):
+        for dt in (f32, bf16):
+            check_flash_case(*qkv_of(rng, bh, s, t, d, dev, dt), True, route[dt])
+    # scores over a wide range (q scaled by 8) across 6 key tiles: the
+    # running max moves and the accumulator is rescaled from tile to tile
+    q, k, v = qkv_of(rng, 2, 300, 700, 128, dev, bf16)
+    for causal in (True, False):
+        check_flash_case(q * 8, k, v, causal, "wgmma")
     # strided operands: q read from an (S, BH, D) layout, one K/V for all heads
     q = torch.from_numpy(rng.standard_normal((90, 4, 64)).astype(np.float32)).to(dev)
     k1, v1 = (torch.from_numpy(rng.standard_normal((1, 120, 64)).astype(np.float32))
               .to(dev) for _ in range(2))
-    for causal in (True, False):
-        check_flash_case(q.transpose(0, 1), k1.expand(4, 120, 64), v1.expand(4, 120, 64),
-                         causal)
+    for dt in (f32, bf16):
+        for causal in (True, False):
+            check_flash_case(q.to(dt).transpose(0, 1),
+                             k1.to(dt).expand(4, 120, 64), v1.to(dt).expand(4, 120, 64),
+                             causal, route[dt])
+    # one query row, then one key, each with a row stride TMA could not
+    # step: a dimension of extent 1 is never stepped, so both take wgmma
+    q, k, v = qkv_of(rng, 2, 40, 40, 64, dev, bf16)
+    check_flash_case(q.as_strided((2, 1, 64), (64 * 40, 3, 1)), k, v, True, "wgmma")
+    check_flash_case(q, *(x.as_strided((2, 1, 64), (64 * 40, 5, 1)) for x in (k, v)), False,
+                     "wgmma")
+    # bf16 layouts TMA cannot describe take the fma route: D = 4 (8-byte
+    # rows) and rows 44 elements apart
+    check_flash_case(*qkv_of(rng, 2, 50, 70, 4, dev, bf16), True, "fma")
+    q, k, v = (x[..., :40] for x in qkv_of(rng, 2, 80, 96, 44, dev, bf16))
+    check_flash_case(q, k, v, False, "fma")
     log(f"flash_attention: {n} cases of the SHAPES x causal/full x f32/bf16 grid, GQA fold, "
-        f"causal T>S and T<S, D in 48/128/256, strided and broadcast operands: all match "
-        f"the plain version")
+        f"causal T>S and T<S, D in 48/128/160/256, scores x8 over 6 key tiles, strided and "
+        f"broadcast operands, S = 1 and T = 1, two bf16 layouts TMA cannot read: all match "
+        f"the plain version, "
+        f"every bf16 case TMA can read on the wgmma route")
 
 
 # ------------------------------------------------------------------- phase 4
@@ -774,9 +824,10 @@ ATTN = dict(n_heads=48, n_kv_heads=8, d_model=6144, seq=4096)
 
 
 def attention_path(dev, seed: int, counters, reps: int = 5) -> dict:
-    """internlm2-20b causal prefill through ``flash_attention``, heads
-    folded into BH as a GQA caller does, in bf16 and f32.  Checks, then
-    times the kernel, the plain version and SDPA.  Returns the bf16 run's
+    """internlm2-20b prefill through ``flash_attention``, heads folded into
+    BH as a GQA caller does: causal in bf16 and f32, and non-causal in
+    bf16.  Checks (both bf16 runs on the wgmma route), then times the
+    kernel, the plain version and SDPA.  Returns the causal bf16 run's
     record for the kernels line."""
     from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
 
@@ -790,20 +841,25 @@ def attention_path(dev, seed: int, counters, reps: int = 5) -> dict:
         x = x if x.ndim == 5 else x[:, :, None].expand(1, Hkv, R, S, D)
         return x.reshape(H, S, D).to(dt)
 
-    runs = {name: [fold(x, dt) for x in (q, k, v)]
-            for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    qkv = {dt: [fold(x, dt) for x in (q, k, v)] for dt in (torch.bfloat16, torch.float32)}
+    runs = {"bf16": (torch.bfloat16, True), "f32": (torch.float32, True),
+            "bf16 full": (torch.bfloat16, False)}
     for c in counters:
         c.launches = 0
-    outs = {name: flash_attention(*qkv, causal=True) for name, qkv in runs.items()}
+    flash_attention.launches_by_route = dict.fromkeys(flash_attention.launches_by_route, 0)
+    outs = {name: flash_attention(*qkv[dt], causal=causal) for name, (dt, causal) in runs.items()}
     torch.cuda.synchronize()
     counted = {c.__name__: c.launches for c in counters}
+    routes = dict(flash_attention.launches_by_route)
     check(counted["flash_attention"] == len(runs) and sum(counted.values()) == len(runs),
           f"attention path launches {counted}")
+    check(routes == {"wgmma": 2, "fma": 1}, f"attention path routes {routes}: both bf16 "
+                                            f"prefills must take wgmma, f32 fma")
 
     # bf16 control: how far rounding to bf16 alone moves the plain version
     # from the f32 reference; the bf16 kernel may be at most twice as far
-    want32 = flash_attention_ref(*runs["f32"], causal=True)
-    want16 = flash_attention_ref(*runs["bf16"], causal=True)
+    want32 = flash_attention_ref(*qkv[torch.float32], causal=True)
+    want16 = flash_attention_ref(*qkv[torch.bfloat16], causal=True)
     control = row_rel_err(want16, want32)
     to_f32 = row_rel_err(outs["bf16"], want32)
     log(f"attention bf16 against the f32 reference, worst row: kernel {to_f32:.4g}, plain "
@@ -813,12 +869,12 @@ def attention_path(dev, seed: int, counters, reps: int = 5) -> dict:
     del want16
 
     rec = {}
-    pairs = S * (S + 1) // 2                   # causal (i, j) pairs with j <= i
-    for name, (qf, kf, vf) in runs.items():
-        got, dt = outs[name], qf.dtype
+    for name, (dt, causal) in runs.items():
+        qf, kf, vf = qkv[dt]
+        got = outs[name]
         check(tuple(got.shape) == (H, S, D) and got.dtype == dt, f"attention {name}: shape")
         check(bool(torch.isfinite(got).all()), f"attention {name}: non-finite")
-        want = want32 if dt == torch.float32 else flash_attention_ref(qf, kf, vf, causal=True)
+        want = want32 if name == "f32" else flash_attention_ref(qf, kf, vf, causal=causal)
         err = row_rel_err(got, want)
         check(err <= TOL[dt], f"attention {name}: worst row's error {err} against the "
                               f"plain version")
@@ -826,20 +882,21 @@ def attention_path(dev, seed: int, counters, reps: int = 5) -> dict:
         log(f"attention {name}: worst row's error against the plain version {err:.4g} "
             f"(limit {TOL[dt]:g}), max abs error {abs_err:.3g}")
         del want
-        ms = time_with(lambda: flash_attention(qf, kf, vf, causal=True), reps, counters)
-        plain_ms = cuda_ms(lambda: flash_attention_ref(qf, kf, vf, causal=True), 2)
+        ms = time_with(lambda: flash_attention(qf, kf, vf, causal=causal), reps, counters)
+        plain_ms = cuda_ms(lambda: flash_attention_ref(qf, kf, vf, causal=causal), 2)
         q4, k4, v4 = (x.view(1, H, S, D) for x in (qf, kf, vf))
         lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True), reps)
+            q4, k4, v4, is_causal=causal), reps)
+        pairs = S * (S + 1) // 2 if causal else S * S   # (i, j) pairs computed
         flops = 4 * H * D * pairs
         b_ms, by = bound(4 * nbytes(qf), flops, dt)
-        log(f"attention prefill [{name}] BH={H} S=T={S} D={D} causal: kernel {ms:.4f} ms, "
-            f"{flops / ms / 1e9:.1f} TFLOP/s, bound {b_ms:.4f} ms ({by}), "
-            f"{100 * b_ms / ms:.2f}% of bound; plain {plain_ms:.4f} ms; SDPA {lib_ms:.4f} ms; "
-            f"max abs error {abs_err:.3g}")
+        log(f"attention prefill [{name}] BH={H} S=T={S} D={D} causal={causal}: kernel "
+            f"{ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s, bound {b_ms:.4f} ms ({by}), "
+            f"{100 * b_ms / ms:.2f}% of bound; plain {plain_ms:.4f} ms; SDPA {lib_ms:.4f} ms "
+            f"(kernel/SDPA {ms / lib_ms:.3f}x); max abs error {abs_err:.3g}")
         rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                          library_ms=lib_ms, max_abs_err=abs_err)
-    log(f"attention: path launches {counted}")
+    log(f"attention: path launches {counted}, by route {routes}")
     return {**rec["bf16"], "launches": counted["flash_attention"]}
 
 
@@ -874,6 +931,7 @@ def main() -> int:
     secs = build()
     log(f"build: {', '.join(f'{n}.cu {t:.2f} s' for n, t in secs.items())}; all compiled "
         f"and loaded in {time.perf_counter() - t0:.2f} s")
+    flash_kernel_info()
 
     check_table2(dev)
     check_layoutfuzz(dev)

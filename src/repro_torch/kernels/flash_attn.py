@@ -21,13 +21,19 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["DEFAULT_BLOCKS", "MAX_HEAD_DIM", "flash_attention", "flash_attention_ref"]
+__all__ = ["MAX_HEAD_DIM", "ROUTES", "flash_attention", "flash_attention_ref", "flash_route",
+           "wgmma_tiles"]
 
-DEFAULT_BLOCKS = {"q": 128, "k": 128}
 _NEG_INF = -2.0**30
 
-#: the largest head dimension the kernel takes
+#: the largest head dimension the kernels take
 MAX_HEAD_DIM = 256
+
+ROUTES = ("wgmma", "fma")
+
+#: query rows per block and K/V ring stages of the wgmma route
+#: (``FW_BQ``, ``FW_STAGES`` in ``csrc/flash_attn.cu``)
+_WGMMA_BQ, _WGMMA_STAGES = 128, 2
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -56,10 +62,62 @@ def _library():
             ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.fa_launch.restype = ctypes.c_int
+        lib.fa_launch_wgmma.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.fa_launch_wgmma.restype = ctypes.c_int
+        lib.fa_wgmma_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.fa_wgmma_info.restype = ctypes.c_int
         lib.fa_error_string.argtypes = [ctypes.c_int]
         lib.fa_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def wgmma_tiles(D: int) -> dict:
+    """The wgmma route's tiling at head dim ``D`` (``FwTile`` in
+    ``csrc/flash_attn.cu``): the padded head dim ``dp`` (64, 128 or 256),
+    keys per tile ``bk``, ring ``stages``, and the dynamic shared memory of
+    one block in bytes (Q tile, K and V per stage, mbarriers, and 1024
+    bytes of alignment slack)."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D} outside 1..{MAX_HEAD_DIM}")
+    dp = next(p for p in (64, 128, 256) if D <= p)
+    bk = 64 if dp == 256 else 128
+    smem = (1024 + _WGMMA_BQ * dp * 2 + _WGMMA_STAGES * 2 * bk * dp * 2
+            + 8 * (1 + 2 * _WGMMA_STAGES))
+    return {"dp": dp, "bk": bk, "stages": _WGMMA_STAGES, "smem_bytes": smem}
+
+
+def wgmma_info(D: int) -> dict:
+    """Registers and spilled (local) bytes per thread, and dynamic shared
+    bytes per block, of the built wgmma kernel for head dim ``D``.  Needs
+    the card (it loads the library)."""
+    lib = _library()
+    out = (ctypes.c_int * 3)()
+    rc = lib.fa_wgmma_info(D, out)
+    if rc != 0:
+        raise RuntimeError(f"fa_wgmma_info: {lib.fa_error_string(rc).decode()}")
+    return {"registers": out[0], "spill_bytes": out[1], "smem_bytes": out[2]}
+
+
+def flash_route(q, k, v) -> str:
+    """``"wgmma"`` when the operands are bf16 and a TMA tensor map can
+    describe each: base pointer 16-byte aligned, row and head strides
+    multiples of 8 elements (16 bytes), a head stride of 0 allowed, and a
+    dimension of extent 1 taking any stride.  Otherwise ``"fma"``.  Decided
+    from dtype, shape, strides and pointers alone, never from a failure."""
+    if q.dtype != torch.bfloat16:
+        return "fma"
+    for x in (q, k, v):
+        if x.data_ptr() % 16:
+            return "fma"
+        if x.shape[1] > 1 and x.stride(1) % 8:
+            return "fma"
+        if x.shape[0] > 1 and x.stride(0) % 8:
+            return "fma"
+    return "wgmma"
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True):
@@ -81,7 +139,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
     return out.to(q.dtype)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, blocks: dict | None = None):
+def flash_attention(q, k, v, *, causal: bool = True):
     """q: (BH, S, D); k, v: (BH, T, D) → (BH, S, D) in ``q.dtype``.
 
     Softmax attention with scale ``D**-0.5``; under ``causal`` query ``i``
@@ -94,17 +152,10 @@ def flash_attention(q, k, v, *, causal: bool = True, blocks: dict | None = None)
     GQA callers fold (batch, kv_head, q_per_kv) into BH and pass the kv
     head's K/V for each q head.
 
-    ``blocks`` is merged over :data:`DEFAULT_BLOCKS` as in the JAX
-    package, where it sets the TPU kernel's tiles.  The CUDA kernel's tile
-    is fixed (64 queries × 64 keys), so ``blocks`` only names the summation
-    order of the reference it is compared with; the stated tolerances
-    (2e-5 float32, 2e-2 bfloat16) cover that difference.
+    The JAX package's ``blocks`` (TPU tiles) has no counterpart: each
+    route's tiles are fixed (:func:`wgmma_tiles`; 64 × 64 on the fma
+    route).
     """
-    blocks = {**DEFAULT_BLOCKS, **(blocks or {})}
-    for role, b in blocks.items():
-        if role not in DEFAULT_BLOCKS or not isinstance(b, int) or b < 1:
-            raise ValueError(f"blocks {blocks}: roles are 'q' and 'k', sizes "
-                             f"positive ints")
     if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
         raise ValueError(f"flash_attention takes rank-3 q, k, v; got ranks "
                          f"{q.ndim}, {k.ndim}, {v.ndim}")
@@ -134,19 +185,25 @@ def flash_attention(q, k, v, *, causal: bool = True, blocks: dict | None = None)
 
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
+    route = flash_route(q, k, v)
     out = torch.empty((BH, S, D), dtype=q.dtype, device=q.device)
     args = _Args(q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                  v.stride(0), v.stride(1), S, T, D, D**-0.5, int(causal))
     lib = _library()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.fa_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                           ctypes.byref(args), BH, _TYPE_CODES[q.dtype], stream)
+        if route == "wgmma":
+            rc = lib.fa_launch_wgmma(*ptrs, ctypes.byref(args), BH, stream)
+        else:
+            rc = lib.fa_launch(*ptrs, ctypes.byref(args), BH, _TYPE_CODES[q.dtype], stream)
     if rc != 0:
-        raise RuntimeError(
-            f"flash_attention launch failed: {lib.fa_error_string(rc).decode()}")
+        raise RuntimeError(f"flash_attention launch failed on the {route} route: "
+                           f"{lib.fa_error_string(rc).decode()}")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -1,12 +1,15 @@
 """The port's flash attention (``kernels/flash_attn.py``) against the JAX
 package's Pallas kernel, on the same numpy inputs.
 
-The JAX kernel runs in interpret mode with the ``blocks`` of its own tests;
-the port's wrapper takes its plain version on the CPU.  Tolerances are the
+The JAX kernel runs in interpret mode with the ``blocks`` of its own tests
+(TPU tiles, which the port's wrapper does not take); the port's wrapper
+takes its plain version on the CPU.  Tolerances are the
 JAX tests': 2e-5 for float32, 2e-2 for bfloat16 (in interpret mode the JAX
 kernel upcasts bfloat16 to float32, so its ``p`` is not rounded to bfloat16
 before ``P·V``; the port's plain version rounds it, as the TPU and CUDA
-kernels do).  The CUDA kernel is held against the plain version on the card
+kernels do).  The wrapper's route choice (``wgmma`` or ``fma``) is a plain
+function of dtype, shape, strides and pointers, tested here on CPU
+tensors.  The CUDA kernels are held against the plain version on the card
 by ``chip_smoke.py`` and by the ``gpu``-marked test below."""
 
 import jax
@@ -15,11 +18,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro.kernels.flash_attn import DEFAULT_BLOCKS as JDEFAULT_BLOCKS
 from repro.kernels.flash_attn import flash_attention as jflash
 from repro_torch import interop
 from repro_torch.kernels import flash_attn as fa
-from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attn import (
+    flash_attention, flash_attention_ref, flash_route, wgmma_tiles)
 
 # small shapes: one intra-op thread each keeps parallel test workers from
 # oversubscribing the CPU
@@ -57,7 +60,7 @@ def _run_both(qn, kn, vn, *, causal, dtype, blocks):
     want = jflash(*(jnp.asarray(x, jdt) for x in (qn, kn, vn)), causal=causal,
                   blocks=blocks)
     q, k, v = (t.to(tdt) for t in interop.from_numpy((qn, kn, vn), device="cpu"))
-    got = flash_attention(q, k, v, causal=causal, blocks=blocks)
+    got = flash_attention(q, k, v, causal=causal)
     assert got.dtype == tdt and tuple(got.shape) == qn.shape
     return got.float().numpy(), np.asarray(want, np.float32)
 
@@ -115,7 +118,6 @@ def test_broadcast_kv_is_read_through_its_strides():
 
 
 def test_defaults_and_constants_equal_jax():
-    assert fa.DEFAULT_BLOCKS == JDEFAULT_BLOCKS
     assert fa._NEG_INF == -2.0**30
 
 
@@ -134,18 +136,73 @@ def test_wrapper_validates_the_launch_on_the_cpu():
         flash_attention(big, big, big)
     with pytest.raises(ValueError, match="unit stride along D"):
         flash_attention(x, torch.zeros(2, 16, 8).transpose(1, 2), x)
-    with pytest.raises(ValueError, match="roles"):
-        flash_attention(x, x, x, blocks={"kv": 8})
+    with pytest.raises(TypeError, match="blocks"):
+        flash_attention(x, x, x, blocks={"q": 8})
     assert fa.flash_attention.launches == 0
 
 
 def test_cpu_tensor_takes_the_plain_version():
     rng = np.random.default_rng(2)
     q, k, v = interop.from_numpy(_qkv(rng, 2, 16, 16, 8), device="cpu")
-    before = flash_attention.launches
+    before, by_route = flash_attention.launches, dict(flash_attention.launches_by_route)
     got = flash_attention(q, k, v, causal=True)
     assert torch.equal(got, flash_attention_ref(q, k, v, causal=True))
     assert flash_attention.launches == before
+    assert flash_attention.launches_by_route == by_route
+    assert set(by_route) == set(fa.ROUTES) == {"wgmma", "fma"}
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+# (q, k, v) builders and the route each layout must take
+ROUTE_CASES = {
+    "aligned_bf16": (lambda: (_bf16(2, 64, 128), _bf16(2, 96, 128), _bf16(2, 96, 128)),
+                     "wgmma"),
+    "head_dim_16": (lambda: (_bf16(3, 40, 16), _bf16(3, 72, 16), _bf16(3, 72, 16)), "wgmma"),
+    "stride0_kv": (lambda: (_bf16(6, 24, 64), _bf16(1, 30, 64).expand(6, 30, 64),
+                            _bf16(1, 30, 64).expand(6, 30, 64)), "wgmma"),
+    "q_from_s_bh_d": (lambda: (_bf16(90, 4, 64).transpose(0, 1), _bf16(4, 90, 64),
+                               _bf16(4, 90, 64)), "wgmma"),
+    "single_row_any_stride": (lambda: (_bf16(96).as_strided((2, 1, 40), (48, 3, 1)),
+                                       _bf16(2, 8, 40), _bf16(2, 8, 40)), "wgmma"),
+    "f32": (lambda: tuple(x.float() for x in (_bf16(2, 64, 128),) * 3), "fma"),
+    "head_dim_4": (lambda: (_bf16(2, 16, 4), _bf16(2, 16, 4), _bf16(2, 16, 4)), "fma"),
+    "odd_row_stride": (lambda: (_bf16(2, 16, 33)[..., :32], _bf16(2, 16, 32),
+                                _bf16(2, 16, 32)), "fma"),
+    "head_stride_not_16_bytes": (lambda: (_bf16(260).as_strided((2, 16, 8), (132, 8, 1)),
+                                          _bf16(2, 16, 8), _bf16(2, 16, 8)), "fma"),
+    "misaligned_base": (lambda: (_bf16(2 * 16 * 8 + 1)[1:].view(2, 16, 8), _bf16(2, 16, 8),
+                                 _bf16(2, 16, 8)), "fma"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_route_follows_dtype_and_layout(case):
+    """bf16 that a TMA tensor map can describe takes ``wgmma``; float32
+    and other bf16 layouts take ``fma``."""
+    build, route = ROUTE_CASES[case]
+    assert flash_route(*build()) == route
+
+
+@pytest.mark.parametrize("D", [1, 16, 48, 64, 65, 100, 128, 129, 160, 200, 256])
+def test_wgmma_tiles_fit_shared_memory(D):
+    """The padded head dim is the next of 64/128/256, and the ring (Q
+    tile, two K/V stages, barriers, alignment slack) fits the 232,448
+    bytes of shared memory a Hopper block may use."""
+    t = wgmma_tiles(D)
+    assert t["dp"] == next(p for p in (64, 128, 256) if D <= p)
+    assert t["bk"] * t["dp"] <= 128 * 128 and t["bk"] % 16 == 0
+    assert t["stages"] >= 2
+    assert t["smem_bytes"] <= 232_448
+    assert t["smem_bytes"] >= 2 * (128 * t["dp"] + 2 * t["stages"] * t["bk"] * t["dp"])
+
+
+def test_wgmma_tiles_reject_head_dims_out_of_range():
+    for D in (0, 257):
+        with pytest.raises(ValueError, match="head dim"):
+            wgmma_tiles(D)
 
 
 @pytest.mark.gpu
@@ -156,8 +213,11 @@ def test_kernel_matches_plain_version_on_the_card():
     for bh, s, t, _, d in SHAPES:
         q, k, v = interop.from_numpy(_qkv(rng, bh, s, t, d))
         for causal in (True, False):
-            for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            for dt, tol, route in ((torch.float32, 2e-5, "fma"),
+                                   (torch.bfloat16, 2e-2, "wgmma")):
                 args = [x.to(dt) for x in (q, k, v)]
+                before = flash_attention.launches_by_route[route]
                 got = flash_attention(*args, causal=causal)
+                assert flash_attention.launches_by_route[route] == before + 1
                 want = flash_attention_ref(*args, causal=causal)
                 torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
