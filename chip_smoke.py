@@ -7,15 +7,19 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
 
 1. Device: fails without CUDA; prints the card's name and power limit.
 2. Build: compiles the three kernels of ``src/repro_torch/kernels/csrc/``
-   (``sb_gemm.cu``, ``grouped_gemm.cu``, ``flash_attn.cu``) with nvcc, one
-   process each, all at once; prints the wgmma attention kernel's
-   registers, spills and shared memory.
+   (``sb_gemm.cu``, ``grouped_gemm.cu``, ``flash_attn.cu``; the last two
+   include ``hopper.cuh``) with nvcc, one process each, all at once;
+   prints the registers, spills and shared memory of the two wgmma
+   kernels (attention and grouped).
 3. Kernel vs plain version on the card: the 36 Table II cases (native and
    batched strategies, f32 and bf16, ragged dims), the 8 exceptional cases
    through ``ext_gemm``, the 100-spec layout-fuzz stream (integer-valued,
    bit-identical), and the native kernel's gradients; ``grouped_gemm`` on
    the grouped cases of ``tests/test_runtime.py`` and the fig14 ragged
-   set; ``flash_attention`` on the grid of ``tests/test_flash_attn.py``,
+   set, then every ragged case again in bf16 under the default tiles
+   (bf16 and f32 output), each case held to the route it must take
+   (``wgmma`` for bf16 whose depths pack to multiples of 64, ``fma``
+   otherwise); ``flash_attention`` on the grid of ``tests/test_flash_attn.py``,
    the GQA fold, causal cross attention, wide-range scores and strided
    operands, each case held to the route it must take (``wgmma`` for every
    bf16 layout TMA can read, ``fma`` otherwise).
@@ -31,7 +35,9 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
 8. Grouped path at full width: the routed experts of qwen2-moe-a2.7b (60
    experts, top-4, d_model 2048 -> d_expert 1408) over 4096 tokens with a
    skewed routing that leaves one expert empty, through ``grouped_matmul``
-   in f32, bf16 and bf16 with weights stored ``(1408, 2048)``; then times.
+   in f32, bf16 and bf16 with weights stored ``(1408, 2048)``, and a
+   uniform routing in bf16 (the bf16 runs on ``wgmma``, f32 on ``fma``);
+   then times the kernel, the path and its packing alone.
 9. Attention path at full width: internlm2-20b prefill (48 query heads
    over 8 KV heads folded into BH = 48, D = 128, S = T = 4096) through
    ``flash_attention``: causal in bf16 and f32, non-causal in bf16; then
@@ -44,7 +50,9 @@ kernel do not count.
 Tolerances: integer-valued inputs are exact under any summation order, so
 they must match bit for bit; float32 results may differ from the plain
 version's by the summation order, 2e-5 of the largest output magnitude;
-bfloat16 inputs keep ~3 digits, 2e-2.  Attention outputs take that
+bfloat16 inputs keep ~3 digits, 2e-2.  A grouped case takes its output
+type's tolerance: bfloat16 inputs with a float32 output differ only by
+the summation order, like float32.  Attention outputs take that
 magnitude per row (see ``row_rel_err``), and at full width the bfloat16
 kernel's distance to the float32 reference may be at most twice the
 plain version's own.  TF32 is switched off for matmuls and cuDNN, so the
@@ -121,6 +129,39 @@ def cuda_ms(fn, reps: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+#: cycles of the sleeping kernel that a run of calls queues behind in
+#: ``queued_ms``: about 50 ms at the H100's 1980 MHz
+QUEUE_SLEEP_CYCLES = 100_000_000
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: ``reps`` calls are all queued behind
+    a sleeping kernel before the first of them runs, and CUDA events time
+    them from the sleep's end, so the host's time between launches is not
+    counted (``cuda_ms`` counts it).  Of two rounds the first warms what a
+    queue of calls needs (pinned host blocks); a round whose sleep ended
+    before the queue was full is run again with a longer sleep."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()
+    fn()
+    cycles, rounds = QUEUE_SLEEP_CYCLES, 0
+    while rounds < 2:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()      # the sleep still ran: nothing waited on the host
+        torch.cuda.synchronize()
+        if queued:
+            rounds += 1
+        else:
+            check(cycles < 8 * QUEUE_SLEEP_CYCLES, "calls could not be queued behind the sleep")
+            cycles *= 2
     return start.elapsed_time(end) / reps
 
 
@@ -277,48 +318,74 @@ def groups_of(shapes, dev, dtype, seed, ta=False, tb=False, integers=False):
     return As, Bs
 
 
-def check_grouped_case(As, Bs, tiles, ta=False, tb=False, exact=False) -> float:
+def check_grouped_case(As, Bs, tiles, ta=False, tb=False, exact=False, out_dtype=None,
+                       route=None) -> float:
     """``grouped_gemm`` against its plain version on the same packed
-    buffers, and ``grouped_matmul`` against the per-group reference.
-    Returns the largest absolute difference."""
+    buffers, and ``grouped_matmul`` against the per-group product, in
+    ``out_dtype`` (default: the operands' promoted type); both calls must
+    launch ``route``.  Returns the largest absolute difference."""
     from repro_torch.kernels.grouped_gemm import (
-        grouped_gemm, grouped_gemm_packed_ref, grouped_gemm_ref, pack_groups,
-        packed_geometry)
+        grouped_gemm, grouped_gemm_packed_ref, pack_groups, packed_geometry)
     from repro_torch.kernels.ops import grouped_matmul
 
-    dt = torch.promote_types(As[0].dtype, Bs[0].dtype)
+    dt = out_dtype or torch.promote_types(As[0].dtype, Bs[0].dtype)
     A_flat, B_flat, descs, problems = pack_groups(As, Bs, tiles, trans_a=ta, trans_b=tb)
-    grid, out_rows, out_cols = packed_geometry(problems, tiles)
-    kw = dict(out_cols=out_cols, out_rows=out_rows)
-    got = grouped_gemm(A_flat, B_flat, descs, grid_dims=grid, tiles=tiles, **kw)
+    _, out_rows, out_cols = packed_geometry(problems, tiles)
+    kw = dict(out_cols=out_cols, out_rows=out_rows, out_dtype=dt)
+    before = dict(grouped_gemm.launches_by_route)
+    got = grouped_gemm(A_flat, B_flat, descs, **kw)
+    outs = grouped_matmul(As, Bs, tiles=tiles, trans_a=ta, trans_b=tb, out_dtype=dt)
+    torch.cuda.synchronize()
+    ran = {r: n - before[r] for r, n in grouped_gemm.launches_by_route.items()}
+    launched = 2 if any(m and n for m, n, *_ in descs.tolist()) else 0
+    what = f"grouped {[tuple(a.shape) for a in As]} tiles {tiles} ta {ta} tb {tb} -> {dt}"
+    check(ran == {r: launched * (r == route) for r in ran}, f"{what}: launched {ran}, "
+                                                          f"not {route}")
     want = grouped_gemm_packed_ref(A_flat, B_flat, descs, **kw)
+    flags = [(ta if isinstance(ta, bool) else ta[g], tb if isinstance(tb, bool) else tb[g])
+             for g in range(len(As))]
+    refs = [((A.T if fa else A).float() @ (B.T if fb else B).float()).to(dt)
+            for A, B, (fa, fb) in zip(As, Bs, flags)]
     pairs = [(got[c:c + m, :n], want[c:c + m, :n])
              for m, n, _, _, _, c, _, _ in descs.tolist()]
-    pairs += list(zip(grouped_matmul(As, Bs, tiles=tiles, trans_a=ta, trans_b=tb),
-                      grouped_gemm_ref(As, Bs, trans_a=ta, trans_b=tb)))
-    torch.cuda.synchronize()
+    pairs += list(zip(outs, refs))
     worst = 0.0
     for g, w in pairs:
-        check(g.shape == w.shape and g.dtype == w.dtype, f"grouped: {g.shape} {g.dtype} "
+        check(g.shape == w.shape and g.dtype == w.dtype, f"{what}: {g.shape} {g.dtype} "
                                                          f"vs {w.shape} {w.dtype}")
         if exact:
-            check(torch.equal(g, w), "grouped: integer-valued case not bit-identical")
+            check(torch.equal(g, w), f"{what}: integer-valued case not bit-identical")
         else:
             err = rel_err(g, w)
-            check(err <= TOL[dt], f"grouped {dt}: error {err}")
+            check(err <= TOL[dt], f"{what}: error {err}")
         if g.numel():
             worst = max(worst, (g.float() - w.float()).abs().max().item())
     return worst
 
 
+def grouped_kernel_info() -> None:
+    """Registers, spills and shared memory of the built wgmma grouped
+    kernel, for each output type."""
+    from repro_torch.kernels.grouped_gemm import KERNEL_TILES, wgmma_info
+
+    tm, tn = KERNEL_TILES["wgmma"]
+    for dtype, info in wgmma_info().items():
+        log(f"grouped_gemm.cu wgmma {tm}x{tn} -> {str(dtype).removeprefix('torch.')}: "
+            f"{info['registers']} registers/thread at launch (then setmaxnreg: producer 40, "
+            f"consumers 232), {info['spill_bytes']} bytes spilled (local)/thread, "
+            f"{info['smem_bytes']} bytes dynamic shared memory/block")
+
+
 def check_grouped(dev) -> None:
+    bf16, f32 = torch.bfloat16, torch.float32
     n = 0
-    for i, shapes in enumerate(RUNTIME_SHAPE_LISTS):
-        for dt in (torch.float32, torch.bfloat16):
-            check_grouped_case(*groups_of(shapes, dev, dt, seed=i), GROUPED_T8)
+    for i, shapes in enumerate(RUNTIME_SHAPE_LISTS):     # T8 leaves ragged depths: fma
+        for dt in (f32, bf16):
+            check_grouped_case(*groups_of(shapes, dev, dt, seed=i), GROUPED_T8, route="fma")
             n += 1
-    for dt in (torch.float32, torch.bfloat16):     # default tiles (8, 128, 128)
-        check_grouped_case(*groups_of([(5, 130, 9), (20, 4, 140)], dev, dt, seed=8), None)
+    for dt in (f32, bf16):     # default tiles (8, 128, 128)
+        check_grouped_case(*groups_of([(5, 130, 9), (20, 4, 140)], dev, dt, seed=8), None,
+                           route="wgmma" if dt == bf16 else "fma")
         n += 1
     # empty groups (tests/test_runtime.py:121-133): k=0 gives exact zeros
     rng = np.random.default_rng(3)
@@ -327,7 +394,7 @@ def check_grouped(dev) -> None:
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
 
     As, Bs = [r(4, 0), r(0, 6), r(4, 6), r(4, 6)], [r(0, 5), r(6, 5), r(6, 0), r(6, 5)]
-    check_grouped_case(As, Bs, GROUPED_T8)
+    check_grouped_case(As, Bs, GROUPED_T8, route="fma")
     from repro_torch.kernels.ops import grouped_matmul
 
     outs = grouped_matmul(As, Bs, tiles=GROUPED_T8)
@@ -337,23 +404,67 @@ def check_grouped(dev) -> None:
     # per-group layout flags (tests/test_runtime.py:148-154), integer-valued
     ta, tb = [False, True, True], [False, True, False]
     shapes = [(5, 9, 7), (6, 4, 7), (12, 130, 9)]
-    check_grouped_case(*groups_of(shapes, dev, torch.float32, seed=7, ta=ta, tb=tb,
-                                  integers=True), None, ta, tb, exact=True)
+    check_grouped_case(*groups_of(shapes, dev, f32, seed=7, ta=ta, tb=tb, integers=True),
+                       None, ta, tb, exact=True, route="fma")
     # several kernel tiles and K stages per group, every layout, ragged
-    shapes = [(130, 260, 70), (64, 128, 200), (1, 300, 33), (77, 5, 513)]
+    multi = [(130, 260, 70), (64, 128, 200), (1, 300, 33), (77, 5, 513)]
     ta, tb = [True, False, True, False], [False, True, True, False]
-    for dt in (torch.float32, torch.bfloat16):
-        check_grouped_case(*groups_of(shapes, dev, dt, seed=9, ta=ta, tb=tb), GROUPED_T8,
-                           ta, tb)
-    check_grouped_case(*groups_of(shapes, dev, torch.float32, seed=10, ta=ta, tb=tb,
-                                  integers=True), GROUPED_T8, ta, tb, exact=True)
-    # the fig14 ragged set at its tiles
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (f32, bf16):
+        check_grouped_case(*groups_of(multi, dev, dt, seed=9, ta=ta, tb=tb), GROUPED_T8,
+                           ta, tb, route="fma")
+    check_grouped_case(*groups_of(multi, dev, f32, seed=10, ta=ta, tb=tb, integers=True),
+                       GROUPED_T8, ta, tb, exact=True, route="fma")
+    # the fig14 ragged set at its tiles (k = 64: bf16 takes wgmma)
+    for dt in (f32, bf16):
         check_grouped_case(*groups_of(fig14_shapes(), dev, dt, seed=14),
-                           {"u": 8, "v": 32, "k": 32})
+                           {"u": 8, "v": 32, "k": 32}, route="wgmma" if dt == bf16 else "fma")
     log(f"grouped_gemm: {n} runtime-test cases (f32 and bf16), empty groups (k=0 exact "
         f"zeros), trans flags and multi-tile layouts (integer-valued bit-identical), "
-        f"fig14 ragged set: all match the plain version")
+        f"fig14 ragged set: all match the plain version, each on its route")
+    check_grouped_wgmma(dev)
+
+
+def check_grouped_wgmma(dev) -> None:
+    """Every ragged case again under the default tiles in bf16, where the
+    wgmma route takes each of them, with bf16 and float32 output: ragged M
+    and N edges, sub-tile groups, one group, empty and k=0 groups, and all
+    four trans_a/trans_b combinations over several tiles and ring laps."""
+    from repro_torch.kernels.ops import grouped_matmul
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    n = 0
+    multi = [(130, 260, 70), (64, 128, 200), (1, 300, 33), (77, 5, 513), (260, 130, 900)]
+    ta, tb = [True, False, True, False, True], [False, True, True, False, False]
+    cases = [(shapes, False, False) for shapes in RUNTIME_SHAPE_LISTS]
+    cases += [([(3, 5, 2), (1, 1, 1)], False, False), ([(13, 29, 7)], False, False),
+              (multi, ta, tb)]
+    for out in (bf16, f32):
+        for i, (shapes, fa, fb) in enumerate(cases):
+            check_grouped_case(*groups_of(shapes, dev, bf16, seed=40 + i, ta=fa, tb=fb), None,
+                               fa, fb, out_dtype=out, route="wgmma")
+            n += 1
+        # integer-valued: sums are exact in f32, so kernel and plain version
+        # round the same value and must agree bit for bit
+        check_grouped_case(*groups_of(multi, dev, bf16, seed=50, ta=ta, tb=tb, integers=True),
+                           None, ta, tb, exact=True, out_dtype=out, route="wgmma")
+        n += 1
+        # empty groups and a k=0 group
+        rng = np.random.default_rng(3)
+
+        def r(*shape):
+            return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, bf16)
+
+        As, Bs = [r(4, 0), r(0, 6), r(4, 6), r(4, 6)], [r(0, 5), r(6, 5), r(6, 0), r(6, 5)]
+        check_grouped_case(As, Bs, None, out_dtype=out, route="wgmma")
+        outs = grouped_matmul(As, Bs, out_dtype=out)
+        check([tuple(o.shape) for o in outs] == [(4, 5), (0, 5), (4, 0), (4, 5)],
+              "grouped wgmma: empty-group shapes")
+        check(bool((outs[0] == 0).all()), "grouped wgmma: k=0 group not exact zeros")
+        n += 1
+    log(f"grouped_gemm wgmma: {n} default-tile bf16 cases (runtime-test shapes, sub-tile, "
+        f"single group, empty and k=0 groups with exact zeros, all four trans combinations "
+        f"over up to 16 K stages, integer-valued bit-identical), bf16 and f32 output: all "
+        f"on the wgmma route and matching the plain version")
 
 
 #: tests/test_flash_attn.py's SHAPES: (bh, s, t, block, d)
@@ -722,8 +833,9 @@ def grouped_path(dev, seed: int, counters, reps: int = 10) -> dict:
     """The expert up-projection ``A_g (m_g, 2048) @ W_g (2048, 1408)`` of
     qwen2-moe-a2.7b through ``grouped_matmul``: under a skewed routing in
     f32, bf16, and bf16 with the weights stored ``(1408, 2048)``
-    (``trans_b``); under a uniform routing in bf16.  Checks, then times
-    the kernel, the path with its packing, the plain version and library
+    (``trans_b``); under a uniform routing in bf16.  Checks (the bf16 runs
+    on the wgmma route, f32 on fma), then times the kernel, the path with
+    its packing, ``pack_groups`` alone, the plain version and library
     calls.  Returns the skewed bf16 run's record for the kernels line."""
     from repro_torch.kernels.grouped_gemm import (
         grouped_gemm, grouped_gemm_packed_ref, grouped_gemm_ref, pack_groups,
@@ -755,11 +867,15 @@ def grouped_path(dev, seed: int, counters, reps: int = 10) -> dict:
 
     for c in counters:
         c.launches = 0
+    grouped_gemm.launches_by_route = dict.fromkeys(grouped_gemm.launches_by_route, 0)
     outs = {name: grouped_matmul(As, Bs, trans_b=tb) for name, (As, Bs, tb, _) in groups.items()}
     torch.cuda.synchronize()
     counted = {c.__name__: c.launches for c in counters}
+    routes = dict(grouped_gemm.launches_by_route)
     check(counted["grouped_gemm"] == len(runs) and sum(counted.values()) == len(runs),
           f"grouped path launches {counted}")
+    check(routes == {"wgmma": 3, "fma": 1}, f"grouped path routes {routes}: the three bf16 "
+                                            f"runs must take wgmma, f32 fma")
 
     rec = {}
     for name, (As, Bs, tb, counts) in groups.items():
@@ -775,10 +891,17 @@ def grouped_path(dev, seed: int, counters, reps: int = 10) -> dict:
                       for o, w in zip(got, want) if o.numel())
         del want
         A_flat, B_flat, descs, problems = pack_groups(As, Bs, trans_b=tb)
-        grid, out_rows, out_cols = packed_geometry(problems)
-        kw = dict(grid_dims=grid, out_cols=out_cols, out_rows=out_rows)
-        ms = time_with(lambda: grouped_gemm(A_flat, B_flat, descs, **kw), reps, counters)
-        path_ms = time_with(lambda: grouped_matmul(As, Bs, trans_b=tb), reps, counters)
+        _, out_rows, out_cols = packed_geometry(problems)
+        kw = dict(out_cols=out_cols, out_rows=out_rows)
+        saved = (dict(grouped_gemm.launches_by_route), [c.launches for c in counters])
+        ms = queued_ms(lambda: grouped_gemm(A_flat, B_flat, descs, **kw), reps)
+        call_ms = cuda_ms(lambda: grouped_gemm(A_flat, B_flat, descs, **kw), reps)
+        path_ms = cuda_ms(lambda: grouped_matmul(As, Bs, trans_b=tb), reps)
+        grouped_gemm.launches_by_route = saved[0]
+        for c, count in zip(counters, saved[1]):     # timing launches do not count
+            c.launches = count
+        pack_ms = cuda_ms(lambda: pack_groups(As, Bs, trans_b=tb), reps)
+        aliased = B_flat.data_ptr() == Bs[0].data_ptr()
         plain_ms = cuda_ms(lambda: grouped_gemm_packed_ref(
             A_flat, B_flat, descs, out_cols=out_cols, out_rows=out_rows), reps)
         loop_ms = cuda_ms(lambda: [a @ (b.T if tb else b) for a, b in zip(As, Bs)], reps)
@@ -794,7 +917,7 @@ def grouped_path(dev, seed: int, counters, reps: int = 10) -> dict:
                 x_cat = torch.cat(As)
                 offs_t = torch.tensor(np.cumsum(counts), dtype=torch.int32, device=dev)
                 try:
-                    lib_ms = cuda_ms(lambda: torch._grouped_mm(x_cat, W3, offs=offs_t), reps)
+                    lib_ms = queued_ms(lambda: torch._grouped_mm(x_cat, W3, offs=offs_t), reps)
                     lib_note = f"{lib_ms:.4f} ms"
                 except RuntimeError as exc:   # the yardstick only: the port never calls it
                     lib_note = f"none ({str(exc).splitlines()[0][:100]})"
@@ -803,9 +926,11 @@ def grouped_path(dev, seed: int, counters, reps: int = 10) -> dict:
         flops = 2 * M * N * K
         b_ms, by = bound(grouped_bytes(As, Bs, tb, dt), flops, dt)
         log(f"moe up-projection [{name}] {M}x{K} @ {MOE['n_experts']}x{K}x{N}: kernel "
-            f"{ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s, bound {b_ms:.4f} ms ({by}), "
-            f"{100 * b_ms / ms:.1f}% of bound; grouped_matmul with packing {path_ms:.4f} ms; "
-            f"plain {plain_ms:.4f} ms; library _grouped_mm {lib_note}; per-group "
+            f"{ms:.4f} ms (calls queued), {flops / ms / 1e9:.1f} TFLOP/s, bound {b_ms:.4f} ms "
+            f"({by}), {100 * b_ms / ms:.1f}% of bound; grouped_gemm call {call_ms:.4f} ms "
+            f"(CUDA events); grouped_matmul with packing {path_ms:.4f} ms; "
+            f"pack_groups alone {pack_ms:.4f} ms (B a view of the weights: {aliased}); "
+            f"plain {plain_ms:.4f} ms; library _grouped_mm {lib_note} (calls queued); per-group "
             f"torch.matmul loop {loop_ms:.4f} ms; padded-to-largest torch.bmm {bmm_ms:.4f} ms; "
             f"max abs error {abs_err:.3g}")
         rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
@@ -813,7 +938,7 @@ def grouped_path(dev, seed: int, counters, reps: int = 10) -> dict:
         del A_flat, B_flat
     same = all(torch.equal(a, b) for a, b in zip(outs["bf16"], outs["bf16 trans_b"]))
     log(f"moe: trans_b result bit-identical to the plain-layout bf16 result: {same}; "
-        f"path launches {counted}")
+        f"path launches {counted}, by route {routes}")
     return {**rec["bf16"], "launches": counted["grouped_gemm"]}
 
 
@@ -932,6 +1057,7 @@ def main() -> int:
     log(f"build: {', '.join(f'{n}.cu {t:.2f} s' for n, t in secs.items())}; all compiled "
         f"and loaded in {time.perf_counter() - t0:.2f} s")
     flash_kernel_info()
+    grouped_kernel_info()
 
     check_table2(dev)
     check_layoutfuzz(dev)

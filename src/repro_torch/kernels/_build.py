@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels on first use.
 
-Each ``csrc/<name>.cu`` has a plain C interface.  :func:`load` compiles it
-with ``nvcc`` for ``sm_90a`` into a shared library under ``build/`` at the
-repository root (one directory per hash of the source and flags, so an
-edited source rebuilds and a stale library is never loaded) and opens it
-with :mod:`ctypes`.  Nothing is built at import time: the CPU tests import
+Each ``csrc/<name>.cu`` has a plain C interface and may include the shared
+headers ``csrc/*.cuh``.  :func:`load` compiles it with ``nvcc`` for
+``sm_90a`` into a shared library under ``build/`` at the repository root
+(one directory per hash of the source, the headers and the flags, so an
+edited source or header rebuilds and a stale library is never loaded) and
+opens it with :mod:`ctypes`.  Nothing is built at import time: the CPU tests import
 every module, and the CPU has no ``nvcc``.
 """
 
@@ -54,10 +55,15 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_root() / f"{name}-{digest}" / f"lib{name}.so"
+    """Where the library built from ``csrc/<name>.cu`` lives.  The hash
+    covers the source, every header of ``csrc/`` (``*.cuh``, by name and
+    content) and the flags, so a changed shared header rebuilds every
+    library and a stale one is never loaded."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_root() / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 
 
 def load(name: str) -> ctypes.CDLL:

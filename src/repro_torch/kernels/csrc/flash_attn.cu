@@ -59,10 +59,7 @@
 // persistent grid.  The fma route is bound by the FMA units (67 TFLOP/s in
 // f32) and by its shared-memory loads; its redesign is later work.
 
-#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 #define FA_BQ 64
 #define FA_BK 64
@@ -256,10 +253,6 @@ static int fa_launch_d(const void* q, const void* k, const void* v, void* o, con
 #define FW_LOG2E 1.4426950408889634f
 #define FW_MASK2 (FA_MASK * FW_LOG2E)  // the mask value in the base-2 softmax
 
-// Error codes of the tensor-map encoder, beside cudaError_t's positive ones.
-#define FW_ERR_ENTRY (-1)          // libcuda has no cuTensorMapEncodeTiled
-#define FW_ERR_ENCODE (-1000)      // minus the CUresult it returned
-
 // Shared memory of one block at padded head dim DP, 1024-byte aligned (the
 // 128-byte swizzle repeats every 8 rows of 128 bytes): Q as DP/64 boxes of
 // [FW_BQ rows][64], then per stage K and V as DP/64 boxes of [BK][64], then
@@ -272,138 +265,17 @@ template <int DP> struct FwTile {
   static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 2 * FW_STAGES);  // + alignment slack
 };
 
-__device__ __forceinline__ uint32_t fw_smem(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void fw_bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(fw_smem(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void fw_bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(fw_smem(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void fw_bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(fw_smem(bar)) : "memory");
-}
-// Every wait is for a copy or a tile's compute, microseconds; one that
-// spins for ~2^34 cycles (about 10 s) is a fault in the protocol, and traps
-// so that the launch fails instead of holding the card.
-__device__ __forceinline__ void fw_bar_wait(uint64_t* bar, int parity) {
-  long long start = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(fw_smem(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (!start) start = clock64();
-    else if (clock64() - start > (1ll << 34)) __trap();
-  }
-}
-
-// One box of a 3-D tensor map at coordinates (c0, c1, c2), innermost first,
-// into shared memory; its bytes count on bar.
-__device__ __forceinline__ void fw_tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(fw_smem(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(fw_smem(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; byte offsets: lbo
-// between swizzle spans along the leading dimension, sbo between groups of
-// 8 rows.
-__device__ __forceinline__ uint64_t fw_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((fw_smem(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void fw_wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void fw_wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void fw_wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// An empty asm that reads and writes each register: placed before a fence
-// it pins the registers' last writes ahead of the wgmma batch, after the
-// wait it keeps their next reads behind it.
-template <int N> __device__ __forceinline__ void fw_keep(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
-}
-template <int N> __device__ __forceinline__ void fw_keep(uint32_t (&x)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(x[i][j])::"memory");
-}
-
 __device__ __forceinline__ uint32_t fw_pack(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// d (+)= A B for one warpgroup, m64 x N x k16, bf16 in, f32 accumulate.
-// _ss: A and B from shared memory, both K-major; scale_d = 0 overwrites d.
-// _rs: A from registers (the m16k16 fragment of each warp), B from shared
-// memory N-major.  d is the f32 accumulator fragment: of the N/2 values a
-// thread holds, d[4i + e] is row 16 * warp + lane / 4 + 8 * (e / 2), column
-// 8i + 2 * (lane % 4) + e % 2.
-template <int N> __device__ __forceinline__ void fa_wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                                            uint64_t db, int scale_d);
+// d += A B for one warpgroup, m64 x N x k16, bf16 in, f32 accumulate, with
+// A from registers (the m16k16 fragment of each warp) and B from shared
+// memory N-major.  d is the accumulator fragment of hp_wgmma_ss
+// (hopper.cuh).
 template <int N> __device__ __forceinline__ void fa_wgmma_rs(float (&d)[N / 2],
                                                             const uint32_t (&a)[4], uint64_t db);
-
-template <> __device__ __forceinline__ void fa_wgmma_ss<64>(float (&d)[32], uint64_t da,
-                                                       uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <> __device__ __forceinline__ void fa_wgmma_ss<128>(float (&d)[64], uint64_t da,
-                                                       uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
 
 template <> __device__ __forceinline__ void fa_wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
                                                        uint64_t db) {
@@ -505,10 +377,10 @@ fw_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
-    fw_bar_init(q_full, 1);
+    hp_bar_init(q_full, 1);
     for (int s = 0; s < FW_STAGES; ++s) {
-      fw_bar_init(&full[s], 1);
-      fw_bar_init(&empty[s], 8);  // lane 0 of each consumer warp
+      hp_bar_init(&full[s], 1);
+      hp_bar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -531,23 +403,23 @@ fw_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
     if (warp == 8 && lane == 0) {
       // a stride-0 operand is one head that every block reads
       const int qh = a.sq_bh ? bh : 0, kh = a.sk_bh ? bh : 0, vh = a.sv_bh ? bh : 0;
-      fw_bar_expect(q_full, boxes * FW_BQ * 128);
+      hp_bar_expect(q_full, boxes * FW_BQ * 128);
       for (int c = 0; c < boxes; ++c)
-        fw_tma_load(qs + c * FW_BQ * 128, &qmap, q_full, 64 * c, q0, qh);
+        hp_tma_load(qs + c * FW_BQ * 128, &qmap, q_full, 64 * c, q0, qh);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % FW_STAGES;
-        if (it >= FW_STAGES) fw_bar_wait(&empty[s], (it / FW_STAGES - 1) & 1);
+        if (it >= FW_STAGES) hp_bar_wait(&empty[s], (it / FW_STAGES - 1) & 1);
         uint8_t* ks = kvs + 2 * s * L::KV_BYTES;
-        fw_bar_expect(&full[s], 2 * boxes * BK * 128);
+        hp_bar_expect(&full[s], 2 * boxes * BK * 128);
         for (int c = 0; c < boxes; ++c) {
-          fw_tma_load(ks + c * BK * 128, &kmap, &full[s], 64 * c, it * BK, kh);
-          fw_tma_load(ks + L::KV_BYTES + c * BK * 128, &vmap, &full[s], 64 * c, it * BK, vh);
+          hp_tma_load(ks + c * BK * 128, &kmap, &full[s], 64 * c, it * BK, kh);
+          hp_tma_load(ks + L::KV_BYTES + c * BK * 128, &vmap, &full[s], 64 * c, it * BK, vh);
         }
       }
     }
   } else {
     // consumer warpgroup wg: query rows q0 + 64 wg + [0, 64); this thread
-    // holds rows row0 and row0 + 8 (see fa_wgmma_ss)
+    // holds rows row0 and row0 + 8 (see hp_wgmma_ss in hopper.cuh)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(FW_CONSUMER_REGS));
     const int wg = warp / 4;
     const int row0 = q0 + 64 * wg + 16 * (warp % 4) + lane / 4;
@@ -561,25 +433,25 @@ fw_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
     for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.f;
     const uint8_t* qw = qs + wg * 64 * 128;
 
-    fw_bar_wait(q_full, 0);
+    hp_bar_wait(q_full, 0);
     for (int it = 0; it < n_tiles; ++it) {
       const int s = it % FW_STAGES, t0 = it * BK;
       const uint8_t* ks = kvs + 2 * s * L::KV_BYTES;
       const uint8_t* vs = ks + L::KV_BYTES;
-      fw_bar_wait(&full[s], (it / FW_STAGES) & 1);
+      hp_bar_wait(&full[s], (it / FW_STAGES) & 1);
 
       // S = Q K^T: depth step kk is 16 columns of box kk / 4, 32 bytes in.
-      // Each fw_keep before a fence pins the registers' last writes ahead
+      // Each hp_keep before a fence pins the registers' last writes ahead
       // of it: a write inside a wgmma batch would serialise the batch.
-      fw_keep(sacc);
-      fw_wgmma_fence();
+      hp_keep(sacc);
+      hp_wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        fa_wgmma_ss<BK>(sacc, fw_desc(qw + (kk / 4) * FW_BQ * 128 + (kk % 4) * 32, 16, 1024),
-                        fw_desc(ks + (kk / 4) * BK * 128 + (kk % 4) * 32, 16, 1024), kk);
-      fw_wgmma_commit();
-      fw_wgmma_wait();
-      fw_keep(sacc);
+        hp_wgmma_ss<0, 0>(sacc, hp_desc(qw + (kk / 4) * FW_BQ * 128 + (kk % 4) * 32, 16, 1024),
+                          hp_desc(ks + (kk / 4) * BK * 128 + (kk % 4) * 32, 16, 1024), kk);
+      hp_wgmma_commit();
+      hp_wgmma_wait<0>();
+      hp_keep(sacc);
 
       // online softmax on the accumulator, base 2
       const bool masked = t0 + BK > a.T || (a.causal && t0 + BK - 1 > q0 + 64 * wg);
@@ -626,17 +498,17 @@ fw_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
 
       // O += P V: depth step kk is keys 16 kk .., 16 rows of 128 bytes in;
       // V is N-major, boxes of 64 columns BK * 128 bytes apart
-      fw_keep(oacc);
-      fw_keep(pf);
-      fw_wgmma_fence();
+      hp_keep(oacc);
+      hp_keep(pf);
+      hp_wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        fa_wgmma_rs<DP>(oacc, pf[kk], fw_desc(vs + kk * 16 * 128, BK * 128, 1024));
-      fw_wgmma_commit();
-      fw_wgmma_wait();
-      fw_keep(oacc);
-      fw_keep(pf);
-      if (lane == 0) fw_bar_arrive(&empty[s]);
+        fa_wgmma_rs<DP>(oacc, pf[kk], hp_desc(vs + kk * 16 * 128, BK * 128, 1024));
+      hp_wgmma_commit();
+      hp_wgmma_wait<0>();
+      hp_keep(oacc);
+      hp_keep(pf);
+      if (lane == 0) hp_bar_arrive(&empty[s]);
     }
 
 #pragma unroll
@@ -660,38 +532,12 @@ fw_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
   }
 }
 
-typedef CUresult (*FwEncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                               CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled looked up through the CUDA runtime, so the
-// library needs no link against libcuda.
-static FwEncodeFn fw_encoder() {
-  static FwEncodeFn fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (FwEncodeFn)p;
-  }
-  return fn;
-}
-
 // A (D, rows, heads) bf16 tensor at ptr with element strides s_row and
 // s_head, read in boxes of 64 columns x box_rows rows x 1 head with the
 // 128-byte swizzle; out-of-range elements read as zero.  A stride-0 (or
 // single) head is a map of one head.
 static int fw_map(CUtensorMap* map, const void* ptr, int D, int rows, int heads, int64_t s_row,
                   int64_t s_head, int box_rows) {
-  const FwEncodeFn encode = fw_encoder();
-  if (!encode) return FW_ERR_ENTRY;
   if (rows == 1) s_row = (D + 7) / 8 * 8;  // a unit dimension's stride is never stepped
   if (heads == 1 || s_head == 0) {
     heads = 1;
@@ -699,12 +545,8 @@ static int fw_map(CUtensorMap* map, const void* ptr, int D, int rows, int heads,
   }
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)s_row * 2, (cuuint64_t)s_head * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1}, unit[3] = {1, 1, 1};
-  const CUresult r =
-      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : FW_ERR_ENCODE - (int)r;
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  return hp_map(map, ptr, 3, dims, strides, box);
 }
 
 template <int DP>
@@ -741,7 +583,7 @@ extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o,
 // Route "wgmma": bf16 only; every base pointer 16-byte aligned, and every
 // row and head stride a multiple of 8 elements (or 0 for a head, or any
 // value on a dimension of extent 1).  Output is contiguous (bh, S, D).
-// Returns a cudaError_t value or an FW_ERR_ code.
+// Returns a cudaError_t value or an HP_ERR_ code (hopper.cuh).
 extern "C" int fa_launch_wgmma(const void* q, const void* k, const void* v, void* o,
                                const FaArgs* a, int bh, void* stream) {
   if (!fa_args_ok(a, bh)) return (int)cudaErrorInvalidValue;
@@ -774,8 +616,4 @@ extern "C" int fa_wgmma_info(int D, int* out) {
   return 0;
 }
 
-extern "C" const char* fa_error_string(int code) {
-  if (code == FW_ERR_ENTRY) return "libcuda has no cuTensorMapEncodeTiled";
-  if (code <= FW_ERR_ENCODE) return "cuTensorMapEncodeTiled refused a tensor map";
-  return cudaGetErrorString((cudaError_t)code);
-}
+extern "C" const char* fa_error_string(int code) { return hp_error_string(code); }

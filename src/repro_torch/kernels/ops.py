@@ -160,7 +160,10 @@ def grouped_matmul(As, Bs, *, tiles: dict | None = None, out_dtype=None,
 
     ``tiles`` overrides ``u``/``v``/``k`` of
     :data:`~repro_torch.kernels.grouped_gemm.GROUPED_DEFAULT_TILES`, the
-    packing tiles: each must be a positive multiple of 8.
+    packing tiles: each must be a positive multiple of 8.  bf16 groups
+    run on the tensor cores (route ``"wgmma"``) when every padded depth
+    is a multiple of 64, as under the default ``k = 128``; see
+    :func:`~repro_torch.kernels.grouped_gemm.grouped_route`.
     """
     if not _trace.enabled():
         return _grouped_matmul_impl(As, Bs, tiles=tiles, out_dtype=out_dtype,
@@ -185,15 +188,15 @@ def _grouped_matmul_impl(As, Bs, *, tiles, out_dtype, trans_a, trans_b):
                 f"the kernel's 16-byte loads of float32/bfloat16 rows)")
     A_flat, B_flat, descs, problems = pack_groups(
         As, Bs, eff, trans_a=trans_a, trans_b=trans_b)
-    grid, out_rows, out_cols = packed_geometry(problems, eff)
-    out = grouped_gemm(
-        A_flat, B_flat, descs, grid_dims=grid, tiles=eff, out_cols=out_cols,
-        out_rows=out_rows, out_dtype=out_dtype)
-    results, row = [], 0
-    for p in problems:
-        results.append(out[row:row + p.m, :p.n])
-        row += -(-p.m // eff["u"]) * eff["u"]
-    return results
+    _, out_rows, out_cols = packed_geometry(problems, eff)
+    out = grouped_gemm(A_flat, B_flat, descs, out_cols=out_cols, out_rows=out_rows,
+                       out_dtype=out_dtype)
+    # group g's rows, then its padding rows, in one split; columns past
+    # n_g are cut only where the group is narrower than the buffer
+    mp = descs[:, 0].tolist()
+    sizes = [s for p, m in zip(problems, mp) for s in (p.m, m - p.m)]
+    blocks = out.split([*sizes, out_rows - sum(mp)])
+    return [b if p.n == out_cols else b[:, :p.n] for b, p in zip(blocks[::2], problems)]
 
 
 def _fused_view(x, modes: str, groups, fdims: dict):

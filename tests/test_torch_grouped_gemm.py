@@ -143,8 +143,7 @@ def test_packed_ref_equals_pallas_on_jax_buffers(shapes, tiles):
     tA, tB, td = interop.from_numpy(
         (np.asarray(A_flat), np.asarray(B_flat), np.asarray(descs)), device="cpu")
     plain = gg.grouped_gemm_packed_ref(tA, tB, td, out_cols=out_cols, out_rows=out_rows)
-    wrapped = gg.grouped_gemm(tA, tB, td, grid_dims=grid, tiles=eff, out_cols=out_cols,
-                              out_rows=out_rows)
+    wrapped = gg.grouped_gemm(tA, tB, td, out_cols=out_cols, out_rows=out_rows)
     assert torch.equal(plain, wrapped)
     for m, n, _, _, _, c_off, _, _ in np.asarray(descs).tolist():
         np.testing.assert_allclose(plain[c_off:c_off + m, :n].numpy(),
@@ -233,10 +232,11 @@ def test_trans_flags_bit_identical_to_jax():
 def test_wrapper_validates_the_launch_on_the_cpu():
     """What the kernel would be told is checked before the CPU takes the
     plain version: the table's shape, the 8-multiples of the 16-byte row
-    loads, grid coverage and the buffers' bounds."""
+    loads and the buffers' bounds.  The JAX package's ``grid_dims`` and
+    ``tiles`` are not taken: they sized the TPU grid."""
     A, B = torch.zeros(16, 16), torch.zeros(16, 16)
     ok = torch.tensor([[8, 8, 8, 0, 0, 0, 0, 0]], dtype=torch.int32)
-    kw = dict(grid_dims=(1, 1, 1), tiles=T8, out_cols=8, out_rows=8)
+    kw = dict(out_cols=8, out_rows=8)
     assert tuple(gg.grouped_gemm(A, B, ok, **kw).shape) == (8, 8)
     with pytest.raises(ValueError, match=r"\(G, 8\)"):
         gg.grouped_gemm(A, B, ok[:, :6], **kw)
@@ -244,8 +244,8 @@ def test_wrapper_validates_the_launch_on_the_cpu():
         gg.grouped_gemm(A.double(), B, ok, **kw)
     with pytest.raises(ValueError, match="multiples of 8"):
         gg.grouped_gemm(A, B, torch.tensor([[8, 8, 4, 0, 0, 0, 0, 0]]), **kw)
-    with pytest.raises(ValueError, match="grid_dims"):
-        gg.grouped_gemm(A, B, ok, **{**kw, "tiles": {"u": 8, "v": 8, "k": 4}})
+    with pytest.raises(TypeError, match="grid_dims"):
+        gg.grouped_gemm(A, B, ok, grid_dims=(1, 1, 1), **kw)
     with pytest.raises(ValueError, match="reaches past"):
         gg.grouped_gemm(A, B, torch.tensor([[8, 8, 8, 12, 0, 0, 0, 0]]), **kw)
     with pytest.raises(ValueError, match="row stride"):
@@ -264,18 +264,230 @@ def test_cpu_tensors_take_the_plain_version():
     assert gg.grouped_gemm.launches == before
 
 
+def test_cpu_calls_count_no_route():
+    As, Bs = _rand_groups([(5, 17, 9), (12, 3, 33)], seed=9)
+    tA = [t.bfloat16() for t in interop.from_numpy(As, device="cpu")]
+    tB = [t.bfloat16() for t in interop.from_numpy(Bs, device="cpu")]
+    by_route = dict(gg.grouped_gemm.launches_by_route)
+    ops.grouped_matmul(tA, tB)
+    assert gg.grouped_gemm.launches_by_route == by_route
+    assert set(by_route) == set(gg.ROUTES) == {"wgmma", "fma"}
+
+
+def _bf16_groups(shapes, tiles=None, dtype=torch.bfloat16, b_dtype=None):
+    As, Bs = _rand_groups(shapes, seed=12)
+    tA = [t.to(dtype) for t in interop.from_numpy(As, device="cpu")]
+    tB = [t.to(b_dtype or dtype) for t in interop.from_numpy(Bs, device="cpu")]
+    A_flat, B_flat, descs, _ = gg.pack_groups(tA, tB, tiles)
+    return A_flat, B_flat, descs
+
+
+def _misaligned(X):
+    """``X``'s values one element into a fresh buffer: a base pointer that
+    is not 16-byte aligned."""
+    flat = torch.zeros(X.numel() + 1, dtype=X.dtype)
+    out = flat[1:].view(X.shape)
+    out.copy_(X)
+    return out
+
+
+# (A_flat, B_flat, descs) builders and the route each must take
+GROUPED_ROUTE_CASES = {
+    "bf16_default_tiles": (lambda: _bf16_groups([(5, 130, 9), (20, 4, 140)]), "wgmma"),
+    "bf16_k0_and_empty_groups": (
+        lambda: _bf16_groups([(4, 5, 0), (0, 6, 6), (4, 0, 6), (4, 5, 6)]), "wgmma"),
+    "bf16_f32_output_is_the_caller's": (
+        lambda: _bf16_groups([(33, 7, 65), (2, 31, 4)]), "wgmma"),
+    "float32": (lambda: _bf16_groups([(5, 130, 9)], dtype=torch.float32), "fma"),
+    "mixed_types": (lambda: _bf16_groups([(5, 130, 9)], b_dtype=torch.float32), "fma"),
+    "ragged_depth_t8": (lambda: _bf16_groups([(5, 17, 9), (12, 3, 33)], T8), "fma"),
+    "depth_96": (lambda: _bf16_groups([(5, 17, 96)], {"k": 32}), "fma"),
+    "ragged_depth_without_tiles_vetoes_nothing": (
+        lambda: _bf16_groups([(0, 17, 9), (12, 0, 33), (5, 8, 64)], T8), "wgmma"),
+    "misaligned_base": (
+        lambda: (lambda A, B, d: (_misaligned(A), B, d))(*_bf16_groups([(5, 130, 9)])), "fma"),
+}
+
+
+@pytest.mark.parametrize("case", list(GROUPED_ROUTE_CASES))
+def test_grouped_route_follows_dtype_layout_and_depths(case):
+    """bf16 buffers a TMA map can describe, whose groups with output tiles
+    all have depths that are multiples of 64, take ``wgmma``; float32,
+    mixed types, a ragged depth or a misaligned base take ``fma``.  A group
+    with no output tiles vetoes nothing; ``k_p == 0`` qualifies."""
+    build, route = GROUPED_ROUTE_CASES[case]
+    A_flat, B_flat, descs = build()
+    assert gg.grouped_route(A_flat, B_flat, descs) == route
+    assert gg.grouped_route(A_flat, B_flat, descs.tolist()) == route
+
+
+def test_route_tiles_mirror_the_cuda_source():
+    """The wrapper's tile list and depth rule use the kernels' own tiles:
+    ``KERNEL_TILES`` and ``WGMMA_DEPTH`` equal the ``#define``s of
+    ``csrc/grouped_gemm.cu``, and the wgmma ring fits a block's 232,448
+    bytes of shared memory."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    text = (_build.CSRC / "grouped_gemm.cu").read_text()
+    defs = {k: int(v) for k, v in re.findall(r"#define (G[GW]_\w+) (\d+)\b", text)}
+    assert gg.KERNEL_TILES == {"wgmma": (defs["GW_TM"], defs["GW_TN"]),
+                               "fma": (defs["GG_TU"], defs["GG_TV"])}
+    assert gg.WGMMA_DEPTH == defs["GW_BK"]
+    stage = (defs["GW_TM"] + defs["GW_TN"]) * defs["GW_BK"] * 2
+    assert 1024 + defs["GW_STAGES"] * stage + 16 * defs["GW_STAGES"] <= 232_448
+
+
+def _pack_per_group(As, Bs, descs, shapes):
+    """The packing this module replaced: zero-filled buffers of the given
+    shapes and one slice copy per group."""
+    A_flat, B_flat = torch.zeros(shapes[0], dtype=As[0].dtype), torch.zeros(shapes[1], dtype=Bs[0].dtype)
+    for (_, _, _, ao, bo, _, _, _), A, B in zip(descs.tolist(), As, Bs):
+        if A.numel():
+            A_flat[ao:ao + A.shape[0], :A.shape[1]].copy_(A)
+        if B.numel():
+            B_flat[bo:bo + B.shape[0], :B.shape[1]].copy_(B)
+    return A_flat, B_flat
+
+
+def _pack_case(case):
+    """(As, Bs, tiles, trans_a, trans_b) as numpy arrays."""
+    rng = np.random.default_rng(31)
+
+    def r(*s):
+        return rng.standard_normal(s).astype(np.float32)
+
+    if case == "ragged_widths":
+        return [r(5, 9), r(12, 33), r(1, 1), r(40, 8)], [r(9, 17), r(33, 3), r(1, 1), r(8, 20)], T8, False, False
+    if case == "empty_groups":
+        return ([r(4, 0), r(0, 6), r(4, 6), r(4, 6), r(0, 0)],
+                [r(0, 5), r(6, 5), r(6, 0), r(6, 5), r(0, 3)], T8, False, False)
+    if case == "trans_a":
+        return [r(7, 5), r(9, 12), r(0, 3)], [r(7, 9), r(9, 130), r(0, 4)], None, True, False
+    if case == "trans_b":
+        return [r(5, 7), r(12, 9)], [r(9, 7), r(130, 9)], T8, False, True
+    if case == "trans_both":
+        return [r(7, 5), r(33, 12)], [r(9, 7), r(4, 33)], {"u": 8, "v": 32, "k": 32}, True, True
+    if case == "per_group_flags":
+        As, Bs, ta, tb = _trans_case()
+        return As, Bs, None, ta, tb
+    if case == "equal_widths":
+        return [r(m, 24) for m in (3, 8, 0, 17)], [r(24, 16) for _ in range(4)], T8, False, False
+    raise KeyError(case)
+
+
+PACK_CASES = ["ragged_widths", "empty_groups", "trans_a", "trans_b", "trans_both",
+              "per_group_flags", "equal_widths"]
+
+
+@pytest.mark.parametrize("case", PACK_CASES)
+def test_pack_groups_equals_per_group_packing_and_jax(case):
+    """Packing by one row scatter per stored width gives, value for value,
+    the buffers of the per-group copies it replaced and of the JAX
+    package's ``pack_groups``: ragged widths, every trans flag, empty
+    groups."""
+    As, Bs, tiles, ta, tb = _pack_case(case)
+    jA, jB, tA, tB = _both(As, Bs)
+    A_flat, B_flat, descs, _ = gg.pack_groups(tA, tB, tiles, trans_a=ta, trans_b=tb)
+    A_old, B_old = _pack_per_group(tA, tB, descs, (A_flat.shape, B_flat.shape))
+    assert torch.equal(A_flat, A_old) and torch.equal(B_flat, B_old)
+    jAf, jBf, jd, _ = jgg.pack_groups(jA, jB, tiles, trans_a=ta, trans_b=tb)
+    assert np.array_equal(descs.numpy(), np.asarray(jd))
+    assert np.array_equal(A_flat.numpy(), np.asarray(jAf))
+    assert np.array_equal(B_flat.numpy(), np.asarray(jBf))
+
+
+def test_row_blocks_of_one_tensor_pack_like_separate_groups():
+    """Groups that are consecutive row blocks of one tensor (routed rows
+    sorted by expert) are scattered from that tensor as one view; the
+    buffer equals the one packed from separate copies of the groups."""
+    rng = np.random.default_rng(8)
+    X = torch.from_numpy(rng.standard_normal((60, 24)).astype(np.float32))
+    counts = [13, 0, 1, 30, 16]
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    views = [X[offs[g]:offs[g + 1]] for g in range(len(counts))]
+    Bs = [torch.from_numpy(rng.standard_normal((24, 16)).astype(np.float32))
+          for _ in counts]
+    A_view, B_view, descs, _ = gg.pack_groups(views, Bs, T8)
+    A_copy, B_copy, descs_copy, _ = gg.pack_groups([v.clone() for v in views], Bs, T8)
+    assert torch.equal(A_view, A_copy) and torch.equal(B_view, B_copy)
+    assert torch.equal(descs, descs_copy)
+
+
+@pytest.mark.parametrize("trans_b", [False, True])
+def test_already_packed_weights_are_a_view(trans_b):
+    """``list(W)`` of a contiguous expert weight tensor already is the
+    packed B buffer under the default tiles: the buffer is a view of W's
+    storage, with W's values, and no copy is made."""
+    rng = np.random.default_rng(17)
+    E, k, n = 3, 256, 384
+    W = torch.from_numpy(rng.standard_normal((E, n, k) if trans_b else (E, k, n))
+                         .astype(np.float32)).bfloat16()
+    As = [torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).bfloat16()
+          for m in (5, 0, 17)]
+    A_flat, B_flat, descs, _ = gg.pack_groups(As, list(W), trans_b=trans_b)
+    assert B_flat.data_ptr() == W.data_ptr()
+    assert torch.equal(B_flat, W.reshape(-1, W.shape[-1]))
+    A_old, B_old = _pack_per_group(As, list(W), descs, (A_flat.shape, B_flat.shape))
+    assert torch.equal(A_flat, A_old) and torch.equal(B_flat, B_old)
+    # a view of a tensor that is not at the packed width is copied
+    wide = torch.zeros(E * k, n + 8, dtype=torch.bfloat16)[:, :n]
+    _, B_copy, _, _ = gg.pack_groups(As, list(wide.view(E, k, n)) if not trans_b else
+                                     [w.T for w in wide.view(E, k, n)], trans_b=trans_b)
+    assert B_copy.data_ptr() != wide.data_ptr()
+
+
+def _packing_ops(n_groups: int) -> dict:
+    """Copy, fill and scatter events that packing ``n_groups`` equal-width
+    groups (separate tensors) dispatches, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(n_groups)
+    As = [torch.from_numpy(rng.standard_normal((int(m), 24)).astype(np.float32))
+          for m in rng.integers(1, 20, n_groups)]
+    Bs = [torch.from_numpy(rng.standard_normal((24, 16)).astype(np.float32))
+          for _ in range(n_groups)]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        gg.pack_groups(As, Bs, T8)
+    names = ("aten::copy_", "aten::fill_", "aten::zero_", "aten::index_copy_",
+             "aten::index_fill_", "aten::cat")
+    counts = dict.fromkeys(names, 0)
+    for e in prof.events():
+        if e.name in counts:
+            counts[e.name] += 1
+    return counts
+
+
+def test_packing_launches_do_not_grow_with_the_groups():
+    """60 equal-width groups dispatch as many copies, fills and scatters
+    as 6 do: one ``torch.cat`` and one row scatter per operand, and one
+    fill of the padding rows."""
+    few, many = _packing_ops(6), _packing_ops(60)
+    assert many == few
+    assert sum(many.values()) <= 6
+    assert many["aten::copy_"] == 0
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain_version_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
     As, Bs = _rand_groups(SHAPE_LISTS[0] + [(130, 260, 70)], seed=4)
-    for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+    # T8 packing leaves ragged depths: both types on the fma route; the
+    # default tiles give bf16 depths of 128: the wgmma route
+    for dt, tol, tiles, route in ((torch.float32, 2e-5, T8, "fma"),
+                                  (torch.bfloat16, 2e-2, T8, "fma"),
+                                  (torch.bfloat16, 2e-2, None, "wgmma")):
         tA = [t.to(dt) for t in interop.from_numpy(As)]
         tB = [t.to(dt) for t in interop.from_numpy(Bs)]
-        A_flat, B_flat, descs, problems = gg.pack_groups(tA, tB, T8)
-        grid, out_rows, out_cols = gg.packed_geometry(problems, T8)
+        A_flat, B_flat, descs, problems = gg.pack_groups(tA, tB, tiles)
+        _, out_rows, out_cols = gg.packed_geometry(problems, tiles)
         kw = dict(out_cols=out_cols, out_rows=out_rows)
-        got = gg.grouped_gemm(A_flat, B_flat, descs, grid_dims=grid, tiles=T8, **kw)
+        assert gg.grouped_route(A_flat, B_flat, descs) == route
+        before = gg.grouped_gemm.launches_by_route[route]
+        got = gg.grouped_gemm(A_flat, B_flat, descs, **kw)
+        assert gg.grouped_gemm.launches_by_route[route] == before + 1
         want = gg.grouped_gemm_packed_ref(A_flat, B_flat, descs, **kw)
         torch.cuda.synchronize()
         for m, n, *_, c_off, _, _ in descs.tolist():

@@ -173,6 +173,28 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
     assert _build.library_path("sb_gemm").parent.parent == tmp_path / "build"
 
 
+def test_library_path_changes_with_a_shared_header(monkeypatch, tmp_path):
+    """A library's build directory is named by a hash of its source, every
+    ``csrc/*.cuh`` header and the flags: changing only a header moves every
+    library to a new path, so none built against the old header loads."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "one.cu").write_text('#include "shared.cuh"\n')
+    (csrc / "two.cu").write_text('#include "shared.cuh"\n// two\n')
+    (csrc / "shared.cuh").write_text("#define X 1\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "build_root", lambda: tmp_path / "build")
+    before = {n: _build.library_path(n) for n in ("one", "two")}
+    assert before["one"] != before["two"]
+    assert before == {n: _build.library_path(n) for n in ("one", "two")}
+    (csrc / "shared.cuh").write_text("#define X 2\n")
+    after = {n: _build.library_path(n) for n in ("one", "two")}
+    assert all(after[n] != before[n] for n in after)
+    assert all(after[n].parent.parent == tmp_path / "build" for n in after)
+    (csrc / "extra.cuh").write_text("\n")     # a new header counts too
+    assert _build.library_path("one") != after["one"]
+
+
 def test_cpu_tensors_take_the_plain_versions_of_the_new_kernels(monkeypatch, tmp_path):
     """``grouped_matmul`` and ``flash_attention`` on CPU tensors take their
     plain versions and launch nothing; building their kernels without
