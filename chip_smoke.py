@@ -8,13 +8,19 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
 1. Device: fails without CUDA; prints the card's name and power limit.
 2. Build: compiles the three kernels of ``src/repro_torch/kernels/csrc/``
    (``sb_gemm.cu``, ``grouped_gemm.cu``, ``flash_attn.cu``; the last two
-   include ``hopper.cuh``) with nvcc, one process each, all at once;
-   prints the registers, spills and shared memory of the two wgmma
-   kernels (attention and grouped).
+   include ``hopper.cuh``, and so does ``sb_gemm.cu``) with nvcc, one
+   process each, all at once; prints the registers, spills and shared
+   memory of the two wgmma kernels (attention and grouped) and of the
+   ``stream`` and ``splitk`` kernels of ``native_gemm``.
 3. Kernel vs plain version on the card: the 36 Table II cases (native and
    batched strategies, f32 and bf16, ragged dims), the 8 exceptional cases
    through ``ext_gemm``, the 100-spec layout-fuzz stream (integer-valued,
-   bit-identical), and the native kernel's gradients; ``grouped_gemm`` on
+   bit-identical), the native kernel's gradients and a small HOOI, every
+   ``native_gemm`` launch in them held to the route ``native_route``
+   gives; then cases that force each ``native_gemm`` route at ragged
+   extents (narrow widths 1, 10 and 16, depths and rows off the stage and
+   tile sizes, bf16 output, integer-valued bit-identical), each launched
+   twice and bit-identical; ``grouped_gemm`` on
    the grouped cases of ``tests/test_runtime.py`` and the fig14 ragged
    set, then every ragged case again in bf16 under the default tiles
    (bf16 and f32 output), each case held to the route it must take
@@ -28,8 +34,12 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
 5. Main path: Tucker HOOI on a low-rank-plus-noise float32 tensor of
    ``size``³ with ranks (10, 10, 10) (the paper's Fig. 9 core), three ways:
    the kernel backend, the torch backend and the conventional baseline.
-6. Kernel time at each of the main path's launch shapes (CUDA events),
-   against its bound, the plain version and one library call.
+6. Kernel time at each of the main path's launch shapes and its route:
+   device time with the calls queued behind a sleeping kernel
+   (``queued_ms``) and the call with its host time (CUDA events around
+   back-to-back calls, ``cuda_ms``), against its bound, the plain version
+   and ``torch.einsum`` timed both ways; two launches at each shape must
+   be bit-identical.
 7. A profile of one HOOI of each variant: device time by kernel name and
    the device's idle share.
 8. Grouped path at full width: the routed experts of qwen2-moe-a2.7b (60
@@ -45,7 +55,8 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
 
 Each path (5, 8, 9) is driven with every kernel's launch count set to 0
 just before it and read just after; launches made to compare or time a
-kernel do not count.
+kernel do not count.  Phase 5 also reads ``native_gemm``'s launches by
+route, which must be what ``native_route`` gives for each launch shape.
 
 Tolerances: integer-valued inputs are exact under any summation order, so
 they must match bit for bit; float32 results may differ from the plain
@@ -207,6 +218,51 @@ def nbytes(*tensors) -> int:
 
 
 # ------------------------------------------------------------------- phase 3
+class native_routes_held:
+    """Within the block, every ``native_gemm`` launch (through
+    ``kernels.ops``, where every path calls it) must launch the route
+    ``native_route`` gives for its operands; ``tally`` counts the routes
+    seen.  A call with an empty output launches nothing."""
+
+    def __init__(self):
+        from repro_torch.kernels.sb_gemm import ROUTES
+
+        self.tally = dict.fromkeys(ROUTES, 0)
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.sb_gemm import native_gemm, native_route
+
+        self.real = real = ops.native_gemm
+
+        def held(A, B, **kw):
+            want = native_route(A, B, a_modes=kw["a_modes"], b_modes=kw["b_modes"],
+                                c_modes=kw["c_modes"])
+            before = dict(native_gemm.launches_by_route)
+            out = real(A, B, **kw)
+            ran = {r: n - before[r] for r, n in native_gemm.launches_by_route.items()}
+            launched = int(out.numel() > 0)
+            check(ran == {r: launched * (r == want) for r in ran},
+                  f"native_gemm {kw['a_modes']},{kw['b_modes']}->{kw['c_modes']} "
+                  f"A{tuple(A.shape)}{A.stride()} B{tuple(B.shape)}{B.stride()}: launched "
+                  f"{ran}, native_route says {want}")
+            self.tally[want] += launched
+            return out
+
+        ops.native_gemm = held
+        return self.tally
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.native_gemm = self.real
+        return False
+
+
+def routes_text(tally) -> str:
+    return ", ".join(f"{r} {n}" for r, n in tally.items() if n) or "none"
+
+
 def check_table2(dev) -> dict:
     from repro_torch.core.contract import contract
     from repro_torch.core.table2 import CASES
@@ -216,26 +272,29 @@ def check_table2(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n_checks = 0
-    for label in sorted(CASES):
-        rm = CASES[label].row_major()
-        a, b, c = modes_of(rm)
-        for dt in worst:
-            A = torch.randn([RAGGED_DIMS[m] for m in a], device=dev, generator=gen).to(dt)
-            B = torch.randn([RAGGED_DIMS[m] for m in b], device=dev, generator=gen).to(dt)
-            want = native_gemm_ref(A, B, a_modes=a, b_modes=b, c_modes=c,
-                                   out_dtype=torch.float32)
-            runs = {s: contract(rm, A, B, strategy=s, backend="kernel", out_dtype=torch.float32)
-                    for s in ("native", "batched")}
-            if CASES[label].exceptional:
-                runs["ext_gemm"] = ext_gemm(rm, A, B, out_dtype=torch.float32)
-            torch.cuda.synchronize()
-            for how, got in runs.items():
-                err = rel_err(got, want)
-                check(err <= TOL[dt], f"Table II {label} {rm} {how} {dt}: error {err}")
-                worst[dt] = max(worst[dt], err)
-                n_checks += 1
+    with native_routes_held() as tally:
+        for label in sorted(CASES):
+            rm = CASES[label].row_major()
+            a, b, c = modes_of(rm)
+            for dt in worst:
+                A = torch.randn([RAGGED_DIMS[m] for m in a], device=dev, generator=gen).to(dt)
+                B = torch.randn([RAGGED_DIMS[m] for m in b], device=dev, generator=gen).to(dt)
+                want = native_gemm_ref(A, B, a_modes=a, b_modes=b, c_modes=c,
+                                       out_dtype=torch.float32)
+                runs = {s: contract(rm, A, B, strategy=s, backend="kernel",
+                                    out_dtype=torch.float32)
+                        for s in ("native", "batched")}
+                if CASES[label].exceptional:
+                    runs["ext_gemm"] = ext_gemm(rm, A, B, out_dtype=torch.float32)
+                torch.cuda.synchronize()
+                for how, got in runs.items():
+                    err = rel_err(got, want)
+                    check(err <= TOL[dt], f"Table II {label} {rm} {how} {dt}: error {err}")
+                    worst[dt] = max(worst[dt], err)
+                    n_checks += 1
     log(f"table2: {n_checks} checks (36 cases x native/batched + 8 ext_gemm, f32 and bf16) "
-        f"worst error f32 {worst[torch.float32]:.3g} bf16 {worst[torch.bfloat16]:.3g}")
+        f"worst error f32 {worst[torch.float32]:.3g} bf16 {worst[torch.bfloat16]:.3g}; "
+        f"native_gemm routes: {routes_text(tally)}")
     return worst
 
 
@@ -246,20 +305,22 @@ def check_layoutfuzz(dev, n_cases: int = 100) -> None:
     from repro_torch.kernels.sb_gemm import native_gemm_ref
 
     n = 0
-    for i in range(n_cases):
-        cs, _, An, Bn, treatments = layoutfuzz.gen_layout_case(i)
-        A, B = from_numpy((An, Bn), device=dev)
-        spec = cs.spec_str()
-        want = np.einsum(spec, An, Bn)
-        plain = native_gemm_ref(A, B, a_modes=cs.a_modes, b_modes=cs.b_modes,
-                                c_modes=cs.c_modes).cpu().numpy()
-        check(np.array_equal(plain, want), f"fuzz {i} {spec}: plain version vs numpy")
-        for strategy in ("native", "auto", "batched"):
-            got = contract(cs, A, B, strategy=strategy, backend="kernel").cpu().numpy()
-            check(np.array_equal(got, plain),
-                  f"fuzz {i} {spec} {treatments} {strategy}: not bit-identical")
-            n += 1
-    log(f"layoutfuzz: {n_cases} specs x native/auto/batched = {n} runs, all bit-identical")
+    with native_routes_held() as tally:
+        for i in range(n_cases):
+            cs, _, An, Bn, treatments = layoutfuzz.gen_layout_case(i)
+            A, B = from_numpy((An, Bn), device=dev)
+            spec = cs.spec_str()
+            want = np.einsum(spec, An, Bn)
+            plain = native_gemm_ref(A, B, a_modes=cs.a_modes, b_modes=cs.b_modes,
+                                    c_modes=cs.c_modes).cpu().numpy()
+            check(np.array_equal(plain, want), f"fuzz {i} {spec}: plain version vs numpy")
+            for strategy in ("native", "auto", "batched"):
+                got = contract(cs, A, B, strategy=strategy, backend="kernel").cpu().numpy()
+                check(np.array_equal(got, plain),
+                      f"fuzz {i} {spec} {treatments} {strategy}: not bit-identical")
+                n += 1
+    log(f"layoutfuzz: {n_cases} specs x native/auto/batched = {n} runs, all bit-identical; "
+        f"native_gemm routes: {routes_text(tally)}")
 
 
 def check_grads(dev) -> None:
@@ -270,18 +331,96 @@ def check_grads(dev) -> None:
              ("k,k->", (9,), (9,)), ("bmk,bkn->bnm", (2, 3, 4), (2, 4, 5)),
              ("mq,qn->qnm", (3, 4), (4, 5))]
     gen = torch.Generator(device=dev).manual_seed(6)
-    for spec, sa, sb in specs:
+    with native_routes_held() as tally:
+        for spec, sa, sb in specs:
+            a, b, c = modes_of(spec)
+            A0 = torch.randn(sa, device=dev, generator=gen)
+            B0 = torch.randn(sb, device=dev, generator=gen)
+            A, B = A0.clone().requires_grad_(), B0.clone().requires_grad_()
+            (contract(spec, A, B, strategy="native") ** 2).sum().backward()
+            Ar, Br = A0.clone().requires_grad_(), B0.clone().requires_grad_()
+            (native_gemm_ref(Ar, Br, a_modes=a, b_modes=b, c_modes=c) ** 2).sum().backward()
+            for g, r, name in ((A.grad, Ar.grad, "dA"), (B.grad, Br.grad, "dB")):
+                err = rel_err(g, r)
+                check(err <= TOL[torch.float32], f"grad {spec} {name}: error {err}")
+    log(f"grads: execute_native gradients match the plain version on {len(specs)} specs; "
+        f"native_gemm routes: {routes_text(tally)}")
+
+
+def native_route_cases(dev):
+    """Cases that force each route of ``native_gemm`` at ragged extents:
+    (spec, A, B, out_dtype, route, integer-valued)."""
+    from repro_torch.kernels.sb_gemm import STREAM_MIN_ROWS
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    # rows off the stream tile, a multiple of 4: a row stride TMA can step
+    big = STREAM_MIN_ROWS + 436
+
+    def rn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def ints(*shape):
+        return torch.randint(-3, 4, shape, device=dev, generator=gen).float()
+
+    cases = []
+    for r in (1, 10, 16):
+        # stream, read kind: m stride-1, then k stride-1 (rows 80 apart), k = 77
+        cases += [("mn,mi->ni", rn(77, big), rn(77, r), None, "stream", False),
+                  ("mp,pk->mk", rn(big, 80)[:, :77], rn(77, r), None, "stream", False),
+                  # splitk: two C modes of X, three C modes in all, one long k
+                  ("npi,nj->ijp", rn(300, 37, 10), rn(300, r), None, "splitk", False),
+                  ("mnk,nj->mjk", rn(77, 300, 7), rn(300, r), None, "splitk", False),
+                  ("mn,mi->in", rn(515, 1000), rn(r, 515).t(), None, "splitk", False)]
+    # stream, write kind: depths 3, 10, 16; rows 512 and 130 wide (16-byte
+    # and scalar stores)
+    for k, p in ((3, 512), (10, 130), (16, 512)):
+        cases.append(("km,pk->mp", rn(k, big), rn(p, k), None, "stream", False))
+    # bf16 output on each kernel, and integer-valued inputs (exact sums)
+    cases += [("mn,mi->ni", rn(77, big), rn(77, 10), torch.bfloat16, "stream", False),
+              ("mp,pk->mk", rn(big, 80)[:, :77], rn(77, 10), torch.bfloat16, "stream", False),
+              ("km,pk->mp", rn(10, big), rn(512, 10), torch.bfloat16, "stream", False),
+              ("npi,nj->ijp", rn(300, 37, 10), rn(300, 10), torch.bfloat16, "splitk", False),
+              ("mn,mi->ni", ints(77, big), ints(77, 10), None, "stream", True),
+              ("mp,pk->mk", ints(big, 80)[:, :77], ints(77, 16), None, "stream", True),
+              ("km,pk->mp", ints(10, big), ints(130, 10), None, "stream", True),
+              ("mnk,nj->mjk", ints(77, 300, 7), ints(300, 10), None, "splitk", True),
+              # a layout no new route takes: rows 77 floats apart
+              ("mp,pk->mk", rn(big, 77), rn(77, 10), None, "generic", False)]
+    return cases
+
+
+def check_native_routes(dev) -> None:
+    """Each forced case launches its route (twice, bit-identical) and
+    matches the plain version: exactly where the inputs are integers."""
+    from repro_torch.kernels.sb_gemm import native_gemm, native_gemm_ref, native_route
+
+    worst = 0.0
+    cases = native_route_cases(dev)
+    for spec, A, B, out_dtype, route, exact in cases:
         a, b, c = modes_of(spec)
-        A0 = torch.randn(sa, device=dev, generator=gen)
-        B0 = torch.randn(sb, device=dev, generator=gen)
-        A, B = A0.clone().requires_grad_(), B0.clone().requires_grad_()
-        (contract(spec, A, B, strategy="native") ** 2).sum().backward()
-        Ar, Br = A0.clone().requires_grad_(), B0.clone().requires_grad_()
-        (native_gemm_ref(Ar, Br, a_modes=a, b_modes=b, c_modes=c) ** 2).sum().backward()
-        for g, r, name in ((A.grad, Ar.grad, "dA"), (B.grad, Br.grad, "dB")):
-            err = rel_err(g, r)
-            check(err <= TOL[torch.float32], f"grad {spec} {name}: error {err}")
-    log(f"grads: execute_native gradients match the plain version on {len(specs)} specs")
+        kw = dict(a_modes=a, b_modes=b, c_modes=c, out_dtype=out_dtype)
+        what = f"native_gemm {spec} A{tuple(A.shape)}{A.stride()} B{tuple(B.shape)} -> {out_dtype}"
+        check(native_route(A, B, a_modes=a, b_modes=b, c_modes=c) == route,
+              f"{what}: native_route does not give {route}")
+        before = dict(native_gemm.launches_by_route)
+        got, again = native_gemm(A, B, **kw), native_gemm(A, B, **kw)
+        torch.cuda.synchronize()
+        ran = {r: n - before[r] for r, n in native_gemm.launches_by_route.items()}
+        check(ran == {r: 2 * (r == route) for r in ran}, f"{what}: launched {ran}, not {route}")
+        check(torch.equal(got, again), f"{what}: two launches differ")
+        want = native_gemm_ref(A, B, **kw)
+        check(got.shape == want.shape and got.dtype == want.dtype, f"{what}: shape or dtype")
+        if exact:
+            check(torch.equal(got, want), f"{what}: integer-valued case not bit-identical")
+        else:
+            err = rel_err(got, want)
+            check(err <= TOL[got.dtype], f"{what}: error {err}")
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
+    counts = {r: sum(1 for *_, rt, _ in cases if rt == r) for r in ("stream", "splitk", "generic")}
+    log(f"native_gemm routes: {len(cases)} forced cases ({routes_text(counts)}; narrow widths "
+        f"1/10/16, ragged rows and depths, bf16 output, integer-valued bit-identical), each "
+        f"launched twice on its route, bit-identical, matching the plain version "
+        f"(max abs error {worst:.3g})")
 
 
 GROUPED_T8 = {"u": 8, "v": 8, "k": 8}
@@ -361,6 +500,17 @@ def check_grouped_case(As, Bs, tiles, ta=False, tb=False, exact=False, out_dtype
         if g.numel():
             worst = max(worst, (g.float() - w.float()).abs().max().item())
     return worst
+
+
+def native_kernel_info() -> None:
+    """Registers, spills and shared memory of the built stream and splitk
+    kernels of ``native_gemm`` (float32 output; the stream read kernels at
+    the HOOI depth 512 and the read kinds at rank 10, padded to 12)."""
+    from repro_torch.kernels.sb_gemm import route_info
+
+    for name, info in route_info(K=512, rp=12).items():
+        log(f"sb_gemm.cu {name}: {info['registers']} registers/thread, {info['spill_bytes']} "
+            f"bytes spilled (local)/thread, {info['smem_bytes']} bytes shared memory/block")
 
 
 def grouped_kernel_info() -> None:
@@ -619,7 +769,8 @@ def check_small_hooi(dev) -> None:
 
     T, _ = low_rank_plus_noise(24, (4, 3, 5), seed=3, noise_rel=0.05, device="cpu")
     want = hooi(T, (4, 3, 5), n_iter=5)
-    got = hooi(T.to(dev), (4, 3, 5), n_iter=5, **VARIANTS["kernel"])
+    with native_routes_held() as tally:
+        got = hooi(T.to(dev), (4, 3, 5), n_iter=5, **VARIANTS["kernel"])
     d = abs(got.rel_error.item() - want.rel_error.item())
     check(d <= 1e-5, f"small HOOI: rel_error {got.rel_error.item()} vs CPU "
                      f"{want.rel_error.item()}")
@@ -627,7 +778,7 @@ def check_small_hooi(dev) -> None:
         err = (f @ f.T).cpu().sub(w @ w.T).abs().max().item()
         check(err <= 1e-4, f"small HOOI: factor projector differs by {err}")
     log(f"small HOOI 24^3: card (kernel) rel_error {got.rel_error.item():.7f} = "
-        f"CPU {want.rel_error.item():.7f}")
+        f"CPU {want.rel_error.item():.7f}; native_gemm routes: {routes_text(tally)}")
 
 
 def run_hooi(T, n_iter, variant):
@@ -641,10 +792,11 @@ def run_hooi(T, n_iter, variant):
 
 
 def main_path(T, noise_share, n_iter, counters):
-    """HOOI three ways.  Returns the kernel launches of the counted run and
-    the kernel run's per-shape launches."""
+    """HOOI three ways.  Returns the kernel launches of the counted run,
+    ``native_gemm``'s launches in it by route, and the kernel run's
+    per-shape launches."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.sb_gemm import native_gemm
+    from repro_torch.kernels.sb_gemm import native_gemm, native_route
 
     # warm-up of each variant; the kernel's one records what it launches
     launches: dict = {}
@@ -668,11 +820,17 @@ def main_path(T, noise_share, n_iter, counters):
     # the main path: counts to 0 just before, read just after
     for c in counters:
         c.launches = 0
+    native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
     res_k, ms_k = run_hooi(T, n_iter, "kernel")
     counted = {c.__name__: c.launches for c in counters}
+    routes = dict(native_gemm.launches_by_route)
     check(counted["native_gemm"] > 0, "main path launched native_gemm no time")
     check(counted["native_gemm"] == sum(n for n, _ in launches.values()),
           f"launch count {counted} differs from the recorded run's")
+    want_routes = dict.fromkeys(routes, 0)
+    for (a, b, c, *_), (n, (A, B, _)) in launches.items():
+        want_routes[native_route(A, B, a_modes=a, b_modes=b, c_modes=c)] += n
+    check(routes == want_routes, f"main path routes {routes}, native_route gives {want_routes}")
     native_gemm.launches = 0
     results, times = {"kernel": res_k}, {"kernel": [ms_k]}
     for v in ("torch", "conventional", "conventional", "torch", "kernel"):
@@ -700,18 +858,22 @@ def main_path(T, noise_share, n_iter, counters):
             f"(runs {', '.join(f'{t:.3f}' for t in times[v])}), rel_error {rel[v]:.7f}, "
             f"speedup over conventional {med['conventional'] / med[v]:.3f}x")
     log(f"hooi: noise share of ||T|| {noise_share:.7f}; kernel launches per HOOI "
-        f"{counted['native_gemm']}")
-    return counted, launches
+        f"{counted['native_gemm']}, by route {routes}")
+    return counted, routes, launches
 
 
 # ------------------------------------------------------------------- phase 6
 def time_shapes(launches, reps: int = 20) -> dict:
     """Kernel, plain-version and library time at each launch shape of the
-    main path, and the bound; per-HOOI sums weight each shape by its
-    launches."""
-    from repro_torch.kernels.sb_gemm import native_gemm, native_gemm_ref
+    main path, its route and the bound; two launches at each shape must be
+    bit-identical.  The kernel and ``torch.einsum`` are timed both with
+    their calls queued (device time, ``queued_ms``) and back to back (the
+    call with its host time, ``cuda_ms``).  Per-HOOI sums weight each shape
+    by its launches."""
+    from repro_torch.kernels.sb_gemm import native_gemm, native_gemm_ref, native_route
 
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0, flops=0)
+    keys = ("ms", "call_ms", "plain_ms", "library_ms", "library_call_ms", "bound_ms")
+    tot = dict.fromkeys(keys, 0.0) | dict(bytes=0, flops=0)
     worst = 0.0
     for (a, b, c, *_), (n, (A, B, kw)) in sorted(launches.items(), key=lambda x: x[0][:3]):
         out_dtype = kw.get("out_dtype") or torch.promote_types(A.dtype, B.dtype)
@@ -722,29 +884,37 @@ def time_shapes(launches, reps: int = 20) -> dict:
         bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
         by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOP_PER_S else "operations"
         spec = f"{a},{b}->{c}"
-        saved = native_gemm.launches
-        got = native_gemm(A, B, **kw)
+        route = native_route(A, B, a_modes=a, b_modes=b, c_modes=c)
+        saved = native_gemm.launches, dict(native_gemm.launches_by_route)
+        got, again = native_gemm(A, B, **kw), native_gemm(A, B, **kw)
         want = native_gemm_ref(A, B, a_modes=a, b_modes=b, c_modes=c, out_dtype=out_dtype)
+        check(torch.equal(got, again), f"{spec} at {tuple(A.shape)}: two launches differ")
         err = rel_err(got, want)
         check(err <= TOL[torch.float32], f"{spec} at {tuple(A.shape)}: error {err}")
         worst = max(worst, (got.float() - want.float()).abs().max().item())
-        ms = cuda_ms(lambda: native_gemm(A, B, **kw), reps)
-        native_gemm.launches = saved          # comparison launches do not count
+        ms = queued_ms(lambda: native_gemm(A, B, **kw), reps)
+        call_ms = cuda_ms(lambda: native_gemm(A, B, **kw), reps)
+        # comparison launches do not count
+        native_gemm.launches, native_gemm.launches_by_route = saved
         plain = cuda_ms(lambda: native_gemm_ref(A, B, a_modes=a, b_modes=b, c_modes=c,
                                                 out_dtype=out_dtype), reps)
-        lib = cuda_ms(lambda: torch.einsum(spec, A, B), reps)
+        lib = queued_ms(lambda: torch.einsum(spec, A, B), reps)
+        lib_call = cuda_ms(lambda: torch.einsum(spec, A, B), reps)
         log(f"shape {spec} A{tuple(A.shape)}{A.stride()} B{tuple(B.shape)}{B.stride()} "
-            f"x{n}/HOOI: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
-            f"{100 * bound / ms:.1f}% of bound, plain {plain:.4f} ms, einsum {lib:.4f} ms")
-        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bound)):
+            f"x{n}/HOOI [{route}]: kernel {ms:.4f} ms queued ({call_ms:.4f} ms by events), "
+            f"bound {bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of bound; plain "
+            f"{plain:.4f} ms; einsum {lib:.4f} ms queued ({lib_call:.4f} ms by events); "
+            f"two launches bit-identical")
+        for k, v in zip(keys, (ms, call_ms, plain, lib, lib_call, bound)):
             tot[k] += n * v
         tot["bytes"] += n * nbytes
         tot["flops"] += n * flops
     tot["max_abs_err"] = worst
     tot["bound_by"] = ("bytes" if tot["bytes"] / HBM_BYTES_PER_S
                        >= tot["flops"] / F32_FLOP_PER_S else "operations")
-    log(f"native_gemm per HOOI: kernel {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, "
-        f"plain {tot['plain_ms']:.4f} ms, einsum {tot['library_ms']:.4f} ms")
+    log(f"native_gemm per HOOI: kernel {tot['ms']:.4f} ms queued ({tot['call_ms']:.4f} ms by "
+        f"events), bound {tot['bound_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, einsum "
+        f"{tot['library_ms']:.4f} ms queued ({tot['library_call_ms']:.4f} ms by events)")
     return tot
 
 
@@ -1058,11 +1228,13 @@ def main() -> int:
         f"and loaded in {time.perf_counter() - t0:.2f} s")
     flash_kernel_info()
     grouped_kernel_info()
+    native_kernel_info()
 
     check_table2(dev)
     check_layoutfuzz(dev)
     check_grads(dev)
     check_small_hooi(dev)
+    check_native_routes(dev)
     check_grouped(dev)
     check_flash(dev)
 
@@ -1072,7 +1244,7 @@ def main() -> int:
     working_set = list({s: d for s, d, _ in rec}.items())
     check_copy_freedom(dev, working_set)
 
-    counted, launches = main_path(T, noise_share, args.n_iter, counters)
+    counted, routes, launches = main_path(T, noise_share, args.n_iter, counters)
     check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
           f"HOOI launched another kernel: {counted}")
     tot = time_shapes(launches)
@@ -1084,7 +1256,8 @@ def main() -> int:
             "library_ms")
     records = {
         "native_gemm": ("sb_gemm.cu", "sb_gemm.py:87",
-                        {**tot, "launches": counted["native_gemm"]}),
+                        {**tot, "launches": counted["native_gemm"],
+                         "launches_by_route": routes}),
         "grouped_gemm": ("grouped_gemm.cu", "grouped_gemm.py:248",
                          grouped_path(dev, args.seed, counters)),
         "flash_attention": ("flash_attn.cu", "flash_attn.py:79",
@@ -1093,7 +1266,9 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}",
                 "replaces": f"src/repro/kernels/{tpu}",
-                **{k: rec[k] for k in keys}}
+                **{k: rec[k] for k in keys},
+                **({"launches_by_route": rec["launches_by_route"]}
+                   if "launches_by_route" in rec else {})}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on its path")

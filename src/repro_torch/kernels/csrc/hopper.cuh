@@ -4,9 +4,9 @@
 // warpgroup fences around a wgmma batch, the bf16 wgmma with both operands
 // in shared memory, and the tensor-map encoder fetched through the CUDA
 // runtime (so no library links against libcuda).  Included by
-// flash_attn.cu and grouped_gemm.cu; each builds into its own library, so
-// everything here is inline or static.  _build.py hashes this header with
-// every source, so a change here rebuilds both.
+// flash_attn.cu, grouped_gemm.cu and sb_gemm.cu; each builds into its own
+// library, so everything here is inline or static.  _build.py hashes this
+// header with every source, so a change here rebuilds all of them.
 
 #pragma once
 
@@ -212,20 +212,29 @@ static HpEncodeFn hp_encoder() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (innermost first) with byte
-// strides of dimensions 1.., read in boxes of 64 innermost elements (one
-// 128-byte swizzle span) with the 128-byte swizzle; out-of-range elements
-// read as zero.  Returns 0, HP_ERR_ENTRY or HP_ERR_ENCODE - CUresult.
-static int hp_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                  const cuuint64_t* strides, const cuuint32_t* box) {
+// A tensor map of `rank` dimensions (innermost first) of element type
+// `type`, with byte strides of dimensions 1.., read in boxes of `box`
+// elements under `swizzle`; out-of-range elements read as zero.  Returns 0,
+// HP_ERR_ENTRY or HP_ERR_ENCODE - CUresult.
+static int hp_map_as(CUtensorMap* map, CUtensorMapDataType type, CUtensorMapSwizzle swizzle,
+                     const void* ptr, int rank, const cuuint64_t* dims,
+                     const cuuint64_t* strides, const cuuint32_t* box) {
   const HpEncodeFn encode = hp_encoder();
   if (!encode) return HP_ERR_ENTRY;
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r =
-      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
-             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : HP_ERR_ENCODE - (int)r;
+}
+
+// A bf16 tensor map read in boxes of 64 innermost elements (one 128-byte
+// swizzle span) with the 128-byte swizzle.
+static int hp_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                  const cuuint64_t* strides, const cuuint32_t* box) {
+  return hp_map_as(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_128B, ptr, rank,
+                   dims, strides, box);
 }
 
 // Text for a code returned by a launch: a cudaError_t or an HP_ERR_ code.

@@ -19,13 +19,24 @@
 // Strides come straight from tensor.stride(), so transposed, sliced and
 // stride-0 views are read in place: no operand is permuted or copied.
 //
-// Tiling.  One block of 256 threads owns a BM x BN tile of (u, v) (128 x 16
-// when v is at most 16 wide, as at the HOOI ranks, else 64 x 64) and loops
-// over K in stages.  Each stage stages one "brick" per operand in shared
-// memory, over only the tile dimensions the operand carries, converted to
-// f32; loads put neighbouring threads on the operand's smallest-stride
-// brick dimension, so the big operand's reads coalesce whichever of its
-// modes is stride-1.  Two kernels share this design:
+// Routes.  The wrapper's native_route picks one from layout and extents
+// alone (no fallback: a route that cannot build or launch raises):
+//   generic  (ng_outer_kernel, ng_kernel) every layout: bf16 operands,
+//            batch modes, several contracted modes, the Table II cases;
+//   stream   (ns_read_kernel, nw_kernel) float32 with one big side and a
+//            narrow other one, e.g. the HOOI contractions of the 512^3
+//            tensor with a rank-10 factor;
+//   splitk   (nk_kernel, nk_reduce) float32 with a narrow output and a
+//            long contraction, e.g. HOOI's contractions of the 512x512x10
+//            intermediates.
+//
+// Generic tiling.  One block of 256 threads owns a BM x BN tile of (u, v)
+// (128 x 16 when v is at most 16 wide, else 64 x 64) and loops over K in
+// stages.  Each stage stages one "brick" per operand in shared memory,
+// over only the tile dimensions the operand carries, converted to f32;
+// loads put neighbouring threads on the operand's smallest-stride brick
+// dimension, so the big operand's reads coalesce whichever of its modes
+// is stride-1.  Two kernels share this design:
 //   ng_outer_kernel  the common GEMM shape (A varies along u, B along v,
 //                    both along one contracted mode): 2D bricks of
 //                    compile-time size, and the next stage loaded into
@@ -38,15 +49,29 @@
 // axes and VMEM accumulator become the in-block K loop: no state crosses
 // blocks.
 //
-// Bound.  At the HOOI shapes the kernel is memory-bound: "mnp,pk->mnk" at
-// n=512, r=10 reads ~537 MB and does 2.7 GFLOP, ~0.16 ms at 3.35 TB/s,
-// while f32 outside the tensor cores peaks at 67 TFLOP/s.  The loads are
-// plain (no TMA) and a narrow output gives few blocks; TMA, wgmma for
-// bf16, a deeper pipeline and split-K for small outputs are later work.
+// Bounds on an H100 (3.35 TB/s; 67 TFLOP/s of f32 FMA).  At the HOOI
+// shapes every route is far below the f32 ridge (about 5 flop per byte at
+// the biggest shapes against 20), so bytes bound them all:
+//   stream   reads (or, in the write kind, writes) the 537 MB tensor once:
+//            0.163 ms.  The big operand goes through a 3-stage TMA ring of
+//            64 KB stages per SM (write kind: 16-byte stores from
+//            registers), the narrow side sits in shared memory or in
+//            registers, and each thread owns whole output rows (two in
+//            the read kind), so no column is padded to a tile.
+//            Persistent blocks keep the ring full across tiles.
+//   splitk   reads a 10 MB operand for a 0.2 MB output: 0.003 ms, so launch
+//            latency and parallelism bound it.  The tile spans the narrow
+//            output mode whole, and the contraction is split across blocks
+//            until there are about 8 blocks per SM, with partial sums
+//            reduced in a fixed order by a second kernel (no atomics).
+//   generic  the remaining layouts at the tile sizes above; its loads are
+//            plain, not TMA, and bf16 never reaches wgmma here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 #define NG_MAX_MODES 8
 #define NG_THREADS 256
@@ -400,6 +425,518 @@ extern "C" int ng_launch(const void* A, const void* B, void* C, const NgDesc* d,
   return ng_launch_c<__nv_bfloat16, __nv_bfloat16>(A, B, C, *d, tc, st);
 }
 
-extern "C" const char* ng_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+// ===================================================== routes stream and splitk
+//
+// Both take float32 operands in which one operand W carries the contracted
+// mode k and one narrow mode (the wrapper's native_route finds them):
+//   read kind   C[m, r] = sum_k X[m, k] W[k, r], r at most NR_NARROW wide, m
+//               every other C mode (up to 3, decoded innermost first);
+//   write kind  C[m, p] = sum_k X[m, k] W[p, k], k at most NR_NARROW deep, p
+//               C's minor-most mode.
+// Every output element is summed by one thread in a fixed order, or, split
+// over k, from partial sums reduced in a fixed order: the same inputs give
+// the same bits on every launch.
+
+#define NR_NARROW 16
+
+struct NrDesc {
+  int64_t m_ext[3], m_xs[3], m_cs[3];  // the C modes of X, innermost first
+  int64_t M, K, xk, wk, R, wr, cr;     // rows (product of m_ext), k, r
+  int32_t n_m, kc, n_split, rp;        // splitk: k per split, splits; r padded to 4
+};
+
+struct NwDesc {
+  int64_t M, P, K, xm, xk, wp, wk, cm;  // C[m * cm + p]
+};
+
+// acc[r] += x * w[r] for r < RP, w 16-byte aligned in shared memory (every
+// thread reads the same w: a broadcast).
+template <int RP>
+__device__ __forceinline__ void nr_fma(float (&acc)[RP], float x, const float* w) {
+#pragma unroll
+  for (int q = 0; q < RP / 4; ++q) {
+    const float4 w4 = *reinterpret_cast<const float4*>(w + 4 * q);
+    acc[4 * q] = fmaf(x, w4.x, acc[4 * q]);
+    acc[4 * q + 1] = fmaf(x, w4.y, acc[4 * q + 1]);
+    acc[4 * q + 2] = fmaf(x, w4.z, acc[4 * q + 2]);
+    acc[4 * q + 3] = fmaf(x, w4.w, acc[4 * q + 3]);
+  }
 }
+
+template <int RP, typename TC>
+__device__ __forceinline__ void nr_store_row(TC* __restrict__ C, int64_t co, const NrDesc& d,
+                                             const float (&acc)[RP]) {
+#pragma unroll
+  for (int r = 0; r < RP; ++r)
+    if (r < d.R) C[co + r * d.cr] = ng_from_f32<TC>(acc[r]);
+}
+
+// ---------------------------------------------------------- stream, read kind
+// One C mode m of at least one tile per SM, X read through a 2-D tensor
+// map.  Persistent: each block walks tiles blockIdx.x, + gridDim.x, ...; a
+// producer warp keeps NS_STAGES stages in flight across tile boundaries,
+// each NS_RPT boxes of NS_TU rows x NS_BK k (64 KB), and each of NS_TU
+// consumer threads owns NS_RPT rows of C (t and t + NS_TU of the tile) with
+// their R sums in registers, so one broadcast read of W feeds NS_RPT rows.
+// W (k-padded, zero past K and R) sits in shared memory for the whole
+// launch.
+#define NS_TU 256  // consumer threads; rows per box
+#define NS_RPT 2   // rows per consumer thread: boxes per stage
+#define NS_BK 32   // 32 f32 = one 128-byte swizzle span
+#define NS_STAGES 3
+#define NS_THREADS (NS_TU + 32)
+#define NS_BOX_BYTES (NS_TU * NS_BK * 4)
+#define NS_STAGE_BYTES (NS_RPT * NS_BOX_BYTES)
+#define NS_TILE (NS_RPT * NS_TU)  // rows per tile
+#define NS_W_BYTES_MAX (32 * 1024)  // with the ring: 230,448 of 232,448 bytes
+
+static size_t ns_smem_bytes(int64_t K, int rp) {
+  const int64_t kpad = (K + NS_BK - 1) / NS_BK * NS_BK;
+  return 1024 + (size_t)NS_STAGES * NS_STAGE_BYTES + (size_t)kpad * rp * 4 + 16 * NS_STAGES;
+}
+
+// KFAST: X's k is stride-1; a box is [NS_TU rows][32 k] under the
+// 128-byte swizzle (16-byte chunk c of row t at chunk c ^ (t % 8)), so
+// thread t's float4 reads of its own row hit 8 distinct chunks per 8
+// lanes: no bank conflict.  Otherwise m is stride-1 and a box is [32
+// k][NS_TU rows]: thread t reads column t, conflict-free.
+template <int RP, bool KFAST, typename TC>
+__global__ void __launch_bounds__(NS_THREADS, 1)
+ns_read_kernel(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ W,
+               TC* __restrict__ C, const NrDesc d, int n_tiles) {
+  extern __shared__ uint8_t ns_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(ns_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  float* ring = reinterpret_cast<float*>(sm);
+  float* wsm = reinterpret_cast<float*>(sm + NS_STAGES * NS_STAGE_BYTES);
+  const int kpad = (int)((d.K + NS_BK - 1) / NS_BK * NS_BK);
+  uint64_t* full = reinterpret_cast<uint64_t*>(wsm + kpad * RP);
+  uint64_t* empty = full + NS_STAGES;
+
+  for (int e = threadIdx.x; e < kpad * RP; e += NS_THREADS) {
+    const int k = e / RP, r = e % RP;
+    wsm[e] = k < d.K && r < d.R ? W[k * d.wk + r * d.wr] : 0.f;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS_STAGES; ++s) {
+      hp_bar_init(&full[s], 1);
+      hp_bar_init(&empty[s], NS_TU / 32);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int n_k = kpad / NS_BK;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x >= NS_TU) {  // producer warp: lane 0 issues every copy
+    if (lane == 0) {
+      int64_t it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+        for (int kb = 0; kb < n_k; ++kb, ++it) {
+          const int s = (int)(it % NS_STAGES);
+          if (it >= NS_STAGES) hp_bar_wait(&empty[s], (int)((it / NS_STAGES - 1) & 1));
+          float* dst = ring + s * (NS_STAGE_BYTES / 4);
+          hp_bar_expect(&full[s], NS_STAGE_BYTES);
+#pragma unroll
+          for (int b = 0; b < NS_RPT; ++b) {
+            const int m0 = tile * NS_TILE + b * NS_TU;
+            if (KFAST) hp_tma_load(dst + b * (NS_BOX_BYTES / 4), &xmap, &full[s], kb * NS_BK, m0);
+            else hp_tma_load(dst + b * (NS_BOX_BYTES / 4), &xmap, &full[s], m0, kb * NS_BK);
+          }
+        }
+    }
+    return;
+  }
+
+  const int t = threadIdx.x;
+  int64_t it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    float acc[NS_RPT][RP];
+#pragma unroll
+    for (int b = 0; b < NS_RPT; ++b)
+#pragma unroll
+      for (int r = 0; r < RP; ++r) acc[b][r] = 0.f;
+    for (int kb = 0; kb < n_k; ++kb, ++it) {
+      const int s = (int)(it % NS_STAGES);
+      hp_bar_wait(&full[s], (int)((it / NS_STAGES) & 1));
+      const float* xs = ring + s * (NS_STAGE_BYTES / 4);
+      const float* w = wsm + kb * NS_BK * RP;
+      if (KFAST) {
+#pragma unroll
+        for (int c = 0; c < NS_BK / 4; ++c) {
+          float4 x4[NS_RPT];
+#pragma unroll
+          for (int b = 0; b < NS_RPT; ++b)
+            x4[b] = *reinterpret_cast<const float4*>(xs + b * (NS_BOX_BYTES / 4) + t * NS_BK +
+                                                     4 * (c ^ (t % 8)));
+#pragma unroll
+          for (int b = 0; b < NS_RPT; ++b) nr_fma<RP>(acc[b], x4[b].x, w + (4 * c) * RP);
+#pragma unroll
+          for (int b = 0; b < NS_RPT; ++b) nr_fma<RP>(acc[b], x4[b].y, w + (4 * c + 1) * RP);
+#pragma unroll
+          for (int b = 0; b < NS_RPT; ++b) nr_fma<RP>(acc[b], x4[b].z, w + (4 * c + 2) * RP);
+#pragma unroll
+          for (int b = 0; b < NS_RPT; ++b) nr_fma<RP>(acc[b], x4[b].w, w + (4 * c + 3) * RP);
+        }
+      } else {
+#pragma unroll 8
+        for (int kk = 0; kk < NS_BK; ++kk)
+#pragma unroll
+          for (int b = 0; b < NS_RPT; ++b)
+            nr_fma<RP>(acc[b], xs[b * (NS_BOX_BYTES / 4) + kk * NS_TU + t], w + kk * RP);
+      }
+      __syncwarp();
+      if (lane == 0) hp_bar_arrive(&empty[s]);
+    }
+#pragma unroll
+    for (int b = 0; b < NS_RPT; ++b) {
+      const int64_t m = (int64_t)tile * NS_TILE + b * NS_TU + t;
+      if (m < d.M) nr_store_row<RP, TC>(C, m * d.m_cs[0], d, acc[b]);
+    }
+  }
+}
+
+// --------------------------------------------------------- stream, write kind
+// C (M, P) with P stride-1, k at most NR_NARROW deep.  Each warp owns 128
+// columns (4 per lane) with its lanes' W[p, 0..K) in registers, loaded once
+// per block; a block stages NW_TU rows of X in shared memory and writes
+// them out, 16 bytes per lane where P allows.  Persistent over row tiles.
+#define NW_TU 64
+#define NW_THREADS 256
+
+template <typename TC> __device__ __forceinline__ void nw_store4(TC* p, const float (&a)[4]);
+template <> __device__ __forceinline__ void nw_store4<float>(float* p, const float (&a)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+}
+template <>
+__device__ __forceinline__ void nw_store4<__nv_bfloat16>(__nv_bfloat16* p, const float (&a)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a[0], a[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(a[2], a[3]);
+  uint2 v;
+  v.x = *reinterpret_cast<const uint32_t*>(&lo);
+  v.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = v;
+}
+
+template <typename TC>
+__global__ void __launch_bounds__(NW_THREADS)
+nw_kernel(const float* __restrict__ X, const float* __restrict__ W, TC* __restrict__ C,
+          const NwDesc d, int cw_blk, int64_t n_tiles) {
+  __shared__ float xs[NR_NARROW * NW_TU];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int chunk = warp % cw_blk, phase = warp / cw_blk, n_phase = NW_THREADS / 32 / cw_blk;
+  const int64_t p0 = ((int64_t)blockIdx.y * cw_blk + chunk) * 128 + 4 * lane;
+  float w[NR_NARROW][4];
+#pragma unroll
+  for (int k = 0; k < NR_NARROW; ++k)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[k][j] = k < d.K && p0 + j < d.P ? W[(p0 + j) * d.wp + k * d.wk] : 0.f;
+  const bool vec = d.P % 4 == 0 && d.cm % 4 == 0;  // 4 columns start 4-element aligned
+  const int K = (int)d.K;
+
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int64_t u0 = tile * NW_TU;
+    __syncthreads();  // the previous tile's rows are read
+    for (int e = threadIdx.x; e < K * NW_TU; e += NW_THREADS) {
+      const int k = e / NW_TU, r = e % NW_TU;
+      xs[e] = u0 + r < d.M ? X[(u0 + r) * d.xm + k * d.xk] : 0.f;
+    }
+    __syncthreads();
+    if (p0 >= d.P) continue;
+    for (int r = phase; r < NW_TU && u0 + r < d.M; r += n_phase) {
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < NR_NARROW; ++k) {
+        if (k < K) {
+          const float x = xs[k * NW_TU + r];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) a[j] = fmaf(x, w[k][j], a[j]);
+        }
+      }
+      TC* c = C + (u0 + r) * d.cm + p0;
+      if (vec) {
+        nw_store4<TC>(c, a);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (p0 + j < d.P) c[j] = ng_from_f32<TC>(a[j]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------- splitk
+// Few rows (fewer than one stream tile per SM), a long k: a block of
+// NK_TU threads owns NK_TU rows, one each, over k range blockIdx.y * kc ..
+// + kc, reading X straight from global memory NK_UNROLL loads at a time
+// (rows innermost-first, so neighbouring threads read neighbouring
+// addresses where X's innermost C mode is stride-1) against W staged in
+// shared memory NK_WROWS k at a time.  One split writes C; several write
+// f32 partial sums to the workspace [split][r][m], which nk_reduce sums in
+// split order and casts.
+#define NK_TU 128
+#define NK_UNROLL 16
+#define NK_WROWS 256
+
+template <int RP, typename TC>
+__global__ void __launch_bounds__(NK_TU)
+nk_kernel(const float* __restrict__ X, const float* __restrict__ W, TC* __restrict__ C,
+          float* __restrict__ ws, const NrDesc d) {
+  __shared__ __align__(16) float wsm[NK_WROWS * RP];
+  const int64_t k0 = (int64_t)blockIdx.y * d.kc;
+  const int kn = (int)(d.K - k0 < d.kc ? d.K - k0 : d.kc);
+  const int64_t m = (int64_t)blockIdx.x * NK_TU + threadIdx.x;
+  const bool live = m < d.M;
+  int64_t xo = 0, co = 0, rem = m;
+  for (int i = 0; i < d.n_m; ++i) {
+    const int64_t idx = rem % d.m_ext[i];
+    rem /= d.m_ext[i];
+    xo += idx * d.m_xs[i];
+    co += idx * d.m_cs[i];
+  }
+  const float* x = X + xo + k0 * d.xk;
+  float acc[RP];
+#pragma unroll
+  for (int r = 0; r < RP; ++r) acc[r] = 0.f;
+
+  for (int kb = 0; kb < kn; kb += NK_WROWS) {
+    const int nb = kn - kb < NK_WROWS ? kn - kb : NK_WROWS;
+    __syncthreads();  // the previous W rows are read
+    for (int e = threadIdx.x; e < nb * RP; e += NK_TU) {
+      const int k = e / RP, r = e % RP;
+      wsm[e] = r < d.R ? W[(k0 + kb + k) * d.wk + r * d.wr] : 0.f;
+    }
+    __syncthreads();
+    if (!live) continue;
+    const float* xb = x + kb * d.xk;
+    int k = 0;
+    for (; k + NK_UNROLL <= nb; k += NK_UNROLL) {
+      float v[NK_UNROLL];
+#pragma unroll
+      for (int j = 0; j < NK_UNROLL; ++j) v[j] = __ldg(xb + (k + j) * d.xk);
+#pragma unroll
+      for (int j = 0; j < NK_UNROLL; ++j) nr_fma<RP>(acc, v[j], wsm + (k + j) * RP);
+    }
+    for (; k < nb; ++k) nr_fma<RP>(acc, __ldg(xb + k * d.xk), wsm + k * RP);
+  }
+  if (!live) return;
+  if (d.n_split == 1) {
+    nr_store_row<RP, TC>(C, co, d, acc);
+  } else {
+#pragma unroll
+    for (int r = 0; r < RP; ++r)
+      if (r < d.R) ws[((int64_t)blockIdx.y * d.R + r) * d.M + m] = acc[r];
+  }
+}
+
+template <typename TC>
+__global__ void __launch_bounds__(256)
+nk_reduce(const float* __restrict__ ws, TC* __restrict__ C, const NrDesc d) {
+  const int64_t i = (int64_t)blockIdx.x * 256 + threadIdx.x, plane = d.R * d.M;
+  if (i >= plane) return;
+  float sum = 0.f;
+  for (int s = 0; s < d.n_split; ++s) sum += ws[s * plane + i];
+  const int64_t r = i / d.M;
+  int64_t rem = i % d.M, co = r * d.cr;
+  for (int j = 0; j < d.n_m; ++j) {
+    co += rem % d.m_ext[j] * d.m_cs[j];
+    rem /= d.m_ext[j];
+  }
+  C[co] = ng_from_f32<TC>(sum);
+}
+
+// ------------------------------------------------------------- host launches
+static int nr_sm_count() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+// The stream read kernel for (RP, KFAST, TC), as a function pointer.
+template <typename TC> static const void* ns_read_fn(int rp, bool kfast) {
+#define NS_FN(R_)                                                                   \
+  if (rp == R_)                                                                     \
+    return kfast ? (const void*)ns_read_kernel<R_, true, TC>                        \
+                 : (const void*)ns_read_kernel<R_, false, TC>;
+  NS_FN(4) NS_FN(8) NS_FN(12) NS_FN(16)
+#undef NS_FN
+  return nullptr;
+}
+
+template <int RP, typename TC>
+static void ns_read_go(bool kfast, unsigned grid, size_t smem, cudaStream_t st,
+                       const CUtensorMap& map, const float* W, TC* C, const NrDesc& d,
+                       int n_tiles) {
+  if (kfast) ns_read_kernel<RP, true, TC><<<grid, NS_THREADS, smem, st>>>(map, W, C, d, n_tiles);
+  else ns_read_kernel<RP, false, TC><<<grid, NS_THREADS, smem, st>>>(map, W, C, d, n_tiles);
+}
+
+template <typename TC>
+static int ns_read_launch(const void* X, const void* W, void* C, const NrDesc& d,
+                          cudaStream_t st) {
+  const bool kfast = d.xk == 1;
+  const int64_t xm = d.m_xs[0], other = kfast ? xm : d.xk;
+  if (d.n_m != 1 || (!kfast && xm != 1) || other <= 0 || other % 4 || (uintptr_t)X % 16 ||
+      d.M >= ((int64_t)1 << 31) || d.K >= ((int64_t)1 << 31) ||
+      (int64_t)((d.K + NS_BK - 1) / NS_BK * NS_BK) * d.rp * 4 > NS_W_BYTES_MAX)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)(kfast ? d.K : d.M), (cuuint64_t)(kfast ? d.M : d.K)};
+  const cuuint64_t strides[1] = {(cuuint64_t)other * 4};
+  const cuuint32_t box[2] = {kfast ? NS_BK : NS_TU, kfast ? NS_TU : NS_BK};
+  int rc = hp_map_as(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                     kfast ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE, X, 2, dims,
+                     strides, box);
+  if (rc) return rc;
+  const void* fn = ns_read_fn<TC>(d.rp, kfast);
+  if (!fn) return (int)cudaErrorInvalidValue;
+  // once per kernel: room for the largest W; the ring alone holds one
+  // block per SM, so the persistent grid is one block per SM
+  static bool sized[2][NR_NARROW / 4];
+  if (!sized[kfast][d.rp / 4 - 1]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)ns_smem_bytes(NS_W_BYTES_MAX / (4 * NR_NARROW), NR_NARROW));
+    if (err != cudaSuccess) return (int)err;
+    sized[kfast][d.rp / 4 - 1] = true;
+  }
+  const size_t smem = ns_smem_bytes(d.K, d.rp);
+  const int n_tiles = (int)((d.M + NS_TILE - 1) / NS_TILE);
+  const int sms = nr_sm_count();
+  const unsigned grid = (unsigned)(n_tiles < sms ? n_tiles : sms);
+  const float* w = (const float*)W;
+  TC* c = (TC*)C;
+  switch (d.rp) {
+    case 4: ns_read_go<4, TC>(kfast, grid, smem, st, map, w, c, d, n_tiles); break;
+    case 8: ns_read_go<8, TC>(kfast, grid, smem, st, map, w, c, d, n_tiles); break;
+    case 12: ns_read_go<12, TC>(kfast, grid, smem, st, map, w, c, d, n_tiles); break;
+    default: ns_read_go<16, TC>(kfast, grid, smem, st, map, w, c, d, n_tiles); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename TC>
+static int nw_launch_t(const void* X, const void* W, void* C, const NwDesc& d, cudaStream_t st) {
+  const int64_t n_cw = (d.P + 127) / 128;
+  int cw_blk = 1;
+  while (cw_blk < n_cw && cw_blk < NW_THREADS / 32) cw_blk *= 2;
+  const int64_t gy = (n_cw + cw_blk - 1) / cw_blk, n_tiles = (d.M + NW_TU - 1) / NW_TU;
+  static int per_sm = 0;  // blocks per SM, asked once
+  if (!per_sm) {
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, nw_kernel<TC>, NW_THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) per_sm = 1;
+  }
+  const int64_t slots = (int64_t)nr_sm_count() * per_sm;
+  const int64_t gx = n_tiles < slots ? n_tiles : slots;
+  if (gy >= 65536) return (int)cudaErrorInvalidValue;
+  nw_kernel<TC><<<dim3((unsigned)gx, (unsigned)gy), NW_THREADS, 0, st>>>(
+      (const float*)X, (const float*)W, (TC*)C, d, cw_blk, n_tiles);
+  return (int)cudaGetLastError();
+}
+
+template <int RP, typename TC>
+static void nk_go(const void* X, const void* W, void* C, void* ws, const NrDesc& d, dim3 grid,
+                  cudaStream_t st) {
+  nk_kernel<RP, TC><<<grid, NK_TU, 0, st>>>((const float*)X, (const float*)W, (TC*)C,
+                                            (float*)ws, d);
+}
+
+template <typename TC>
+static int nk_launch_t(const void* X, const void* W, void* C, void* ws, const NrDesc& d,
+                       cudaStream_t st) {
+  const int64_t gx = (d.M + NK_TU - 1) / NK_TU;
+  if (gx >= ((int64_t)1 << 31) || d.n_split >= 65536 || d.kc < 1 ||
+      (int64_t)d.kc * d.n_split < d.K || (d.n_split > 1 && !ws))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)gx, (unsigned)d.n_split);
+  switch (d.rp) {
+    case 4: nk_go<4, TC>(X, W, C, ws, d, grid, st); break;
+    case 8: nk_go<8, TC>(X, W, C, ws, d, grid, st); break;
+    case 12: nk_go<12, TC>(X, W, C, ws, d, grid, st); break;
+    default: nk_go<16, TC>(X, W, C, ws, d, grid, st); break;
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || d.n_split == 1) return (int)err;
+  const int64_t n = d.R * d.M;
+  nk_reduce<TC><<<(unsigned)((n + 255) / 256), 256, 0, st>>>((const float*)ws, (TC*)C, d);
+  return (int)cudaGetLastError();
+}
+
+static bool nr_valid(const NrDesc* d, int tc) {
+  return tc >= 0 && tc <= 1 && d->n_m >= 1 && d->n_m <= 3 && d->R >= 1 &&
+         d->R <= NR_NARROW && d->rp >= d->R && d->rp % 4 == 0 && d->rp <= NR_NARROW &&
+         d->K >= 1 && d->M >= 1;
+}
+
+// Route "stream", read kind: X float32 with one C mode and a 2-D tensor map
+// (m or k stride-1, the other stride a multiple of 4 elements, 16-byte
+// aligned base).  Type code tc: 0 = float32, 1 = bfloat16 output.  Returns
+// a cudaError_t value or an HP_ERR_ code (hopper.cuh).
+extern "C" int ns_launch_read(const void* X, const void* W, void* C, const NrDesc* d, int tc,
+                              void* stream) {
+  if (!nr_valid(d, tc)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tc == 0) return ns_read_launch<float>(X, W, C, *d, st);
+  return ns_read_launch<__nv_bfloat16>(X, W, C, *d, st);
+}
+
+// Route "stream", write kind: float32 X and W, k at most NR_NARROW deep.
+extern "C" int ns_launch_write(const void* X, const void* W, void* C, const NwDesc* d, int tc,
+                               void* stream) {
+  if (tc < 0 || tc > 1 || d->K < 1 || d->K > NR_NARROW || d->M < 1 || d->P < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tc == 0) return nw_launch_t<float>(X, W, C, *d, st);
+  return nw_launch_t<__nv_bfloat16>(X, W, C, *d, st);
+}
+
+// Route "splitk": float32 X and W; `ws` holds n_split * R * M floats when
+// n_split > 1 (else it may be null).
+extern "C" int nk_launch(const void* X, const void* W, void* C, void* ws, const NrDesc* d,
+                         int tc, void* stream) {
+  if (!nr_valid(d, tc)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tc == 0) return nk_launch_t<float>(X, W, C, ws, *d, st);
+  return nk_launch_t<__nv_bfloat16>(X, W, C, ws, *d, st);
+}
+
+// Registers, local (spilled) bytes per thread and shared bytes per block of
+// one float32-output kernel of the new routes: kind 0 stream read with m
+// stride-1, 1 stream read with k stride-1 (both at depth K, dynamic shared
+// memory), 2 stream write, 3 splitk, 4 its reduction (static shared
+// memory); rp is the padded r of kinds 0, 1 and 3.
+extern "C" int nr_info(int kind, int rp, int64_t K, int* out) {
+  const void* fn = nullptr;
+  size_t smem = 0;
+  if (kind == 0 || kind == 1) {
+    fn = ns_read_fn<float>(rp, kind == 1);
+    smem = ns_smem_bytes(K, rp);
+  } else if (kind == 2) {
+    fn = (const void*)nw_kernel<float>;
+  } else if (kind == 3) {
+    if (rp == 4) fn = (const void*)nk_kernel<4, float>;
+    if (rp == 8) fn = (const void*)nk_kernel<8, float>;
+    if (rp == 12) fn = (const void*)nk_kernel<12, float>;
+    if (rp == 16) fn = (const void*)nk_kernel<16, float>;
+  } else if (kind == 4) {
+    fn = (const void*)nk_reduce<float>;
+  }
+  if (!fn) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)(smem ? smem : attr.sharedSizeBytes);
+  return 0;
+}
+
+extern "C" const char* ng_error_string(int code) { return hp_error_string(code); }

@@ -24,7 +24,8 @@ from repro_torch.core.planner import make_plan
 from repro_torch.kernels import ops
 from repro_torch.kernels.ext_gemm import ext_gemm
 from repro_torch.kernels.ref import ref_contract
-from repro_torch.kernels.sb_gemm import MAX_MODES, native_gemm, native_gemm_ref
+from repro_torch.kernels.sb_gemm import (
+    MAX_MODES, STREAM_MIN_ROWS, native_gemm, native_gemm_ref, native_route)
 
 # small shapes: one intra-op thread each keeps parallel test workers from
 # oversubscribing the CPU
@@ -213,14 +214,34 @@ def test_cpu_tensor_takes_the_plain_version():
 
 @pytest.mark.gpu
 def test_kernel_matches_plain_version_on_the_card():
+    """Every Table II case (the generic route), then a case of each other
+    route at ragged extents, each launching the route ``native_route``
+    gives."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
     dims = {"m": 383, "n": 257, "p": 47, "k": 321}
+    cases = []
     for label in sorted(CASES):
         rm = CASES[label].row_major()
-        cs = parse_spec(rm)
         An, Bn = _operands(np.random.default_rng(4), rm, dims)
-        A, B = torch.from_numpy(An).cuda(), torch.from_numpy(Bn).cuda()
-        got = contract(rm, A, B, strategy="native")
-        want = native_gemm_ref(A, B, a_modes=cs.a_modes, b_modes=cs.b_modes, c_modes=cs.c_modes)
-        torch.testing.assert_close(got, want, **F32)
+        cases.append((rm, torch.from_numpy(An).cuda(), torch.from_numpy(Bn).cuda(), "generic"))
+    rng = np.random.default_rng(5)
+    rows = STREAM_MIN_ROWS + 36
+    for spec, sa, sb, route in (("mn,mi->ni", (77, rows), (77, 10), "stream"),
+                                ("km,pk->mp", (16, rows), (130, 16), "stream"),
+                                ("npi,nj->ijp", (300, 37, 10), (300, 1), "splitk"),
+                                ("mnk,nj->mjk", (77, 300, 7), (300, 16), "splitk")):
+        A, B = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
+                for s in (sa, sb))
+        cases.append((spec, A, B, route))
+    for spec, A, B, route in cases:
+        cs = parse_spec(spec)
+        modes = dict(a_modes=cs.a_modes, b_modes=cs.b_modes, c_modes=cs.c_modes)
+        before = native_gemm.launches_by_route[route]
+        if route == "generic":
+            got = contract(spec, A, B, strategy="native")
+        else:
+            assert native_route(A, B, **modes) == route
+            got = native_gemm(A, B, **modes)
+        assert native_gemm.launches_by_route[route] > before, (spec, route)
+        torch.testing.assert_close(got, native_gemm_ref(A, B, **modes), **F32)
