@@ -10,8 +10,10 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    (``sb_gemm.cu``, ``grouped_gemm.cu``, ``flash_attn.cu``; the last two
    include ``hopper.cuh``, and so does ``sb_gemm.cu``) with nvcc, one
    process each, all at once; prints the registers, spills and shared
-   memory of the two wgmma kernels (attention and grouped) and of the
-   ``stream`` and ``splitk`` kernels of ``native_gemm``.
+   memory of the wgmma and fma kernels (attention at D = 64, 128, 256;
+   grouped for each type) and of the ``stream`` and ``splitk`` kernels of
+   ``native_gemm``; no fma kernel may spill, and each must have the shared
+   memory its plan (``fma_tiles``, ``KERNEL_TILES``) gives.
 3. Kernel vs plain version on the card: the 36 Table II cases (native and
    batched strategies, f32 and bf16, ragged dims), the 8 exceptional cases
    through ``ext_gemm``, the 100-spec layout-fuzz stream (integer-valued,
@@ -21,14 +23,16 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    extents (narrow widths 1, 10 and 16, depths and rows off the stage and
    tile sizes, bf16 output, integer-valued bit-identical), each launched
    twice and bit-identical; ``grouped_gemm`` on
-   the grouped cases of ``tests/test_runtime.py`` and the fig14 ragged
-   set, then every ragged case again in bf16 under the default tiles
+   the grouped cases of ``tests/test_runtime.py``, mixed bf16 x f32
+   operands and the fig14 ragged set, then every ragged case again in
+   bf16 under the default tiles
    (bf16 and f32 output), each case held to the route it must take
    (``wgmma`` for bf16 whose depths pack to multiples of 64, ``fma``
    otherwise); ``flash_attention`` on the grid of ``tests/test_flash_attn.py``,
-   the GQA fold, causal cross attention, wide-range scores and strided
-   operands, each case held to the route it must take (``wgmma`` for every
-   bf16 layout TMA can read, ``fma`` otherwise).
+   the GQA fold, causal cross attention, wide-range scores (f32 and bf16),
+   float32 at S off the fma query tile and strided operands, each case
+   held to the route it must take (``wgmma`` for every bf16 layout TMA can
+   read, ``fma`` otherwise).
 4. Copy-freedom: the kernel path moves no data; the conventional baseline
    makes at least its counted transposes.
 5. Main path: Tucker HOOI on a low-rank-plus-noise float32 tensor of
@@ -47,11 +51,15 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    skewed routing that leaves one expert empty, through ``grouped_matmul``
    in f32, bf16 and bf16 with weights stored ``(1408, 2048)``, and a
    uniform routing in bf16 (the bf16 runs on ``wgmma``, f32 on ``fma``);
-   then times the kernel, the path and its packing alone.
+   then times the kernel, the path and its packing alone, against
+   ``torch._grouped_mm`` (bf16) and the per-group ``torch.matmul`` loop.
 9. Attention path at full width: internlm2-20b prefill (48 query heads
    over 8 KV heads folded into BH = 48, D = 128, S = T = 4096) through
    ``flash_attention``: causal in bf16 and f32, non-causal in bf16; then
-   times.  Both bf16 runs must take the ``wgmma`` route.
+   times against SDPA, and names the backend SDPA's default call takes in
+   f32 (bit-identical output to the efficient or math backend, each timed,
+   and its device kernels' names).  Both bf16 runs must take the ``wgmma``
+   route.
 
 Each path (5, 8, 9) is driven with every kernel's launch count set to 0
 just before it and read just after; launches made to compare or time a
@@ -69,9 +77,10 @@ kernel's distance to the float32 reference may be at most twice the
 plain version's own.  TF32 is switched off for matmuls and cuDNN, so the
 library calls compared against run in full float32.
 
-The last lines of stdout are a JSON ``kernels`` record, the card's name and
-power limit as ``nvidia-smi`` prints them, and the ``{"ok": true, ...}``
-line.  Any failed check raises and exits non-zero without that line.
+The last lines of stdout are a JSON ``kernels`` record (the grouped and
+attention entries carry their f32 run, the fma route, under ``"fma"``),
+the card's name and power limit as ``nvidia-smi`` prints them, and the
+``{"ok": true, ...}`` line.  Any failed check raises and exits non-zero without that line.
 """
 
 from __future__ import annotations
@@ -514,9 +523,11 @@ def native_kernel_info() -> None:
 
 
 def grouped_kernel_info() -> None:
-    """Registers, spills and shared memory of the built wgmma grouped
-    kernel, for each output type."""
-    from repro_torch.kernels.grouped_gemm import KERNEL_TILES, wgmma_info
+    """Registers, spills and shared memory of the built grouped kernels:
+    wgmma for each output type, fma for each (A, B, C) type triple; no fma
+    kernel may spill, and each must have the shared memory its tiles
+    plan."""
+    from repro_torch.kernels.grouped_gemm import FMA_DEPTH, KERNEL_TILES, fma_info, wgmma_info
 
     tm, tn = KERNEL_TILES["wgmma"]
     for dtype, info in wgmma_info().items():
@@ -524,6 +535,15 @@ def grouped_kernel_info() -> None:
             f"{info['registers']} registers/thread at launch (then setmaxnreg: producer 40, "
             f"consumers 232), {info['spill_bytes']} bytes spilled (local)/thread, "
             f"{info['smem_bytes']} bytes dynamic shared memory/block")
+    tu, tv = KERNEL_TILES["fma"]
+    plan = 2 * FMA_DEPTH * (tu + 4 + tv + 4) * 4
+    for types, info in fma_info().items():
+        name = " x ".join(str(t).removeprefix("torch.") for t in types[:2])
+        what = f"grouped_gemm.cu fma {tu}x{tv} {name} -> {str(types[2]).removeprefix('torch.')}"
+        log(f"{what}: {info['registers']} registers/thread, {info['spill_bytes']} bytes "
+            f"spilled (local)/thread, {info['smem_bytes']} bytes static shared memory/block")
+        check(info["spill_bytes"] == 0, f"{what}: spills")
+        check(info["smem_bytes"] == plan, f"{what}: smem {info['smem_bytes']} != planned {plan}")
 
 
 def check_grouped(dev) -> None:
@@ -564,13 +584,23 @@ def check_grouped(dev) -> None:
                            ta, tb, route="fma")
     check_grouped_case(*groups_of(multi, dev, f32, seed=10, ta=ta, tb=tb, integers=True),
                        GROUPED_T8, ta, tb, exact=True, route="fma")
+    # mixed operand types (bf16 A, f32 B; tests/test_torch_grouped_gemm.py),
+    # f32 and bf16 output, every layout, ragged; integer-valued bit-identical
+    for out in (f32, bf16):
+        As, _ = groups_of(multi, dev, bf16, seed=11, ta=ta, tb=tb)
+        _, Bs = groups_of(multi, dev, f32, seed=12, ta=ta, tb=tb)
+        check_grouped_case(As, Bs, GROUPED_T8, ta, tb, out_dtype=out, route="fma")
+        As, _ = groups_of(multi, dev, bf16, seed=13, ta=ta, tb=tb, integers=True)
+        _, Bs = groups_of(multi, dev, f32, seed=14, ta=ta, tb=tb, integers=True)
+        check_grouped_case(As, Bs, None, ta, tb, exact=True, out_dtype=out, route="fma")
     # the fig14 ragged set at its tiles (k = 64: bf16 takes wgmma)
     for dt in (f32, bf16):
         check_grouped_case(*groups_of(fig14_shapes(), dev, dt, seed=14),
                            {"u": 8, "v": 32, "k": 32}, route="wgmma" if dt == bf16 else "fma")
     log(f"grouped_gemm: {n} runtime-test cases (f32 and bf16), empty groups (k=0 exact "
-        f"zeros), trans flags and multi-tile layouts (integer-valued bit-identical), "
-        f"fig14 ragged set: all match the plain version, each on its route")
+        f"zeros), trans flags and multi-tile layouts (integer-valued bit-identical), mixed "
+        f"bf16 x f32 operands with f32 and bf16 output, fig14 ragged set: all match the "
+        f"plain version, each on its route")
     check_grouped_wgmma(dev)
 
 
@@ -647,9 +677,10 @@ def check_flash_case(q, k, v, causal, route) -> float:
 
 
 def flash_kernel_info() -> None:
-    """Registers, spills and shared memory of the built wgmma kernels; the
-    shared memory must be what ``wgmma_tiles`` plans."""
-    from repro_torch.kernels.flash_attn import wgmma_info, wgmma_tiles
+    """Registers, spills and shared memory of the built wgmma and fma
+    kernels; the shared memory must be what ``wgmma_tiles`` and
+    ``fma_tiles`` plan, and no fma kernel may spill."""
+    from repro_torch.kernels.flash_attn import fma_info, fma_tiles, wgmma_info, wgmma_tiles
 
     for D in (64, 128, 256):
         info, plan = wgmma_info(D), wgmma_tiles(D)
@@ -660,6 +691,18 @@ def flash_kernel_info() -> None:
             f"{info['registers']} registers/thread at launch (then setmaxnreg: producer 40, "
             f"consumers 232), {info['spill_bytes']} bytes spilled (local)/thread, "
             f"{info['smem_bytes']} bytes dynamic shared memory/block")
+    for D in (64, 128, 256):
+        plan = fma_tiles(D)
+        for dt in (torch.float32, torch.bfloat16):
+            info = fma_info(D, dt)
+            what = (f"flash_attn.cu fma DP={plan['dp']} BQ={plan['bq']} BK={plan['bk']} "
+                    f"{str(dt).removeprefix('torch.')}")
+            log(f"{what}: {info['registers']} registers/thread ({plan['rows']} rows x 4 keys "
+                f"of S, {plan['rows']} x {plan['cols']} of O), {info['spill_bytes']} bytes "
+                f"spilled (local)/thread, {info['smem_bytes']} bytes dynamic shared memory/block")
+            check(info["spill_bytes"] == 0, f"{what}: spills")
+            check(info["smem_bytes"] == plan["smem_bytes"],
+                  f"{what}: kernel smem {info['smem_bytes']} != planned {plan['smem_bytes']}")
 
 
 def check_flash(dev) -> None:
@@ -686,11 +729,13 @@ def check_flash(dev) -> None:
                         (2, 33, 65, 48), (1, 130, 200, 160)):
         for dt in (f32, bf16):
             check_flash_case(*qkv_of(rng, bh, s, t, d, dev, dt), True, route[dt])
-    # scores over a wide range (q scaled by 8) across 6 key tiles: the
-    # running max moves and the accumulator is rescaled from tile to tile
-    q, k, v = qkv_of(rng, 2, 300, 700, 128, dev, bf16)
-    for causal in (True, False):
-        check_flash_case(q * 8, k, v, causal, "wgmma")
+    # scores over a wide range (q scaled by 8) across 6 (wgmma) or 11 (fma)
+    # key tiles: the running max moves and the accumulator is rescaled from
+    # tile to tile
+    q, k, v = qkv_of(rng, 2, 300, 700, 128, dev, f32)
+    for dt in (f32, bf16):
+        for causal in (True, False):
+            check_flash_case((q * 8).to(dt), k.to(dt), v.to(dt), causal, route[dt])
     # strided operands: q read from an (S, BH, D) layout, one K/V for all heads
     q = torch.from_numpy(rng.standard_normal((90, 4, 64)).astype(np.float32)).to(dev)
     k1, v1 = (torch.from_numpy(rng.standard_normal((1, 120, 64)).astype(np.float32))
@@ -711,11 +756,16 @@ def check_flash(dev) -> None:
     check_flash_case(*qkv_of(rng, 2, 50, 70, 4, dev, bf16), True, "fma")
     q, k, v = (x[..., :40] for x in qkv_of(rng, 2, 80, 96, 44, dev, bf16))
     check_flash_case(q, k, v, False, "fma")
+    # float32 with S off the fma route's query tile (128 rows, 64 at D > 128)
+    # and ragged T, each head-dim tile
+    for bh, s, t, d in ((3, 333, 260, 128), (2, 100, 150, 256), (2, 130, 70, 64)):
+        for causal in (True, False):
+            check_flash_case(*qkv_of(rng, bh, s, t, d, dev, f32), causal, "fma")
     log(f"flash_attention: {n} cases of the SHAPES x causal/full x f32/bf16 grid, GQA fold, "
-        f"causal T>S and T<S, D in 48/128/160/256, scores x8 over 6 key tiles, strided and "
-        f"broadcast operands, S = 1 and T = 1, two bf16 layouts TMA cannot read: all match "
-        f"the plain version, "
-        f"every bf16 case TMA can read on the wgmma route")
+        f"causal T>S and T<S, D in 48/128/160/256, scores x8 over 6-11 key tiles (f32 and "
+        f"bf16), strided and broadcast operands, S = 1 and T = 1, two bf16 layouts TMA "
+        f"cannot read, f32 at S off the query tile: all match the plain version, every bf16 "
+        f"case TMA can read on the wgmma route, every other case on fma")
 
 
 # ------------------------------------------------------------------- phase 4
@@ -1006,7 +1056,8 @@ def grouped_path(dev, seed: int, counters, reps: int = 10) -> dict:
     (``trans_b``); under a uniform routing in bf16.  Checks (the bf16 runs
     on the wgmma route, f32 on fma), then times the kernel, the path with
     its packing, ``pack_groups`` alone, the plain version and library
-    calls.  Returns the skewed bf16 run's record for the kernels line."""
+    calls.  Returns the skewed bf16 run's record for the kernels line, with
+    the f32 run's (the fma route) under ``"fma"``."""
     from repro_torch.kernels.grouped_gemm import (
         grouped_gemm, grouped_gemm_packed_ref, grouped_gemm_ref, pack_groups,
         packed_geometry)
@@ -1074,7 +1125,10 @@ def grouped_path(dev, seed: int, counters, reps: int = 10) -> dict:
         aliased = B_flat.data_ptr() == Bs[0].data_ptr()
         plain_ms = cuda_ms(lambda: grouped_gemm_packed_ref(
             A_flat, B_flat, descs, out_cols=out_cols, out_rows=out_rows), reps)
-        loop_ms = cuda_ms(lambda: [a @ (b.T if tb else b) for a, b in zip(As, Bs)], reps)
+        # 3 queued rounds of 60 matmuls stay inside the card's launch queue,
+        # which a full queue would make the host wait on
+        loop = lambda: [a @ (b.T if tb else b) for a, b in zip(As, Bs)]
+        loop_ms, loop_q_ms = cuda_ms(loop, reps), queued_ms(loop, 3)
         W3 = torch.stack(Bs).transpose(1, 2) if tb else torch.stack(Bs)
         A_pad = torch.zeros(len(As), int(counts.max()), K, dtype=dt, device=dev)
         for g, a in enumerate(As):
@@ -1101,15 +1155,21 @@ def grouped_path(dev, seed: int, counters, reps: int = 10) -> dict:
             f"(CUDA events); grouped_matmul with packing {path_ms:.4f} ms; "
             f"pack_groups alone {pack_ms:.4f} ms (B a view of the weights: {aliased}); "
             f"plain {plain_ms:.4f} ms; library _grouped_mm {lib_note} (calls queued); per-group "
-            f"torch.matmul loop {loop_ms:.4f} ms; padded-to-largest torch.bmm {bmm_ms:.4f} ms; "
+            f"torch.matmul loop {loop_q_ms:.4f} ms queued ({loop_ms:.4f} ms by events; "
+            f"kernel/loop {ms / loop_q_ms:.3f}x); padded-to-largest torch.bmm {bmm_ms:.4f} ms; "
             f"max abs error {abs_err:.3g}")
         rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                         library_ms=lib_ms, max_abs_err=abs_err)
+                         library_ms=lib_ms, loop_ms=loop_q_ms, max_abs_err=abs_err)
         del A_flat, B_flat
     same = all(torch.equal(a, b) for a, b in zip(outs["bf16"], outs["bf16 trans_b"]))
     log(f"moe: trans_b result bit-identical to the plain-layout bf16 result: {same}; "
         f"path launches {counted}, by route {routes}")
-    return {**rec["bf16"], "launches": counted["grouped_gemm"]}
+    f32 = rec["f32"]
+    fma = {k: f32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+    fma |= {"library_ms": f32["loop_ms"],
+            "library": "per-group torch.matmul loop over the 60 experts (calls queued)"}
+    return {**{k: v for k, v in rec["bf16"].items() if k != "loop_ms"},
+            "launches": counted["grouped_gemm"], "fma": fma}
 
 
 # ------------------------------------------------------------------- phase 9
@@ -1118,12 +1178,48 @@ def grouped_path(dev, seed: int, counters, reps: int = 10) -> dict:
 ATTN = dict(n_heads=48, n_kv_heads=8, d_model=6144, seq=4096)
 
 
+def sdpa_backend(q4, k4, v4, causal: bool, reps: int) -> str:
+    """Which backend the default SDPA call takes on these inputs: its
+    output is compared bit for bit with the efficient-attention and math
+    backends' (each timed as well), and one profiled call names its device
+    kernels.  Returns the backend whose output it equals, else "unknown"."""
+    from torch.autograd import DeviceType
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+
+    default, found, notes = sdpa(), "unknown", []
+    for name, backend, n in (("efficient", SDPBackend.EFFICIENT_ATTENTION, reps),
+                             ("math", SDPBackend.MATH, 2)):
+        with sdpa_kernel(backend):
+            try:
+                same = torch.equal(sdpa(), default)
+                ms = cuda_ms(sdpa, n)
+            except RuntimeError as exc:     # a backend that refuses these inputs
+                notes.append(f"{name}: refused ({str(exc).splitlines()[0][:80]})")
+                continue
+        notes.append(f"{name} {ms:.4f} ms, output bit-identical to the default call: {same}")
+        if same and found == "unknown":
+            found = name
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sdpa()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+    log(f"SDPA {q4.dtype} causal={causal}: {'; '.join(notes)}; the default call takes "
+        f"{found}; its device kernels: {', '.join(n[:100] for n in names) or 'none recorded'}")
+    return found
+
+
 def attention_path(dev, seed: int, counters, reps: int = 5) -> dict:
     """internlm2-20b prefill through ``flash_attention``, heads folded into
     BH as a GQA caller does: causal in bf16 and f32, and non-causal in
     bf16.  Checks (both bf16 runs on the wgmma route), then times the
-    kernel, the plain version and SDPA.  Returns the causal bf16 run's
-    record for the kernels line."""
+    kernel, the plain version and SDPA, and names SDPA's backend for f32.
+    Returns the causal bf16 run's record for the kernels line, with the
+    f32 run's (the fma route) under ``"fma"``."""
     from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
 
     H, Hkv, S = ATTN["n_heads"], ATTN["n_kv_heads"], ATTN["seq"]
@@ -1191,8 +1287,10 @@ def attention_path(dev, seed: int, counters, reps: int = 5) -> dict:
             f"(kernel/SDPA {ms / lib_ms:.3f}x); max abs error {abs_err:.3g}")
         rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                          library_ms=lib_ms, max_abs_err=abs_err)
+        if dt == torch.float32:
+            rec[name]["library"] = f"SDPA, default call ({sdpa_backend(q4, k4, v4, causal, reps)})"
     log(f"attention: path launches {counted}, by route {routes}")
-    return {**rec["bf16"], "launches": counted["flash_attention"]}
+    return {**rec["bf16"], "launches": counted["flash_attention"], "fma": rec["f32"]}
 
 
 # ---------------------------------------------------------------------- main
@@ -1267,8 +1365,7 @@ def main() -> int:
                 "source": f"src/repro_torch/kernels/csrc/{src}",
                 "replaces": f"src/repro/kernels/{tpu}",
                 **{k: rec[k] for k in keys},
-                **({"launches_by_route": rec["launches_by_route"]}
-                   if "launches_by_route" in rec else {})}
+                **{k: rec[k] for k in ("launches_by_route", "fma") if k in rec}}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on its path")

@@ -44,33 +44,76 @@
 // (Q 64 KB + 2 x (K 32 KB + V 32 KB) = 192 KB of the 227 KB a block has).
 //
 // Route "fma" (fa_kernel: float32, and bf16 layouts TMA cannot describe).
-// One block owns one (bh, 64-row q tile) and loops over 64-key tiles; each
-// of its 256 threads keeps m, l and the accumulator for 4 rows x (D/16)
-// columns in registers.  Q.K^T and P.V run on the FMA units in f32 from
-// shared memory (Q, then K and V in turn in one buffer, and P).
+// One block of 256 threads owns one (bh, BQ-row Q tile), BQ = 128 at D <=
+// 128 and 64 above, and loops over 64-key tiles.  Thread (ty, tx) holds RM
+// = BQ / 16 rows x 4 keys of S (keys tx + 16 j) and RM rows x D/16 columns
+// of O (columns 4 tx + 64 c + e), with m and l of its rows, in registers.
+// Shared memory is f32 throughout: Q transposed [d][row], K [key][d], V
+// [key][d] and P transposed [key][row], so that every inner step reads
+// float4s: Q.K^T reads RM/4 float4s of Q (broadcast over the 16 threads of
+// a row group) and one float4 of K per d step for 4 RM FMAs, P.V one float4
+// of V per 4 columns and RM/4 of P per key for 4 RM FMAs each.  K and P
+// rows are an odd number of 16-byte chunks long, so the 16 threads of a row
+// group read K and write P on 16 distinct banks.  K and V have their own
+// buffers: V(t) lands by cp.async during Q.K^T(t) and K(t+1) during P.V(t),
+// three barriers per tile.  Float32 operands are copied as they are, 16
+// bytes at a time where pointer, strides and D allow it, 4 where not; bf16
+// is converted on its way into shared memory, through registers.  The
+// softmax runs in base 2 as on the wgmma route.  At D = 128: Q 64 KB, K 33
+// KB, V 32 KB, P 33 KB, 165,888 bytes, one block per SM; 207 registers a
+// thread in f32, no spill.  The internlm2-20b causal prefill in f32 takes
+// 5.86-5.88 ms, 52% of its bound below, against 9.54-9.58 ms for the
+// first version of this route (H100 80GB HBM3, 700 W; PERF.md).
 //
 // Bound.  At the internlm2-20b prefill (48 query heads, D = 128, S = T =
-// 4096, causal, bf16) the work is 4 * 48 * 4096^2 / 2 * 128 = 206 GFLOP:
-// 0.21 ms at the tensor cores' 989 TFLOP/s, while the 201 MB moved take
-// 0.06 ms at 3.35 TB/s, so the wgmma route is bound by operations.  Left
-// out, and what keeps it from that bound: ping-pong scheduling between the
-// two warpgroups, overlap of one tile's softmax with the next tile's wgmma
-// inside a warpgroup, clusters with TMA multicast of K/V, fp8, and a
-// persistent grid.  The fma route is bound by the FMA units (67 TFLOP/s in
-// f32) and by its shared-memory loads; its redesign is later work.
+// 4096, causal) the work is 4 * 48 * 4096^2 / 2 * 128 = 206 GFLOP: 0.21 ms
+// at the tensor cores' 989 TFLOP/s (bf16) and 3.08 ms at the 67 TFLOP/s
+// FMA rate (f32), while the 201 MB (bf16) or 403 MB (f32) moved take 0.06
+// or 0.12 ms at 3.35 TB/s, so both routes are bound by operations.  Left
+// out of the wgmma route, and what keeps it from that bound: ping-pong
+// scheduling between the two warpgroups, overlap of one tile's softmax
+// with the next tile's wgmma inside a warpgroup, clusters with TMA
+// multicast of K/V, fp8, and a persistent grid.  What holds the fma route
+// back: one block of 8 warps per SM (the 166 KB of tiles), so the FMA
+// pipes idle at each of a tile's three barriers and through the softmax;
+// Q.K^T's 8 x 4 register tile reads 12 floats per 32 FMAs, under the 4
+// FMAs a float of P.V; a causal grid's last wave is ragged.  Its next step
+// is split-precision products on the tensor cores (3xTF32 or bf16 x 3),
+// beyond what the FMA units can give.
 
 #include "hopper.cuh"
 
-#define FA_BQ 64
-#define FA_BK 64
-#define FA_THREADS 256
+#define FA_BK 64          // keys per tile
+#define FA_THREADS 256    // 16 row groups x 16 key (or column) groups
 #define FA_MASK (-1073741824.0f)  // -2^30, the TPU kernel's mask value
+#define FA_LOG2E 1.4426950408889634f
+#define FA_MASK2 (FA_MASK * FA_LOG2E)  // the mask value in the base-2 softmax
 
 struct FaArgs {
   int64_t sq_bh, sq_s, sk_bh, sk_t, sv_bh, sv_t;  // element strides
   int S, T, D;
   float scale;
   int causal;
+};
+
+// The fma route's tiling at padded head dim DP (64, 128 or 256): BQ query
+// rows per block, each thread RM rows x 4 keys of S and RM rows x NC
+// columns of O.  Shared memory, all f32: Q transposed [DP][BQ], K [BK][LDK],
+// V [BK][DP] and P transposed [BK][LDP].  LDK and LDP are an odd number of
+// 16-byte chunks, so the 16 threads of a row group read K, and write P, on
+// distinct banks.  Mirrored by fma_tiles in flash_attn.py.
+template <int DP> struct FaTile {
+  static constexpr int BQ = DP <= 128 ? 128 : 64;
+  static constexpr int RM = BQ / 16;
+  static constexpr int NC = DP / 16;
+  static constexpr int LDK = DP + 4;
+  static constexpr int LDP = BQ + 4;
+  static constexpr int Q_FLOATS = DP * BQ;
+  static constexpr int K_FLOATS = FA_BK * LDK;
+  static constexpr int V_FLOATS = FA_BK * DP;
+  static constexpr int P_FLOATS = FA_BK * LDP;
+  static constexpr int SMEM = 4 * (Q_FLOATS + K_FLOATS + V_FLOATS + P_FLOATS);
+  static_assert(SMEM <= 232448, "a block has 227 KB of shared memory");
 };
 
 template <typename T> __device__ __forceinline__ float fa_to_f32(T x);
@@ -84,16 +127,60 @@ template <> __device__ __forceinline__ __nv_bfloat16 fa_from_f32<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
-// Rows [r0, r0 + 64) of a (rows, D) slice into smem as f32, row stride
-// DP + 1; rows at or past r_ext and columns at or past D as zero.
-template <typename T, int DP>
-__device__ __forceinline__ void fa_stage(float* dst, const T* __restrict__ src,
-                                         int64_t row_stride, int r0, int r_ext, int D) {
-  for (int e = threadIdx.x; e < 64 * DP; e += FA_THREADS) {
-    const int r = e / DP, c = e % DP;
-    float val = 0.f;
-    if (r0 + r < r_ext && c < D) val = fa_to_f32<T>(src[(int64_t)(r0 + r) * row_stride + c]);
-    dst[r * (DP + 1) + c] = val;
+// Rows [r0, r0 + ROWS) of a (rows, D) slice src (row stride ld, unit stride
+// along D) into shared memory as f32, row r and column c at dst[r * LD + c],
+// or at dst[c * LD + r] under TRANS; rows at or past r_ext and columns at or
+// past D (up to DP) as zero.  vec: src, ld and D allow 16-byte reads.
+// Float32 without TRANS goes by cp.async, which the caller commits;
+// everything else through registers, converted on the way in (TRANS walks
+// rows fastest, so that a warp's scattered stores hit distinct banks).
+template <typename T, int ROWS, int DP, int LD, bool TRANS>
+__device__ __forceinline__ void fa_stage(float* dst, const T* __restrict__ src, int64_t ld,
+                                         int r0, int r_ext, int D, bool vec) {
+  constexpr bool ASYNC = !TRANS && sizeof(T) == 4;
+  if (vec) {
+    constexpr int VEC = 16 / sizeof(T), PER_ROW = DP / VEC;
+    for (int e = threadIdx.x; e < ROWS * PER_ROW; e += FA_THREADS) {
+      const int r = TRANS ? e % ROWS : e / PER_ROW;
+      const int c = (TRANS ? e / ROWS : e % PER_ROW) * VEC;
+      const bool ok = r0 + r < r_ext && c < D;
+      const T* p = ok ? src + (int64_t)(r0 + r) * ld + c : src;
+      if constexpr (ASYNC) {
+        hp_cp_async<16>(dst + r * LD + c, p, ok);
+      } else {
+        float x[VEC];
+        hp_unpack16<T>(ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0, 0, 0, 0), x);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) dst[TRANS ? (c + i) * LD + r : r * LD + c + i] = x[i];
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * DP; e += FA_THREADS) {
+      const int r = TRANS ? e % ROWS : e / DP, c = TRANS ? e / ROWS : e % DP;
+      const bool ok = r0 + r < r_ext && c < D;
+      const T* p = ok ? src + (int64_t)(r0 + r) * ld + c : src;
+      if constexpr (ASYNC) {
+        hp_cp_async<4>(dst + r * LD + c, p, ok);
+      } else {
+        dst[TRANS ? c * LD + r : r * LD + c] = ok ? fa_to_f32<T>(*p) : 0.f;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float fa_part(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+}
+
+// N f32 values from 16-byte aligned shared memory.
+template <int N> __device__ __forceinline__ void fa_read(const float* p, float (&x)[N]) {
+#pragma unroll
+  for (int h = 0; h < N / 4; ++h) {
+    const float4 f = reinterpret_cast<const float4*>(p)[h];
+    x[4 * h] = f.x;
+    x[4 * h + 1] = f.y;
+    x[4 * h + 2] = f.z;
+    x[4 * h + 3] = f.w;
   }
 }
 
@@ -109,139 +196,176 @@ __device__ __forceinline__ float fa_row_sum(float x) {
   return x;
 }
 
-// NJ: accumulator columns per thread; D <= 16 * NJ.
-template <typename T, int NJ>
-__global__ void __launch_bounds__(FA_THREADS)
+// DP: padded head dim.  vec: bits 0, 1, 2 set when q, k, v allow 16-byte
+// reads.  Thread (ty, tx) = (threadIdx / 16, threadIdx % 16) owns query
+// rows RM ty .. RM ty + RM - 1 of the block, keys tx + 16 j (j < 4) of each
+// tile, and output columns 4 tx + 64 c + e (e < 4).
+template <typename T, int DP>
+__global__ void __launch_bounds__(FA_THREADS, 1)
 fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, const FaArgs a) {
-  constexpr int DP = 16 * NJ, LD = DP + 1, LP = FA_BK + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;               // [FA_BQ][LD]
-  float* KVs = Qs + FA_BQ * LD;   // [FA_BK][LD], K then V
-  float* Ps = KVs + FA_BK * LD;   // [FA_BQ][LP]
+          T* __restrict__ o, const FaArgs a, int vec) {
+  using L = FaTile<DP>;
+  constexpr int BQ = L::BQ, RM = L::RM, NC = L::NC;
+  extern __shared__ float4 fa_raw[];
+  float* Qs = reinterpret_cast<float*>(fa_raw);
+  float* Ks = Qs + L::Q_FLOATS;
+  float* Vs = Ks + L::K_FLOATS;
+  float* Ps = Vs + L::V_FLOATS;
 
   const int bh = blockIdx.y;
   const int qt = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qt * FA_BQ;
+  const int q0 = qt * BQ;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const T* kb = k + bh * a.sk_bh;
   const T* vb = v + bh * a.sv_bh;
+  const int t_end = a.causal ? min(a.T, q0 + BQ) : a.T;
+  const float scale2 = a.scale * FA_LOG2E;
 
-  fa_stage<T, DP>(Qs, q + bh * a.sq_bh, a.sq_s, q0, a.S, a.D);
+  fa_stage<T, BQ, DP, BQ, true>(Qs, q + bh * a.sq_bh, a.sq_s, q0, a.S, a.D, vec & 1);
+  fa_stage<T, FA_BK, DP, L::LDK, false>(Ks, kb, a.sk_t, 0, a.T, a.D, vec & 2);
+  hp_cp_commit();
 
-  float m_i[4], l_i[4], acc[4][NJ];
+  float m[RM], l[RM], acc[RM][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = FA_MASK;
-    l_i[i] = 0.f;
+  for (int i = 0; i < RM; ++i) {
+    m[i] = FA_MASK2;
+    l[i] = 0.f;
 #pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  const int t_end = a.causal ? min(a.T, q0 + FA_BQ) : a.T;
   for (int t0 = 0; t0 < t_end; t0 += FA_BK) {
-    __syncthreads();  // Q staged; the previous tile's P.V is done with KVs and Ps
-    fa_stage<T, DP>(KVs, kb, a.sk_t, t0, a.T, a.D);
-    __syncthreads();
+    hp_cp_wait<0>();
+    __syncthreads();  // Q and K(t) have landed; P.V(t-1) is done with Vs and Ps
+    fa_stage<T, FA_BK, DP, DP, false>(Vs, vb, a.sv_t, t0, a.T, a.D, vec & 4);
+    hp_cp_commit();  // V(t) lands during Q.K^T(t)
 
-    float s[4][4];
+    float s[RM][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DP; ++d) {
-      float qv[4], kv[4];
+#pragma unroll 2
+    for (int d0 = 0; d0 < DP; d0 += 4) {
+      float4 kf[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * LD + d];
+      for (int j = 0; j < 4; ++j)
+        kf[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * L::LDK + d0);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = KVs[(tx + 16 * j) * LD + d];
+      for (int e = 0; e < 4; ++e) {
+        float qf[RM];
+        fa_read<RM>(Qs + (d0 + e) * BQ + RM * ty, qf);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qf[i], fa_part(kf[j], e), s[i][j]);
+      }
     }
 
+    // online softmax in base 2: log2(e) is folded into the scale and the
+    // mask value, so exp2(x - m) is the TPU's exp(s - m)
+    const bool masked = t0 + FA_BK > a.T || (a.causal && t0 + FA_BK - 1 > q0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      float mx = FA_MASK;
+    for (int i = 0; i < RM; ++i) {
+      const int qi = q0 + RM * ty + i;
+      float mx = m[i];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int kj = t0 + tx + 16 * j;
-        const bool ok = kj < a.T && (!a.causal || qi >= kj);
-        s[i][j] = ok ? s[i][j] * a.scale : FA_MASK;
-        mx = fmaxf(mx, s[i][j]);
+        float x = s[i][j] * scale2;
+        if (masked) {
+          const int kj = t0 + tx + 16 * j;
+          if (kj >= a.T || (a.causal && kj > qi)) x = FA_MASK2;
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
       }
-      const float m_new = fmaxf(m_i[i], fa_row_max(mx));
+      mx = fa_row_max(mx);
+      const float corr = exp2f(m[i] - mx);
+      m[i] = mx;
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
+        const float p = exp2f(s[i][j] - mx);
         rs += p;
-        // P.V takes p rounded to v's type, as the TPU kernel does
-        Ps[(ty + 16 * i) * LP + tx + 16 * j] = fa_to_f32<T>(fa_from_f32<T>(p));
+        s[i][j] = fa_to_f32<T>(fa_from_f32<T>(p));  // P.V takes p rounded to v's type
       }
-      const float corr = expf(m_i[i] - m_new);
-      l_i[i] = l_i[i] * corr + fa_row_sum(rs);
+      l[i] = l[i] * corr + fa_row_sum(rs);
 #pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) acc[i][jj] *= corr;
-      m_i[i] = m_new;
+      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
     }
-    __syncthreads();  // every thread is done with K; P is complete
-    fa_stage<T, DP>(KVs, vb, a.sv_t, t0, a.T, a.D);
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < RM / 4; ++h)
+        *reinterpret_cast<float4*>(Ps + (tx + 16 * j) * L::LDP + RM * ty + 4 * h) =
+            make_float4(s[4 * h][j], s[4 * h + 1][j], s[4 * h + 2][j], s[4 * h + 3][j]);
+    __syncthreads();  // every thread is done with K(t); P is complete
+    if (t0 + FA_BK < t_end)  // K(t+1) lands during P.V(t)
+      fa_stage<T, FA_BK, DP, L::LDK, false>(Ks, kb, a.sk_t, t0 + FA_BK, a.T, a.D, vec & 2);
+    hp_cp_commit();
+    hp_cp_wait<1>();
+    __syncthreads();  // V(t) has landed
 
 #pragma unroll 4
     for (int kk = 0; kk < FA_BK; ++kk) {
-      float pv[4], vv[NJ];
+      float pf[RM];
+      fa_read<RM>(Ps + kk * L::LDP + RM * ty, pf);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * LP + kk];
+      for (int c = 0; c < NC / 4; ++c) {
+        const float4 vf = *reinterpret_cast<const float4*>(Vs + kk * DP + 4 * tx + 64 * c);
 #pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) vv[jj] = KVs[kk * LD + tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = fmaf(pv[i], vv[jj], acc[i][jj]);
+        for (int i = 0; i < RM; ++i) {
+          acc[i][4 * c] = fmaf(pf[i], vf.x, acc[i][4 * c]);
+          acc[i][4 * c + 1] = fmaf(pf[i], vf.y, acc[i][4 * c + 1]);
+          acc[i][4 * c + 2] = fmaf(pf[i], vf.z, acc[i][4 * c + 2]);
+          acc[i][4 * c + 3] = fmaf(pf[i], vf.w, acc[i][4 * c + 3]);
+        }
+      }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int i = 0; i < RM; ++i) {
+    const int row = q0 + RM * ty + i;
     if (row >= a.S) continue;
-    const float l = fmaxf(l_i[i], 1e-30f);
+    const float li = fmaxf(l[i], 1e-30f);
     T* orow = o + ((int64_t)bh * a.S + row) * a.D;
 #pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      const int col = tx + 16 * jj;
-      if (col < a.D) orow[col] = fa_from_f32<T>(acc[i][jj] / l);
+    for (int c = 0; c < NC; ++c) {
+      const int col = 4 * tx + 64 * (c / 4) + c % 4;
+      if (col < a.D) orow[col] = fa_from_f32<T>(acc[i][c] / li);
     }
   }
 }
 
-template <typename T, int NJ>
+// Whether an operand at p with element strides (s_bh, s_row) and head dim
+// D can be read in 16-byte chunks.
+template <typename T> static bool fa_vec(const void* p, int64_t s_bh, int64_t s_row, int D) {
+  constexpr int VEC = 16 / sizeof(T);
+  return (uintptr_t)p % 16 == 0 && D % VEC == 0 && s_bh % VEC == 0 && s_row % VEC == 0;
+}
+
+template <typename T, int DP>
 static int fa_launch_t(const void* q, const void* k, const void* v, void* o, const FaArgs& a,
                        int bh, cudaStream_t stream) {
-  constexpr int DP = 16 * NJ;
-  const size_t smem = sizeof(float) * ((size_t)(FA_BQ + FA_BK) * (DP + 1) + FA_BQ * (FA_BK + 1));
+  using L = FaTile<DP>;
+  const int vec = fa_vec<T>(q, a.sq_bh, a.sq_s, a.D) | fa_vec<T>(k, a.sk_bh, a.sk_t, a.D) << 1 |
+                  fa_vec<T>(v, a.sv_bh, a.sv_t, a.D) << 2;
   const cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fa_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.S + FA_BQ - 1) / FA_BQ, bh);
-  fa_kernel<T, NJ><<<grid, FA_THREADS, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                                      (T*)o, a);
+  const dim3 grid((a.S + L::BQ - 1) / L::BQ, bh);
+  fa_kernel<T, DP><<<grid, FA_THREADS, L::SMEM, stream>>>((const T*)q, (const T*)k,
+                                                          (const T*)v, (T*)o, a, vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int fa_launch_d(const void* q, const void* k, const void* v, void* o, const FaArgs& a,
                        int bh, cudaStream_t stream) {
-  if (a.D <= 16) return fa_launch_t<T, 1>(q, k, v, o, a, bh, stream);
-  if (a.D <= 32) return fa_launch_t<T, 2>(q, k, v, o, a, bh, stream);
-  if (a.D <= 64) return fa_launch_t<T, 4>(q, k, v, o, a, bh, stream);
-  if (a.D <= 128) return fa_launch_t<T, 8>(q, k, v, o, a, bh, stream);
-  return fa_launch_t<T, 16>(q, k, v, o, a, bh, stream);
+  if (a.D <= 64) return fa_launch_t<T, 64>(q, k, v, o, a, bh, stream);
+  if (a.D <= 128) return fa_launch_t<T, 128>(q, k, v, o, a, bh, stream);
+  return fa_launch_t<T, 256>(q, k, v, o, a, bh, stream);
 }
 
 // ---------------------------------------------------------------- wgmma route
@@ -250,8 +374,8 @@ static int fa_launch_d(const void* q, const void* k, const void* v, void* o, con
 #define FW_PRODUCER_REGS 40        // registers per thread after setmaxnreg; the producer
 #define FW_CONSUMER_REGS 232       // only issues copies (128 x 40 + 256 x 232 <= 65,536)
 #define FW_STAGES 2                // K/V ring depth
-#define FW_LOG2E 1.4426950408889634f
-#define FW_MASK2 (FA_MASK * FW_LOG2E)  // the mask value in the base-2 softmax
+#define FW_LOG2E FA_LOG2E
+#define FW_MASK2 FA_MASK2
 
 // Shared memory of one block at padded head dim DP, 1024-byte aligned (the
 // 128-byte swizzle repeats every 8 rows of 128 bytes): Q as DP/64 boxes of
@@ -614,6 +738,30 @@ extern "C" int fa_wgmma_info(int D, int* out) {
   out[1] = (int)attr.localSizeBytes;
   out[2] = smem;
   return 0;
+}
+
+template <typename T, int DP> static int fa_info_t(int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fa_kernel<T, DP>);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = FaTile<DP>::SMEM;
+  return 0;
+}
+
+// The fma kernel for head dim D and type code dtype (as fa_launch): out =
+// {registers per thread, local (spilled) bytes per thread, dynamic shared
+// bytes per block}.
+extern "C" int fa_fma_info(int D, int dtype, int* out) {
+  if (dtype == 0) {
+    if (D <= 64) return fa_info_t<float, 64>(out);
+    if (D <= 128) return fa_info_t<float, 128>(out);
+    return fa_info_t<float, 256>(out);
+  }
+  if (D <= 64) return fa_info_t<__nv_bfloat16, 64>(out);
+  if (D <= 128) return fa_info_t<__nv_bfloat16, 128>(out);
+  return fa_info_t<__nv_bfloat16, 256>(out);
 }
 
 extern "C" const char* fa_error_string(int code) { return hp_error_string(code); }

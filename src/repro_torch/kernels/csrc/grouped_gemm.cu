@@ -56,30 +56,48 @@
 // of B, a TMA store of C through shared memory, and fp8.
 //
 // Route "fma" (gg_kernel: float32, mixed float32/bf16 operands, and groups
-// with a ragged k_p).  Each block owns a 64 x 128 tile.  Each stage stages
-// a 32-deep slab of A_g and of B_g in shared memory, converted to f32, laid
-// out [k][row] and [k][col].  The per-group flags pick the fetch: global
-// loads run along each operand's stored minor dimension (k for plain A, m
-// for trans_a, n for plain B, k for trans_b), 16 bytes per thread (4 f32
-// or 8 bf16).  That is legal because the wrapper requires every m_p, n_p,
-// k_p and row stride to be a multiple of 8: a 16-byte chunk is then either
-// wholly inside a group's extent or wholly outside it, and every row
-// starts 16-byte aligned.  The next stage is loaded into registers while
-// the current one is computed.  Products accumulate in f32 registers with
-// plain FMA (no TF32, which would break the f32 tolerance and the
-// integer-valued bit-exact cases); each of the 256 threads owns a 4 x 8
-// sub-tile.  Ragged edges are masked to the group's m_p/n_p/k_p, so the
-// kernel's tile need not match the packing tiles.
+// with a ragged k_p).  The classic SIMT GEMM: each block of 128 threads
+// owns a 64 x 128 tile of C and each thread an 8 x 8 sub-tile in f32
+// registers, rows 4 ty + i and 32 + 4 ty + i, columns 4 tx + j and 64 + 4 tx
+// + j, so that its slab reads from shared memory (laid out [k][row] and
+// [k][col], rows padded by 4 floats) are four float4s per depth step:
+// 16 floats for 64 FMAs.  Two shared-memory stages of 16-deep slabs, one
+// barrier per slab: the next slab is in flight while the current one is
+// computed.  The per-group flags pick the fetch.  Where the stored minor
+// dimension is the tile's own (trans_a A, plain B) a float32 slab lands by
+// 16-byte cp.async straight into place; bf16, and the k-inner layouts
+// (plain A, trans_b B), go through registers, loaded before the compute
+// and converted and transposed into the other stage after it.  Global
+// reads are 16 bytes a thread (4 f32 or 8 bf16), legal because the wrapper
+// requires every m_p, n_p, k_p and row stride to be a multiple of 8: a
+// chunk is then wholly inside a group's extent or wholly outside it (and
+// zero-filled), and every row starts 16-byte aligned.  Products
+// accumulate with plain FMA (no TF32, which would break the f32 tolerance
+// and the integer-valued bit-exact cases).  Ragged edges are masked to the
+// group's m_p/n_p/k_p, so the kernel's tile need not match the packing
+// tiles.  The tile is 64 rows, not 128: at the up-projection's skewed
+// routing (median 136 rows per expert) 64-row tiles compute 18,368 rows
+// for 16,384 routed (10.8% padding; 18,560 and 11.7% under the uniform
+// routing) against 19,968 (17.9%; uniform 21,760, 24.7%) at 128 rows,
+// and an A/B of the two on an H100 ran the 64-row tile a little faster.
+// In f32 the kernel is bound by the FMA rate (1.41 ms at the
+// up-projection); it takes 2.44 ms there, 58% of it, against 3.54-3.56 ms
+// for the first version of this route (H100 80GB HBM3, 700 W; PERF.md).
+// What holds it from the bound: the padded rows, the
+// transposing stores of A through registers, one barrier per 16-deep
+// slab, and 4 blocks of 4 warps per SM under a 128-register cap.  Its
+// next step is split-precision products on the tensor cores (3xTF32 or
+// bf16 x 3), beyond what the FMA units can give.
 
 #include "hopper.cuh"
 
 #define GG_TU 64      // output rows per block (mirrors KERNEL_TILES["fma"])
 #define GG_TV 128     // output columns per block
-#define GG_BK 32      // contracted depth per stage
-#define GG_THREADS 256
+#define GG_BK 16      // contracted depth per stage
 #define GG_DESC 8     // int32 fields per descriptor row
-#define GG_TM 4       // rows per thread: ty + 16 i
-#define GG_TN 8       // columns per thread: tx + 16 j
+#define GG_THREADS (2 * GG_TU)  // (GG_TU / 8) x 16 threads, 8 x 8 outputs each
+#define GG_LDA (GG_TU + 4)      // smem row strides in floats: rows stay 16-byte aligned,
+#define GG_LDB (GG_TV + 4)      // and a warp's transposing stores meet 2-way, not 4-way
 
 template <typename T> __device__ __forceinline__ T gg_from_f32(float x);
 template <> __device__ __forceinline__ float gg_from_f32<float>(float x) { return x; }
@@ -87,68 +105,79 @@ template <> __device__ __forceinline__ __nv_bfloat16 gg_from_f32<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
-// 16 bytes at p (16-byte aligned) as f32 values.
-__device__ __forceinline__ void gg_load16(const float* p, float* v) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x;
-  v[1] = x.y;
-  v[2] = x.z;
-  v[3] = x.w;
-}
-__device__ __forceinline__ void gg_load16(const __nv_bfloat16* p, float* v) {
-  const uint4 x = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-// One operand's slab: OUTER stored rows x INNER stored columns, read as
-// 16-byte chunks.  K_INNER says whether the stored minor dimension is k
-// (else it is the tile's row or column dimension); the smem tile is
-// [GG_BK][W + 1] either way.
-template <typename T, int OUTER, int INNER, bool K_INNER, int W>
+// One operand's slab of one stage: OUTER stored rows x INNER stored
+// columns, moved as 16-byte chunks into a shared tile [GG_BK][LD] laid out
+// [k][row] (A) or [k][col] (B).  K_INNER: the stored minor dimension is k,
+// so the slab is transposed on its way in, through registers.  Otherwise a
+// stored row is a row of the tile: float32 goes by cp.async straight into
+// place (ASYNC), bf16 through registers, converted.
+template <typename T, int OUTER, int INNER, bool K_INNER, int LD>
 struct GgSlab {
+  static constexpr bool ASYNC = !K_INNER && sizeof(T) == 4;
   static constexpr int VEC = 16 / sizeof(T);
   static constexpr int PER_ROW = INNER / VEC;
   static constexpr int CHUNKS = OUTER * INNER / VEC / GG_THREADS;
   static_assert(OUTER * INNER % (VEC * GG_THREADS) == 0, "slab split");
-  float r[CHUNKS][VEC];
+  uint4 r[ASYNC ? 1 : CHUNKS];  // chunks in flight through registers
 
   // base: the group's block; (o0, i0) the slab origin in stored rows and
-  // columns; (o_ext, i_ext) the group's stored extents.
-  __device__ __forceinline__ void load(const T* __restrict__ base, int64_t ld, int o0,
-                                       int i0, int o_ext, int i_ext) {
+  // columns; (o_ext, i_ext) the group's stored extents.  ASYNC issues the
+  // copies into sm (the caller commits them); else the chunks wait in
+  // registers for store().
+  __device__ __forceinline__ void load(const T* __restrict__ base, int64_t ld, int o0, int i0,
+                                       int o_ext, int i_ext, float* sm) {
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c) {
       const int e = threadIdx.x + c * GG_THREADS;
       const int o = e / PER_ROW, i = (e % PER_ROW) * VEC;
-      if (o0 + o < o_ext && i0 + i < i_ext) {
-        gg_load16(base + (int64_t)(o0 + o) * ld + i0 + i, r[c]);
-      } else {
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) r[c][v] = 0.f;
-      }
+      const bool ok = o0 + o < o_ext && i0 + i < i_ext;
+      const T* p = ok ? base + (int64_t)(o0 + o) * ld + i0 + i : base;
+      if constexpr (ASYNC)
+        hp_cp_async<16>(sm + o * LD + i, p, ok);
+      else
+        r[c] = ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0, 0, 0, 0);
     }
   }
 
   __device__ __forceinline__ void store(float* sm) const {
+    if constexpr (!ASYNC) {
 #pragma unroll
-    for (int c = 0; c < CHUNKS; ++c) {
-      const int e = threadIdx.x + c * GG_THREADS;
-      const int o = e / PER_ROW, i = (e % PER_ROW) * VEC;
+      for (int c = 0; c < CHUNKS; ++c) {
+        const int e = threadIdx.x + c * GG_THREADS;
+        const int o = e / PER_ROW, i = (e % PER_ROW) * VEC;
+        float x[VEC];
+        hp_unpack16<T>(r[c], x);
+        if (K_INNER) {
 #pragma unroll
-      for (int v = 0; v < VEC; ++v) {
-        const int k = K_INNER ? i + v : o, x = K_INNER ? o : i + v;
-        sm[k * (W + 1) + x] = r[c][v];
+          for (int v = 0; v < VEC; ++v) sm[(i + v) * LD + o] = x[v];
+        } else {
+#pragma unroll
+          for (int v = 0; v < VEC; v += 4)
+            *reinterpret_cast<float4*>(sm + o * LD + i + v) =
+                make_float4(x[v], x[v + 1], x[v + 2], x[v + 3]);
+        }
       }
     }
   }
 };
 
+// 8 f32 values: 4 at p, 4 at p + half.
+template <int HALF> __device__ __forceinline__ void gg_frag(const float* p, float* x) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + HALF);
+  x[0] = lo.x;
+  x[1] = lo.y;
+  x[2] = lo.z;
+  x[3] = lo.w;
+  x[4] = hi.x;
+  x[5] = hi.y;
+  x[6] = hi.z;
+  x[7] = hi.w;
+}
+
+// Thread (ty, tx) = (threadIdx / 16, threadIdx % 16) owns rows 4 ty + i and
+// GG_TU / 2 + 4 ty + i, columns 4 tx + j and 64 + 4 tx + j (i, j < 4) of
+// the block's tile.  As and Bs hold two stages.
 template <typename TA, typename TB, typename TC, bool TRA, bool TRB>
 __device__ __forceinline__ void gg_tile(const TA* __restrict__ A, const TB* __restrict__ B,
                                         TC* __restrict__ C, int64_t lda, int64_t ldb,
@@ -159,51 +188,65 @@ __device__ __forceinline__ void gg_tile(const TA* __restrict__ A, const TB* __re
   const TA* a = A + (int64_t)d[3] * lda;
   const TB* b = B + (int64_t)d[4] * ldb;
   // stored layouts: A (m, k) or (k, m); B (k, n) or (n, k)
-  GgSlab<TA, TRA ? GG_BK : GG_TU, TRA ? GG_TU : GG_BK, !TRA, GG_TU> sa;
-  GgSlab<TB, TRB ? GG_TV : GG_BK, TRB ? GG_BK : GG_TV, TRB, GG_TV> sb;
-  auto load = [&](int k0) {
-    if (TRA) sa.load(a, lda, k0, m0, k, m);
-    else sa.load(a, lda, m0, k0, m, k);
-    if (TRB) sb.load(b, ldb, n0, k0, n, k);
-    else sb.load(b, ldb, k0, n0, k, n);
+  GgSlab<TA, TRA ? GG_BK : GG_TU, TRA ? GG_TU : GG_BK, !TRA, GG_LDA> sa;
+  GgSlab<TB, TRB ? GG_TV : GG_BK, TRB ? GG_BK : GG_TV, TRB, GG_LDB> sb;
+  auto load = [&](int k0, int st) {
+    float* as = As + st * GG_BK * GG_LDA;
+    float* bs = Bs + st * GG_BK * GG_LDB;
+    if (TRA) sa.load(a, lda, k0, m0, k, m, as);
+    else sa.load(a, lda, m0, k0, m, k, as);
+    if (TRB) sb.load(b, ldb, n0, k0, n, k, bs);
+    else sb.load(b, ldb, k0, n0, k, n, bs);
+    hp_cp_commit();
+  };
+  auto store = [&](int st) {
+    sa.store(As + st * GG_BK * GG_LDA);
+    sb.store(Bs + st * GG_BK * GG_LDB);
+    hp_cp_wait<0>();
   };
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[GG_TM][GG_TN];
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < GG_TM; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < GG_TN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  if (k > 0) load(0);
-  for (int k0 = 0; k0 < k; k0 += GG_BK) {
-    sa.store(As);
-    sb.store(Bs);
-    __syncthreads();
-    if (k0 + GG_BK < k) load(k0 + GG_BK);  // next stage in flight during compute
-#pragma unroll 8
+  const int n_k = (k + GG_BK - 1) / GG_BK;
+  if (n_k > 0) {
+    load(0, 0);
+    store(0);
+  }
+  __syncthreads();
+  // one barrier per slab: stage st ^ 1, written while st is computed, was
+  // last read in the previous slab, before its barrier
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < n_k) load((kt + 1) * GG_BK, st ^ 1);  // next slab in flight during compute
+    const float* as = As + st * GG_BK * GG_LDA + 4 * ty;
+    const float* bs = Bs + st * GG_BK * GG_LDB + 4 * tx;
+#pragma unroll
     for (int kk = 0; kk < GG_BK; ++kk) {
-      float av[GG_TM], bv[GG_TN];
+      float av[8], bv[8];
+      gg_frag<GG_TU / 2>(as + kk * GG_LDA, av);
+      gg_frag<64>(bs + kk * GG_LDB, bv);
 #pragma unroll
-      for (int i = 0; i < GG_TM; ++i) av[i] = As[kk * (GG_TU + 1) + ty + 16 * i];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < GG_TN; ++j) bv[j] = Bs[kk * (GG_TV + 1) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < GG_TM; ++i)
-#pragma unroll
-        for (int j = 0; j < GG_TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
+    if (kt + 1 < n_k) store(st ^ 1);
     __syncthreads();
   }
 
   TC* c = C + (int64_t)d[5] * ldc;
 #pragma unroll
-  for (int i = 0; i < GG_TM; ++i) {
-    const int row = m0 + ty + 16 * i;
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + (i < 4 ? 0 : GG_TU / 2) + 4 * ty + i % 4;
     if (row >= m) continue;
 #pragma unroll
-    for (int j = 0; j < GG_TN; ++j) {
-      const int col = n0 + tx + 16 * j;
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + (j < 4 ? 0 : 64) + 4 * tx + j % 4;
       if (col < n) c[(int64_t)row * ldc + col] = gg_from_f32<TC>(acc[i][j]);
     }
   }
@@ -226,13 +269,16 @@ __device__ __forceinline__ const int32_t* gg_group(const int32_t* __restrict__ t
   return table + GG_DESC * lo;
 }
 
+// Four blocks of 128 threads per SM (at most 128 registers a thread) where
+// both operands are float32, whose B slab of a plain layout lands by
+// cp.async; three (at most 168) where a bf16 slab waits in registers too.
 template <typename TA, typename TB, typename TC>
-__global__ void __launch_bounds__(GG_THREADS)
+__global__ void __launch_bounds__(GG_THREADS, sizeof(TA) == 4 && sizeof(TB) == 4 ? 4 : 3)
 gg_kernel(const TA* __restrict__ A, const TB* __restrict__ B, TC* __restrict__ C,
           const int32_t* __restrict__ table, int n_groups, int64_t lda, int64_t ldb,
           int64_t ldc) {
-  __shared__ float As[GG_BK * (GG_TU + 1)];
-  __shared__ float Bs[GG_BK * (GG_TV + 1)];
+  __shared__ __align__(16) float As[2 * GG_BK * GG_LDA];
+  __shared__ __align__(16) float Bs[2 * GG_BK * GG_LDB];
   int t;
   const int32_t* d = gg_group(table, n_groups, blockIdx.x, &t);
   const int nv = (d[1] + GG_TV - 1) / GG_TV;
@@ -515,6 +561,30 @@ extern "C" int gg_wgmma_info(int tc, int* out) {
   out[1] = (int)attr.localSizeBytes;
   out[2] = GW_SMEM;
   return 0;
+}
+
+template <typename TA, typename TB, typename TC> static int gg_info_t(int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, gg_kernel<TA, TB, TC>);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)attr.sharedSizeBytes;
+  return 0;
+}
+
+template <typename TA, typename TB> static int gg_info_c(int tc, int* out) {
+  return tc == 0 ? gg_info_t<TA, TB, float>(out) : gg_info_t<TA, TB, __nv_bfloat16>(out);
+}
+
+// The fma kernel for type codes ta, tb, tc (as gg_launch): out = {registers
+// per thread, local (spilled) bytes per thread, static shared bytes per
+// block}.
+extern "C" int gg_fma_info(int ta, int tb, int tc, int* out) {
+  if (ta == 0 && tb == 0) return gg_info_c<float, float>(tc, out);
+  if (ta == 0) return gg_info_c<float, __nv_bfloat16>(tc, out);
+  if (tb == 0) return gg_info_c<__nv_bfloat16, float>(tc, out);
+  return gg_info_c<__nv_bfloat16, __nv_bfloat16>(tc, out);
 }
 
 extern "C" const char* gg_error_string(int code) { return hp_error_string(code); }

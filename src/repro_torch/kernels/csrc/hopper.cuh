@@ -2,11 +2,12 @@
 //
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
 // warpgroup fences around a wgmma batch, the bf16 wgmma with both operands
-// in shared memory, and the tensor-map encoder fetched through the CUDA
-// runtime (so no library links against libcuda).  Included by
-// flash_attn.cu, grouped_gemm.cu and sb_gemm.cu; each builds into its own
-// library, so everything here is inline or static.  _build.py hashes this
-// header with every source, so a change here rebuilds all of them.
+// in shared memory, cp.async copies and 16-byte unpacking for the FMA
+// kernels, and the tensor-map encoder fetched through the CUDA runtime (so
+// no library links against libcuda).  Included by flash_attn.cu,
+// grouped_gemm.cu and sb_gemm.cu; each builds into its own library, so
+// everything here is inline or static.  _build.py hashes this header with
+// every source, so a change here rebuilds all of them.
 
 #pragma once
 
@@ -72,6 +73,49 @@ __device__ __forceinline__ void hp_tma_load(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(hp_smem(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(hp_smem(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// cp.async: BYTES (16, or 4 for an unaligned float) from global src to
+// shared dst, bypassing registers; when !valid nothing is read and dst is
+// zero-filled (src must still be a mapped address).  16-byte copies go
+// through L2 only (.cg), 4-byte ones through L1 (.ca, the only kind for
+// them).  Completion is tracked per thread by commit and wait groups.
+template <int BYTES>
+__device__ __forceinline__ void hp_cp_async(void* dst, const void* src, bool valid) {
+  static_assert(BYTES == 16 || BYTES == 4, "cp.async size");
+  if (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(hp_smem(dst)), "l"(src),
+                 "r"(valid ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(hp_smem(dst)), "l"(src),
+                 "r"(valid ? 4 : 0)
+                 : "memory");
+}
+__device__ __forceinline__ void hp_cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Wait until at most N committed cp.async groups of this thread are pending.
+template <int N> __device__ __forceinline__ void hp_cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// A 16-byte chunk of T (4 float32 or 8 bf16) as f32 values.
+template <typename T> __device__ __forceinline__ void hp_unpack16(const uint4& x, float* v);
+template <> __device__ __forceinline__ void hp_unpack16<float>(const uint4& x, float* v) {
+  v[0] = __uint_as_float(x.x);
+  v[1] = __uint_as_float(x.y);
+  v[2] = __uint_as_float(x.z);
+  v[3] = __uint_as_float(x.w);
+}
+template <> __device__ __forceinline__ void hp_unpack16<__nv_bfloat16>(const uint4& x, float* v) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle; byte offsets: lbo

@@ -22,7 +22,7 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["MAX_HEAD_DIM", "ROUTES", "flash_attention", "flash_attention_ref", "flash_route",
-           "wgmma_tiles"]
+           "fma_tiles", "wgmma_tiles"]
 
 _NEG_INF = -2.0**30
 
@@ -34,6 +34,10 @@ ROUTES = ("wgmma", "fma")
 #: query rows per block and K/V ring stages of the wgmma route
 #: (``FW_BQ``, ``FW_STAGES`` in ``csrc/flash_attn.cu``)
 _WGMMA_BQ, _WGMMA_STAGES = 128, 2
+
+#: keys per tile and threads per block of the fma route (``FA_BK``,
+#: ``FA_THREADS`` in ``csrc/flash_attn.cu``)
+_FMA_BK, _FMA_THREADS = 64, 256
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -69,10 +73,33 @@ def _library():
         lib.fa_launch_wgmma.restype = ctypes.c_int
         lib.fa_wgmma_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.fa_wgmma_info.restype = ctypes.c_int
+        lib.fa_fma_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.fa_fma_info.restype = ctypes.c_int
         lib.fa_error_string.argtypes = [ctypes.c_int]
         lib.fa_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _padded_head_dim(D: int) -> int:
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D} outside 1..{MAX_HEAD_DIM}")
+    return next(p for p in (64, 128, 256) if D <= p)
+
+
+def fma_tiles(D: int) -> dict:
+    """The fma route's tiling at head dim ``D`` (``FaTile`` in
+    ``csrc/flash_attn.cu``): the padded head dim ``dp`` (64, 128 or 256),
+    query rows ``bq`` and keys ``bk`` per block, each thread's ``rows`` ×
+    4 keys of S and ``rows`` × ``cols`` of O, and the dynamic shared
+    memory of one block in bytes: f32 Q transposed (``dp × bq``), K
+    (``bk`` rows of ``dp + 4``), V (``bk × dp``) and P transposed (``bk``
+    rows of ``bq + 4``)."""
+    dp = _padded_head_dim(D)
+    bq = 128 if dp <= 128 else 64
+    smem = 4 * (dp * bq + _FMA_BK * (dp + 4) + _FMA_BK * dp + _FMA_BK * (bq + 4))
+    return {"dp": dp, "bq": bq, "bk": _FMA_BK, "threads": _FMA_THREADS,
+            "rows": bq // 16, "cols": dp // 16, "smem_bytes": smem}
 
 
 def wgmma_tiles(D: int) -> dict:
@@ -81,9 +108,7 @@ def wgmma_tiles(D: int) -> dict:
     keys per tile ``bk``, ring ``stages``, and the dynamic shared memory of
     one block in bytes (Q tile, K and V per stage, mbarriers, and 1024
     bytes of alignment slack)."""
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {D} outside 1..{MAX_HEAD_DIM}")
-    dp = next(p for p in (64, 128, 256) if D <= p)
+    dp = _padded_head_dim(D)
     bk = 64 if dp == 256 else 128
     smem = (1024 + _WGMMA_BQ * dp * 2 + _WGMMA_STAGES * 2 * bk * dp * 2
             + 8 * (1 + 2 * _WGMMA_STAGES))
@@ -99,6 +124,18 @@ def wgmma_info(D: int) -> dict:
     rc = lib.fa_wgmma_info(D, out)
     if rc != 0:
         raise RuntimeError(f"fa_wgmma_info: {lib.fa_error_string(rc).decode()}")
+    return {"registers": out[0], "spill_bytes": out[1], "smem_bytes": out[2]}
+
+
+def fma_info(D: int, dtype=torch.float32) -> dict:
+    """Registers and spilled (local) bytes per thread, and dynamic shared
+    bytes per block, of the built fma kernel for head dim ``D`` and
+    ``dtype``.  Needs the card (it loads the library)."""
+    lib = _library()
+    out = (ctypes.c_int * 3)()
+    rc = lib.fa_fma_info(D, _TYPE_CODES[dtype], out)
+    if rc != 0:
+        raise RuntimeError(f"fa_fma_info: {lib.fa_error_string(rc).decode()}")
     return {"registers": out[0], "spill_bytes": out[1], "smem_bytes": out[2]}
 
 
@@ -153,8 +190,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
     head's K/V for each q head.
 
     The JAX package's ``blocks`` (TPU tiles) has no counterpart: each
-    route's tiles are fixed (:func:`wgmma_tiles`; 64 × 64 on the fma
-    route).
+    route's tiles are fixed (:func:`wgmma_tiles`, :func:`fma_tiles`).
     """
     if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
         raise ValueError(f"flash_attention takes rank-3 q, k, v; got ranks "

@@ -45,6 +45,7 @@ __all__ = [
     "GROUPED_DEFAULT_TILES",
     "DESC_FIELDS",
     "KERNEL_TILES",
+    "FMA_DEPTH",
     "ROUTES",
     "WGMMA_DEPTH",
     "GroupProblem",
@@ -53,6 +54,7 @@ __all__ = [
     "grouped_gemm",
     "grouped_gemm_packed_ref",
     "grouped_gemm_ref",
+    "fma_info",
     "grouped_route",
     "wgmma_info",
 ]
@@ -77,6 +79,11 @@ KERNEL_TILES = {"wgmma": (128, 256), "fma": (64, 128)}
 #: the wgmma route's depth per stage (GW_BK): every group with output tiles
 #: must have ``k_p`` a multiple of it
 WGMMA_DEPTH = 64
+
+#: the fma route's depth per stage (GG_BK); its two stages of f32 slabs,
+#: ``FMA_DEPTH`` rows of ``rows + 4`` and of ``columns + 4`` floats each,
+#: are the kernel's static shared memory
+FMA_DEPTH = 16
 
 #: every extent and row width the kernel reads in 16-byte vectors of
 #: float32 (4) or bfloat16 (8) must be a multiple of this
@@ -346,6 +353,9 @@ def _library():
         lib.gg_launch_wgmma.restype = ctypes.c_int
         lib.gg_wgmma_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.gg_wgmma_info.restype = ctypes.c_int
+        lib.gg_fma_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_int)]
+        lib.gg_fma_info.restype = ctypes.c_int
         lib.gg_error_string.argtypes = [ctypes.c_int]
         lib.gg_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -403,6 +413,24 @@ def wgmma_info() -> dict:
         if rc != 0:
             raise RuntimeError(f"gg_wgmma_info: {lib.gg_error_string(rc).decode()}")
         info[dtype] = {"registers": out[0], "spill_bytes": out[1], "smem_bytes": out[2]}
+    return info
+
+
+def fma_info() -> dict:
+    """Registers and spilled (local) bytes per thread, and static shared
+    bytes per block, of the built fma kernel for each (A, B, C) dtype
+    triple.  Needs the card (it loads the library)."""
+    lib = _library()
+    info = {}
+    for ta, ca in _TYPE_CODES.items():
+        for tb, cb in _TYPE_CODES.items():
+            for tc, cc in _TYPE_CODES.items():
+                out = (ctypes.c_int * 3)()
+                rc = lib.gg_fma_info(ca, cb, cc, out)
+                if rc != 0:
+                    raise RuntimeError(f"gg_fma_info: {lib.gg_error_string(rc).decode()}")
+                info[ta, tb, tc] = {"registers": out[0], "spill_bytes": out[1],
+                                    "smem_bytes": out[2]}
     return info
 
 

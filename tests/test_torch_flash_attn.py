@@ -22,7 +22,7 @@ from repro.kernels.flash_attn import flash_attention as jflash
 from repro_torch import interop
 from repro_torch.kernels import flash_attn as fa
 from repro_torch.kernels.flash_attn import (
-    flash_attention, flash_attention_ref, flash_route, wgmma_tiles)
+    flash_attention, flash_attention_ref, flash_route, fma_tiles, wgmma_tiles)
 
 # small shapes: one intra-op thread each keeps parallel test workers from
 # oversubscribing the CPU
@@ -205,6 +205,51 @@ def test_wgmma_tiles_reject_head_dims_out_of_range():
             wgmma_tiles(D)
 
 
+def test_fma_tiles_reject_head_dims_out_of_range():
+    for D in (0, 257):
+        with pytest.raises(ValueError, match="head dim"):
+            fma_tiles(D)
+
+
+def test_fma_tiles_fit_shared_memory():
+    """For every head dim 1..256 the fma route's f32 tiles (Q transposed,
+    K, V, P transposed) fit the 232,448 bytes a Hopper block may use, each
+    thread holds rows x 4 keys of S and rows x cols of O over 256 threads,
+    and the padded rows keep 16-byte alignment."""
+    for D in range(1, 257):
+        t = fma_tiles(D)
+        assert t["dp"] == next(p for p in (64, 128, 256) if D <= p)
+        assert t["bq"] == (128 if t["dp"] <= 128 else 64) and t["bk"] == 64
+        assert t["rows"] * 16 == t["bq"] and t["cols"] * 16 == t["dp"]
+        assert t["threads"] == 256 and t["cols"] % 4 == 0 and t["rows"] % 4 == 0
+        assert t["rows"] * t["cols"] <= 64      # O accumulators per thread
+        assert t["smem_bytes"] <= 232_448
+        assert t["smem_bytes"] == 4 * (t["dp"] * t["bq"] + t["bk"] * (t["dp"] + 4)
+                                       + t["bk"] * t["dp"] + t["bk"] * (t["bq"] + 4))
+    assert fma_tiles(128)["smem_bytes"] == 165_888
+
+
+def test_fma_tiles_mirror_the_cuda_source():
+    """``fma_tiles`` is ``FaTile`` and the ``#define``s of
+    ``csrc/flash_attn.cu``."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    text = (_build.CSRC / "flash_attn.cu").read_text()
+    defs = {k: int(v) for k, v in re.findall(r"#define (FA_\w+) (\d+)\b", text)}
+    assert (defs["FA_BK"], defs["FA_THREADS"]) == (fma_tiles(64)["bk"], fma_tiles(64)["threads"])
+    tile = text[text.index("template <int DP> struct FaTile {"):]
+    tile = tile[:tile.index("};")]
+    for line in ("BQ = DP <= 128 ? 128 : 64;", "RM = BQ / 16;", "NC = DP / 16;",
+                 "LDK = DP + 4;", "LDP = BQ + 4;", "Q_FLOATS = DP * BQ;",
+                 "K_FLOATS = FA_BK * LDK;", "V_FLOATS = FA_BK * DP;", "P_FLOATS = FA_BK * LDP;",
+                 "SMEM = 4 * (Q_FLOATS + K_FLOATS + V_FLOATS + P_FLOATS);"):
+        assert f"static constexpr int {line}" in tile
+    assert "if (a.D <= 64) return fa_launch_t<T, 64>" in text
+    assert "if (a.D <= 128) return fa_launch_t<T, 128>" in text
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain_version_on_the_card():
     if not torch.cuda.is_available():
@@ -221,3 +266,27 @@ def test_kernel_matches_plain_version_on_the_card():
                 assert flash_attention.launches_by_route[route] == before + 1
                 want = flash_attention_ref(*args, causal=causal)
                 torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16_head_dim_4"])
+def test_fma_route_matches_plain_version_at_ragged_lengths_on_the_card(dtype, tol):
+    """The fma route at S and T off its 128-row (64 at D > 128) query tile
+    and 64-key tile, causal and not, with scores over a wide range; bf16
+    takes it at D = 4, a layout TMA cannot read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
+    rng = np.random.default_rng(9)
+    dims = [(2, 333, 260), (3, 100, 150), (1, 129, 700)]
+    for (bh, s, t), d in zip(dims, (128, 256, 64) if dtype == torch.float32 else (4, 4, 4)):
+        q, k, v = (x.to(dtype) for x in interop.from_numpy(_qkv(rng, bh, s, t, d)))
+        for causal in (True, False):
+            assert flash_route(q, k, v) == "fma"
+            before = flash_attention.launches_by_route["fma"]
+            got = flash_attention(q * 8, k, v, causal=causal)
+            assert flash_attention.launches_by_route["fma"] == before + 1
+            want = flash_attention_ref(q * 8, k, v, causal=causal)
+            err = ((got.float() - want.float()).abs().amax(-1)
+                   / want.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+            assert err <= tol, f"{(bh, s, t, d)} causal={causal}: worst row {err}"

@@ -323,9 +323,11 @@ def test_grouped_route_follows_dtype_layout_and_depths(case):
 
 def test_route_tiles_mirror_the_cuda_source():
     """The wrapper's tile list and depth rule use the kernels' own tiles:
-    ``KERNEL_TILES`` and ``WGMMA_DEPTH`` equal the ``#define``s of
-    ``csrc/grouped_gemm.cu``, and the wgmma ring fits a block's 232,448
-    bytes of shared memory."""
+    ``KERNEL_TILES``, ``WGMMA_DEPTH`` and ``FMA_DEPTH`` equal the
+    ``#define``s of ``csrc/grouped_gemm.cu``; the wgmma ring fits a
+    block's 232,448 bytes of shared memory, and the fma route's two f32
+    stages (rows padded by 4 floats) fit the 48 KB of static shared
+    memory, with 8 x 8 outputs for each of its 2 x GG_TU threads."""
     import re
 
     from repro_torch.kernels import _build
@@ -337,6 +339,12 @@ def test_route_tiles_mirror_the_cuda_source():
     assert gg.WGMMA_DEPTH == defs["GW_BK"]
     stage = (defs["GW_TM"] + defs["GW_TN"]) * defs["GW_BK"] * 2
     assert 1024 + defs["GW_STAGES"] * stage + 16 * defs["GW_STAGES"] <= 232_448
+    assert gg.FMA_DEPTH == defs["GG_BK"]
+    assert "#define GG_THREADS (2 * GG_TU)" in text
+    assert "#define GG_LDA (GG_TU + 4)" in text and "#define GG_LDB (GG_TV + 4)" in text
+    tu, tv = gg.KERNEL_TILES["fma"]
+    assert tv == 128 and tu % 16 == 0    # columns 4 tx and 64 + 4 tx; rows 4 ty, tu / 2 + 4 ty
+    assert 2 * gg.FMA_DEPTH * (tu + 4 + tv + 4) * 4 <= 48 * 1024
 
 
 def _pack_per_group(As, Bs, descs, shapes):
@@ -488,6 +496,38 @@ def test_kernel_matches_plain_version_on_the_card():
         before = gg.grouped_gemm.launches_by_route[route]
         got = gg.grouped_gemm(A_flat, B_flat, descs, **kw)
         assert gg.grouped_gemm.launches_by_route[route] == before + 1
+        want = gg.grouped_gemm_packed_ref(A_flat, B_flat, descs, **kw)
+        torch.cuda.synchronize()
+        for m, n, *_, c_off, _, _ in descs.tolist():
+            torch.testing.assert_close(got[c_off:c_off + m, :n].float(),
+                                       want[c_off:c_off + m, :n].float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("a_dtype,b_dtype", [(torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.float32)],
+                         ids=["f32", "bf16_x_f32"])
+def test_fma_route_matches_plain_version_at_ragged_groups_on_the_card(a_dtype, b_dtype):
+    """The fma route at ragged group sizes: groups off the 64 x 128 kernel
+    tile and the 16-deep stage, an empty group and a k = 0 group, every
+    trans combination, f32 and bf16 output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
+    shapes = [(130, 260, 70), (1, 300, 33), (77, 5, 513), (0, 9, 16), (40, 24, 0), (65, 129, 17)]
+    ta, tb = [True, False, True, False, True, False], [False, True, True, False, False, True]
+    rng = np.random.default_rng(21)
+    As = [torch.from_numpy(rng.standard_normal((k, m) if t else (m, k)).astype(np.float32))
+          .cuda().to(a_dtype) for (m, n, k), t in zip(shapes, ta)]
+    Bs = [torch.from_numpy(rng.standard_normal((n, k) if t else (k, n)).astype(np.float32))
+          .cuda().to(b_dtype) for (m, n, k), t in zip(shapes, tb)]
+    for out_dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        A_flat, B_flat, descs, problems = gg.pack_groups(As, Bs, T8, trans_a=ta, trans_b=tb)
+        _, out_rows, out_cols = gg.packed_geometry(problems, T8)
+        kw = dict(out_cols=out_cols, out_rows=out_rows, out_dtype=out_dtype)
+        assert gg.grouped_route(A_flat, B_flat, descs) == "fma"
+        before = gg.grouped_gemm.launches_by_route["fma"]
+        got = gg.grouped_gemm(A_flat, B_flat, descs, **kw)
+        assert gg.grouped_gemm.launches_by_route["fma"] == before + 1
         want = gg.grouped_gemm_packed_ref(A_flat, B_flat, descs, **kw)
         torch.cuda.synchronize()
         for m, n, *_, c_off, _, _ in descs.tolist():
