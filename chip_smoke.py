@@ -38,6 +38,20 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
 5. Main path: Tucker HOOI on a low-rank-plus-noise float32 tensor of
    ``size``³ with ranks (10, 10, 10) (the paper's Fig. 9 core), three ways:
    the kernel backend, the torch backend and the conventional baseline.
+10. Tuned HOOI (run right after phase 5, on its tensor): a ``"measure"``
+   dispatcher with a fresh cache in a temporary directory pretunes the
+   HOOI working set on the card (every candidate of every shape, the
+   ``kernel`` ones through ``native_gemm``; one line per shape with each
+   candidate's µs and the winner), then HOOI runs with
+   ``strategy="tuned"`` under ``"cached"``: every lookup must hit with no
+   measurement, ``native_gemm``'s launches by route must be what the
+   winners imply, and ``rel_error`` within 1e-5 of the kernel variant's;
+   its ms (upper median of 2 runs after a warm-up) is printed beside the
+   three variants.  The cost model fitted on that cache predicts each
+   shape, printed beside the measured winner.  One traced tuned HOOI
+   iteration must give every ``contract`` span a ``roofline_fraction``
+   (bound over device time, from CUDA events) in (0, 1.05], and its
+   Chrome-trace export must parse.
 6. Kernel time at each of the main path's launch shapes and its route:
    device time with the calls queued behind a sleeping kernel
    (``queued_ms``) and the call with its host time (CUDA events around
@@ -61,10 +75,11 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    and its device kernels' names).  Both bf16 runs must take the ``wgmma``
    route.
 
-Each path (5, 8, 9) is driven with every kernel's launch count set to 0
-just before it and read just after; launches made to compare or time a
-kernel do not count.  Phase 5 also reads ``native_gemm``'s launches by
-route, which must be what ``native_route`` gives for each launch shape.
+Each path (5, 10, 8, 9) is driven with every kernel's launch count set to
+0 just before it and read just after; launches made to compare, time or
+tune a kernel do not count.  Phases 5 and 10 also read ``native_gemm``'s
+launches by route, which must be what ``native_route`` gives for each
+launch shape (and, in phase 10, what the tuner's winners imply).
 
 Tolerances: integer-valued inputs are exact under any summation order, so
 they must match bit for bit; float32 results may differ from the plain
@@ -78,7 +93,8 @@ plain version's own.  TF32 is switched off for matmuls and cuDNN, so the
 library calls compared against run in full float32.
 
 The last lines of stdout are a JSON ``kernels`` record (the grouped and
-attention entries carry their f32 run, the fma route, under ``"fma"``),
+attention entries carry their f32 run, the fma route, under ``"fma"``;
+``native_gemm``'s carries the tuned HOOI's launches by route),
 the card's name and power limit as ``nvidia-smi`` prints them, and the
 ``{"ok": true, ...}`` line.  Any failed check raises and exits non-zero without that line.
 """
@@ -97,13 +113,6 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-#: HBM rate, float32 FMA peak (outside the tensor cores) and dense bf16
-#: tensor-core peak of an H100 SXM at 700 W (NVIDIA data sheet).  A bound
-#: takes the card's peak for the operands' type, whatever units the kernel
-#: uses (the port's kernels accumulate with plain FMA).
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-PEAK_FLOP_PER_S = {torch.float32: F32_FLOP_PER_S, torch.bfloat16: 989e12}
 KERNEL_SOURCES = ("sb_gemm", "grouped_gemm", "flash_attn")
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -217,9 +226,14 @@ def build() -> dict:
 
 def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
     """Least time (ms) for ``nbytes`` moved and ``flops`` done at the card's
-    peaks for ``dtype``, and which of the two bounds it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOP_PER_S[dtype]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    peaks for ``dtype``, and which of the two bounds it.  The peaks are the
+    port's table (``repro_torch.obs.roofline.DEVICE_PEAKS``, from NVIDIA's
+    data sheet), for whatever units the kernel uses: the port's float32
+    kernels accumulate with plain FMA, so float32 takes the FMA peak."""
+    from repro_torch.obs.roofline import roofline_bound
+
+    us, by = roofline_bound(flops, nbytes, dtype, torch.cuda.get_device_name(0))
+    return us / 1e3, by
 
 
 def nbytes(*tensors) -> int:
@@ -811,6 +825,9 @@ def low_rank_plus_noise(size: int, ranks, seed: int, noise_rel: float = 0.1,
 VARIANTS = {"kernel": dict(strategy="auto", backend="kernel"),
             "torch": dict(strategy="auto", backend="torch"),
             "conventional": dict(strategy="conventional", backend="torch")}
+#: every HOOI run: the three variants and phase 10's tuned run, in which
+#: each step runs the tuner's winner (``backend`` unused)
+RUNS = {**VARIANTS, "tuned": dict(strategy="tuned")}
 
 
 def check_small_hooi(dev) -> None:
@@ -836,7 +853,7 @@ def run_hooi(T, n_iter, variant):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = hooi(T, RANKS, n_iter=n_iter, **VARIANTS[variant])
+    res = hooi(T, RANKS, n_iter=n_iter, **RUNS[variant])
     torch.cuda.synchronize()
     return res, (time.perf_counter() - t0) * 1e3
 
@@ -909,7 +926,165 @@ def main_path(T, noise_share, n_iter, counters):
             f"speedup over conventional {med['conventional'] / med[v]:.3f}x")
     log(f"hooi: noise share of ||T|| {noise_share:.7f}; kernel launches per HOOI "
         f"{counted['native_gemm']}, by route {routes}")
-    return counted, routes, launches
+    return counted, routes, launches, {"ms": med, "rel": rel}
+
+
+# ------------------------------------------------------------------ phase 10
+#: the tuned run's tolerance against the ``auto``+kernel variant's rel_error
+TUNED_REL_TOL = 1e-5
+#: a span's roofline fraction above this means its count or its clock is wrong
+MAX_FRACTION = 1.05
+
+
+def tuned_path(T, working_set, noise_share, n_iter, counters, hooi_summary) -> dict:
+    """HOOI under ``strategy="tuned"``.  A ``"measure"`` dispatcher with a
+    fresh cache in a temporary directory pretunes the recorded working set
+    on the card (every candidate of every shape measured); the tuned HOOI
+    then runs under ``"cached"``: every lookup a hit, no measurement,
+    ``native_gemm``'s launches by route what the winners imply, and
+    ``rel_error`` within :data:`TUNED_REL_TOL` of the ``auto``+kernel
+    variant's.  Then the cost model fitted on that cache predicts each
+    shape, and one traced tuned iteration must give every ``contract``
+    span a roofline fraction in (0, :data:`MAX_FRACTION`], exported to a
+    Chrome trace that parses.  Returns the tuned run's record."""
+    import tempfile
+    from collections import Counter
+
+    from repro_torch.core.notation import parse_spec
+    from repro_torch.obs import export, trace
+    from repro_torch.tuning import Candidate, Dispatcher, canonical_key, set_dispatcher
+    from repro_torch.tuning.cache import platform_of
+    from repro_torch.tuning.candidates import enumerate_candidates
+    from repro_torch.tuning.model import kernel_route
+    from repro_torch.kernels.sb_gemm import native_gemm
+
+    dev, both = T.device, ("torch", "kernel")
+    platform = platform_of(dev)
+    shapes = {}
+    for spec, dims, dt in working_set:
+        shapes.setdefault(canonical_key(spec, dims, dt, platform), (spec, dims, dt))
+    with tempfile.TemporaryDirectory() as tmp:
+        disp = Dispatcher(Path(tmp) / "tuning.json", policy="measure", backends=both)
+        set_dispatcher(disp)
+        try:
+            t0 = time.perf_counter()
+            stats = disp.pretune(working_set, device=dev)
+            pretune_s = time.perf_counter() - t0
+            check(stats["tuned"] == stats["unique"] == len(shapes),
+                  f"pretune on a fresh cache: {stats}")
+            n_cands = 0
+            winner_route = {}
+            for key, (spec, dims, dt) in shapes.items():
+                cs = parse_spec(spec)
+                entry = disp.cache.get(key)
+                want = {c.key() for c in enumerate_candidates(cs, dims, backends=both)}
+                check(set(entry["results"]) == want,
+                      f"{key}: measured {sorted(entry['results'])}, candidates {sorted(want)}")
+                n_cands += len(want)
+                best = Candidate.from_key(entry["best"])
+                winner_route[key] = (kernel_route(cs, dims, dt, best)[0]
+                                     if best.backend == "kernel" else None)
+                us = ", ".join(f"{k} {v:.2f}" for k, v in sorted(entry["results"].items(),
+                                                                   key=lambda kv: kv[1]))
+                log(f"tuned {spec} {dims}: winner {entry['best']}"
+                    f"{' [' + winner_route[key] + ']' if winner_route[key] else ''}; "
+                    f"µs {us}")
+            check(disp.measurements == n_cands, f"{disp.measurements} measurements, "
+                                                f"{n_cands} candidates")
+            log(f"pretune: {stats['unique']} shapes, {n_cands} candidates measured on the card "
+                f"in {pretune_s:.1f} s ({platform})")
+
+            disp.policy = "cached"
+            with native_routes_held() as warm:       # warm-up; launches held to native_route
+                run_hooi(T, n_iter, "tuned")
+            looked = Counter()
+            real_lookup = disp.lookup
+
+            def tally(spec, dims, dtype, plat=None):
+                looked[canonical_key(spec, dims, dtype, plat)] += 1
+                return real_lookup(spec, dims, dtype, plat)
+
+            disp.lookup = tally
+            disp.reset_counters()
+            for c in counters:
+                c.launches = 0
+            native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
+            res, ms = run_hooi(T, n_iter, "tuned")
+            counted = {c.__name__: c.launches for c in counters}
+            routes = dict(native_gemm.launches_by_route)
+            disp.lookup = real_lookup
+            implied = dict.fromkeys(routes, 0)
+            for key, n in looked.items():
+                if winner_route.get(key):
+                    implied[winner_route[key]] += n
+            log(f"tuned hooi: {disp.stats['hits']} lookups, all hits, "
+                f"{disp.stats['measurements']} measurements; native_gemm launches by route "
+                f"{routes}, implied by the winners {implied}, held in the warm-up run "
+                f"{warm}")
+            check(disp.misses == 0 and disp.measurements == 0 and disp.hits > 0
+                  and disp.hits == sum(looked.values()),
+                  f"tuned hooi under 'cached': {disp.stats}")
+            check(set(looked) <= set(shapes), "a tuned lookup outside the pretuned working set")
+            check(routes == implied == warm, f"native_gemm routes {routes}, implied {implied}, "
+                                             f"warm-up {warm}")
+            check(counted["native_gemm"] == sum(routes.values())
+                  and counted["grouped_gemm"] == counted["flash_attention"] == 0,
+                  f"tuned hooi launches {counted}")
+            times = [ms, run_hooi(T, n_iter, "tuned")[1]]
+
+            rel = res.rel_error.item()
+            check(all(torch.isfinite(x).all().item() for x in (res.core, *res.factors))
+                  and tuple(res.core.shape) == RANKS, "tuned hooi: non-finite or misshapen")
+            check(abs(rel - hooi_summary["rel"]["kernel"]) <= TUNED_REL_TOL,
+                  f"tuned rel_error {rel} vs auto+kernel {hooi_summary['rel']['kernel']}")
+            check(rel <= noise_share * 1.001, f"tuned rel_error {rel} above the noise share")
+            med = sorted(times)[len(times) // 2]
+            log(f"hooi {T.shape[0]}^3 ranks {RANKS} x{n_iter} [tuned]: {med:.3f} ms per HOOI "
+                f"(runs {', '.join(f'{t:.3f}' for t in times)}), rel_error {rel:.7f} "
+                f"(auto+kernel {hooi_summary['rel']['kernel']:.7f}); beside "
+                + ", ".join(f"{v} {t:.3f} ms" for v, t in hooi_summary["ms"].items()))
+
+            pred = Dispatcher(disp.cache, policy="predict", backends=both)
+            model = pred.model()
+            log(f"cost model: families {sorted(model.families)}, {model.n_rows} rows")
+            for key, (spec, dims, dt) in shapes.items():
+                p = pred.predict(spec, dims, dt)
+                entry = disp.cache.get(key)
+                measured = entry["results"][entry["best"]]
+                log(f"predict {spec} {dims}: "
+                    + (f"{p.candidate.key()} {p.us:.2f} µs (confidence {p.confidence:.3f})"
+                       if p else "no prediction")
+                    + f"; measured {entry['best']} {measured:.2f} µs")
+
+            tracer = trace.enable_tracing(trace.Tracer())
+            try:
+                hooi_traced = run_hooi(T, 1, "tuned")[0]
+            finally:
+                trace.disable_tracing()
+            check(torch.isfinite(hooi_traced.rel_error).item(), "traced hooi: non-finite")
+            spans = [e for e in tracer.events() if e["name"] == "contract"]
+            fracs = [e["args"].get("roofline_fraction") for e in spans]
+            check(spans and all(e["args"].get("roofline_bound_us", 0) > 0 for e in spans),
+                  "a contract span on the card carries no roofline bound")
+            bad = [(e["args"]["spec"], f) for e, f in zip(spans, fracs)
+                   if f is None or not 0 < f <= MAX_FRACTION]
+            by_spec = {}
+            for e, f in zip(spans, fracs):
+                by_spec.setdefault((e["args"]["spec"], e["args"]["strategy"]), []).append(f)
+            for (spec, strategy), fs in sorted(by_spec.items()):
+                log(f"trace contract {spec} [{strategy}] x{len(fs)}: roofline_fraction "
+                    f"{min(fs):.4f}-{max(fs):.4f} of device time")
+            check(not bad, f"roofline fractions outside (0, {MAX_FRACTION}]: {bad[:5]}")
+            path = Path(tmp) / "tuned_hooi_trace.json"
+            n_ev = export.write_chrome_trace(str(path), tracer)
+            summary = export.validate_chrome_trace(str(path))
+            check("contract" in summary["names"], "exported trace has no contract span")
+            log(f"trace: {len(spans)} contract spans, fractions {min(fracs):.4f}-"
+                f"{max(fracs):.4f}; {n_ev} Chrome-trace events exported, parsed and valid")
+        finally:
+            set_dispatcher(None)
+    return {"launches": counted["native_gemm"], "launches_by_route": routes,
+            "ms": med, "rel_error": rel}
 
 
 # ------------------------------------------------------------------- phase 6
@@ -931,8 +1106,7 @@ def time_shapes(launches, reps: int = 20) -> dict:
         flops = 2 * int(np.prod([dims[m] for m in set(a + b + c)], dtype=np.int64))
         nbytes = (A.numel() * A.element_size() + B.numel() * B.element_size()
                   + int(np.prod([dims[m] for m in c])) * out_dtype.itemsize)
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
-        by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOP_PER_S else "operations"
+        b_ms, by = bound(nbytes, flops, torch.float32)
         spec = f"{a},{b}->{c}"
         route = native_route(A, B, a_modes=a, b_modes=b, c_modes=c)
         saved = native_gemm.launches, dict(native_gemm.launches_by_route)
@@ -952,16 +1126,15 @@ def time_shapes(launches, reps: int = 20) -> dict:
         lib_call = cuda_ms(lambda: torch.einsum(spec, A, B), reps)
         log(f"shape {spec} A{tuple(A.shape)}{A.stride()} B{tuple(B.shape)}{B.stride()} "
             f"x{n}/HOOI [{route}]: kernel {ms:.4f} ms queued ({call_ms:.4f} ms by events), "
-            f"bound {bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of bound; plain "
+            f"bound {b_ms:.4f} ms ({by}), {100 * b_ms / ms:.1f}% of bound; plain "
             f"{plain:.4f} ms; einsum {lib:.4f} ms queued ({lib_call:.4f} ms by events); "
             f"two launches bit-identical")
-        for k, v in zip(keys, (ms, call_ms, plain, lib, lib_call, bound)):
+        for k, v in zip(keys, (ms, call_ms, plain, lib, lib_call, b_ms)):
             tot[k] += n * v
         tot["bytes"] += n * nbytes
         tot["flops"] += n * flops
     tot["max_abs_err"] = worst
-    tot["bound_by"] = ("bytes" if tot["bytes"] / HBM_BYTES_PER_S
-                       >= tot["flops"] / F32_FLOP_PER_S else "operations")
+    tot["bound_by"] = bound(tot["bytes"], tot["flops"], torch.float32)[1]
     log(f"native_gemm per HOOI: kernel {tot['ms']:.4f} ms queued ({tot['call_ms']:.4f} ms by "
         f"events), bound {tot['bound_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, einsum "
         f"{tot['library_ms']:.4f} ms queued ({tot['library_call_ms']:.4f} ms by events)")
@@ -1342,9 +1515,10 @@ def main() -> int:
     working_set = list({s: d for s, d, _ in rec}.items())
     check_copy_freedom(dev, working_set)
 
-    counted, routes, launches = main_path(T, noise_share, args.n_iter, counters)
+    counted, routes, launches, hooi_summary = main_path(T, noise_share, args.n_iter, counters)
     check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
           f"HOOI launched another kernel: {counted}")
+    tuned = tuned_path(T, rec, noise_share, args.n_iter, counters, hooi_summary)
     tot = time_shapes(launches)
     for variant in VARIANTS:
         profile_hooi(T, args.n_iter, variant)
@@ -1355,7 +1529,8 @@ def main() -> int:
     records = {
         "native_gemm": ("sb_gemm.cu", "sb_gemm.py:87",
                         {**tot, "launches": counted["native_gemm"],
-                         "launches_by_route": routes}),
+                         "launches_by_route": routes,
+                         "tuned_launches_by_route": tuned["launches_by_route"]}),
         "grouped_gemm": ("grouped_gemm.cu", "grouped_gemm.py:248",
                          grouped_path(dev, args.seed, counters)),
         "flash_attention": ("flash_attn.cu", "flash_attn.py:79",
@@ -1365,7 +1540,8 @@ def main() -> int:
                 "source": f"src/repro_torch/kernels/csrc/{src}",
                 "replaces": f"src/repro/kernels/{tpu}",
                 **{k: rec[k] for k in keys},
-                **{k: rec[k] for k in ("launches_by_route", "fma") if k in rec}}
+                **{k: rec[k] for k in ("launches_by_route", "tuned_launches_by_route", "fma")
+                   if k in rec}}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on its path")

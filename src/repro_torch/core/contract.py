@@ -19,13 +19,26 @@ entry point for pairwise tensor contractions.  Strategies:
                     (:func:`repro_torch.kernels.ops.execute_native`): any
                     mode ordering, any strides, one launch, no copy.
                     Implies the kernel backend (``backend`` is ignored).
-* ``"tuned"``     — not ported yet (ROADMAP queue 1, item 9): raises.
+* ``"tuned"``     — empirical dispatch through the autotuner
+                    (:mod:`repro_torch.tuning.dispatch`): run the measured
+                    winner when the persistent cache has one, measure on
+                    miss per the dispatcher's policy, fall back to the
+                    analytic ``"auto"`` plan otherwise.
 
 Backends: ``"torch"`` (library GEMMs — ``torch.tensordot``/``matmul``
 under ``torch.vmap`` — the port's baseline, in place of the JAX package's
 ``"xla"``) or ``"kernel"`` (the hand-written StridedBatchedGEMM kernel, in
-place of ``"pallas"``).  Every path computes on its operands' device and
-never moves them.
+place of ``"pallas"``).  With ``backend="kernel"`` and a planning
+strategy, ``tiles={"b": int}`` sets the brick depth a block walks along
+the plan's batch mode (validated by
+:func:`repro_torch.tuning.candidates.validate_tiles`; the kernel fixes
+its other tiles from the layout).  Every path computes on its operands'
+device and never moves them.
+
+With tracing on, each call records a ``contract`` span carrying the
+roofline record (:func:`repro_torch.obs.roofline.contraction_record`);
+on the card the span also times its body on the device, so its
+``roofline_fraction`` divides the bound by device time.
 """
 
 from __future__ import annotations
@@ -136,12 +149,14 @@ def contract(
       strategy: one of the strategies in the module docstring.
         ``"flatten"`` raises ``ValueError`` if the spec admits no
         flattened single-GEMM evaluation; ``"native"`` always runs the
-        kernel.
+        kernel; ``"tuned"`` dispatches through the autotuner.
       backend: ``"torch"`` or ``"kernel"``.  Ignored by ``"direct"``,
-        ``"conventional"`` and ``"native"``.
+        ``"conventional"``, ``"native"`` and ``"tuned"`` (the winner
+        carries its own).
       force_batch: pin the strided-batch mode (Fig. 5/6 benchmarks).
-      tiles: per-call tile overrides — not ported yet (they belong to the
-        ``tuning/`` port, ROADMAP queue 1, item 9): raises.
+      tiles: per-call tile override (``{"b": depth}``), validated; only
+        legal with ``backend="kernel"`` and a planning strategy
+        (``"auto"``/``"flatten"``/``"batched"``).
       out_dtype: result dtype; defaults to the promoted operand dtype.
         Library GEMMs and the kernel both accumulate float32 and bfloat16
         operands in float32.
@@ -158,13 +173,36 @@ def contract(
             mesh=mesh, in_specs=in_specs, out_spec=out_spec,
         )
     with _trace.span("contract", "core") as sp:
-        sp.set(strategy=strategy, backend=backend,
-               spec=spec if isinstance(spec, str) else spec.spec_str())
+        _annotate_contraction(sp, spec, A, B, strategy, backend, tiles)
         return _contract_impl(
             spec, A, B, strategy=strategy, backend=backend,
             force_batch=force_batch, tiles=tiles, out_dtype=out_dtype,
             mesh=mesh, in_specs=in_specs, out_spec=out_spec,
         )
+
+
+def _annotate_contraction(sp, spec, A, B, strategy, backend, tiles):
+    """Attach the roofline-attribution attributes to a ``contract`` span,
+    and time its body on the device when the operands lie on the card.
+
+    Best-effort: malformed calls annotate only what they were given and
+    let the implementation raise its usual error (the span then records
+    with an ``error`` attribute)."""
+    sp.set(strategy=strategy, backend=backend,
+           spec=spec if isinstance(spec, str) else spec.spec_str())
+    try:
+        cs = parse_spec(spec) if isinstance(spec, str) else spec
+        dims = infer_dims(cs, A, B)
+        dtype = torch.promote_types(A.dtype, B.dtype)
+    except (ValueError, NotImplementedError, AttributeError):
+        return
+    from repro_torch.obs.roofline import contraction_record
+
+    sp.set(dims=dict(dims), **contraction_record(cs, dims, dtype, A.device))
+    if tiles:
+        sp.set(tiles=dict(tiles))
+    if A.device.type == "cuda":
+        sp.time_device(A.device)
 
 
 def _contract_impl(spec, A, B, *, strategy, backend, force_batch, tiles,
@@ -175,18 +213,10 @@ def _contract_impl(spec, A, B, *, strategy, backend, force_batch, tiles,
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    if strategy == "tuned":
-        raise NotImplementedError(
-            "strategy='tuned' needs the autotuner, which is not ported yet: "
-            "ROADMAP queue 1, item 9")
     if mesh is not None or in_specs is not None or out_spec is not None:
         raise NotImplementedError(
             "sharded contraction (mesh=/in_specs=/out_spec=) is not ported "
             "yet: ROADMAP queue 1, item 12")
-    if tiles is not None:
-        raise NotImplementedError(
-            "tiles= overrides need the tile validation of the tuning/ port: "
-            "ROADMAP queue 1, item 9")
     cs = parse_spec(spec) if isinstance(spec, str) else spec
     dims = infer_dims(cs, A, B)
     if A.device != B.device:
@@ -197,6 +227,25 @@ def _contract_impl(spec, A, B, *, strategy, backend, force_batch, tiles,
         rec_dtype = dtype_name(torch.promote_types(A.dtype, B.dtype))
         for rec in _ACTIVE_RECORDERS:
             rec.append((cs.spec_str(), dict(dims), rec_dtype))
+
+    if strategy == "tuned":
+        if tiles is not None:
+            raise ValueError(
+                "tiles= cannot be combined with strategy='tuned' "
+                "(the tuner owns tile selection)"
+            )
+        from repro_torch.tuning.dispatch import get_dispatcher  # deferred: no cycle
+
+        return get_dispatcher().contract(cs, A, B, out_dtype=out_dtype)
+
+    if tiles is not None:
+        if strategy not in ("auto", "flatten", "batched"):
+            raise ValueError(f"tiles= is meaningless for strategy={strategy!r}")
+        if backend != "kernel":
+            raise ValueError("tiles= requires backend='kernel'")
+        from repro_torch.tuning.candidates import validate_tiles  # deferred: no cycle
+
+        validate_tiles(tiles)
 
     if strategy == "native":
         from repro_torch.kernels import ops  # deferred: ops imports this layer
@@ -216,7 +265,7 @@ def _contract_impl(spec, A, B, *, strategy, backend, force_batch, tiles,
     if backend == "kernel":
         from repro_torch.kernels import ops
 
-        return ops.execute_plan(plan, A, B, out_dtype=out_dtype)
+        return ops.execute_plan(plan, A, B, out_dtype=out_dtype, tiles=tiles)
     return _execute_torch(plan, A, B).to(out_dtype)
 
 

@@ -29,8 +29,9 @@ therefore does three things:
      ``OPTIMAL_MAX_OPERANDS`` operands;
    * ``"auto"``    — ``"optimal"`` for ≤ ``AUTO_OPTIMAL_LIMIT`` operands
      (every expression in this repo), else ``"greedy"``;
-   * ``"tuned"``   — measured re-ranking: not ported yet (ROADMAP queue 1,
-     item 9), raises;
+   * ``"tuned"``   — the analytic candidates re-ranked with *measured*
+     step costs from the autotuner cache (:mod:`repro_torch.tuning`),
+     falling back to an analytic price for steps without entries;
 
 3. **lower** each pairwise step through the existing
    :func:`repro_torch.core.planner.make_plan` /
@@ -391,20 +392,47 @@ def _optimal_path(inputs, output, dims) -> tuple[PathStep, ...]:
 
 
 def check_optimize(optimize) -> None:
-    """Raise for an unknown optimizer name, and for ``"tuned"`` (measured
-    re-ranking needs the autotuner: ROADMAP queue 1, item 9)."""
+    """Raise for an unknown optimizer name."""
     if optimize not in ("auto", "greedy", "optimal", "naive", "tuned"):
         raise ValueError(f"unknown optimize mode {optimize!r}")
-    if optimize == "tuned":
-        raise NotImplementedError(
-            "optimize='tuned' needs the autotuner, which is not ported yet: "
-            "ROADMAP queue 1, item 9")
 
 
-def _plan_path(spec, inputs, output, dims, optimize) -> ContractionPath:
+def _candidate_paths(spec, inputs, output, dims) -> list[ContractionPath]:
+    """The analytic candidate set tuned re-ranking chooses from: auto's
+    path plus the greedy and naive alternatives where they differ."""
+    candidates = [_plan_path(spec, inputs, output, dims, "auto")]
+    for method in ("greedy", "naive"):
+        p = _plan_path(spec, inputs, output, dims, method)
+        if all(p.steps != q.steps for q in candidates):
+            candidates.append(p)
+    return candidates
+
+
+def _tuned_path(spec, inputs, output, dims, dtype) -> ContractionPath:
+    """Re-rank candidate paths with *measured* step costs.
+
+    Takes the analytic optimizers' paths (:func:`_candidate_paths`) and
+    prices each with :func:`repro_torch.tuning.dispatch.path_cost` — the
+    autotuner cache's measured best µs per step where an entry exists, an
+    analytic price otherwise — then picks the cheapest.  The
+    compiled-program pipeline exposes the same re-ranking as
+    :class:`repro_torch.core.passes.TunedRerankPass`.
+    """
+    from repro_torch.tuning.dispatch import get_dispatcher, path_cost
+
+    disp = get_dispatcher()
+    candidates = _candidate_paths(spec, inputs, output, dims)
+    chosen = min(candidates, key=lambda p: path_cost(p.steps, dims, dtype, disp))
+    return dataclasses.replace(chosen, optimize="tuned")
+
+
+def _plan_path(spec, inputs, output, dims, optimize, *, dtype=None
+               ) -> ContractionPath:
     if len(inputs) < 2:
         return ContractionPath(spec, inputs, output, dims, (), str(optimize))
     check_optimize(optimize)
+    if optimize == "tuned":
+        return _tuned_path(spec, inputs, output, dims, dtype or torch.float32)
     method = optimize
     if optimize == "auto":
         method = "optimal" if len(inputs) <= AUTO_OPTIMAL_LIMIT else "greedy"
@@ -423,7 +451,8 @@ def contraction_path(
     """Plan (without executing) the pairwise-contraction path for ``spec``.
 
     ``operands`` may be tensors or bare shape tuples — only shapes are
-    used.  Modes appearing in a single operand and not in the output are
+    used (plus dtypes, when present, for ``optimize="tuned"`` cache
+    lookups).  Modes appearing in a single operand and not in the output are
     summed out up front and do not appear in the returned path's steps.
     """
     inputs, output = parse_nary(spec)
@@ -440,7 +469,9 @@ def contraction_path(
         for s, axes in zip(shapes, reduce_axes)
     ]
     dims = _infer_dims(inputs, shapes)
-    return _plan_path(spec, inputs, output, dims, optimize)
+    dts = [op.dtype for op in operands if isinstance(op, torch.Tensor)]
+    dtype = functools.reduce(torch.promote_types, dts) if dts else torch.float32
+    return _plan_path(spec, inputs, output, dims, optimize, dtype=dtype)
 
 
 # --------------------------------------------------------------------------
@@ -482,11 +513,14 @@ def xeinsum(
       spec: einsum string, e.g. ``"mnk,kr,ms->nrs"`` (output may be
         implicit; no ellipses, no traces).
       operands: one tensor per spec operand, all on one device.
-      optimize: ``"auto"`` | ``"greedy"`` | ``"optimal"`` | ``"naive"``,
-        or a precomputed :class:`ContractionPath` from
-        :func:`contraction_path` (must match this spec's shapes).
+      optimize: ``"auto"`` | ``"greedy"`` | ``"optimal"`` | ``"naive"`` |
+        ``"tuned"`` (re-rank candidate paths with measured step costs from
+        the autotuner cache where entries exist), or a precomputed
+        :class:`ContractionPath` from :func:`contraction_path` (must match
+        this spec's shapes).
       strategy: per-step evaluation strategy — any
-        :func:`~repro_torch.core.contract.contract` strategy, or
+        :func:`~repro_torch.core.contract.contract` strategy (including
+        ``"tuned"``: each step dispatches through the autotuner), or
         ``"kernel"`` as shorthand for ``strategy="auto",
         backend="kernel"`` (the hand-written kernel on every step).
       backend: ``"torch"`` or ``"kernel"``.

@@ -12,14 +12,18 @@ typed IR:
 2. :class:`LayoutTieBreakPass`   — annotate every contract step with its
    planner classification and layout penalty (flatten ≺ sb_gemm ≺ nested
    ≺ exceptional) — the paper's evaluation hierarchy.
-3. :class:`CSEPass`              — hash-cons identical steps so repeated
+3. :class:`TunedRerankPass`      — for ``optimize="tuned"``, re-rank the
+   analytic candidate paths with measured step costs
+   (:func:`repro_torch.tuning.dispatch.path_cost`) and splice in the
+   winner.
+4. :class:`CSEPass`              — hash-cons identical steps so repeated
    subexpressions (a shared TTM stage, a duplicated gram) compute once.
-4. :class:`LivenessPass`         — last-use analysis: annotate each step
+5. :class:`LivenessPass`         — last-use analysis: annotate each step
    with the buffers that die after it (the executor frees them) and
    validate buffer-donation requests.
 
-The JAX package's tuned re-rank and shard placement passes wait for the
-``tuning/`` and ``distributed/`` ports (ROADMAP queue 1, items 9 and 12).
+The JAX package's shard placement pass waits for the ``distributed/``
+port (ROADMAP queue 1, item 12).
 Passes hold no state between runs; anything cross-pass travels in the
 :class:`PassContext`.
 """
@@ -27,6 +31,10 @@ Passes hold no state between runs; anything cross-pass travels in the
 from __future__ import annotations
 
 import dataclasses
+import functools
+import re
+
+import torch
 
 from repro_torch.core import einsum as _einsum
 from repro_torch.core.notation import parse_spec
@@ -43,6 +51,7 @@ __all__ = [
     "PassContext",
     "PathOptimizationPass",
     "LayoutTieBreakPass",
+    "TunedRerankPass",
     "CSEPass",
     "LivenessPass",
     "DEFAULT_PIPELINE",
@@ -69,22 +78,23 @@ class PathOptimizationPass:
     expression's output) reduce first; single-operand expressions become a
     ``transpose``; everything else is path-planned by the configured
     optimizer (``naive``/``greedy``/``optimal``/``auto``) with the layout
-    tie-break.
+    tie-break.  For ``optimize="tuned"`` the analytic candidates are
+    planned here and stashed for :class:`TunedRerankPass`.
     """
 
     name = "path-optimization"
 
     def run(self, prog: ContractionProgram, ctx: PassContext) -> ContractionProgram:
-        shapes, _ = propagate_shapes(prog)
+        shapes, dtypes = propagate_shapes(prog)
         new_steps: list[ContractionStep] = []
         for step in prog.steps:
             if step.op != "einsum":
                 new_steps.append(step)
                 continue
-            new_steps.extend(self._expand(step, shapes, ctx))
+            new_steps.extend(self._expand(step, shapes, dtypes, ctx))
         return dataclasses.replace(prog, steps=tuple(new_steps))
 
-    def _expand(self, step, shapes, ctx):
+    def _expand(self, step, shapes, dtypes, ctx):
         in_modes, output = _einsum.parse_nary(step.spec)
         reduce_axes = _einsum._sum_only_axes(in_modes, output)
 
@@ -116,8 +126,17 @@ class PathOptimizationPass:
             return steps
 
         dims = _einsum._infer_dims(reduced, red_shapes)
-        path = _einsum._plan_path(step.spec, reduced, output, dims,
-                                  ctx.options.optimize)
+        if ctx.options.optimize == "tuned":
+            candidates = _einsum._candidate_paths(step.spec, reduced, output, dims)
+            path = candidates[0]  # auto's choice until the re-rank pass
+            dtype = functools.reduce(torch.promote_types,
+                                     [dtypes[a] for a in step.args])
+            ctx.artifacts.setdefault("tuned_candidates", {})[step.out] = (
+                candidates, dims, dtype, tuple(arg_names), step.strategy,
+            )
+        else:
+            path = _einsum._plan_path(step.spec, reduced, output, dims,
+                                      ctx.options.optimize)
         steps.extend(
             _steps_from_path(path, tuple(arg_names), step.out, step.strategy)
         )
@@ -146,6 +165,43 @@ class LayoutTieBreakPass:
             kind, penalty = _einsum._classify(cs, dims)
             new_steps.append(dataclasses.replace(s, kind=kind, penalty=penalty))
         return dataclasses.replace(prog, steps=tuple(new_steps))
+
+
+class TunedRerankPass:
+    """Re-rank each expression's candidate paths with measured step costs.
+
+    No-op unless ``optimize="tuned"``.  Pricing is
+    :func:`repro_torch.tuning.dispatch.path_cost` — the autotuner cache's
+    measured µs per step where an entry exists, an analytic price
+    otherwise.  The program signature folds in the tuning-cache
+    fingerprint, so warming the cache re-plans tuned programs rather than
+    pinning a stale path.
+    """
+
+    name = "tuned-rerank"
+
+    def run(self, prog: ContractionProgram, ctx: PassContext) -> ContractionProgram:
+        stash = ctx.artifacts.get("tuned_candidates")
+        if not stash:
+            return prog
+        from repro_torch.tuning.dispatch import get_dispatcher, path_cost
+
+        disp = get_dispatcher()
+        steps = list(prog.steps)
+        for out, (cands, dims, dtype, args, strategy) in stash.items():
+            chosen = min(
+                cands, key=lambda p: path_cost(p.steps, dims, dtype, disp)
+            )
+            if chosen is not cands[0]:
+                ctx.note(self.name, f"{out}: measured costs prefer the "
+                                    f"{chosen.optimize!r} path")
+            owned = re.compile(rf"^(%{re.escape(out)}\.\d+|{re.escape(out)})$")
+            first = next(
+                i for i, s in enumerate(steps) if owned.match(s.out)
+            )
+            steps = [s for s in steps if not owned.match(s.out)]
+            steps[first:first] = _steps_from_path(chosen, args, out, strategy)
+        return dataclasses.replace(prog, steps=tuple(steps))
 
 
 class CSEPass:
@@ -215,6 +271,7 @@ class LivenessPass:
 DEFAULT_PIPELINE = (
     PathOptimizationPass(),
     LayoutTieBreakPass(),
+    TunedRerankPass(),
     CSEPass(),
     LivenessPass(),
 )

@@ -13,9 +13,9 @@ each of them on every call.  This module compiles whole expressions:
   plus named intermediates.  Freshly built programs hold one ``einsum``
   node per expression; the pass pipeline rewrites them into ``contract``
   / ``reduce`` / ``transpose`` nodes (see :mod:`repro_torch.core.passes`).
-* **Passes** — path optimization, layout tie-break annotation, CSE of
-  repeated subexpressions, and intermediate-liveness analysis run in
-  order, each a pure ``program -> program`` rewrite.
+* **Passes** — path optimization, layout tie-break annotation, tuned
+  re-ranking, CSE of repeated subexpressions, and intermediate-liveness
+  analysis run in order, each a pure ``program -> program`` rewrite.
 * **Execution** — the planned steps run eagerly through
   :func:`repro_torch.core.contract.contract` (the paper's planner and
   kernels); there is no tracing compiler, so no ``jit``.  Liveness
@@ -24,6 +24,10 @@ each of them on every call.  This module compiles whole expressions:
 * **Cache** — compiled programs are cached process-wide by canonical
   signature (structure + shapes + dtypes + options), so the Nth call of a
   recurring working set (a HOOI iteration) skips parsing and planning.
+  A program that reads the tuning cache (``optimize="tuned"`` or a
+  ``"tuned"`` step) folds the cache's fingerprint into its signature, so
+  warming the cache re-plans it; its tuned steps look their winner up on
+  every call (:meth:`repro_torch.tuning.dispatch.Dispatcher.contract`).
 """
 
 from __future__ import annotations
@@ -304,13 +308,39 @@ class ProgramOptions:
 
 
 def program_signature(prog: ContractionProgram, opts: ProgramOptions) -> tuple:
-    """Canonical cache key: program structure + operand avals + options."""
-    return (
+    """Canonical cache key: program structure + operand avals + options.
+
+    Programs whose planning or execution reads the tuning cache
+    (``optimize="tuned"`` / ``strategy="tuned"``) additionally fold in
+    the process dispatcher's policy and cache fingerprint, so warming the
+    tuning cache invalidates (re-plans) them instead of pinning a stale
+    path.
+    """
+    sig = (
         tuple((i.name, i.shape, i.dtype) for i in prog.inputs),
         tuple(s.key() for s in prog.steps),
         prog.outputs,
         opts.signature(),
     )
+    fp = _tuning_fingerprint(prog, opts)
+    if fp is not None:
+        sig += (("tuning",) + fp,)
+    return sig
+
+
+def _tuning_fingerprint(prog: ContractionProgram, opts: ProgramOptions):
+    """The process tuning cache's ``(policy, fingerprint)`` iff this
+    program reads it (``"tuned"`` anywhere), else ``None``."""
+    uses_tuned = (
+        opts.optimize == "tuned" or opts.strategy == "tuned"
+        or any(s.strategy == "tuned" for s in prog.steps)
+    )
+    if not uses_tuned:
+        return None
+    from repro_torch.tuning.dispatch import get_dispatcher  # deferred: no cycle
+
+    disp = get_dispatcher()
+    return (disp.policy, disp.cache.fingerprint())
 
 
 # --------------------------------------------------------------------------
@@ -503,7 +533,7 @@ def compile_program(
         spec operand — the single-expression form
         :func:`repro_torch.core.einsum.xeinsum` wraps.
       optimize: path optimizer per expression (``"auto"`` | ``"greedy"``
-        | ``"optimal"`` | ``"naive"``), or — spec form only — a
+        | ``"optimal"`` | ``"naive"`` | ``"tuned"``), or — spec form only — a
         precomputed :class:`~repro_torch.core.einsum.ContractionPath`.
       strategy/backend/out_dtype: per-step execution knobs, exactly as
         :func:`repro_torch.core.contract.contract`.
@@ -537,10 +567,6 @@ def compile_program(
 
     if not isinstance(optimize, tuple):
         _einsum.check_optimize(optimize)
-    if strategy == "tuned" or any(s.strategy == "tuned" for s in prog.steps):
-        raise NotImplementedError(
-            "strategy='tuned' needs the autotuner, which is not ported yet: "
-            "ROADMAP queue 1, item 9")
 
     opts = ProgramOptions(optimize=optimize, strategy=strategy,
                           backend=backend, out_dtype=out_dtype,

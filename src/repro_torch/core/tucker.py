@@ -61,7 +61,7 @@ def hooi(
     ranks: tuple[int, int, int],
     *,
     n_iter: int = 10,
-    strategy: Literal["auto", "batched", "conventional", "direct"] = "auto",
+    strategy: Literal["auto", "batched", "conventional", "direct", "tuned"] = "auto",
     backend: Literal["torch", "kernel"] = "torch",
     jit: bool = True,
 ) -> TuckerResult:

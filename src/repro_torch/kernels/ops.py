@@ -215,18 +215,20 @@ def _fused_view(x, modes: str, groups, fdims: dict):
     return x.as_strided(shape, stride)
 
 
-def execute_plan(plan: Plan, A, B, *, out_dtype=None):
-    """Kernel-backend execution of a planner :class:`Plan`."""
+def execute_plan(plan: Plan, A, B, *, out_dtype=None, tiles: dict | None = None):
+    """Kernel-backend execution of a planner :class:`Plan`.  ``tiles``
+    may set ``b``, the brick depth a block walks along the plan's batch
+    mode (default :data:`EXT_BATCH_TILE` for exceptional plans, else 1)."""
     if not _trace.enabled():
-        return _execute_plan_impl(plan, A, B, out_dtype=out_dtype)
+        return _execute_plan_impl(plan, A, B, out_dtype=out_dtype, tiles=tiles)
     with _trace.span("execute_plan", "kernels") as sp:
         sp.set(spec=plan.spec.spec_str(), kind=plan.kind,
                nested=plan.nested or None,
                has_roles=plan_roles(plan) is not None)
-        return _execute_plan_impl(plan, A, B, out_dtype=out_dtype)
+        return _execute_plan_impl(plan, A, B, out_dtype=out_dtype, tiles=tiles)
 
 
-def _execute_plan_impl(plan: Plan, A, B, *, out_dtype):
+def _execute_plan_impl(plan: Plan, A, B, *, out_dtype, tiles):
     fs, fd = plan.fspec, plan.fdims
     out_dtype = out_dtype or torch.promote_types(A.dtype, B.dtype)
     roles = plan_roles(plan)
@@ -239,7 +241,8 @@ def _execute_plan_impl(plan: Plan, A, B, *, out_dtype):
         # a flattening the operands' strides cannot express as a view: the
         # native kernel needs neither — every mode keeps its own stride
         return execute_native(plan.spec, A, B, out_dtype=out_dtype)
-    walk = EXT_BATCH_TILE if plan.kind == CaseKind.EXCEPTIONAL else 1
+    walk = (tiles or {}).get("b", EXT_BATCH_TILE if plan.kind == CaseKind.EXCEPTIONAL
+                             else 1)
     out = sb_contract(fs.a_modes, fs.b_modes, fs.c_modes, a, b, roles=roles,
                       tiles={"b": walk}, out_dtype=out_dtype)
     return out.view(tuple(plan.dims[m] for m in plan.spec.c_modes))

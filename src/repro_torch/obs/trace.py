@@ -3,10 +3,11 @@
 The paper's benchmarking methodology (Figs. 1-14) measures every
 contraction offline; this module makes the same attribution available
 *in production*: any layer can open a :func:`span` around work it does
-and attach typed attributes (strategy, spec, kind); :meth:`Tracer.events`
-returns the recorded stream.  This port carries the spans only: roofline
-attribution and the Perfetto/JSONL exporters wait for H100 constants
-(ROADMAP queue 1, item 8).
+and attach typed attributes (strategy, spec, flops, bytes), and the
+exporter (:mod:`repro_torch.obs.export`) turns the recorded stream into a
+Chrome-trace file (Perfetto / ``chrome://tracing``) plus flat JSONL
+records usable as predictor training data (Peise et al.,
+arXiv:1409.8608).
 
 Design constraints, in priority order:
 
@@ -35,13 +36,27 @@ Spans nest lexically: the tracer tracks the open-span stack and records
 each event's ``depth`` and ``cat`` (layer), so a ``contract`` span opened
 inside an ``execute_native`` span is recorded one level deeper.
 
-Span durations are host time: a span around a CUDA launch measures the
-enqueue, not the kernel, unless the caller synchronises inside it.
+Span durations (``dur``) are host time: a span around a CUDA launch
+measures the enqueue, not the kernel.  A span finishing with
+``roofline_bound_us`` among its attributes gains a derived
+``roofline_fraction`` (bound ÷ duration, see :mod:`repro_torch.obs.roofline`),
+and the duration it divides by depends on where the work ran:
+
+* a span that called :meth:`Span.time_device` (``contract`` does, for
+  operands on the card) records a CUDA event pair around its body.  Its
+  fraction divides by that device time, which is resolved when the
+  tracer's events are read (:meth:`Tracer.events`, after one
+  ``torch.cuda.synchronize()``, never at span exit) and recorded beside
+  it as ``device_us``;
+* any other span divides by its host duration, at exit, as the JAX
+  package does.
 """
 
 from __future__ import annotations
 
 import time
+
+import torch
 
 __all__ = [
     "Tracer",
@@ -66,7 +81,7 @@ class Span:
     with :meth:`set`.  Truthy — the disabled-mode :data:`NULL_SPAN` is
     falsy, which is the one branch hot sites pay for attributes."""
 
-    __slots__ = ("_tracer", "name", "cat", "ts", "depth", "attrs")
+    __slots__ = ("_tracer", "name", "cat", "ts", "depth", "attrs", "_device")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, ts: float,
                  depth: int, attrs: dict | None):
@@ -76,9 +91,19 @@ class Span:
         self.ts = ts
         self.depth = depth
         self.attrs = dict(attrs) if attrs else {}
+        self._device = None
 
     def set(self, **attrs) -> "Span":
         self.attrs.update(attrs)
+        return self
+
+    def time_device(self, device) -> "Span":
+        """Record a CUDA event on ``device``'s current stream now, and
+        another at exit: the span's ``roofline_fraction`` then divides by
+        the device time between them (see the module docstring)."""
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(torch.cuda.current_stream(device))
+        self._device = (device, start)
         return self
 
     def __bool__(self) -> bool:
@@ -136,6 +161,8 @@ class Tracer:
         self._ring: list[dict] = []
         self._total = 0              # events ever recorded
         self._open: list[Span] = []  # lexical nesting stack
+        # (event, start, end) of device-timed spans not yet resolved
+        self._pending: list[tuple] = []
 
     # -------------------------------------------------------------- recording
     def now_us(self) -> float:
@@ -167,10 +194,23 @@ class Tracer:
                 del self._open[i]
                 break
         dur = max(end - sp.ts, 0.0)
-        self._record({
+        ev = {
             "ph": PH_SPAN, "name": sp.name, "cat": sp.cat,
             "ts": sp.ts, "dur": dur, "depth": sp.depth, "args": sp.attrs,
-        })
+        }
+        bound = sp.attrs.get("roofline_bound_us")
+        if sp._device is not None:
+            device, start = sp._device
+            stop = torch.cuda.Event(enable_timing=True)
+            stop.record(torch.cuda.current_stream(device))
+            self._pending.append((ev, start, stop))
+            if len(self._pending) > self.capacity:
+                del self._pending[0]     # its event has left the ring too
+        elif bound is not None and "roofline_fraction" not in sp.attrs:
+            sp.attrs["roofline_fraction"] = (
+                float(bound) / dur if dur > 0 else 0.0
+            )
+        self._record(ev)
 
     def _record(self, ev: dict) -> None:
         ev["seq"] = self._total
@@ -191,8 +231,26 @@ class Tracer:
         """Events ever recorded (kept + dropped)."""
         return self._total
 
+    def resolve_device_times(self) -> None:
+        """Give every device-timed span its ``device_us`` and, where it
+        carries a bound, its ``roofline_fraction`` (one
+        ``torch.cuda.synchronize()`` when any is pending)."""
+        if not self._pending:
+            return
+        torch.cuda.synchronize()
+        for ev, start, stop in self._pending:
+            us = start.elapsed_time(stop) * 1e3
+            args = ev["args"]
+            args["device_us"] = us
+            bound = args.get("roofline_bound_us")
+            if bound is not None and "roofline_fraction" not in args:
+                args["roofline_fraction"] = float(bound) / us if us > 0 else 0.0
+        self._pending.clear()
+
     def events(self) -> list[dict]:
-        """Retained events in recording order (oldest first)."""
+        """Retained events in recording order (oldest first), with device
+        times resolved (:meth:`resolve_device_times`)."""
+        self.resolve_device_times()
         if self._total <= self.capacity:
             return list(self._ring)
         head = self._total % self.capacity
@@ -202,6 +260,7 @@ class Tracer:
         self._ring.clear()
         self._total = 0
         self._open.clear()
+        self._pending.clear()
 
 
 # --------------------------------------------------------------------------

@@ -127,8 +127,8 @@ def test_unknown_strategy_and_backend_rejected():
         contract("km,pkn->pnm", A, torch.ones(3, 2, 4), strategy="flatten")
 
 
-@pytest.mark.parametrize("kwargs", [{"strategy": "tuned"}, {"tiles": {"u": 8}},
-                                    {"mesh": object()}])
+@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"in_specs": (None, None)},
+                                    {"out_spec": object()}])
 def test_unported_options_raise_naming_the_roadmap(kwargs):
     A = torch.ones(2, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

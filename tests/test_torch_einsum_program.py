@@ -200,6 +200,14 @@ def test_program_cache_and_donation():
     torch.testing.assert_close(donated(A, B), A @ B)
     with pytest.raises(ValueError, match="compiled for shape"):
         p1(A, torch.randn(5, 7))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tprogram.compile_program("ab,bc->ac", A, B, strategy="tuned")
+    # a tuned program folds the tuning cache's fingerprint into its key
+    from repro_torch.tuning import Dispatcher, set_dispatcher
+
+    set_dispatcher(Dispatcher(None, policy="cached"))
+    try:
+        tuned = tprogram.compile_program("ab,bc->ac", A, B, strategy="tuned")
+        assert tuned is not p1 and tuned.signature[-1][0] == "tuning"
+        torch.testing.assert_close(tuned(A, B), A @ B)
+    finally:
+        set_dispatcher(None)
     tprogram.clear_program_cache()
