@@ -75,7 +75,34 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    and its device kernels' names).  Both bf16 runs must take the ``wgmma``
    route.
 
-Each path (5, 10, 8, 9) is driven with every kernel's launch count set to
+11. Serving at full width: internlm2-20b at its published widths (d_model
+   6144, 48 query heads over 8 KV heads, head dim 128, d_ff 16384, vocab
+   92544), bf16 activations over f32 master weights drawn on the card
+   from ``--seed``, its depth cut to 4 layers (``SERVE["periods"]``; the
+   cut is printed), ``contract_backend="kernel"``.  8 greedy requests of
+   32-256 prompt tokens drawn from ``--seed``, 16 new tokens each,
+   through ``ServingRuntime(slots=4, max_len=512, prefill_chunk=64)``:
+   a warm-up serve, then the counted serve, which must give every
+   request its 16 tokens, build no bucket entry, launch ``native_gemm``
+   (every launch on the route ``native_route`` gives) and no other
+   kernel; one decode pass and one prefill chunk must make one
+   ``native_gemm`` launch per model contraction (9 a layer and the LM
+   head).  The legacy ``ServeEngine`` must give the same tokens, and a
+   prefill's logits on the kernel backend must be within 2e-2 of the
+   largest magnitude of the torch backend's.  Then the two backends in
+   turns (kernel, torch, torch, kernel): ms per prefill chunk by length,
+   ms per decode tick by bucket and tokens/s, each chunk and tick timed
+   by the host clock between synchronisations; and the top 8
+   ``native_gemm`` launch shapes of the counted serve as in phase 6.
+12. Every architecture: the ten smoke configs (float32) on the card with
+   the kernel backend and on the CPU with the same weights (the plain
+   version): one forward, and for decoders a prefill plus 3 decode steps
+   (through ``ServingRuntime``, jamba's hybrid cache included; the
+   vision model through the model functions, since its prompt carries
+   patch features), logits within 1e-4 of the largest magnitude and the
+   same tokens.
+
+Each path (5, 10, 8, 9, 11, 12) is driven with every kernel's launch count set to
 0 just before it and read just after; launches made to compare, time or
 tune a kernel do not count.  Phases 5 and 10 also read ``native_gemm``'s
 launches by route, which must be what ``native_route`` gives for each
@@ -94,7 +121,8 @@ library calls compared against run in full float32.
 
 The last lines of stdout are a JSON ``kernels`` record (the grouped and
 attention entries carry their f32 run, the fma route, under ``"fma"``;
-``native_gemm``'s carries the tuned HOOI's launches by route),
+``native_gemm``'s carries the tuned HOOI's launches by route and the
+serving phase's launches, routes, tokens/s and top-shape times),
 the card's name and power limit as ``nvidia-smi`` prints them, and the
 ``{"ok": true, ...}`` line.  Any failed check raises and exits non-zero without that line.
 """
@@ -102,6 +130,7 @@ the card's name and power limit as ``nvidia-smi`` prints them, and the
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -192,6 +221,10 @@ def queued_ms(fn, reps: int) -> float:
             check(cycles < 8 * QUEUE_SLEEP_CYCLES, "calls could not be queued behind the sleep")
             cycles *= 2
     return start.elapsed_time(end) / reps
+
+
+def dtype_label(dtype) -> str:
+    return {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
 
 
 def modes_of(spec: str):
@@ -848,6 +881,31 @@ def check_small_hooi(dev) -> None:
         f"CPU {want.rel_error.item():.7f}; native_gemm routes: {routes_text(tally)}")
 
 
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, every ``native_gemm`` launch through
+    ``kernels.ops`` is counted by its shape, strides and options; yields
+    ``{key: (launches, (A, B, kwargs))}`` with one launch's operands per
+    key, for :func:`time_shapes`."""
+    from repro_torch.kernels import ops
+
+    launches: dict = {}
+    real = ops.native_gemm
+
+    def recording(A, B, **kw):
+        key = (kw["a_modes"], kw["b_modes"], kw["c_modes"], tuple(A.shape), A.stride(),
+               tuple(B.shape), B.stride(), kw.get("u"), kw.get("walk"), kw.get("walk_mode"))
+        n, _ = launches.get(key, (0, None))
+        launches[key] = (n + 1, (A, B, kw))
+        return real(A, B, **kw)
+
+    ops.native_gemm = recording
+    try:
+        yield launches
+    finally:
+        ops.native_gemm = real
+
+
 def run_hooi(T, n_iter, variant):
     from repro_torch.core.tucker import hooi
 
@@ -862,25 +920,11 @@ def main_path(T, noise_share, n_iter, counters):
     """HOOI three ways.  Returns the kernel launches of the counted run,
     ``native_gemm``'s launches in it by route, and the kernel run's
     per-shape launches."""
-    from repro_torch.kernels import ops
     from repro_torch.kernels.sb_gemm import native_gemm, native_route
 
     # warm-up of each variant; the kernel's one records what it launches
-    launches: dict = {}
-    real = ops.native_gemm
-
-    def recording(A, B, **kw):
-        key = (kw["a_modes"], kw["b_modes"], kw["c_modes"], tuple(A.shape), A.stride(),
-               tuple(B.shape), B.stride(), kw.get("u"), kw.get("walk"), kw.get("walk_mode"))
-        n, _ = launches.get(key, (0, None))
-        launches[key] = (n + 1, (A, B, kw))
-        return real(A, B, **kw)
-
-    ops.native_gemm = recording
-    try:
+    with recording_launches() as launches:
         run_hooi(T, n_iter, "kernel")
-    finally:
-        ops.native_gemm = real
     for v in ("torch", "conventional"):
         run_hooi(T, n_iter, v)
 
@@ -1088,25 +1132,43 @@ def tuned_path(T, working_set, noise_share, n_iter, counters, hooi_summary) -> d
 
 
 # ------------------------------------------------------------------- phase 6
-def time_shapes(launches, reps: int = 20) -> dict:
+def launch_cost(A, B, kw) -> tuple[int, int]:
+    """Bytes and flops of one ``native_gemm`` launch: each operand read
+    once, the output written once; two flops per multiply-add."""
+    a, b, c = kw["a_modes"], kw["b_modes"], kw["c_modes"]
+    out_dtype = kw.get("out_dtype") or torch.promote_types(A.dtype, B.dtype)
+    dims = dict(zip(a, A.shape)) | dict(zip(b, B.shape))
+    flops = 2 * int(np.prod([dims[m] for m in set(a + b + c)], dtype=np.int64))
+    nbytes = (A.numel() * A.element_size() + B.numel() * B.element_size()
+              + int(np.prod([dims[m] for m in c])) * out_dtype.itemsize)
+    return nbytes, flops
+
+
+def time_shapes(launches, reps: int = 20, per: str = "HOOI", top: int | None = None) -> dict:
     """Kernel, plain-version and library time at each launch shape of the
-    main path, its route and the bound; two launches at each shape must be
-    bit-identical.  The kernel and ``torch.einsum`` are timed both with
-    their calls queued (device time, ``queued_ms``) and back to back (the
-    call with its host time, ``cuda_ms``).  Per-HOOI sums weight each shape
-    by its launches."""
+    main path, its route and the bound at its type's peak; two launches at
+    each shape must be bit-identical.  The kernel and ``torch.einsum`` are
+    timed both with their calls queued (device time, ``queued_ms``) and
+    back to back (the call with its host time, ``cuda_ms``).  Per-``per``
+    sums weight each shape by its launches; ``top`` keeps only the shapes
+    with the largest launches x bound."""
     from repro_torch.kernels.sb_gemm import native_gemm, native_gemm_ref, native_route
 
     keys = ("ms", "call_ms", "plain_ms", "library_ms", "library_call_ms", "bound_ms")
     tot = dict.fromkeys(keys, 0.0) | dict(bytes=0, flops=0)
     worst = 0.0
-    for (a, b, c, *_), (n, (A, B, kw)) in sorted(launches.items(), key=lambda x: x[0][:3]):
+    items = sorted(launches.items(), key=lambda x: x[0][:3])
+    if top is not None:
+        def weight(item):
+            n, (A, B, kw) = item[1]
+            nb, fl = launch_cost(A, B, kw)
+            return n * bound(nb, fl, torch.promote_types(A.dtype, B.dtype))[0]
+        items = sorted(sorted(items, key=weight, reverse=True)[:top], key=lambda x: x[0][:3])
+    for (a, b, c, *_), (n, (A, B, kw)) in items:
         out_dtype = kw.get("out_dtype") or torch.promote_types(A.dtype, B.dtype)
-        dims = dict(zip(a, A.shape)) | dict(zip(b, B.shape))
-        flops = 2 * int(np.prod([dims[m] for m in set(a + b + c)], dtype=np.int64))
-        nbytes = (A.numel() * A.element_size() + B.numel() * B.element_size()
-                  + int(np.prod([dims[m] for m in c])) * out_dtype.itemsize)
-        b_ms, by = bound(nbytes, flops, torch.float32)
+        dtype = torch.promote_types(A.dtype, B.dtype)
+        nbytes, flops = launch_cost(A, B, kw)
+        b_ms, by = bound(nbytes, flops, dtype)
         spec = f"{a},{b}->{c}"
         route = native_route(A, B, a_modes=a, b_modes=b, c_modes=c)
         saved = native_gemm.launches, dict(native_gemm.launches_by_route)
@@ -1114,7 +1176,7 @@ def time_shapes(launches, reps: int = 20) -> dict:
         want = native_gemm_ref(A, B, a_modes=a, b_modes=b, c_modes=c, out_dtype=out_dtype)
         check(torch.equal(got, again), f"{spec} at {tuple(A.shape)}: two launches differ")
         err = rel_err(got, want)
-        check(err <= TOL[torch.float32], f"{spec} at {tuple(A.shape)}: error {err}")
+        check(err <= TOL[out_dtype], f"{spec} at {tuple(A.shape)}: error {err}")
         worst = max(worst, (got.float() - want.float()).abs().max().item())
         ms = queued_ms(lambda: native_gemm(A, B, **kw), reps)
         call_ms = cuda_ms(lambda: native_gemm(A, B, **kw), reps)
@@ -1125,7 +1187,8 @@ def time_shapes(launches, reps: int = 20) -> dict:
         lib = queued_ms(lambda: torch.einsum(spec, A, B), reps)
         lib_call = cuda_ms(lambda: torch.einsum(spec, A, B), reps)
         log(f"shape {spec} A{tuple(A.shape)}{A.stride()} B{tuple(B.shape)}{B.stride()} "
-            f"x{n}/HOOI [{route}]: kernel {ms:.4f} ms queued ({call_ms:.4f} ms by events), "
+            f"x{n}/{per} [{route}] {dtype_label(dtype)}: kernel {ms:.4f} ms queued "
+            f"({call_ms:.4f} ms by events), "
             f"bound {b_ms:.4f} ms ({by}), {100 * b_ms / ms:.1f}% of bound; plain "
             f"{plain:.4f} ms; einsum {lib:.4f} ms queued ({lib_call:.4f} ms by events); "
             f"two launches bit-identical")
@@ -1134,8 +1197,9 @@ def time_shapes(launches, reps: int = 20) -> dict:
         tot["bytes"] += n * nbytes
         tot["flops"] += n * flops
     tot["max_abs_err"] = worst
-    tot["bound_by"] = bound(tot["bytes"], tot["flops"], torch.float32)[1]
-    log(f"native_gemm per HOOI: kernel {tot['ms']:.4f} ms queued ({tot['call_ms']:.4f} ms by "
+    tot["bound_by"] = bound(tot["bytes"], tot["flops"], dtype)[1]
+    log(f"native_gemm per {per}{'' if top is None else f' (top {len(items)} shapes)'}: kernel "
+        f"{tot['ms']:.4f} ms queued ({tot['call_ms']:.4f} ms by "
         f"events), bound {tot['bound_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, einsum "
         f"{tot['library_ms']:.4f} ms queued ({tot['library_call_ms']:.4f} ms by events)")
     return tot
@@ -1143,25 +1207,34 @@ def time_shapes(launches, reps: int = 20) -> dict:
 
 # ------------------------------------------------------------------- phase 7
 def profile_hooi(T, n_iter: int, variant: str, top: int = 10) -> None:
-    """Where one HOOI of ``variant`` spends device time, by kernel name, and
-    the device's idle share: of the host wall time under the profiler, and
-    of the span from the first device activity to the last."""
+    """Where one HOOI of ``variant`` spends device time (see
+    :func:`profile_device`)."""
+    from repro_torch.core.tucker import hooi
+
+    profile_device(f"one HOOI [{variant}]",
+                   lambda: hooi(T, RANKS, n_iter=n_iter, **VARIANTS[variant]), top)
+
+
+def profile_device(label: str, fn, top: int = 10) -> dict | None:
+    """Where one call of ``fn`` spends device time, by kernel name, and the
+    device's idle share: of the host wall time under the profiler, and of
+    the span from the first device activity to the last.  Returns the
+    busy and wall ms and the idle share of the wall, or ``None`` when the
+    profiler recorded no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core.tucker import hooi
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        hooi(T, RANKS, n_iter=n_iter, **VARIANTS[variant])
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
-        log("profile: the profiler recorded no device activity (not measured)")
-        return
+        log(f"profile of {label}: the profiler recorded no device activity (not measured)")
+        return None
     busy, end, by_name = 0.0, float("-inf"), {}
     for start, stop, name in spans:      # union of intervals: overlaps count once
         busy += max(0.0, stop - max(start, end))
@@ -1169,12 +1242,13 @@ def profile_hooi(T, n_iter: int, variant: str, top: int = 10) -> None:
         us, n = by_name.get(name, (0.0, 0))
         by_name[name] = (us + stop - start, n + 1)
     span_us = end - spans[0][0]
-    log(f"profile of one HOOI [{variant}]: device busy {busy / 1e3:.3f} ms; idle share "
+    log(f"profile of {label}: device busy {busy / 1e3:.3f} ms; idle share "
         f"{1 - busy / wall_us:.3f} of the host wall {wall_us / 1e3:.3f} ms under the "
         f"profiler, {1 - busy / span_us:.3f} of the device span {span_us / 1e3:.3f} ms; "
         f"{len(spans)} device activities")
     for name, (us, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:top]:
         log(f"  {us / 1e3:9.3f} ms {100 * us / busy:5.1f}%  x{n:<5d} {name[:80]}")
+    return dict(busy_ms=busy / 1e3, wall_ms=wall_us / 1e3, idle_share=1 - busy / wall_us)
 
 
 # ------------------------------------------------------------------- phase 8
@@ -1466,6 +1540,287 @@ def attention_path(dev, seed: int, counters, reps: int = 5) -> dict:
     return {**rec["bf16"], "launches": counted["flash_attention"], "fma": rec["f32"]}
 
 
+# ------------------------------------------------------------------ phase 11
+#: the serving cell: internlm2-20b at its published widths, depth cut to
+#: ``periods`` layers (the one cut); 8 greedy requests of 32-256 prompt
+#: tokens and 16 new tokens on 4 slots
+SERVE = dict(arch="internlm2-20b", periods=4, requests=8, prompt=(32, 256), max_new=16,
+             slots=4, max_len=512, chunk=64, top_shapes=8)
+
+
+def serve_traffic(cfg, seed: int):
+    from repro_torch.runtime.scheduler import Request
+
+    rng = np.random.default_rng(seed)
+    lo, hi = SERVE["prompt"]
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1)))
+                    .astype(np.int32), max_new_tokens=SERVE["max_new"])
+            for i in range(SERVE["requests"])]
+
+
+def timed_serve(rt, traffic) -> dict:
+    """Serve ``traffic`` with every prefill chunk and decode tick timed by
+    the host clock between device synchronisations: ms per chunk by its
+    length, ms per tick by its bucket, tokens/s over the whole serve."""
+    chunks, ticks = {}, {}
+    prefill_impl, decode_impl = rt._run_prefill_chunk_impl, rt._run_decode_impl
+
+    def timed(fn, into, key):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        into.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+
+    rt._run_prefill_chunk_impl = lambda state, chunk: timed(
+        lambda: prefill_impl(state, chunk), chunks, chunk)
+    rt._run_decode_impl = lambda decodes: timed(
+        lambda: decode_impl(decodes), ticks, rt.lattice.decode_bucket(len(decodes)))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.serve(traffic)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        rt._run_prefill_chunk_impl, rt._run_decode_impl = prefill_impl, decode_impl
+    tokens = sum(len(r.output) for r in traffic)
+    n_chunks = sum(len(v) for v in chunks.values())
+    return dict(wall_ms=wall_ms, tokens_per_s=tokens / wall_ms * 1e3, tokens=tokens,
+                chunk_ms=sum(map(sum, chunks.values())) / n_chunks, n_chunks=n_chunks,
+                chunk_ms_by_len={c: sum(v) / len(v) for c, v in sorted(chunks.items())},
+                tick_ms_by_bucket={b: sum(v) / len(v) for b, v in sorted(ticks.items())},
+                ticks_by_bucket={b: len(v) for b, v in sorted(ticks.items())},
+                outputs=[list(r.output) for r in traffic])
+
+
+def serve_path(dev, seed: int, counters) -> dict:
+    """internlm2-20b at full width through ``ServingRuntime`` on the kernel
+    backend, then the same traffic on the torch backend (see the module
+    docstring, phase 11).  Returns ``native_gemm``'s serving record."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.contract import record_contractions
+    from repro_torch.kernels.sb_gemm import native_gemm
+    from repro_torch.models import transformer
+    from repro_torch.runtime.engine import ServingRuntime, slot_cache
+    from repro_torch.serving.engine import ServeEngine
+
+    periods = SERVE["periods"]
+    full = get_config(SERVE["arch"])
+    cfg = full.with_(n_periods=periods, contract_backend="kernel", contract_strategy="auto")
+    cfg_t = cfg.with_(contract_backend="torch")
+    log(f"serve: {cfg.arch_id} d_model {cfg.d_model}, {cfg.n_heads} query heads over "
+        f"{cfg.n_kv_heads} KV heads, head dim {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype} activations, {cfg.param_dtype} params; depth cut "
+        f"from {full.n_periods} layers to {periods} (the one cut); "
+        f"{cfg.param_count() / 1e9:.2f}B params")
+    t0 = time.perf_counter()
+    params = transformer.init_params(torch.Generator(dev).manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    log(f"serve: random weights drawn on the card in {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated")
+    kw = dict(slots=SERVE["slots"], max_len=SERVE["max_len"])
+
+    t0 = time.perf_counter()
+    rt = ServingRuntime(cfg, params, prefill_chunk=SERVE["chunk"], **kw)
+    torch.cuda.synchronize()
+    log(f"serve: runtime built, warm-up of every lattice point {rt.lattice.describe()} in "
+        f"{time.perf_counter() - t0:.2f} s ({rt.program_stats})")
+    warm = rt.serve(serve_traffic(cfg, seed))
+    entries = rt.buckets.compiles
+
+    # the main path: counts to 0 just before, read just after
+    traffic = serve_traffic(cfg, seed)
+    for c in counters:
+        c.launches = 0
+    native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
+    with recording_launches() as launches, native_routes_held() as held:
+        rt.serve(traffic)
+        torch.cuda.synchronize()
+    counted = {c.__name__: c.launches for c in counters}
+    routes = dict(native_gemm.launches_by_route)
+    outputs = [r.output for r in traffic]
+    check(all(r.done and len(r.output) == SERVE["max_new"] for r in traffic),
+          f"serve: not every request finished with its {SERVE['max_new']} tokens: "
+          f"{[(r.rid, r.status, len(r.output)) for r in traffic]}")
+    check(rt.buckets.compiles == entries, f"serve: the second serve built "
+                                          f"{rt.buckets.compiles - entries} bucket entries")
+    check(outputs == [r.output for r in warm], "serve: the warm-up serve gave other tokens")
+    check(counted["native_gemm"] > 0, "serve: native_gemm launched no time")
+    check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
+          f"serve: another kernel launched on the path: {counted}")
+    check(counted["native_gemm"] == sum(n for n, _ in launches.values())
+          and routes == held, f"serve: launch count {counted} or routes {routes} differ "
+                              f"from the recorded run's {held}")
+    log(f"serve: {len(traffic)} requests, prompts {[len(r.prompt) for r in traffic]}, "
+        f"{sum(len(o) for o in outputs)} tokens; native_gemm launches {counted['native_gemm']} "
+        f"by route {routes}; grouped_gemm {counted['grouped_gemm']}, flash_attention "
+        f"{counted['flash_attention']}; bucket entries {entries}, none built by the second "
+        f"serve")
+
+    # every model contraction of a decode pass and of a prefill chunk
+    # launches native_gemm once: 9 per layer (q, k, v, o, scores, P.V and
+    # three MLP products) and the LM head
+    scratch = slot_cache(cfg, SERVE["slots"], SERVE["max_len"], device=dev)
+    toks = torch.zeros((SERVE["slots"], 1), dtype=torch.long, device=dev)
+    prompt = torch.as_tensor(traffic[0].prompt[:SERVE["chunk"]], device=dev)[None].long()
+    for name, run in (("decode pass", lambda: transformer.decode_step(cfg, params, scratch, toks)),
+                      ("prefill chunk", lambda: transformer.prefill(
+                          cfg, params, {"tokens": prompt},
+                          transformer.init_cache(cfg, 1, SERVE["max_len"], device=dev)))):
+        before = native_gemm.launches
+        with torch.no_grad(), record_contractions() as rec:
+            run()
+        n = native_gemm.launches - before
+        check(n == len(rec) == 9 * periods + 1,
+              f"serve: a {name} made {len(rec)} contractions and {n} native_gemm launches, "
+              f"not {9 * periods + 1} each")
+        log(f"serve: one {name}: {len(rec)} contractions, {n} native_gemm launches")
+    native_gemm.launches = counted["native_gemm"]
+
+    legacy = ServeEngine(cfg, params, **kw).serve(serve_traffic(cfg, seed))
+    check([r.output for r in legacy] == outputs,
+          "serve: the runtime's tokens differ from ServeEngine's (the legacy oracle)")
+    log("serve: tokens equal ServeEngine's (legacy engine, same kernels)")
+
+    with torch.no_grad():
+        cache = transformer.init_cache(cfg, 1, SERVE["max_len"], device=dev)
+        prompt = torch.as_tensor(traffic[0].prompt, device=dev)[None].long()
+        got, _ = transformer.prefill(cfg, params, {"tokens": prompt}, cache)
+        want, _ = transformer.prefill(cfg_t, params, {"tokens": prompt}, cache)
+    err = rel_err(got, want)
+    check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (1, cfg.vocab_size),
+          "serve: prefill logits not finite or of the wrong shape")
+    check(err <= TOL[torch.bfloat16], f"serve: kernel prefill logits {err} from the torch "
+                                      f"backend's (limit {TOL[torch.bfloat16]})")
+    log(f"serve: prefill logits of a {prompt.shape[1]}-token prompt, kernel against torch "
+        f"backend: {err:.4g} of the largest magnitude (limit {TOL[torch.bfloat16]:g})")
+
+    # times, the two backends in turns
+    rt_t = ServingRuntime(cfg_t, params, prefill_chunk=SERVE["chunk"], **kw)
+    rt_t.serve(serve_traffic(cfg, seed))
+    saved = [c.launches for c in counters]
+    runs = {"kernel": [], "torch": []}
+    for backend in ("kernel", "torch", "torch", "kernel"):
+        res = timed_serve(rt if backend == "kernel" else rt_t, serve_traffic(cfg, seed))
+        runs[backend].append(res)
+        log(f"serve [{backend}]: {res['tokens']} tokens in {res['wall_ms']:.1f} ms, "
+            f"{res['tokens_per_s']:.1f} tokens/s; prefill {res['chunk_ms']:.3f} ms per chunk "
+            f"over {res['n_chunks']} chunks (by length: "
+            f"{', '.join(f'{c}: {m:.3f}' for c, m in res['chunk_ms_by_len'].items())}); "
+            f"decode ms per tick by bucket: "
+            f"{', '.join(f'{b}: {m:.3f} (x{res['ticks_by_bucket'][b]})' for b, m in res['tick_ms_by_bucket'].items())}")
+    check(all(r["outputs"] == outputs for r in runs["kernel"]),
+          "serve: a timed kernel serve gave other tokens")
+    # where a decode pass (bucket 4) and a 64-token prefill chunk spend
+    # device time, and how long the device idles, on each backend
+    profiles = {}
+    chunk = torch.as_tensor(traffic[0].prompt[:SERVE["chunk"]], device=dev)[None].long()
+    with torch.no_grad():
+        for backend, conf in (("kernel", cfg), ("torch", cfg_t)):
+            for step, fn in (
+                    ("decode pass", lambda conf=conf: transformer.decode_step(
+                        conf, params, scratch, toks)),
+                    ("prefill chunk", lambda conf=conf: transformer.prefill(
+                        conf, params, {"tokens": chunk},
+                        transformer.init_cache(conf, 1, SERVE["max_len"], device=dev)))):
+                fn()
+                profiles[f"{backend} {step}"] = profile_device(f"one {step} [{backend}]", fn, top=6)
+    for c, n in zip(counters, saved):
+        c.launches = n
+    same = sum(a == b for r in runs["torch"] for a, b in zip(r["outputs"], outputs))
+    log(f"serve: the torch backend's greedy tokens equal the kernel backend's in {same} of "
+        f"{2 * len(outputs)} requests (bf16 rounding differs between the two)")
+    del rt_t, legacy
+
+    tot = time_shapes(launches, reps=10, per="serve", top=SERVE["top_shapes"])
+    return dict(launches=counted["native_gemm"], launches_by_route=routes, periods=periods,
+                profiles=profiles,
+                tokens_per_s={b: [r["tokens_per_s"] for r in v] for b, v in runs.items()},
+                runs={b: [{k: v for k, v in r.items() if k != "outputs"}
+                                            for r in rs] for b, rs in runs.items()},
+                top_shapes={k: tot[k] for k in ("ms", "library_ms", "bound_ms", "plain_ms",
+                                                  "max_abs_err", "bound_by")})
+
+
+# ------------------------------------------------------------------ phase 12
+def every_arch(dev, seed: int, counters) -> dict:
+    """Each of the ten smoke configs (float32) on the card with the kernel
+    backend and on the CPU with the same weights (the plain version): one
+    forward; for decoders, prefill plus 3 decode steps (through
+    ``ServingRuntime`` with its decode logits, or through the model for a
+    vision model, whose prompt carries patch features the runtime does not
+    take).  Logits agree within 1e-4 of the largest magnitude."""
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.models import transformer
+    from repro_torch.models.tree import tree_map
+    from repro_torch.runtime.engine import ServingRuntime
+    from repro_torch.runtime.scheduler import Request
+
+    tol = 1e-4
+    for c in counters:
+        c.launches = 0
+    worst = {}
+    for arch in list_archs():
+        cfg = get_config(arch, smoke=True, contract_backend="kernel")
+        cpu = transformer.init_params(torch.Generator().manual_seed(seed), cfg)
+        card = tree_map(lambda t: t.to(dev), cpu)
+        rng = np.random.default_rng(seed)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 16))}
+        if cfg.frontend is not None:
+            n = 16 if cfg.frontend.kind == "audio" else cfg.frontend.n_positions
+            batch["features"] = rng.standard_normal((2, n, cfg.frontend.feature_dim),
+                                                    dtype=np.float32)
+        on = {d: {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+              for d in (dev, torch.device("cpu"))}
+        errs = []
+        with torch.no_grad():
+            got, _ = transformer.forward(cfg, card, on[dev])
+            want, _ = transformer.forward(cfg, cpu, on[torch.device("cpu")])
+            errs.append(rel_err(got.cpu(), want))
+            if cfg.encoder_only:
+                pass
+            elif cfg.frontend is not None:
+                outs = []
+                for params, d in ((card, dev), (cpu, torch.device("cpu"))):
+                    cache = transformer.init_cache(cfg, 2, 64, device=d)
+                    logits, cache = transformer.prefill(cfg, params, on[d], cache)
+                    seq = [logits.cpu()]
+                    for _ in range(3):
+                        logits, cache = transformer.decode_step(
+                            cfg, params, cache, torch.argmax(logits, -1)[:, None])
+                        seq.append(logits.cpu())
+                    outs.append(seq)
+                errs += [rel_err(g, w) for g, w in zip(*outs)]
+            else:
+                outs = []
+                for params in (card, cpu):
+                    rt = ServingRuntime(cfg, params, slots=2, max_len=64, prefill_chunk=8)
+                    seen = []
+                    rt.logits_probe = lambda logits: seen.append(logits.cpu())
+                    reqs = rt.serve([Request(rid=i, prompt=batch["tokens"][i].astype(np.int32),
+                                             max_new_tokens=4) for i in range(2)])
+                    check(all(r.done and len(r.output) == 4 for r in reqs),
+                          f"{arch}: a request did not finish")
+                    outs.append((seen, [r.output for r in reqs]))
+                (seen_g, toks_g), (seen_c, toks_c) = outs
+                check(toks_g == toks_c, f"{arch}: tokens on the card {toks_g} differ from the "
+                                        f"CPU's {toks_c}")
+                check(len(seen_g) == len(seen_c) == 3, f"{arch}: {len(seen_g)} decode steps")
+                errs += [rel_err(g, w) for g, w in zip(seen_g, seen_c)]
+        worst[arch] = max(errs)
+        check(worst[arch] <= tol, f"{arch}: card against CPU {worst[arch]} (limit {tol})")
+        log(f"arch {arch}: forward{'' if cfg.encoder_only else ' + prefill + 3 decode steps'} "
+            f"on the card (kernel) against the CPU (plain version): worst {worst[arch]:.3g} "
+            f"of the largest logit magnitude over {len(errs)} comparisons (limit {tol:g})")
+    torch.cuda.synchronize()
+    counted = {c.__name__: c.launches for c in counters}
+    check(counted["native_gemm"] > 0 and counted["grouped_gemm"] == counted["flash_attention"] == 0,
+          f"every-arch launches {counted}")
+    log(f"every arch: launches {counted}")
+    return worst
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1527,21 +1882,31 @@ def main() -> int:
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     records = {
-        "native_gemm": ("sb_gemm.cu", "sb_gemm.py:87",
-                        {**tot, "launches": counted["native_gemm"],
-                         "launches_by_route": routes,
-                         "tuned_launches_by_route": tuned["launches_by_route"]}),
         "grouped_gemm": ("grouped_gemm.cu", "grouped_gemm.py:248",
                          grouped_path(dev, args.seed, counters)),
         "flash_attention": ("flash_attn.cu", "flash_attn.py:79",
                             attention_path(dev, args.seed, counters)),
     }
+    serve = serve_path(dev, args.seed, counters)
+    every_arch(dev, args.seed, counters)
+    records = {
+        "native_gemm": ("sb_gemm.cu", "sb_gemm.py:87",
+                        {**tot, "launches": counted["native_gemm"],
+                         "launches_by_route": routes,
+                         "tuned_launches_by_route": tuned["launches_by_route"],
+                         "serve_launches": serve["launches"],
+                         "serve_launches_by_route": serve["launches_by_route"],
+                         "serve": {k: v for k, v in serve.items()
+                                   if k not in ("launches", "launches_by_route")}}),
+        **records,
+    }
     kernels = [{"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}",
                 "replaces": f"src/repro/kernels/{tpu}",
                 **{k: rec[k] for k in keys},
-                **{k: rec[k] for k in ("launches_by_route", "tuned_launches_by_route", "fma")
-                   if k in rec}}
+                **{k: rec[k] for k in ("launches_by_route", "tuned_launches_by_route",
+                                       "serve_launches", "serve_launches_by_route", "serve",
+                                       "fma") if k in rec}}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on its path")

@@ -32,6 +32,7 @@ each of them on every call.  This module compiles whole expressions:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import threading
@@ -56,6 +57,7 @@ __all__ = [
     "program_cache_stats",
     "clear_program_cache",
     "propagate_shapes",
+    "record_programs",
 ]
 
 
@@ -429,6 +431,24 @@ _LOCK = threading.Lock()
 _PROGRAMS: dict[tuple, CompiledProgram] = {}
 _STATS = {"hits": 0, "misses": 0}
 
+_ACTIVE_PROGRAM_RECORDERS: list[list] = []
+
+
+@contextlib.contextmanager
+def record_programs():
+    """Record every :func:`compile_program` resolution in this context
+    (cache hits included) as :class:`CompiledProgram` objects — the
+    *program working set* serving warm-up precompiles.  Yields the list."""
+    rec: list[CompiledProgram] = []
+    _ACTIVE_PROGRAM_RECORDERS.append(rec)
+    try:
+        yield rec
+    finally:
+        for i, r in enumerate(_ACTIVE_PROGRAM_RECORDERS):
+            if r is rec:
+                del _ACTIVE_PROGRAM_RECORDERS[i]
+                break
+
 
 def program_cache_stats() -> dict:
     with _LOCK:
@@ -580,7 +600,10 @@ def compile_program(
             hit = _PROGRAMS.get(sig)
             if hit is not None:
                 _STATS["hits"] += 1
-                return hit
+        if hit is not None:
+            for rec in _ACTIVE_PROGRAM_RECORDERS:
+                rec.append(hit)
+            return hit
     with _LOCK:
         _STATS["misses"] += 1
 
@@ -594,4 +617,6 @@ def compile_program(
         if use_cache:
             with _LOCK:
                 compiled = _PROGRAMS.setdefault(sig, compiled)
+    for rec in _ACTIVE_PROGRAM_RECORDERS:
+        rec.append(compiled)
     return compiled

@@ -7,6 +7,10 @@ strides: a transposed, sliced or stride-0 (broadcast) numpy view becomes
 a tensor view of the same layout over a copy of the memory it spans.
 Negative strides have no torch counterpart; such arrays are copied into
 packed layout at the boundary.
+
+:func:`params_from_numpy` carries a model's parameter tree across: the
+JAX package's ``init_params`` tree as numpy arrays, checked leaf by leaf
+against the port's own tree for the same config.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "from_numpy"]
+__all__ = ["resolve_device", "from_numpy", "params_from_numpy"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -30,6 +34,9 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def _array_to_tensor(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    if x.dtype.name == "bfloat16":
+        # torch.from_numpy rejects ml_dtypes' bfloat16: cross as its bits
+        return _array_to_tensor(x.view(np.uint16), device).view(torch.bfloat16)
     if x.size == 0:
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
     # a length-1 axis may carry any stride (numpy keeps a negative one even
@@ -65,3 +72,32 @@ def from_numpy(tree, device="cuda"):
         return x
 
     return conv(tree)
+
+
+def params_from_numpy(cfg, tree, device="cuda"):
+    """The JAX package's parameter tree for ``cfg`` (``init_params``'s
+    output with every leaf a numpy array) as the port's tree of tensors
+    on ``device``.
+
+    Every leaf's path, shape and dtype is checked against the port's own
+    :func:`repro_torch.models.transformer.init_params` for ``cfg`` (drawn
+    on the meta device, so the check allocates nothing); any mismatch
+    raises ``ValueError``.  bfloat16 arrays (ml_dtypes) cross as their
+    bits."""
+    from repro_torch.models.transformer import init_params  # deferred: models import us
+    from repro_torch.models.tree import tree_leaves_with_path
+
+    want = dict(tree_leaves_with_path(init_params(None, cfg, device="meta")))
+    got = dict(tree_leaves_with_path(tree))
+    if want.keys() != got.keys():
+        raise ValueError(
+            f"parameter paths differ: missing {sorted(want.keys() - got.keys())}, "
+            f"unexpected {sorted(got.keys() - want.keys())}")
+    for path, ref in want.items():
+        x = np.asarray(got[path])
+        dtype = str(ref.dtype).removeprefix("torch.")
+        if tuple(x.shape) != tuple(ref.shape) or x.dtype.name != dtype:
+            raise ValueError(
+                f"parameter {path}: got {x.dtype.name}{tuple(x.shape)}, "
+                f"the port's init_params gives {dtype}{tuple(ref.shape)}")
+    return from_numpy(tree, device)

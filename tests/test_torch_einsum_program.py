@@ -211,3 +211,25 @@ def test_program_cache_and_donation():
     finally:
         set_dispatcher(None)
     tprogram.clear_program_cache()
+
+
+def test_record_programs_sees_hits_and_misses():
+    """The counterpart of the JAX package's test of the same name: a
+    recorder sees every resolution, the miss and the hit, as one object;
+    a nested recorder sees only its own span."""
+    tprogram.clear_program_cache()
+    A, B = torch.randn(4, 5), torch.randn(5, 6)
+    with tprogram.record_programs() as rec:
+        tprogram.compile_program("ab,bc->ac", A, B)
+        with tprogram.record_programs() as inner:
+            tprogram.compile_program("ab,bc->ac", A, B)
+    assert len(rec) == 2 and rec[0] is rec[1]
+    assert inner == [rec[1]]
+    assert tprogram.program_cache_stats() == {"programs": 1, "hits": 1, "misses": 1}
+    with jprogram.record_programs() as jrec:
+        jprogram.compile_program("ab,bc->ac", jnp.asarray(A.numpy()), jnp.asarray(B.numpy()))
+    (jp,) = jrec
+    assert rec[0].signature[0] == jp.signature[0]           # the inputs' avals
+    assert ([(s.op, s.spec) for s in rec[0].program.steps]
+            == [(s.op, s.spec) for s in jp.program.steps])
+    tprogram.clear_program_cache()

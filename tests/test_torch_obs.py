@@ -270,6 +270,33 @@ def test_attach_wires_a_stub_runtime():
     assert mon.stats()["numerics_probes"] == 0
 
 
+def test_attach_wires_the_ports_serving_runtime():
+    """As the JAX package's ``tests/test_health.py`` does with its runtime:
+    ``attach`` installs the probe on a real runtime's decode loop."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime.engine import ServingRuntime
+    from repro_torch.runtime.scheduler import Request
+
+    cfg = get_config("minicpm-2b", smoke=True).with_(n_periods=1)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    rt = ServingRuntime(cfg, params, slots=2, max_len=64, prefill_chunk=8,
+                        precompile=False)
+    mon = _monitor()
+    mon.attach(rt, numerics_every=1)
+    assert rt.logits_probe is mon.probe
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, size=5).astype(np.int32)
+    rt.serve([Request(rid=0, prompt=prompt, max_new_tokens=3)])
+    assert mon.probe.calls >= 1        # decode launches hit the probe
+    assert mon.probe.failures == 0     # real logits are finite
+    assert mon.stats()["numerics_probes"] == mon.probe.probes
+    mon.register()
+    snap = mon.sampler.registry.snapshot()
+    assert snap["serving"]["tokens_out"] == 3 and "buckets" in snap
+
+
 # -------------------------------------------------------------------- spans
 def test_contract_span_carries_the_record_and_no_cpu_fraction():
     A, B = torch.randn(6, 5), torch.randn(5, 10)
