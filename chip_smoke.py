@@ -11,9 +11,10 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    include ``hopper.cuh``, and so does ``sb_gemm.cu``) with nvcc, one
    process each, all at once; prints the registers, spills and shared
    memory of the wgmma and fma kernels (attention at D = 64, 128, 256;
-   grouped for each type) and of the ``stream`` and ``splitk`` kernels of
-   ``native_gemm``; no fma kernel may spill, and each must have the shared
-   memory its plan (``fma_tiles``, ``KERNEL_TILES``) gives.
+   grouped for each type) and of the ``stream``, ``splitk`` and ``wgmma``
+   kernels of ``native_gemm`` (``wgmma`` for each operand layout, and its
+   split reduction); no fma kernel may spill, and each must have the
+   shared memory its plan (``fma_tiles``, ``KERNEL_TILES``) gives.
 3. Kernel vs plain version on the card: the 36 Table II cases (native and
    batched strategies, f32 and bf16, ragged dims), the 8 exceptional cases
    through ``ext_gemm``, the 100-spec layout-fuzz stream (integer-valued,
@@ -21,8 +22,12 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    ``native_gemm`` launch in them held to the route ``native_route``
    gives; then cases that force each ``native_gemm`` route at ragged
    extents (narrow widths 1, 10 and 16, depths and rows off the stage and
-   tile sizes, bf16 output, integer-valued bit-identical), each launched
-   twice and bit-identical; ``grouped_gemm`` on
+   tile sizes, bf16 output, integer-valued bit-identical; for ``wgmma``
+   bf16 weight streaming at rows 1 (a stride-0 decode row), 2, 4, 63, 64,
+   65 and 200, depths 6144, 1000 and 328, 1032 columns, each operand
+   layout, bf16 and f32 output; and a bf16 case whose rows are no
+   multiple of 16 bytes apart, which must stay ``generic``), each
+   launched twice and bit-identical; ``grouped_gemm`` on
    the grouped cases of ``tests/test_runtime.py``, mixed bf16 x f32
    operands and the fig14 ragged set, then every ragged case again in
    bf16 under the default tiles
@@ -87,9 +92,12 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    (every launch on the route ``native_route`` gives) and no other
    kernel; one decode pass and one prefill chunk must make one
    ``native_gemm`` launch per model contraction (9 a layer and the LM
-   head).  The legacy ``ServeEngine`` must give the same tokens, and a
-   prefill's logits on the kernel backend must be within 2e-2 of the
-   largest magnitude of the torch backend's.  Then the two backends in
+   head): ``wgmma`` for the 7 dense products of a layer and the LM head,
+   ``generic`` for the scores and P.V products (29 and 8 at 4 layers),
+   and the counted serve launches the routes in that ratio.  The legacy
+   ``ServeEngine`` must give the same tokens, and a prefill's logits on
+   the kernel backend must be within 2e-2 of the largest magnitude of
+   the torch backend's.  Then the two backends in
    turns (kernel, torch, torch, kernel): ms per prefill chunk by length,
    ms per decode tick by bucket and tokens/s, each chunk and tick timed
    by the host clock between synchronisations; and the top 8
@@ -442,6 +450,36 @@ def native_route_cases(dev):
               ("mnk,nj->mjk", ints(77, 300, 7), ints(300, 10), None, "splitk", True),
               # a layout no new route takes: rows 77 floats apart
               ("mp,pk->mk", rn(big, 77), rn(77, 10), None, "generic", False)]
+
+    # wgmma: bf16 weight streaming, 1032 columns (a ragged last tile), rows
+    # 1 (a stride-0 decode row) to 200, depths 6144 (split 14 ways), 1000
+    # (a ragged last split) and 328 (a ragged last stage)
+    def bf(*shape):
+        return rn(*shape).bfloat16()
+
+    def bints(*shape):
+        return ints(*shape).bfloat16()
+
+    def rows(m, k):
+        return bf(1, k).as_strided((1, k), (0, 1)) if m == 1 else bf(m, k)
+
+    n = 1032
+    for m in (1, 2, 4, 63, 64, 65, 200):
+        for k in (6144, 328):
+            cases.append(("be,ef->bf", rows(m, k), bf(k, n), None, "wgmma", False))
+    # W K-major, X M-major, f32 output, integer-valued inputs (exact sums)
+    for m, k in ((1, 6144), (65, 328), (200, 6144)):
+        cases.append(("be,fe->bf", rows(m, k), bf(n, k), None, "wgmma", False))
+    cases += [("eb,ef->bf", bf(6144, 200), bf(6144, n), None, "wgmma", False),
+              ("eb,fe->bf", bf(328, 64), bf(n, 328), None, "wgmma", False),
+              ("be,ef->bf", bf(4, 6144), bf(6144, n), torch.float32, "wgmma", False),
+              ("be,fe->bf", bf(65, 328), bf(n, 328), torch.float32, "wgmma", False),
+              ("be,ef->bf", bf(3, 1000), bf(1000, n), None, "wgmma", False),
+              ("be,ef->bf", bints(2, 6144), bints(6144, n), None, "wgmma", True),
+              ("be,fe->bf", bints(200, 6144), bints(n, 6144), torch.float32, "wgmma", True),
+              ("eb,ef->bf", bints(328, 64), bints(328, n), None, "wgmma", True),
+              # bf16 that TMA cannot read: W's rows 1030 bytes apart
+              ("be,ef->bf", bf(4, 6144), bf(6144, 515)[:, :512], None, "generic", False)]
     return cases
 
 
@@ -472,10 +510,11 @@ def check_native_routes(dev) -> None:
             err = rel_err(got, want)
             check(err <= TOL[got.dtype], f"{what}: error {err}")
         worst = max(worst, (got.float() - want.float()).abs().max().item())
-    counts = {r: sum(1 for *_, rt, _ in cases if rt == r) for r in ("stream", "splitk", "generic")}
+    counts = {r: sum(1 for *_, rt, _ in cases if rt == r) for r in native_gemm.launches_by_route}
     log(f"native_gemm routes: {len(cases)} forced cases ({routes_text(counts)}; narrow widths "
-        f"1/10/16, ragged rows and depths, bf16 output, integer-valued bit-identical), each "
-        f"launched twice on its route, bit-identical, matching the plain version "
+        f"1/10/16, ragged rows and depths, bf16 weight streaming at 1-200 rows in every "
+        f"operand layout, bf16 and f32 output, integer-valued bit-identical), each launched "
+        f"twice on its route, bit-identical, matching the plain version "
         f"(max abs error {worst:.3g})")
 
 
@@ -559,14 +598,19 @@ def check_grouped_case(As, Bs, tiles, ta=False, tb=False, exact=False, out_dtype
 
 
 def native_kernel_info() -> None:
-    """Registers, spills and shared memory of the built stream and splitk
-    kernels of ``native_gemm`` (float32 output; the stream read kernels at
-    the HOOI depth 512 and the read kinds at rank 10, padded to 12)."""
+    """Registers, spills and shared memory of the built stream, splitk and
+    wgmma kernels of ``native_gemm`` (the first two with float32 output,
+    the stream read kernels at the HOOI depth 512 and the read kinds at
+    rank 10, padded to 12; wgmma with bf16 output for each operand layout,
+    and its split reduction).  The wgmma kernel must not spill: its 64
+    accumulators a thread stay in registers."""
     from repro_torch.kernels.sb_gemm import route_info
 
     for name, info in route_info(K=512, rp=12).items():
         log(f"sb_gemm.cu {name}: {info['registers']} registers/thread, {info['spill_bytes']} "
             f"bytes spilled (local)/thread, {info['smem_bytes']} bytes shared memory/block")
+        check(not name.startswith("wgmma") or info["spill_bytes"] == 0,
+              f"sb_gemm.cu {name} spills {info['spill_bytes']} bytes a thread")
 
 
 def grouped_kernel_info() -> None:
@@ -1664,19 +1708,32 @@ def serve_path(dev, seed: int, counters) -> dict:
     scratch = slot_cache(cfg, SERVE["slots"], SERVE["max_len"], device=dev)
     toks = torch.zeros((SERVE["slots"], 1), dtype=torch.long, device=dev)
     prompt = torch.as_tensor(traffic[0].prompt[:SERVE["chunk"]], device=dev)[None].long()
+    # launches ``wgmma`` for the 7 dense products of a layer and the LM head,
+    # ``generic`` for the scores and P.V products
+    per_pass = {"wgmma": 7 * periods + 1, "generic": 2 * periods}
     for name, run in (("decode pass", lambda: transformer.decode_step(cfg, params, scratch, toks)),
                       ("prefill chunk", lambda: transformer.prefill(
                           cfg, params, {"tokens": prompt},
                           transformer.init_cache(cfg, 1, SERVE["max_len"], device=dev)))):
-        before = native_gemm.launches
+        before = native_gemm.launches, dict(native_gemm.launches_by_route)
         with torch.no_grad(), record_contractions() as rec:
             run()
-        n = native_gemm.launches - before
+        n = native_gemm.launches - before[0]
+        by_route = {r: c - before[1][r] for r, c in native_gemm.launches_by_route.items()
+                    if c > before[1][r]}
         check(n == len(rec) == 9 * periods + 1,
               f"serve: a {name} made {len(rec)} contractions and {n} native_gemm launches, "
               f"not {9 * periods + 1} each")
-        log(f"serve: one {name}: {len(rec)} contractions, {n} native_gemm launches")
+        check(by_route == per_pass, f"serve: a {name} launched by route {by_route}, not "
+                                    f"{per_pass}")
+        log(f"serve: one {name}: {len(rec)} contractions, {n} native_gemm launches, by route "
+            f"{by_route}")
+    check(routes["wgmma"] * (9 * periods + 1) == per_pass["wgmma"] * counted["native_gemm"]
+          and routes["wgmma"] + routes["generic"] == counted["native_gemm"],
+          f"serve: the counted serve's routes {routes} are not {per_pass['wgmma']} wgmma in "
+          f"every {9 * periods + 1} launches")
     native_gemm.launches = counted["native_gemm"]
+    native_gemm.launches_by_route = dict(routes)
 
     legacy = ServeEngine(cfg, params, **kw).serve(serve_traffic(cfg, seed))
     check([r.output for r in legacy] == outputs,

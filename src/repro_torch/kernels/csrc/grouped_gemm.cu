@@ -359,15 +359,6 @@ extern "C" int gg_launch(const void* A, const void* B, void* C, const void* tabl
 // x 64 k rows); B read N-major (plain, 64 n x 64 k rows) or K-major
 // (trans_b, 64 k x 256 n rows).
 
-template <typename TC> __device__ __forceinline__ void gw_store2(TC* p, float x0, float x1);
-template <> __device__ __forceinline__ void gw_store2<float>(float* p, float x0, float x1) {
-  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
-}
-template <> __device__ __forceinline__ void gw_store2<__nv_bfloat16>(__nv_bfloat16* p, float x0,
-                                                                     float x1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
-}
-
 // One consumer warpgroup: C rows m0 + 64 wg + [0, 64), columns n0 + [0,
 // 256) of the group at c (row stride ldc), masked to m x n.
 template <int TRA, int TRB, typename TC>
@@ -379,33 +370,8 @@ __device__ __forceinline__ void gw_consume(const uint8_t* sm, uint64_t* full, ui
 #pragma unroll
   for (int i = 0; i < GW_TN / 2; ++i) acc[i] = 0.f;
 
-  for (int it = 0; it < n_k; ++it) {
-    const int s = it % GW_STAGES;
-    const uint8_t* as = sm + s * GW_STAGE_BYTES + wg * GW_BOX;
-    const uint8_t* bs = sm + s * GW_STAGE_BYTES + GW_A_BYTES;
-    hp_bar_wait(&full[s], (it / GW_STAGES) & 1);
-    // depth step kk: 16 k of a K-major slab is 32 bytes along its rows; of
-    // an M- or N-major slab, 16 rows of 128 bytes, with the next box of 64
-    // columns one box (GW_BOX) further on
-    hp_keep(acc);
-    hp_wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < GW_BK / 16; ++kk) {
-      const uint64_t da = TRA ? hp_desc(as + kk * 16 * 128, GW_BOX, 1024)
-                              : hp_desc(as + kk * 32, 16, 1024);
-      const uint64_t db = TRB ? hp_desc(bs + kk * 32, 16, 1024)
-                              : hp_desc(bs + kk * 16 * 128, GW_BOX, 1024);
-      hp_wgmma_ss<TRA, !TRB>(acc, da, db, 1);
-    }
-    hp_wgmma_commit();
-    // this stage's batch stays in flight; the previous one is done, and
-    // its stage goes back to the producer
-    hp_wgmma_wait<1>();
-    hp_keep(acc);
-    if (it > 0 && lane == 0) hp_bar_arrive(&empty[(it - 1) % GW_STAGES]);
-  }
-  hp_wgmma_wait<0>();
-  hp_keep(acc);
+  hp_consume_ring<TRA, TRB, GW_STAGES>(acc, sm, GW_STAGE_BYTES, wg * GW_BOX, GW_A_BYTES, full,
+                                       empty, n_k);
 
   const int row0 = m0 + 64 * wg + 16 * warp + lane / 4;
   const bool pairs = ldc % 2 == 0;  // (row, even col) pairs then start 2-element aligned
@@ -419,7 +385,7 @@ __device__ __forceinline__ void gw_consume(const uint8_t* sm, uint64_t* full, ui
       if (row >= m) continue;
       TC* p = c + (int64_t)row * ldc + col;
       if (pairs) {
-        gw_store2<TC>(p, acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+        hp_store2<TC>(p, acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
       } else {
         p[0] = gg_from_f32<TC>(acc[4 * i + 2 * h]);
         p[1] = gg_from_f32<TC>(acc[4 * i + 2 * h + 1]);

@@ -2,9 +2,10 @@
 //
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
 // warpgroup fences around a wgmma batch, the bf16 wgmma with both operands
-// in shared memory, cp.async copies and 16-byte unpacking for the FMA
-// kernels, and the tensor-map encoder fetched through the CUDA runtime (so
-// no library links against libcuda).  Included by flash_attn.cu,
+// in shared memory, a consumer warpgroup's K loop over a TMA ring, paired
+// stores of its accumulators, cp.async copies and 16-byte unpacking for
+// the FMA kernels, and the tensor-map encoder fetched through the CUDA
+// runtime (so no library links against libcuda).  Included by flash_attn.cu,
 // grouped_gemm.cu and sb_gemm.cu; each builds into its own library, so
 // everything here is inline or static.  _build.py hashes this header with
 // every source, so a change here rebuilds all of them.
@@ -116,6 +117,17 @@ template <> __device__ __forceinline__ void hp_unpack16<__nv_bfloat16>(const uin
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
   }
+}
+
+// Two neighbouring f32 values stored to p as T (float32 or bf16, rounded
+// to nearest) in one access; p must be 2-element aligned.
+template <typename T> __device__ __forceinline__ void hp_store2(T* p, float x0, float x1);
+template <> __device__ __forceinline__ void hp_store2<float>(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+template <> __device__ __forceinline__ void hp_store2<__nv_bfloat16>(__nv_bfloat16* p, float x0,
+                                                                     float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle; byte offsets: lbo
@@ -230,6 +242,49 @@ __device__ __forceinline__ void hp_wgmma_ss(float (&d)[128], uint64_t da, uint64
       "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
       "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// The K loop of one consumer warpgroup over a ring of STAGES shared-memory
+// stages, stage_bytes apart, each 64 deep under the 128-byte swizzle and
+// announced on full[s] by a producer: this warpgroup's 64 rows of A at
+// a_off into the stage, K-major ([64 m][64 k]) or, under TA, M-major ([64
+// k][64 m]); B at b_off, N-major ([64 k][64 n] boxes 8 KB apart) or, under
+// KB, K-major ([n][64 k]).  Accumulates n_k stages into acc with one
+// batch kept in flight, and hands a stage back on empty[s] (lane 0 of
+// each warp) once the batch that read it is done.
+template <int TA, int KB, int STAGES, int N>
+__device__ __forceinline__ void hp_consume_ring(float (&acc)[N], const uint8_t* ring,
+                                                int stage_bytes, int a_off, int b_off,
+                                                uint64_t* full, uint64_t* empty, int n_k) {
+  constexpr int BOX = 64 * 64 * 2;
+  const int lane = threadIdx.x % 32;
+  for (int it = 0; it < n_k; ++it) {
+    const int s = it % STAGES;
+    const uint8_t* as = ring + s * stage_bytes + a_off;
+    const uint8_t* bs = ring + s * stage_bytes + b_off;
+    hp_bar_wait(&full[s], (it / STAGES) & 1);
+    // depth step kk: 16 k of a K-major slab is 32 bytes along its rows; of
+    // an M- or N-major slab, 16 rows of 128 bytes, with the next box of 64
+    // columns one box further on
+    hp_keep(acc);
+    hp_wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = TA ? hp_desc(as + kk * 16 * 128, BOX, 1024)
+                             : hp_desc(as + kk * 32, 16, 1024);
+      const uint64_t db = KB ? hp_desc(bs + kk * 32, 16, 1024)
+                             : hp_desc(bs + kk * 16 * 128, BOX, 1024);
+      hp_wgmma_ss<TA, !KB>(acc, da, db, 1);
+    }
+    hp_wgmma_commit();
+    // this stage's batch stays in flight; the previous one is done, and
+    // its stage goes back to the producer
+    hp_wgmma_wait<1>();
+    hp_keep(acc);
+    if (it > 0 && lane == 0) hp_bar_arrive(&empty[(it - 1) % STAGES]);
+  }
+  hp_wgmma_wait<0>();
+  hp_keep(acc);
 }
 
 typedef CUresult (*HpEncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

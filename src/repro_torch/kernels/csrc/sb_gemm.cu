@@ -21,14 +21,18 @@
 //
 // Routes.  The wrapper's native_route picks one from layout and extents
 // alone (no fallback: a route that cannot build or launch raises):
-//   generic  (ng_outer_kernel, ng_kernel) every layout: bf16 operands,
-//            batch modes, several contracted modes, the Table II cases;
+//   generic  (ng_outer_kernel, ng_kernel) every layout: batch modes,
+//            several contracted modes, mixed bf16 x f32 operands, layouts
+//            TMA cannot read, the Table II cases;
 //   stream   (ns_read_kernel, nw_kernel) float32 with one big side and a
 //            narrow other one, e.g. the HOOI contractions of the 512^3
 //            tensor with a rank-10 factor;
 //   splitk   (nk_kernel, nk_reduce) float32 with a narrow output and a
 //            long contraction, e.g. HOOI's contractions of the 512x512x10
-//            intermediates.
+//            intermediates;
+//   wgmma    (nm_kernel, nm_reduce) bf16 weight streaming, C[m, n] =
+//            sum_k X[m, k] W[k, n] with both operands TMA-readable, e.g.
+//            every dense and LM-head product of a served model.
 //
 // Generic tiling.  One block of 256 threads owns a BM x BN tile of (u, v)
 // (128 x 16 when v is at most 16 wide, else 64 x 64) and loops over K in
@@ -64,8 +68,31 @@
 //            output mode whole, and the contraction is split across blocks
 //            until there are about 8 blocks per SM, with partial sums
 //            reduced in a fixed order by a second kernel (no atomics).
+//   wgmma    at M <= 64 rows a weight-streaming product reads its bf16
+//            weight once: 201 MB for a 6144 x 16384 weight, 0.060 ms,
+//            while its 12.9 GFLOP at 64 rows take 0.013 ms on the tensor
+//            cores (989 TFLOP/s), so padding a decode product's 1-4 rows to
+//            wgmma's 64 costs nothing that shows, and bytes in flight per
+//            SM are what matter.  3.35 TB/s over ~1 us of loaded DRAM
+//            latency is ~3.4 MB in flight across the card, ~25 KB per SM.
+//            A block keeps its ring of NM_STAGES = 4 stages of 24 KB in
+//            flight (64 KB of it W), 2.5x that, and 98 KB of shared memory
+//            leave room for two blocks per SM.  The tile is 64 x 128, not
+//            64 x 256: tensor-core work is not the bound, and the narrower
+//            tile gives twice the tiles (8 at N = 1024, 128 at N = 16384),
+//            so fewer splits fill the card and less partial-sum traffic
+//            goes through the workspace, with 64 accumulators per thread.
+//            Where column tiles are fewer than the SMs, the contraction
+//            is split (the wrapper's wgmma_plan: column tiles x splits
+//            nearest one block per SM, each split at least one ring deep)
+//            and the partial sums reduced in split order by nm_reduce: no
+//            atomics, the same bits on every launch.  The split depends
+//            on N and K, never on M, so a row's bits do not depend on
+//            which rows share its launch (a batched decode step gives a
+//            request the tokens it gets alone).
 //   generic  the remaining layouts at the tile sizes above; its loads are
-//            plain, not TMA, and bf16 never reaches wgmma here.
+//            plain, not TMA, one element a thread, and it runs on the FMA
+//            units in f32 whatever the operand type.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -746,6 +773,136 @@ nk_reduce(const float* __restrict__ ws, TC* __restrict__ C, const NrDesc d) {
   C[co] = ng_from_f32<TC>(sum);
 }
 
+// -------------------------------------------------------------------- wgmma
+// bf16 weight streaming: C[m, n] = sum_k X[m, k] W[k, n], X (M, K) and W
+// (K, N) each read by a 2-D tensor map (X K-major or M-major, W N-major or
+// K-major; the wrapper's native_plan checks the layout).  One block owns a
+// 64 x NM_BN tile of C: one consumer warpgroup runs wgmma m64nNM_BNk16 into
+// NM_BN / 2 f32 accumulators per thread, and lane 0 of one producer warp
+// feeds a ring of NM_STAGES stages by TMA under the 128-byte swizzle, each
+// stage a 64-deep slab of X (64 rows, 8 KB) and of W (NM_BN columns, 16
+// KB), guarded by a "full" and an "empty" mbarrier.  The maps' extents are
+// M, N and K, not the row strides, so rows past M and depth past K read as
+// zeros (a sliced operand reads no neighbour); the store masks rows >= M
+// and columns >= N.  blockIdx.x is the tile (m fastest, so the m-tiles of
+// one n-tile share W in L2), blockIdx.y the split of the contraction: kc
+// indices, a multiple of NM_BK, so only the last split runs past K.  One
+// split stores C; several store f32 partial sums to ws [split][M][N],
+// which nm_reduce sums in split order and casts.
+#define NM_TM 64          // output rows per block: one consumer warpgroup
+#define NM_BN 128         // output columns per block
+#define NM_BK 64          // depth per stage: 64 bf16 are one 128-byte swizzle span
+#define NM_STAGES 4       // ring depth: 4 x 24 KB
+#define NM_THREADS 160    // one consumer warpgroup + one producer warp
+#define NM_BOX (64 * NM_BK * 2)                          // one [64][64] bf16 box: 8 KB
+#define NM_STAGE_BYTES (NM_BOX + NM_BN / 64 * NM_BOX)     // X slab, then W slab: 24 KB
+#define NM_BAR_OFF (NM_STAGES * NM_STAGE_BYTES)
+#define NM_SMEM (1024 + NM_BAR_OFF + 8 * 2 * NM_STAGES)  // + alignment slack
+
+struct NmDesc {
+  int64_t M, N, K, xm, xk, wn, wk, ldc;  // element strides; C[m * ldc + n]
+  int32_t kc, n_split;                   // contracted indices per split, splits
+};
+
+// One accumulator fragment (see hp_wgmma_ss) into rows m0.., columns n0..
+// of out (row stride ld), masked to M x N; pairs of columns are stored
+// together where ld is even (they then start 2-element aligned).
+template <typename TO>
+__device__ __forceinline__ void nm_store(TO* __restrict__ out, int64_t ld, const float* acc,
+                                         int64_t M, int64_t N, int m0, int n0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = m0 + 16 * warp + lane / 4;
+  const bool pairs = ld % 2 == 0;
+#pragma unroll
+  for (int i = 0; i < NM_BN / 8; ++i) {
+    const int col = n0 + 8 * i + 2 * (lane % 4);
+    if (col >= N) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= M) continue;
+      TO* p = out + (int64_t)row * ld + col;
+      const float x0 = acc[4 * i + 2 * h], x1 = acc[4 * i + 2 * h + 1];
+      if (pairs && col + 1 < N) {
+        hp_store2<TO>(p, x0, x1);
+      } else {
+        p[0] = ng_from_f32<TO>(x0);
+        if (col + 1 < N) p[1] = ng_from_f32<TO>(x1);
+      }
+    }
+  }
+}
+
+// XM: X is M-major (stored (K, M), wgmma's transpose bit for A); else
+// K-major.  WK: W is K-major (stored (N, K)); else N-major (wgmma's
+// transpose bit for B).
+template <int XM, int WK, typename TC>
+__global__ void __launch_bounds__(NM_THREADS)
+nm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+          TC* __restrict__ C, float* __restrict__ ws, const NmDesc d) {
+  extern __shared__ uint8_t nm_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(nm_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + NM_BAR_OFF);
+  uint64_t* empty = full + NM_STAGES;
+
+  const int mt = (int)((d.M + NM_TM - 1) / NM_TM);
+  const int m0 = (int)(blockIdx.x % mt) * NM_TM, n0 = (int)(blockIdx.x / mt) * NM_BN;
+  const int64_t k_begin = (int64_t)blockIdx.y * d.kc;
+  const int64_t k_len = d.K - k_begin < d.kc ? d.K - k_begin : d.kc;
+  const int n_k = (int)((k_len + NM_BK - 1) / NM_BK);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NM_STAGES; ++s) {
+      hp_bar_init(&full[s], 1);
+      hp_bar_init(&empty[s], 4);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 4) {  // producer warp: lane 0 issues every copy
+    if (lane == 0) {
+      for (int it = 0; it < n_k; ++it) {
+        const int s = it % NM_STAGES, k0 = (int)(k_begin + (int64_t)it * NM_BK);
+        if (it >= NM_STAGES) hp_bar_wait(&empty[s], (it / NM_STAGES - 1) & 1);
+        uint8_t* xs = sm + s * NM_STAGE_BYTES;
+        uint8_t* wsm = xs + NM_BOX;
+        hp_bar_expect(&full[s], NM_STAGE_BYTES);
+        if (XM) hp_tma_load(xs, &xmap, &full[s], m0, k0);  // [64 k][64 m]
+        else hp_tma_load(xs, &xmap, &full[s], k0, m0);     // [64 m][64 k]
+        if (WK) {
+          hp_tma_load(wsm, &wmap, &full[s], k0, n0);       // [NM_BN n][64 k]
+        } else {
+#pragma unroll
+          for (int j = 0; j < NM_BN / 64; ++j)             // [64 k][64 n] boxes
+            hp_tma_load(wsm + j * NM_BOX, &wmap, &full[s], n0 + 64 * j, k0);
+        }
+      }
+    }
+    return;
+  }
+
+  float acc[NM_BN / 2];
+#pragma unroll
+  for (int i = 0; i < NM_BN / 2; ++i) acc[i] = 0.f;
+  hp_consume_ring<XM, WK, NM_STAGES>(acc, sm, NM_STAGE_BYTES, 0, NM_BOX, full, empty, n_k);
+
+  if (d.n_split == 1) nm_store<TC>(C, d.ldc, acc, d.M, d.N, m0, n0);
+  else nm_store<float>(ws + (int64_t)blockIdx.y * d.M * d.N, d.N, acc, d.M, d.N, m0, n0);
+}
+
+template <typename TC>
+__global__ void __launch_bounds__(256)
+nm_reduce(const float* __restrict__ ws, TC* __restrict__ C, const NmDesc d) {
+  const int64_t i = (int64_t)blockIdx.x * 256 + threadIdx.x, plane = d.M * d.N;
+  if (i >= plane) return;
+  float sum = 0.f;
+  for (int s = 0; s < d.n_split; ++s) sum += ws[s * plane + i];
+  C[i / d.N * d.ldc + i % d.N] = ng_from_f32<TC>(sum);
+}
+
 // ------------------------------------------------------------- host launches
 static int nr_sm_count() {
   static int n = 0;
@@ -870,6 +1027,59 @@ static int nk_launch_t(const void* X, const void* W, void* C, void* ws, const Nr
   return (int)cudaGetLastError();
 }
 
+// An (outer, inner) bf16 operand with outer stride ld (elements), read in
+// boxes of 64 inner elements x box_outer rows under the 128-byte swizzle.
+static int nm_map(CUtensorMap* map, const void* ptr, int64_t outer, int64_t inner, int64_t ld,
+                  int box_outer) {
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_outer};
+  return hp_map(map, ptr, 2, dims, strides, box);
+}
+
+template <int XM, int WK, typename TC>
+static int nm_go(const CUtensorMap& xmap, const CUtensorMap& wmap, void* C, void* ws,
+                 const NmDesc& d, dim3 grid, cudaStream_t st) {
+  static bool sized = false;  // once per kernel: its shared memory is above 48 KB
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nm_kernel<XM, WK, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize, NM_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  nm_kernel<XM, WK, TC><<<grid, NM_THREADS, NM_SMEM, st>>>(xmap, wmap, (TC*)C, (float*)ws, d);
+  return (int)cudaGetLastError();
+}
+
+template <typename TC>
+static int nm_launch_t(const void* X, const void* W, void* C, void* ws, const NmDesc& d,
+                       cudaStream_t st) {
+  const bool xm_major = d.xk != 1, wk_major = d.wn != 1;
+  CUtensorMap xmap, wmap;
+  int rc = xm_major ? nm_map(&xmap, X, d.K, d.M, d.xk, 64) : nm_map(&xmap, X, d.M, d.K, d.xm, 64);
+  if (!rc)
+    rc = wk_major ? nm_map(&wmap, W, d.N, d.K, d.wn, NM_BN) : nm_map(&wmap, W, d.K, d.N, d.wk, 64);
+  if (rc) return rc;
+  const int64_t tiles = (d.M + NM_TM - 1) / NM_TM * ((d.N + NM_BN - 1) / NM_BN);
+  if (tiles >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, (unsigned)d.n_split);
+  if (xm_major) rc = wk_major ? nm_go<1, 1, TC>(xmap, wmap, C, ws, d, grid, st)
+                              : nm_go<1, 0, TC>(xmap, wmap, C, ws, d, grid, st);
+  else rc = wk_major ? nm_go<0, 1, TC>(xmap, wmap, C, ws, d, grid, st)
+                     : nm_go<0, 0, TC>(xmap, wmap, C, ws, d, grid, st);
+  if (rc || d.n_split == 1) return rc;
+  const int64_t n = d.M * d.N;
+  nm_reduce<TC><<<(unsigned)((n + 255) / 256), 256, 0, st>>>((const float*)ws, (TC*)C, d);
+  return (int)cudaGetLastError();
+}
+
+// One operand's 2-D layout (element strides s_outer, s_inner over extents
+// outer, inner, either mode stride-1): what nm_map can encode.
+static bool nm_layout_ok(int64_t s0, int64_t s1, int64_t e0, int64_t e1) {
+  if (s1 == 1) return s0 > 0 && s0 % 8 == 0 && s0 >= e1 && s0 < ((int64_t)1 << 39);
+  return s0 == 1 && s1 > 0 && s1 % 8 == 0 && s1 >= e0 && s1 < ((int64_t)1 << 39);
+}
+
 static bool nr_valid(const NrDesc* d, int tc) {
   return tc >= 0 && tc <= 1 && d->n_m >= 1 && d->n_m <= 3 && d->R >= 1 &&
          d->R <= NR_NARROW && d->rp >= d->R && d->rp % 4 == 0 && d->rp <= NR_NARROW &&
@@ -908,11 +1118,32 @@ extern "C" int nk_launch(const void* X, const void* W, void* C, void* ws, const 
   return nk_launch_t<__nv_bfloat16>(X, W, C, ws, *d, st);
 }
 
+// Route "wgmma": bf16 X (M, K) and W (K, N), each 16-byte aligned with a
+// layout nm_layout_ok takes; `ws` holds n_split * M * N floats when n_split
+// > 1 (else it may be null).  Type code tc: 0 = float32, 1 = bfloat16
+// output.  Returns a cudaError_t value or an HP_ERR_ code (hopper.cuh).
+extern "C" int nm_launch(const void* X, const void* W, void* C, void* ws, const NmDesc* d, int tc,
+                         void* stream) {
+  const int64_t lim = (int64_t)1 << 31;
+  if (tc < 0 || tc > 1 || d->M < 1 || d->N < 1 || d->K < 1 || d->M >= lim || d->N >= lim ||
+      d->K >= lim || !nm_layout_ok(d->xm, d->xk, d->M, d->K) ||
+      !nm_layout_ok(d->wk, d->wn, d->K, d->N) || ((uintptr_t)X | (uintptr_t)W) % 16 ||
+      d->kc < NM_BK || d->kc % NM_BK || d->n_split < 1 || d->n_split >= 65536 ||
+      (int64_t)d->kc * d->n_split < d->K || (int64_t)d->kc * (d->n_split - 1) >= d->K ||
+      (d->n_split > 1 && !ws))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tc == 0) return nm_launch_t<float>(X, W, C, ws, *d, st);
+  return nm_launch_t<__nv_bfloat16>(X, W, C, ws, *d, st);
+}
+
 // Registers, local (spilled) bytes per thread and shared bytes per block of
-// one float32-output kernel of the new routes: kind 0 stream read with m
-// stride-1, 1 stream read with k stride-1 (both at depth K, dynamic shared
-// memory), 2 stream write, 3 splitk, 4 its reduction (static shared
-// memory); rp is the padded r of kinds 0, 1 and 3.
+// one kernel of the new routes: kind 0 stream read with m stride-1, 1
+// stream read with k stride-1 (both at depth K, dynamic shared memory), 2
+// stream write, 3 splitk, 4 its reduction (static shared memory), all with
+// float32 output, rp the padded r of kinds 0, 1 and 3; kinds 5-8 the
+// bfloat16-output wgmma kernel with X K-major (5, 6) or M-major (7, 8) and
+// W N-major (5, 7) or K-major (6, 8), 9 its split reduction.
 extern "C" int nr_info(int kind, int rp, int64_t K, int* out) {
   const void* fn = nullptr;
   size_t smem = 0;
@@ -928,6 +1159,14 @@ extern "C" int nr_info(int kind, int rp, int64_t K, int* out) {
     if (rp == 16) fn = (const void*)nk_kernel<16, float>;
   } else if (kind == 4) {
     fn = (const void*)nk_reduce<float>;
+  } else if (kind >= 5 && kind <= 8) {
+    typedef __nv_bfloat16 B16;
+    const void* fns[4] = {(const void*)nm_kernel<0, 0, B16>, (const void*)nm_kernel<0, 1, B16>,
+                          (const void*)nm_kernel<1, 0, B16>, (const void*)nm_kernel<1, 1, B16>};
+    fn = fns[kind - 5];
+    smem = NM_SMEM;
+  } else if (kind == 9) {
+    fn = (const void*)nm_reduce<__nv_bfloat16>;
   }
   if (!fn) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;

@@ -16,7 +16,7 @@ a block's output tile; every other C mode is decoded from the block
 index; the contracted modes are one flattened in-block loop.  At most
 :data:`MAX_MODES` such modes fit one launch.
 
-Three routes, picked by :func:`native_route` from dtypes, extents and
+Four routes, picked by :func:`native_route` from dtypes, extents and
 strides alone (the ``u``/``walk`` options only shape the generic tile):
 
 - ``"stream"``: float32 with one big side and a narrow other side.  Read
@@ -28,8 +28,13 @@ strides alone (the ``u``/``walk`` options only shape the generic tile):
 - ``"splitk"``: float32 read kind with fewer rows: the contraction is
   split across blocks (:func:`splitk_plan`) and the partial sums reduced
   in a fixed order, so every launch gives the same bits.
-- ``"generic"``: everything else (bf16 operands, batch modes, several
-  contracted modes, wide outputs on both sides).
+- ``"wgmma"``: bfloat16 weight-streaming products ``C[m, n] = Σ_k
+  X[m, k]·W[k, n]``, both operands read by TMA, on the tensor cores;
+  the contraction is split where the output tiles are too few to fill
+  the card (:func:`wgmma_plan`), again reduced in a fixed order.
+- ``"generic"``: everything else (batch modes, several contracted modes,
+  mixed bf16 x f32 operands, layouts TMA cannot read, wide float32
+  outputs on both sides).
 
 :func:`native_gemm_ref` is the plain PyTorch version (an f32 einsum).  The
 wrapper takes it only for tensors on the CPU; a CUDA tensor launches the
@@ -50,12 +55,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.addressing import row_major_strides
 
 __all__ = ["MAX_MODES", "NARROW", "ROUTES", "STREAM_MIN_ROWS", "native_gemm",
-           "native_gemm_ref", "native_plan", "native_route", "route_info", "splitk_plan"]
+           "native_gemm_ref", "native_plan", "native_route", "route_info", "splitk_plan",
+           "wgmma_plan"]
 
 #: mode slots one launch takes (u, v, other C modes, contracted modes)
 MAX_MODES = 8
 
-ROUTES = ("stream", "splitk", "generic")
+ROUTES = ("stream", "splitk", "wgmma", "generic")
 
 #: widest narrow mode the stream and splitk routes hold in registers: the
 #: read kind's ``r``, the write kind's ``k`` (``NR_NARROW``)
@@ -73,6 +79,11 @@ STREAM_W_BYTES = 32 * 1024
 #: rows per splitk block and X loads in flight per thread (``NK_TU``, ``NK_UNROLL``)
 SPLITK_ROWS, SPLITK_UNROLL = 128, 16
 SPLITK_BLOCKS_PER_SM = 8
+#: the wgmma route's output tile (rows x columns) and depth per ring stage
+#: (``NM_TM``, ``NM_BN``, ``NM_BK``); a split of the contraction spans at
+#: least :data:`WGMMA_MIN_SPLIT_STAGES` stages (``NM_STAGES``, one ring)
+WGMMA_TM, WGMMA_BN, WGMMA_BK = 64, 128, 64
+WGMMA_MIN_SPLIT_STAGES = 4
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -80,12 +91,14 @@ _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: lay them out (little-endian, 8-byte aligned): ``NgDesc`` (generic: ext,
 #: sa, sb, sc over the slots; n_rest, n_k, walk), ``NrDesc`` (stream read
 #: kind and splitk: m_ext, m_xs, m_cs; M, K, xk, wk, R, wr, cr; n_m, kc,
-#: n_split, rp) and ``NwDesc`` (stream write kind: M, P, K, xm, xk, wp, wk,
-#: cm).  Every call packs one, and ``struct`` does it several times faster
-#: than a ctypes structure with array fields.
+#: n_split, rp), ``NwDesc`` (stream write kind: M, P, K, xm, xk, wp, wk,
+#: cm) and ``NmDesc`` (wgmma: M, N, K, xm, xk, wn, wk, ldc; kc, n_split).
+#: Every call packs one, and ``struct`` does it several times faster than a
+#: ctypes structure with array fields.
 _NG_DESC = struct.Struct(f"<{4 * MAX_MODES}q3i4x")
 _NR_DESC = struct.Struct("<16q4i")
 _NW_DESC = struct.Struct("<8q")
+_NM_DESC = struct.Struct("<8q2i")
 
 _LIB = None
 
@@ -99,9 +112,10 @@ def _library():
         lib.ns_launch_read.argtypes = [ptr, ptr, ptr, desc, i32, ptr]
         lib.ns_launch_write.argtypes = [ptr, ptr, ptr, desc, i32, ptr]
         lib.nk_launch.argtypes = [ptr, ptr, ptr, ptr, desc, i32, ptr]
+        lib.nm_launch.argtypes = [ptr, ptr, ptr, ptr, desc, i32, ptr]
         lib.nr_info.argtypes = [i32, i32, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)]
         for fn in (lib.ng_launch, lib.ns_launch_read, lib.ns_launch_write, lib.nk_launch,
-                   lib.nr_info):
+                   lib.nm_launch, lib.nr_info):
             fn.restype = ctypes.c_int
         lib.ng_error_string.argtypes = [ctypes.c_int]
         lib.ng_error_string.restype = ctypes.c_char_p
@@ -142,6 +156,31 @@ def splitk_plan(M: int, K: int, R: int) -> dict:
             "workspace": n_split * R * M if n_split > 1 else 0}
 
 
+def wgmma_plan(M: int, N: int, K: int) -> dict:
+    """The wgmma route's launch for ``M`` rows, ``N`` columns and depth
+    ``K``: ``tiles`` (output tiles of :data:`WGMMA_TM` x :data:`WGMMA_BN`),
+    ``n_split`` splits of ``kc`` contracted indices each, and
+    ``workspace``, the f32 partial sums the wrapper allocates (``n_split *
+    M * N``, or 0 for one split, which writes C directly).  ``kc`` is a
+    multiple of :data:`WGMMA_BK`, so only the last split's last stage runs
+    past K (where the tensor maps read zeros), never into the next
+    split's.  The column tiles times ``n_split`` come nearest to one block
+    per SM, with every split at least :data:`WGMMA_MIN_SPLIT_STAGES`
+    stages deep: a decode product's few wide tiles would leave most SMs
+    idle, and each SM's share of the weight is what bounds the launch.
+    The split depends on N and K only, never on M: a row of C is summed
+    in the same order whatever other rows share the launch, so a batched
+    decode step or a prefill chunk gives each row the bits it gets alone."""
+    n_tiles = _cdiv(N, WGMMA_BN)
+    stages = _cdiv(K, WGMMA_BK)
+    want = (2 * H100_SMS + n_tiles) // (2 * n_tiles)  # H100_SMS / n_tiles, rounded
+    n_split = max(1, min(want, stages // WGMMA_MIN_SPLIT_STAGES))
+    kc = _cdiv(stages, n_split) * WGMMA_BK
+    n_split = _cdiv(K, kc)
+    return {"tiles": _cdiv(M, WGMMA_TM) * n_tiles, "n_split": n_split, "kc": kc,
+            "workspace": n_split * M * N if n_split > 1 else 0}
+
+
 def _tma_readable(X, xm: int, xk: int, M: int, K: int) -> bool:
     """A 2-D tensor map can read X (M, K): one stride 1, the other a
     positive multiple of 16 bytes, a 16-byte aligned start, coordinates
@@ -154,14 +193,7 @@ def _tma_readable(X, xm: int, xk: int, M: int, K: int) -> bool:
 def _read_plan(X, x_modes, xs, r, ws, k, dims, sc, x_is_a):
     # X's C modes innermost first (by X stride); neighbours that are one
     # mode in both X and C fuse
-    ms = sorted(([dims[m], xs[m], sc[m]] for m in x_modes), key=lambda t: t[1])
-    fused = [ms[0]]
-    for e, x, c in ms[1:]:
-        f = fused[-1]
-        if x == f[0] * f[1] and c == f[0] * f[2]:
-            f[0] *= e
-        else:
-            fused.append([e, x, c])
+    fused = _fuse(sorted(([dims[m], xs[m], sc[m]] for m in x_modes), key=lambda t: t[1]))
     M, K = 1, dims[k]
     for e, _, _ in fused:
         M *= e
@@ -181,14 +213,62 @@ def _read_plan(X, x_modes, xs, r, ws, k, dims, sc, x_is_a):
     return "splitk", plan
 
 
+def _bf16_map_ok(s0: int, s1: int, e0: int, e1: int) -> bool:
+    """A 2-D bf16 tensor map can read an (e0, e1) operand of element
+    strides (s0, s1): one mode stride-1, the other's stride a multiple of
+    8 elements (16 bytes) that steps past the stride-1 mode's extent."""
+    if s1 == 1:
+        return s0 % 8 == 0 and s0 >= e1
+    return s0 == 1 and s1 % 8 == 0 and s1 >= e0
+
+
+def _fuse(ms):
+    """``[extent, X stride, C stride]`` triples, sorted by X stride, with
+    neighbours that are one mode in both X and C fused."""
+    fused = [list(ms[0])] if ms else []
+    for e, x, c in ms[1:]:
+        f = fused[-1]
+        if x == f[0] * f[1] and c == f[0] * f[2]:
+            f[0] *= e
+        else:
+            fused.append([e, x, c])
+    return fused
+
+
+def _wgmma_plan(A, B, a_live, b_live, k, c_live, dims, sa, sb, sc):
+    n = c_live[-1]
+    if b_live == [n]:
+        x_is_a, X, W, x_c, xs, ws = True, A, B, a_live, sa, sb
+    elif a_live == [n]:
+        x_is_a, X, W, x_c, xs, ws = False, B, A, b_live, sb, sa
+    else:
+        return "generic", None
+    fused = _fuse(sorted(([dims[m], xs[m], sc[m]] for m in x_c), key=lambda t: t[1]))
+    if len(fused) > 1:
+        return "generic", None
+    M, K, N = (fused[0][0] if fused else 1), dims[k], dims[n]
+    xk, wk, wn = xs[k], ws[k], ws[n]
+    if M == 1:
+        # a single row is never stepped along: give the map a legal stride
+        xm, ldc = (_cdiv(K, 8) * 8 if xk == 1 else 1), N
+    else:
+        _, xm, ldc = fused[0]
+    if not (_bf16_map_ok(xm, xk, M, K) and _bf16_map_ok(wk, wn, K, N)
+            and max(M, N, K) < 2**31 and X.data_ptr() % 16 == 0 and W.data_ptr() % 16 == 0):
+        return "generic", None
+    return "wgmma", {"kind": "wgmma", "x_is_a": x_is_a, "M": M, "N": N, "K": K, "xm": xm,
+                     "xk": xk, "wn": wn, "wk": wk, "ldc": ldc, **wgmma_plan(M, N, K)}
+
+
 def native_plan(A, B, *, a_modes: str, b_modes: str, c_modes: str, dims=None):
     """The route of :func:`native_gemm` and its launch plan: ``(route,
     plan)``, ``plan`` None on the generic route.  Reads only dtypes,
     extents, strides and the start's alignment, so it runs on CPU and
     meta tensors too.
 
-    Both new routes need float32 operands and exactly one contracted mode
-    ``k`` of extent > 1 that is no C mode (extent-1 modes are ignored):
+    Every route but ``"generic"`` needs exactly one contracted mode ``k``
+    of extent > 1 that is no C mode (extent-1 modes are ignored
+    everywhere), so no batch mode.  Float32 operands:
 
     - read kind: one operand W has, besides ``k``, at most one mode ``r``
       (a C mode at most :data:`NARROW` wide; none: a matrix-vector
@@ -200,8 +280,19 @@ def native_plan(A, B, *, a_modes: str, b_modes: str, c_modes: str, dims=None):
       three modes: ``"splitk"`` (:func:`splitk_plan`).
     - write kind: ``k`` at most :data:`NARROW` deep, C two modes ``(m,
       p)``, W carrying ``p`` and ``k``, X ``m`` and ``k``: ``"stream"``.
+
+    Bfloat16 operands (both; any output type) take ``"wgmma"``
+    (:func:`wgmma_plan`) when ``n``, the minor-most C mode of extent > 1,
+    is carried by one operand W together with ``k`` and nothing else, and
+    the other operand X carries every other C mode, fusing into one row
+    mode ``m`` (none: M = 1); and when each operand is readable by a 2-D
+    tensor map: one of its two modes stride-1, the other's stride a
+    multiple of 16 bytes that steps past the first's extent (an extent-1
+    mode's stride is replaced by a legal one), and a 16-byte aligned
+    start.  Mixed bf16 x f32 operands, and everything else, take
+    ``"generic"``.
     """
-    if A.dtype != torch.float32 or B.dtype != torch.float32:
+    if A.dtype != B.dtype or A.dtype not in (torch.float32, torch.bfloat16):
         return "generic", None
     if dims is None:
         dims = infer_dims(ContractionSpec(a_modes, b_modes, c_modes), A, B)
@@ -215,6 +306,11 @@ def native_plan(A, B, *, a_modes: str, b_modes: str, c_modes: str, dims=None):
     sc = dict(zip(c_modes, row_major_strides([dims[m] for m in c_modes])))
     a_c = [m for m in a_modes if m != k and dims[m] > 1]
     b_c = [m for m in b_modes if m != k and dims[m] > 1]
+    c_live = [m for m in c_modes if dims[m] > 1]
+    if A.dtype == torch.bfloat16:
+        if not c_live:
+            return "generic", None
+        return _wgmma_plan(A, B, a_c, b_c, k, c_live, dims, sa, sb, sc)
     read = [(w.numel(), x_is_a) for x_is_a, w, w_c, x_c in ((True, B, b_c, a_c),
                                                            (False, A, a_c, b_c))
             if x_c and (not w_c or len(w_c) == 1 and dims[w_c[0]] <= NARROW)]
@@ -222,7 +318,6 @@ def native_plan(A, B, *, a_modes: str, b_modes: str, c_modes: str, dims=None):
         x_is_a = min(read)[1]
         X, x_c, xs, w_c, ws = (A, a_c, sa, b_c, sb) if x_is_a else (B, b_c, sb, a_c, sa)
         return _read_plan(X, x_c, xs, w_c[0] if w_c else None, ws, k, dims, sc, x_is_a)
-    c_live = [m for m in c_modes if dims[m] > 1]
     if dims[k] <= NARROW and len(c_live) == 2:
         m, p = c_live
         for x_is_a, x_c, xs, w_c, ws in ((True, a_c, sa, b_c, sb), (False, b_c, sb, a_c, sa)):
@@ -249,12 +344,17 @@ def _read_desc(plan) -> bytes:
 
 def route_info(K: int = 512, rp: int = 12) -> dict:
     """Registers and spilled (local) bytes per thread, and shared bytes
-    per block, of the float32-output kernels of the stream and splitk
-    routes, the stream read kernels at depth ``K`` and the read kinds at
-    padded width ``rp``.  Needs the card (it loads the library)."""
+    per block, of the kernels of the stream, splitk and wgmma routes: the
+    float32-output stream and splitk kernels (the stream read kernels at
+    depth ``K``, the read kinds at padded width ``rp``), and the
+    bfloat16-output wgmma kernel for each operand layout, with its
+    split reduction.  Needs the card (it loads the library)."""
     lib = _library()
     kinds = {"stream read, m stride-1": 0, "stream read, k stride-1": 1,
-             "stream write": 2, "splitk": 3, "splitk reduce": 4}
+             "stream write": 2, "splitk": 3, "splitk reduce": 4,
+             "wgmma, X K-major, W N-major": 5, "wgmma, X K-major, W K-major": 6,
+             "wgmma, X M-major, W N-major": 7, "wgmma, X M-major, W K-major": 8,
+             "wgmma split reduce": 9}
     info = {}
     for name, kind in kinds.items():
         out = (ctypes.c_int * 3)()
@@ -358,6 +458,10 @@ def native_gemm(A, B, *, a_modes: str, b_modes: str, c_modes: str,
             *[1 if m is None else dims[m] for m in slots], *pad, *sa, *pad, *sb, *pad, *sc,
             *pad, len(rest), len(contracted), int(walk))
         X, Y = (B, A) if swap else (A, B)
+    elif route == "wgmma":
+        desc = _NM_DESC.pack(*(plan[f] for f in ("M", "N", "K", "xm", "xk", "wn", "wk", "ldc",
+                                                 "kc", "n_split")))
+        X, Y = (A, B) if plan["x_is_a"] else (B, A)
     else:
         desc = _read_desc(plan) if plan["kind"] == "read" else _NW_DESC.pack(
             *(plan[f] for f in ("M", "P", "K", "xm", "xk", "wp", "wk", "cm")))
@@ -378,12 +482,12 @@ def native_gemm(A, B, *, a_modes: str, b_modes: str, c_modes: str,
         if route == "generic":
             rc = lib.ng_launch(X.data_ptr(), Y.data_ptr(), out.data_ptr(), desc,
                                _TYPE_CODES[X.dtype], _TYPE_CODES[Y.dtype], tc, stream)
-        elif route == "splitk":
+        elif route in ("splitk", "wgmma"):
             ws = (torch.empty(plan["workspace"], dtype=torch.float32, device=A.device)
                   if plan["workspace"] else None)
-            rc = lib.nk_launch(X.data_ptr(), Y.data_ptr(), out.data_ptr(),
-                               None if ws is None else ws.data_ptr(), desc,
-                               tc, stream)
+            launch = lib.nk_launch if route == "splitk" else lib.nm_launch
+            rc = launch(X.data_ptr(), Y.data_ptr(), out.data_ptr(),
+                        None if ws is None else ws.data_ptr(), desc, tc, stream)
         elif plan["kind"] == "read":
             rc = lib.ns_launch_read(X.data_ptr(), Y.data_ptr(), out.data_ptr(),
                                     desc, tc, stream)

@@ -109,12 +109,17 @@ _KIND_ORDER = (
     CaseKind.FLAT_GEMM, CaseKind.SB_GEMM, CaseKind.EXCEPTIONAL, CaseKind.NESTED,
 )
 
+#: the ``native_gemm`` routes a kernel candidate's features flag, one
+#: indicator each; the generic route is the all-zero baseline, so the
+#: kernel features stay 4 wide, the JAX package's 4 tile log2s
+_ROUTE_FLAGS = tuple(r for r in ROUTES if r != "generic")
+
 #: feature vector layout (kept in one place so train and predict can
 #: never skew): 8 roofline/structure + kind one-hot + 3 plan flags +
-#: 4 role extents + 4 kernel features (route one-hot, log2 walk) +
+#: 4 role extents + 4 kernel features (route indicators, log2 walk) +
 #: padding waste + transpose count — the JAX package's layout, with the
 #: kernel features in the place of its 4 tile log2s; see :func:`featurize`.
-N_FEATURES = 8 + len(_KIND_ORDER) + 3 + 4 + len(ROUTES) + 1 + 1 + 1
+N_FEATURES = 8 + len(_KIND_ORDER) + 3 + 4 + len(_ROUTE_FLAGS) + 1 + 1 + 1
 
 
 def _meta(shape, dtype):
@@ -155,9 +160,10 @@ def featurize(cs, dims: dict, dtype, candidate, *, transposes=None) -> np.ndarra
       one-hot, sb-batch/nested/copies flags from the analytic plan;
     * role extents: log2 size of the u/v/k/b modes under the plan's
       role assignment (0 where the plan has no such role);
-    * what the candidate runs: for ``kernel`` candidates a one-hot of
-      the ``native_gemm`` route and log2 of the walk depth
-      (:func:`kernel_route`); zeros for ``torch`` candidates;
+    * what the candidate runs: for ``kernel`` candidates an indicator
+      of each ``native_gemm`` route but ``generic`` (all zero there) and
+      log2 of the walk depth (:func:`kernel_route`); zeros for ``torch``
+      candidates;
     * padding waste, always 0 (the kernel masks ragged edges; the column
       keeps the JAX package's layout), and the candidate's transpose
       count (the stored copy audit when the cache has one, else the
@@ -202,10 +208,10 @@ def featurize(cs, dims: dict, dtype, candidate, *, transposes=None) -> np.ndarra
         feats.append(math.log2(d) if d else 0.0)
     if candidate.backend == "kernel" and plan is not None:
         route, walk = kernel_route(cs, dims, dtype, candidate)
-        feats.extend(1.0 if route == r else 0.0 for r in ROUTES)
+        feats.extend(1.0 if route == r else 0.0 for r in _ROUTE_FLAGS)
         feats.append(math.log2(walk))
     else:
-        feats.extend([0.0] * (len(ROUTES) + 1))
+        feats.extend([0.0] * (len(_ROUTE_FLAGS) + 1))
     feats.append(0.0)   # padding waste: none in the port
 
     if transposes is None:

@@ -358,6 +358,30 @@ def test_kernel_features_carry_the_route_and_walk():
                               Candidate("auto", "kernel")) == ("stream", 1)
 
 
+def test_kernel_features_flag_each_route_but_generic():
+    """The kernel features are an indicator per ``native_gemm`` route
+    (``stream``, ``splitk``, ``wgmma``, at x[19:22]) with ``generic`` the
+    all-zero baseline, and log2 of the walk at x[22]: four features, the
+    JAX package's four tile log2s, so ``N_FEATURES`` stays its 25."""
+    assert model.N_FEATURES == jmodel.N_FEATURES == 25
+    cases = [("mk,kn->mn", {"m": 4, "k": 64, "n": 128}, torch.bfloat16, "wgmma", 2),
+             ("mk,kn->mn", {"m": 40, "k": 64, "n": 128}, torch.float32, "generic", None),
+             ("mnp,pk->mnk", {"m": 512, "n": 512, "p": 512, "k": 10}, torch.float32,
+              "stream", 0),
+             ("kn,mkp->pnm", DIMS, torch.float32, "splitk", 1)]
+    for spec, dims, dtype, route, flag in cases:
+        cs = parse_spec(spec)
+        cand = Candidate("auto", "kernel")
+        got, walk = model.kernel_route(cs, dims, dtype, cand)
+        assert got == route, spec
+        x = model.featurize(cs, dims, dtype, cand)
+        want = np.zeros(3)
+        if flag is not None:
+            want[flag] = 1.0
+        assert (x[19:22] == want).all(), (spec, route, x[19:22])
+        assert x[22] == np.log2(walk)
+
+
 # ---------------------------------------------------------------- HOOI
 def test_tuned_hooi_matches_jax():
     rng = np.random.default_rng(0)
