@@ -102,6 +102,17 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    ms per decode tick by bucket and tokens/s, each chunk and tick timed
    by the host clock between synchronisations; and the top 8
    ``native_gemm`` launch shapes of the counted serve as in phase 6.
+   Then the paged KV-cache: the same 8 requests through
+   ``ServingRuntime(paged=True, page_size=16)`` with its default pool (a
+   warm-up serve, then the counted paged serve, a path of its own): every
+   request's tokens equal the unpaged serve's, the pool is whole after
+   the drain (every page free, no refcount), no bucket entry is built
+   after the warm-up, every launch is ``native_gemm`` on the route
+   ``native_route`` gives.  A prefix-sharing mix drawn from ``--seed`` (8
+   requests sharing a 128-token prefix, each with its own 32-128-token
+   tail, 16 new tokens each) runs with sharing on and off: the same
+   tokens, shared tokens > 0 with sharing on (printed).  Paged and
+   unpaged tokens/s in turns (unpaged, paged, paged, unpaged).
 12. Every architecture: the ten smoke configs (float32) on the card with
    the kernel backend and on the CPU with the same weights (the plain
    version): one forward, and for decoders a prefill plus 3 decode steps
@@ -109,10 +120,34 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    vision model through the model functions, since its prompt carries
    patch features), logits within 1e-4 of the largest magnitude and the
    same tokens.
+13. Training at full width: minicpm-2b at its published widths (d_model
+   2304, 36 heads (MHA), head dim 64, d_ff 5760, vocab 122753 padded to
+   122880 by ``get_config``, tied embeddings), f32 master weights drawn
+   on the card from ``--seed``, bf16 activations, its depth cut to 4
+   layers (``TRAIN["periods"]``; the cut is printed), remat on,
+   ``contract_backend="kernel"`` with ``contract_strategy="native"`` (the
+   differentiable kernel path), ``SyntheticLM(seq_len=512,
+   global_batch=4)``, AdamW on the WSD schedule (lr 1e-3, warmup 2, 8
+   total steps).  The counted run is 6 steps of the port's ``Trainer``
+   with a checkpoint at step 3 in a temporary directory: every loss
+   finite, step 6's below step 1's; 147 ``native_gemm`` launches a step,
+   each on the route ``native_route`` gives and by route what the model
+   gives (``train_launches_per_step``: 9 contractions a layer and the LM
+   head, the layers' recomputed by remat, two backward launches per
+   product), and no other kernel.  A fresh ``Trainer`` restores step 3
+   and reruns steps 4-6 within rtol 1e-4 (bit-identity printed).  From
+   the initial weights and the first batch: every parameter leaf gets a
+   finite nonzero gradient; the torch backend's loss within 2e-2
+   relative and each leaf's gradient within 5e-2 of its largest
+   magnitude; a ``microbatches=2`` step's parameters within 5e-3 of the
+   full batch's; an int8-compressed step finite.  Then ms per step and
+   tokens/s, the backends in turns (kernel, torch, torch, kernel), peak
+   memory of the counted run, a profile of one step per backend, and the
+   top 8 ``native_gemm`` launch shapes of a step as in phase 6.
 
-Each path (5, 10, 8, 9, 11, 12) is driven with every kernel's launch count set to
-0 just before it and read just after; launches made to compare, time or
-tune a kernel do not count.  Phases 5 and 10 also read ``native_gemm``'s
+Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13) is driven with every
+kernel's launch count set to 0 just before it and read just after;
+launches made to compare, time or tune a kernel do not count.  Phases 5 and 10 also read ``native_gemm``'s
 launches by route, which must be what ``native_route`` gives for each
 launch shape (and, in phase 10, what the tuner's winners imply).
 
@@ -129,8 +164,10 @@ library calls compared against run in full float32.
 
 The last lines of stdout are a JSON ``kernels`` record (the grouped and
 attention entries carry their f32 run, the fma route, under ``"fma"``;
-``native_gemm``'s carries the tuned HOOI's launches by route and the
-serving phase's launches, routes, tokens/s and top-shape times),
+``native_gemm``'s carries the tuned HOOI's launches by route, the
+serving phase's launches, routes, tokens/s and top-shape times (the
+paged serve's under ``serve.paged``) and the training phase's launches
+by route, ms per step, tokens/s, peak memory and top-shape times),
 the card's name and power limit as ``nvidia-smi`` prints them, and the
 ``{"ok": true, ...}`` line.  Any failed check raises and exits non-zero without that line.
 """
@@ -1589,7 +1626,8 @@ def attention_path(dev, seed: int, counters, reps: int = 5) -> dict:
 #: ``periods`` layers (the one cut); 8 greedy requests of 32-256 prompt
 #: tokens and 16 new tokens on 4 slots
 SERVE = dict(arch="internlm2-20b", periods=4, requests=8, prompt=(32, 256), max_new=16,
-             slots=4, max_len=512, chunk=64, top_shapes=8)
+             slots=4, max_len=512, chunk=64, top_shapes=8, page_size=16, prefix=128,
+             tail=(32, 128))
 
 
 def serve_traffic(cfg, seed: int):
@@ -1600,6 +1638,117 @@ def serve_traffic(cfg, seed: int):
     return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1)))
                     .astype(np.int32), max_new_tokens=SERVE["max_new"])
             for i in range(SERVE["requests"])]
+
+
+def prefix_traffic(cfg, seed: int):
+    """The system-prompt mix: ``SERVE["requests"]`` requests that share one
+    ``SERVE["prefix"]``-token prefix, each with its own tail, drawn from
+    ``seed``."""
+    from repro_torch.runtime.scheduler import Request
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, cfg.vocab_size, SERVE["prefix"])
+    lo, hi = SERVE["tail"]
+    return [Request(rid=i, prompt=np.concatenate(
+                [prefix, rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1)))])
+                .astype(np.int32), max_new_tokens=SERVE["max_new"])
+            for i in range(SERVE["requests"])]
+
+
+def check_pool_whole(rt, what: str) -> None:
+    check(rt.pool.n_free == rt.pool.usable and not rt.pool.refcount,
+          f"{what}: the pool did not drain ({rt.pool.n_free} of {rt.pool.usable} pages "
+          f"free, refcounts {rt.pool.refcount})")
+
+
+def paged_serve(cfg, params, rt, outputs, seed: int, counters, kw) -> dict:
+    """The counted serve's traffic through the paged runtime (default
+    pool, ``SERVE["page_size"]``-row pages): the unpaged serve's tokens,
+    a whole pool after the drain, no bucket entry built after the warm-up;
+    then the prefix-sharing mix with sharing on and off (the same tokens,
+    shared tokens > 0), and paged against unpaged tokens/s in turns."""
+    from repro_torch.kernels.sb_gemm import native_gemm
+    from repro_torch.runtime.engine import ServingRuntime
+
+    t0 = time.perf_counter()
+    rt_p = ServingRuntime(cfg, params, prefill_chunk=SERVE["chunk"], paged=True,
+                          page_size=SERVE["page_size"], **kw)
+    torch.cuda.synchronize()
+    log(f"paged: pool of {rt_p.pool.usable} usable pages x {rt_p.pool.page_size} rows, "
+        f"lattice {rt_p.lattice.describe()}; built and warmed in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rt_p.serve(serve_traffic(cfg, seed))
+    check_pool_whole(rt_p, "paged warm-up serve")
+    entries = rt_p.buckets.compiles
+
+    # the paged path: counts to 0 just before, read just after
+    traffic = serve_traffic(cfg, seed)
+    for c in counters:
+        c.launches = 0
+    native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
+    with native_routes_held() as held:
+        rt_p.serve(traffic)
+        torch.cuda.synchronize()
+    counted = {c.__name__: c.launches for c in counters}
+    routes = dict(native_gemm.launches_by_route)
+    check(all(r.done and len(r.output) == SERVE["max_new"] for r in traffic),
+          f"paged: not every request finished: "
+          f"{[(r.rid, r.status, len(r.output)) for r in traffic]}")
+    same = [r.output == o for r, o in zip(traffic, outputs)]
+    check(all(same), f"paged: tokens differ from the unpaged serve's for requests "
+                     f"{[r.rid for r, ok in zip(traffic, same) if not ok]}")
+    check_pool_whole(rt_p, "paged serve")
+    check(rt_p.buckets.compiles == entries,
+          f"paged: the counted serve built {rt_p.buckets.compiles - entries} bucket entries")
+    check(counted["native_gemm"] > 0 and counted["grouped_gemm"] == counted["flash_attention"] == 0,
+          f"paged: launches {counted}")
+    check(routes == held, f"paged: routes {routes} differ from native_route's {held}")
+    stats = rt_p.pool.stats()
+    log(f"paged: {len(traffic)} requests, tokens equal to the unpaged serve's; pool whole "
+        f"after the drain ({stats['pages_free']} of {stats['pages_total']} free, "
+        f"{stats['page_allocs']} allocations); bucket entries {entries}, none built by the "
+        f"counted serve; native_gemm launches {counted['native_gemm']} by route {routes}")
+
+    mix = {}
+    for sharing in (True, False):
+        rt_s = rt_p if sharing else ServingRuntime(
+            cfg, params, prefill_chunk=SERVE["chunk"], paged=True,
+            page_size=SERVE["page_size"], prefix_sharing=False, **kw)
+        before = dict(rt_s.pool.stats())
+        reqs = rt_s.serve(prefix_traffic(cfg, seed))
+        check(all(r.done and len(r.output) == SERVE["max_new"] for r in reqs),
+              f"prefix mix (sharing {sharing}): not every request finished")
+        check_pool_whole(rt_s, f"prefix mix (sharing {sharing})")
+        after = rt_s.pool.stats()
+        mix[sharing] = dict(outputs=[r.output for r in reqs],
+                            shared_tokens=after["prefix_shared_tokens"]
+                            - before["prefix_shared_tokens"],
+                            hits=after["prefix_hits"] - before["prefix_hits"])
+    check(mix[True]["outputs"] == mix[False]["outputs"],
+          "prefix mix: tokens with prefix sharing differ from those without")
+    check(mix[True]["shared_tokens"] > 0 and mix[False]["shared_tokens"] == 0,
+          f"prefix mix: shared tokens {mix[True]['shared_tokens']} (on), "
+          f"{mix[False]['shared_tokens']} (off)")
+    prompts = [len(r.prompt) for r in prefix_traffic(cfg, seed)]
+    log(f"prefix mix: {len(prompts)} requests sharing a {SERVE['prefix']}-token prefix, prompts "
+        f"{prompts}; sharing on: {mix[True]['hits']} hits, {mix[True]['shared_tokens']} shared "
+        f"tokens; sharing off: 0; tokens equal")
+
+    saved = [c.launches for c in counters]
+    runs = {"unpaged": [], "paged": []}
+    for mode in ("unpaged", "paged", "paged", "unpaged"):
+        res = timed_serve(rt if mode == "unpaged" else rt_p, serve_traffic(cfg, seed))
+        check(res["outputs"] == outputs, f"a timed {mode} serve gave other tokens")
+        runs[mode].append(res)
+        log(f"serve [kernel, {mode}]: {res['tokens']} tokens in {res['wall_ms']:.1f} ms, "
+            f"{res['tokens_per_s']:.1f} tokens/s; prefill {res['chunk_ms']:.3f} ms per chunk; "
+            f"decode ms per tick by bucket: "
+            f"{', '.join(f'{b}: {m:.3f}' for b, m in res['tick_ms_by_bucket'].items())}")
+    for c, n in zip(counters, saved):
+        c.launches = n
+    return dict(launches=counted["native_gemm"], launches_by_route=routes,
+                prefix_shared_tokens=mix[True]["shared_tokens"],
+                tokens_per_s={m: [r["tokens_per_s"] for r in v] for m, v in runs.items()})
 
 
 def timed_serve(rt, traffic) -> dict:
@@ -1739,6 +1888,7 @@ def serve_path(dev, seed: int, counters) -> dict:
     check([r.output for r in legacy] == outputs,
           "serve: the runtime's tokens differ from ServeEngine's (the legacy oracle)")
     log("serve: tokens equal ServeEngine's (legacy engine, same kernels)")
+    paged = paged_serve(cfg, params, rt, outputs, seed, counters, kw)
 
     with torch.no_grad():
         cache = transformer.init_cache(cfg, 1, SERVE["max_len"], device=dev)
@@ -1792,7 +1942,7 @@ def serve_path(dev, seed: int, counters) -> dict:
 
     tot = time_shapes(launches, reps=10, per="serve", top=SERVE["top_shapes"])
     return dict(launches=counted["native_gemm"], launches_by_route=routes, periods=periods,
-                profiles=profiles,
+                profiles=profiles, paged=paged,
                 tokens_per_s={b: [r["tokens_per_s"] for r in v] for b, v in runs.items()},
                 runs={b: [{k: v for k, v in r.items() if k != "outputs"}
                                             for r in rs] for b, rs in runs.items()},
@@ -1878,6 +2028,207 @@ def every_arch(dev, seed: int, counters) -> dict:
     return worst
 
 
+# ------------------------------------------------------------------ phase 13
+#: minicpm-2b (src/repro/configs/minicpm_2b.py) at its published widths,
+#: its depth cut; SyntheticLM batches; the launcher's minicpm preset (WSD)
+TRAIN = dict(arch="minicpm-2b", periods=4, seq_len=512, batch=4, steps=6, ckpt_at=3,
+             lr=1e-3, warmup=2, total_steps=8, timed_steps=2, top_shapes=8)
+
+
+def train_launches_per_step(periods: int) -> dict:
+    """``native_gemm`` launches of one train step on the kernel backend, by
+    route, derived from the model: 9 contractions a layer (q, k, v, o, three
+    MLP products on ``wgmma``; scores and P.V on ``generic``) and the LM
+    head (``wgmma``), each launched in the forward; remat recomputes each
+    layer's 9 in the backward; each product's backward launches two, dX
+    (``wgmma`` for a dense product, whose weight carries n and k) and dW
+    (two contracted modes, b and s: ``generic``)."""
+    dense, attn = 7 * periods + 1, 2 * periods    # a forward's products (the head is dense)
+    return {"wgmma": dense + (dense - 1) + dense,          # forward, recompute, dX
+            "generic": attn + attn + 2 * attn + dense}     # forward, recompute, bwd, dW
+
+
+def timed_steps(step_fn, params, batch, n: int) -> list:
+    """ms of ``n`` train steps from ``params``, each timed by the host clock
+    between synchronisations."""
+    from repro_torch.training.optimizer import adamw_init
+
+    state, out = adamw_init(params), []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, _, m = step_fn(params, state, batch, None)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def train_path(dev, seed: int, counters) -> dict:
+    """minicpm-2b at its published widths, 4 layers, through the port's
+    ``Trainer`` on the kernel backend with ``contract_strategy="native"``
+    (see the module docstring, phase 13).  Returns ``native_gemm``'s
+    training record."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.minicpm_2b import make_config
+    from repro_torch.distributed.compress import Int8Compressor
+    from repro_torch.kernels.sb_gemm import native_gemm
+    from repro_torch.models import transformer
+    from repro_torch.models.tree import tree_leaves, tree_leaves_with_path
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.trainer import (
+        TrainConfig, Trainer, make_train_step, value_and_grad,
+    )
+
+    periods, steps, at = TRAIN["periods"], TRAIN["steps"], TRAIN["ckpt_at"]
+    full = get_config(TRAIN["arch"])
+    cfg = full.with_(n_periods=periods, contract_backend="kernel", contract_strategy="native")
+    cfg_t = cfg.with_(contract_backend="torch", contract_strategy="auto")
+    log(f"train: {cfg.arch_id} d_model {cfg.d_model}, {cfg.n_heads} heads (MHA), head dim "
+        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {make_config().vocab_size} padded to "
+        f"{cfg.vocab_size} (get_config, as in the JAX package), tied embeddings, "
+        f"{cfg.dtype} activations, {cfg.param_dtype} master weights, remat on; depth cut from "
+        f"{full.n_periods} layers to {periods} (the one cut); {cfg.param_count() / 1e9:.3f}B "
+        f"params; kernel backend, contract_strategy native")
+    params = transformer.init_params(torch.Generator(dev).manual_seed(seed), cfg)
+    opt = AdamWConfig(lr=TRAIN["lr"], schedule="wsd", warmup_steps=TRAIN["warmup"],
+                      total_steps=TRAIN["total_steps"])
+
+    def data():
+        return SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+                           global_batch=TRAIN["batch"], seed=seed)
+
+    tokens = TRAIN["seq_len"] * TRAIN["batch"]
+    per_step = train_launches_per_step(periods)
+    n_step = sum(per_step.values())
+    check(n_step == (9 * periods + 1) + 9 * periods + 2 * (9 * periods + 1),
+          f"train: {per_step} is not 9 a layer + the head, x2 (remat) + 2 per product")
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        tcfg = TrainConfig(opt=opt, ckpt_dir=ckpt_dir, ckpt_every=10**9)
+        tr = Trainer(cfg, tcfg, params, data())
+        # the main path: counts to 0 just before, read just after
+        for c in counters:
+            c.launches = 0
+        native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with native_routes_held() as held:
+            hist = tr.run(at)
+            tr.save(force=True)
+            hist += tr.run(steps - at)
+            torch.cuda.synchronize()
+        counted = {c.__name__: c.launches for c in counters}
+        routes = dict(native_gemm.launches_by_route)
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = [h["loss"] for h in hist]
+        check(all(np.isfinite(losses)), f"train: a loss is not finite: {losses}")
+        check(losses[-1] < losses[0], f"train: step {steps}'s loss {losses[-1]} is not below "
+                                      f"step 1's {losses[0]}")
+        check(counted["native_gemm"] == steps * n_step,
+              f"train: {counted['native_gemm']} native_gemm launches in {steps} steps, not "
+              f"{steps} x {n_step}")
+        check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
+              f"train: another kernel launched on the path: {counted}")
+        check(routes == held, f"train: routes {routes} differ from native_route's {held}")
+        by_step = {r: n // steps for r, n in routes.items() if n}
+        check(by_step == per_step and all(n % steps == 0 for n in routes.values()),
+              f"train: launches per step by route {routes} / {steps}, the model gives {per_step}")
+        log(f"train: {steps} steps of {TRAIN['batch']} x {TRAIN['seq_len']} tokens, losses "
+            f"{', '.join(f'{x:.6f}' for x in losses)}; step ms "
+            f"{', '.join(f'{h['step_time_s'] * 1e3:.1f}' for h in hist)}; lr "
+            f"{', '.join(f'{h['lr']:.3g}' for h in hist)}; native_gemm launches "
+            f"{counted['native_gemm']} ({n_step} a step: by route {by_step}, every one on the "
+            f"route native_route gives); grouped_gemm {counted['grouped_gemm']}, "
+            f"flash_attention {counted['flash_attention']}; peak memory {peak / 2**30:.2f} GiB")
+
+        saved = [c.launches for c in counters]
+        tr2 = Trainer(cfg, tcfg, params, data())
+        check(tr2.restore() == at and tr2.step == at and tr2.data.step == at,
+              "train: the restart did not resume at the checkpoint's step and cursor")
+        again = [h["loss"] for h in tr2.run(steps - at)]
+        check(np.allclose(again, losses[at:], rtol=1e-4, atol=0),
+              f"train: restarted losses {again} differ from {losses[at:]} beyond rtol 1e-4")
+        log(f"train: a fresh Trainer restored step {at} and reran steps {at + 1}-{steps}: losses "
+            f"{', '.join(f'{x:.6f}' for x in again)} (first run "
+            f"{', '.join(f'{x:.6f}' for x in losses[at:])}); bit-identical: "
+            f"{again == losses[at:]}")
+        del tr, tr2
+
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in next(data()).items()}
+    loss_k, _, grads_k = value_and_grad(cfg, params, batch)
+    zero_or_bad = [p for p, g in tree_leaves_with_path(grads_k)
+                   if not (torch.isfinite(g).all() and g.abs().max() > 0)]
+    check(not zero_or_bad, f"train: leaves without a finite nonzero gradient: {zero_or_bad}")
+    loss_t, _, grads_t = value_and_grad(cfg_t, params, batch)
+    loss_err = abs(float(loss_k) - float(loss_t)) / abs(float(loss_t))
+    grad_err = {p: float((gk.float() - gt.float()).abs().max() / gt.float().abs().max())
+                for (p, gk), gt in zip(tree_leaves_with_path(grads_k), tree_leaves(grads_t))}
+    worst = max(grad_err, key=grad_err.get)
+    check(loss_err <= 2e-2, f"train: kernel loss {float(loss_k)} vs torch {float(loss_t)}")
+    check(grad_err[worst] <= 5e-2, f"train: gradient of {worst} {grad_err[worst]} of its "
+                                   f"largest magnitude from the torch backend's (limit 5e-2)")
+    log(f"train: every one of {len(grad_err)} leaves has a finite nonzero gradient; one step "
+        f"from the same weights and batch: loss {float(loss_k):.6f} (kernel) vs "
+        f"{float(loss_t):.6f} (torch), {loss_err:.3g} apart (limit 2e-2); worst gradient "
+        f"{worst} {grad_err[worst]:.3g} of its largest magnitude (limit 5e-2)")
+    del grads_k, grads_t
+
+    state = adamw_init(params)
+    p1, *_ = make_train_step(cfg, TrainConfig(opt=opt))(params, state, batch, None)
+    p2, *_ = make_train_step(cfg, TrainConfig(opt=opt, microbatches=2))(params, state, batch,
+                                                                        None)
+    d = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(p1), tree_leaves(p2)))
+    check(d < 5e-3, f"train: microbatches=2 moved the parameters {d} from the full batch's")
+    del p1, p2
+    comp = Int8Compressor()
+    p3, _, _, m3 = make_train_step(cfg, TrainConfig(opt=opt, compression="int8"), comp)(
+        params, state, batch, comp.init_residual(params))
+    check(np.isfinite(float(m3["loss"])) and all(bool(torch.isfinite(x).all())
+                                                  for x in tree_leaves(p3)),
+          "train: the int8-compressed step is not finite")
+    log(f"train: microbatches=2 step within {d:.3g} of the full batch's parameters (limit "
+        f"5e-3; the step's lr is {float(m3['lr']):.3g}); int8-compressed step finite, loss "
+        f"{float(m3['loss']):.6f}")
+    del p3, state
+
+    # times, the two backends in turns
+    steps_fn = {"kernel": make_train_step(cfg, TrainConfig(opt=opt)),
+                "torch": make_train_step(cfg_t, TrainConfig(opt=opt))}
+    timed_steps(steps_fn["torch"], params, batch, 1)
+    runs = {"kernel": [], "torch": []}
+    for backend in ("kernel", "torch", "torch", "kernel"):
+        ms = timed_steps(steps_fn[backend], params, batch, TRAIN["timed_steps"])
+        runs[backend] += ms
+        log(f"train [{backend}]: ms per step {', '.join(f'{m:.1f}' for m in ms)}, "
+            f"{tokens / (min(ms) / 1e3):.1f} tokens/s at the fastest")
+    ms_step = {b: sorted(v)[len(v) // 2] for b, v in runs.items()}
+    profiles = {}
+    for backend in ("kernel", "torch"):
+        state = adamw_init(params)
+        profiles[backend] = profile_device(
+            f"one train step [{backend}]",
+            lambda b=backend, st=state: steps_fn[b](params, st, batch, None), top=8)
+    with recording_launches() as launches:
+        steps_fn["kernel"](params, adamw_init(params), batch, None)
+        torch.cuda.synchronize()
+    check(sum(n for n, _ in launches.values()) == n_step,
+          "train: the recorded step launched another count")
+    for c, n in zip(counters, saved):
+        c.launches = n
+    tot = time_shapes(launches, reps=3, per="step", top=TRAIN["top_shapes"])
+    return dict(launches=counted["native_gemm"], launches_by_route=routes,
+                launches_per_step=per_step, periods=periods, losses=losses,
+                restart_losses=again, peak_gib=peak / 2**30, profiles=profiles,
+                ms_per_step={b: v for b, v in runs.items()},
+                tokens_per_s={b: tokens / (ms_step[b] / 1e3) for b in ms_step},
+                top_shapes={k: tot[k] for k in ("ms", "library_ms", "bound_ms", "plain_ms",
+                                                  "max_abs_err", "bound_by")})
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1946,6 +2297,7 @@ def main() -> int:
     }
     serve = serve_path(dev, args.seed, counters)
     every_arch(dev, args.seed, counters)
+    train = train_path(dev, args.seed, counters)
     records = {
         "native_gemm": ("sb_gemm.cu", "sb_gemm.py:87",
                         {**tot, "launches": counted["native_gemm"],
@@ -1953,6 +2305,10 @@ def main() -> int:
                          "tuned_launches_by_route": tuned["launches_by_route"],
                          "serve_launches": serve["launches"],
                          "serve_launches_by_route": serve["launches_by_route"],
+                         "train_launches": train["launches"],
+                         "train_launches_by_route": train["launches_by_route"],
+                         "train": {k: v for k, v in train.items()
+                                   if k not in ("launches", "launches_by_route")},
                          "serve": {k: v for k, v in serve.items()
                                    if k not in ("launches", "launches_by_route")}}),
         **records,
@@ -1963,6 +2319,7 @@ def main() -> int:
                 **{k: rec[k] for k in keys},
                 **{k: rec[k] for k in ("launches_by_route", "tuned_launches_by_route",
                                        "serve_launches", "serve_launches_by_route", "serve",
+                                       "train_launches", "train_launches_by_route", "train",
                                        "fma") if k in rec}}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:

@@ -241,6 +241,13 @@ def _execute_plan_impl(plan: Plan, A, B, *, out_dtype, tiles):
         # a flattening the operands' strides cannot express as a view: the
         # native kernel needs neither — every mode keeps its own stride
         return execute_native(plan.spec, A, B, out_dtype=out_dtype)
+    if torch.is_grad_enabled() and (A.requires_grad or B.requires_grad):
+        # the role-based core is forward-only, as in the JAX package: on the
+        # card its launch fills a fresh tensor that carries no gradient
+        raise NotImplementedError(
+            f"no gradient through the kernel backend's role-based core "
+            f"({plan.spec.spec_str()}, a {plan.kind} plan); differentiate "
+            f"the kernel path with strategy='native'")
     walk = (tiles or {}).get("b", EXT_BATCH_TILE if plan.kind == CaseKind.EXCEPTIONAL
                              else 1)
     out = sb_contract(fs.a_modes, fs.b_modes, fs.c_modes, a, b, roles=roles,

@@ -469,9 +469,11 @@ def native_gemm(A, B, *, a_modes: str, b_modes: str, c_modes: str,
 
     if A.device.type == "cpu":
         # the route and launch geometry above are built on every device;
-        # the CPU has no kernel and takes the plain version
+        # the CPU has no kernel and takes the plain version, contiguous as
+        # the kernel's C is: a backward pass's next product then sees the
+        # card's strides and takes the card's route
         return native_gemm_ref(A, B, a_modes=a_modes, b_modes=b_modes,
-                               c_modes=c_modes, out_dtype=out_dtype)
+                               c_modes=c_modes, out_dtype=out_dtype).contiguous()
     out = torch.empty(c_shape, dtype=out_dtype, device=A.device)
     if out.numel() == 0:
         return out

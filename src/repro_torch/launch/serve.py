@@ -11,9 +11,12 @@ CPU.  ``--legacy`` serves through the fixed-slot
 token-identical oracle).  The weights are random, drawn from a
 ``torch.Generator`` seeded 0 on the serving device.
 
+``--paged`` serves off the paged KV-cache (``--page-size``, ``--pages``,
+``--no-prefix-share``).
+
 The port of ``repro.launch.serve``, with its flags plus ``--device``.
-``--mesh`` (ROADMAP item 12) and ``--paged`` (item 11b) are not ported
-yet and exit with an error naming ROADMAP.md.
+``--mesh`` (ROADMAP item 12) is not ported yet and exits with an error
+naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -51,8 +54,7 @@ def main():
     ap.add_argument("--paged", action="store_true",
                     help="serve off the paged KV-cache: fixed-size pages, "
                          "per-request page tables, admission capped by free "
-                         "pages, content-hash prefix sharing (not ported "
-                         "yet: ROADMAP.md queue 1, item 11b)")
+                         "pages, content-hash prefix sharing")
     ap.add_argument("--page-size", type=int, default=16,
                     help="token rows per KV page (paged mode)")
     ap.add_argument("--pages", type=int, default=None,
@@ -122,9 +124,8 @@ def main():
                          "re-measure drifted keys and refit the cost "
                          "model past the drift gate (enables tracing)")
     args = ap.parse_args()
-    if args.paged:
-        ap.error("--paged: the paged KV-cache is not ported yet "
-                 "(ROADMAP.md queue 1, item 11b)")
+    if args.paged and args.legacy:
+        ap.error("--paged serves through the runtime; drop --legacy")
     if args.mesh:
         ap.error("--mesh: sharded serving is not ported yet "
                  "(ROADMAP.md queue 1, item 12)")
@@ -173,11 +174,17 @@ def main():
         engine = runtime = ServingRuntime(
             cfg, params, slots=args.slots, max_len=args.max_len,
             prefill_chunk=args.chunk,
+            paged=args.paged, page_size=args.page_size, pages=args.pages,
+            prefix_sharing=not args.no_prefix_share,
             pretune=args.pretune, tuner=tuner,
             tuning_cache=args.tuning_cache,
             tune_policy=args.tune_policy,
         )
         print(f"runtime buckets: {runtime.lattice.describe()}")
+        if args.paged:
+            print(f"page pool: {runtime.pool.usable} usable pages x "
+                  f"{runtime.pool.page_size} rows "
+                  f"(prefix sharing {'off' if args.no_prefix_share else 'on'})")
     if args.pretune:
         print(f"pretune: {runtime.pretune_stats} "
               f"({time.perf_counter() - t0:.1f}s, "
@@ -253,6 +260,11 @@ def main():
         f"{k}={v:.3g}" if isinstance(v, float) else f"{k}={v}"
         for k, v in snap.items()
     ))
+    if args.paged:
+        print("pages: " + ", ".join(
+            f"{k}={v:.3g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in runtime.pool.stats().items()
+        ))
     for r in reqs[:3]:
         print(f"  req {r.rid}: prompt[:8]={r.prompt[:8].tolist()} -> {r.output}")
 

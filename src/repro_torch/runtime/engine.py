@@ -24,8 +24,19 @@ bucket is one :func:`~repro_torch.models.transformer.decode_step` over
 the gathered rows: each row takes its own rope positions, masks, cache
 row and MoE dispatch group (see :mod:`repro_torch.models.transformer`).
 The runtime owns its slot-stacked cache and writes slots into it in
-place.  ``paged=True`` (the page pool, ROADMAP item 11b) and ``mesh=``
-(item 12) raise ``NotImplementedError``.
+place.  ``mesh=`` (ROADMAP item 12) raises ``NotImplementedError``.
+
+``paged=True`` swaps the slot-stacked cache for the block pool of
+:mod:`repro_torch.runtime.pages`: KV lives in fixed-size pages, requests
+hold page tables, admission is keyed on free *pages* (a
+:class:`~repro_torch.runtime.pages.PagePool` attached to the scheduler),
+and prompts whose leading pages hash-match a resident prefix map those
+pages by refcount instead of recomputing them.  A decode bucket then
+gathers its requests' pages into the same slot-stacked layout (``P *
+page_size`` rows each, one length per row), runs one batched pass and
+writes each request's new row back into its page; prefill runs on a
+batch-1 staging view of the request's pages and commits them when the
+prompt is done.  Steps are keyed on a (slot-count × page-count) lattice.
 
 Correctness invariants the tests pin:
 
@@ -59,6 +70,7 @@ from repro_torch.models.tree import tree_map
 from repro_torch.obs import trace as _trace
 from repro_torch.runtime.buckets import BucketLattice, BucketTable, tuning_key_component
 from repro_torch.runtime.metrics import ServingMetrics
+from repro_torch.runtime.pages import NULL_PAGE, PagedKV, PagePool, PoolExhausted
 from repro_torch.runtime.scheduler import (
     EVICTED, PREFILL, REJECTED, UNFINISHED, Request, RequestState, Scheduler,
 )
@@ -122,7 +134,9 @@ class ServingRuntime:
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  max_len: int = 1024, greedy: bool = True,
                  prefill_chunk: int = 64, chunked_prefill: bool | None = None,
-                 bucketed_decode: bool = True, paged: bool = False,
+                 bucketed_decode: bool = True,
+                 paged: bool = False, page_size: int = 16,
+                 pages: int | None = None, prefix_sharing: bool = True,
                  pretune: bool = False, tuner=None, tuning_cache=None,
                  tune_policy: str | None = None,
                  pretune_prompt_lens: tuple[int, ...] = (8, 16, 32),
@@ -136,12 +150,17 @@ class ServingRuntime:
         model's ``init_params`` draws on its generator's device,
         :func:`repro_torch.interop.params_from_numpy` on the one it is
         given: the card unless the caller asks for the CPU).
+
+        ``paged=True`` serves off a page pool of ``pages`` pages of
+        ``page_size`` token rows each (default: the null page plus
+        enough pages to match the unpaged runtime's ``slots × max_len``
+        rows).  Memory then caps concurrency by *pages held*, not slots,
+        and ``prefix_sharing`` maps hash-matching resident prompt
+        prefixes instead of recomputing them.  Requires a pure-attention
+        stack (the pool pages the token axis; SSM state has none).
         """
         if cfg.encoder_only:
             raise ValueError(f"{cfg.arch_id} is encoder-only; nothing to serve")
-        if paged:
-            raise NotImplementedError(
-                "the paged KV-cache is not ported yet: ROADMAP.md queue 1, item 11b")
         if mesh is not None or sharding_rules is not None:
             raise NotImplementedError(
                 "sharded serving (mesh=/sharding_rules=) is not ported yet: "
@@ -159,10 +178,25 @@ class ServingRuntime:
                 f"would not match whole-prompt prefill (pass "
                 f"chunked_prefill=False)"
             )
+        self.paged = bool(paged)
+        self.page_size = int(page_size)
+        self.pool: PagePool | None = None
+        self.kv: PagedKV | None = None
+        max_pages = None
+        if self.paged:
+            if not supports_chunked_prefill(cfg):
+                raise ValueError(
+                    f"{cfg.arch_id} has SSM/frontend layers: recurrent "
+                    f"state has no token axis and cannot be paged"
+                )
+            max_pages = -(-max_len // self.page_size)  # pages per request
+            if pages is None:
+                # null page + the unpaged runtime's slots*max_len rows
+                pages = slots * max_pages + 1
         self.device = params["embed"].device
         self.lattice = BucketLattice(
             slots, max_chunk=prefill_chunk, chunked=chunked_prefill,
-            bucketed_decode=bucketed_decode,
+            bucketed_decode=bucketed_decode, max_pages=max_pages,
         )
         self.buckets = BucketTable()
         self.metrics = ServingMetrics(slots, **({"clock": clock} if clock else {}))
@@ -170,11 +204,19 @@ class ServingRuntime:
         #: probe installs here — see repro_torch.obs.health.NumericsProbe);
         #: ``None`` keeps the decode path at a single branch.
         self.logits_probe = None
-        self.scheduler = Scheduler(slots, self.lattice)
-        # slot-stacked cache: one request per batch row, each row with its
-        # own length
-        self.cache = slot_cache(cfg, slots, max_len, device=self.device)
-        self._axes = _row_axes(self.cache)
+        if self.paged:
+            self.pool = PagePool(
+                pages, self.page_size, max_rows=max_len,
+                prefix_sharing=prefix_sharing, metrics=self.metrics,
+            )
+            self.kv = PagedKV(cfg, pages, self.page_size, device=self.device)
+            self.cache = None        # KV lives in self.kv.pool
+        else:
+            # slot-stacked cache: one request per batch row, each row with
+            # its own length
+            self.cache = slot_cache(cfg, slots, max_len, device=self.device)
+            self._axes = _row_axes(self.cache)
+        self.scheduler = Scheduler(slots, self.lattice, pool=self.pool)
         self._tokens = np.zeros((slots, 1), np.int64)
         self.tuner = tuner
         self.pretune_stats: dict | None = None
@@ -223,11 +265,16 @@ class ServingRuntime:
         before the first request.  Nothing of it touches the runtime's
         cache, scheduler, metrics or bucket table.
         """
+        # paged decode runs on gathered views of every page-lattice
+        # width, not on max_len slot rows
+        widths = ([P * self.page_size for P in self.lattice.page_buckets] if self.paged
+                  else [self.max_len])
         with torch.no_grad(), recorder() as rec:
             for b in self.lattice.slot_buckets:
-                scratch = slot_cache(self.cfg, b, self.max_len, device=self.device)
                 toks = torch.zeros((b, 1), dtype=torch.long, device=self.device)
-                self._decode(self.params, scratch, toks)
+                for width in widths:
+                    scratch = slot_cache(self.cfg, b, width, device=self.device)
+                    self._decode(self.params, scratch, toks)
             for plen in dict.fromkeys(min(p, self.max_len) for p in prompt_lens):
                 toks = torch.zeros((1, plen), dtype=torch.long, device=self.device)
                 one = init_cache(self.cfg, 1, self.max_len, device=self.device)
@@ -286,10 +333,21 @@ class ServingRuntime:
         fp = self._fingerprint()
         bk, bg = self.buckets.key, self.buckets.get
         chunks = self.lattice.chunk_buckets if self.lattice.chunked else ()
-        for b in self.lattice.slot_buckets:
-            bg(bk("decode", b, fp), lambda b=b: self._build_decode(b))
-        for c in chunks:
-            bg(bk("prefill", c, fp), self._build_prefill)
+        if self.paged:
+            for P in self.lattice.page_buckets:
+                bg(bk("page_view", P, fp), lambda P=P: self.kv.build_view(P))
+                bg(bk("page_commit", P, fp),
+                   lambda P=P: self.kv.build_commit(P))
+                for c in chunks:
+                    bg(bk("prefill", (c, P), fp), self._build_prefill)
+                for b in self.lattice.slot_buckets:
+                    bg(bk("decode", (b, P), fp),
+                       lambda b=b, P=P: self.kv.build_decode(self._decode, b, P))
+        else:
+            for b in self.lattice.slot_buckets:
+                bg(bk("decode", b, fp), lambda b=b: self._build_decode(b))
+            for c in chunks:
+                bg(bk("prefill", c, fp), self._build_prefill)
         return self.buckets.compiles
 
     def warmup_tuning(self, *, tuner=None, tuning_cache=None,
@@ -355,6 +413,13 @@ class ServingRuntime:
                 f"prompt of {plen} tokens exceeds max_len={self.max_len} "
                 f"(the KV cache cannot hold it)"
             )
+        if self.pool is not None:
+            need = self.pool.required_pages(plen)
+            if need > self.pool.usable:
+                return (
+                    f"prompt needs {need} page(s) but the pool holds "
+                    f"only {self.pool.usable}"
+                )
         return None
 
     def submit(self, request: Request) -> RequestState:
@@ -366,7 +431,8 @@ class ServingRuntime:
         rows and emitting a first token from corrupted state.  (A prompt
         of exactly ``max_len`` is fine: the first token comes from the
         prefill logits, and the decode cache-length cap evicts before any
-        out-of-range write.)"""
+        out-of-range write.)  The paged runtime also rejects prompts whose
+        page table could never fit the pool."""
         reason = self._reject_reason(request)
         if reason is not None:
             raise ValueError(f"request {request.rid}: {reason}")
@@ -394,8 +460,9 @@ class ServingRuntime:
         :class:`repro_torch.obs.registry.MetricsRegistry` (default: the
         process-wide one) under the conventional source names:
         ``serving`` (request/token/latency metrics), ``buckets``
-        (build-once table), ``programs`` (process program cache) and —
-        when a tuner is attached — ``dispatcher``.  Returns the registry.
+        (build-once table), ``programs`` (process program cache),
+        ``pages`` (page-pool occupancy, paged runtime only) and — when a
+        tuner is attached — ``dispatcher``.  Returns the registry.
 
         Explicit, not automatic: constructing a runtime must not mutate
         process-global state behind a test's back."""
@@ -406,6 +473,8 @@ class ServingRuntime:
         reg.register("serving", self.metrics.snapshot)
         reg.register("buckets", self.buckets.stats)
         reg.register("programs", program_cache_stats)
+        if self.pool is not None:
+            reg.register("pages", self.pool.stats)
         if self.tuner is not None:
             reg.register("dispatcher", lambda: self.tuner.stats)
         return reg
@@ -430,12 +499,21 @@ class ServingRuntime:
 
     def _run_prefill_chunk_impl(self, state: RequestState, chunk: int) -> None:
         if state.cache is None:
-            state.cache = init_cache(self.cfg, 1, self.max_len, device=self.device)
+            if self.paged:
+                # gather the request's pages into a dense staging cache;
+                # a shared prefix arrives pre-filled and prefill resumes
+                # after it (state.pos started at shared_tokens)
+                state.cache = self._page_stage(state)
+            else:
+                state.cache = init_cache(self.cfg, 1, self.max_len, device=self.device)
         toks = torch.as_tensor(
             np.asarray(state.request.prompt[state.pos:state.pos + chunk],
                        np.int64)[None], device=self.device,
         )
-        key = self.buckets.key("prefill", chunk, self._fingerprint())
+        # paged staging caches come in page-lattice widths, so the
+        # prefill step is keyed on (chunk, width) lattice points
+        size = (chunk, self._page_width(state)) if self.paged else chunk
+        key = self.buckets.key("prefill", size, self._fingerprint())
         fn = self.buckets.get(key, self._build_prefill)
         with torch.no_grad():
             logits, state.cache = fn(self.params, toks, state.cache)
@@ -445,12 +523,79 @@ class ServingRuntime:
             first = self._sample(state, logits[0])
             state.request.output.append(first)
             self._tokens[state.slot, 0] = first
-            _write_slot(self.cache, state.cache, state.slot)
+            if self.paged:
+                self._page_commit(state)
+            else:
+                _write_slot(self.cache, state.cache, state.slot)
             self.scheduler.prefill_done(state)
             self.metrics.on_first_token(state.rid)
             if _trace.enabled():
                 _trace.instant("first_token", "runtime", rid=state.rid)
             self._maybe_finish(state)
+
+    # ------------------------------------------------------- paged plumbing
+    def _page_width(self, state: RequestState) -> int:
+        """The page-lattice point covering ``state``'s page table."""
+        return self.lattice.page_bucket(len(state.pages))
+
+    def _page_table(self, state: RequestState, P: int) -> np.ndarray:
+        """``state``'s page table padded to lattice width ``P`` with the
+        null page (whose rows only flow through exactly-zero masked
+        attention probabilities)."""
+        t = np.full((P,), NULL_PAGE, np.int64)
+        t[:len(state.pages)] = state.pages
+        return t
+
+    def _page_stage(self, state: RequestState):
+        """Batch-1 prefill staging cache: the request's pages gathered
+        dense (``P * page_size`` rows), cache length = shared prefix."""
+        P = self._page_width(state)
+        key = self.buckets.key("page_view", P, self._fingerprint())
+        fn = self.buckets.get(key, lambda: self.kv.build_view(P))
+        table = torch.as_tensor(self._page_table(state, P), device=self.device)
+        return fn(table, state.shared_tokens)
+
+    def _page_commit(self, state: RequestState) -> None:
+        """Write a finished prefill's staging cache into the request's own
+        pages and publish its full prompt pages to the prefix index.  The
+        shared prefix pages are left as they are: prefill only read them."""
+        P = self._page_width(state)
+        key = self.buckets.key("page_commit", P, self._fingerprint())
+        fn = self.buckets.get(key, lambda: self.kv.build_commit(P))
+        pages = torch.as_tensor(np.asarray(state.pages, np.int64), device=self.device)
+        fn(state.cache, pages, state.shared_tokens // self.page_size)
+        self.pool.register(state)
+
+    def _ensure_decode_capacity(self, decodes: list[RequestState]) -> None:
+        """Grow page tables for this decode step, preempting on pressure.
+
+        The step for request ``s`` writes cache row ``prompt_len +
+        n_generated - 1``, so its table must cover ``prompt_len +
+        n_generated`` rows.  When the pool is dry the *youngest* other
+        decoding request (highest rid) is evicted — marked, its pages
+        released — and the allocation retried; a request alone in the
+        batch evicts itself."""
+        for state in list(decodes):
+            if state not in decodes:
+                continue         # already preempted as a victim below
+            need = self.pool.pages_for(state.prompt_len + state.n_generated)
+            while len(state.pages) < need:
+                try:
+                    state.pages += self.pool.alloc(
+                        need - len(state.pages), rid=state.rid
+                    )
+                except PoolExhausted:
+                    others = [s for s in decodes if s is not state]
+                    victim = (max(others, key=lambda s: s.rid) if others
+                              else state)
+                    self.scheduler.finish(victim, EVICTED)
+                    self.metrics.on_evict(victim.rid)
+                    if _trace.enabled():
+                        _trace.instant("evict", "runtime", rid=victim.rid,
+                                       reason="pool_exhausted")
+                    decodes.remove(victim)
+                    if victim is state:
+                        break
 
     def _maybe_finish(self, state: RequestState) -> None:
         if state.n_generated >= state.request.max_new_tokens:
@@ -481,6 +626,11 @@ class ServingRuntime:
             self._run_decode_impl(decodes)
 
     def _run_decode_impl(self, decodes: list[RequestState]) -> None:
+        if self.paged:
+            self._ensure_decode_capacity(decodes)
+            if decodes:
+                self._run_decode_paged(decodes)
+            return
         n = len(decodes)
         bucket = self.lattice.decode_bucket(n)
         key = self.buckets.key("decode", bucket, self._fingerprint())
@@ -514,6 +664,46 @@ class ServingRuntime:
             self.metrics.on_token()
             self._maybe_finish(state)
 
+    def _run_decode_paged(self, decodes: list[RequestState]) -> None:
+        """One decode step over page tables: gather each request's pages
+        into a view, step, write the one new KV row back.  The step is
+        keyed on the (slot-bucket, page-bucket) lattice point; the batch
+        pads with full duplicates of request 0's (table, length, token)
+        row, so the padded rows compute — and write — identical values."""
+        n = len(decodes)
+        bucket = self.lattice.decode_bucket(n)
+        P = self.lattice.page_bucket(max(len(s.pages) for s in decodes))
+        key = self.buckets.key("decode", (bucket, P), self._fingerprint())
+        fn = self.buckets.get(
+            key, lambda: self.kv.build_decode(self._decode, bucket, P))
+        tables = np.stack([self._page_table(s, P) for s in decodes])
+        lengths = np.asarray(
+            [s.prompt_len + s.n_generated - 1 for s in decodes], np.int32
+        )
+        toks = self._tokens[[s.slot for s in decodes]]
+        if bucket > n:
+            pad = bucket - n
+            tables = np.concatenate([tables, np.repeat(tables[:1], pad, 0)])
+            lengths = np.concatenate([lengths, np.repeat(lengths[:1], pad)])
+            toks = np.concatenate([toks, np.repeat(toks[:1], pad, 0)])
+        with torch.no_grad():
+            logits = fn(self.params, torch.as_tensor(tables, device=self.device),
+                        torch.as_tensor(lengths, device=self.device),
+                        torch.as_tensor(toks, device=self.device))
+        if self.logits_probe is not None:
+            self.logits_probe(logits)
+        self.metrics.on_decode(n, bucket)
+        if self.greedy:
+            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+            out = [int(nxt[r]) for r in range(n)]
+        else:
+            out = [self._sample(s, logits[r]) for r, s in enumerate(decodes)]
+        for state, tok in zip(decodes, out):
+            state.request.output.append(tok)
+            self._tokens[state.slot, 0] = tok
+            self.metrics.on_token()
+            self._maybe_finish(state)
+
     def tick(self) -> None:
         """One scheduler round: admissions → prefill chunks → decode.
 
@@ -539,6 +729,8 @@ class ServingRuntime:
             # requests reads as busy
             engaged.update(s.rid for s in batch)
             self.metrics.on_tick(len(engaged))
+            if self.pool is not None:
+                self.metrics.on_pool_gauge(self.pool.n_free, self.pool.usable)
             if sp:
                 sp.set(n_prefills=len(plan.prefills), n_decode=len(batch),
                        engaged=sorted(engaged))
@@ -550,6 +742,8 @@ class ServingRuntime:
         contract."""
         if self.scheduler.n_free == 0 or self.scheduler.queue:
             return False
+        if self.pool is not None and not self.pool.can_admit(request.prompt):
+            return False         # paged: pool cannot hold the prompt now
         self.submit(request)
         state = self.scheduler.admit_next()
         while state.request.status == PREFILL:

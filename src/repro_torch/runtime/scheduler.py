@@ -19,9 +19,14 @@ admitted or evicted) and leaves *how* to the engine.  Design rules:
   never silently dropped.  Cancelling a request that is still *queued*
   (no slot yet) is eviction too: it leaves the queue marked
   ``evicted``.
+* **Paged admission** — with a :class:`repro_torch.runtime.pages.PagePool`
+  attached, admission is keyed on free *pages*, not free slots alone:
+  the head-of-line request admits only when the pool can reserve its
+  page table (prompt + first decode row, minus whatever prefix it
+  shares).  Releasing a request's slot releases its pages in the same
+  breath, so page lifetime is exactly slot lifetime.
 
-The port of ``repro.runtime.scheduler`` without its paged admission
-(the page pool is ROADMAP item 11b).
+The port of ``repro.runtime.scheduler``.
 """
 
 from __future__ import annotations
@@ -57,7 +62,8 @@ class Request:
 class RequestState:
     """Engine-side bookkeeping for one live request."""
 
-    __slots__ = ("request", "slot", "pos", "cache", "key")
+    __slots__ = ("request", "slot", "pos", "cache", "key",
+                 "pages", "shared_tokens", "page_hashes")
 
     def __init__(self, request: Request, *, seed: int | None = None):
         self.request = request
@@ -67,6 +73,10 @@ class RequestState:
         self.key = torch.Generator().manual_seed(
             request.rid if seed is None else seed
         )
+        # paged-runtime state (set by PagePool.try_admit at admission)
+        self.pages: list[int] = []   # page table, shared prefix first
+        self.shared_tokens = 0       # leading rows mapped from the prefix index
+        self.page_hashes: list[str] = []
 
     @property
     def rid(self) -> int:
@@ -108,9 +118,10 @@ class TickPlan:
 
 
 class Scheduler:
-    def __init__(self, slots: int, lattice):
+    def __init__(self, slots: int, lattice, pool=None):
         self.slots = int(slots)
         self.lattice = lattice
+        self.pool = pool             # PagePool | None — paged admission
         self.queue: collections.deque[RequestState] = collections.deque()
         self.active: dict[int, RequestState] = {}    # slot -> state
         self._free = list(range(self.slots))
@@ -125,18 +136,26 @@ class Scheduler:
         return state
 
     def admit_next(self) -> RequestState | None:
-        """Bind the oldest queued request to a free slot, if any."""
+        """Bind the oldest queued request to a free slot, if any.
+
+        With a page pool attached, the head-of-line request must also
+        reserve its page table — FIFO order is preserved, so a blocked
+        head blocks admission (no small-request overtaking that would
+        starve long prompts)."""
         if not self._free or not self.queue:
+            return None
+        if self.pool is not None and not self.pool.try_admit(self.queue[0]):
             return None
         state = self.queue.popleft()
         state.slot = self._free.pop()
-        state.pos = 0
+        state.pos = state.shared_tokens  # prefill resumes after shared prefix
         state.request.status = PREFILL
         self.active[state.slot] = state
         self._prefilling.append(state)
         if _trace.enabled():
             _trace.instant("admit", "scheduler", rid=state.rid,
-                           slot=state.slot)
+                           slot=state.slot, pages=len(state.pages),
+                           shared_tokens=state.shared_tokens)
         return state
 
     def prefill_done(self, state: RequestState) -> None:
@@ -146,7 +165,8 @@ class Scheduler:
         self._prefilling.remove(state)
 
     def finish(self, state: RequestState, status: str = DONE) -> None:
-        """Release the slot; ``status`` records how the request ended."""
+        """Release the slot (and its pages); ``status`` records how the
+        request ended."""
         state.request.status = status
         state.request.done = status == DONE
         if state.slot is not None:
@@ -155,12 +175,16 @@ class Scheduler:
             state.slot = None
         if state in self._prefilling:
             self._prefilling.remove(state)
+        if self.pool is not None and state.pages:
+            self.pool.release(state.pages, rid=state.rid)
+            state.pages = []
+            state.page_hashes = []
 
     def evict(self, rid: int) -> RequestState:
         """Cancel a live *or still-queued* request (marked, not dropped).
 
-        A queued request holds no slot yet — it just leaves the queue as
-        ``evicted``."""
+        A queued request holds no slot or pages yet — it just leaves the
+        queue as ``evicted``."""
         for state in list(self.active.values()):
             if state.rid == rid:
                 self.finish(state, EVICTED)

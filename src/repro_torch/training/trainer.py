@@ -1,0 +1,189 @@
+"""Fault-tolerant training loop.
+
+* the train step: gradients (accumulated over microbatches) → optional
+  compression (bf16 / int8 with error feedback) → AdamW;
+* checkpoint/restart (atomic, manifest-driven) including the data cursor
+  and the optimizer step;
+* straggler accounting — a per-step deadline; steps that exceed it are
+  logged and counted.
+
+The port of ``repro.training.trainer``.  The step runs eagerly (no
+``torch.compile``): :func:`make_train_step` returns a plain function of
+``(params, opt_state, batch, residual)`` whose gradients come from
+``torch.autograd.grad`` on detached copies of the parameter leaves, so the
+trees stay plain tensors, as the JAX package's stay arrays.  A leaf the
+loss does not reach gets a zero gradient, as under ``jax.grad``.
+
+On ``contract_backend="kernel"`` every model contraction of the forward
+and the backward is a ``native_gemm`` launch when the config says
+``contract_strategy="native"`` (each product's backward is two native
+contractions).  The role-based strategies are forward-only on the kernel
+backend and raise under autograd (:func:`repro_torch.kernels.ops.
+execute_plan`), as the JAX package's ``pallas`` backend does.  Sharding
+rules (``rules=``) are ROADMAP.md item 12.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.compress import Int8Compressor, compress_bf16
+from repro_torch.models.transformer import lm_loss
+from repro_torch.models.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.training.checkpoint import Checkpointer
+from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update, make_schedule
+
+log = logging.getLogger("repro_torch.trainer")
+
+__all__ = ["TrainConfig", "Trainer", "make_train_step", "value_and_grad"]
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    opt: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
+    microbatches: int = 1              # gradient accumulation
+    remat: bool = True
+    compression: str | None = None     # None | "bf16" | "int8"
+    step_deadline_s: float | None = None  # straggler threshold
+    ckpt_dir: str | None = None
+    ckpt_every: int = 100
+    ckpt_keep: int = 3
+
+
+def value_and_grad(cfg: ModelConfig, params, batch, *, remat: bool = True):
+    """``lm_loss`` and its gradient with respect to every parameter leaf:
+    ``(loss, metrics, grads)``, all detached; ``grads`` has the structure
+    of ``params`` (a leaf the loss does not reach gets zeros)."""
+    live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, metrics = lm_loss(cfg, tree_unflatten(params, live), batch, remat=remat)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(live, grads)]
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree_unflatten(params, grads))
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, compressor=None):
+    """Build the train step: grads (+accum) → compress → AdamW."""
+    schedule = make_schedule(tcfg.opt)
+
+    def train_step(params, opt_state, batch, residual=None):
+        if tcfg.microbatches > 1:
+            # split the batch's leading dim into microbatches; accumulate grads
+            n = tcfg.microbatches
+            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                  device=p.device), params)
+            lsum = 0.0
+            for i in range(n):
+                micro = {k: x[i * (x.shape[0] // n):(i + 1) * (x.shape[0] // n)]
+                         for k, x in batch.items()}
+                loss_i, _, g = value_and_grad(cfg, params, micro, remat=tcfg.remat)
+                gsum = tree_map(lambda a, b: a + b.float(), gsum, g)
+                lsum = lsum + loss_i
+            grads = tree_map(lambda g: g / n, gsum)
+            loss = lsum / n
+            metrics = {}
+        else:
+            loss, metrics, grads = value_and_grad(cfg, params, batch, remat=tcfg.remat)
+
+        new_residual = residual
+        if tcfg.compression == "bf16":
+            grads = compress_bf16(grads)
+        elif tcfg.compression == "int8":
+            grads, new_residual = compressor.compress(grads, residual)
+
+        params, opt_state, opt_metrics = adamw_update(
+            tcfg.opt, params, grads, opt_state, schedule=schedule
+        )
+        out_metrics = {"loss": loss, **opt_metrics}
+        if metrics:
+            out_metrics.update(metrics)
+        return params, opt_state, new_residual, out_metrics
+
+    return train_step
+
+
+class Trainer:
+    """Owns params/opt-state/data and runs the fault-tolerant loop.
+
+    Training runs on the device that holds ``params``; each batch from
+    ``data`` (numpy) is placed there."""
+
+    def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, params, data, rules=None):
+        if rules is not None:
+            raise NotImplementedError(
+                "training under sharding rules (rules=) is not ported yet: "
+                "ROADMAP.md queue 1, item 12")
+        self.cfg, self.tcfg, self.data = cfg, tcfg, data
+        self.params = params
+        self.device = tree_leaves(params)[0].device
+        self.opt_state = adamw_init(params)
+        self.compressor = Int8Compressor() if tcfg.compression == "int8" else None
+        self.residual = (
+            self.compressor.init_residual(params) if self.compressor else None
+        )
+        self.step = 0
+        self.straggler_steps = 0
+        self.ckpt = (
+            Checkpointer(tcfg.ckpt_dir, keep=tcfg.ckpt_keep, every=tcfg.ckpt_every)
+            if tcfg.ckpt_dir else None
+        )
+        self._step_fn = make_train_step(cfg, tcfg, self.compressor)
+
+    # -------------------------------------------------------------- state
+    def state_tree(self):
+        tree = {"params": self.params, "opt": self.opt_state}
+        if self.residual is not None:
+            tree["residual"] = self.residual
+        return tree
+
+    def save(self, force=False):
+        if self.ckpt is None:
+            return None
+        extra = {"step": self.step, "data": self.data.state(),
+                 "straggler_steps": self.straggler_steps}
+        return self.ckpt.maybe_save(self.step, self.state_tree(), extra, force=force)
+
+    def restore(self, shardings=None):
+        """Resume from the latest checkpoint, onto this trainer's device."""
+        tree, extra, step = self.ckpt.restore(self.state_tree(), shardings)
+        self.params = tree["params"]
+        self.opt_state = tree["opt"]
+        self.residual = tree.get("residual", self.residual)
+        self.step = int(extra["step"])
+        self.straggler_steps = int(extra.get("straggler_steps", 0))
+        self.data.restore(extra["data"])
+        return step
+
+    # --------------------------------------------------------------- loop
+    def run(self, n_steps: int, *, log_every: int = 10, on_metrics=None):
+        history = []
+        for _ in range(n_steps):
+            batch = {k: torch.as_tensor(np.asarray(v), device=self.device)
+                     for k, v in next(self.data).items()}
+            t0 = time.monotonic()
+            self.params, self.opt_state, self.residual, metrics = self._step_fn(
+                self.params, self.opt_state, batch, self.residual
+            )
+            metrics = {k: float(v) for k, v in metrics.items()}
+            dt = time.monotonic() - t0
+            metrics["step_time_s"] = dt
+            if (
+                self.tcfg.step_deadline_s is not None
+                and dt > self.tcfg.step_deadline_s
+            ):
+                self.straggler_steps += 1
+                log.warning("straggler step %d: %.2fs > deadline %.2fs",
+                            self.step, dt, self.tcfg.step_deadline_s)
+            self.step += 1
+            history.append(metrics)
+            if on_metrics and self.step % log_every == 0:
+                on_metrics(self.step, metrics)
+            self.save()
+        return history

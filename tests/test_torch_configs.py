@@ -6,8 +6,9 @@ package's (``repro.configs``).
 - The copied modules equal their originals by syntax tree (docstrings
   dropped, the package name normalised), up to the differences listed
   here: ``configs/base.py`` returns a ``torch.dtype`` and names the
-  port's default backend; ``runtime/metrics.py``, ``runtime/buckets.py``
-  and ``serving/engine.py`` differ in nothing else."""
+  port's default backend; ``training/data.py`` gives meta tensors for
+  batch specs; ``runtime/metrics.py``, ``runtime/buckets.py`` and
+  ``serving/engine.py`` differ in nothing else."""
 
 import ast
 import dataclasses
@@ -80,6 +81,18 @@ COPIES = {
         "+         return getattr(torch, self.dtype)",
     ],
     "runtime/metrics.py": [],
+    "training/data.py": [
+        "-     import jax",
+        "+     import torch",
+        "-     specs = {'tokens': jax.ShapeDtypeStruct((B, S), np.int32)}",
+        "+     specs = {'tokens': torch.empty((B, S), dtype=torch.int32, device='meta')}",
+        "-         specs['features'] = jax.ShapeDtypeStruct((B, n, cfg.frontend.feature_dim), "
+        "np.float32)",
+        "+         specs['features'] = torch.empty((B, n, cfg.frontend.feature_dim), "
+        "dtype=torch.float32, device='meta')",
+        "-         specs['labels'] = jax.ShapeDtypeStruct((B, S), np.int32)",
+        "+         specs['labels'] = torch.empty((B, S), dtype=torch.int32, device='meta')",
+    ],
     "runtime/buckets.py": [],
     "serving/engine.py": [],
     **{f"configs/{p.name}": [] for p in sorted((SRC / "repro" / "configs").glob("*.py"))

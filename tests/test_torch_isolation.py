@@ -218,3 +218,39 @@ def test_cpu_tensors_take_the_plain_versions_of_the_new_kernels(monkeypatch, tmp
     for name in ("grouped_gemm", "flash_attn"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.load(name)
+
+
+def test_kernel_backend_training_calls_no_library_gemm(monkeypatch):
+    """A train step on ``kernel`` + ``native`` (forward, the remat
+    recompute and the backward) with every library GEMM made to raise:
+    only the kernel wrapper's plain version (taken here because the
+    tensors lie on the CPU) multiplies."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.trainer import TrainConfig, make_train_step
+
+    einsum = torch.einsum
+
+    def plain(A, B, *, a_modes, b_modes, c_modes, out_dtype=None):
+        out = einsum(f"{a_modes},{b_modes}->{c_modes}", A.float(), B.float())
+        return out.to(out_dtype or torch.promote_types(A.dtype, B.dtype))
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("library GEMM on the kernel path")
+
+    cfg = get_config("minicpm-2b", smoke=True, n_periods=1, contract_backend="kernel",
+                     contract_strategy="native")
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)))
+    step = make_train_step(cfg, TrainConfig(opt=AdamWConfig(warmup_steps=0)))
+    monkeypatch.setattr(sb_gemm, "native_gemm_ref", plain)
+    for name in ("einsum", "matmul", "mm", "bmm", "tensordot", "baddbmm", "addmm"):
+        monkeypatch.setattr(torch, name, forbidden)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", forbidden)
+    before = sb_gemm.native_gemm.launches
+    new, _, _, metrics = step(params, adamw_init(params), {"tokens": toks}, None)
+    assert np.isfinite(float(metrics["loss"]))
+    assert any(not torch.equal(a, b) for a, b in zip(new["pattern"][0]["mlp"].values(),
+                                                     params["pattern"][0]["mlp"].values()))
+    assert sb_gemm.native_gemm.launches == before

@@ -343,9 +343,9 @@ def test_runtime_rejects_chunking_on_ssm_archs_and_unported_modes(served):
     assert not supports_chunked_prefill(cfg)
     with pytest.raises(ValueError, match="chunked prefill"):
         ServingRuntime(cfg, {}, slots=1, max_len=16, chunked_prefill=True)
+    with pytest.raises(ValueError, match="cannot be paged"):
+        ServingRuntime(cfg, {}, slots=1, max_len=16, paged=True)
     cfg, params, *_ = served
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*11b"):
-        ServingRuntime(cfg, params, paged=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 12"):
         ServingRuntime(cfg, params, mesh=object())
     with pytest.raises(NotImplementedError, match="item 12"):
@@ -520,7 +520,7 @@ def test_hybrid_arch_serving():
 # ------------------------------------------------------------------- CLI
 def test_serve_cli_on_the_cpu(tmp_path):
     """The launcher serves on the CPU, with the ported observability and
-    tuning flags wired in; ``--paged`` exits naming the roadmap."""
+    tuning flags wired in; ``--mesh`` exits naming the roadmap."""
     # one intra-op thread, as in this process: the launcher must not
     # crowd the parallel test workers
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
@@ -536,11 +536,11 @@ def test_serve_cli_on_the_cpu(tmp_path):
     assert "pretune:" in proc.stdout and "drift:" in proc.stdout and "health:" in proc.stdout
     for name in ("trace.json", "m.jsonl", "tuning.json"):
         assert (tmp_path / name).stat().st_size > 0
-    paged = subprocess.run(
+    mesh = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "minicpm-2b",
-         "--smoke", "--device", "cpu", "--paged"],
+         "--smoke", "--device", "cpu", "--mesh", "2x4"],
         env=env, capture_output=True, text=True, timeout=300, stdin=subprocess.DEVNULL)
-    assert paged.returncode != 0 and "ROADMAP.md" in paged.stderr
+    assert mesh.returncode != 0 and "ROADMAP.md" in mesh.stderr
 
 
 # ------------------------------------------------------------------ card
