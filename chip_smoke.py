@@ -144,8 +144,35 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    tokens/s, the backends in turns (kernel, torch, torch, kernel), peak
    memory of the counted run, a profile of one step per backend, and the
    top 8 ``native_gemm`` launch shapes of a step as in phase 6.
+14. Sharded contraction: ``make_host_mesh(1, 1)`` starts a world of one
+   rank over NCCL, and a 1x1 mesh with axes ``x`` and ``y`` runs, through
+   ``contract``/``xeinsum``/``compile_program`` with ``mesh=`` and
+   ``backend="kernel"``: each of the 15 contractions of the HOOI working
+   set (512³ float32, ranks 10) three times (a free mode over ``x``; its
+   first contracted mode over ``y``, a psum; the same with ``out_spec``
+   putting ``y`` on the first output mode, a reduce-scatter);
+   internlm2-20b's two MLP products at published widths in bf16 over 2048
+   rows (column-parallel ``bse,ef->bsf`` with ``f`` over ``y``,
+   row-parallel ``bsf,fe->bse`` with ``f`` contracted over ``y``); the 36
+   Table II cases at the ragged dims with ``m`` over ``x`` and ``k`` over
+   ``y``; and ``compile_program("bik,kn,nj->bij")`` at ~290 MB.  Each
+   plan's ``describe()`` is printed.  The counted run must launch
+   ``native_gemm`` once per pairwise step, on the route ``native_route``
+   gives, and no other kernel (every device kernel the profiler records
+   on the HOOI set and the MLP products is one of ``native_gemm``'s, and
+   on Table II and the program one the unsharded calls run); every
+   result's ``full_tensor()`` (and local block) equals the unsharded
+   kernel call bit for bit, since every block is the whole tensor; its
+   copies equal the unsharded call's (0 on the HOOI set and the MLP
+   products).  A collective over a one-rank group is the identity and is
+   not issued.  Every launch shape of the counted run is then held
+   against the plain version and timed as in phase 6, and the HOOI set's
+   free and psum calls and the MLP products are timed per call, sharded
+   against unsharded, queued (``queued_ms``) and back to back
+   (``cuda_ms``, which counts the host's time between calls).  The
+   process group is destroyed at the phase's end.
 
-Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13) is driven with every
+Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13, 14) is driven with every
 kernel's launch count set to 0 just before it and read just after;
 launches made to compare, time or tune a kernel do not count.  Phases 5 and 10 also read ``native_gemm``'s
 launches by route, which must be what ``native_route`` gives for each
@@ -167,7 +194,8 @@ attention entries carry their f32 run, the fma route, under ``"fma"``;
 ``native_gemm``'s carries the tuned HOOI's launches by route, the
 serving phase's launches, routes, tokens/s and top-shape times (the
 paged serve's under ``serve.paged``) and the training phase's launches
-by route, ms per step, tokens/s, peak memory and top-shape times),
+by route, ms per step, tokens/s, peak memory and top-shape times, and
+the sharded phase's launches by route and ms under ``sharded``),
 the card's name and power limit as ``nvidia-smi`` prints them, and the
 ``{"ok": true, ...}`` line.  Any failed check raises and exits non-zero without that line.
 """
@@ -180,6 +208,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -1228,7 +1257,9 @@ def launch_cost(A, B, kw) -> tuple[int, int]:
 def time_shapes(launches, reps: int = 20, per: str = "HOOI", top: int | None = None) -> dict:
     """Kernel, plain-version and library time at each launch shape of the
     main path, its route and the bound at its type's peak; two launches at
-    each shape must be bit-identical.  The kernel and ``torch.einsum`` are
+    each shape must be bit-identical, and the kernel's error against the
+    plain version within ``TOL`` (both are also printed against a float64
+    einsum, to show which of the two sums rounds more).  The kernel and ``torch.einsum`` are
     timed both with their calls queued (device time, ``queued_ms``) and
     back to back (the call with its host time, ``cuda_ms``).  Per-``per``
     sums weight each shape by its launches; ``top`` keeps only the shapes
@@ -1257,7 +1288,11 @@ def time_shapes(launches, reps: int = 20, per: str = "HOOI", top: int | None = N
         want = native_gemm_ref(A, B, a_modes=a, b_modes=b, c_modes=c, out_dtype=out_dtype)
         check(torch.equal(got, again), f"{spec} at {tuple(A.shape)}: two launches differ")
         err = rel_err(got, want)
-        check(err <= TOL[out_dtype], f"{spec} at {tuple(A.shape)}: error {err}")
+        exact = torch.einsum(spec, A.double(), B.double())
+        errs = (f"error {err:.2e} against the plain version; against a float64 einsum "
+                f"kernel {rel_err(got, exact):.2e}, plain {rel_err(want, exact):.2e}")
+        del exact
+        check(err <= TOL[out_dtype], f"{spec} at {tuple(A.shape)}: {errs}")
         worst = max(worst, (got.float() - want.float()).abs().max().item())
         ms = queued_ms(lambda: native_gemm(A, B, **kw), reps)
         call_ms = cuda_ms(lambda: native_gemm(A, B, **kw), reps)
@@ -1272,7 +1307,7 @@ def time_shapes(launches, reps: int = 20, per: str = "HOOI", top: int | None = N
             f"({call_ms:.4f} ms by events), "
             f"bound {b_ms:.4f} ms ({by}), {100 * b_ms / ms:.1f}% of bound; plain "
             f"{plain:.4f} ms; einsum {lib:.4f} ms queued ({lib_call:.4f} ms by events); "
-            f"two launches bit-identical")
+            f"two launches bit-identical; {errs}")
         for k, v in zip(keys, (ms, call_ms, plain, lib, lib_call, b_ms)):
             tot[k] += n * v
         tot["bytes"] += n * nbytes
@@ -1296,12 +1331,9 @@ def profile_hooi(T, n_iter: int, variant: str, top: int = 10) -> None:
                    lambda: hooi(T, RANKS, n_iter=n_iter, **VARIANTS[variant]), top)
 
 
-def profile_device(label: str, fn, top: int = 10) -> dict | None:
-    """Where one call of ``fn`` spends device time, by kernel name, and the
-    device's idle share: of the host wall time under the profiler, and of
-    the span from the first device activity to the last.  Returns the
-    busy and wall ms and the idle share of the wall, or ``None`` when the
-    profiler recorded no device activity."""
+def device_spans(fn) -> tuple[list, float]:
+    """The device activities of one call of ``fn`` under ``torch.profiler``,
+    as sorted ``(start_us, end_us, name)``, and the host wall time in µs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1311,8 +1343,17 @@ def profile_device(label: str, fn, top: int = 10) -> dict | None:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA), wall_us
+
+
+def profile_device(label: str, fn, top: int = 10) -> dict | None:
+    """Where one call of ``fn`` spends device time, by kernel name, and the
+    device's idle share: of the host wall time under the profiler, and of
+    the span from the first device activity to the last.  Returns the
+    busy and wall ms and the idle share of the wall, or ``None`` when the
+    profiler recorded no device activity."""
+    spans, wall_us = device_spans(fn)
     if not spans:
         log(f"profile of {label}: the profiler recorded no device activity (not measured)")
         return None
@@ -2229,6 +2270,235 @@ def train_path(dev, seed: int, counters) -> dict:
                                                   "max_abs_err", "bound_by")})
 
 
+# ------------------------------------------------------------------ phase 14
+#: internlm2-20b's MLP (src/repro/configs/internlm2_20b.py) at its published
+#: widths, over 2048 rows
+MLP = dict(d_model=6144, d_ff=16384, rows=2048)
+#: the compiled program's expression and extents (~290 MB of float32)
+PROGRAM = dict(spec="bik,kn,nj->bij", b=16, i=2048, k=1024, n=2048, j=1024)
+SHARD_REPS = 20
+#: reps of each launch shape's times in the sharded run (two of HOOI's take ~155 ms)
+SHARD_REPS_SHAPES = 5
+
+
+def spec_on(modes: str, shard: dict):
+    """The PartitionSpec of ``modes`` with ``shard``'s modes over its axes."""
+    from repro_torch.distributed.sharding import P
+
+    return P(*[shard.get(m) for m in modes])
+
+
+#: name prefixes of ``native_gemm``'s ``__global__`` functions (csrc/sb_gemm.cu)
+NATIVE_KERNELS = ("ng_", "ns_", "nw_", "nk_", "nm_")
+
+
+def device_kernels(fn) -> Counter | None:
+    """The device kernels one call of ``fn`` runs, by name and count (None
+    when the profiler records no device activity)."""
+    return Counter(name for *_, name in device_spans(fn)[0]) or None
+
+
+def sharded_cases(dev, working_set, mesh, seed: int) -> list:
+    """The calls of phase 14, each with its unsharded twin: ``(label, call,
+    plain, steps, plan text)``."""
+    from repro_torch.core.contract import contract
+    from repro_torch.core.einsum import xeinsum
+    from repro_torch.core.program import compile_program
+    from repro_torch.core.table2 import CASES
+    from repro_torch.distributed.contract import plan_sharded
+    from repro_torch.distributed.sharding import P
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    cases = []
+
+    def pair(label, spec, A, B, in_specs, out_spec=None):
+        dims = dict(zip(modes_of(spec)[0], A.shape)) | dict(zip(modes_of(spec)[1], B.shape))
+        plan = plan_sharded(spec, dims, mesh=mesh, in_specs=in_specs, out_spec=out_spec)
+        cases.append((label, lambda: contract(spec, A, B, mesh=mesh, in_specs=in_specs,
+                                              out_spec=out_spec, backend="kernel"),
+                      lambda: contract(spec, A, B, backend="kernel"), 1, plan.describe()))
+        return plan
+
+    for spec, dims in working_set:
+        a, b, c = modes_of(spec)
+        A = torch.randn([dims[m] for m in a], device=dev, generator=gen)
+        B = torch.randn([dims[m] for m in b], device=dev, generator=gen)
+        free = {c[0]: "x"}
+        pair(f"hooi free {spec}", spec, A, B, (spec_on(a, free), spec_on(b, free)))
+        k = next(m for m in a if m in b and m not in c)
+        ins = (spec_on(a, {k: "y"}), spec_on(b, {k: "y"}))
+        plan = pair(f"hooi psum {spec}", spec, A, B, ins)
+        check(plan.psum_axes == ("y",), f"{spec}: {plan.describe()} has no psum over y")
+        plan = pair(f"hooi scatter {spec}", spec, A, B, ins, spec_on(c, {c[0]: "y"}))
+        check(plan.scatters == ((0, ("y",)),), f"{spec}: {plan.describe()} scatters nothing")
+
+    d, f, rows = MLP["d_model"], MLP["d_ff"], MLP["rows"]
+    X = torch.randn(1, rows, d, device=dev, generator=gen).to(torch.bfloat16)
+    H = torch.randn(1, rows, f, device=dev, generator=gen).to(torch.bfloat16)
+    W_up = (torch.randn(d, f, device=dev, generator=gen) / d ** 0.5).to(torch.bfloat16)
+    W_down = (torch.randn(f, d, device=dev, generator=gen) / f ** 0.5).to(torch.bfloat16)
+    pair("mlp column-parallel", "bse,ef->bsf", X, W_up, (None, P(None, "y")))
+    pair("mlp row-parallel", "bsf,fe->bse", H, W_down, (P(None, None, "y"), P("y", None)))
+
+    shard = {"m": "x", "k": "y"}
+    for label in sorted(CASES):
+        rm = CASES[label].row_major()
+        a, b, _ = modes_of(rm)
+        A = torch.randn([RAGGED_DIMS[m] for m in a], device=dev, generator=gen)
+        B = torch.randn([RAGGED_DIMS[m] for m in b], device=dev, generator=gen)
+        ins = (spec_on(a, shard), spec_on(b, shard))
+        plan = plan_sharded(rm, dict(zip(a, A.shape)) | dict(zip(b, B.shape)), mesh=mesh,
+                            in_specs=ins)
+        cases.append((f"table2 {label} {rm}",
+                      lambda rm=rm, A=A, B=B, ins=ins: xeinsum(rm, A, B, strategy="kernel",
+                                                               mesh=mesh, in_specs=ins),
+                      lambda rm=rm, A=A, B=B: xeinsum(rm, A, B, strategy="kernel"),
+                      1, plan.describe()))
+
+    ext = {m: PROGRAM[m] for m in "biknj"}
+    ops = [torch.randn([ext[m] for m in t], device=dev, generator=gen)
+           for t in PROGRAM["spec"].split("->")[0].split(",")]
+    ins = (P("x", None, "y"), P("y", None), None)
+    prog = compile_program(PROGRAM["spec"], *ops, backend="kernel", mesh=mesh, in_specs=ins)
+    plain = compile_program(PROGRAM["spec"], *ops, backend="kernel")
+    steps = [s for s in prog.program.steps if s.op == "contract"]
+    check([s.spec for s in steps] == [s.spec for s in plain.program.steps if s.op == "contract"],
+          "the sharded program planned another path")
+    cases.append((f"program {PROGRAM['spec']} {ext}", lambda: prog(*ops), lambda: plain(*ops),
+                  len(steps), prog.describe().replace("\n", " | ")))
+    return cases
+
+
+def sharded_path(dev, working_set, seed: int, counters) -> dict:
+    """Phase 14: sharded contraction through ``contract``/``xeinsum``/
+    ``compile_program`` with ``mesh=`` on a 1x1 mesh over a world of one
+    (see the module docstring).  Returns ``native_gemm``'s sharded record."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.contract import count_copy_ops
+    from repro_torch.kernels.sb_gemm import native_gemm
+    from repro_torch.launch.mesh import make_host_mesh
+
+    world = make_host_mesh(1, 1, device=dev.type)
+    mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("x", "y"))
+    log(f"sharded: world of {dist.get_world_size()} rank over {dist.get_backend()}; "
+        f"make_host_mesh gave {world}; the phase's mesh {mesh}")
+    try:
+        cases = sharded_cases(dev, working_set, mesh, seed)
+        for label, _, _, _, text in cases:
+            log(f"sharded plan [{label}]: {text}")
+
+        # HOOI's set and the MLP products run no kernel but native_gemm's
+        # unsharded; Table II and the program also run copies
+        n_own = sum(not label.startswith(("table2", "program")) for label, *_ in cases)
+
+        # the main path: counts to 0 just before, read just after
+        for c in counters:
+            c.launches = 0
+        native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
+        outs = []
+
+        def counted_run(part):
+            for label, call, _, steps, _ in part:
+                before = native_gemm.launches
+                outs.append(call())
+                check(native_gemm.launches - before == steps,
+                      f"sharded [{label}]: {native_gemm.launches - before} native_gemm "
+                      f"launches for {steps} pairwise steps")
+
+        with recording_launches() as launches, native_routes_held() as held:
+            kernels_own = device_kernels(lambda: counted_run(cases[:n_own]))
+            kernels_rest = device_kernels(lambda: counted_run(cases[n_own:]))
+        counted = {c.__name__: c.launches for c in counters}
+        routes = dict(native_gemm.launches_by_route)
+        saved = [c.launches for c in counters], dict(routes)
+        n_steps = sum(steps for *_, steps, _ in cases)
+        check(counted["native_gemm"] == n_steps,
+              f"sharded: {counted['native_gemm']} launches for {n_steps} steps")
+        check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
+              f"sharded: another kernel launched on the path: {counted}")
+        check(routes == held, f"sharded: routes {routes} differ from native_route's {held}")
+        check(routes["wgmma"] >= 2, f"sharded: the MLP products did not take wgmma: {routes}")
+
+        # comparisons: none of these launches count.  The profiler drops
+        # device records on the card's machine once earlier phases have
+        # profiled, so names are checked and the counts come from the
+        # launch counters above.
+        kernels_plain = device_kernels(lambda: [plain() for _, _, plain, _, _ in cases[n_own:]])
+        if kernels_own is None:
+            log("sharded: the profiler recorded no device activity on the HOOI set and the "
+                "MLP products; their device kernels not measured")
+        else:
+            other = sorted(n for n in kernels_own
+                           if not n.removeprefix("void ").startswith(NATIVE_KERNELS))
+            check(not other, f"sharded: device kernels {other} besides native_gemm's")
+            log(f"sharded: the HOOI set and the MLP products ran native_gemm's kernels only "
+                f"({sum(kernels_own.values())} profiler records): {dict(kernels_own)}")
+        if kernels_rest is None or kernels_plain is None:
+            log("sharded: the profiler recorded no device activity on Table II and the "
+                "program; their device kernels not measured")
+        else:
+            check(set(kernels_rest) <= set(kernels_plain),
+                  f"sharded: device kernels {sorted(set(kernels_rest) - set(kernels_plain))} "
+                  f"that the unsharded calls do not run")
+            log(f"sharded: Table II's and the program's device kernels are among the "
+                f"unsharded calls' (profiler records: {sum(kernels_rest.values())} and "
+                f"{sum(kernels_plain.values())}): {dict(kernels_rest)}")
+        for (label, call, plain, _, _), got in zip(cases, outs):
+            want = plain()
+            check(torch.equal(got.full_tensor(), want) and torch.equal(got.to_local(), want),
+                  f"sharded [{label}]: result differs from the unsharded kernel call")
+            n_sh, n_pl = (sum(count_copy_ops(fn).values()) for fn in (call, plain))
+            check(n_sh == n_pl, f"sharded [{label}]: {n_sh} copies, unsharded {n_pl}")
+            check(n_sh == 0 or label.startswith(("table2", "program")),
+                  f"sharded [{label}]: {n_sh} operand copies")
+        log(f"sharded: {len(cases)} calls ({n_steps} pairwise steps) bit-identical to the "
+            f"unsharded kernel calls (full_tensor and local block); copies equal to the "
+            f"unsharded calls' (0 on the HOOI set and the MLP products); native_gemm "
+            f"launches {counted['native_gemm']}, one per step, by route {routes}, every "
+            f"one on the route native_route gives; grouped_gemm {counted['grouped_gemm']}, "
+            f"flash_attention {counted['flash_attention']}")
+        for c, n in zip(counters, saved[0]):
+            c.launches = n
+        native_gemm.launches_by_route = saved[1]
+
+        # every launch shape of the counted run against the plain version
+        tot = time_shapes(launches, reps=SHARD_REPS_SHAPES, per="sharded run")
+
+        # ms per call on the HOOI set and the MLP products, sharded against
+        # unsharded
+        calls, hooi = [], dict.fromkeys(("queued", "queued_plain", "call", "call_plain"), 0.0)
+        for label, call, plain, _, _ in cases[:n_own]:
+            if label.startswith("hooi scatter"):
+                continue
+            # a call of over 5 ms (two of the HOOI shapes take ~155) gets 3 reps
+            reps = SHARD_REPS if cuda_ms(plain, 1) < 5 else 3
+            row = dict(label=label, reps=reps, queued=queued_ms(call, reps),
+                       queued_plain=queued_ms(plain, reps),
+                       call=cuda_ms(call, reps), call_plain=cuda_ms(plain, reps))
+            calls.append(row)
+            if label.startswith("hooi"):
+                for k in hooi:
+                    hooi[k] += row[k]
+            log(f"sharded ms [{label}]: {row['queued']:.4f} queued vs unsharded "
+                f"{row['queued_plain']:.4f}; back to back by events {row['call']:.4f} vs "
+                f"{row['call_plain']:.4f} (+{row['call'] - row['call_plain']:.4f} ms a call)")
+        n_hooi = sum(r["label"].startswith("hooi") for r in calls)
+        overhead = (hooi["call"] - hooi["call_plain"]) / n_hooi
+        log(f"sharded ms over the {n_hooi} HOOI calls: queued {hooi['queued']:.4f} vs "
+            f"{hooi['queued_plain']:.4f}; back to back by events {hooi['call']:.4f} vs "
+            f"{hooi['call_plain']:.4f}; {overhead:.4f} ms a call of planning and DTensor "
+            f"wrapping (no collective on a one-rank mesh)")
+        return dict(launches=counted["native_gemm"], launches_by_route=routes,
+                    calls=len(cases), steps=n_steps, hooi_ms=hooi,
+                    overhead_ms_per_call=overhead, calls_ms=calls,
+                    shapes={k: tot[k] for k in ("ms", "library_ms", "bound_ms", "plain_ms",
+                                                "max_abs_err", "bound_by")})
+    finally:
+        dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2298,6 +2568,7 @@ def main() -> int:
     serve = serve_path(dev, args.seed, counters)
     every_arch(dev, args.seed, counters)
     train = train_path(dev, args.seed, counters)
+    sharded = sharded_path(dev, working_set, args.seed, counters)
     records = {
         "native_gemm": ("sb_gemm.cu", "sb_gemm.py:87",
                         {**tot, "launches": counted["native_gemm"],
@@ -2309,6 +2580,10 @@ def main() -> int:
                          "train_launches_by_route": train["launches_by_route"],
                          "train": {k: v for k, v in train.items()
                                    if k not in ("launches", "launches_by_route")},
+                         "sharded_launches": sharded["launches"],
+                         "sharded_launches_by_route": sharded["launches_by_route"],
+                         "sharded": {k: v for k, v in sharded.items()
+                                     if k not in ("launches", "launches_by_route")},
                          "serve": {k: v for k, v in serve.items()
                                    if k not in ("launches", "launches_by_route")}}),
         **records,
@@ -2320,7 +2595,8 @@ def main() -> int:
                 **{k: rec[k] for k in ("launches_by_route", "tuned_launches_by_route",
                                        "serve_launches", "serve_launches_by_route", "serve",
                                        "train_launches", "train_launches_by_route", "train",
-                                       "fma") if k in rec}}
+                                       "sharded_launches", "sharded_launches_by_route",
+                                       "sharded", "fma") if k in rec}}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on its path")

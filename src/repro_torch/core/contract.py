@@ -160,8 +160,16 @@ def contract(
       out_dtype: result dtype; defaults to the promoted operand dtype.
         Library GEMMs and the kernel both accumulate float32 and bfloat16
         operands in float32.
-      mesh, in_specs, out_spec: sharded execution — not ported yet
-        (ROADMAP queue 1, item 12): raise.
+      mesh: a ``torch.distributed.device_mesh.DeviceMesh`` — execute
+        *sharded*: every rank runs this contraction's plan on its local
+        blocks, with collectives only where the contracted mode is
+        sharded (see :mod:`repro_torch.distributed.contract`); the result
+        is a DTensor.  ``A``/``B`` are DTensors on the mesh or plain
+        tensors holding the global value on every rank.
+      in_specs: with ``mesh``, a pair of ``PartitionSpec`` (or ``None``)
+        aligned to the operand mode strings.
+      out_spec: with ``mesh``, the requested output sharding (default:
+        the natural one — batch/free modes keep their input sharding).
 
     Returns:
       The contracted tensor with modes ordered as ``spec``'s output.
@@ -173,7 +181,7 @@ def contract(
             mesh=mesh, in_specs=in_specs, out_spec=out_spec,
         )
     with _trace.span("contract", "core") as sp:
-        _annotate_contraction(sp, spec, A, B, strategy, backend, tiles)
+        _annotate_contraction(sp, spec, A, B, strategy, backend, tiles, mesh)
         return _contract_impl(
             spec, A, B, strategy=strategy, backend=backend,
             force_batch=force_batch, tiles=tiles, out_dtype=out_dtype,
@@ -181,14 +189,14 @@ def contract(
         )
 
 
-def _annotate_contraction(sp, spec, A, B, strategy, backend, tiles):
+def _annotate_contraction(sp, spec, A, B, strategy, backend, tiles, mesh):
     """Attach the roofline-attribution attributes to a ``contract`` span,
     and time its body on the device when the operands lie on the card.
 
     Best-effort: malformed calls annotate only what they were given and
     let the implementation raise its usual error (the span then records
     with an ``error`` attribute)."""
-    sp.set(strategy=strategy, backend=backend,
+    sp.set(strategy=strategy, backend=backend, sharded=mesh is not None,
            spec=spec if isinstance(spec, str) else spec.spec_str())
     try:
         cs = parse_spec(spec) if isinstance(spec, str) else spec
@@ -213,20 +221,26 @@ def _contract_impl(spec, A, B, *, strategy, backend, force_batch, tiles,
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    if mesh is not None or in_specs is not None or out_spec is not None:
-        raise NotImplementedError(
-            "sharded contraction (mesh=/in_specs=/out_spec=) is not ported "
-            "yet: ROADMAP queue 1, item 12")
     cs = parse_spec(spec) if isinstance(spec, str) else spec
     dims = infer_dims(cs, A, B)
-    if A.device != B.device:
-        raise ValueError(f"operands on different devices: {A.device} vs {B.device}")
     out_dtype = out_dtype or torch.promote_types(A.dtype, B.dtype)
 
     if _ACTIVE_RECORDERS:
         rec_dtype = dtype_name(torch.promote_types(A.dtype, B.dtype))
         for rec in _ACTIVE_RECORDERS:
             rec.append((cs.spec_str(), dict(dims), rec_dtype))
+
+    if mesh is not None:
+        from repro_torch.distributed.contract import sharded_contract  # no cycle
+
+        return sharded_contract(
+            cs, A, B, mesh=mesh, in_specs=in_specs, out_spec=out_spec,
+            strategy=strategy, backend=backend, tiles=tiles, out_dtype=out_dtype,
+        )
+    if in_specs is not None or out_spec is not None:
+        raise ValueError("in_specs/out_spec require mesh=")
+    if A.device != B.device:
+        raise ValueError(f"operands on different devices: {A.device} vs {B.device}")
 
     if strategy == "tuned":
         if tiles is not None:

@@ -64,7 +64,13 @@ import torch
 
 from repro_torch.core.contract import Backend, Strategy, contract, infer_dims
 from repro_torch.core.notation import _VALID_MODES, CaseKind, ContractionSpec
-from repro_torch.core.planner import contraction_flops, make_plan, modes_size
+from repro_torch.core.planner import (
+    COMM_FLOPS_PER_BYTE,
+    contraction_flops,
+    make_plan,
+    modes_size,
+    sharded_step_cost,
+)
 
 __all__ = [
     "OPTIMAL_MAX_OPERANDS",
@@ -168,8 +174,11 @@ class PathStep:
     out: int
     spec: ContractionSpec          # pairwise spec lowered through make_plan
     flops: int                     # optimizer objective: cost-model flops
+                                   # (plus the flop-equivalent communication
+                                   # term when planned against a mesh)
     size: int                      # element count of this step's result
     kind: str = ""                 # planner classification (CaseKind.*)
+    comm_bytes: int = 0            # estimated collective bytes/device (mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,6 +195,11 @@ class ContractionPath:
     @property
     def total_flops(self) -> int:
         return sum(s.flops for s in self.steps)
+
+    @property
+    def total_comm_bytes(self) -> int:
+        """Estimated collective bytes/device (0 for single-device paths)."""
+        return sum(s.comm_bytes for s in self.steps)
 
     @property
     def largest_intermediate(self) -> int:
@@ -242,13 +256,32 @@ def _classify(cs: ContractionSpec, dims: dict) -> tuple[str, int]:
     return plan.kind, penalty
 
 
-def _make_step(ids, modes, ia, ib, res, dims, next_id) -> PathStep:
+def _step_cost(cs: ContractionSpec, dims: dict, shard) -> tuple[int, int]:
+    """(optimizer objective, comm bytes) for one pairwise step.
+
+    ``shard`` is ``None`` (single-device — the objective is exactly
+    :func:`contraction_flops`) or ``(mode_axes, axis_sizes)`` from a mesh:
+    then flops are per-shard and collective bytes fold in at
+    :data:`~repro_torch.core.planner.COMM_FLOPS_PER_BYTE` flop-equivalents,
+    so path optimization ranks sharded paths by modeled wall-clock, not by
+    single-device flops (a path that keeps contracted modes unsharded can
+    beat a nominally cheaper one that all-reduces every step).
+    """
+    if shard is None:
+        return contraction_flops(cs, dims), 0
+    mode_axes, axis_sizes = shard
+    flops_local, comm = sharded_step_cost(cs, dims, mode_axes, axis_sizes)
+    return flops_local + int(COMM_FLOPS_PER_BYTE * comm), comm
+
+
+def _make_step(ids, modes, ia, ib, res, dims, next_id, shard=None) -> PathStep:
     cs = ContractionSpec(modes[ia], modes[ib], res)
     kind, _ = _classify(cs, dims)
+    cost, comm = _step_cost(cs, dims, shard)
     return PathStep(
         lhs=ids[ia], rhs=ids[ib], out=next_id, spec=cs,
-        flops=contraction_flops(cs, dims), size=modes_size(res, dims),
-        kind=kind,
+        flops=cost, size=modes_size(res, dims),
+        kind=kind, comm_bytes=comm,
     )
 
 
@@ -264,7 +297,7 @@ def _keep_for(modes: list[str], output: str, skip: tuple[int, int]) -> set:
     return keep
 
 
-def _naive_path(inputs, output, dims) -> tuple[PathStep, ...]:
+def _naive_path(inputs, output, dims, shard=None) -> tuple[PathStep, ...]:
     """Left-to-right fold — the hand-written pairwise baseline."""
     ids = list(range(len(inputs)))
     modes = list(inputs)
@@ -273,13 +306,13 @@ def _naive_path(inputs, output, dims) -> tuple[PathStep, ...]:
     while len(modes) > 1:
         keep = _keep_for(modes, output, (0, 1))
         res = output if len(modes) == 2 else _pair_modes(modes[0], modes[1], keep)
-        steps.append(_make_step(ids, modes, 0, 1, res, dims, next_id))
+        steps.append(_make_step(ids, modes, 0, 1, res, dims, next_id, shard))
         ids[:2], modes[:2] = [next_id], [res]
         next_id += 1
     return tuple(steps)
 
 
-def _greedy_path(inputs, output, dims) -> tuple[PathStep, ...]:
+def _greedy_path(inputs, output, dims, shard=None) -> tuple[PathStep, ...]:
     """Smallest-intermediate-first (ties: fewest flops, then operand order).
 
     Pairs sharing at least one mode are preferred over outer products."""
@@ -297,14 +330,14 @@ def _greedy_path(inputs, output, dims) -> tuple[PathStep, ...]:
                 key = (
                     not (set(modes[i]) & set(modes[j])),
                     modes_size(res, dims),
-                    contraction_flops(cs, dims),
+                    _step_cost(cs, dims, shard)[0],
                     _classify(cs, dims)[1],
                     i, j,
                 )
                 if best is None or key < best[0]:
                     best = (key, i, j, res)
         _, i, j, res = best
-        steps.append(_make_step(ids, modes, i, j, res, dims, next_id))
+        steps.append(_make_step(ids, modes, i, j, res, dims, next_id, shard))
         for idx in (j, i):  # j first: preserve i's position
             del ids[idx], modes[idx]
         ids.append(next_id)
@@ -313,14 +346,16 @@ def _greedy_path(inputs, output, dims) -> tuple[PathStep, ...]:
     return tuple(steps)
 
 
-def _optimal_path(inputs, output, dims) -> tuple[PathStep, ...]:
+def _optimal_path(inputs, output, dims, shard=None) -> tuple[PathStep, ...]:
     """Exact subset dynamic program (Held–Karp over operand bitmasks).
 
     ``best[mask]`` holds the cheapest way to contract the operand subset
     ``mask`` down to one tensor.  A subset's result modes are path-
     independent — a mode survives iff it appears outside the subset or in
-    the output — so the DP is well-formed.  Minimises total flops, with
-    the summed layout penalty (flatten ≺ sb_gemm ≺ nested ≺
+    the output — so the DP is well-formed.  Minimises total flops (plus
+    the communication term under a mesh, which is also subset-local: the
+    global mode→axis map makes every step's sharding path-independent),
+    with the summed layout penalty (flatten ≺ sb_gemm ≺ nested ≺
     exceptional) and the largest intermediate as tie-breaks.
     """
     n = len(inputs)
@@ -361,7 +396,7 @@ def _optimal_path(inputs, output, dims) -> tuple[PathStep, ...]:
                         ml, mr, outside_keep[mask]
                     )
                     cs = ContractionSpec(ml, mr, res)
-                    tot = fl_l + fl_r + contraction_flops(cs, dims)
+                    tot = fl_l + fl_r + _step_cost(cs, dims, shard)[0]
                     pen = pn_l + pn_r + _classify(cs, dims)[1]
                     peak = max(pk_l, pk_r, modes_size(res, dims))
                     if choice is None or (tot, pen, peak) < choice[:3]:
@@ -378,10 +413,11 @@ def _optimal_path(inputs, output, dims) -> tuple[PathStep, ...]:
         _, _, _, res, (lmask, rmask) = best[mask]
         la, lb = emit(lmask), emit(rmask)
         cs = ContractionSpec(best[lmask][3], best[rmask][3], res)
+        cost, comm = _step_cost(cs, dims, shard)
         step = PathStep(
             lhs=la, rhs=lb, out=counter[0], spec=cs,
-            flops=contraction_flops(cs, dims), size=modes_size(res, dims),
-            kind=_classify(cs, dims)[0],
+            flops=cost, size=modes_size(res, dims),
+            kind=_classify(cs, dims)[0], comm_bytes=comm,
         )
         counter[0] += 1
         steps.append(step)
@@ -426,27 +462,71 @@ def _tuned_path(spec, inputs, output, dims, dtype) -> ContractionPath:
     return dataclasses.replace(chosen, optimize="tuned")
 
 
-def _plan_path(spec, inputs, output, dims, optimize, *, dtype=None
+def _plan_path(spec, inputs, output, dims, optimize, *, dtype=None, shard=None
                ) -> ContractionPath:
     if len(inputs) < 2:
         return ContractionPath(spec, inputs, output, dims, (), str(optimize))
     check_optimize(optimize)
     if optimize == "tuned":
+        if shard is not None:
+            raise ValueError(
+                "optimize='tuned' re-ranks with single-device measurements; "
+                "use 'auto'/'greedy'/'optimal'/'naive' with mesh="
+            )
         return _tuned_path(spec, inputs, output, dims, dtype or torch.float32)
     method = optimize
     if optimize == "auto":
         method = "optimal" if len(inputs) <= AUTO_OPTIMAL_LIMIT else "greedy"
     if method == "naive" or len(inputs) == 2:
-        steps = _naive_path(inputs, output, dims)
+        steps = _naive_path(inputs, output, dims, shard)
     elif method == "greedy":
-        steps = _greedy_path(inputs, output, dims)
+        steps = _greedy_path(inputs, output, dims, shard)
     else:
-        steps = _optimal_path(inputs, output, dims)
+        steps = _optimal_path(inputs, output, dims, shard)
     return ContractionPath(spec, inputs, output, dims, steps, method)
 
 
+def _shard_ctx(inputs, in_specs, mesh):
+    """(global mode→axis map, axis sizes) for comm-aware path costing."""
+    from repro_torch.distributed.contract import resolve_mode_axes  # no cycle
+
+    mode_axes = resolve_mode_axes(inputs, in_specs, mesh=mesh)
+    axis_sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return mode_axes, axis_sizes
+
+
+def _drop_reduced_pspecs(in_specs, inputs_before, reduce_axes):
+    """Align per-operand PartitionSpecs past the sum-only reduction.
+
+    A sharded sum-only mode would need a post-sum psum; rather than model
+    that corner we reject it — shard modes that participate in the
+    contraction.
+    """
+    from repro_torch.distributed.sharding import PartitionSpec as P
+
+    if in_specs is None:
+        return None
+    if len(in_specs) != len(inputs_before):
+        raise ValueError(
+            f"spec has {len(inputs_before)} operands, got {len(in_specs)} "
+            f"in_specs"
+        )
+    out = []
+    for pspec, modes, axes in zip(in_specs, inputs_before, reduce_axes):
+        entries = list(tuple(pspec) if pspec is not None else ())
+        entries += [None] * (len(modes) - len(entries))
+        for i in axes:
+            if entries[i] is not None:
+                raise NotImplementedError(
+                    f"mode {modes[i]!r} is summed out before planning but "
+                    f"sharded over {entries[i]!r}; replicate sum-only modes"
+                )
+        out.append(P(*[e for i, e in enumerate(entries) if i not in axes]))
+    return tuple(out)
+
+
 def contraction_path(
-    spec: str, *operands, optimize: Optimize = "auto"
+    spec: str, *operands, optimize: Optimize = "auto", mesh=None, in_specs=None
 ) -> ContractionPath:
     """Plan (without executing) the pairwise-contraction path for ``spec``.
 
@@ -454,12 +534,21 @@ def contraction_path(
     used (plus dtypes, when present, for ``optimize="tuned"`` cache
     lookups).  Modes appearing in a single operand and not in the output are
     summed out up front and do not appear in the returned path's steps.
+
+    With ``mesh`` (a ``DeviceMesh``) and per-operand ``in_specs`` the path
+    is costed shard-aware: per-step flops divide across the shards and a
+    communication term (collective bytes × flop-equivalents) is added
+    where a sharded contracted mode forces an all-reduce — so the
+    optimizer ranks sharded paths by modeled wall-clock.
     """
+    if mesh is None and in_specs is not None:
+        raise ValueError("in_specs requires mesh=")
     inputs, output = parse_nary(spec)
     shapes = [tuple(getattr(op, "shape", op)) for op in operands]
     if len(shapes) != len(inputs):
         raise ValueError(f"spec has {len(inputs)} operands, got {len(shapes)}")
     reduce_axes = _sum_only_axes(inputs, output)
+    in_specs = _drop_reduced_pspecs(in_specs, inputs, reduce_axes)
     inputs = tuple(
         "".join(m for i, m in enumerate(t) if i not in axes)
         for t, axes in zip(inputs, reduce_axes)
@@ -471,7 +560,8 @@ def contraction_path(
     dims = _infer_dims(inputs, shapes)
     dts = [op.dtype for op in operands if isinstance(op, torch.Tensor)]
     dtype = functools.reduce(torch.promote_types, dts) if dts else torch.float32
-    return _plan_path(spec, inputs, output, dims, optimize, dtype=dtype)
+    shard = _shard_ctx(inputs, in_specs, mesh) if mesh is not None else None
+    return _plan_path(spec, inputs, output, dims, optimize, dtype=dtype, shard=shard)
 
 
 # --------------------------------------------------------------------------
@@ -487,13 +577,32 @@ def _pairwise(cs: ContractionSpec, a, b, strategy, backend):
       (n-ary semantics: flatten *where possible*, unlike strict pairwise
       :func:`contract` which raises).
     """
-    eff = strategy
+    return contract(cs, a, b, strategy=_soften_step(cs, a, b, strategy),
+                    backend=backend)
+
+
+def _soften_step(cs, a, b, strategy):
+    """The effective strategy for one path step — shared by the
+    single-device and sharded lowerings so they can never diverge."""
     if not cs.c_modes or a.ndim == 0 or b.ndim == 0:
-        eff = "direct"
-    elif strategy == "flatten":
+        return "direct"
+    if strategy == "flatten":
         if make_plan(cs, infer_dims(cs, a, b)).kind != CaseKind.FLAT_GEMM:
-            eff = "auto"
-    return contract(cs, a, b, strategy=eff, backend=backend)
+            return "auto"
+    return strategy
+
+
+def _pairwise_sharded(cs: ContractionSpec, a, b, a_pspec, b_pspec, step_out_spec,
+                      strategy, backend, mesh):
+    """Sharded mirror of :func:`_pairwise` — one path step over the mesh,
+    with the placements the shard placement pass planned for it."""
+    from repro_torch.distributed.contract import sharded_contract  # no cycle
+
+    return sharded_contract(
+        cs, a, b, mesh=mesh, in_specs=(a_pspec, b_pspec),
+        out_spec=step_out_spec, strategy=_soften_step(cs, a, b, strategy),
+        backend=backend,
+    )
 
 
 def xeinsum(
@@ -503,6 +612,9 @@ def xeinsum(
     strategy: Strategy | Literal["kernel"] = "auto",
     backend: Backend = "torch",
     out_dtype=None,
+    mesh=None,
+    in_specs=None,
+    out_spec=None,
 ):
     """N-ary einsum through the paper's contraction engine.
 
@@ -525,6 +637,17 @@ def xeinsum(
         backend="kernel"`` (the hand-written kernel on every step).
       backend: ``"torch"`` or ``"kernel"``.
       out_dtype: result dtype (default: promoted operand dtype).
+      mesh: a ``DeviceMesh`` — execute every path step sharded
+        (:mod:`repro_torch.distributed.contract`): path optimization gains
+        the communication cost term, each pairwise step runs the local
+        kernels per shard, and intermediate shardings propagate naturally
+        (collectives only where a sharded contracted mode forces a
+        reduction).  Operands are DTensors on the mesh or plain tensors
+        holding the global value on every rank; the result is a DTensor.
+      in_specs: with ``mesh``, one ``PartitionSpec`` (or ``None``) per
+        operand, aligned to its spec modes.
+      out_spec: with ``mesh``, the requested output sharding (default
+        natural).
 
     Returns:
       The contracted tensor, with modes ordered as the spec's output.
@@ -545,12 +668,27 @@ def xeinsum(
         torch.promote_types, [x.dtype for x in operands])
     if strategy == "kernel":
         strategy, backend = "auto", "kernel"
+    if mesh is None and (in_specs is not None or out_spec is not None):
+        raise ValueError("in_specs/out_spec require mesh=")
 
     inputs, _ = parse_nary(spec)
     if len(operands) != len(inputs):
         raise ValueError(f"spec has {len(inputs)} operands, got {len(operands)}")
+
+    # single-operand expressions have no contract step to carry out_spec:
+    # the result is placed on the mesh afterwards
+    single_out_spec = None
+    if len(operands) == 1 and mesh is not None:
+        single_out_spec, out_spec = out_spec, None
+
     prog = compile_program(
         spec, *operands, optimize=optimize, strategy=strategy,
-        backend=backend, out_dtype=out_dtype,
+        backend=backend, out_dtype=out_dtype, mesh=mesh, in_specs=in_specs,
+        out_specs=(out_spec,) if out_spec is not None else None,
     )
-    return prog(*operands)
+    result = prog(*operands)
+    if len(operands) == 1 and mesh is not None:
+        from repro_torch.distributed.contract import as_dtensor  # no cycle
+
+        result = as_dtensor(result, single_out_spec, mesh)
+    return result

@@ -8,7 +8,7 @@ typed IR:
 1. :class:`PathOptimizationPass` — expand each n-ary node into pairwise
    ``contract`` steps (plus ``reduce`` for sum-only modes and
    ``transpose`` for single-operand expressions) using the path
-   optimizers of :mod:`repro_torch.core.einsum`.
+   optimizers of :mod:`repro_torch.core.einsum`; comm-aware under a mesh.
 2. :class:`LayoutTieBreakPass`   — annotate every contract step with its
    planner classification and layout penalty (flatten ≺ sb_gemm ≺ nested
    ≺ exceptional) — the paper's evaluation hierarchy.
@@ -16,14 +16,16 @@ typed IR:
    analytic candidate paths with measured step costs
    (:func:`repro_torch.tuning.dispatch.path_cost`) and splice in the
    winner.
-4. :class:`CSEPass`              — hash-cons identical steps so repeated
+4. :class:`ShardPlacementPass`   — under a mesh, thread ``PartitionSpec``
+   annotations through the DAG
+   (:func:`repro_torch.distributed.contract.plan_sharded` per step;
+   natural propagation, caller-requested output reshardings on program
+   outputs).
+5. :class:`CSEPass`              — hash-cons identical steps so repeated
    subexpressions (a shared TTM stage, a duplicated gram) compute once.
-5. :class:`LivenessPass`         — last-use analysis: annotate each step
+6. :class:`LivenessPass`         — last-use analysis: annotate each step
    with the buffers that die after it (the executor frees them) and
    validate buffer-donation requests.
-
-The JAX package's shard placement pass waits for the ``distributed/``
-port (ROADMAP queue 1, item 12).
 Passes hold no state between runs; anything cross-pass travels in the
 :class:`PassContext`.
 """
@@ -33,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import re
+from typing import Any
 
 import torch
 
@@ -52,6 +55,7 @@ __all__ = [
     "PathOptimizationPass",
     "LayoutTieBreakPass",
     "TunedRerankPass",
+    "ShardPlacementPass",
     "CSEPass",
     "LivenessPass",
     "DEFAULT_PIPELINE",
@@ -78,30 +82,40 @@ class PathOptimizationPass:
     expression's output) reduce first; single-operand expressions become a
     ``transpose``; everything else is path-planned by the configured
     optimizer (``naive``/``greedy``/``optimal``/``auto``) with the layout
-    tie-break.  For ``optimize="tuned"`` the analytic candidates are
-    planned here and stashed for :class:`TunedRerankPass`.
+    tie-break and — under a mesh — the communication cost term.  For
+    ``optimize="tuned"`` the analytic candidates are planned here and
+    stashed for :class:`TunedRerankPass`.
     """
 
     name = "path-optimization"
 
     def run(self, prog: ContractionProgram, ctx: PassContext) -> ContractionProgram:
         shapes, dtypes = propagate_shapes(prog)
+        pspecs = dict(zip(prog.input_names, ctx.options.in_specs))
         new_steps: list[ContractionStep] = []
         for step in prog.steps:
             if step.op != "einsum":
                 new_steps.append(step)
                 continue
-            new_steps.extend(self._expand(step, shapes, dtypes, ctx))
+            new_steps.extend(self._expand(step, shapes, dtypes, pspecs, ctx))
         return dataclasses.replace(prog, steps=tuple(new_steps))
 
-    def _expand(self, step, shapes, dtypes, ctx):
+    def _expand(self, step, shapes, dtypes, pspecs, ctx):
+        opts = ctx.options
         in_modes, output = _einsum.parse_nary(step.spec)
         reduce_axes = _einsum._sum_only_axes(in_modes, output)
 
         steps: list[ContractionStep] = []
         arg_names: list[str] = []
+        arg_pspecs: list = []
         for n, (arg, axes) in enumerate(zip(step.args, reduce_axes)):
+            pspec = pspecs.get(arg)
             if axes:
+                # shared with the eager front-end: rejects sharded sum-only
+                # modes and aligns the spec past the reduction
+                (pspec,) = _einsum._drop_reduced_pspecs(
+                    (pspec,), (in_modes[n],), (axes,)
+                )
                 name = f"%{step.out}.r{n}"
                 steps.append(ContractionStep(
                     op="reduce", out=name, args=(arg,), axes=axes,
@@ -109,6 +123,7 @@ class PathOptimizationPass:
                 arg_names.append(name)
             else:
                 arg_names.append(arg)
+            arg_pspecs.append(pspec)
         reduced = tuple(
             "".join(m for i, m in enumerate(t) if i not in axes)
             for t, axes in zip(in_modes, reduce_axes)
@@ -126,17 +141,30 @@ class PathOptimizationPass:
             return steps
 
         dims = _einsum._infer_dims(reduced, red_shapes)
-        if ctx.options.optimize == "tuned":
+        dtype = functools.reduce(torch.promote_types,
+                                 [dtypes[a] for a in step.args])
+        shard = None
+        if opts.mesh is not None:
+            # mode→axis map for comm-aware costing.  Args produced by
+            # earlier expressions have no caller spec; they enter the map
+            # as replicated — exact for single-expression programs, an
+            # under-estimate of available sharding for chained ones.
+            from repro_torch.distributed.contract import resolve_mode_axes
+
+            mode_axes = resolve_mode_axes(reduced, tuple(arg_pspecs),
+                                          mesh=opts.mesh)
+            axis_sizes = dict(zip(opts.mesh.mesh_dim_names, opts.mesh.shape))
+            shard = (mode_axes, axis_sizes)
+
+        if opts.optimize == "tuned":
             candidates = _einsum._candidate_paths(step.spec, reduced, output, dims)
             path = candidates[0]  # auto's choice until the re-rank pass
-            dtype = functools.reduce(torch.promote_types,
-                                     [dtypes[a] for a in step.args])
             ctx.artifacts.setdefault("tuned_candidates", {})[step.out] = (
                 candidates, dims, dtype, tuple(arg_names), step.strategy,
             )
         else:
             path = _einsum._plan_path(step.spec, reduced, output, dims,
-                                      ctx.options.optimize)
+                                      opts.optimize, dtype=dtype, shard=shard)
         steps.extend(
             _steps_from_path(path, tuple(arg_names), step.out, step.strategy)
         )
@@ -204,9 +232,86 @@ class TunedRerankPass:
         return dataclasses.replace(prog, steps=tuple(steps))
 
 
+class ShardPlacementPass:
+    """Thread ``PartitionSpec`` annotations through the DAG (mesh only).
+
+    Program inputs carry the caller's ``in_specs``; every contract step is
+    planned with :func:`repro_torch.distributed.contract.plan_sharded` and
+    annotated with its aligned input specs and resulting output spec
+    (natural propagation — collectives only where a sharded contracted
+    mode forces them).  Caller-requested output reshardings apply to the
+    steps producing program outputs.
+    """
+
+    name = "shard-placement"
+
+    def run(self, prog: ContractionProgram, ctx: PassContext) -> ContractionProgram:
+        opts = ctx.options
+        if opts.mesh is None:
+            return prog
+        from repro_torch.distributed.contract import plan_sharded
+        from repro_torch.distributed.sharding import P, specs_equal
+
+        requested = dict(zip(prog.outputs, opts.out_specs))
+        shapes, _ = propagate_shapes(prog)
+        pspecs: dict[str, Any] = dict(zip(prog.input_names, opts.in_specs))
+        new_steps = []
+        for s in prog.steps:
+            if s.op == "reduce":
+                pspec = pspecs.get(s.args[0])
+                if pspec is not None:
+                    entries = list(tuple(pspec))
+                    entries += [None] * (len(shapes[s.args[0]]) - len(entries))
+                    for i in s.axes:
+                        # einsum-derived reduces were validated at path
+                        # expansion; this guards pre-planned paths, where a
+                        # sharded sum-only axis would need a post-sum psum
+                        if entries[i] is not None:
+                            raise NotImplementedError(
+                                f"axis {i} of {s.args[0]!r} is summed out "
+                                f"before planning but sharded over "
+                                f"{entries[i]!r}; replicate sum-only modes"
+                            )
+                    pspec = P(*[e for i, e in enumerate(entries)
+                                if i not in s.axes])
+                pspecs[s.out] = pspec
+            elif s.op == "transpose":
+                pspec = pspecs.get(s.args[0])
+                if pspec is not None:
+                    entries = list(tuple(pspec))
+                    entries += [None] * (len(s.axes) - len(entries))
+                    pspec = P(*[entries[i] for i in s.axes])
+                pspecs[s.out] = pspec
+                if requested.get(s.out) is not None:
+                    raise NotImplementedError(
+                        "out_specs on a transpose-only output is not "
+                        "supported; reshard the result DTensor"
+                    )
+            elif s.op == "contract":
+                cs = parse_spec(s.spec)
+                dims = step_dims(cs, shapes[s.args[0]], shapes[s.args[1]])
+                pa, pb = pspecs.get(s.args[0]), pspecs.get(s.args[1])
+                req = requested.get(s.out)
+                plan = plan_sharded(
+                    cs, dims, mesh=opts.mesh, in_specs=(pa, pb), out_spec=req
+                )
+                if req is not None and not specs_equal(plan.out_spec, req):
+                    raise AssertionError(
+                        f"shard placement for {s.out!r} produced "
+                        f"{plan.out_spec}, caller requested {req}"
+                    )
+                s = dataclasses.replace(
+                    s, in_pspecs=(pa, pb), out_pspec=plan.out_spec,
+                    comm_bytes=s.comm_bytes,
+                )
+                pspecs[s.out] = plan.out_spec
+            new_steps.append(s)
+        return dataclasses.replace(prog, steps=tuple(new_steps))
+
+
 class CSEPass:
     """Hash-cons identical steps: same op, same (resolved) arguments, same
-    spec/axes/strategy compute the same value — later duplicates are
+    spec/axes/strategy/sharding compute the same value — later duplicates are
     dropped and their consumers rewired to the first occurrence.  Only
     *structural* duplicates merge; the pass does not exploit
     commutativity (``A·B`` vs ``B·A``)."""
@@ -219,7 +324,8 @@ class CSEPass:
         new_steps = []
         for s in prog.steps:
             args = tuple(rename.get(a, a) for a in s.args)
-            key = (s.op, args, s.spec, s.axes, s.strategy)
+            key = (s.op, args, s.spec, s.axes, s.strategy,
+                   s.in_pspecs, s.out_pspec)
             prior = seen.get(key)
             if prior is not None:
                 rename[s.out] = prior
@@ -272,6 +378,7 @@ DEFAULT_PIPELINE = (
     PathOptimizationPass(),
     LayoutTieBreakPass(),
     TunedRerankPass(),
+    ShardPlacementPass(),
     CSEPass(),
     LivenessPass(),
 )

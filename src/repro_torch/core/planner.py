@@ -31,6 +31,8 @@ __all__ = [
     "make_plan",
     "modes_size",
     "contraction_flops",
+    "sharded_step_cost",
+    "COMM_FLOPS_PER_BYTE",
 ]
 
 
@@ -100,6 +102,72 @@ def contraction_flops(spec: str | ContractionSpec, dims: dict) -> int:
     return 2 * modes_size("".join(dict.fromkeys(cs.a_modes + cs.b_modes)), dims)
 
 
+#: flop-equivalents per byte crossing the interconnect, used to fold the
+#: communication term into the path optimizer's flop objective.  Peise et
+#: al. (arXiv:1409.8608) compose per-kernel models into whole-contraction
+#: predictions; a mesh adds one more kernel class — the collective — whose
+#: cost is bandwidth-bound.  ~100 GFLOP/s of per-device compute against
+#: ~3 GB/s of host-simulated (or PCIe-class) interconnect gives O(30)
+#: flops per byte; the exact constant only needs to be large enough that
+#: a path moving gigabytes never beats one moving kilobytes.
+COMM_FLOPS_PER_BYTE = 32.0
+
+
+def sharded_step_cost(
+    spec: str | ContractionSpec,
+    dims: dict,
+    mode_axes: dict,
+    axis_sizes: dict,
+    *,
+    dtype_bytes: int = 4,
+) -> tuple[int, int]:
+    """(local flops, communication bytes per device) for one sharded step.
+
+    ``mode_axes`` maps a mode to the mesh axis name (or tuple of names)
+    that shards it; modes absent from the map are replicated.  The model:
+
+    * every device computes its block → flops divide by the product of
+      the axis sizes sharding any mode of the step;
+    * a *sharded contracted mode* leaves each device with a partial
+      result that must be all-reduced (or reduce-scattered) over the
+      contracted axes: a ring moves ``2·(R-1)/R × local_bytes`` per
+      device — ``≈ local_bytes × R`` relative to the post-reduction
+      shard, which is the "bytes moved × mesh axis size" term;
+    * batch/free sharded modes move nothing.
+
+    The total path objective is ``local_flops + COMM_FLOPS_PER_BYTE ×
+    comm_bytes``; with no sharded modes this degrades exactly to
+    :func:`contraction_flops`.
+    """
+    cs = parse_spec(spec) if isinstance(spec, str) else spec
+
+    def group(mode: str) -> tuple[str, ...]:
+        g = mode_axes.get(mode)
+        if g is None:
+            return ()
+        return (g,) if isinstance(g, str) else tuple(g)
+
+    def shard_factor(modes) -> int:
+        f = 1
+        for m in dict.fromkeys(modes):
+            for ax in group(m):
+                f *= int(axis_sizes[ax])
+        return f
+
+    every = "".join(dict.fromkeys(cs.a_modes + cs.b_modes))
+    flops_local = contraction_flops(cs, dims) // max(shard_factor(every), 1)
+
+    reduce_f = shard_factor(cs.contracted)
+    comm = 0
+    if reduce_f > 1:
+        out_local = modes_size(cs.c_modes, dims) // max(
+            shard_factor(cs.c_modes), 1
+        )
+        # ring all-reduce of each device's partial block of C
+        comm = 2 * (reduce_f - 1) * out_local * dtype_bytes
+    return flops_local, comm
+
+
 def _apply_flattening(spec: ContractionSpec, groups: list[str], dims: dict):
     """Rename each flattened group to its leading mode, fusing dims."""
     fdims = dict(dims)
@@ -150,19 +218,40 @@ def make_plan(
     ``force_batch`` pins the sb_gemm batch mode (used by the Fig. 5/6
     benchmarks that compare batching the last vs. the middle output mode).
 
-    ``mesh``/``in_specs`` (sharded planning) are not ported yet and raise
-    ``NotImplementedError`` (ROADMAP queue 1, item 12).
+    With ``mesh`` (a ``DeviceMesh``) and ``in_specs`` (one
+    ``PartitionSpec`` per operand) the plan describes what each *shard*
+    executes under :func:`repro_torch.distributed.contract.sharded_contract`:
+    dims of sharded modes are divided by their mesh-axis sizes (validated
+    divisible), and the plan's notes record the collectives the sharded
+    lowering will insert.  The local plan's kind may legitimately differ
+    from the global one — classification depends on sizes.
     """
-    if mesh is not None or in_specs is not None:
-        raise NotImplementedError(
-            "sharded planning (mesh=/in_specs=) is not ported yet: "
-            "ROADMAP queue 1, item 12")
     cs = parse_spec(spec) if isinstance(spec, str) else spec
     cs.validate()
     missing = (set(cs.a_modes) | set(cs.b_modes)) - set(dims)
     if missing:
         raise ValueError(f"dims missing for modes {sorted(missing)}")
-    return _plan_local(cs, dims, allow_flatten=allow_flatten, force_batch=force_batch)
+
+    shard_note = ""
+    if mesh is not None:
+        # deferred import: distributed builds on core, not the reverse
+        from repro_torch.distributed.contract import resolve_mode_axes, local_dims
+
+        mode_axes = resolve_mode_axes(
+            (cs.a_modes, cs.b_modes), in_specs, mesh=mesh
+        )
+        dims = local_dims(dims, mode_axes, mesh)
+        reduced = [m for m in cs.contracted if m in mode_axes]
+        body = ",".join(f"{m}:{mode_axes[m]}" for m in sorted(mode_axes))
+        shard_note = f"sharded[{body or 'replicated'}]" + (
+            f" psum over {reduced}" if reduced else ""
+        )
+
+    plan = _plan_local(cs, dims, allow_flatten=allow_flatten, force_batch=force_batch)
+    if shard_note:
+        notes = f"{plan.notes}; {shard_note}" if plan.notes else shard_note
+        plan = dataclasses.replace(plan, notes=notes)
+    return plan
 
 
 def _plan_local(

@@ -14,11 +14,15 @@ each of them on every call.  This module compiles whole expressions:
   node per expression; the pass pipeline rewrites them into ``contract``
   / ``reduce`` / ``transpose`` nodes (see :mod:`repro_torch.core.passes`).
 * **Passes** — path optimization, layout tie-break annotation, tuned
-  re-ranking, CSE of repeated subexpressions, and intermediate-liveness
-  analysis run in order, each a pure ``program -> program`` rewrite.
+  re-ranking, shard placement, CSE of repeated subexpressions, and
+  intermediate-liveness analysis run in order, each a pure
+  ``program -> program`` rewrite.
 * **Execution** — the planned steps run eagerly through
   :func:`repro_torch.core.contract.contract` (the paper's planner and
-  kernels); there is no tracing compiler, so no ``jit``.  Liveness
+  kernels), or, under a mesh, through
+  :func:`repro_torch.distributed.contract.sharded_contract` with the
+  placements the shard placement pass threaded through the DAG; there
+  is no tracing compiler, so no ``jit``.  Liveness
   annotations drop each intermediate after its last use, which frees its
   device memory mid-program.
 * **Cache** — compiled programs are cached process-wide by canonical
@@ -101,12 +105,18 @@ class ContractionStep:
     penalty: int = -1             # layout penalty (flat ≺ sb ≺ nested ≺ exc)
     flops: int = 0                # cost-model flops (path optimization)
     last_uses: tuple[str, ...] = ()   # buffers dead after this step (liveness)
+    comm_bytes: int = 0           # estimated collective bytes/device (mesh)
+    in_pspecs: tuple = ()         # per-arg PartitionSpecs (shard placement)
+    out_pspec: Any = None         # result sharding (shard placement)
 
     def key(self) -> tuple:
         """Structural identity — what makes two steps compute the same
-        value the same way (cost annotations are not included)."""
-        return (self.op, self.out, self.args, self.spec, self.axes,
-                self.strategy)
+        value the same way (pass annotations that affect execution are
+        included; cost annotations are not)."""
+        return (
+            self.op, self.out, self.args, self.spec, self.axes,
+            self.strategy, self.in_pspecs, self.out_pspec,
+        )
 
     def describe(self) -> str:
         bits = [f"%{self.out} = {self.op}"]
@@ -121,6 +131,10 @@ class ContractionStep:
             bits.append(f"[{self.kind}]")
         if self.flops:
             bits.append(f"flops={self.flops}")
+        if self.comm_bytes:
+            bits.append(f"comm={self.comm_bytes}B")
+        if self.out_pspec is not None:
+            bits.append(f"pspec={self.out_pspec}")
         if self.last_uses:
             bits.append(f"frees={list(self.last_uses)}")
         return " ".join(bits)
@@ -298,6 +312,25 @@ class ProgramOptions:
     backend: str = "torch"
     out_dtype: Any = None                # per-output dtype (single value)
     donate: tuple[str, ...] = ()
+    mesh: Any = None                     # a DeviceMesh (sharded execution)
+    in_specs: tuple = ()                 # aligned to program inputs
+    out_specs: tuple = ()                # aligned to program outputs
+
+    def _mesh_key(self):
+        # The mesh object itself, by identity: a process group, unlike a JAX
+        # mesh's devices, can be destroyed and a world of the same shape
+        # started again, and a program cached for the old mesh would run on
+        # its dead groups.  The cached program holds its mesh, so the id is
+        # not reused while the entry lives.
+        if self.mesh is None:
+            return None
+        return (
+            id(self.mesh),
+            self.mesh.device_type,
+            tuple(self.mesh.mesh_dim_names),
+            tuple(self.mesh.shape),
+            tuple(self.mesh.mesh.flatten().tolist()),
+        )
 
     def signature(self) -> tuple:
         return (
@@ -306,6 +339,9 @@ class ProgramOptions:
             self.strategy, self.backend,
             dtype_name(self.out_dtype) if self.out_dtype is not None else None,
             self.donate,
+            tuple(str(s) for s in self.in_specs),
+            tuple(str(s) for s in self.out_specs),
+            self._mesh_key(),
         )
 
 
@@ -351,10 +387,16 @@ def _tuning_fingerprint(prog: ContractionProgram, opts: ProgramOptions):
 
 def _run_step(step: ContractionStep, args, opts: ProgramOptions):
     if step.op == "contract":
-        return _einsum._pairwise(
-            parse_spec(step.spec), args[0], args[1],
-            step.strategy or opts.strategy, opts.backend,
-        )
+        cs = parse_spec(step.spec)
+        strategy = step.strategy or opts.strategy
+        if opts.mesh is not None:
+            return _einsum._pairwise_sharded(
+                cs, args[0], args[1],
+                step.in_pspecs[0] if step.in_pspecs else None,
+                step.in_pspecs[1] if step.in_pspecs else None,
+                step.out_pspec, strategy, opts.backend, opts.mesh,
+            )
+        return _einsum._pairwise(cs, args[0], args[1], strategy, opts.backend)
     if step.op == "reduce":
         return torch.sum(args[0], dim=step.axes)
     if step.op == "transpose":
@@ -477,7 +519,7 @@ def _steps_from_path(path, arg_names: tuple[str, ...], out: str,
         steps.append(ContractionStep(
             op="contract", out=name, args=(names[s.lhs], names[s.rhs]),
             spec=s.spec.spec_str(), strategy=strategy,
-            kind=s.kind, flops=s.flops,
+            kind=s.kind, flops=s.flops, comm_bytes=s.comm_bytes,
         ))
     return steps
 
@@ -533,6 +575,28 @@ def _single_expr_program(spec: str, operands, optimize) -> ContractionProgram:
     return build_program(inputs, [("out", spec, names)])
 
 
+def _validate_options(prog, optimize, strategy, mesh):
+    if not isinstance(optimize, tuple):
+        _einsum.check_optimize(optimize)
+    if mesh is not None:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch DeviceMesh, got {type(mesh).__name__}")
+    if mesh is not None and (
+        strategy == "tuned" or any(s.strategy == "tuned" for s in prog.steps)
+    ):
+        raise ValueError(
+            "strategy='tuned' is single-device (the cache holds per-device "
+            "measurements); pick an analytic strategy for sharded execution"
+        )
+    if mesh is not None and optimize == "tuned":
+        raise ValueError(
+            "optimize='tuned' re-ranks with single-device measurements; "
+            "use 'auto'/'greedy'/'optimal'/'naive' with mesh="
+        )
+
+
 def compile_program(
     program: ContractionProgram | str,
     *operands,
@@ -540,6 +604,9 @@ def compile_program(
     strategy: str = "auto",
     backend: str = "torch",
     out_dtype=None,
+    mesh=None,
+    in_specs=None,
+    out_specs=None,
     donate: Sequence[str] = (),
     pipeline=None,
     use_cache: bool = True,
@@ -557,6 +624,11 @@ def compile_program(
         precomputed :class:`~repro_torch.core.einsum.ContractionPath`.
       strategy/backend/out_dtype: per-step execution knobs, exactly as
         :func:`repro_torch.core.contract.contract`.
+      mesh/in_specs/out_specs: shard placement — ``mesh`` a
+        ``DeviceMesh``, ``in_specs`` one ``PartitionSpec`` (or None) per
+        program input, ``out_specs`` one per program output (requested
+        reshardings).  Every contract step then runs sharded and returns
+        a DTensor.
       donate: names of program inputs the caller gives up.  Validated by
         the liveness pass (a donated input must be consumed and must not
         be returned) and otherwise without effect: eager execution
@@ -585,12 +657,22 @@ def compile_program(
         prog = program
         prog.validate()
 
-    if not isinstance(optimize, tuple):
-        _einsum.check_optimize(optimize)
+    _validate_options(prog, optimize, strategy, mesh)
+    if mesh is None and (in_specs is not None or out_specs is not None):
+        raise ValueError("in_specs/out_specs require mesh=")
+
+    n_in, n_out = len(prog.inputs), len(prog.outputs)
+    norm_in = tuple(in_specs) if in_specs is not None else (None,) * n_in
+    norm_out = tuple(out_specs) if out_specs is not None else (None,) * n_out
+    if len(norm_in) != n_in:
+        raise ValueError(f"{n_in} program inputs but {len(norm_in)} in_specs")
+    if len(norm_out) != n_out:
+        raise ValueError(f"{n_out} program outputs but {len(norm_out)} out_specs")
 
     opts = ProgramOptions(optimize=optimize, strategy=strategy,
                           backend=backend, out_dtype=out_dtype,
-                          donate=tuple(donate))
+                          donate=tuple(donate), mesh=mesh,
+                          in_specs=norm_in, out_specs=norm_out)
     if pipeline is not None:
         use_cache = False  # pass identity is not in the canonical signature
 

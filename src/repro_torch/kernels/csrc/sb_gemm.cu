@@ -48,8 +48,20 @@
 //   ng_kernel        every other layout (an operand that varies along both
 //                    u and v, or several contracted modes): 3D bricks sized
 //                    at launch, the flattened K decoded per element.
-// Products accumulate in f32 registers with plain FMA (no TF32).  Ragged
-// edges are masked on load and store.  The TPU kernel's sequential grid
+// Products accumulate in f32 registers with plain FMA (no TF32), in k
+// order.  A contraction of more than NG_SUM_CHUNK = 4096 indices sums
+// each chunk of 4096 into a partial sum, added to the running total at
+// the chunk's end (CHUNKED true): one running sum over a long contraction
+// (HOOI's 512x512 Gram sums 262144 products) grows its rounding error with
+// the square root of the depth, and on an H100 put the Gram 2.2e-5 of the
+// result from cuBLAS's; chunks grow it with the square roots of 4096 and
+// of the number of chunks instead.  A shorter contraction sums exactly as
+// one running sum would and runs the variant without the second
+// accumulator (CHUNKED false), which took `bsv,bse->ve` (K 2048) in 295
+// ms on an H100 where the chunked one took 362.  Chunks are counted from
+// k = 0, so no result depends on the stage depth or the tile (a row's
+// bits never depend on the rows sharing its launch).  Ragged edges are
+// masked on load and store.  The TPU kernel's sequential grid
 // axes and VMEM accumulator become the in-block K loop: no state crosses
 // blocks.
 //
@@ -104,6 +116,9 @@
 #define NG_THREADS 256
 #define NG_SMEM_BYTES 49152
 #define NG_MAX_BK 32
+// contracted indices per partial sum (see "Products accumulate" above); a
+// multiple of NG_MAX_BK, counted from k = 0
+#define NG_SUM_CHUNK 4096
 
 struct NgDesc {
   int64_t ext[NG_MAX_MODES];
@@ -209,7 +224,37 @@ __device__ __forceinline__ void ng_stage(float* smem, const T* __restrict__ X,
   }
 }
 
-template <typename TA, typename TB, typename TC, int TM, int TN>
+// Adds a chunk's partial sums to the running totals and restarts them.
+template <int TM, int TN>
+__device__ __forceinline__ void ng_fold(float (&acc)[TM][TN], float (&part)[TM][TN]) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      acc[i][j] += part[i][j];
+      part[i][j] = 0.f;
+    }
+}
+
+// Products of the staged bricks' indices [k0, k1) into a thread's sums.
+template <int TM, int TN>
+__device__ __forceinline__ void ng_stage_sum(float (&part)[TM][TN], const float* As,
+                                             const float* Bs, const NgBrick& ba,
+                                             const NgBrick& bb, int tx, int ty, int k0,
+                                             int k1) {
+  for (int kk = k0; kk < k1; ++kk) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int ui = ty + 16 * i, vj = tx + 16 * j;
+        part[i][j] = fmaf(As[kk * ba.sk + ui * ba.su + vj * ba.sv],
+                          Bs[kk * bb.sk + ui * bb.su + vj * bb.sv], part[i][j]);
+      }
+  }
+}
+
+template <typename TA, typename TB, typename TC, int TM, int TN, bool CHUNKED>
 __global__ void __launch_bounds__(NG_THREADS)
 ng_kernel(const TA* __restrict__ A, const TB* __restrict__ B, TC* __restrict__ C,
           const NgDesc d, const NgBrick ba, const NgBrick bb, int bk, int64_t K,
@@ -226,28 +271,30 @@ ng_kernel(const TA* __restrict__ A, const TB* __restrict__ B, TC* __restrict__ C
     for (int w = 0; w < tl.n_walk; ++w) {
       const int64_t pa = tl.oa + w * d.sa[2], pb = tl.ob + w * d.sb[2],
                     pc = tl.oc + w * d.sc[2];
-      float acc[TM][TN];
+      float acc[TM][TN], part[TM][TN];
+      float (&sum)[TM][TN] = CHUNKED ? part : acc;
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+        for (int j = 0; j < TN; ++j) acc[i][j] = part[i][j] = 0.f;
 
       for (int64_t kbase = 0; kbase < K; kbase += bk) {
         ng_stage<TA>(As, A, d, d.sa, ba, bk, pa, u0, v0, kbase, K);
         ng_stage<TB>(Bs, B, d, d.sb, bb, bk, pb, u0, v0, kbase, K);
         __syncthreads();
-        for (int kk = 0; kk < bk; ++kk) {
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int j = 0; j < TN; ++j) {
-              const int ui = ty + 16 * i, vj = tx + 16 * j;
-              acc[i][j] = fmaf(As[kk * ba.sk + ui * ba.su + vj * ba.sv],
-                               Bs[kk * bb.sk + ui * bb.su + vj * bb.sv], acc[i][j]);
-            }
+        if constexpr (CHUNKED) {
+          // the chunk ends after `left` more indices: at most once a stage
+          const int64_t left = NG_SUM_CHUNK - kbase % NG_SUM_CHUNK;
+          const int cut = left < bk ? (int)left : bk;
+          ng_stage_sum<TM, TN>(sum, As, Bs, ba, bb, tx, ty, 0, cut);
+          if (cut == left) ng_fold<TM, TN>(acc, part);
+          ng_stage_sum<TM, TN>(sum, As, Bs, ba, bb, tx, ty, cut, bk);
+        } else {
+          ng_stage_sum<TM, TN>(sum, As, Bs, ba, bb, tx, ty, 0, bk);
         }
         __syncthreads();
       }
+      if constexpr (CHUNKED) ng_fold<TM, TN>(acc, part);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -294,7 +341,7 @@ __device__ __forceinline__ void ng_store_slab(float* sm, const float (&r)[W * BK
   }
 }
 
-template <typename TA, typename TB, typename TC, int TM, int TN>
+template <typename TA, typename TB, typename TC, int TM, int TN, bool CHUNKED>
 __global__ void __launch_bounds__(NG_THREADS)
 ng_outer_kernel(const TA* __restrict__ A, const TB* __restrict__ B, TC* __restrict__ C,
                 const NgDesc d, int64_t K, int64_t a_k_stride, int64_t b_k_stride,
@@ -311,11 +358,12 @@ ng_outer_kernel(const TA* __restrict__ A, const TB* __restrict__ B, TC* __restri
     for (int w = 0; w < tl.n_walk; ++w) {
       const int64_t pa = tl.oa + w * d.sa[2], pb = tl.ob + w * d.sb[2],
                     pc = tl.oc + w * d.sc[2];
-      float acc[TM][TN];
+      float acc[TM][TN], part[TM][TN];
+      float (&sum)[TM][TN] = CHUNKED ? part : acc;
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+        for (int j = 0; j < TN; ++j) acc[i][j] = part[i][j] = 0.f;
 
       float ra[BM * BK / NG_THREADS], rb[BN * BK / NG_THREADS];
       ng_load_slab<TA, BM, BK>(ra, A, pa, u0, d.ext[0], d.sa[0], a_k_stride, a_u_fast, 0, K);
@@ -340,10 +388,13 @@ ng_outer_kernel(const TA* __restrict__ A, const TB* __restrict__ B, TC* __restri
 #pragma unroll
           for (int i = 0; i < TM; ++i)
 #pragma unroll
-            for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+            for (int j = 0; j < TN; ++j) sum[i][j] = fmaf(a[i], b[j], sum[i][j]);
         }
+        if constexpr (CHUNKED)
+          if ((kbase + BK) % NG_SUM_CHUNK == 0) ng_fold<TM, TN>(acc, part);
         __syncthreads();
       }
+      if constexpr (CHUNKED) ng_fold<TM, TN>(acc, part);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -408,19 +459,30 @@ static int ng_launch_t(const void* A, const void* B, void* C, const NgDesc& d,
   if (n_tiles == 0) return (int)cudaSuccess;
   const int64_t max_grid = (int64_t)1 << 24;
   const unsigned grid = (unsigned)(n_tiles < max_grid ? n_tiles : max_grid);
+  // a sum of at most one chunk is the same in both variants, bit for bit,
+  // and the variant without the second accumulator is the faster one
+  const bool chunked = K > NG_SUM_CHUNK;
   if (d.sa[1] == 0 && d.sb[0] == 0 && d.n_k <= 1) {
     // neighbouring threads go along the slab's smaller-stride dimension
     const int64_t ka = d.n_k ? d.sa[2 + d.n_rest] : 0;
     const int64_t kb = d.n_k ? d.sb[2 + d.n_rest] : 0;
     const bool a_u_fast = d.sa[0] && (!ka || ng_abs(d.sa[0]) <= ng_abs(ka));
     const bool b_v_fast = d.sb[1] && (!kb || ng_abs(d.sb[1]) <= ng_abs(kb));
-    ng_outer_kernel<TA, TB, TC, TM, TN><<<grid, NG_THREADS, 0, stream>>>(
-        (const TA*)A, (const TB*)B, (TC*)C, d, K, ka, kb, n_tiles, a_u_fast, b_v_fast);
+    if (chunked)
+      ng_outer_kernel<TA, TB, TC, TM, TN, true><<<grid, NG_THREADS, 0, stream>>>(
+          (const TA*)A, (const TB*)B, (TC*)C, d, K, ka, kb, n_tiles, a_u_fast, b_v_fast);
+    else
+      ng_outer_kernel<TA, TB, TC, TM, TN, false><<<grid, NG_THREADS, 0, stream>>>(
+          (const TA*)A, (const TB*)B, (TC*)C, d, K, ka, kb, n_tiles, a_u_fast, b_v_fast);
     return (int)cudaGetLastError();
   }
   const size_t smem = sizeof(float) * (size_t)bk * per_k;
-  ng_kernel<TA, TB, TC, TM, TN><<<grid, NG_THREADS, smem, stream>>>(
-      (const TA*)A, (const TB*)B, (TC*)C, d, ba, bb, bk, K, n_tiles);
+  if (chunked)
+    ng_kernel<TA, TB, TC, TM, TN, true><<<grid, NG_THREADS, smem, stream>>>(
+        (const TA*)A, (const TB*)B, (TC*)C, d, ba, bb, bk, K, n_tiles);
+  else
+    ng_kernel<TA, TB, TC, TM, TN, false><<<grid, NG_THREADS, smem, stream>>>(
+        (const TA*)A, (const TB*)B, (TC*)C, d, ba, bb, bk, K, n_tiles);
   return (int)cudaGetLastError();
 }
 

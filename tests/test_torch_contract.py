@@ -19,6 +19,7 @@ from repro_torch.core.contract import (
     count_copy_ops,
     record_contractions,
 )
+from repro_torch.distributed.sharding import P
 from repro_torch.interop import from_numpy
 from repro_torch.kernels.ext_gemm import ext_gemm
 
@@ -127,11 +128,17 @@ def test_unknown_strategy_and_backend_rejected():
         contract("km,pkn->pnm", A, torch.ones(3, 2, 4), strategy="flatten")
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"in_specs": (None, None)},
-                                    {"out_spec": object()}])
-def test_unported_options_raise_naming_the_roadmap(kwargs):
+@pytest.mark.parametrize("kwargs, error, match", [
+    ({"mesh": object()}, TypeError, "DeviceMesh"),
+    ({"in_specs": (None, None)}, ValueError, "require mesh"),
+    ({"out_spec": P()}, ValueError, "require mesh"),
+])
+def test_unported_options_raise_naming_the_roadmap(kwargs, error, match):
+    """The sharding options are checked as the JAX package checks them:
+    ``in_specs``/``out_spec`` need ``mesh=``, and a mesh must be a
+    ``DeviceMesh``."""
     A = torch.ones(2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         contract("mk,kn->mn", A, A, **kwargs)
 
 

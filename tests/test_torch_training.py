@@ -154,23 +154,23 @@ def _tiny_trainer(tmp_path, **tkw):
 
 def test_trainer_loss_decreases(tmp_path):
     _, tr = _tiny_trainer(tmp_path)
-    hist = tr.run(10)
-    first = np.mean([h["loss"] for h in hist[:3]])
-    last = np.mean([h["loss"] for h in hist[-3:]])
+    hist = tr.run(30)
+    first = np.mean([h["loss"] for h in hist[:5]])
+    last = np.mean([h["loss"] for h in hist[-5:]])
     assert last < first, (first, last)
 
 
 def test_trainer_checkpoint_restart_resumes_identically(tmp_path):
     _, tr = _tiny_trainer(tmp_path)
-    tr.run(5)
+    tr.run(10)
     tr.save(force=True)
     more = tr.run(3)
 
     # simulate failure: rebuild from scratch and restore
     _, tr2 = _tiny_trainer(tmp_path)
     tr2.restore()
-    assert tr2.step == 5
-    assert tr2.data.step == tr.data.step - 3  # cursor restored to step 5
+    assert tr2.step == 10
+    assert tr2.data.step == tr.data.step - 3  # cursor restored to step 10
     resumed = tr2.run(3)
     np.testing.assert_allclose(
         [h["loss"] for h in resumed], [h["loss"] for h in more], rtol=TOL
@@ -197,9 +197,9 @@ def test_trainer_microbatch_accumulation_matches_full_batch(tmp_path):
 
 def test_trainer_int8_compression_still_learns(tmp_path):
     _, tr = _tiny_trainer(tmp_path, compression="int8")
-    hist = tr.run(10)
-    assert np.mean([h["loss"] for h in hist[-3:]]) < np.mean(
-        [h["loss"] for h in hist[:3]]
+    hist = tr.run(30)
+    assert np.mean([h["loss"] for h in hist[-5:]]) < np.mean(
+        [h["loss"] for h in hist[:5]]
     )
     assert tr.residual is not None and any(float(r.abs().max()) > 0
                                            for r in tree_leaves(tr.residual))
