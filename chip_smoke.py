@@ -171,8 +171,37 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    against unsharded, queued (``queued_ms``) and back to back
    (``cuda_ms``, which counts the host's time between calls).  The
    process group is destroyed at the phase's end.
+15. The sharded trainer and server: ``make_host_mesh(1, 1)`` starts a new
+   world of one (NCCL) with a ``("data", "model")`` mesh, and the default
+   ``ShardingRules`` on it.  (a) minicpm-2b at phase 13's cut (4 layers,
+   4 x 512 tokens, kernel backend, ``contract_strategy="native"``):
+   placing the params on the mesh allocates 0 bytes (views); step 1's
+   loss and every gradient under the rules are bit-identical to the
+   unsharded step's (every block is the whole tensor, no collective is
+   issued), or the first leaf that differs is named and held to ``TOL``;
+   then ``Trainer(rules=)`` and the unsharded ``Trainer`` from the same
+   weights and batches take 2 steps each, in turns (unsharded, sharded,
+   sharded, unsharded), with equal losses, 147 ``native_gemm`` launches a
+   step by route in both (each on the route ``native_route`` gives), ms
+   per step and peak memory; one profiled step each, where the sharded
+   step may run no library GEMM the unsharded one does not.  (b) The
+   unsharded trainer's checkpoint restores with ``shardings=`` onto the
+   mesh: every leaf a DTensor on the card, bit-equal; a sharded
+   ``Trainer.restore(shardings=)`` then steps to the unsharded trainer's
+   next loss.  (c) internlm2-20b with phase 11's cut and traffic through
+   ``ServingRuntime(mesh=)`` on the kernel backend: ``paged=True`` with a
+   mesh raises; the counted serve's tokens and ``native_gemm`` launches by
+   route equal phase 11's unpaged kernel serve; tokens/s, sharded against
+   unsharded in turns, and a profiled decode pass each (idle share).
+   Every launch shape of (a) and (c) that the unsharded runs do not launch
+   is held to the plain version and timed as in phase 6.  The process
+   group is destroyed; then (d) ``python -m repro_torch.launch.train
+   --arch minicpm-2b --smoke --mesh 1x1 --steps 3`` and ``python -m
+   repro_torch.launch.serve --arch minicpm-2b --smoke --mesh 1x1`` run in
+   subprocesses on the card and exit 0.
 
-Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13, 14) is driven with every
+Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13, 14, 15's training
+and serving) is driven with every
 kernel's launch count set to 0 just before it and read just after;
 launches made to compare, time or tune a kernel do not count.  Phases 5 and 10 also read ``native_gemm``'s
 launches by route, which must be what ``native_route`` gives for each
@@ -195,7 +224,9 @@ attention entries carry their f32 run, the fma route, under ``"fma"``;
 serving phase's launches, routes, tokens/s and top-shape times (the
 paged serve's under ``serve.paged``) and the training phase's launches
 by route, ms per step, tokens/s, peak memory and top-shape times, and
-the sharded phase's launches by route and ms under ``sharded``),
+the sharded phase's launches by route and ms under ``sharded``, and
+phase 15's under ``sharded_train`` (launches by route, ms per step, peak
+memory) and ``sharded_serve`` (launches, tokens/s)),
 the card's name and power limit as ``nvidia-smi`` prints them, and the
 ``{"ok": true, ...}`` line.  Any failed check raises and exits non-zero without that line.
 """
@@ -204,6 +235,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -1983,7 +2015,7 @@ def serve_path(dev, seed: int, counters) -> dict:
 
     tot = time_shapes(launches, reps=10, per="serve", top=SERVE["top_shapes"])
     return dict(launches=counted["native_gemm"], launches_by_route=routes, periods=periods,
-                profiles=profiles, paged=paged,
+                profiles=profiles, paged=paged, outputs=outputs,
                 tokens_per_s={b: [r["tokens_per_s"] for r in v] for b, v in runs.items()},
                 runs={b: [{k: v for k, v in r.items() if k != "outputs"}
                                             for r in rs] for b, rs in runs.items()},
@@ -2499,6 +2531,347 @@ def sharded_path(dev, working_set, seed: int, counters) -> dict:
         dist.destroy_process_group()
 
 
+# ------------------------------------------------------------------ phase 15
+#: device kernel names that mark a library GEMM (cuBLAS, cuBLASLt, CUTLASS)
+LIBRARY_GEMM = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
+#: the CLIs phase 15 runs on the card, each with its marker line
+MESH_CLIS = (
+    (["repro_torch.launch.train", "--arch", "minicpm-2b", "--smoke", "--mesh", "1x1",
+      "--steps", "3"], "step 3: loss="),
+    (["repro_torch.launch.serve", "--arch", "minicpm-2b", "--smoke", "--mesh", "1x1"],
+     "served 8 requests"),
+)
+
+
+def step_launches(fn) -> tuple:
+    """``fn()``'s result, its ``native_gemm`` launches by route (nonzero
+    routes only) and its host ms between synchronisations."""
+    from repro_torch.kernels.sb_gemm import native_gemm
+
+    before = dict(native_gemm.launches_by_route)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, {r: n - before[r] for r, n in native_gemm.launches_by_route.items()
+                 if n > before[r]}, ms
+
+
+def first_difference(named_got, named_want):
+    """The first ``(name, got, want)`` whose tensors differ in any bit, or
+    ``None``."""
+    for (name, got), want in zip(named_got, named_want):
+        if not torch.equal(got, want):
+            return name, got, want
+    return None
+
+
+def library_gemms(kernels) -> list:
+    return sorted(n for n in kernels or () if any(p in n.lower() for p in LIBRARY_GEMM)
+                  and not n.removeprefix("void ").startswith(NATIVE_KERNELS))
+
+
+def mesh_train(dev, mesh, seed: int, counters) -> dict:
+    """Phase 15 (a) and (b): minicpm-2b at phase 13's cut on the kernel
+    backend, ``Trainer(rules=)`` on ``mesh`` against the unsharded
+    ``Trainer``; then the unsharded checkpoint restored onto the mesh."""
+    import tempfile
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ShardingRules, device_put, use_rules
+    from repro_torch.kernels.sb_gemm import native_gemm
+    from repro_torch.launch.shardings import (
+        batch_logical_axes, param_logical_axes, tree_shardings,
+    )
+    from repro_torch.models import transformer
+    from repro_torch.models.tree import tree_leaves, tree_leaves_with_path
+    from repro_torch.training.checkpoint import restore_checkpoint
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.trainer import TrainConfig, Trainer, value_and_grad
+
+    periods = TRAIN["periods"]
+    cfg = get_config(TRAIN["arch"]).with_(n_periods=periods, contract_backend="kernel",
+                                          contract_strategy="native")
+    rules = ShardingRules(mesh)
+    params = transformer.init_params(torch.Generator(dev).manual_seed(seed), cfg)
+    opt = AdamWConfig(lr=TRAIN["lr"], schedule="wsd", warmup_steps=TRAIN["warmup"],
+                      total_steps=TRAIN["total_steps"])
+
+    def data():
+        return SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+                           global_batch=TRAIN["batch"], seed=seed)
+
+    per_step = train_launches_per_step(periods)
+    # placing the params is views of the global values: no allocation
+    # (earlier phases' garbage is collected first, so nothing frees meanwhile)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    p_sh = tree_shardings(rules, param_logical_axes(params), params)
+    placed = device_put(params, p_sh)
+    grew = torch.cuda.memory_allocated(dev) - before
+    check(grew == 0, f"mesh train: placing the params allocated {grew} bytes")
+    check(all(isinstance(p, DTensor) for p in tree_leaves(placed)),
+          "mesh train: a placed leaf is not a DTensor")
+
+    # step 1's loss and gradients, unsharded and sharded, from one batch
+    arrays = next(data())
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
+    loss_u, _, grads_u = value_and_grad(cfg, params, batch)
+    batch_s = device_put(batch, tree_shardings(rules, batch_logical_axes(batch), batch))
+    with use_rules(rules):
+        loss_s, _, grads_s = value_and_grad(cfg, placed, batch_s)
+    named = [("loss", loss_s.full_tensor())] + [
+        ("/".join(map(str, p)), g.full_tensor()) for p, g in tree_leaves_with_path(grads_s)]
+    diff = first_difference(named, [loss_u] + tree_leaves(grads_u))
+    if diff is None:
+        log(f"mesh train: step 1's loss {float(loss_u):.6f} and all {len(named) - 1} "
+            f"gradient leaves bit-identical to the unsharded step's")
+        deviation = None
+    else:
+        name, got, want = diff
+        err = rel_err(got, want)
+        check(err <= TOL[torch.float32], f"mesh train: {name} differs from the unsharded "
+                                         f"step's by {err:.3g} of its largest magnitude")
+        deviation = dict(leaf=name, rel_err=err)
+        log(f"mesh train: step 1 NOT bit-identical: first leaf that differs is {name}, "
+            f"{err:.3g} of its largest magnitude (limit {TOL[torch.float32]:g})")
+    del grads_u, grads_s, named, placed
+
+    # the main path: counts to 0 just before the sharded trainer's steps;
+    # the unsharded trainer's steps run between them, in turns
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        tu = Trainer(cfg, TrainConfig(opt=opt, ckpt_dir=ckpt_dir, ckpt_every=10**9), params,
+                     data())
+        ts = Trainer(cfg, TrainConfig(opt=opt), params, data(), rules=rules)
+        for c in counters:
+            c.launches = 0
+        native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
+        runs = {"sharded": [], "unsharded": []}
+        recorded = {"sharded": {}, "unsharded": {}}
+        with native_routes_held() as held:
+            for which in ("unsharded", "sharded", "sharded", "unsharded"):
+                tr = ts if which == "sharded" else tu
+                torch.cuda.reset_peak_memory_stats(dev)
+                with recording_launches() as launches:
+                    (hist,), by_route, ms = step_launches(lambda tr=tr: tr.run(1))
+                recorded[which].update(launches)
+                runs[which].append(dict(loss=hist["loss"], ms=ms, routes=by_route,
+                                        peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30))
+        counted = {c.__name__: c.launches for c in counters}
+        routes = dict(native_gemm.launches_by_route)
+        check(routes == held, f"mesh train: routes {routes} differ from native_route's {held}")
+        check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
+              f"mesh train: another kernel launched on the path: {counted}")
+        for which, rs in runs.items():
+            for i, r in enumerate(rs):
+                check(r["routes"] == per_step, f"mesh train: {which} step {i + 1} launched "
+                                               f"{r['routes']}, the model gives {per_step}")
+        sharded_routes = {r: 2 * n for r, n in per_step.items()}
+        losses = {w: [r["loss"] for r in rs] for w, rs in runs.items()}
+        if deviation is None:
+            check(losses["sharded"] == losses["unsharded"],
+                  f"mesh train: sharded losses {losses['sharded']} are not the unsharded "
+                  f"{losses['unsharded']}")
+        else:
+            check(np.allclose(losses["sharded"], losses["unsharded"], rtol=1e-4, atol=0),
+                  f"mesh train: losses {losses}")
+        for which, rs in runs.items():
+            log(f"mesh train [{which}]: losses {', '.join(f'{r['loss']:.6f}' for r in rs)}; "
+                f"ms per step {', '.join(f'{r['ms']:.1f}' for r in rs)}; peak "
+                f"{', '.join(f'{r['peak_gib']:.2f}' for r in rs)} GiB; native_gemm "
+                f"launches by route per step {rs[0]['routes']}")
+        log(f"mesh train: {counted['native_gemm']} native_gemm launches in 4 steps "
+            f"(2 sharded, 2 unsharded), {sum(per_step.values())} a step by route {per_step} "
+            f"in both, every one on the route native_route gives")
+
+        # one profiled step each: the sharded step may run no library GEMM
+        profiled = {w: device_kernels(lambda tr=tr: tr.run(1))
+                    for w, tr in (("unsharded", tu), ("sharded", ts))}
+        if None in profiled.values():
+            gemms = None
+            log("mesh train: the profiler recorded no device activity; the step's device "
+                "kernels not measured")
+        else:
+            new = sorted(set(profiled["sharded"]) - set(profiled["unsharded"]))
+            gemms = library_gemms(new)
+            check(not gemms, f"mesh train: the sharded step ran library GEMMs {gemms}")
+            log(f"mesh train: device kernels of a sharded step that the unsharded step does "
+                f"not run: {new or 'none'}; library GEMMs among them: none")
+
+        # (b) the unsharded checkpoint onto the mesh, and a step from it
+        tu.save(force=True)
+        tree, _, step = restore_checkpoint(ckpt_dir, None, tu.state_tree(),
+                                           shardings=ts.shardings)
+        check(step == tu.step, f"mesh restore: step {step}, saved {tu.step}")
+        for (path, got), want in zip(tree_leaves_with_path(tree),
+                                     tree_leaves(tu.state_tree())):
+            check(isinstance(got, DTensor) and got.device.type == dev.type,
+                  f"mesh restore: {path} is not a DTensor on {dev.type}")
+            check(torch.equal(got.full_tensor(), want), f"mesh restore: {path} differs")
+        n_leaves = len(tree_leaves(tree))
+        del tree, ts
+        tr2 = Trainer(cfg, TrainConfig(opt=opt, ckpt_dir=ckpt_dir), params, data(),
+                      rules=rules)
+        check(tr2.restore(shardings=tr2.shardings) == tu.step, "mesh restore: wrong step")
+        got = tr2.run(1)[0]["loss"]
+        want = tu.run(1)[0]["loss"]
+        check(got == want if deviation is None else abs(got - want) <= 1e-4 * abs(want),
+              f"mesh restore: the restored sharded step's loss {got} vs unsharded {want}")
+        log(f"mesh restore: {n_leaves} leaves of the unsharded checkpoint at step {step} "
+            f"restored onto the mesh as DTensors on {dev.type}, bit-equal; Trainer.restore(shardings=) "
+            f"then stepped to loss {got:.6f} (unsharded {want:.6f})")
+        del tr2, tu
+    return dict(launches=sum(sharded_routes.values()), launches_by_route=sharded_routes,
+                launches_per_step=per_step, deviation=deviation, losses=losses,
+                ms_per_step={w: [r["ms"] for r in rs] for w, rs in runs.items()},
+                peak_gib={w: [r["peak_gib"] for r in rs] for w, rs in runs.items()},
+                library_gemms=gemms, launch_keys=recorded["sharded"],
+                plain_keys=recorded["unsharded"])
+
+
+def mesh_serve(dev, mesh, seed: int, counters, serve_ref: dict) -> dict:
+    """Phase 15 (c): internlm2-20b at phase 11's cut and traffic on the
+    kernel backend, ``ServingRuntime(mesh=)`` against the unsharded one."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.sb_gemm import native_gemm
+    from repro_torch.models import transformer
+    from repro_torch.runtime.engine import ServingRuntime, slot_cache
+
+    cfg = get_config(SERVE["arch"]).with_(n_periods=SERVE["periods"],
+                                          contract_backend="kernel",
+                                          contract_strategy="auto")
+    params = transformer.init_params(torch.Generator(dev).manual_seed(seed), cfg)
+    kw = dict(slots=SERVE["slots"], max_len=SERVE["max_len"], prefill_chunk=SERVE["chunk"])
+    try:
+        ServingRuntime(cfg, params, paged=True, mesh=mesh, **kw)
+    except NotImplementedError as e:
+        log(f"mesh serve: paged=True with mesh= raises: {e}")
+    else:
+        check(False, "mesh serve: paged=True with mesh= did not raise")
+    t0 = time.perf_counter()
+    rts = ServingRuntime(cfg, params, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    log(f"mesh serve: sharded runtime built and warmed in {time.perf_counter() - t0:.2f} s "
+        f"({rts.program_stats})")
+    rts.serve(serve_traffic(cfg, seed))
+    rt = ServingRuntime(cfg, params, **kw)
+    with recording_launches() as plain_launches:
+        rt.serve(serve_traffic(cfg, seed))
+
+    # the main path: counts to 0 just before, read just after
+    traffic = serve_traffic(cfg, seed)
+    for c in counters:
+        c.launches = 0
+    native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
+    with recording_launches() as launches, native_routes_held() as held:
+        rts.serve(traffic)
+        torch.cuda.synchronize()
+    counted = {c.__name__: c.launches for c in counters}
+    routes = dict(native_gemm.launches_by_route)
+    outputs = [list(r.output) for r in traffic]
+    check(outputs == serve_ref["outputs"], "mesh serve: tokens differ from phase 11's "
+                                           "unpaged kernel serve")
+    check(routes == held and counted["native_gemm"] == serve_ref["launches"]
+          and routes == serve_ref["launches_by_route"],
+          f"mesh serve: launches {counted['native_gemm']} by route {routes}; phase 11 "
+          f"{serve_ref['launches']} by route {serve_ref['launches_by_route']}")
+    check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
+          f"mesh serve: another kernel launched on the path: {counted}")
+    log(f"mesh serve: {len(traffic)} requests, {sum(map(len, outputs))} tokens equal to phase "
+        f"11's unpaged kernel serve; native_gemm launches {counted['native_gemm']} by route "
+        f"{routes}, as phase 11's, each on the route native_route gives")
+    saved = [c.launches for c in counters], dict(routes)
+
+    runs = {"sharded": [], "unsharded": []}
+    for which in ("unsharded", "sharded", "sharded", "unsharded"):
+        res = timed_serve(rts if which == "sharded" else rt, serve_traffic(cfg, seed))
+        check(res["outputs"] == outputs, f"mesh serve: a timed {which} serve gave other "
+                                         f"tokens")
+        runs[which].append(res)
+        log(f"mesh serve [{which}]: {res['tokens']} tokens in {res['wall_ms']:.1f} ms, "
+            f"{res['tokens_per_s']:.1f} tokens/s; prefill {res['chunk_ms']:.3f} ms per "
+            f"chunk; decode ms per tick by bucket: "
+            f"{', '.join(f'{b}: {m:.3f}' for b, m in res['tick_ms_by_bucket'].items())}")
+    scratch = {w: r._place_cache(slot_cache(cfg, SERVE["slots"], SERVE["max_len"], device=dev))
+               for w, r in (("unsharded", rt), ("sharded", rts))}
+    toks = torch.zeros((SERVE["slots"], 1), dtype=torch.long, device=dev)
+    profiles = {}
+    with torch.no_grad():
+        for which, r in (("unsharded", rt), ("sharded", rts)):
+            def one(r=r, which=which):
+                with r._mesh_ctx():
+                    r._decode(r.params, scratch[which], toks)
+            one()
+            profiles[which] = profile_device(f"one decode pass [{which}]", one, top=6)
+    for c, n in zip(counters, saved[0]):
+        c.launches = n
+    native_gemm.launches_by_route = saved[1]
+    return dict(launches=counted["native_gemm"], launches_by_route=routes,
+                tokens_per_s={w: [r["tokens_per_s"] for r in rs] for w, rs in runs.items()},
+                tick_ms_by_bucket={w: [r["tick_ms_by_bucket"] for r in rs]
+                                   for w, rs in runs.items()},
+                profiles=profiles, launch_keys=launches, plain_keys=plain_launches)
+
+
+def mesh_clis(dev) -> dict:
+    """Phase 15 (d): the launchers with ``--mesh 1x1`` in subprocesses on
+    the card; seconds each."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+    secs = {}
+    for args, marker in MESH_CLIS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
+                              env=env, timeout=300, stdin=subprocess.DEVNULL)
+        secs[args[0]] = time.perf_counter() - t0
+        check(proc.returncode == 0 and marker in proc.stdout and "mesh: 1x1" in proc.stdout,
+              f"mesh cli {' '.join(args)}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n"
+              f"{proc.stderr[-4000:]}")
+        log(f"mesh cli: python -m {' '.join(args)} exited 0 in {secs[args[0]]:.1f} s "
+            f"({marker!r} in its output)")
+    return secs
+
+
+def mesh_path(dev, seed: int, counters, serve_ref: dict) -> dict:
+    """Phase 15: the sharded trainer and server on a 1x1 mesh over a new
+    world of one (see the module docstring).  Returns ``native_gemm``'s
+    ``sharded_train`` and ``sharded_serve`` records."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(1, 1, device=dev.type)
+    log(f"mesh: world of {dist.get_world_size()} rank over {dist.get_backend()}; mesh {mesh}")
+    try:
+        train = mesh_train(dev, mesh, seed, counters)
+        serve = mesh_serve(dev, mesh, seed, counters, serve_ref)
+        # every launch shape the sharded runs made that the unsharded ones
+        # did not, against the plain version and timed as in phase 6
+        for label, res in (("sharded step", train), ("sharded serve", serve)):
+            plain = res.pop("plain_keys")
+            new = {k: v for k, v in res.pop("launch_keys").items() if k not in plain}
+            if new:
+                res["new_shapes"] = {k: v for k, v in time_shapes(
+                    new, reps=3, per=label).items()
+                    if k in ("ms", "library_ms", "bound_ms", "plain_ms", "max_abs_err")}
+            else:
+                res["new_shapes"] = None
+            log(f"mesh: {len(new)} launch shapes of the {label} that the unsharded runs "
+                f"do not launch" + ("" if new else " (every one is held in phases 11/13)"))
+    finally:
+        dist.destroy_process_group()
+    clis = mesh_clis(dev)
+    log(f"mesh: phase 15 took {time.perf_counter() - t0:.1f} s")
+    return dict(sharded_train=train, sharded_serve=serve, cli_s=clis)
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2569,6 +2942,9 @@ def main() -> int:
     every_arch(dev, args.seed, counters)
     train = train_path(dev, args.seed, counters)
     sharded = sharded_path(dev, working_set, args.seed, counters)
+    serve_ref = {"outputs": serve.pop("outputs"), "launches": serve["launches"],
+                 "launches_by_route": serve["launches_by_route"]}
+    mesh = mesh_path(dev, args.seed, counters, serve_ref)
     records = {
         "native_gemm": ("sb_gemm.cu", "sb_gemm.py:87",
                         {**tot, "launches": counted["native_gemm"],
@@ -2585,7 +2961,10 @@ def main() -> int:
                          "sharded": {k: v for k, v in sharded.items()
                                      if k not in ("launches", "launches_by_route")},
                          "serve": {k: v for k, v in serve.items()
-                                   if k not in ("launches", "launches_by_route")}}),
+                                   if k not in ("launches", "launches_by_route")},
+                         "sharded_train": mesh["sharded_train"],
+                         "sharded_serve": mesh["sharded_serve"],
+                         "mesh_cli_s": mesh["cli_s"]}),
         **records,
     }
     kernels = [{"name": name, "route": "cuda",
@@ -2596,7 +2975,8 @@ def main() -> int:
                                        "serve_launches", "serve_launches_by_route", "serve",
                                        "train_launches", "train_launches_by_route", "train",
                                        "sharded_launches", "sharded_launches_by_route",
-                                       "sharded", "fma") if k in rec}}
+                                       "sharded", "sharded_train", "sharded_serve",
+                                       "mesh_cli_s", "fma") if k in rec}}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on its path")

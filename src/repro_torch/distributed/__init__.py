@@ -1,17 +1,18 @@
 """The port of ``repro.distributed``.
 
 * :mod:`~repro_torch.distributed.sharding` — ``PartitionSpec`` (``P``),
-  ``specs_equal``, the logical-axis ``ShardingRules`` and the DTensor
-  placements of a spec;
+  ``specs_equal``, the logical-axis ``ShardingRules``, the DTensor
+  placements of a spec, ``NamedSharding`` and ``device_put``;
 * :mod:`~repro_torch.distributed.contract` — sharded pairwise contraction
   over a ``DeviceMesh`` (``plan_sharded``, ``sharded_contract``): local
   kernels per shard, explicit collectives;
 * :mod:`~repro_torch.distributed.compress` — the gradient compressors the
   trainer applies.
 
-Still to come (ROADMAP.md item 12): the sharded trainer and server and
-the models' ``logical`` annotations (12a), MoE all-to-all and pipeline
-stages (12c).
+The sharded trainer and server (``Trainer(rules=)``,
+``ServingRuntime(mesh=)``) place their trees with these and
+:mod:`repro_torch.launch.shardings`.  Still to come (ROADMAP.md queue 1,
+item 12c): MoE all-to-all and pipeline stages.
 """
 
 from repro_torch.distributed.contract import (
@@ -24,14 +25,17 @@ from repro_torch.distributed.contract import (
 )
 from repro_torch.distributed.sharding import (
     DEFAULT_RULES,
+    NamedSharding,
     P,
     PartitionSpec,
     ShardingRules,
     current_rules,
+    device_put,
     local_block,
     logical,
     named_sharding,
     placements,
+    reduce_partial,
     spec_of,
     specs_equal,
     use_rules,
@@ -39,18 +43,21 @@ from repro_torch.distributed.sharding import (
 
 __all__ = [
     "DEFAULT_RULES",
+    "NamedSharding",
     "P",
     "PartitionSpec",
     "ShardedPlan",
     "ShardingRules",
     "as_dtensor",
     "current_rules",
+    "device_put",
     "local_block",
     "local_dims",
     "logical",
     "named_sharding",
     "placements",
     "plan_sharded",
+    "reduce_partial",
     "resolve_mode_axes",
     "sharded_contract",
     "spec_of",

@@ -390,13 +390,91 @@ def _nshards(mesh: DeviceMesh, group: AxisGroup) -> int:
     return math.prod(sizes[a] for a in group)
 
 
+def _all_reduce_(x, pg):
+    x = x.contiguous()
+    dist.all_reduce(x, group=pg)
+    return x
+
+
+def _reduce_scatter_(src, n: int, pg):
+    """Sum ``src`` (blocks stacked on dim 0) over ``pg``; this rank's block."""
+    if src.shape[0] % n:
+        raise ValueError(f"reduce-scatter of a dim of size {src.shape[0]} over {n} "
+                         f"shards: not divisible")
+    src = src.contiguous()
+    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+    if out.numel() * n != src.numel():
+        raise ValueError("reduce-scatter buffers do not match")
+    with warnings.catch_warnings():
+        # newer torch renames it; the old name exists in every version used
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, src, group=pg)
+    return out
+
+
+def _all_gather_(src, n: int, pg):
+    """``pg``'s blocks of ``src`` concatenated on dim 0."""
+    src = src.contiguous()
+    out = src.new_empty((src.shape[0] * n, *src.shape[1:]))
+    if out.numel() != src.numel() * n:
+        raise ValueError("all-gather buffers do not match")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, src, group=pg)
+    return out
+
+
+# Under autograd each collective carries its dual.  The gradient that
+# reaches it is the complete gradient of this rank's output block: the
+# result's ``DTensor.from_local`` redistributes an incoming gradient to
+# the forward placements (Shard or Replicate, never Partial).  So a
+# psum's inputs each get that gradient whole (identity), a
+# reduce-scatter's input gets every rank's block gradient (all-gather),
+# and an all-gather's input its own block of the replicated gradient.
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg):
+        return _all_reduce_(x.clone(), pg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, src, n, pg):
+        ctx.n, ctx.pg = n, pg
+        return _reduce_scatter_(src, n, pg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_(g, ctx.n, ctx.pg), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, src, n, pg):
+        ctx.n, ctx.rank = n, dist.get_group_rank(pg, dist.get_rank())
+        return _all_gather_(src, n, pg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.n, 0)[ctx.rank], None, None
+
+
+def _differentiable(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def _all_reduce(x, mesh: DeviceMesh, group: AxisGroup):
     if _nshards(mesh, group) == 1:
         return x
     group = tuple(sorted(group, key=tuple(mesh.mesh_dim_names).index))  # a sum has no order
-    x = x.contiguous()
-    dist.all_reduce(x, group=_process_group(mesh, group))
-    return x
+    pg = _process_group(mesh, group)
+    if _differentiable(x):
+        return _AllReduce.apply(x, pg)
+    return _all_reduce_(x, pg)
 
 
 def _reduce_scatter(x, pos: int, mesh: DeviceMesh, group: AxisGroup):
@@ -404,17 +482,11 @@ def _reduce_scatter(x, pos: int, mesh: DeviceMesh, group: AxisGroup):
     n = _nshards(mesh, group)
     if n == 1:
         return x
-    src = x.movedim(pos, 0).contiguous()
-    if src.shape[0] % n:
-        raise ValueError(f"reduce-scatter of dim {pos} (size {src.shape[0]}) over "
-                         f"{group} ({n} shards): not divisible")
-    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
-    if out.numel() * n != src.numel():
-        raise ValueError("reduce-scatter buffers do not match")
-    with warnings.catch_warnings():
-        # newer torch renames it; the old name exists in every version used
-        warnings.simplefilter("ignore", FutureWarning)
-        dist.reduce_scatter_tensor(out, src, group=_process_group(mesh, group))
+    src, pg = x.movedim(pos, 0), _process_group(mesh, group)
+    if _differentiable(x):
+        out = _ReduceScatter.apply(src, n, pg)
+    else:
+        out = _reduce_scatter_(src, n, pg)
     return out.movedim(0, pos)
 
 
@@ -423,13 +495,11 @@ def _all_gather(x, pos: int, mesh: DeviceMesh, group: AxisGroup):
     n = _nshards(mesh, group)
     if n == 1:
         return x
-    src = x.movedim(pos, 0).contiguous()
-    out = src.new_empty((src.shape[0] * n, *src.shape[1:]))
-    if out.numel() != src.numel() * n:
-        raise ValueError("all-gather buffers do not match")
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", FutureWarning)
-        dist.all_gather_into_tensor(out, src, group=_process_group(mesh, group))
+    src, pg = x.movedim(pos, 0), _process_group(mesh, group)
+    if _differentiable(x):
+        out = _AllGather.apply(src, n, pg)
+    else:
+        out = _all_gather_(src, n, pg)
     return out.movedim(0, pos)
 
 
@@ -453,14 +523,30 @@ def as_dtensor(x, spec: P | None, mesh: DeviceMesh):
                               shape=x.shape, stride=x.stride())
 
 
-def _local_operand(x, spec: P, mesh: DeviceMesh):
+def _local_operand(x, spec: P, mesh: DeviceMesh, used: set):
     """This rank's block of an operand with placements ``spec`` (a view of
-    a plain tensor; no DTensor is built for one)."""
-    from torch.distributed.tensor import DTensor
+    a plain tensor; no DTensor is built for one).
+
+    A DTensor hands its gradient back with this rank's local gradient
+    declared ``Partial`` on every mesh axis the plan uses (``used``) that
+    does not shard the operand: along such an axis the local product sees
+    one block of another tensor (or a slice of this one), so each rank's
+    gradient is one term of the sum."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
 
     if isinstance(x, DTensor):
-        return as_dtensor(x, spec, mesh).to_local()
+        x = as_dtensor(x, spec, mesh)
+        grads = tuple(
+            Partial() if p == Replicate() and name in used else p
+            for name, p in zip(mesh.mesh_dim_names, x.placements))
+        return x.to_local(grad_placements=grads)
     return local_block(x, spec, mesh)
+
+
+def _used_axes(plan: ShardedPlan) -> set:
+    """The mesh axes that split any mode of the plan, or the result."""
+    entries = list(plan.mode_axes.values()) + list(plan.out_spec)
+    return {a for e in entries for a in _as_group(e)}
 
 
 def sharded_contract(
@@ -518,8 +604,9 @@ def sharded_contract(
             f"{out_spec}"
         )
 
-    a = _local_operand(A, plan.a_spec, mesh)
-    b = _local_operand(B, plan.b_spec, mesh)
+    used = _used_axes(plan)
+    a = _local_operand(A, plan.a_spec, mesh, used)
+    b = _local_operand(B, plan.b_spec, mesh, used)
     for axis, group, _ in plan.slice_a:
         a = _slice_local(a, axis, mesh, group)
     for axis, group, _ in plan.slice_b:
@@ -535,8 +622,26 @@ def sharded_contract(
     for pos, group in plan.slice_out:
         out = _slice_local(out, pos, mesh, group)
 
-    shape = tuple(dims[m] for m in cs.c_modes)
-    out = DTensor.from_local(out, mesh, placements(plan.out_spec, mesh), run_check=False,
-                             shape=torch.Size(shape),
-                             stride=torch.empty(shape, device="meta").stride())
+    shape = torch.Size(dims[m] for m in cs.c_modes)
+    if not _dense(out):
+        out = out.contiguous()  # a narrowed block: its strides are not its own
+    # the global layout follows the block's (a permuted block stays
+    # permuted), so a reshape of the result copies where the block needs it
+    out = DTensor.from_local(out, mesh, placements(plan.out_spec, mesh), run_check=False)
+    if out.shape != shape:
+        raise RuntimeError(f"sharded result has shape {tuple(out.shape)}, the plan "
+                           f"{tuple(shape)}")
     return (out, plan) if return_plan else out
+
+
+def _dense(x) -> bool:
+    """Whether ``x`` covers its storage span with no gap: its strides are
+    those of a contiguous tensor with its dims permuted."""
+    expect = 1
+    for size, stride in sorted(zip(x.shape, x.stride()), key=lambda t: t[1]):
+        if size == 1:
+            continue
+        if stride != expect:
+            return False
+        expect *= size
+    return True

@@ -34,6 +34,7 @@ stage           "pod"                    PP stage axis (pipeline configs)
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import threading
 
@@ -50,6 +51,9 @@ __all__ = [
     "spec_of",
     "group_index",
     "local_block",
+    "NamedSharding",
+    "device_put",
+    "reduce_partial",
     "DEFAULT_RULES",
 ]
 
@@ -187,6 +191,45 @@ def local_block(x, spec: P | None, mesh):
             step = x.shape[i] // n
             x = x.narrow(i, group_index(g, mesh) * step, step)
     return x
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a ``PartitionSpec`` over its named axes: the counterpart
+    of ``jax.sharding.NamedSharding``; :attr:`placements` are its DTensor
+    placements."""
+
+    mesh: object
+    spec: PartitionSpec
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.spec, self.mesh)
+
+
+def device_put(tree, shardings):
+    """``tree`` placed on ``shardings`` (a matching tree of
+    :class:`NamedSharding`), as ``jax.device_put(tree, shardings)``.
+
+    A plain leaf holds the global value on every rank and becomes a
+    DTensor over this rank's block, a view of it (nothing is allocated or
+    sent); a DTensor leaf is redistributed if its placements differ."""
+    from repro_torch.distributed.contract import as_dtensor  # deferred: it imports this
+    from repro_torch.models.tree import tree_map
+
+    return tree_map(lambda x, s: as_dtensor(x, s.spec, s.mesh), tree, shardings)
+
+
+def reduce_partial(x):
+    """A DTensor with every ``Partial`` placement reduced to ``Replicate``
+    (a sum or mean over a sharded dim leaves one pending); anything else
+    as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor) or not any(p.is_partial() for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in x.placements])
 
 
 class ShardingRules:

@@ -7,10 +7,14 @@ a mesh is asked for.
 
 from __future__ import annotations
 
+import contextlib
+import io
+import os
+
 import torch
 import torch.distributed as dist
 
-__all__ = ["make_production_mesh", "make_host_mesh", "parse_mesh_shape"]
+__all__ = ["make_production_mesh", "make_host_mesh", "parse_mesh_shape", "cli_mesh"]
 
 
 def parse_mesh_shape(arg: str) -> tuple[int, int]:
@@ -69,3 +73,37 @@ def make_host_mesh(data: int = 1, model: int = 1, *, device: str = "cuda"):
     be ``data * model``.  Without a world, a mesh of one starts one itself
     over an in-process store: NCCL on the card, gloo with ``device="cpu"``."""
     return _mesh((data, model), ("data", "model"), device)
+
+
+@contextlib.contextmanager
+def cli_mesh(arg: str | None, device: str):
+    """The mesh of a launcher's ``--mesh DATAxMODEL`` flag (``None``
+    without one), for the length of the ``with`` block.
+
+    Under ``python -m torch.distributed.run`` (``WORLD_SIZE`` in the
+    environment) every rank joins the launcher's world (gloo on the CPU,
+    NCCL on the card); ``1x1`` needs no launcher (a world of one).  Only
+    rank 0 prints.  A world started here is destroyed on exit.  Without a
+    launcher a mesh of more than one rank exits with a message naming it.
+    """
+    if arg is None:
+        yield None
+        return
+    data, model = parse_mesh_shape(arg)
+    if not dist.is_initialized():
+        if "WORLD_SIZE" in os.environ:
+            dist.init_process_group("nccl" if device == "cuda" else "gloo")
+        elif data * model > 1:
+            raise SystemExit(
+                f"--mesh {arg} needs {data * model} ranks: launch it with "
+                f"python -m torch.distributed.run --nproc-per-node {data * model} ...")
+    try:
+        mesh = make_host_mesh(data, model, device=device)
+        if dist.get_rank():
+            with contextlib.redirect_stdout(io.StringIO()):
+                yield mesh
+        else:
+            yield mesh
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -14,9 +14,14 @@ token-identical oracle).  The weights are random, drawn from a
 ``--paged`` serves off the paged KV-cache (``--page-size``, ``--pages``,
 ``--no-prefix-share``).
 
-The port of ``repro.launch.serve``, with its flags plus ``--device``.
-``--mesh`` (ROADMAP item 12) is not ported yet and exits with an error
-naming ROADMAP.md.
+``--mesh DATAxMODEL`` serves sharded (``ServingRuntime(mesh=)``): ``1x1``
+in this process; more ranks under ``python -m torch.distributed.run``
+(gloo with ``--device cpu``, NCCL on the card), every rank serving the
+same requests; only rank 0 prints.  ``--paged`` does not serve sharded.
+
+The port of ``repro.launch.serve``, with its flags plus ``--device``.  The
+JAX package simulates a multi-device mesh in one process; the port runs
+one process per rank.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.interop import resolve_device
+from repro_torch.launch.mesh import cli_mesh
 from repro_torch.models.transformer import Model
 from repro_torch.runtime.engine import ServingRuntime
 from repro_torch.serving.engine import Request, ServeEngine
@@ -64,7 +70,8 @@ def main():
                     help="disable content-hash prefix sharing (paged mode)")
     ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
                     help="serve sharded over a data×model mesh, e.g. '2x4' "
-                         "(not ported yet: ROADMAP.md queue 1, item 12)")
+                         "(more than one rank runs under python -m "
+                         "torch.distributed.run)")
     ap.add_argument("--pretune", action="store_true",
                     help="autotune the model's contraction working set "
                          "before serving (warm start for strategy='tuned')")
@@ -126,9 +133,8 @@ def main():
     args = ap.parse_args()
     if args.paged and args.legacy:
         ap.error("--paged serves through the runtime; drop --legacy")
-    if args.mesh:
-        ap.error("--mesh: sharded serving is not ported yet "
-                 "(ROADMAP.md queue 1, item 12)")
+    if args.paged and args.mesh:
+        ap.error("--paged does not serve sharded; drop --mesh")
     want_health = bool(args.metrics_jsonl or args.metrics_prom
                        or args.watchdogs or args.numerics_every > 0)
     if args.legacy and (want_health or args.drift_check):
@@ -142,6 +148,13 @@ def main():
         tracer = obs_trace.enable_tracing(capacity=args.trace_capacity)
 
     device = resolve_device(args.device)
+    with cli_mesh(args.mesh, device.type) as mesh:
+        serve(args, device, mesh, tracer, want_health)
+
+
+def serve(args, device, mesh, tracer, want_health):
+    if mesh is not None:
+        print(f"mesh: {args.mesh} over {mesh.size()} {device.type} ranks")
     cfg = get_config(args.arch, smoke=args.smoke)
     model = Model(cfg)
     params = model.init(torch.Generator(device).manual_seed(0))
@@ -167,7 +180,7 @@ def main():
             cfg, params, slots=args.slots, max_len=args.max_len,
             pretune=args.pretune, tuner=tuner,
             tuning_cache=args.tuning_cache,
-            tune_policy=args.tune_policy,
+            tune_policy=args.tune_policy, mesh=mesh,
         )
         runtime = engine.runtime
     else:
@@ -178,7 +191,7 @@ def main():
             prefix_sharing=not args.no_prefix_share,
             pretune=args.pretune, tuner=tuner,
             tuning_cache=args.tuning_cache,
-            tune_policy=args.tune_policy,
+            tune_policy=args.tune_policy, mesh=mesh,
         )
         print(f"runtime buckets: {runtime.lattice.describe()}")
         if args.paged:

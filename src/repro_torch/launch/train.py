@@ -9,9 +9,18 @@ training device; the data is :class:`~repro_torch.training.data.SyntheticLM`
 seeded 0.  Checkpoints are atomic; ``--resume`` continues from the
 manifest's latest step (params, optimizer, data cursor).
 
-The port of ``repro.launch.train``, with its flags plus ``--device``.
-``--mesh`` (sharded training, ROADMAP.md item 12) exits with an error
-naming the roadmap.
+``--mesh DATAxMODEL`` trains sharded (``Trainer(rules=)``): ``1x1`` in
+this process; more ranks under the launcher, e.g.
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --arch minicpm-2b --smoke --device cpu --mesh 1x2
+
+(gloo with ``--device cpu``, NCCL on the card).  Every rank draws the same
+weights and batches; only rank 0 prints.
+
+The port of ``repro.launch.train``, with its flags plus ``--device``.  The
+JAX package simulates a multi-device mesh in one process; the port runs
+one process per rank.
 """
 
 from __future__ import annotations
@@ -22,7 +31,9 @@ import logging
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.interop import resolve_device
+from repro_torch.launch.mesh import cli_mesh
 from repro_torch.models.transformer import init_params
 from repro_torch.models.tree import tree_leaves
 from repro_torch.training.data import SyntheticLM
@@ -49,15 +60,17 @@ def main():
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--mesh", default=None,
-                    help="e.g. 2x4 (data x model; not ported yet: ROADMAP.md "
-                         "queue 1, item 12)")
+                    help="e.g. 2x4 (data x model); more than one rank runs under "
+                         "python -m torch.distributed.run")
     args = ap.parse_args()
-    if args.mesh:
-        ap.error("--mesh: sharded training is not ported yet "
-                 "(ROADMAP.md queue 1, item 12)")
 
     logging.basicConfig(level=logging.INFO)
     device = resolve_device(args.device)
+    with cli_mesh(args.mesh, device.type) as mesh:
+        train(args, device, mesh)
+
+
+def train(args, device, mesh):
     cfg = get_config(args.arch, smoke=args.smoke)
     # the WSD schedule is minicpm's training preset (its paper contribution)
     schedule = args.schedule or ("wsd" if args.arch.startswith("minicpm") else "cosine")
@@ -82,13 +95,16 @@ def main():
         ckpt_dir=args.ckpt_dir,
         ckpt_every=50,
     )
-    trainer = Trainer(cfg, tcfg, params, data)
+    trainer = Trainer(cfg, tcfg, params, data,
+                      rules=ShardingRules(mesh) if mesh is not None else None)
+    if mesh is not None:
+        print(f"mesh: {args.mesh} over {mesh.size()} {device.type} ranks")
     if args.resume and args.ckpt_dir:
         step = trainer.restore()
         print(f"resumed from step {step}")
 
     trainer.run(
-        args.steps,
+        args.steps, log_every=min(10, args.steps),
         on_metrics=lambda s, m: print(
             f"step {s}: loss={m['loss']:.4f} lr={m['lr']:.2e} "
             f"gnorm={m['grad_norm']:.2f} dt={m['step_time_s']*1e3:.0f}ms"

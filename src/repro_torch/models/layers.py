@@ -21,29 +21,189 @@ The port of ``repro.models.layers``.  Differences, each on purpose:
 * The cache write is out of place (``index_put``), as
   ``jax.lax.dynamic_update_slice`` is, with the same clamp of the start
   row to ``T - S``.
+
+Under a sharding-rules context (:func:`repro_torch.distributed.sharding.
+use_rules`) the models run on DTensors: parameters and batches placed by
+:mod:`repro_torch.launch.shardings`, elementwise work through DTensor's
+own dispatch, ``logical(...)`` annotations where the JAX package has them,
+and every contraction through :func:`contraction`'s mesh route, which
+hands ``xeinsum`` the mesh and the operands' specs, so the products run
+on each rank's local blocks (one ``native_gemm`` launch per block product
+on the kernel backend: DTensor dispatch cannot reach a ``ctypes`` kernel)
+with the plan's collectives.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.einsum import xeinsum
+from repro_torch.core.einsum import parse_nary, xeinsum
+from repro_torch.distributed.sharding import (
+    P, current_rules, logical, reduce_partial, spec_of, use_rules,
+)
 
 __all__ = [
     "rms_norm", "rope", "attention", "mlp", "init_attn", "init_mlp",
-    "dense", "init_dense", "softcap",
+    "dense", "init_dense", "softcap", "contraction", "mesh_scope", "replicated",
+    "reshape",
 ]
 
 _NEG_INF = -2.0**30  # large-negative mask value safe in bf16
 
 
+def contraction(spec: str, *operands, strategy: str, backend: str = "torch"):
+    """``xeinsum(spec, *operands, strategy=, backend=)``; under a rules
+    context with a DTensor operand, its mesh route: ``xeinsum`` on the
+    rules' mesh with ``in_specs`` read from the operands (a plain operand
+    holds the global value: spec ``None``).
+
+    A ``Partial`` placement is reduced to ``Replicate`` first.  Where two
+    operands' shardings cannot stand together in one plan (one mesh axis
+    on two modes, one mode on two groups), the later operand's wins (the
+    weight, in ``x · W``) and the other is gathered along that mode; so
+    is a sharding that does not divide its dim or that splits a mode one
+    operand sums out alone.  A DTensor operand outside rules raises:
+    nothing hands it to DTensor's own dispatch."""
+    from torch.distributed.tensor import DTensor
+
+    rules = current_rules()
+    if not any(isinstance(x, DTensor) for x in operands):
+        return xeinsum(spec, *operands, strategy=strategy, backend=backend)
+    if rules is None:
+        raise ValueError(f"{spec}: a DTensor operand outside sharding rules; run the model "
+                         f"under use_rules so that the contraction takes the mesh route")
+    ops = [reduce_partial(x) for x in operands]
+    return xeinsum(spec, *ops, strategy=strategy, backend=backend, mesh=rules.mesh,
+                   in_specs=_mesh_specs(spec, ops, rules.mesh))
+
+
+def _mesh_specs(spec: str, operands, mesh) -> tuple:
+    """One ``PartitionSpec`` per operand that the sharded planner accepts
+    (see :func:`contraction`); ``None`` for a plain operand."""
+    from torch.distributed.tensor import DTensor
+
+    inputs, output = parse_nary(spec)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    seen = [m for modes in inputs for m in modes]
+    mode_group: dict = {}
+    axis_mode: dict = {}
+    specs = [None] * len(operands)
+    for i in reversed(range(len(operands))):
+        x = operands[i]
+        if not isinstance(x, DTensor):
+            continue
+        entries = list(spec_of(x)) + [None] * (x.ndim - len(spec_of(x)))
+        kept = []
+        for dim, (mode, entry) in enumerate(zip(inputs[i], entries)):
+            g = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+            keep = (bool(g) and x.shape[dim] % math.prod(sizes[a] for a in g) == 0
+                    and (mode in output or seen.count(mode) > 1))
+            if keep and mode in mode_group:
+                keep = mode_group[mode] == g
+            elif keep:
+                keep = not any(a in axis_mode for a in g)
+                if keep:
+                    mode_group[mode] = g
+                    axis_mode.update({a: mode for a in g})
+            kept.append(entry if keep else None)
+        specs[i] = P(*kept)
+    return tuple(specs)
+
+
+@contextlib.contextmanager
+def mesh_scope(rules=None):
+    """The context a model pass runs in: under sharding rules (``rules``,
+    or the current ones), those rules, and plain tensors made inside the
+    model join DTensor ops as replicated DTensors (every rank makes the
+    same ones); outside rules, nothing.  Both settings are per thread, so
+    work that autograd replays on its own thread (remat's recompute)
+    enters this again with the rules it captured.  Nests."""
+    rules = rules if rules is not None else current_rules()
+    if rules is None:
+        yield
+        return
+    from torch.distributed.tensor import DTensor
+
+    dispatcher = DTensor._op_dispatcher
+    before = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        with use_rules(rules):
+            yield
+    finally:
+        dispatcher._allow_implicit_replication = before
+
+
+def replicated(x):
+    """``x`` as a replicated DTensor under sharding rules, otherwise ``x``.
+
+    A plain tensor (every rank makes the same one) is wrapped, so that
+    autograd saves no plain tensor beside DTensors for a backward that may
+    run on another thread; a DTensor is gathered whole (the token ids of a
+    lookup: DTensor's scatter-add for its gradient with sharded indices
+    fails in torch 2.11)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    rules = current_rules()
+    if rules is None:
+        return x
+    whole = [Replicate()] * rules.mesh.ndim
+    if isinstance(x, DTensor):
+        return x if list(x.placements) == whole else x.redistribute(rules.mesh, whole)
+    return DTensor.from_local(x, rules.mesh, whole, run_check=False)
+
+
+def reshape(x, *shape):
+    """``x.reshape(shape)``.  A DTensor is first gathered along every
+    sharded dim the reshape merges or splits, since DTensor's view rules
+    refuse them; a dim that passes through whole keeps its sharding."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x.reshape(*shape)
+    if -1 in shape:
+        known = math.prod(n for n in shape if n != -1)
+        shape = tuple(x.numel() // known if n == -1 else n for n in shape)
+    kept = _whole_dims(tuple(x.shape), tuple(shape))
+    want = [p if not isinstance(p, Shard) or p.dim in kept else Replicate()
+            for p in x.placements]
+    if want != list(x.placements):
+        x = x.redistribute(x.device_mesh, want)
+    return x.reshape(*shape)
+
+
+def _whole_dims(src: tuple, dst: tuple) -> set:
+    """The dims of ``src`` that a reshape to ``dst`` carries over whole
+    (a group of one dim on each side, of equal size)."""
+    whole, i, j = set(), 0, 0
+    while i < len(src) or j < len(dst):
+        gi, gj = [i], [j]
+        a = src[i] if i < len(src) else 1
+        b = dst[j] if j < len(dst) else 1
+        i, j = i + 1, j + 1
+        while a != b:
+            if a < b:
+                a *= src[i]
+                gi.append(i)
+                i += 1
+            else:
+                b *= dst[j]
+                gj.append(j)
+                j += 1
+        if len(gi) == 1 and len(gj) == 1 and gi[0] < len(src) and gj[0] < len(dst):
+            whole.add(gi[0])
+    return whole
+
+
 def _ctr(cfg: ModelConfig):
     return functools.partial(
-        xeinsum, strategy=cfg.contract_strategy, backend=cfg.contract_backend
+        contraction, strategy=cfg.contract_strategy, backend=cfg.contract_backend
     )
 
 
@@ -129,7 +289,7 @@ def _attn_mask(q_pos, k_pos, *, causal: bool, window: int | None):
     """(q, k) boolean mask, or (batch, q, k) for per-row positions:
     True = attend."""
     rel = q_pos[..., :, None] - k_pos[..., None, :]
-    ok = torch.ones(rel.shape, dtype=torch.bool, device=rel.device)
+    ok = torch.ones_like(rel, dtype=torch.bool)
     if causal:
         ok &= rel >= 0
     if window is not None:
@@ -144,9 +304,9 @@ def _write_rows(cache, update, start):
     it."""
     B, S = update.shape[:2]
     start = start.clamp(0, cache.shape[1] - S).long()
-    rows = start[..., None] + torch.arange(S, device=cache.device)      # (S,) or (B, S)
+    rows = start[..., None] + replicated(torch.arange(S, device=cache.device))  # (S,)/(B, S)
     rows = rows.expand(B, S)
-    batch = torch.arange(B, device=cache.device)[:, None].expand(B, S)
+    batch = replicated(torch.arange(B, device=cache.device))[:, None].expand(B, S)
     return cache.index_put((batch, rows), update.to(cache.dtype))
 
 
@@ -170,11 +330,13 @@ def attention(
     B, S, E = x.shape
     H, G, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     R = H // G
-    q = dense(cfg, x, params["wq"]).reshape(B, S, G, R, D)
-    k = dense(cfg, x, params["wk"]).reshape(B, S, G, D)
-    v = dense(cfg, x, params["wv"]).reshape(B, S, G, D)
-    q = rope(q.reshape(B, S, H, D), positions, cfg.rope_theta).reshape(B, S, G, R, D)
+    q = reshape(dense(cfg, x, params["wq"]), B, S, G, R, D)
+    k = reshape(dense(cfg, x, params["wk"]), B, S, G, D)
+    v = reshape(dense(cfg, x, params["wv"]), B, S, G, D)
+    q = reshape(rope(reshape(q, B, S, H, D), positions, cfg.rope_theta), B, S, G, R, D)
     k = rope(k, positions, cfg.rope_theta)
+    q = logical(q, "batch", None, "kv_heads", None, None)
+    k = logical(k, "batch", None, "kv_heads", None)
 
     if kv_cache is not None:
         # decode: append new k/v at cache.length (one length per row, or one for all)
@@ -199,7 +361,7 @@ def attention(
             cv = _write_rows(kv_cache["v"], v, idx)
             k, v = ck, cv
             new_cache = {"k": ck, "v": cv, "length": idx + S}
-        k_pos = torch.arange(T, device=x.device)
+        k_pos = replicated(torch.arange(T, device=x.device))
         valid = k_pos <= (idx + S - 1)[..., None]        # (1, T) or (B, T)
     else:
         k_pos = positions
@@ -227,9 +389,9 @@ def attention(
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
 
         out = ctr("bgrst,btgd->bsgrd", probs, v.to(x.dtype))
-    out = out.reshape(B, S, H * D)
+    out = reshape(out, B, S, H * D)
     out = dense(cfg, out, params["wo"], "bsh,he->bse")
-    return out, new_cache
+    return logical(out, "batch", "seq_sharded", None), new_cache
 
 
 def _chunked_attention(cfg, q, k, v, q_pos, k_pos, *, causal, window):
@@ -247,20 +409,20 @@ def _chunked_attention(cfg, q, k, v, q_pos, k_pos, *, causal, window):
     if pad:
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
-        k_pos = torch.cat([k_pos, torch.full((pad,), -(10**9), dtype=k_pos.dtype,
-                                             device=k_pos.device)])
+        k_pos = torch.cat([k_pos, replicated(torch.full(
+            (pad,), -(10**9), dtype=k_pos.dtype, device=k_pos.device))])
     nC = k.shape[1] // Ck
-    kc = k.reshape(B, nC, Ck, G, D)
-    vc = v.reshape(B, nC, Ck, G, D)
-    pc = k_pos.reshape(nC, Ck)
+    kc = reshape(k, B, nC, Ck, G, D)
+    vc = reshape(v, B, nC, Ck, G, D)
+    pc = reshape(k_pos, nC, Ck)
     scale = D**-0.5
 
-    m = torch.full((B, G, R, S), -torch.inf, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, G, R, S), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, G, R, S, D), dtype=torch.float32, device=q.device)
+    m = replicated(torch.full((B, G, R, S), -torch.inf, dtype=torch.float32, device=q.device))
+    l = replicated(torch.zeros((B, G, R, S), dtype=torch.float32, device=q.device))
+    acc = replicated(torch.zeros((B, G, R, S, D), dtype=torch.float32, device=q.device))
     for i in range(nC):
         k_i, v_i, p_i = kc[:, i], vc[:, i], pc[i]
-        s = xeinsum("bsgrd,btgd->bgrst", q, k_i, strategy="direct")
+        s = contraction("bsgrd,btgd->bgrst", q, k_i, strategy="direct")
         s = s.float() * scale
         s = softcap(s, cfg.attn_softcap)
         ok = _attn_mask(q_pos, p_i, causal=causal, window=window)  # (S, Ck)
@@ -269,7 +431,7 @@ def _chunked_attention(cfg, q, k, v, q_pos, k_pos, *, causal, window):
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + torch.sum(p, dim=-1)
-        upd = xeinsum("bgrst,btgd->bgrsd", p.to(q.dtype), v_i, strategy="direct").float()
+        upd = contraction("bgrst,btgd->bgrsd", p.to(q.dtype), v_i, strategy="direct").float()
         acc = acc * corr[..., None] + upd
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
@@ -301,4 +463,5 @@ def mlp(cfg: ModelConfig, params, x):
         h = F.silu(g) * h
     else:
         h = gelu(h)
+    h = logical(h, "batch", None, "ff")
     return dense(cfg, h, params["wo"], "bsf,fe->bse")

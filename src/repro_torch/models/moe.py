@@ -12,9 +12,10 @@ dispatch/combine einsums are ``strategy="direct"``, as in the JAX package.
 
 The port of ``repro.models.moe``, with two differences:
 
-* ``moe_impl="a2a"`` takes the GShard path: the port has no mesh yet
-  (ROADMAP item 12), and the JAX package takes the same path outside a
-  sharding-rules context.
+* ``moe_impl="a2a"`` takes the GShard path outside a sharding-rules
+  context, as the JAX package does.  Under rules, where the JAX package
+  runs its expert-parallel all-to-all (``moe_ffn_a2a``), the port raises
+  ``NotImplementedError``: that is ROADMAP.md queue 1, item 12c.
 * ``group`` may set the tokens per dispatch group.  A batched decode
   passes the tokens of one row, so that each request routes as its own
   group, as each slot does under the JAX runtime's ``vmap``; one group of
@@ -23,22 +24,18 @@ The port of ``repro.models.moe``, with two differences:
 
 from __future__ import annotations
 
-import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.core.einsum import xeinsum
-from repro_torch.models.layers import gelu, init_dense, init_mlp, mlp, normal
+from repro_torch.distributed.sharding import current_rules, logical
+from repro_torch.models.layers import (
+    _ctr, contraction, gelu, init_dense, init_mlp, mlp, normal, reshape,
+)
 
 __all__ = ["init_moe", "moe_ffn", "router_aux_loss", "top_k"]
 
-
-def _ctr(cfg: ModelConfig):
-    return functools.partial(
-        xeinsum, strategy=cfg.contract_strategy, backend=cfg.contract_backend
-    )
 
 
 def init_moe(gen, cfg: ModelConfig, *, lead=(), device=None):
@@ -111,25 +108,33 @@ def moe_ffn(cfg: ModelConfig, params, x, *, capacity: int | None = None,
     T = B * S
     dt = x.dtype
 
+    if cfg.moe_impl == "a2a":
+        rules = current_rules()
+        if rules is not None and T % rules.mesh.size() == 0:
+            raise NotImplementedError(
+                "moe_impl='a2a' under sharding rules runs the expert all-to-all, "
+                "which is not ported yet: ROADMAP.md queue 1, item 12c")
     group = min(GROUP_SIZE if group is None else group, T)
     while T % group:
         group -= 1
     n_g = T // group
-    xt = x.reshape(n_g, group, E)
+    xt = reshape(x, n_g, group, E)
+    xt = logical(xt, "batch", None, None)
 
-    gate_logits = xeinsum("gte,ef->gtf", xt.float(), params["router"], strategy="direct")
+    gate_logits = contraction("gte,ef->gtf", xt.float(), params["router"], strategy="direct")
     gates = torch.softmax(gate_logits, dim=-1)                         # (g,t,X)
     top_w, top_e = top_k(gates, m.top_k)
     top_w = top_w / (torch.sum(top_w, dim=-1, keepdim=True) + 1e-9)
 
     C = capacity or max(int(m.capacity_factor * m.top_k * group / m.n_experts) + 1, 4)
     dispatch, combine = _dispatch_tensors(gates, top_w, top_e, m.n_experts, C)
-    dispatch = dispatch.to(dt)
-    combine = combine.to(dt)
+    dispatch = logical(dispatch.to(dt), "batch", None, "expert", None)
+    combine = logical(combine.to(dt), "batch", None, "expert", None)
 
     # dispatch: (g,t,X,C),(g,t,E) → (X,g,C,E) — data movement, evaluated
     # direct; the GEMMs below are the paper's kernels.
-    expert_in = xeinsum("gtxc,gte->xgce", dispatch, xt, strategy="direct")
+    expert_in = contraction("gtxc,gte->xgce", dispatch, xt, strategy="direct")
+    expert_in = logical(expert_in, "expert", "batch", None, None)
 
     # ---- expert FFN: strided-batched GEMM, batch mode = expert ----------
     wi = params["wi"].to(dt)
@@ -139,27 +144,28 @@ def moe_ffn(cfg: ModelConfig, params, x, *, capacity: int | None = None,
         h = F.silu(g_) * h
     else:
         h = gelu(h)
+    h = logical(h, "expert", "batch", None, "expert_ff")
     out = ctr("xgcf,xfe->xgce", h, params["wo"].to(dt))
 
     # combine back to tokens
-    y = xeinsum("gtxc,xgce->gte", combine, out, strategy="direct")
+    y = contraction("gtxc,xgce->gte", combine, out, strategy="direct")
 
     if m.n_shared:
-        xs = xt.reshape(B, S, E)
+        xs = reshape(xt, B, S, E)
         shared = params["shared"]
         y_shared = mlp(cfg, {k: v[0] for k, v in shared.items()}, xs)
         for i in range(1, m.n_shared):
             y_shared = y_shared + mlp(cfg, {k: v[i] for k, v in shared.items()}, xs)
-        y = y + y_shared.reshape(n_g, group, E)
+        y = y + reshape(y_shared, n_g, group, E)
 
-    aux = router_aux_loss(gates.reshape(T, -1), top_e.reshape(T, -1), m.n_experts)
-    return y.reshape(B, S, E), aux
+    aux = router_aux_loss(reshape(gates, T, -1), reshape(top_e, T, -1), m.n_experts)
+    return logical(reshape(y, B, S, E), "batch", "seq_sharded", None), aux
 
 
 def router_aux_loss(gates, top_e, n_experts: int):
     """Switch-style load-balancing loss + routing stats."""
     T = gates.shape[0]
-    flat = top_e.reshape(-1)
+    flat = reshape(top_e, -1)
     frac_tokens = torch.zeros(n_experts, dtype=torch.float32, device=gates.device).index_add(
         0, flat, torch.ones(flat.shape, dtype=torch.float32, device=gates.device)
     ) / (T * top_e.shape[-1])

@@ -16,23 +16,17 @@ loop here.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
-from repro_torch.core.einsum import xeinsum
-from repro_torch.models.layers import _device, init_dense, normal, rms_norm
+from repro_torch.distributed.sharding import logical
+from repro_torch.models.layers import _ctr, _device, init_dense, normal, reshape, rms_norm
 
 __all__ = ["init_mamba", "mamba_mixer", "mamba_decode_step", "init_ssm_cache"]
 
-
-def _ctr(cfg: ModelConfig):
-    return functools.partial(
-        xeinsum, strategy=cfg.contract_strategy, backend=cfg.contract_backend
-    )
 
 
 def _dims(cfg: ModelConfig):
@@ -110,18 +104,19 @@ def mamba_mixer(cfg: ModelConfig, params, x, *, positions=None, kv_cache=None):
     z, xbc, dt_raw = _split_proj(cfg, proj)
     xbc, _ = _causal_conv(xbc, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype))
     xs, Bm, Cm = torch.split(xbc, [d_in, G * N, G * N], dim=-1)
-    xs = xs.reshape(B, L, heads, P)
-    Bm = Bm.reshape(B, L, G, N)
-    Cm = Cm.reshape(B, L, G, N)
+    xs = reshape(xs, B, L, heads, P)
+    Bm = reshape(Bm, B, L, G, N)
+    Cm = reshape(Cm, B, L, G, N)
+    xs = logical(xs, "batch", None, "heads", None)
 
     A = -torch.exp(params["A_log"])                                    # (H,)
     dt = F.softplus(dt_raw.float() + params["dt_bias"])                # (B,L,H)
 
     # ---- chunked SSD ---------------------------------------------------
-    xs_c = xs.reshape(B, nc, Q, heads, P)
-    B_c = Bm.reshape(B, nc, Q, G, N).float()
-    C_c = Cm.reshape(B, nc, Q, G, N).float()
-    dt_c = dt.reshape(B, nc, Q, heads)
+    xs_c = reshape(xs, B, nc, Q, heads, P)
+    B_c = reshape(Bm, B, nc, Q, G, N).float()
+    C_c = reshape(Cm, B, nc, Q, G, N).float()
+    dt_c = reshape(dt, B, nc, Q, heads)
 
     dA = dt_c * A  # (B,nc,Q,H)
     seg = torch.cumsum(dA, dim=2)                                      # s_i
@@ -135,16 +130,16 @@ def mamba_mixer(cfg: ModelConfig, params, x, *, positions=None, kv_cache=None):
     CBt = ctr("bcign,bcjgn->bcijg", C_c, B_c)
     # heads-per-group: head h = g·HpG + r, matching the repeat() convention
     HpG = heads // G
-    Lh = Lmat.reshape(B, nc, Q, Q, G, HpG)
+    Lh = reshape(Lmat, B, nc, Q, Q, G, HpG)
     W = CBt[..., None] * Lh                       # (B, nc, i, j, G, HpG)
     # fold (G, HpG) → H on the last axes and contract j against x_j
-    W = W.reshape(B, nc, Q, Q, heads).to(x.dtype)
+    W = reshape(W, B, nc, Q, Q, heads).to(x.dtype)
     y_intra = ctr("bcijh,bcjhp->bcihp", W, xs_c)
 
     # ---- inter-chunk state passing --------------------------------------
     # chunk state: S_c = Σ_j exp(s_Q - s_j) dt_j · B_j ⊗ x_j   (B,nc,H,N,P)
     decay_out = torch.exp(seg[:, :, -1:, :] - seg) * dt_c              # (B,nc,Q,H)
-    Bx = B_c[:, :, :, :, None, :].expand(B, nc, Q, G, HpG, N).reshape(B, nc, Q, heads, N)
+    Bx = reshape(B_c[:, :, :, :, None, :].expand(B, nc, Q, G, HpG, N), B, nc, Q, heads, N)
     contrib = (Bx * decay_out[..., None]).to(x.dtype)
     S = ctr("bcjhn,bcjhp->bchnp", contrib, xs_c)                       # per-chunk state
 
@@ -158,16 +153,16 @@ def mamba_mixer(cfg: ModelConfig, params, x, *, positions=None, kv_cache=None):
     prev_states = torch.stack(prev, dim=1)                             # (B,nc,H,N,P)
 
     # y_inter[i] = exp(s_i) · C_i · S_prev
-    Ch = C_c[:, :, :, :, None, :].expand(B, nc, Q, G, HpG, N).reshape(B, nc, Q, heads, N)
+    Ch = reshape(C_c[:, :, :, :, None, :].expand(B, nc, Q, G, HpG, N), B, nc, Q, heads, N)
     Ch = (Ch * torch.exp(seg)[..., None]).to(x.dtype)
     y_inter = ctr("bcihn,bchnp->bcihp", Ch, prev_states)
 
-    y = (y_intra + y_inter).reshape(B, L, heads, P)
+    y = reshape(y_intra + y_inter, B, L, heads, P)
     y = y + xs * params["D"][None, None, :, None].to(x.dtype)
-    y = y.reshape(B, L, d_in)
+    y = reshape(y, B, L, d_in)
     y = rms_norm(y * F.silu(z), params["norm"], cfg.rms_eps)
     out = ctr("bld,de->ble", y, params["out_proj"].to(x.dtype))
-    return out, None
+    return logical(out, "batch", "seq_sharded", None), None
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, *, lead=(), device="cuda"):
@@ -196,10 +191,10 @@ def mamba_decode_step(cfg: ModelConfig, params, x, cache):
         cache["conv"],
     )
     xs, Bm, Cm = torch.split(xbc[:, -1], [d_in, G * N, G * N], dim=-1)
-    xs = xs.reshape(B, heads, P)
+    xs = reshape(xs, B, heads, P)
     HpG = heads // G
-    Bm = Bm.reshape(B, G, N).repeat_interleave(HpG, dim=1).reshape(B, heads, N)
-    Cm = Cm.reshape(B, G, N).repeat_interleave(HpG, dim=1).reshape(B, heads, N)
+    Bm = reshape(reshape(Bm, B, G, N).repeat_interleave(HpG, dim=1), B, heads, N)
+    Cm = reshape(reshape(Cm, B, G, N).repeat_interleave(HpG, dim=1), B, heads, N)
 
     A = -torch.exp(params["A_log"])
     dt = F.softplus(dt_raw[:, -1].float() + params["dt_bias"])        # (B,H)
@@ -212,7 +207,7 @@ def mamba_decode_step(cfg: ModelConfig, params, x, cache):
     )
     y = ctr("bhn,bhnp->bhp", Cm.to(x.dtype), new_state)
     y = y + xs * params["D"][None, :, None].to(x.dtype)
-    y = y.reshape(B, 1, d_in)
+    y = reshape(y, B, 1, d_in)
     y = rms_norm(y * F.silu(z), params["norm"], cfg.rms_eps)
     out = ctr("bld,de->ble", y, params["out_proj"].to(x.dtype))
     return out, {"conv": new_conv, "state": new_state}

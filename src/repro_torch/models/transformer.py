@@ -22,16 +22,16 @@ from ``jax.vmap`` of :func:`decode_step` over batch-1 slots.
 
 from __future__ import annotations
 
-import functools
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.core.einsum import xeinsum
+from repro_torch.distributed.sharding import current_rules, logical
 from repro_torch.interop import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.layers import _ctr, mesh_scope, replicated
 from repro_torch.models.frontend import apply_frontend, init_frontend
 from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.models.ssm import init_mamba, init_ssm_cache, mamba_mixer
@@ -42,11 +42,6 @@ __all__ = [
     "decode_step", "Model",
 ]
 
-
-def _ctr(cfg: ModelConfig):
-    return functools.partial(
-        xeinsum, strategy=cfg.contract_strategy, backend=cfg.contract_backend
-    )
 
 
 # ------------------------------------------------------------------ blocks
@@ -137,7 +132,7 @@ def _embed_inputs(cfg: ModelConfig, params, batch):
     if cfg.frontend is not None and cfg.frontend.kind == "audio":
         # audio: precomputed frames are the whole sequence (tokens = targets)
         return apply_frontend(cfg, params["frontend"], batch["features"].to(dt))
-    x = params["embed"][batch["tokens"].long()].to(dt)
+    x = params["embed"][replicated(batch["tokens"]).long()].to(dt)
     if cfg.frontend is not None:  # vision: prepend projected patch tokens
         x = apply_frontend(cfg, params["frontend"], batch["features"].to(dt), x)
     return x
@@ -157,14 +152,16 @@ def _run_stack(cfg: ModelConfig, params, x, positions, cache=None, remat=False,
         new_prefix.append(nc)
 
     if cache is None:
+        rules = current_rules()  # remat replays the body on autograd's thread
 
         def period_body(x, period_params):
-            aux_p = {"load_balance_loss": zero}
-            for spec, p in zip(cfg.pattern, period_params):
-                x, _, aux = _block(cfg, spec, p, x, positions=positions,
-                                   moe_group=moe_group)
-                aux_p = _acc_aux(aux_p, aux)
-            return x, aux_p
+            with mesh_scope(rules):
+                aux_p = {"load_balance_loss": zero}
+                for spec, p in zip(cfg.pattern, period_params):
+                    x, _, aux = _block(cfg, spec, p, x, positions=positions,
+                                       moe_group=moe_group)
+                    aux_p = _acc_aux(aux_p, aux)
+                return x, aux_p
 
         per_period = []
         for i in range(cfg.n_periods):
@@ -208,13 +205,14 @@ def _lm_head(cfg: ModelConfig, params, x):
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     spec = "bse,ve->bsv" if cfg.tie_embeddings else "bse,ev->bsv"
     logits = _ctr(cfg)(spec, x, head.to(dt))
-    return L.softcap(logits.float(), cfg.final_softcap)
+    logits = L.softcap(logits.float(), cfg.final_softcap)
+    return logical(logits, "batch", None, "vocab")
 
 
 def _positions(cache, n: int, device):
     """Absolute positions of ``n`` new tokens after the cache's length:
     ``(n,)`` for a shared length, ``(B, n)`` for one per row."""
-    return cache["length"][..., None] + torch.arange(n, device=device)
+    return cache["length"][..., None] + replicated(torch.arange(n, device=device))
 
 
 def _row_groups(cache, n: int):
@@ -226,10 +224,12 @@ def _row_groups(cache, n: int):
 # ----------------------------------------------------------------- forward
 def forward(cfg: ModelConfig, params, batch, *, remat: bool = True):
     """Training forward.  Returns (logits, aux)."""
-    x = _embed_inputs(cfg, params, batch)
-    positions = torch.arange(x.shape[1], device=x.device)
-    x, _, aux = _run_stack(cfg, params, x, positions, remat=remat)
-    return _lm_head(cfg, params, x), aux
+    with mesh_scope():
+        x = _embed_inputs(cfg, params, batch)
+        x = logical(x, "batch", "seq_sharded", None)
+        positions = replicated(torch.arange(x.shape[1], device=x.device))
+        x, _, aux = _run_stack(cfg, params, x, positions, remat=remat)
+        return _lm_head(cfg, params, x), aux
 
 
 def prefill(cfg: ModelConfig, params, batch, cache):
@@ -238,34 +238,36 @@ def prefill(cfg: ModelConfig, params, batch, cache):
     Returns (last_logits (B, V), new_cache).  Only the last position hits
     the LM head.  Positions continue from ``cache["length"]``, so a prompt
     may be prefilled in chunks (the runtime's chunked prefill)."""
-    x = _embed_inputs(cfg, params, batch)
-    positions = _positions(cache, x.shape[1], x.device)
-    x, new_cache, _ = _run_stack(cfg, params, x, positions, cache=cache,
-                                 moe_group=_row_groups(cache, x.shape[1]))
-    return _lm_head(cfg, params, x[:, -1:])[:, -1], new_cache
+    with mesh_scope():
+        x = _embed_inputs(cfg, params, batch)
+        positions = _positions(cache, x.shape[1], x.device)
+        x, new_cache, _ = _run_stack(cfg, params, x, positions, cache=cache,
+                                     moe_group=_row_groups(cache, x.shape[1]))
+        return _lm_head(cfg, params, x[:, -1:])[:, -1], new_cache
 
 
 def lm_loss(cfg: ModelConfig, params, batch, *, remat: bool = True,
             lb_coeff: float = 0.01):
     """Next-token (or frame-target) cross-entropy + MoE balance loss."""
-    logits, aux = forward(cfg, params, batch, remat=remat)
-    if cfg.encoder_only or cfg.frontend is not None:
-        # targets provided explicitly, aligned to the end of the sequence
-        targets = batch["labels"]
-        logits_t = logits[:, -targets.shape[1]:]
-    else:
-        targets = batch["tokens"][:, 1:]
-        logits_t = logits[:, :-1]
-    logp = F.log_softmax(logits_t, dim=-1)
-    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    mask = batch.get("mask")
-    if mask is not None:
-        mask = mask[:, -targets.shape[1]:]
-        loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
-    else:
-        loss = torch.mean(nll)
-    total = loss + lb_coeff * aux.get("load_balance_loss", 0.0)
-    return total, {"ce_loss": loss, **aux}
+    with mesh_scope():
+        logits, aux = forward(cfg, params, batch, remat=remat)
+        if cfg.encoder_only or cfg.frontend is not None:
+            # targets provided explicitly, aligned to the end of the sequence
+            targets = batch["labels"]
+            logits_t = logits[:, -targets.shape[1]:]
+        else:
+            targets = batch["tokens"][:, 1:]
+            logits_t = logits[:, :-1]
+        logp = F.log_softmax(logits_t, dim=-1)
+        nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+        mask = batch.get("mask")
+        if mask is not None:
+            mask = mask[:, -targets.shape[1]:]
+            loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+        else:
+            loss = torch.mean(nll)
+        total = loss + lb_coeff * aux.get("load_balance_loss", 0.0)
+        return total, {"ce_loss": loss, **aux}
 
 
 # ------------------------------------------------------------------ decode
@@ -310,11 +312,12 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     if cfg.encoder_only:
         raise ValueError(f"{cfg.arch_id} is encoder-only: no decode step")
     dt = cfg.activation_dtype()
-    x = params["embed"][tokens.long()].to(dt)
-    pos = _positions(cache, 1, x.device)
-    x, new_cache, _ = _run_stack(cfg, params, x, pos, cache=cache,
-                                 moe_group=_row_groups(cache, 1))
-    return _lm_head(cfg, params, x)[:, -1], new_cache
+    with mesh_scope():
+        x = params["embed"][tokens.long()].to(dt)
+        pos = _positions(cache, 1, x.device)
+        x, new_cache, _ = _run_stack(cfg, params, x, pos, cache=cache,
+                                     moe_group=_row_groups(cache, 1))
+        return _lm_head(cfg, params, x)[:, -1], new_cache
 
 
 class Model:

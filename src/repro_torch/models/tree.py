@@ -13,13 +13,19 @@ from __future__ import annotations
 __all__ = ["tree_map", "tree_leaves", "tree_leaves_with_path", "tree_unflatten"]
 
 
-def tree_map(fn, tree, *rest):
+def tree_map(fn, tree, *rest, is_leaf=None):
     """``fn`` applied leaf by leaf to ``tree`` and the trees in ``rest``,
-    which must have its structure; returns a tree of that structure."""
+    which must have its structure; returns a tree of that structure.
+    ``is_leaf(node)`` true stops the walk at ``node`` (as in ``jax.tree.map``,
+    e.g. for trees whose leaves are tuples)."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest), is_leaf=is_leaf)
+                for k in tree}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest, strict=True))
+        return type(tree)(tree_map(fn, *xs, is_leaf=is_leaf)
+                          for xs in zip(tree, *rest, strict=True))
     return fn(tree, *rest)
 
 

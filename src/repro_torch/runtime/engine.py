@@ -24,7 +24,18 @@ bucket is one :func:`~repro_torch.models.transformer.decode_step` over
 the gathered rows: each row takes its own rope positions, masks, cache
 row and MoE dispatch group (see :mod:`repro_torch.models.transformer`).
 The runtime owns its slot-stacked cache and writes slots into it in
-place.  ``mesh=`` (ROADMAP item 12) raises ``NotImplementedError``.
+place.
+
+``mesh=`` (a ``DeviceMesh`` with ``data``/``model`` axes; ``sharding_rules=``
+overrides the default rules) serves sharded: the params are placed by
+:func:`~repro_torch.launch.shardings.param_logical_axes` and every cache
+(the slot-stacked one, each request's prefill cache, the warm-up's
+scratch caches) by :func:`~repro_torch.launch.shardings.
+cache_logical_axes`, and every prefill and decode step runs under the
+rules (:meth:`_mesh_ctx`), so each model contraction takes the mesh
+route.  Logits come back whole on every rank, so every rank samples the
+same tokens.  ``paged=True`` does not serve sharded (as in the JAX
+package).
 
 ``paged=True`` swaps the slot-stacked cache for the block pool of
 :mod:`repro_torch.runtime.pages`: KV lives in fixed-size pages, requests
@@ -59,12 +70,15 @@ there.
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import ShardingRules, device_put
+from repro_torch.models.layers import mesh_scope
 from repro_torch.models.transformer import decode_step, init_cache, prefill
 from repro_torch.models.tree import tree_map
 from repro_torch.obs import trace as _trace
@@ -125,9 +139,44 @@ def _write_slot(cache, one, slot: int) -> None:
         src = src.to(dst.dtype)
         if src.ndim < dst.ndim:
             src = src.unsqueeze(axis)
-        dst.index_copy_(axis, idx, src)
+        _copy_rows_(dst, axis, idx, src)
 
     tree_map(write, cache, axes, one)
+
+
+def _local_rows(x, axis: int):
+    """The local block of a DTensor cache leaf, whose row ``axis`` the
+    cache rules never shard: its rows are the global rows, so rows are
+    selected and written on it directly (torch 2.11's DTensor has no
+    ``index_copy_``)."""
+    from torch.distributed.tensor import Shard
+
+    if any(isinstance(p, Shard) and p.dim % x.ndim == axis for p in x.placements):
+        raise ValueError(f"a cache leaf is sharded on its row axis {axis}: {x.placements}")
+    return x.to_local()
+
+
+def _select_rows(x, axis: int, idx):
+    """``x.index_select(axis, idx)``, a DTensor's on its local block."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x.index_select(axis, idx)
+    return DTensor.from_local(_local_rows(x, axis).index_select(axis, idx), x.device_mesh,
+                              x.placements, run_check=False)
+
+
+def _copy_rows_(dst, axis: int, idx, src) -> None:
+    """``dst.index_copy_(axis, idx, src)``, a DTensor's on its local block
+    (``src`` first placed as ``dst``)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(dst, DTensor):
+        dst.index_copy_(axis, idx, src)
+        return
+    if tuple(src.placements) != tuple(dst.placements):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    _local_rows(dst, axis).index_copy_(axis, idx, _local_rows(src, axis))
 
 
 class ServingRuntime:
@@ -161,15 +210,14 @@ class ServingRuntime:
         """
         if cfg.encoder_only:
             raise ValueError(f"{cfg.arch_id} is encoder-only; nothing to serve")
-        if mesh is not None or sharding_rules is not None:
-            raise NotImplementedError(
-                "sharded serving (mesh=/sharding_rules=) is not ported yet: "
-                "ROADMAP.md queue 1, item 12")
+        if mesh is None and sharding_rules is not None:
+            mesh = sharding_rules.mesh
         self.cfg, self.params = cfg, params
         self.slots = slots
         self.max_len = max_len
         self.greedy = greedy
-        self.mesh = None
+        self.mesh = mesh
+        self._rules = None
         if chunked_prefill is None:
             chunked_prefill = supports_chunked_prefill(cfg)
         elif chunked_prefill and not supports_chunked_prefill(cfg):
@@ -184,6 +232,8 @@ class ServingRuntime:
         self.kv: PagedKV | None = None
         max_pages = None
         if self.paged:
+            if mesh is not None:
+                raise NotImplementedError("paged KV-cache does not serve sharded yet")
             if not supports_chunked_prefill(cfg):
                 raise ValueError(
                     f"{cfg.arch_id} has SSM/frontend layers: recurrent "
@@ -194,6 +244,12 @@ class ServingRuntime:
                 # null page + the unpaged runtime's slots*max_len rows
                 pages = slots * max_pages + 1
         self.device = params["embed"].device
+        if mesh is not None:
+            from repro_torch.launch.shardings import param_logical_axes, tree_shardings
+
+            self._rules = sharding_rules or ShardingRules(mesh)
+            self.params = device_put(params, tree_shardings(
+                self._rules, param_logical_axes(params), params))
         self.lattice = BucketLattice(
             slots, max_chunk=prefill_chunk, chunked=chunked_prefill,
             bucketed_decode=bucketed_decode, max_pages=max_pages,
@@ -214,7 +270,8 @@ class ServingRuntime:
         else:
             # slot-stacked cache: one request per batch row, each row with
             # its own length
-            self.cache = slot_cache(cfg, slots, max_len, device=self.device)
+            self.cache = self._place_cache(
+                slot_cache(cfg, slots, max_len, device=self.device))
             self._axes = _row_axes(self.cache)
         self.scheduler = Scheduler(slots, self.lattice, pool=self.pool)
         self._tokens = np.zeros((slots, 1), np.int64)
@@ -243,6 +300,27 @@ class ServingRuntime:
                 self.tuner.reset_counters()
 
     # --------------------------------------------------------------- helpers
+    def _mesh_ctx(self):
+        """The sharding rules and DTensor scope for model steps (nothing
+        on one device)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return mesh_scope(self._rules)
+
+    def _place_cache(self, cache):
+        """A cache tree on the mesh by the cache rules (as it is without
+        one)."""
+        if self.mesh is None:
+            return cache
+        from repro_torch.launch.shardings import cache_logical_axes, tree_shardings
+
+        return device_put(cache, tree_shardings(self._rules, cache_logical_axes(cache),
+                                                cache))
+
+    def _whole(self, logits):
+        """Logits as one plain tensor on every rank, to sample from."""
+        return logits.full_tensor() if self.mesh is not None else logits
+
     def _fingerprint(self):
         return tuning_key_component(self.cfg.contract_strategy)
 
@@ -269,15 +347,17 @@ class ServingRuntime:
         # width, not on max_len slot rows
         widths = ([P * self.page_size for P in self.lattice.page_buckets] if self.paged
                   else [self.max_len])
-        with torch.no_grad(), recorder() as rec:
+        with torch.no_grad(), self._mesh_ctx(), recorder() as rec:
             for b in self.lattice.slot_buckets:
                 toks = torch.zeros((b, 1), dtype=torch.long, device=self.device)
                 for width in widths:
-                    scratch = slot_cache(self.cfg, b, width, device=self.device)
+                    scratch = self._place_cache(
+                        slot_cache(self.cfg, b, width, device=self.device))
                     self._decode(self.params, scratch, toks)
             for plen in dict.fromkeys(min(p, self.max_len) for p in prompt_lens):
                 toks = torch.zeros((1, plen), dtype=torch.long, device=self.device)
-                one = init_cache(self.cfg, 1, self.max_len, device=self.device)
+                one = self._place_cache(
+                    init_cache(self.cfg, 1, self.max_len, device=self.device))
                 self._prefill(self.params, toks, one)
         return rec
 
@@ -390,9 +470,9 @@ class ServingRuntime:
                 return step(p, cache, toks)
         else:
             def fn(p, cache, toks, idx):
-                sub = tree_map(lambda x, a: x.index_select(a, idx), cache, axes)
+                sub = tree_map(lambda x, a: _select_rows(x, a, idx), cache, axes)
                 logits, new_sub = step(p, sub, toks[idx])
-                tree_map(lambda full, a, ns: full.index_copy_(a, idx, ns),
+                tree_map(lambda full, a, ns: _copy_rows_(full, a, idx, ns),
                          cache, axes, new_sub)
                 return logits, cache
         return fn
@@ -505,7 +585,8 @@ class ServingRuntime:
                 # after it (state.pos started at shared_tokens)
                 state.cache = self._page_stage(state)
             else:
-                state.cache = init_cache(self.cfg, 1, self.max_len, device=self.device)
+                state.cache = self._place_cache(
+                    init_cache(self.cfg, 1, self.max_len, device=self.device))
         toks = torch.as_tensor(
             np.asarray(state.request.prompt[state.pos:state.pos + chunk],
                        np.int64)[None], device=self.device,
@@ -515,8 +596,10 @@ class ServingRuntime:
         size = (chunk, self._page_width(state)) if self.paged else chunk
         key = self.buckets.key("prefill", size, self._fingerprint())
         fn = self.buckets.get(key, self._build_prefill)
-        with torch.no_grad():
-            logits, state.cache = fn(self.params, toks, state.cache)
+        with torch.no_grad(), self._mesh_ctx():
+            logits, cache = fn(self.params, toks, state.cache)
+            state.cache = self._place_cache(cache)
+        logits = self._whole(logits)
         state.pos += chunk
         self.metrics.on_prefill_chunk(chunk)
         if state.remaining_prompt == 0:
@@ -526,7 +609,8 @@ class ServingRuntime:
             if self.paged:
                 self._page_commit(state)
             else:
-                _write_slot(self.cache, state.cache, state.slot)
+                with self._mesh_ctx():
+                    _write_slot(self.cache, state.cache, state.slot)
             self.scheduler.prefill_done(state)
             self.metrics.on_first_token(state.rid)
             if _trace.enabled():
@@ -644,12 +728,16 @@ class ServingRuntime:
             # identical updates, so the scatter is value-deterministic
             idx = np.asarray(slot_ids + [slot_ids[0]] * (bucket - n))
             rows = list(range(n))
-        with torch.no_grad():
-            logits, self.cache = fn(
+        with torch.no_grad(), self._mesh_ctx():
+            logits, cache = fn(
                 self.params, self.cache,
                 torch.as_tensor(self._tokens, device=self.device),
                 torch.as_tensor(idx, device=self.device),
             )
+            # a step may hand back its cache placed otherwise (a write into
+            # rows sharded over kv_seq gathers them): back onto the rules
+            self.cache = self._place_cache(cache)
+        logits = self._whole(logits)
         if self.logits_probe is not None:
             self.logits_probe(logits)
         self.metrics.on_decode(n, bucket)

@@ -13,8 +13,8 @@ is differential-tested against (``tests/test_torch_runtime.py``).
 Use :class:`~repro_torch.runtime.engine.ServingRuntime` directly for real
 traffic — chunked prefill, bucketed decode and metrics are its defaults.
 
-The port of ``repro.serving.engine``; ``mesh=`` raises, as the runtime's
-does (ROADMAP item 12).
+The port of ``repro.serving.engine``; ``mesh=`` and ``sharding_rules=``
+pass through to the runtime, which then serves sharded.
 """
 
 from __future__ import annotations

@@ -15,8 +15,15 @@ are numbered in ``jax.tree.flatten`` order (:func:`repro_torch.models.tree.
 tree_leaves`: dict keys sorted), so a checkpoint the JAX package's
 ``Trainer`` writes restores into the port's, and the other way round.
 The port stores a bfloat16 leaf as float32 (numpy has no bfloat16 of its
-own); restore casts each leaf to its target's dtype.  Placing
-leaves by ``shardings=`` is ROADMAP.md item 12.
+own); restore casts each leaf to its target's dtype.
+
+Sharded trees (DTensor leaves, a trainer under sharding rules) are saved
+**unsharded**: every rank gathers each leaf whole (``full_tensor()``, a
+collective), rank 0 alone writes and commits, and the others wait at a
+barrier, so the ranks never race on one ``.tmp`` directory.  Restore
+with ``shardings=`` (a tree of :class:`~repro_torch.distributed.sharding.
+NamedSharding` matching ``like``) places each leaf on its sharding, so a
+checkpoint written on any mesh, or on none, restores onto any other.
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.sharding import device_put
 from repro_torch.interop import from_numpy
 from repro_torch.models.tree import tree_leaves, tree_unflatten
 
@@ -37,7 +46,11 @@ _MANIFEST = "MANIFEST.json"
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
     t = leaf.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.cpu().numpy()
@@ -54,21 +67,39 @@ def _treedef(tree) -> str:
 
 def save_checkpoint(ckpt_dir: str, step: int, tree, *, extra: dict | None = None,
                     keep: int = 3) -> str:
-    """Atomically save a tree (params/opt state/metrics) at ``step``."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Atomically save a tree (params/opt state/metrics) at ``step``.
+
+    A tree with DTensor leaves is gathered whole on every rank (all ranks
+    must call this), written by rank 0 alone, and the call returns on
+    every rank after the commit."""
+    from torch.distributed.tensor import DTensor
+
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    leaves = tree_leaves(tree)
+    if any(isinstance(leaf, DTensor) for leaf in leaves):
+        arrays = [_to_numpy(leaf) for leaf in leaves]  # collectives: every rank
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, final, step, tree, arrays, extra, keep)
+        dist.barrier()
+    else:
+        _write(ckpt_dir, final, step, tree, leaves, extra, keep)
+    return final
+
+
+def _write(ckpt_dir: str, final: str, step: int, tree, leaves, extra, keep: int):
+    os.makedirs(ckpt_dir, exist_ok=True)
     if os.path.exists(final):  # idempotent: this step is already committed
-        return final
+        return
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
 
-    leaves = tree_leaves(tree)
     meta = {"n_leaves": len(leaves), "treedef": _treedef(tree),
             "extra": extra or {}, "step": step}
     for i, leaf in enumerate(leaves):
-        np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), _to_numpy(leaf))
+        arr = leaf if isinstance(leaf, np.ndarray) else _to_numpy(leaf)
+        np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr)
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump(meta, f)
         f.flush()
@@ -77,7 +108,6 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *, extra: dict | None = None
     os.rename(tmp, final)  # atomic commit
     _update_manifest(ckpt_dir, step)
     _gc(ckpt_dir, keep)
-    return final
 
 
 def _update_manifest(ckpt_dir: str, step: int) -> None:
@@ -119,10 +149,8 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 def restore_checkpoint(ckpt_dir: str, step: int | None, like, *, shardings=None):
     """Restore into the structure of ``like``: each leaf takes its
-    counterpart's dtype and device.  Returns ``(tree, extra, step)``."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto shardings is not ported yet: ROADMAP.md queue 1, item 12")
+    counterpart's dtype and device, and with ``shardings`` its sharding.
+    Returns ``(tree, extra, step)``."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -140,7 +168,10 @@ def restore_checkpoint(ckpt_dir: str, step: int | None, like, *, shardings=None)
             raise ValueError(f"leaf {i}: checkpoint shape {arr.shape}, target "
                              f"{tuple(ref.shape)}")
         out.append(from_numpy(arr, ref.device).to(ref.dtype))
-    return tree_unflatten(like, out), meta["extra"], step
+    tree = tree_unflatten(like, out)
+    if shardings is not None:
+        tree = device_put(tree, shardings)
+    return tree, meta["extra"], step
 
 
 class Checkpointer:

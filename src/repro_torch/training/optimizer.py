@@ -11,6 +11,13 @@ The port of ``repro.training.optimizer``.  Every step of the arithmetic
 is the JAX package's, in its order and in float32 (a schedule's step is
 taken as float32, a Python scalar joins as float32); the update runs under
 ``torch.no_grad()``.
+
+On DTensor trees (a trainer under sharding rules) the moments may be
+placed otherwise than the parameters (ZeRO-1 shards them over ``data``):
+each gradient is redistributed to its moments' placements, the update is
+computed on the moments' blocks, and the new parameter is redistributed
+back to the parameter's placements.  Elementwise arithmetic per element is
+the same, so only the global norm's sum order can differ from one device.
 """
 
 from __future__ import annotations
@@ -120,6 +127,16 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: g.float() * scale, grads), norm
 
 
+def _placed_like(x, ref):
+    """``x`` redistributed to ``ref``'s placements, where both are DTensors."""
+    from torch.distributed.tensor import DTensor
+
+    if (isinstance(x, DTensor) and isinstance(ref, DTensor)
+            and tuple(x.placements) != tuple(ref.placements)):
+        return x.redistribute(ref.device_mesh, ref.placements)
+    return x
+
+
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params, grads, state, *, schedule=None):
     """One AdamW step.  Returns (new_params, new_state, metrics)."""
@@ -129,6 +146,7 @@ def adamw_update(cfg: AdamWConfig, params, grads, state, *, schedule=None):
     lr = schedule(step)
     b1, b2 = cfg.b1, cfg.b2
 
+    grads = tree_map(_placed_like, grads, state["mu"])
     mu = tree_map(lambda m, g: (b1 * m.float() + (1 - b1) * g).to(m.dtype),
                   state["mu"], grads)
     nu = tree_map(lambda v, g: (b2 * v.float() + (1 - b2) * g * g).to(v.dtype),
@@ -138,9 +156,10 @@ def adamw_update(cfg: AdamWConfig, params, grads, state, *, schedule=None):
 
     def upd(p, m, v):
         m, v = m.float(), v.float()
+        pm = _placed_like(p, m)
         u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        u = u + cfg.weight_decay * p.float()
-        return (p.float() - lr * u).to(p.dtype)
+        u = u + cfg.weight_decay * pm.float()
+        return _placed_like((pm.float() - lr * u).to(p.dtype), p)
 
     new_params = tree_map(upd, params, mu, nu)
     return new_params, {"mu": mu, "nu": nu, "step": step}, {

@@ -19,8 +19,21 @@ and the backward is a ``native_gemm`` launch when the config says
 ``contract_strategy="native"`` (each product's backward is two native
 contractions).  The role-based strategies are forward-only on the kernel
 backend and raise under autograd (:func:`repro_torch.kernels.ops.
-execute_plan`), as the JAX package's ``pallas`` backend does.  Sharding
-rules (``rules=``) are ROADMAP.md item 12.
+execute_plan`), as the JAX package's ``pallas`` backend does.
+
+``Trainer(rules=ShardingRules(mesh))`` trains on a mesh: the parameters
+are placed by :func:`~repro_torch.launch.shardings.param_logical_axes`,
+the AdamW moments by :func:`~repro_torch.launch.shardings.
+opt_state_logical_axes` (ZeRO-1) and each batch by
+:func:`~repro_torch.launch.shardings.batch_logical_axes`, all DTensors
+over views of the global values; every rank draws the same global batch
+from the same data seed, and each step runs under ``use_rules``, so every
+model contraction takes the mesh route (local blocks, explicit
+collectives; on the kernel backend one ``native_gemm`` launch per block
+product).  Gradients still come from ``torch.autograd.grad`` on detached
+leaves, now DTensors.  bf16 compression and microbatches work on them;
+int8 compression raises under rules (its blocks run over each leaf
+flattened whole, across the shards).
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.compress import Int8Compressor, compress_bf16
+from repro_torch.distributed.sharding import device_put, reduce_partial, use_rules
 from repro_torch.models.transformer import lm_loss
 from repro_torch.models.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.training.checkpoint import Checkpointer
@@ -63,6 +77,7 @@ def value_and_grad(cfg: ModelConfig, params, batch, *, remat: bool = True):
     live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
         loss, metrics = lm_loss(cfg, tree_unflatten(params, live), batch, remat=remat)
+        loss = reduce_partial(loss)  # a mean over a sharded batch is pending
         grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(live, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
@@ -77,8 +92,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, compressor=None):
         if tcfg.microbatches > 1:
             # split the batch's leading dim into microbatches; accumulate grads
             n = tcfg.microbatches
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                  device=p.device), params)
+            gsum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             lsum = 0.0
             for i in range(n):
                 micro = {k: x[i * (x.shape[0] // n):(i + 1) * (x.shape[0] // n)]
@@ -109,6 +123,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, compressor=None):
     return train_step
 
 
+def _scalar(v) -> float:
+    """A metric as a Python float (a DTensor's global value)."""
+    from torch.distributed.tensor import DTensor
+
+    return float(v.full_tensor() if isinstance(v, DTensor) else v)
+
+
 class Trainer:
     """Owns params/opt-state/data and runs the fault-tolerant loop.
 
@@ -116,14 +137,25 @@ class Trainer:
     ``data`` (numpy) is placed there."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, params, data, rules=None):
-        if rules is not None:
-            raise NotImplementedError(
-                "training under sharding rules (rules=) is not ported yet: "
-                "ROADMAP.md queue 1, item 12")
         self.cfg, self.tcfg, self.data = cfg, tcfg, data
-        self.params = params
+        self.rules = rules
         self.device = tree_leaves(params)[0].device
         self.opt_state = adamw_init(params)
+        self.params = params
+        if rules is not None:
+            if tcfg.compression == "int8":
+                raise NotImplementedError(
+                    "int8 compression under sharding rules: its 256-element blocks run "
+                    "over each leaf flattened whole, across the shards")
+            from repro_torch.launch import shardings as sh
+
+            self.shardings = {
+                "params": sh.tree_shardings(rules, sh.param_logical_axes(params), params),
+                "opt": sh.tree_shardings(rules, sh.opt_state_logical_axes(params),
+                                         self.opt_state),
+            }
+            self.params = device_put(params, self.shardings["params"])
+            self.opt_state = device_put(self.opt_state, self.shardings["opt"])
         self.compressor = Int8Compressor() if tcfg.compression == "int8" else None
         self.residual = (
             self.compressor.init_residual(params) if self.compressor else None
@@ -151,7 +183,12 @@ class Trainer:
         return self.ckpt.maybe_save(self.step, self.state_tree(), extra, force=force)
 
     def restore(self, shardings=None):
-        """Resume from the latest checkpoint, onto this trainer's device."""
+        """Resume from the latest checkpoint (written on any mesh, or none),
+        onto this trainer's device; with ``shardings`` (a tree matching
+        :meth:`state_tree`) each leaf is placed on its sharding.  A
+        trainer under rules places onto its own shardings by default."""
+        if shardings is None and self.rules is not None:
+            shardings = self.shardings
         tree, extra, step = self.ckpt.restore(self.state_tree(), shardings)
         self.params = tree["params"]
         self.opt_state = tree["opt"]
@@ -161,17 +198,30 @@ class Trainer:
         self.data.restore(extra["data"])
         return step
 
+    def place_batch(self, arrays: dict) -> dict:
+        """A numpy batch on this trainer's device; under rules, a DTensor
+        per leaf, sharded by :func:`~repro_torch.launch.shardings.
+        batch_logical_axes` over a view of the global batch."""
+        batch = {k: torch.as_tensor(np.asarray(v), device=self.device)
+                 for k, v in arrays.items()}
+        if self.rules is None:
+            return batch
+        from repro_torch.launch import shardings as sh
+
+        return device_put(batch, sh.tree_shardings(
+            self.rules, sh.batch_logical_axes(batch), batch))
+
     # --------------------------------------------------------------- loop
     def run(self, n_steps: int, *, log_every: int = 10, on_metrics=None):
         history = []
         for _ in range(n_steps):
-            batch = {k: torch.as_tensor(np.asarray(v), device=self.device)
-                     for k, v in next(self.data).items()}
+            batch = self.place_batch(next(self.data))
             t0 = time.monotonic()
-            self.params, self.opt_state, self.residual, metrics = self._step_fn(
-                self.params, self.opt_state, batch, self.residual
-            )
-            metrics = {k: float(v) for k, v in metrics.items()}
+            with use_rules(self.rules):
+                self.params, self.opt_state, self.residual, metrics = self._step_fn(
+                    self.params, self.opt_state, batch, self.residual
+                )
+            metrics = {k: _scalar(v) for k, v in metrics.items()}
             dt = time.monotonic() - t0
             metrics["step_time_s"] = dt
             if (

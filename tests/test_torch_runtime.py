@@ -346,10 +346,28 @@ def test_runtime_rejects_chunking_on_ssm_archs_and_unported_modes(served):
     with pytest.raises(ValueError, match="cannot be paged"):
         ServingRuntime(cfg, {}, slots=1, max_len=16, paged=True)
     cfg, params, *_ = served
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 12"):
-        ServingRuntime(cfg, params, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ServeEngine(cfg, params, sharding_rules=object())
+    # the mesh hooks serve (on a gloo world of one, every block the whole
+    # tensor: the unsharded tokens); the paged pool does not serve sharded
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.mesh import make_host_mesh
+
+    want = [r.output for r in ServeEngine(cfg, params, slots=2, max_len=32).serve(
+        ragged_requests(cfg, [5, 3], max_new=3))]
+    mesh = make_host_mesh(1, 1, device="cpu")
+    try:
+        with pytest.raises(NotImplementedError, match="paged"):
+            ServingRuntime(cfg, params, mesh=mesh, paged=True)
+        got = ServingRuntime(cfg, params, slots=2, max_len=32, mesh=mesh).serve(
+            ragged_requests(cfg, [5, 3], max_new=3))
+        assert [r.output for r in got] == want
+        got = ServeEngine(cfg, params, slots=2, max_len=32,
+                          sharding_rules=ShardingRules(mesh)).serve(
+            ragged_requests(cfg, [5, 3], max_new=3))
+        assert [r.output for r in got] == want
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="encoder-only"):
         ServeEngine(get_config("hubert-xlarge", smoke=True), {}, slots=1, max_len=8)
 
@@ -520,7 +538,8 @@ def test_hybrid_arch_serving():
 # ------------------------------------------------------------------- CLI
 def test_serve_cli_on_the_cpu(tmp_path):
     """The launcher serves on the CPU, with the ported observability and
-    tuning flags wired in; ``--mesh`` exits naming the roadmap."""
+    tuning flags wired in; ``--mesh 1x1`` serves sharded in one process, and
+    a mesh of more ranks without ``torch.distributed.run`` exits naming it."""
     # one intra-op thread, as in this process: the launcher must not
     # crowd the parallel test workers
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
@@ -536,11 +555,16 @@ def test_serve_cli_on_the_cpu(tmp_path):
     assert "pretune:" in proc.stdout and "drift:" in proc.stdout and "health:" in proc.stdout
     for name in ("trace.json", "m.jsonl", "tuning.json"):
         assert (tmp_path / name).stat().st_size > 0
-    mesh = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "minicpm-2b",
-         "--smoke", "--device", "cpu", "--mesh", "2x4"],
-        env=env, capture_output=True, text=True, timeout=300, stdin=subprocess.DEVNULL)
-    assert mesh.returncode != 0 and "ROADMAP.md" in mesh.stderr
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "minicpm-2b",
+            "--smoke", "--device", "cpu", "--requests", "2", "--max-new", "3"]
+    mesh = subprocess.run(base + ["--mesh", "1x1"], env=env, capture_output=True, text=True,
+                          timeout=300, stdin=subprocess.DEVNULL)
+    assert mesh.returncode == 0, mesh.stderr
+    assert "mesh: 1x1 over 1 cpu ranks" in mesh.stdout
+    assert "served 2 requests, 6 tokens" in mesh.stdout
+    alone = subprocess.run(base + ["--mesh", "2x4"], env=env, capture_output=True, text=True,
+                           timeout=300, stdin=subprocess.DEVNULL)
+    assert alone.returncode != 0 and "torch.distributed.run" in alone.stderr
 
 
 # ------------------------------------------------------------------ card

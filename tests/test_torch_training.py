@@ -365,13 +365,39 @@ def test_checkpoint_from_the_jax_trainer_resumes_in_the_port(tmp_path):
     np.testing.assert_allclose([h["loss"] for h in got], [h["loss"] for h in want], rtol=TOL)
 
 
-def test_checkpoint_and_trainer_refuse_sharding(tmp_path):
-    save_checkpoint(str(tmp_path), 1, {"w": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        restore_checkpoint(str(tmp_path), None, {"w": torch.zeros(2)}, shardings=object())
+def test_checkpoint_and_trainer_take_sharding(tmp_path):
+    """On a gloo world of one: ``restore_checkpoint(shardings=)`` places
+    each leaf on its sharding, and ``Trainer(rules=)`` trains placed
+    DTensors to the unsharded trainer's losses (every block is the whole
+    tensor); int8 compression under rules raises, naming why."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import NamedSharding, P, ShardingRules
+    from repro_torch.launch.mesh import make_host_mesh
+
+    w = torch.arange(8.0).reshape(2, 4)
+    save_checkpoint(str(tmp_path / "w"), 1, {"w": w})
     cfg = get_config("minicpm-2b", smoke=True).with_(n_periods=1)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Trainer(cfg, TrainConfig(), {"embed": torch.zeros(2)}, None, rules=object())
+    params = Model(cfg).init(torch.Generator().manual_seed(0))
+    data = dict(vocab_size=cfg.vocab_size, seq_len=16, global_batch=2, seed=0)
+    want = [h["loss"] for h in Trainer(cfg, TrainConfig(**_opt()), params,
+                                       SyntheticLM(**data)).run(2)]
+    mesh = make_host_mesh(1, 1, device="cpu")
+    try:
+        got, _, step = restore_checkpoint(str(tmp_path / "w"), None, {"w": torch.zeros(2, 4)},
+                                          shardings={"w": NamedSharding(mesh, P(None, "model"))})
+        assert step == 1 and isinstance(got["w"], DTensor)
+        assert got["w"].placements[1].is_shard(1) and torch.equal(got["w"].full_tensor(), w)
+        tr = Trainer(cfg, TrainConfig(**_opt()), params, SyntheticLM(**data),
+                     rules=ShardingRules(mesh))
+        assert all(isinstance(p, DTensor) for p in tree_leaves(tr.params))
+        assert [h["loss"] for h in tr.run(2)] == want
+        with pytest.raises(NotImplementedError, match="int8"):
+            Trainer(cfg, TrainConfig(compression="int8"), params, None,
+                    rules=ShardingRules(mesh))
+    finally:
+        dist.destroy_process_group()
 
 
 # ------------------------------------------- kernel-backend gradients
@@ -438,8 +464,9 @@ def test_native_gradients_survive_a_detached_kernel_output(monkeypatch):
 
 # ------------------------------------------------------------------- CLI
 def test_train_cli_on_the_cpu(tmp_path):
-    """The launcher trains on the CPU, checkpoints and resumes; ``--mesh``
-    exits naming the roadmap."""
+    """The launcher trains on the CPU, checkpoints and resumes; ``--mesh
+    1x1`` trains sharded in one process, and a mesh of more ranks without
+    ``torch.distributed.run`` exits naming it."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
     base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "minicpm-2b",
             "--smoke", "--device", "cpu", "--seq-len", "16", "--batch", "2"]
@@ -455,8 +482,11 @@ def test_train_cli_on_the_cpu(tmp_path):
     assert again.returncode == 0, again.stderr
     assert "resumed from step 10" in again.stdout
     assert "step 20: loss=" in again.stdout
-    mesh = run("--steps", "1", "--mesh", "2x4")
-    assert mesh.returncode != 0 and "ROADMAP.md" in mesh.stderr
+    mesh = run("--steps", "2", "--mesh", "1x1")
+    assert mesh.returncode == 0, mesh.stderr
+    assert "mesh: 1x1 over 1 cpu ranks" in mesh.stdout and "step 2: loss=" in mesh.stdout
+    alone = run("--steps", "1", "--mesh", "2x4")
+    assert alone.returncode != 0 and "torch.distributed.run" in alone.stderr
 
 
 # ------------------------------------------------------------------ card

@@ -236,3 +236,186 @@ def replicated_views(mesh) -> list:
     finally:
         core_contract.contract = real
     return seen
+
+
+
+def grad_case(mesh, spec, a, b, w, in_specs, out_spec, backend, dtensor) -> dict:
+    """``sharded_contract`` under autograd on this rank: the gradients of
+    ``sum(C * w)`` (``C`` gathered whole) with respect to the leaves ``a``
+    and ``b``, passed as plain tensors or, with ``dtensor``, as DTensors
+    of their ``in_specs`` (then also the mask of the elements this rank's
+    block holds)."""
+    import torch
+
+    from repro_torch.distributed.contract import as_dtensor, sharded_contract
+    from repro_torch.distributed.sharding import local_block
+
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (a, b)]
+    ops = [as_dtensor(t, s, mesh) if dtensor else t for t, s in zip(leaves, in_specs)]
+    kw = {"strategy": "native"} if backend == "kernel" else {}
+    C = sharded_contract(spec, *ops, mesh=mesh, in_specs=in_specs, out_spec=out_spec,
+                         backend=backend, **kw)
+    (C.full_tensor() * torch.from_numpy(w)).sum().backward()
+    masks = []
+    for t, s in zip(leaves, in_specs):
+        m = torch.zeros(t.shape, dtype=torch.int64)
+        local_block(m, s, mesh).fill_(1)
+        masks.append(m.numpy())
+    return dict(grads=[None if t.grad is None else t.grad.numpy() for t in leaves],
+                masks=masks)
+
+
+def _smoke_config(arch: str, overrides: dict):
+    from repro_torch.configs import get_config
+
+    return get_config(arch, smoke=True).with_(**overrides)
+
+
+def place(mesh, tree, axes_fn: str):
+    """``tree`` on ``mesh`` by the default rules and the
+    :mod:`repro_torch.launch.shardings` assignment ``axes_fn``."""
+    from repro_torch.distributed.sharding import ShardingRules, device_put
+    from repro_torch.launch import shardings
+
+    rules = ShardingRules(mesh)
+    axes = getattr(shardings, axes_fn)(tree)
+    return rules, device_put(tree, shardings.tree_shardings(rules, axes, tree))
+
+
+def sharded_loss(mesh, arch: str, overrides: dict, np_params, np_batch) -> float:
+    """``lm_loss`` of the numpy weights and batch, placed on ``mesh`` by
+    the default rules and run under them."""
+    import torch
+
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.models.transformer import lm_loss
+
+    cfg = _smoke_config(arch, overrides)
+    rules, params = place(mesh, params_from_numpy(cfg, np_params, "cpu"),
+                          "param_logical_axes")
+    _, batch = place(mesh, {k: torch.from_numpy(v) for k, v in np_batch.items()},
+                     "batch_logical_axes")
+    with use_rules(rules):
+        loss, _ = lm_loss(cfg, params, batch)
+    return float(loss.full_tensor())
+
+
+def sharded_grads(mesh, arch: str, overrides: dict, np_params, np_batch,
+                  backward_thread: bool = False) -> dict:
+    """``value_and_grad`` on the placed weights and batch under the default
+    rules: the loss and every gradient leaf gathered whole (numpy, in
+    ``tree_leaves`` order).  With ``backward_thread`` the backward pass
+    runs on a thread of its own, which has neither the rules nor DTensor's
+    implicit replication (per-thread settings), as autograd's device
+    thread on the card has not."""
+    import threading
+
+    import torch
+
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.training.trainer import value_and_grad
+
+    cfg = _smoke_config(arch, overrides)
+    rules, params = place(mesh, params_from_numpy(cfg, np_params, "cpu"),
+                          "param_logical_axes")
+    _, batch = place(mesh, {k: torch.from_numpy(v) for k, v in np_batch.items()},
+                     "batch_logical_axes")
+    grad = torch.autograd.grad
+    if backward_thread:
+        def on_a_thread(*args, **kwargs):
+            out = []
+            t = threading.Thread(target=lambda: out.append(grad(*args, **kwargs)))
+            t.start()
+            t.join()
+            if not out:
+                raise RuntimeError("the backward thread raised (see its traceback)")
+            return out[0]
+
+        torch.autograd.grad = on_a_thread
+    try:
+        with use_rules(rules):
+            loss, _, grads = value_and_grad(cfg, params, batch)
+    finally:
+        torch.autograd.grad = grad
+    return dict(loss=float(loss.full_tensor()),
+                grads=[g.full_tensor().numpy() for g in tree_leaves(grads)])
+
+
+def sharded_train(mesh, arch: str, overrides: dict, np_params, data_kw: dict,
+                  train_kw: dict, steps: int, ckpt_dir=None, restore=False) -> dict:
+    """``Trainer(rules=ShardingRules(mesh))`` from the numpy weights on a
+    ``SyntheticLM(**data_kw)`` stream: ``steps`` steps (after a restore
+    from ``ckpt_dir`` with ``restore``), then a forced checkpoint there if
+    one is given.  Returns the losses, the step and each parameter leaf
+    (gathered whole) with its placements."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = _smoke_config(arch, overrides)
+    opt = AdamWConfig(**train_kw.pop("opt", {}))
+    tcfg = TrainConfig(opt=opt, ckpt_dir=ckpt_dir, **train_kw)
+    tr = Trainer(cfg, tcfg, params_from_numpy(cfg, np_params, "cpu"), SyntheticLM(**data_kw),
+                 rules=ShardingRules(mesh))
+    if restore:
+        tr.restore()
+    losses = [h["loss"] for h in tr.run(steps)]
+    if ckpt_dir is not None:
+        tr.save(force=True)
+    return dict(losses=losses, step=tr.step,
+                params=[p.full_tensor().numpy() for p in tree_leaves(tr.params)],
+                placements=[tuple(map(str, p.placements)) for p in tree_leaves(tr.params)],
+                opt_placements=[tuple(map(str, p.placements))
+                                for p in tree_leaves(tr.opt_state["mu"])])
+
+
+def sharded_serve(mesh, arch: str, overrides: dict, np_params, prompts, max_new: int,
+                  engine_kw: dict, legacy: bool = True) -> list:
+    """Greedy tokens of ``prompts`` served on ``mesh`` from the numpy
+    weights: through ``ServeEngine`` (``legacy``) or ``ServingRuntime``."""
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.runtime.engine import ServingRuntime
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = _smoke_config(arch, overrides)
+    params = params_from_numpy(cfg, np_params, "cpu")
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
+    if legacy:
+        ServeEngine(cfg, params, mesh=mesh, **engine_kw).serve(reqs)
+    else:
+        ServingRuntime(cfg, params, mesh=mesh, **engine_kw).serve(reqs)
+    return [list(r.output) for r in reqs]
+
+
+def sharded_restore(mesh, arch: str, overrides: dict, ckpt_dir: str) -> dict:
+    """``restore_checkpoint(shardings=)`` of a parameter checkpoint onto
+    ``mesh``: the step, each leaf gathered whole, its placements and the
+    placements ``tree_shardings`` gives it."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.shardings import param_logical_axes, tree_shardings
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.training.checkpoint import restore_checkpoint
+
+    cfg = _smoke_config(arch, overrides)
+    like = _zeros_like_params(cfg)
+    sh = tree_shardings(ShardingRules(mesh), param_logical_axes(like), like)
+    tree, _, step = restore_checkpoint(ckpt_dir, None, like, shardings=sh)
+    return dict(step=step, leaves=[t.full_tensor().numpy() for t in tree_leaves(tree)],
+                placements=[tuple(t.placements) for t in tree_leaves(tree)],
+                want=[s.placements for s in tree_leaves(sh)])
+
+
+def _zeros_like_params(cfg):
+    import torch
+
+    from repro_torch.models.transformer import init_params
+    from repro_torch.models.tree import tree_map
+
+    return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype),
+                    init_params(None, cfg, device="meta"))
