@@ -199,9 +199,43 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    --arch minicpm-2b --smoke --mesh 1x1 --steps 3`` and ``python -m
    repro_torch.launch.serve --arch minicpm-2b --smoke --mesh 1x1`` run in
    subprocesses on the card and exit 0.
+16. Expert and pipeline parallelism, on phase 15's world and mesh before
+   it is destroyed.  (a) One qwen2-moe-a2.7b ``moe_ffn`` with
+   ``moe_impl="a2a"`` at full width (60 experts top-4 of 1408, 4 shared)
+   over 4096 bf16 tokens under the default rules, kernel backend,
+   ``contract_strategy="native"``: finite, within ``TOL`` of the same
+   call with every ``native_gemm`` replaced by ``native_gemm_ref``, and of
+   the GShard path at capacity factor ``A2A["no_drop_cf"]``, where the
+   busiest expert must fit both paths' capacities; its three expert
+   products launch on ``generic`` (each held to the plain version, two
+   launches bit-identical) and are timed queued against one
+   ``torch.bmm`` on the same operands and their bound; their device
+   kernels are ``native_gemm``'s alone.  (b) qwen2-moe-a2.7b at published
+   widths, depth cut 24 -> 2 layers, f32 master weights, bf16
+   activations, remat, a2a, through ``Trainer(rules=)`` (kernel backend,
+   native), 4 x 512 tokens a step, 3 steps with a checkpoint at step 2:
+   losses finite; launches by route per step what
+   ``a2a_launches_per_step`` gives (171: 98 ``wgmma``, 73 ``generic``, 24
+   of them expert products), each on ``native_route``'s route; a fresh
+   trainer restores step 2 and reruns step 3 within rtol 1e-4; from the
+   initial weights every gradient leaf finite and nonzero; the torch
+   backend's step on the kernel step's routing (``routing`` replays its
+   expert choices) within 2e-2 in loss and 5e-2 of each leaf's largest
+   magnitude (on its own routing the error and the tokens rerouted are
+   printed); ms per step, the backends in turns, a profile of the kernel
+   step, and the counted run's peak memory; then every launch shape of a
+   counted step (recorded without its operands), on normal random
+   operands with that shape's strides, offsets and types, held to the
+   plain version and timed as in phase 6 (3 calls each).  (c) ``pipeline_forward`` over a one-rank
+   ``pod`` axis with one internlm2-20b block at published widths as the
+   stage (kernel backend, native), 4 microbatches of 512 bf16 tokens:
+   output bit-identical to the block called on each microbatch with the
+   same launches, and ``pipeline_loss``'s loss and gradients bit-identical
+   to the sequential run's, with the same launches.  The seconds of each
+   part are printed, and at the end the seconds of every phase.
 
 Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13, 14, 15's training
-and serving) is driven with every
+and serving, 16's layer, training and pipeline) is driven with every
 kernel's launch count set to 0 just before it and read just after;
 launches made to compare, time or tune a kernel do not count.  Phases 5 and 10 also read ``native_gemm``'s
 launches by route, which must be what ``native_route`` gives for each
@@ -226,7 +260,10 @@ paged serve's under ``serve.paged``) and the training phase's launches
 by route, ms per step, tokens/s, peak memory and top-shape times, and
 the sharded phase's launches by route and ms under ``sharded``, and
 phase 15's under ``sharded_train`` (launches by route, ms per step, peak
-memory) and ``sharded_serve`` (launches, tokens/s)),
+memory) and ``sharded_serve`` (launches, tokens/s), and phase 16's a2a
+training launches under ``a2a_launches``/``a2a_launches_by_route``, its
+layer, expert-product times and training checks under ``a2a`` and the
+pipeline's launches under ``pipeline_launches``),
 the card's name and power limit as ``nvidia-smi`` prints them, and the
 ``{"ok": true, ...}`` line.  Any failed check raises and exits non-zero without that line.
 """
@@ -2838,10 +2875,628 @@ def mesh_clis(dev) -> dict:
     return secs
 
 
+# ------------------------------------------------------------------ phase 16
+#: qwen2-moe-a2.7b (src/repro/configs/qwen2_moe_a2p7b.py) with
+#: moe_impl="a2a": the layer over ``tokens`` tokens (and again at
+#: ``no_drop_cf``, where neither it nor GShard drops a token), and training
+#: at published widths with the depth cut to ``periods`` layers
+A2A = dict(arch="qwen2-moe-a2.7b", tokens=4096, no_drop_cf=2.0, reps=10, periods=2,
+           seq_len=512, batch=4, steps=3, ckpt_at=2, lr=1e-3, warmup=1, total_steps=8,
+           timed_steps=1)
+#: one internlm2-20b block (src/repro/configs/internlm2_20b.py) as the
+#: stage of a one-rank pipeline: ``n_micro`` microbatches of ``tokens``
+PIPE = dict(arch="internlm2-20b", n_micro=4, tokens=512)
+
+
+@contextlib.contextmanager
+def plain_native():
+    """Within the block every ``native_gemm`` call through ``kernels.ops``
+    runs its plain version ``native_gemm_ref`` on the same operands."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sb_gemm import native_gemm_ref
+
+    real = ops.native_gemm
+
+    def plain(A, B, **kw):
+        return native_gemm_ref(A, B, a_modes=kw["a_modes"], b_modes=kw["b_modes"],
+                               c_modes=kw["c_modes"], out_dtype=kw.get("out_dtype"))
+
+    ops.native_gemm = plain
+    try:
+        yield
+    finally:
+        ops.native_gemm = real
+
+
+def expert_launches(launches) -> dict:
+    """The recorded launches of the expert products and their backward:
+    the expert mode ``x`` is in A, B and C."""
+    return {k: v for k, v in launches.items() if all("x" in m for m in k[:3])}
+
+
+@contextlib.contextmanager
+def counting_expert_launches():
+    """Within the block, ``native_gemm`` launches (through ``kernels.ops``)
+    of the expert products and their backward are counted in the yielded
+    list's one entry; no operand is kept."""
+    from repro_torch.kernels import ops
+
+    real = ops.native_gemm
+    count = [0]
+
+    def counting(A, B, **kw):
+        out = real(A, B, **kw)
+        if out.numel() and all("x" in kw[m] for m in ("a_modes", "b_modes", "c_modes")):
+            count[0] += 1
+        return out
+
+    ops.native_gemm = counting
+    try:
+        yield count
+    finally:
+        ops.native_gemm = real
+
+
+@contextlib.contextmanager
+def recording_launch_keys():
+    """Within the block, every ``native_gemm`` launch through
+    ``kernels.ops`` is counted by its modes, shapes, strides, storage
+    offsets, types and options; yields ``{key: [launches, layout]}``, the
+    ``layout`` for :func:`operands_like`.  No operand is kept."""
+    from repro_torch.kernels import ops
+
+    keys: dict = {}
+    real = ops.native_gemm
+
+    def recording(A, B, **kw):
+        out = real(A, B, **kw)
+        if out.numel():         # an empty output launches nothing
+            layout = tuple((tuple(t.shape), t.stride(), t.storage_offset(), t.dtype)
+                           for t in (A, B))
+            key = (kw["a_modes"], kw["b_modes"], kw["c_modes"], *layout, kw.get("out_dtype"),
+                   kw.get("u"), kw.get("walk"), kw.get("walk_mode"))
+            keys.setdefault(key, [0, (layout, dict(kw))])[0] += 1
+        return out
+
+    ops.native_gemm = recording
+    try:
+        yield keys
+    finally:
+        ops.native_gemm = real
+
+
+def operands_like(layout, gen, dev) -> tuple:
+    """Normal random operands from ``gen`` laid out as a recorded launch's
+    (shapes, strides, storage offsets and types), and its options."""
+    (a, b), kw = layout
+
+    def one(shape, stride, offset, dtype):
+        span = offset + 1 + (sum((n - 1) * st for n, st in zip(shape, stride)) if all(shape)
+                             else 0)
+        flat = torch.randn(span, generator=gen, device=dev).to(dtype)
+        return flat.as_strided(shape, stride, offset)
+
+    return one(*a), one(*b), kw
+
+
+def a2a_launches_per_step(cfg) -> dict:
+    """``native_gemm`` launches of one MoE train step under
+    ``moe_impl="a2a"`` on a mesh of one, by route: a layer's forward makes
+    the dense products q, k, v, o and each shared expert's (3 for swiglu:
+    16 for qwen2-moe-a2.7b's 4), on ``wgmma``, and the batched ones,
+    scores, P.V and the expert products (3), on ``generic``; the LM head is
+    dense; remat recomputes the layers; each product's backward launches
+    two (a dense dX on ``wgmma``, its dW and every batched product's both
+    on ``generic``)."""
+    mlp = 3 if cfg.mlp_act == "swiglu" else 2
+    dense = (4 + mlp * cfg.moe.n_shared) * cfg.n_periods + 1
+    batched = (2 + mlp) * cfg.n_periods
+    return {"wgmma": dense + (dense - 1) + dense,
+            "generic": batched + batched + 2 * batched + dense}
+
+
+@contextlib.contextmanager
+def routing(record: list | None = None, replay: list | None = None):
+    """Within the block ``models.moe.top_k`` appends the expert indices it
+    picks to ``record``, or (``replay``) returns the ones recorded, call
+    by call, with its input's values at them (a DTensor input is the
+    router statistics' pass, whose values go unused)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import moe
+
+    real = moe.top_k
+    calls = iter(replay) if replay is not None else None
+
+    def top_k(x, k):
+        values, idx = real(x, k)
+        if calls is None:
+            if record is not None:
+                record.append(idx)
+            return values, idx
+        idx = next(calls)
+        return (values if isinstance(x, DTensor) else torch.gather(x, -1, idx)), idx
+
+    moe.top_k = top_k
+    try:
+        yield
+    finally:
+        moe.top_k = real
+
+
+def a2a_layer(dev, mesh, seed: int, counters) -> dict:
+    """Phase 16 (a): one ``moe_ffn`` with a2a at full width under the rules
+    of ``mesh``, on the kernel backend (see the module docstring)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.contract import as_dtensor
+    from repro_torch.distributed.sharding import ShardingRules, device_put
+    from repro_torch.kernels.sb_gemm import native_gemm, native_gemm_ref, native_route
+    from repro_torch.launch.shardings import param_logical_axes, tree_shardings
+    from repro_torch.models.layers import mesh_scope
+    from repro_torch.models.moe import init_moe, moe_ffn, top_k
+
+    T, reps, cf = A2A["tokens"], A2A["reps"], A2A["no_drop_cf"]
+    cfg = get_config(A2A["arch"]).with_(moe_impl="a2a", contract_backend="kernel",
+                                        contract_strategy="native")
+    m = cfg.moe
+    rules = ShardingRules(mesh)
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = init_moe(gen, cfg)
+    x = torch.randn((T // 512, 512, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    tree = {"moe": params}
+    placed = device_put(tree, tree_shardings(rules, param_logical_axes(tree), tree))["moe"]
+    xs = as_dtensor(x, rules.physical(("batch", "seq_sharded", None)), mesh)
+    D = mesh.size()
+    Xloc = -(-m.n_experts // D)
+    cap = max(int(T // D * m.top_k / D * m.capacity_factor) + 1, 1)
+    log(f"a2a layer: {cfg.arch_id} d_model {cfg.d_model}, {m.n_experts} experts top-{m.top_k} "
+        f"of {m.d_expert}, {m.n_shared} shared of {m.d_shared}; {T} tokens in bf16 over "
+        f"{D} rank(s): cap {cap}, C2 {cap * D // Xloc} at capacity factor "
+        f"{m.capacity_factor}; kernel backend, contract_strategy native")
+
+    def layer(c=cfg):
+        with mesh_scope(rules), torch.no_grad():
+            y, _ = moe_ffn(c, placed, xs)
+        return y.full_tensor()
+
+    layer()
+    # the main path: counts to 0 just before, read just after
+    for c in counters:
+        c.launches = 0
+    native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
+    with recording_launches() as launches, native_routes_held() as held:
+        y = layer()
+        torch.cuda.synchronize()
+    counted = {c.__name__: c.launches for c in counters}
+    routes = {r: n for r, n in native_gemm.launches_by_route.items() if n}
+    check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
+          f"a2a layer: another kernel launched on the path: {counted}")
+    check(routes == {r: n for r, n in held.items() if n},
+          f"a2a layer: routes {routes} differ from native_route's {held}")
+    experts = expert_launches(launches)
+    n_expert = sum(n for n, _ in experts.values())
+    expert_routes = Counter()
+    for n, (A, B, kw) in experts.values():
+        expert_routes[native_route(A, B, a_modes=kw["a_modes"], b_modes=kw["b_modes"],
+                                   c_modes=kw["c_modes"])] += n
+    check(n_expert == 3 and expert_routes == {"generic": 3},
+          f"a2a layer: the expert products launched {n_expert} by route "
+          f"{dict(expert_routes)}, not 3 on generic")
+    check(bool(torch.isfinite(y).all()) and tuple(y.shape) == tuple(x.shape),
+          "a2a layer: the output is not finite or not of the input's shape")
+    saved = [c.launches for c in counters], dict(native_gemm.launches_by_route)
+
+    with plain_native():
+        y_plain = layer()
+    err_plain = rel_err(y, y_plain)
+    check(err_plain <= TOL[torch.bfloat16], f"a2a layer: {err_plain:.3g} from the same call "
+                                            f"on native_gemm_ref (limit {TOL[torch.bfloat16]})")
+
+    # GShard on the same weights at a factor where neither path drops
+    cfg_nd = cfg.with_(moe=dataclasses.replace(m, capacity_factor=cf))
+    with torch.no_grad():
+        gates = torch.softmax(x.reshape(T, -1).float() @ params["router"], dim=-1)
+        most = int(torch.bincount(top_k(gates, m.top_k)[1].reshape(-1),
+                                  minlength=m.n_experts).max())
+        cap_nd = max(int(T // D * m.top_k / D * cf) + 1, 1)
+        c2_nd = cap_nd * D // Xloc
+        c_gshard = max(int(cf * m.top_k * min(T, 4096) / m.n_experts) + 1, 4)
+        check(D == 1 and most <= min(c2_nd, c_gshard),
+              f"a2a layer: the busiest expert takes {most} tokens; C2 {c2_nd}, GShard "
+              f"capacity {c_gshard} at factor {cf} on {D} rank(s)")
+        y_a2a = layer(cfg_nd)
+        y_gshard = moe_ffn(cfg_nd, params, x)[0]
+    err_gshard = rel_err(y_a2a, y_gshard)
+    check(err_gshard <= TOL[torch.bfloat16],
+          f"a2a layer: {err_gshard:.3g} from GShard where neither drops (limit "
+          f"{TOL[torch.bfloat16]})")
+    del gates, y_a2a, y_gshard, y_plain
+    log(f"a2a layer: output finite, {err_plain:.3g} of its largest magnitude from the same "
+        f"call on native_gemm_ref, {err_gshard:.3g} from the GShard path at capacity factor "
+        f"{cf} (busiest expert {most} tokens; C2 {c2_nd}, GShard capacity {c_gshard}: "
+        f"neither drops); native_gemm launches {counted['native_gemm']} by route {routes}, "
+        f"the expert products 3 on generic")
+
+    # each expert product: kernel (queued) against one torch.bmm and its bound
+    products, worst = [], 0.0
+    for (a, b, c, *_), (n, (A, B, kw)) in sorted(experts.items(), key=lambda i: i[0][:3]):
+        spec = f"{a},{b}->{c}"
+        check(spec in ("xce,xef->xcf", "xcf,xfe->xce"), f"a2a layer: expert product {spec}")
+        got, again = native_gemm(A, B, **kw), native_gemm(A, B, **kw)
+        check(torch.equal(got, again), f"a2a layer: two launches of {spec} differ")
+        want = native_gemm_ref(A, B, a_modes=a, b_modes=b, c_modes=c)
+        err = rel_err(got, want)
+        check(err <= TOL[torch.bfloat16], f"a2a layer: {spec} {err:.3g} from the plain version")
+        abs_err = (got.float() - want.float()).abs().max().item()
+        worst = max(worst, abs_err)
+        lib_err = rel_err(torch.bmm(A, B), want)
+        check(lib_err <= TOL[torch.bfloat16], f"a2a layer: torch.bmm is {lib_err:.3g} from "
+                                              f"{spec}'s plain version")
+        ms = queued_ms(lambda: native_gemm(A, B, **kw), reps)
+        plain = cuda_ms(lambda: native_gemm_ref(A, B, a_modes=a, b_modes=b, c_modes=c), reps)
+        lib = queued_ms(lambda: torch.bmm(A, B), reps)
+        nb, fl = launch_cost(A, B, kw)
+        b_ms, by = bound(nb, fl, torch.bfloat16)
+        products.append(dict(spec=spec, A=list(A.shape), B=list(B.shape), B_stride=list(B.stride()),
+                             launches=n, ms=ms, plain_ms=plain, bmm_ms=lib, bound_ms=b_ms,
+                             bound_by=by, max_abs_err=abs_err, rel_err=err))
+        log(f"a2a expert product {spec} A{tuple(A.shape)} B{tuple(B.shape)}{B.stride()} x{n} "
+            f"[generic] bf16: kernel {ms:.4f} ms queued, bound {b_ms:.4f} ms ({by}), "
+            f"{100 * b_ms / ms:.1f}% of bound; torch.bmm {lib:.4f} ms queued "
+            f"({ms / lib:.1f}x); plain {plain:.4f} ms; {err:.2e} from the plain version")
+    kernels = device_kernels(lambda: [native_gemm(A, B, **kw)
+                                      for _, (A, B, kw) in experts.values()])
+    if kernels is None:
+        gemms = None
+        log("a2a layer: the profiler recorded no device activity; the expert products' "
+            "device kernels not measured")
+    else:
+        gemms = library_gemms(kernels)
+        others = sorted(k for k in kernels if not k.removeprefix("void ").startswith(
+            NATIVE_KERNELS))
+        check(not gemms and not others, f"a2a layer: the expert products ran {gemms or others}")
+        log(f"a2a layer: the expert products' device kernels {dict(kernels)}; no library GEMM")
+    for c, n in zip(counters, saved[0]):
+        c.launches = n
+    native_gemm.launches_by_route = saved[1]
+    return dict(launches=n_expert, launches_by_route=routes, tokens=T,
+                rel_err_plain=err_plain, rel_err_gshard=err_gshard, no_drop_cf=cf,
+                busiest_expert=most, products=products, max_abs_err=worst,
+                ms=sum(p["ms"] * p["launches"] for p in products),
+                bmm_ms=sum(p["bmm_ms"] * p["launches"] for p in products),
+                bound_ms=sum(p["bound_ms"] * p["launches"] for p in products),
+                plain_ms=sum(p["plain_ms"] * p["launches"] for p in products),
+                library_gemms=gemms)
+
+
+def a2a_train(dev, mesh, seed: int, counters) -> dict:
+    """Phase 16 (b): qwen2-moe-a2.7b at published widths, 2 layers, with
+    a2a, through ``Trainer(rules=)`` on ``mesh`` (see the module
+    docstring)."""
+    import tempfile
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ShardingRules, device_put, use_rules
+    from repro_torch.kernels.sb_gemm import native_gemm
+    from repro_torch.launch.shardings import (
+        batch_logical_axes, opt_state_logical_axes, tree_shardings,
+    )
+    from repro_torch.models import transformer
+    from repro_torch.models.tree import tree_leaves, tree_leaves_with_path
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.trainer import (
+        TrainConfig, Trainer, make_train_step, value_and_grad,
+    )
+
+    periods, steps, at = A2A["periods"], A2A["steps"], A2A["ckpt_at"]
+    full = get_config(A2A["arch"])
+    cfg = full.with_(n_periods=periods, moe_impl="a2a", contract_backend="kernel",
+                     contract_strategy="native")
+    cfg_t = cfg.with_(contract_backend="torch", contract_strategy="auto")
+    rules = ShardingRules(mesh)
+    log(f"a2a train: {cfg.arch_id} d_model {cfg.d_model}, {cfg.n_heads} heads, vocab "
+        f"{cfg.vocab_size}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of "
+        f"{cfg.moe.d_expert} + {cfg.moe.n_shared} shared, moe_impl a2a; {cfg.dtype} "
+        f"activations, {cfg.param_dtype} master weights, remat on; depth cut from "
+        f"{full.n_periods} layers to {periods} (the one cut); {cfg.param_count() / 1e9:.3f}B "
+        f"params; Trainer(rules=) on a {'x'.join(map(str, mesh.shape))} mesh; kernel backend, "
+        f"contract_strategy native")
+    params = transformer.init_params(torch.Generator(dev).manual_seed(seed), cfg)
+    opt = AdamWConfig(lr=A2A["lr"], schedule="wsd", warmup_steps=A2A["warmup"],
+                      total_steps=A2A["total_steps"])
+
+    def data():
+        return SyntheticLM(vocab_size=cfg.vocab_size, seq_len=A2A["seq_len"],
+                           global_batch=A2A["batch"], seed=seed)
+
+    tokens = A2A["seq_len"] * A2A["batch"]
+    per_step = a2a_launches_per_step(cfg)
+    secs, t0 = {}, time.perf_counter()
+
+    def lap(label):
+        nonlocal t0
+        secs[label] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        tcfg = TrainConfig(opt=opt, ckpt_dir=ckpt_dir, ckpt_every=10**9)
+        tr = Trainer(cfg, tcfg, params, data(), rules=rules)
+        del params  # the trainer's views hold the initial weights until step 1
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        # the main path: counts to 0 just before, read just after
+        for c in counters:
+            c.launches = 0
+        native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
+        hist, by_step = [], []
+        with counting_expert_launches() as experts, native_routes_held() as held, \
+                recording_launch_keys() as keys:
+            for _ in range(steps):
+                (h,), r, ms = step_launches(lambda: tr.run(1))
+                hist.append(dict(h, ms=ms))
+                by_step.append(r)
+                if tr.step == at:
+                    tr.save(force=True)
+        counted = {c.__name__: c.launches for c in counters}
+        routes = {r: n for r, n in native_gemm.launches_by_route.items() if n}
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = [h["loss"] for h in hist]
+        check(all(np.isfinite(losses)), f"a2a train: a loss is not finite: {losses}")
+        check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
+              f"a2a train: another kernel launched on the path: {counted}")
+        check(routes == {r: n for r, n in held.items() if n},
+              f"a2a train: routes {routes} differ from native_route's {held}")
+        check(all(r == per_step for r in by_step),
+              f"a2a train: launches by route per step {by_step}, the model gives {per_step}")
+        check(sum(n for n, _ in keys.values()) == counted["native_gemm"]
+              and all(n % steps == 0 for n, _ in keys.values()),
+              "a2a train: the recorded launch shapes do not repeat each step")
+        n_expert = experts[0]
+        check(n_expert == 12 * periods * steps,
+              f"a2a train: {n_expert} expert-product launches in {steps} steps, not 12 a "
+              f"layer (3 forward, 3 recomputed, 6 backward)")
+        log(f"a2a train: {steps} steps of {A2A['batch']} x {A2A['seq_len']} tokens, losses "
+            f"{', '.join(f'{x:.6f}' for x in losses)}; step ms "
+            f"{', '.join(f'{h['ms']:.1f}' for h in hist)}; native_gemm launches "
+            f"{counted['native_gemm']} ({sum(per_step.values())} a step by route {per_step}, "
+            f"{12 * periods} of them the expert products on generic; every one on the route "
+            f"native_route gives); peak memory {peak / 2**30:.2f} GiB")
+        saved = [c.launches for c in counters], dict(native_gemm.launches_by_route)
+        lap("trainer and 3 steps")
+        tr2 = Trainer(cfg, tcfg, tr.params, data(), rules=rules)
+        del tr
+        check(tr2.restore() == at and tr2.step == at and tr2.data.step == at,
+              "a2a train: the restart did not resume at the checkpoint's step and cursor")
+        again = [h["loss"] for h in tr2.run(steps - at)]
+        check(np.allclose(again, losses[at:], rtol=1e-4, atol=0),
+              f"a2a train: restarted losses {again} differ from {losses[at:]} beyond rtol 1e-4")
+        log(f"a2a train: a fresh Trainer(rules=) restored step {at} and reran step(s) "
+            f"{at + 1}-{steps}: losses {', '.join(f'{x:.6f}' for x in again)} (first run "
+            f"{', '.join(f'{x:.6f}' for x in losses[at:])}); bit-identical: "
+            f"{again == losses[at:]}")
+        placed = tr2.params  # step 3's weights, placed by the rules
+        del tr2
+    lap("checkpoint and restart")
+
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in next(data()).items()}
+    batch = device_put(batch, tree_shardings(rules, batch_logical_axes(batch), batch))
+
+    def grads_of(c, record=None, replay=None):
+        with use_rules(rules), routing(record, replay):
+            loss, _, grads = value_and_grad(c, placed, batch)
+        return float(loss.full_tensor()), grads
+
+    kernel_routes, torch_routes = [], []
+    loss_k, grads_k = grads_of(cfg, record=kernel_routes)
+    named_k = [("/".join(map(str, p)), g.full_tensor()) for p, g in tree_leaves_with_path(grads_k)]
+    del grads_k
+    bad = [n for n, g in named_k if not (torch.isfinite(g).all() and g.abs().max() > 0)]
+    check(not bad, f"a2a train: leaves without a finite nonzero gradient: {bad}")
+
+    def against_kernel(grads_t):
+        errs = {}
+        for (n, gk), gt in zip(named_k, tree_leaves(grads_t)):
+            gt = gt.full_tensor().float()
+            errs[n] = float((gk.float() - gt).abs().max() / gt.abs().max())
+        return errs
+
+    # the torch backend on its own routing: a bf16 rounding apart, some
+    # tokens' top-4 differ, and each moves a token between experts
+    loss_t, grads_t = grads_of(cfg_t, record=torch_routes)
+    free_err = against_kernel(grads_t)
+    del grads_t
+    flips = [int((a != b).any(dim=-1).sum()) for a, b in zip(kernel_routes, torch_routes)
+             if not isinstance(a, DTensor)]
+    routed = [a.shape[0] for a in kernel_routes if not isinstance(a, DTensor)]
+    free_worst = max(free_err, key=free_err.get)
+    log(f"a2a train: the torch backend on its own routing: loss {loss_t:.6f}, worst gradient "
+        f"{free_worst} {free_err[free_worst]:.3g} of its largest magnitude; tokens whose "
+        f"experts differ from the kernel step's, per a2a call (forward, then remat's "
+        f"recompute): {flips} of {routed}")
+    # ... and on the kernel step's routing: the products alone differ
+    loss_r, grads_r = grads_of(cfg_t, replay=kernel_routes)
+    grad_err = against_kernel(grads_r)
+    del grads_r, named_k
+    loss_err = abs(loss_k - loss_r) / abs(loss_r)
+    worst = max(grad_err, key=grad_err.get)
+    check(loss_err <= 2e-2, f"a2a train: kernel loss {loss_k} vs torch {loss_r}")
+    check(grad_err[worst] <= 5e-2, f"a2a train: gradient of {worst} {grad_err[worst]} of its "
+                                   f"largest magnitude from the torch backend's (limit 5e-2)")
+    log(f"a2a train: every one of {len(grad_err)} leaves (the expert stacks included) has a "
+        f"finite nonzero gradient; one step from step 3's weights, one batch and one routing: loss "
+        f"{loss_k:.6f} (kernel) vs {loss_r:.6f} (torch), {loss_err:.3g} apart (limit 2e-2); "
+        f"worst gradient {worst} {grad_err[worst]:.3g} of its largest magnitude (limit 5e-2)")
+    lap("three gradient passes")
+
+    # ms per step, the two backends in turns, from the same placed state
+    state = adamw_init(placed)
+    state = device_put(state, tree_shardings(rules, opt_state_logical_axes(placed), state))
+    steps_fn = {"kernel": make_train_step(cfg, TrainConfig(opt=opt)),
+                "torch": make_train_step(cfg_t, TrainConfig(opt=opt))}
+
+    def one_step(backend):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with use_rules(rules):
+            out = steps_fn[backend](placed, state, batch, None)
+        float(out[3]["loss"].full_tensor())
+        torch.cuda.synchronize()
+        del out
+        return (time.perf_counter() - t0) * 1e3
+
+    one_step("torch")
+    runs = {"kernel": [], "torch": []}
+    for backend in ("kernel", "torch", "torch", "kernel"):
+        ms = [one_step(backend) for _ in range(A2A["timed_steps"])]
+        runs[backend] += ms
+        log(f"a2a train [{backend}]: ms per step {', '.join(f'{m:.1f}' for m in ms)}, "
+            f"{tokens / (min(ms) / 1e3):.1f} tokens/s")
+    lap("steps in turns")
+    profile = profile_device("one a2a train step [kernel]", lambda: one_step("kernel"), top=8)
+    del state, placed, steps_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("profile")
+
+    # every launch shape of one step, on operands laid out as its own,
+    # against the plain version and timed as in phase 6
+    gen = torch.Generator(dev).manual_seed(seed)
+    launches = {k: (n // steps, operands_like(layout, gen, dev))
+                for k, (n, layout) in keys.items()}
+    shapes = {k: v for k, v in time_shapes(launches, reps=3, per="a2a step").items()
+              if k in ("ms", "library_ms", "bound_ms", "plain_ms", "max_abs_err", "bound_by")}
+    del launches
+    lap("launch shapes held")
+    log(f"a2a train: {len(keys)} launch shapes a step held to the plain version; seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    for c, n in zip(counters, saved[0]):
+        c.launches = n
+    native_gemm.launches_by_route = saved[1]
+    return dict(launches=counted["native_gemm"], launches_by_route=routes,
+                launches_per_step=per_step, expert_launches=n_expert, periods=periods,
+                losses=losses, restart_losses=again, peak_gib=peak / 2**30,
+                ms_per_step=runs, loss_rel_err_torch=loss_err,
+                worst_grad={"leaf": worst, "rel_err": grad_err[worst]},
+                own_routing={"loss_torch": loss_t, "leaf": free_worst,
+                             "rel_err": free_err[free_worst], "tokens_rerouted": flips,
+                             "tokens": routed},
+                profile=profile, shapes=dict(shapes, n=len(keys)), seconds=secs)
+
+
+def pipeline_stage(dev, seed: int, counters) -> dict:
+    """Phase 16 (c): ``pipeline_forward`` over a one-rank ``pod`` axis with
+    one internlm2-20b block as the stage (see the module docstring)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import pipeline_forward, pipeline_loss
+    from repro_torch.kernels.sb_gemm import native_gemm
+    from repro_torch.models.transformer import _block, _init_block
+    from repro_torch.models.tree import tree_leaves, tree_map
+
+    cfg = get_config(PIPE["arch"]).with_(contract_backend="kernel", contract_strategy="native")
+    spec = cfg.pattern[0]
+    n_micro, S = PIPE["n_micro"], PIPE["tokens"]
+    mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("pod",))
+    gen = torch.Generator(dev).manual_seed(seed)
+    stacked = _init_block(gen, cfg, spec, lead=(1,))
+    x = torch.randn((n_micro, 1, S, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.arange(S, device=dev)
+
+    def stage_fn(p, xb, stage_idx):
+        return _block(cfg, spec, p, xb, positions=pos)[0]
+
+    def sequential(inp):
+        one = tree_map(lambda t: t[0], stacked)
+        return torch.stack([stage_fn(one, inp[i], 0) for i in range(n_micro)])
+
+    log(f"pipeline: one {cfg.arch_id} block (d_model {cfg.d_model}, {cfg.n_heads} heads over "
+        f"{cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}) as the stage over a one-rank pod axis; "
+        f"{n_micro} microbatches of {S} tokens in bf16; kernel backend, native")
+    # the main path: counts to 0 just before, read just after
+    for c in counters:
+        c.launches = 0
+    with torch.no_grad():
+        y = pipeline_forward(mesh, stage_fn, stacked, x)
+        torch.cuda.synchronize()
+    counted = {c.__name__: c.launches for c in counters}
+    native_gemm.launches = 0
+    with torch.no_grad():
+        want = sequential(x)
+    direct = native_gemm.launches
+    check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
+          f"pipeline: another kernel launched on the path: {counted}")
+    check(torch.equal(y, want) and counted["native_gemm"] == direct,
+          f"pipeline: output bit-identical {torch.equal(y, want)}, launches "
+          f"{counted['native_gemm']} against {direct} calling the block directly")
+
+    leaves = tree_leaves(stacked)
+    for t in leaves:
+        t.requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    target = torch.randn(y.shape, generator=gen, device=dev)
+
+    def loss_fn(out, t):
+        return (out.float() * t).sum()
+
+    native_gemm.launches = 0
+    loss = pipeline_loss(mesh, stage_fn, stacked, xg, target, loss_fn)
+    got = torch.autograd.grad(loss, leaves + [xg])
+    n_pipe = native_gemm.launches
+    native_gemm.launches = 0
+    ref_loss = loss_fn(sequential(xg), target)
+    ref = torch.autograd.grad(ref_loss, leaves + [xg])
+    n_seq = native_gemm.launches
+    names = [f"leaf {i}" for i in range(len(leaves))] + ["x"]
+    diff = first_difference(list(zip(names, got)), list(ref))
+    check(diff is None and torch.equal(loss, ref_loss) and n_pipe == n_seq,
+          f"pipeline_loss: loss bit-identical {torch.equal(loss, ref_loss)}; first gradient "
+          f"that differs {diff and diff[0]}; launches {n_pipe} against {n_seq} sequentially")
+    log(f"pipeline: output bit-identical to the block called on each microbatch, "
+        f"{counted['native_gemm']} native_gemm launches in both; pipeline_loss's loss and "
+        f"all {len(got)} gradients bit-identical to the sequential run's, {n_pipe} launches "
+        f"in both")
+    for t in leaves:
+        t.requires_grad_(False)
+    del stacked, got, ref
+    return dict(launches=counted["native_gemm"], grad_launches=n_pipe, n_micro=n_micro,
+                tokens=S)
+
+
+def a2a_path(dev, mesh, seed: int, counters) -> dict:
+    """Phase 16 on phase 15's world and ``("data", "model")`` mesh:
+    returns ``native_gemm``'s ``a2a`` and ``pipeline`` records."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"a2a: {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated as phase 16 "
+        f"starts")
+    layer = a2a_layer(dev, mesh, seed, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    train = a2a_train(dev, mesh, seed, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    pipe = pipeline_stage(dev, seed, counters)
+    t3 = time.perf_counter()
+    log(f"a2a: phase 16 took {t3 - t0:.1f} s: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, "
+        f"(c) {t3 - t2:.1f} s")
+    return dict(layer=layer, train=train, pipeline=pipe)
+
+
 def mesh_path(dev, seed: int, counters, serve_ref: dict) -> dict:
     """Phase 15: the sharded trainer and server on a 1x1 mesh over a new
-    world of one (see the module docstring).  Returns ``native_gemm``'s
-    ``sharded_train`` and ``sharded_serve`` records."""
+    world of one (see the module docstring), then phase 16 on that world.
+    Returns ``native_gemm``'s ``sharded_train`` and ``sharded_serve``
+    records and phase 16's ``a2a`` record."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh
@@ -2865,11 +3520,14 @@ def mesh_path(dev, seed: int, counters, serve_ref: dict) -> dict:
                 res["new_shapes"] = None
             log(f"mesh: {len(new)} launch shapes of the {label} that the unsharded runs "
                 f"do not launch" + ("" if new else " (every one is held in phases 11/13)"))
+        del new, plain  # the recorded operands
+        log(f"mesh: phase 15 took {time.perf_counter() - t0:.1f} s before its CLIs")
+        a2a = a2a_path(dev, mesh, seed, counters)
     finally:
         dist.destroy_process_group()
     clis = mesh_clis(dev)
-    log(f"mesh: phase 15 took {time.perf_counter() - t0:.1f} s")
-    return dict(sharded_train=train, sharded_serve=serve, cli_s=clis)
+    log(f"mesh: phases 15 and 16 took {time.perf_counter() - t0:.1f} s")
+    return dict(sharded_train=train, sharded_serve=serve, cli_s=clis, a2a=a2a)
 
 
 # ---------------------------------------------------------------------- main
@@ -2900,12 +3558,19 @@ def main() -> int:
         f"TF32 off for matmul and cuDNN")
 
     t0 = time.perf_counter()
+    took, mark = {}, [t0]
+
+    def lap(label):
+        took[label] = time.perf_counter() - mark[0]
+        mark[0] = time.perf_counter()
+
     secs = build()
     log(f"build: {', '.join(f'{n}.cu {t:.2f} s' for n, t in secs.items())}; all compiled "
         f"and loaded in {time.perf_counter() - t0:.2f} s")
     flash_kernel_info()
     grouped_kernel_info()
     native_kernel_info()
+    lap("1-2")
 
     check_table2(dev)
     check_layoutfuzz(dev)
@@ -2914,37 +3579,52 @@ def main() -> int:
     check_native_routes(dev)
     check_grouped(dev)
     check_flash(dev)
+    lap("3")
 
     T, noise_share = low_rank_plus_noise(args.size, RANKS, args.seed, device=dev)
     with record_contractions() as rec:
         hooi(T, RANKS, n_iter=1, **VARIANTS["kernel"])
     working_set = list({s: d for s, d, _ in rec}.items())
     check_copy_freedom(dev, working_set)
+    lap("4")
 
     counted, routes, launches, hooi_summary = main_path(T, noise_share, args.n_iter, counters)
     check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
           f"HOOI launched another kernel: {counted}")
+    lap("5")
     tuned = tuned_path(T, rec, noise_share, args.n_iter, counters, hooi_summary)
+    lap("10")
     tot = time_shapes(launches)
+    lap("6")
     for variant in VARIANTS:
         profile_hooi(T, args.n_iter, variant)
-    del T
+    del T, launches, rec  # the recorded operands hold the tensor too
+    lap("7")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    grouped = grouped_path(dev, args.seed, counters)
+    lap("8")
+    attention = attention_path(dev, args.seed, counters)
+    lap("9")
     records = {
-        "grouped_gemm": ("grouped_gemm.cu", "grouped_gemm.py:248",
-                         grouped_path(dev, args.seed, counters)),
-        "flash_attention": ("flash_attn.cu", "flash_attn.py:79",
-                            attention_path(dev, args.seed, counters)),
+        "grouped_gemm": ("grouped_gemm.cu", "grouped_gemm.py:248", grouped),
+        "flash_attention": ("flash_attn.cu", "flash_attn.py:79", attention),
     }
     serve = serve_path(dev, args.seed, counters)
+    lap("11")
     every_arch(dev, args.seed, counters)
+    lap("12")
     train = train_path(dev, args.seed, counters)
+    lap("13")
     sharded = sharded_path(dev, working_set, args.seed, counters)
+    lap("14")
     serve_ref = {"outputs": serve.pop("outputs"), "launches": serve["launches"],
                  "launches_by_route": serve["launches_by_route"]}
     mesh = mesh_path(dev, args.seed, counters, serve_ref)
+    lap("15-16")
+    log("time by phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
+        + f"; all {time.perf_counter() - t0:.1f} s after the device line")
     records = {
         "native_gemm": ("sb_gemm.cu", "sb_gemm.py:87",
                         {**tot, "launches": counted["native_gemm"],
@@ -2964,7 +3644,12 @@ def main() -> int:
                                    if k not in ("launches", "launches_by_route")},
                          "sharded_train": mesh["sharded_train"],
                          "sharded_serve": mesh["sharded_serve"],
-                         "mesh_cli_s": mesh["cli_s"]}),
+                         "mesh_cli_s": mesh["cli_s"],
+                         "a2a_launches": mesh["a2a"]["train"]["launches"],
+                         "a2a_launches_by_route": mesh["a2a"]["train"]["launches_by_route"],
+                         "a2a": {k: v for k, v in mesh["a2a"].items() if k != "pipeline"},
+                         "pipeline_launches": mesh["a2a"]["pipeline"]["launches"],
+                         "pipeline": mesh["a2a"]["pipeline"]}),
         **records,
     }
     kernels = [{"name": name, "route": "cuda",
@@ -2976,7 +3661,9 @@ def main() -> int:
                                        "train_launches", "train_launches_by_route", "train",
                                        "sharded_launches", "sharded_launches_by_route",
                                        "sharded", "sharded_train", "sharded_serve",
-                                       "mesh_cli_s", "fma") if k in rec}}
+                                       "mesh_cli_s", "a2a_launches", "a2a_launches_by_route",
+                                       "a2a", "pipeline_launches", "pipeline", "fma")
+                     if k in rec}}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on its path")

@@ -6,13 +6,17 @@
 * :mod:`~repro_torch.distributed.contract` — sharded pairwise contraction
   over a ``DeviceMesh`` (``plan_sharded``, ``sharded_contract``): local
   kernels per shard, explicit collectives;
+* :mod:`~repro_torch.distributed.moe_a2a` — expert parallelism through a
+  fixed-capacity all-to-all (``moe_ffn_a2a``, ``pad_expert_params``), the
+  models' ``moe_impl="a2a"`` path under sharding rules;
+* :mod:`~repro_torch.distributed.pipeline` — GPipe stages over a mesh
+  axis (``pipeline_forward``, ``pipeline_loss``);
 * :mod:`~repro_torch.distributed.compress` — the gradient compressors the
   trainer applies.
 
 The sharded trainer and server (``Trainer(rules=)``,
 ``ServingRuntime(mesh=)``) place their trees with these and
-:mod:`repro_torch.launch.shardings`.  Still to come (ROADMAP.md queue 1,
-item 12c): MoE all-to-all and pipeline stages.
+:mod:`repro_torch.launch.shardings`.
 """
 
 from repro_torch.distributed.contract import (
@@ -23,6 +27,8 @@ from repro_torch.distributed.contract import (
     resolve_mode_axes,
     sharded_contract,
 )
+from repro_torch.distributed.moe_a2a import moe_ffn_a2a, pad_expert_params
+from repro_torch.distributed.pipeline import pipeline_forward, pipeline_loss
 from repro_torch.distributed.sharding import (
     DEFAULT_RULES,
     NamedSharding,
@@ -54,7 +60,11 @@ __all__ = [
     "local_block",
     "local_dims",
     "logical",
+    "moe_ffn_a2a",
     "named_sharding",
+    "pad_expert_params",
+    "pipeline_forward",
+    "pipeline_loss",
     "placements",
     "plan_sharded",
     "reduce_partial",

@@ -10,16 +10,20 @@ walks expert weight matrices at constant stride exactly like ``sb_gemm``'s
 expert products take ``cfg.contract_backend``; the router and the
 dispatch/combine einsums are ``strategy="direct"``, as in the JAX package.
 
-The port of ``repro.models.moe``, with two differences:
-
-* ``moe_impl="a2a"`` takes the GShard path outside a sharding-rules
-  context, as the JAX package does.  Under rules, where the JAX package
-  runs its expert-parallel all-to-all (``moe_ffn_a2a``), the port raises
-  ``NotImplementedError``: that is ROADMAP.md queue 1, item 12c.
-* ``group`` may set the tokens per dispatch group.  A batched decode
-  passes the tokens of one row, so that each request routes as its own
-  group, as each slot does under the JAX runtime's ``vmap``; one group of
-  all rows would change the capacity and so which tokens are dropped.
+The port of ``repro.models.moe``.  ``moe_impl="a2a"`` under a
+sharding-rules context whose mesh size divides the tokens runs the
+expert-parallel all-to-all (:func:`repro_torch.distributed.moe_a2a.
+moe_ffn_a2a`) on the rules' mesh, with the shared experts through
+:func:`~repro_torch.models.layers.mlp` and the router statistics
+recomputed (``strategy="direct"``); otherwise, and outside rules, it
+takes the GShard path, as the JAX package does.  One difference:
+``group`` may set the tokens per dispatch group.  A batched decode
+passes the tokens of one row, so that each request routes as its own
+group, as each slot does under the JAX runtime's ``vmap``; one group of
+all rows would change the capacity and so which tokens are dropped.
+Under a2a each such row takes the JAX package's per-slot decision by its
+own token count (the all-to-all on that row alone, or GShard) and its
+own capacity.
 """
 
 from __future__ import annotations
@@ -101,19 +105,20 @@ def moe_ffn(cfg: ModelConfig, params, x, *, capacity: int | None = None,
     """x: (B, S, E) → (B, S, E), plus aux metrics dict.
 
     ``group`` caps the tokens per dispatch group (default
-    :data:`GROUP_SIZE`); it is lowered until it divides ``B·S``."""
+    :data:`GROUP_SIZE`); it is lowered until it divides ``B·S``.  Under
+    a2a a ``group`` below ``B·S`` makes each row a request of its own."""
     ctr = _ctr(cfg)
     m: MoEConfig = cfg.moe
     B, S, E = x.shape
     T = B * S
     dt = x.dtype
 
-    if cfg.moe_impl == "a2a":
-        rules = current_rules()
-        if rules is not None and T % rules.mesh.size() == 0:
-            raise NotImplementedError(
-                "moe_impl='a2a' under sharding rules runs the expert all-to-all, "
-                "which is not ported yet: ROADMAP.md queue 1, item 12c")
+    rules = current_rules() if cfg.moe_impl == "a2a" else None
+    if rules is not None:
+        rows = B if group is not None and group < T else 1  # a request per row
+        if (T // rows) % rules.mesh.size() == 0:
+            return _moe_a2a(cfg, params, x, rules.mesh, rows=rows)
+        # a token count the mesh does not divide → the GShard path
     group = min(GROUP_SIZE if group is None else group, T)
     while T % group:
         group -= 1
@@ -160,6 +165,30 @@ def moe_ffn(cfg: ModelConfig, params, x, *, capacity: int | None = None,
 
     aux = router_aux_loss(reshape(gates, T, -1), reshape(top_e, T, -1), m.n_experts)
     return logical(reshape(y, B, S, E), "batch", "seq_sharded", None), aux
+
+
+def _moe_a2a(cfg: ModelConfig, params, x, mesh, *, rows: int):
+    """The a2a branch of :func:`moe_ffn`: the all-to-all over the whole
+    batch (``rows`` 1), or over each row alone (``rows`` = B)."""
+    from repro_torch.distributed.moe_a2a import moe_ffn_a2a
+
+    m: MoEConfig = cfg.moe
+    B, S, _ = x.shape
+    if rows == 1:
+        y = moe_ffn_a2a(cfg, params, x, mesh)
+    else:
+        y = torch.cat([moe_ffn_a2a(cfg, params, x[b:b + 1], mesh) for b in range(B)])
+    if m.n_shared:
+        shared = params["shared"]
+        for i in range(m.n_shared):
+            y = y + mlp(cfg, {k: v[i] for k, v in shared.items()}, x)
+    # router stats recomputed (cheap: E×X); the load-balance loss
+    # gradient flows through this pass
+    gl = contraction("bse,ef->bsf", x.float(), params["router"], strategy="direct")
+    gates = reshape(torch.softmax(gl, dim=-1), B * S, -1)
+    _, top_e = top_k(gates, m.top_k)
+    aux = router_aux_loss(gates, top_e, m.n_experts)
+    return logical(y, "batch", "seq_sharded", None), aux
 
 
 def router_aux_loss(gates, top_e, n_experts: int):

@@ -6,9 +6,13 @@ minicpm-2b smoke, the JAX package's weights as numpy, 2 slots,
 on every rank gives the port's single-process tokens and the JAX
 ``ServeEngine``'s, on both backends (``torch``, and ``kernel`` with
 ``strategy="native"``); so does the continuous-batching runtime with
-chunked prefill and bucketed decode on ragged prompts.  ``paged=True``
-with a mesh raises, as in the JAX package.
+chunked prefill and bucketed decode on ragged prompts, and a
+qwen2-moe-a2.7b runtime whose MoE layers take the expert all-to-all
+(``moe_impl="a2a"``, no token dropped) gives the single-process tokens.
+``paged=True`` with a mesh raises, as in the JAX package.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -74,6 +78,31 @@ def test_runtime_sharded_chunked_and_bucketed(world, served):
     ServingRuntime(cfg, params_from_numpy(cfg, np_params, "cpu"), **kw).serve(reqs)
     sharded = world.run(torch_world.sharded_serve, ARCH, {}, np_params, prompts, 4, kw, False)
     assert all(s == [list(r.output) for r in reqs] for s in sharded)
+
+
+def test_runtime_sharded_a2a_matches_single_process(world):
+    """qwen2-moe-a2.7b smoke with ``moe_impl="a2a"`` at a capacity factor
+    where no token drops: 8-token prefill chunks run the expert
+    all-to-all over the 8 ranks, the 1-token chunk and the decode rows
+    (each row a request of its own) the GShard path, and the tokens are
+    the single-process runtime's."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.models.tree import tree_map
+    from repro_torch.runtime.engine import ServingRuntime
+
+    arch = "qwen2-moe-a2.7b"
+    m = get_config(arch, smoke=True).moe
+    over = dict(moe_impl="a2a", moe=dataclasses.replace(m, capacity_factor=64.0))
+    cfg = get_config(arch, smoke=True).with_(**over)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (16, 9, 8)]
+    kw = dict(slots=2, max_len=64, prefill_chunk=8)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=4) for i, p in enumerate(prompts)]
+    ServingRuntime(cfg, params, **kw).serve(reqs)
+    sharded = world.run(torch_world.sharded_serve, arch, over,
+                        tree_map(lambda t: t.numpy(), params), prompts, 4, kw, False)
+    assert all(s == [list(r.output) for r in reqs] for s in sharded), sharded
 
 
 def test_paged_runtime_refuses_a_mesh(world, served):

@@ -9,8 +9,12 @@ mesh route.  The mesh loss is within 2e-3 of the port's single-process
 loss (the reference test's own bound), on both backends (``torch``, and
 ``kernel`` with ``strategy="native"``, its plain version on the CPU);
 the single-process loss equals the JAX package's within 1e-4, the
-tolerance of the earlier slices' model tests.
+tolerance of the earlier slices' model tests.  With ``moe_impl="a2a"``
+the mesh runs the expert all-to-all, and at a capacity factor where no
+token drops its loss is within 2e-3 of the single-process (GShard) loss.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -62,12 +66,27 @@ def test_sharded_train_step_matches_single_device(world, weights, backend):
 
 
 def test_a2a_moe_under_rules_raises(world, weights):
-    """``moe_impl="a2a"`` under rules is the expert all-to-all (ROADMAP
-    item 12c); the port raises rather than run the GShard path there."""
+    """``moe_impl="a2a"`` under rules no longer raises: it runs the expert
+    all-to-all (``distributed/moe_a2a``) on the mesh.  At a capacity
+    factor where no token drops it computes what the single-process
+    GShard path computes: the mesh loss within the reference test's 2e-3
+    of the single-process loss, on both backends."""
     np_params, batch, _ = weights
-    with pytest.raises(torch_world.RankError, match="12c"):
-        world.run(torch_world.sharded_loss, ARCH, dict(n_periods=2, moe_impl="a2a"),
-                  np_params, batch)
+    for backend in sorted(BACKENDS):
+        over = dict(n_periods=2, moe_impl="a2a", moe=_no_drop(), **BACKENDS[backend])
+        cfg = get_config(ARCH, smoke=True).with_(**over)
+        single = float(lm_loss(cfg, params_from_numpy(cfg, np_params, "cpu"),
+                               {"tokens": torch.from_numpy(batch["tokens"])})[0])
+        mesh = world.run(torch_world.sharded_loss, ARCH, over, np_params, batch)
+        assert len(set(mesh)) == 1, mesh
+        assert abs(mesh[0] - single) < 2e-3, (backend, mesh[0], single)
+
+
+def _no_drop():
+    """The smoke MoE at a capacity factor where no token drops, in either
+    the GShard or the a2a path, on this test's batch."""
+    m = get_config(ARCH, smoke=True).moe
+    return dataclasses.replace(m, capacity_factor=64.0)
 
 
 def test_tuned_strategy_raises_under_a_mesh(world, weights):

@@ -9,6 +9,10 @@ minicpm-2b smoke (two periods), 8x32 tokens a step, AdamW at lr 1e-3:
   near-zero gradients) within 1e-4 of each leaf's largest magnitude, also
   with the backward pass on a thread of its own (as autograd runs it on
   the card); on both backends;
+* qwen2-moe-a2.7b smoke with ``moe_impl="a2a"`` (the expert all-to-all
+  over the 4 ranks), where no token drops: step 1's loss and gradients
+  and one ``Trainer`` step's loss match the single-process GShard step
+  the same way, on both backends;
 * a ``microbatches=2`` step matches the single-process one the same way;
   int8 compression raises under rules;
 * the port of ``test_elastic_restore_across_mesh_sizes``: a single-process
@@ -18,6 +22,7 @@ minicpm-2b smoke (two periods), 8x32 tokens a step, AdamW at lr 1e-3:
 * the launcher on two ranks under ``torch.distributed.run``.
 """
 
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -89,6 +94,33 @@ def test_sharded_step_one_gradients_match(world, backend, thread):
         for g, mine in zip(tree_leaves(grads), r["grads"]):
             scale = float(g.abs().max())
             np.testing.assert_allclose(mine, g.numpy(), rtol=0, atol=1e-4 * max(scale, 1e-30))
+
+
+@pytest.mark.parametrize("backend", sorted(BACKENDS))
+def test_a2a_sharded_step_matches_single_process(world, backend):
+    """qwen2-moe-a2.7b smoke with ``moe_impl="a2a"`` at a capacity factor
+    where no token drops: under rules the MoE layers run the expert
+    all-to-all over the 4 ranks, and step 1's loss and gradients match
+    the single-process (GShard) step's as above; so does one
+    ``Trainer(rules=)`` step's loss."""
+    arch = "qwen2-moe-a2.7b"
+    m = get_config(arch, smoke=True).moe
+    over = dict(n_periods=2, moe_impl="a2a", moe=dataclasses.replace(m, capacity_factor=64.0),
+                **BACKENDS[backend])
+    cfg = get_config(arch, smoke=True).with_(**over)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    np_params = tree_map(lambda t: t.numpy(), params)
+    data = dict(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8, seed=0)
+    batch = next(SyntheticLM(**data))
+    loss, _, grads = value_and_grad(cfg, params, {k: torch.as_tensor(v) for k, v in batch.items()})
+    for r in world.run(torch_world.sharded_grads, arch, over, np_params, batch):
+        assert abs(r["loss"] - float(loss)) < 2e-3
+        for g, mine in zip(tree_leaves(grads), r["grads"]):
+            scale = float(g.abs().max())
+            np.testing.assert_allclose(mine, g.numpy(), rtol=0, atol=1e-4 * max(scale, 1e-30))
+    _, want = _train(cfg, params, data, 1)
+    for r in world.run(torch_world.sharded_train, arch, over, np_params, data, {"opt": OPT}, 1):
+        np.testing.assert_allclose(r["losses"], want, rtol=0, atol=2e-3)
 
 
 def test_sharded_microbatches_match_and_int8_raises(world):

@@ -419,3 +419,104 @@ def _zeros_like_params(cfg):
 
     return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype),
                     init_params(None, cfg, device="meta"))
+
+
+def _moe_placed(mesh, np_params, np_x):
+    """The moe weights placed by ``launch/shardings``' rules for a moe
+    block and the tokens by the residual stream's (``batch``,
+    ``seq_sharded``), under the default rules on ``mesh``."""
+    import torch
+
+    from repro_torch.distributed.contract import as_dtensor
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.shardings import param_logical_axes, tree_shardings
+
+    rules = ShardingRules(mesh)
+    tree = {"moe": {k: torch.from_numpy(v) for k, v in np_params.items()}}
+    sh = tree_shardings(rules, param_logical_axes(tree), tree)["moe"]
+    params = {k: as_dtensor(v, sh[k].spec, mesh) for k, v in tree["moe"].items()}
+    x = torch.from_numpy(np_x)
+    return params, as_dtensor(x, rules.physical(("batch", "seq_sharded", None)), mesh)
+
+
+def a2a_layer(mesh, overrides: dict, np_params, np_x, np_c=None, dtensor=False) -> dict:
+    """``moe_ffn_a2a`` of the numpy expert weights and tokens on ``mesh``:
+    the output gathered whole and, with ``np_c``, the gradients of
+    ``sum(y * c)``.  Plain operands give this rank's share of each
+    gradient (their sum over ranks is the gradient); with ``dtensor`` the
+    operands are DTensors placed as a model places them, and each
+    gradient comes back gathered whole."""
+    import torch
+
+    from repro_torch.distributed.moe_a2a import moe_ffn_a2a
+
+    cfg = _smoke_config("qwen2-moe-a2.7b", overrides)
+    if dtensor:
+        params, x = _moe_placed(mesh, np_params, np_x)
+        leaves = [x] + [params[k] for k in sorted(params)]
+        for t in leaves:
+            t.requires_grad_(np_c is not None)
+    else:
+        params = {k: torch.from_numpy(v).requires_grad_(np_c is not None)
+                  for k, v in np_params.items()}
+        x = torch.from_numpy(np_x).requires_grad_(np_c is not None)
+        leaves = [x] + [params[k] for k in sorted(params)]
+    y = moe_ffn_a2a(cfg, params, x, mesh)
+    out = dict(y=y.full_tensor().detach().numpy(), spec=tuple(map(str, y.placements)))
+    if np_c is not None:
+        names = ["x"] + sorted(params)
+        grads = torch.autograd.grad((y.full_tensor() * torch.from_numpy(np_c)).sum(), leaves)
+        out["grads"] = {n: (g.full_tensor() if dtensor else g).numpy()
+                        for n, g in zip(names, grads)}
+    return out
+
+
+def a2a_owned(mesh, np_w):
+    """The experts this rank takes of the stack ``np_w`` (placed as a
+    model places ``moe/wi``: experts over ``model``, hidden width over
+    ``data``) for the a2a products, in bfloat16, as float32 numpy."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.contract import _process_group
+    from repro_torch.distributed.moe_a2a import _owned
+    from repro_torch.distributed.sharding import group_index
+
+    params, _ = _moe_placed(mesh, {"wi": np_w}, np.zeros((*mesh.shape, 1), np.float32))
+    axes = tuple(mesh.mesh_dim_names)
+    D = mesh.size()
+    Xloc = -(-np_w.shape[0] // D)
+    own = _owned(params["wi"], mesh, axes, _process_group(mesh, axes),
+                 group_index(axes, mesh), D, Xloc, torch.bfloat16)
+    return own.float().numpy()
+
+
+def pipeline_case(mesh, np_ws, np_x, np_c=None, backend="torch", dtensor=False) -> dict:
+    """``pipeline_forward`` of ``tanh(x @ W[s])`` stages over the ``pod``
+    axis: the output and, with ``np_c``, ``pipeline_loss``'s gradients of
+    ``sum(y * c)`` with respect to the stacked weights and ``x`` (this
+    rank's; with ``dtensor`` the weights are a DTensor sharded over
+    ``pod`` and their gradient comes back whole), and the rank's stage."""
+    import torch
+
+    from repro_torch.core.contract import contract
+    from repro_torch.distributed.contract import as_dtensor
+    from repro_torch.distributed.pipeline import pipeline_forward, pipeline_loss
+    from repro_torch.distributed.sharding import P
+
+    kw = {"strategy": "native", "backend": "kernel"} if backend == "kernel" else {}
+
+    def stage_fn(params, x, stage_idx):
+        return torch.tanh(contract("bd,de->be", x, params["W"], **kw))
+
+    ws = torch.from_numpy(np_ws).requires_grad_(np_c is not None)
+    x = torch.from_numpy(np_x).requires_grad_(np_c is not None)
+    W = as_dtensor(ws, P("pod"), mesh) if dtensor else ws
+    stage = mesh.get_local_rank("pod")
+    if np_c is None:
+        return dict(y=pipeline_forward(mesh, stage_fn, {"W": W}, x).numpy(), stage=stage)
+    c = torch.from_numpy(np_c)
+    loss = pipeline_loss(mesh, stage_fn, {"W": W}, x, c, lambda y, t: (y * t).sum())
+    gw, gx = torch.autograd.grad(loss, [W, x])
+    return dict(loss=float(loss), stage=stage, gx=gx.numpy(),
+                gw=(gw.full_tensor() if dtensor else gw).numpy())
