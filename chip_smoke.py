@@ -232,7 +232,30 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    output bit-identical to the block called on each microbatch with the
    same launches, and ``pipeline_loss``'s loss and gradients bit-identical
    to the sequential run's, with the same launches.  The seconds of each
-   part are printed, and at the end the seconds of every phase.
+   part are printed.
+17. The dry run, after phase 16's world is destroyed.  (a) ``python -m
+   repro_torch.launch.dryrun`` in a subprocess for each of minicpm-2b x
+   ``train_4k`` on 16x16 and 2x16x16 and internlm2-20b x ``decode_32k``
+   on 16x16, all at once, at published widths with phase 13's depth cut
+   (``--cfg-overrides '{"n_periods": 4}'``): each traces its step on fake
+   CUDA tensors in a fake world of 256 or 512 ranks; then ``python -m
+   repro_torch.launch.roofline`` and ``python -m
+   repro_torch.launch.report`` on their records.  Every record must be
+   ``ok``, ``launch.roofline``'s rows ``roofline_cell``'s, the report
+   must hold every cell, and the 16x16 train cell must sum gradients
+   over its data axis (nonzero all-reduce or reduce-scatter bytes); each
+   record, its roofline row (H100 ceilings) and its seconds are printed.
+   (b) Phase 13's step on the torch backend (minicpm-2b, 4 layers, 4 x
+   512 tokens, unsharded) traced on fake CUDA tensors under
+   ``repro_torch.utils.CostCounter``, then run for real under the same
+   counter: equal flops, and the traced peak within 10% of
+   ``max_memory_allocated`` over the real step (above what was allocated
+   before its inputs); the step's roofline bound (its flops at the bf16
+   peak, or its bytes fused to its products at the HBM rate, whichever
+   is longer) and its fraction of phase 13's ms per step on each backend
+   are printed.  Its record is
+   printed as a ``{"dryrun": ...}`` line, and at the end the seconds of
+   every phase.
 
 Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13, 14, 15's training
 and serving, 16's layer, training and pipeline) is driven with every
@@ -3530,6 +3553,191 @@ def mesh_path(dev, seed: int, counters, serve_ref: dict) -> dict:
     return dict(sharded_train=train, sharded_serve=serve, cli_s=clis, a2a=a2a)
 
 
+# ------------------------------------------------------------------ phase 17
+#: the dry-run cells of phase 17 (a), (arch, shape, multi_pod), at their
+#: published widths with phase 13's depth cut (the one cut)
+DRYRUN_CELLS = (("minicpm-2b", "train_4k", False), ("minicpm-2b", "train_4k", True),
+                ("internlm2-20b", "decode_32k", False))
+DRYRUN_OVERRIDES = {"n_periods": TRAIN["periods"]}
+#: the traced peak's largest distance from the measured one, relative
+PEAK_TOL = 0.10
+
+
+def cell_tag(arch: str, shape: str, multi_pod: bool) -> str:
+    return f"{arch}__{shape}__{'2x16x16' if multi_pod else '16x16'}"
+
+
+def dryrun_launchers(device: str = "cuda") -> dict:
+    """Phase 17 (a): ``python -m repro_torch.launch.dryrun`` on each of
+    ``DRYRUN_CELLS`` in a subprocess of its own, all at once (fake CUDA
+    tensors, or ``device``'s, in a fake world of 256 or 512 ranks), then
+    ``launch.roofline`` and ``launch.report`` on their records.  Returns
+    each cell's record, roofline row and seconds."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch.roofline import roofline_cell
+
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+
+    def run(args, cwd=None):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
+                              env=env, cwd=cwd, timeout=600, stdin=subprocess.DEVNULL)
+        check(proc.returncode == 0, f"dryrun: python -m {' '.join(args)}: exit "
+                                    f"{proc.returncode}\n{proc.stdout[-2000:]}\n"
+                                    f"{proc.stderr[-4000:]}")
+        return proc.stdout, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "results" / "torch"
+        cells = {cell_tag(*c): ["repro_torch.launch.dryrun", "--arch", c[0], "--shape", c[1],
+                                "--device", device, "--cfg-overrides",
+                                json.dumps(DRYRUN_OVERRIDES), "--out", str(out / "dryrun")]
+                 + (["--multi-pod"] if c[2] else []) for c in DRYRUN_CELLS}
+        with ThreadPoolExecutor(len(cells)) as pool:
+            ran = dict(zip(cells, pool.map(run, cells.values())))
+        records, rows, secs = {}, {}, {}
+        for tag in cells:
+            with open(out / "dryrun" / f"{tag}.json") as f:
+                records[tag] = rec = json.load(f)
+            secs[tag] = ran[tag][1]
+            check(rec["status"] == "ok", f"dryrun: {tag} is not ok: {rec}")
+            rows[tag] = roofline_cell(rec["arch"], rec["shape"], rec)
+        text, roof_s = run(["repro_torch.launch.roofline", "--dryrun-dir", str(out / "dryrun"),
+                            "--out", str(out / "roofline.json")])
+        with open(out / "roofline.json") as f:
+            single = {cell_tag(r["arch"], r["shape"], False): r for r in json.load(f)}
+        check(single == {t: r for t, r in rows.items() if t.endswith("__16x16")},
+              f"dryrun: launch.roofline's rows {single} differ from roofline_cell's")
+        report, report_s = run(["repro_torch.launch.report"], cwd=tmp)
+        check(all(f"| {r['arch']} | {r['shape']} | {r['mesh']} | ok |" in report
+                  for r in records.values()), f"dryrun: the report lacks a cell:\n{report}")
+    for tag, rec in records.items():
+        log(f"dryrun: {tag} in {secs[tag]:.1f} s: {json.dumps(rec)}")
+        log(f"dryrun: {tag} roofline (H100 ceilings): {json.dumps(rows[tag])}")
+    log(f"dryrun: launch.roofline {roof_s:.1f} s, launch.report {report_s:.1f} s; the "
+        f"report:\n{report}")
+    grad_sync = records[cell_tag("minicpm-2b", "train_4k", False)]["collective_bytes"]
+    check(grad_sync["all-reduce"] + grad_sync["reduce-scatter"] > 0,
+          f"dryrun: the 16x16 train cell sums no gradient over its data axis: {grad_sync}")
+    return dict(records=records, roofline=rows, seconds=secs)
+
+
+def predicted_step(dev, seed: int, train_ms: dict) -> dict:
+    """Phase 17 (b): phase 13's step (minicpm-2b, 4 layers, 4 x 512
+    tokens, unsharded) on the torch backend, traced on fake CUDA tensors
+    under ``repro_torch.utils.CostCounter``, against the same step run for
+    real under the same counter: equal flops, and the traced peak within
+    ``PEAK_TOL`` of ``max_memory_allocated`` over the real step (above
+    what was allocated before its inputs were made).  Prints the step's
+    roofline bound and its fraction of phase 13's ms per step on each
+    backend."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.obs.roofline import device_peaks
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.trainer import TrainConfig, make_train_step
+    from repro_torch.utils import CostCounter
+
+    cfg = get_config(TRAIN["arch"]).with_(n_periods=TRAIN["periods"], contract_backend="torch",
+                                          contract_strategy="auto")
+    opt = AdamWConfig(lr=TRAIN["lr"], schedule="wsd", warmup_steps=TRAIN["warmup"],
+                      total_steps=TRAIN["total_steps"])
+    step = make_train_step(cfg, TrainConfig(opt=opt))
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        params = init_params(None, cfg, device=dev)
+        state = adamw_init(params)
+        batch = {"tokens": torch.zeros((TRAIN["batch"], TRAIN["seq_len"]), dtype=torch.int32,
+                                       device=dev)}
+        with CostCounter() as traced:
+            traced.hold((params, state, batch))
+            traced.output(step(params, state, batch, None))
+    del params, state, batch
+    trace_s = time.perf_counter() - t0
+    pred = traced.costs()
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    params = init_params(torch.Generator(dev).manual_seed(seed), cfg)
+    state = adamw_init(params)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+                       global_batch=TRAIN["batch"], seed=seed)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in next(data).items()}
+    resident = torch.cuda.memory_allocated(dev) - base
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with CostCounter() as real:
+        real.hold((params, state, batch))
+        out = step(params, state, batch, None)
+        real.output(out)
+        torch.cuda.synchronize()
+    real_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    loss = float(out[3]["loss"])
+    del out, params, state, batch
+    got = real.costs()
+    ratio = pred["peak_bytes"] / peak
+    log(f"predict: phase 13's step traced on fake CUDA tensors in {trace_s:.1f} s: "
+        f"{pred['flops']} flops, {pred['fused_bytes']} bytes fused to its products, "
+        f"{pred['bytes']} bytes unfused (upper bound), peak "
+        f"{pred['peak_bytes'] / 2**30:.3f} GiB of which {pred['argument_bytes'] / 2**30:.3f} "
+        f"GiB arguments; the real torch-backend step ({real_s:.2f} s under the counter, loss "
+        f"{loss:.6f}): {got['flops']} flops, {got['bytes']} bytes, the counter's peak "
+        f"{got['peak_bytes'] / 2**30:.3f} GiB; inputs resident {resident / 2**30:.3f} GiB over "
+        f"{base / 2**30:.3f} GiB allocated before them; max_memory_allocated over the step "
+        f"{peak / 2**30:.3f} GiB above that: predicted/measured peak {ratio:.4f} (limit "
+        f"1 +- {PEAK_TOL})")
+    check(np.isfinite(loss), f"predict: the real step's loss {loss} is not finite")
+    check(got["flops"] == pred["flops"],
+          f"predict: the real step counts {got['flops']} flops, the trace {pred['flops']}")
+    for key in ("bytes", "fused_bytes"):
+        same = "equal" if got[key] == pred[key] else "differ from"
+        log(f"predict: the real step's {key} {same} the trace's ({got[key]} and "
+            f"{pred[key]})")
+    check(abs(ratio - 1) <= PEAK_TOL,
+          f"predict: traced peak {pred['peak_bytes']} is {ratio:.4f} of the measured {peak}")
+    peaks = device_peaks(torch.cuda.get_device_name(0))
+    dtype = str(cfg.activation_dtype()).removeprefix("torch.")
+    t_compute = pred["flops"] / peaks["flops_per_s"][dtype]
+    t_memory = pred["fused_bytes"] / peaks["hbm_bytes_per_s"]
+    bound_ms = max(t_compute, t_memory) * 1e3
+    ms = {b: sorted(v)[len(v) // 2] for b, v in train_ms.items()}
+    fraction = {b: bound_ms / m for b, m in ms.items()}
+    log(f"predict: roofline bound of the step {bound_ms:.3f} ms (compute {t_compute * 1e3:.3f} "
+        f"ms at the {dtype} peak, memory {t_memory * 1e3:.3f} ms for the fused bytes; the "
+        f"unfused bytes would take {pred['bytes'] / peaks['hbm_bytes_per_s'] * 1e3:.3f} ms); "
+        f"phase 13's ms per step {', '.join(f'{b} {m:.1f}' for b, m in ms.items())}: roofline "
+        f"fraction {', '.join(f'{b} {f:.4f}' for b, f in fraction.items())}")
+    return dict(flops=pred["flops"], bytes=pred["bytes"], fused_bytes=pred["fused_bytes"],
+                peak_bytes=pred["peak_bytes"], argument_bytes=pred["argument_bytes"],
+                measured_peak_bytes=peak,
+                counter_peak_bytes_real=got["peak_bytes"], peak_ratio=ratio,
+                peak_live=pred["peak_live"], bound_ms=bound_ms, t_compute_ms=t_compute * 1e3,
+                t_memory_ms=t_memory * 1e3, ms_per_step=ms, roofline_fraction=fraction,
+                trace_s=trace_s)
+
+
+def dryrun_path(dev, seed: int, train_ms: dict) -> dict:
+    """Phase 17: the dry-run launchers, then the traced step against the
+    real one."""
+    t0 = time.perf_counter()
+    launchers = dryrun_launchers()
+    t1 = time.perf_counter()
+    step = predicted_step(dev, seed, train_ms)
+    log(f"dryrun: phase 17 took {time.perf_counter() - t0:.1f} s: (a) {t1 - t0:.1f} s, "
+        f"(b) {time.perf_counter() - t1:.1f} s")
+    return dict(launchers=launchers, step=step)
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3623,6 +3831,8 @@ def main() -> int:
                  "launches_by_route": serve["launches_by_route"]}
     mesh = mesh_path(dev, args.seed, counters, serve_ref)
     lap("15-16")
+    print(json.dumps({"dryrun": dryrun_path(dev, args.seed, train["ms_per_step"])}))
+    lap("17")
     log("time by phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
         + f"; all {time.perf_counter() - t0:.1f} s after the device line")
     records = {

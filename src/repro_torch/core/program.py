@@ -47,6 +47,7 @@ import torch
 from repro_torch.core import einsum as _einsum
 from repro_torch.core.contract import dtype_name
 from repro_torch.core.notation import ContractionSpec, parse_spec
+from repro_torch.distributed.sharding import rank_grid
 from repro_torch.obs import trace as _trace
 
 __all__ = [
@@ -329,7 +330,7 @@ class ProgramOptions:
             self.mesh.device_type,
             tuple(self.mesh.mesh_dim_names),
             tuple(self.mesh.shape),
-            tuple(self.mesh.mesh.flatten().tolist()),
+            tuple(rank_grid(self.mesh).ravel().tolist()),
         )
 
     def signature(self) -> tuple:

@@ -68,6 +68,7 @@ from repro_torch.distributed.sharding import (
     group_index,
     local_block,
     placements,
+    rank_grid,
     specs_equal,
 )
 
@@ -371,7 +372,7 @@ def _process_group(mesh: DeviceMesh, group: AxisGroup):
             raise NotImplementedError(
                 f"axis group {group} lists mesh axes out of mesh order {names}")
         rest = [d for d in range(len(names)) if d not in dims]
-        rows = mesh.mesh.permute(rest + dims).reshape(-1, math.prod(
+        rows = rank_grid(mesh).transpose(rest + dims).reshape(-1, math.prod(
             mesh.shape[d] for d in dims))
         me = dist.get_rank()
         for row in rows.tolist():

@@ -134,6 +134,20 @@ def _whole(w, mesh):
     return w.full_tensor(grad_placements=[Partial()] * mesh.ndim)
 
 
+def _bincount(idx, n: int):
+    """``torch.bincount(idx, minlength=n)`` for ``idx < n``: its length is
+    ``n`` whatever the data, so a step traced on fake tensors runs it."""
+    return torch.zeros(n, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx, dtype=torch.int64))
+
+
+def owned_counts(lo: int, hi: int, D: int) -> list[int]:
+    """How many of experts ``[lo, hi)`` each of ``D`` ranks owns (rank
+    ``d`` owns the experts ``e`` with ``e % D == d``), from the integers
+    alone: no tensor is read, so a step traced on fake tensors runs it."""
+    return [len(range(lo + (d - lo) % D, hi, D)) for d in range(D)]
+
+
 def _flat_blocks(n: int, sizes) -> list:
     """``[lo, hi)`` of each flat rank's block (outer mesh dim major) of a
     dim of ``n`` sharded over mesh dims of ``sizes``: DTensor splits it as
@@ -170,8 +184,8 @@ def _owned(w, mesh, axes, pg, d: int, D: int, Xloc: int, dt):
             raise AssertionError(f"rank {d} holds {blk.shape[0]} experts, not {hi - lo}")
         owner = torch.arange(lo, hi) % D
         order = torch.argsort(owner, stable=True)       # this block's experts by owner
-        sent = torch.bincount(owner, minlength=D).tolist()
-        received = [len(range(l + (d - l) % D, h, D)) for l, h in spans]
+        sent = owned_counts(lo, hi, D)
+        received = [owned_counts(l, h, D)[d] for l, h in spans]
         own = _exchange(blk[order.to(blk.device)], pg, sent, received)
     if own.shape[0] < Xloc:
         own = torch.cat([own, own.new_zeros((Xloc - own.shape[0],) + tuple(own.shape[1:]))])
@@ -263,7 +277,7 @@ def moe_ffn_a2a(cfg, params, x, mesh, *, strategy=None, backend=None):
 
     # ---- sort by destination, fixed-capacity send buffer (gathers) ------
     order = torch.argsort(dest, stable=True)
-    counts = torch.bincount(dest, minlength=D)
+    counts = _bincount(dest, D)
     starts = torch.cumsum(counts, 0) - counts
     slot = _ranks_within_groups(dest, order, starts)    # (N,)
     kept = slot < cap
@@ -277,13 +291,13 @@ def moe_ffn_a2a(cfg, params, x, mesh, *, strategy=None, backend=None):
     send_le = torch.where(valid, local_e[item], Xloc)   # Xloc = trash bin
 
     recv = _exchange(send, pg)                          # (D, cap, E)
-    recv_le = _exchange(send_le, pg)
+    recv_le = _exchange(send_le.int(), pg).long()       # sent as int32, as in JAX
 
     # ---- regroup by local expert (gathers again) -------------------------
     e2 = recv_le.reshape(-1)                            # (D·cap,)
     rflat = recv.reshape(-1, E)
     order2 = torch.argsort(e2, stable=True)
-    counts2 = torch.bincount(e2, minlength=Xloc + 1)
+    counts2 = _bincount(e2, Xloc + 1)
     starts2 = torch.cumsum(counts2, 0) - counts2
     slot2 = _ranks_within_groups(e2, order2, starts2)
     ar_c2 = torch.arange(C2, device=dev)

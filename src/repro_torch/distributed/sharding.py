@@ -54,6 +54,7 @@ __all__ = [
     "NamedSharding",
     "device_put",
     "reduce_partial",
+    "rank_grid",
     "DEFAULT_RULES",
 ]
 
@@ -162,6 +163,17 @@ def spec_of(x) -> P:
     while entries and not entries[-1]:
         entries.pop()
     return P(*[None if not g else g[0] if len(g) == 1 else g for g in entries])
+
+
+def rank_grid(mesh):
+    """The mesh's ranks as a numpy array of its shape.  Read with every
+    dispatch mode off: the grid is bookkeeping on the host, which a step
+    traced on fake tensors (or under a cost counter) must neither fake
+    nor count."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        return mesh.mesh.numpy().copy()
 
 
 def group_index(group: tuple[str, ...], mesh) -> int:

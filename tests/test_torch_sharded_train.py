@@ -65,7 +65,7 @@ def test_sharded_train_step_matches_single_device(world, weights, backend):
     assert abs(mesh[0] - single) < 2e-3, (mesh[0], single)
 
 
-def test_a2a_moe_under_rules_raises(world, weights):
+def test_a2a_moe_under_rules_matches_single_process(world, weights):
     """``moe_impl="a2a"`` under rules no longer raises: it runs the expert
     all-to-all (``distributed/moe_a2a``) on the mesh.  At a capacity
     factor where no token drops it computes what the single-process
