@@ -11,9 +11,10 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    include ``hopper.cuh``, and so does ``sb_gemm.cu``) with nvcc, one
    process each, all at once; prints the registers, spills and shared
    memory of the wgmma and fma kernels (attention at D = 64, 128, 256;
-   grouped for each type) and of the ``stream``, ``splitk`` and ``wgmma``
-   kernels of ``native_gemm`` (``wgmma`` for each operand layout, and its
-   split reduction); no fma kernel may spill, and each must have the
+   grouped for each type) and of the ``stream`` and ``splitk`` kernels of
+   ``native_gemm`` and the one kernel of its ``wgmma`` and ``batched``
+   routes (at each tile height and operand layout, and its split
+   reduction; it may not spill); no fma kernel may spill, and each must have the
    shared memory its plan (``fma_tiles``, ``KERNEL_TILES``) gives.
 3. Kernel vs plain version on the card: the 36 Table II cases (native and
    batched strategies, f32 and bf16, ragged dims), the 8 exceptional cases
@@ -26,8 +27,15 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    bf16 weight streaming at rows 1 (a stride-0 decode row), 2, 4, 63, 64,
    65 and 200, depths 6144, 1000 and 328, 1032 columns, each operand
    layout, bf16 and f32 output; and a bf16 case whose rows are no
-   multiple of 16 bytes apart, which must stay ``generic``), each
-   launched twice and bit-identical; ``grouped_gemm`` on
+   multiple of 16 bytes apart, which must stay ``generic``; weight
+   gradients whose contracted modes ``b`` and ``s`` fuse, on ``wgmma``
+   unsplit at 40 to 5000 rows, a K-major fused product split, and a
+   float32 pair of fusing modes on ``splitk``; ``batched`` attention
+   products with up to 3 grid modes, an M-major X, an outer contracted
+   mode (``r`` beside ``s`` in a GQA dK and dV), a decode row and a
+   1024-deep P.V, expert products with 341 rows and depth,
+   GShard's, and experts whose rows are 500 bytes apart, which must stay
+   ``generic``), each launched twice and bit-identical; ``grouped_gemm`` on
    the grouped cases of ``tests/test_runtime.py``, mixed bf16 x f32
    operands and the fig14 ragged set, then every ragged case again in
    bf16 under the default tiles
@@ -93,7 +101,7 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    kernel; one decode pass and one prefill chunk must make one
    ``native_gemm`` launch per model contraction (9 a layer and the LM
    head): ``wgmma`` for the 7 dense products of a layer and the LM head,
-   ``generic`` for the scores and P.V products (29 and 8 at 4 layers),
+   ``batched`` for the scores and P.V products (29 and 8 at 4 layers),
    and the counted serve launches the routes in that ratio.  The legacy
    ``ServeEngine`` must give the same tokens, and a prefill's logits on
    the kernel backend must be within 2e-2 of the largest magnitude of
@@ -134,7 +142,8 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    each on the route ``native_route`` gives and by route what the model
    gives (``train_launches_per_step``: 9 contractions a layer and the LM
    head, the layers' recomputed by remat, two backward launches per
-   product), and no other kernel.  A fresh ``Trainer`` restores step 3
+   product: 115 ``wgmma``, the weight gradients' fused b·s included, and
+   32 ``batched``), and no other kernel.  A fresh ``Trainer`` restores step 3
    and reruns steps 4-6 within rtol 1e-4 (bit-identity printed).  From
    the initial weights and the first batch: every parameter leaf gets a
    finite nonzero gradient; the torch backend's loss within 2e-2
@@ -207,7 +216,7 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    call with every ``native_gemm`` replaced by ``native_gemm_ref``, and of
    the GShard path at capacity factor ``A2A["no_drop_cf"]``, where the
    busiest expert must fit both paths' capacities; its three expert
-   products launch on ``generic`` (each held to the plain version, two
+   products launch on ``batched`` (each held to the plain version, two
    launches bit-identical) and are timed queued against one
    ``torch.bmm`` on the same operands and their bound; their device
    kernels are ``native_gemm``'s alone.  (b) qwen2-moe-a2.7b at published
@@ -215,7 +224,7 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    activations, remat, a2a, through ``Trainer(rules=)`` (kernel backend,
    native), 4 x 512 tokens a step, 3 steps with a checkpoint at step 2:
    losses finite; launches by route per step what
-   ``a2a_launches_per_step`` gives (171: 98 ``wgmma``, 73 ``generic``, 24
+   ``a2a_launches_per_step`` gives (171: 131 ``wgmma``, 40 ``batched``, 24
    of them expert products), each on ``native_route``'s route; a fresh
    trainer restores step 2 and reruns step 3 within rtol 1e-4; from the
    initial weights every gradient leaf finite and nonzero; the torch
@@ -231,8 +240,10 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    stage (kernel backend, native), 4 microbatches of 512 bf16 tokens:
    output bit-identical to the block called on each microbatch with the
    same launches, and ``pipeline_loss``'s loss and gradients bit-identical
-   to the sequential run's, with the same launches.  The seconds of each
-   part are printed.
+   to the sequential run's, with the same launches; each launch of both on
+   ``native_route``'s route, none on ``generic`` (the GQA dK and dV, whose
+   ``r`` does not fuse with ``s``, take ``batched`` with ``r`` as an outer
+   contracted mode).  The seconds of each part are printed.
 17. The dry run, after phase 16's world is destroyed.  (a) ``python -m
    repro_torch.launch.dryrun`` in a subprocess for each of minicpm-2b x
    ``train_4k`` on 16x16 and 2x16x16 and internlm2-20b x ``decode_32k``
@@ -256,6 +267,13 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    are printed.  Its record is
    printed as a ``{"dryrun": ...}`` line, and at the end the seconds of
    every phase.
+18. Tensor-core products, right after phase 16 (before 17): every launch
+   shape of the counted runs of phases 11, 13, 15 and 16 (16 (c) too)
+   that takes the ``batched`` route or fuses its contracted modes (noted by
+   ``native_routes_held``), on normal random operands laid out as the
+   path's own: within ``TOL`` of ``native_gemm_ref``, two launches
+   bit-identical, timed queued against its bound, the plain version and
+   one ``torch.einsum``; sums per serve, step or layer of each path.
 
 Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13, 14, 15's training
 and serving, 16's layer, training and pipeline) is driven with every
@@ -286,7 +304,10 @@ phase 15's under ``sharded_train`` (launches by route, ms per step, peak
 memory) and ``sharded_serve`` (launches, tokens/s), and phase 16's a2a
 training launches under ``a2a_launches``/``a2a_launches_by_route``, its
 layer, expert-product times and training checks under ``a2a`` and the
-pipeline's launches under ``pipeline_launches``),
+pipeline's launches under ``pipeline_launches``), then
+``native_gemm.batched``, the batched route on its own line: phase 13's
+counted launches on it, and its times per train step from phase 18 (every
+path's under ``tc_shapes``),
 the card's name and power limit as ``nvidia-smi`` prints them, and the
 ``{"ok": true, ...}`` line.  Any failed check raises and exits non-zero without that line.
 """
@@ -440,26 +461,46 @@ def nbytes(*tensors) -> int:
 
 
 # ------------------------------------------------------------------- phase 3
+#: the tensor-core launch shapes of the counted runs of phases 11, 13, 15
+#: and 16 that the batched route or a fused contraction gives: layout key
+#: -> {"layout": ..., "route": ..., "k_modes": ..., "launches": {path: n}};
+#: phase 18 holds and times each
+TC_SHAPES: dict = {}
+#: each path's counted run in units: path -> (units, unit name)
+TC_UNITS: dict = {}
+
+
+def layout_key(A, B, kw) -> tuple:
+    """A launch's modes, operand shapes, strides, storage offsets and
+    types, and options: what :func:`operands_like` rebuilds it from."""
+    layout = tuple((tuple(t.shape), t.stride(), t.storage_offset(), t.dtype) for t in (A, B))
+    return (kw["a_modes"], kw["b_modes"], kw["c_modes"], *layout, kw.get("out_dtype"),
+            kw.get("u"), kw.get("walk"), kw.get("walk_mode")), (layout, dict(kw))
+
+
 class native_routes_held:
     """Within the block, every ``native_gemm`` launch (through
     ``kernels.ops``, where every path calls it) must launch the route
     ``native_route`` gives for its operands; ``tally`` counts the routes
-    seen.  A call with an empty output launches nothing."""
+    seen.  A call with an empty output launches nothing.  Given a
+    ``path`` label, each launch on the batched route or with fused
+    contracted modes is noted in :data:`TC_SHAPES` under it."""
 
-    def __init__(self):
+    def __init__(self, path: str | None = None):
         from repro_torch.kernels.sb_gemm import ROUTES
 
         self.tally = dict.fromkeys(ROUTES, 0)
+        self.path = path
 
     def __enter__(self):
         from repro_torch.kernels import ops
-        from repro_torch.kernels.sb_gemm import native_gemm, native_route
+        from repro_torch.kernels.sb_gemm import native_gemm, native_plan
 
         self.real = real = ops.native_gemm
 
         def held(A, B, **kw):
-            want = native_route(A, B, a_modes=kw["a_modes"], b_modes=kw["b_modes"],
-                                c_modes=kw["c_modes"])
+            want, plan = native_plan(A, B, a_modes=kw["a_modes"], b_modes=kw["b_modes"],
+                                     c_modes=kw["c_modes"])
             before = dict(native_gemm.launches_by_route)
             out = real(A, B, **kw)
             ran = {r: n - before[r] for r, n in native_gemm.launches_by_route.items()}
@@ -469,6 +510,12 @@ class native_routes_held:
                   f"A{tuple(A.shape)}{A.stride()} B{tuple(B.shape)}{B.stride()}: launched "
                   f"{ran}, native_route says {want}")
             self.tally[want] += launched
+            if self.path and launched and plan and (want == "batched"
+                                                    or len(plan["k_modes"]) > 1):
+                key, layout = layout_key(A, B, kw)
+                rec = TC_SHAPES.setdefault(key, dict(layout=layout, route=want,
+                                                     k_modes=plan["k_modes"], launches={}))
+                rec["launches"][self.path] = rec["launches"].get(self.path, 0) + 1
             return out
 
         ops.native_gemm = held
@@ -638,6 +685,55 @@ def native_route_cases(dev):
               ("eb,ef->bf", bints(328, 64), bints(328, n), None, "wgmma", True),
               # bf16 that TMA cannot read: W's rows 1030 bytes apart
               ("be,ef->bf", bf(4, 6144), bf(6144, 515)[:, :512], None, "generic", False)]
+
+    # fused contracted modes (b, s) on wgmma: weight gradients, X M-major
+    # (never split) at 136 to 5000 rows (64- and 128-row tiles); and X
+    # K-major, split 4 ways
+    cases += [("bsv,bse->ve", bf(2, 100, 1000), bf(2, 100, 136), None, "wgmma", False),
+              ("bsf,bse->ef", bf(2, 512, 200), bf(2, 512, 136), None, "wgmma", False),
+              ("bse,bsf->fe", bf(2, 100, 136), bf(2, 100, 5000), None, "wgmma", False),
+              ("bsf,bse->ef", bints(2, 512, 200), bints(2, 512, 136), torch.float32, "wgmma",
+               True),
+              ("bsf,bse->ef", bf(2, 100, 200), bf(2, 100, 40), None, "wgmma", False),
+              ("mbs,nbs->mn", bf(136, 2, 512), bf(200, 2, 512), None, "wgmma", False),
+              ("mbs,nbs->mn", bints(136, 2, 512), bints(200, 2, 512), torch.float32, "wgmma",
+               True),
+              # ... and in float32, onto splitk
+              ("mkq,kqi->mi", rn(40, 6, 7), rn(6, 7, 3), None, "splitk", False)]
+    # batched: attention (3 grid modes b, g, r; S, T and C2 off the tiles;
+    # X M-major in dK; an outer contracted mode r beside s in a GQA dK and
+    # dV; one decode row), expert products (K = 341 rows off a stage),
+    # GShard's (g and c fuse), a 1024-deep decode P.V
+    cases += [("bsgrd,btgd->bgrst", bf(2, 70, 3, 2, 64), bf(2, 136, 3, 64), None, "batched",
+               False),
+              ("bgrst,btgd->bsgrd", bf(2, 3, 2, 70, 136), bf(2, 136, 3, 64), None, "batched",
+               False),
+              ("bgrst,bsgrd->btgd", bf(2, 3, 1, 70, 136), bf(2, 70, 3, 1, 64), None,
+               "batched", False),
+              ("bgrst,bsgrd->btgd", bf(2, 3, 2, 70, 136), bf(2, 70, 3, 2, 64), None,
+               "batched", False),
+              ("bsgrd,bgrst->btgd", bf(2, 70, 3, 2, 64), bf(2, 3, 2, 70, 136), None,
+               "batched", False),
+              ("bgrst,bsgrd->btgd", bints(2, 3, 2, 70, 136), bints(2, 70, 3, 2, 64),
+               torch.float32, "batched", True),
+              ("bsgrd,btgd->bgrst", bf(4, 1, 3, 1, 64), bf(4, 136, 3, 64), None, "batched",
+               False),
+              ("bgrst,btgd->bsgrd", bf(1, 2, 6, 1, 1024), bf(1, 1024, 2, 128), None, "batched",
+               False),
+              ("xce,xef->xcf", bf(3, 341, 256), bf(3, 256, 200), None, "batched", False),
+              ("xcf,xfe->xce", bf(3, 341, 200), bf(3, 200, 256), None, "batched", False),
+              ("xcf,xce->xef", bf(3, 341, 200), bf(3, 341, 256), None, "batched", False),
+              ("xgce,xef->xgcf", bf(3, 2, 40, 256), bf(3, 256, 200), None, "batched", False),
+              ("xce,xef->xcf", bf(3, 341, 256), bf(3, 256, 200), torch.float32, "batched",
+               False),
+              ("bgrst,btgd->bsgrd", bints(2, 3, 2, 70, 136), bints(2, 136, 3, 64), None,
+               "batched", True),
+              ("xcf,xce->xef", bints(3, 341, 200), bints(3, 341, 256), torch.float32,
+               "batched", True),
+              ("bgrst,btgd->bsgrd", bints(1, 2, 6, 1, 1024), bints(1, 1024, 2, 128),
+               torch.float32, "batched", True),
+              # experts whose rows are 500 bytes apart: no tensor map
+              ("xce,xef->xcf", bf(3, 341, 250), bf(3, 250, 200), None, "generic", False)]
     return cases
 
 
@@ -671,8 +767,9 @@ def check_native_routes(dev) -> None:
     counts = {r: sum(1 for *_, rt, _ in cases if rt == r) for r in native_gemm.launches_by_route}
     log(f"native_gemm routes: {len(cases)} forced cases ({routes_text(counts)}; narrow widths "
         f"1/10/16, ragged rows and depths, bf16 weight streaming at 1-200 rows in every "
-        f"operand layout, bf16 and f32 output, integer-valued bit-identical), each launched "
-        f"twice on its route, bit-identical, matching the plain version "
+        f"operand layout, fused contracted modes, batched attention and expert products "
+        f"with up to 3 grid modes, bf16 and f32 output, integer-valued bit-identical), each "
+        f"launched twice on its route, bit-identical, matching the plain version "
         f"(max abs error {worst:.3g})")
 
 
@@ -759,9 +856,10 @@ def native_kernel_info() -> None:
     """Registers, spills and shared memory of the built stream, splitk and
     wgmma kernels of ``native_gemm`` (the first two with float32 output,
     the stream read kernels at the HOOI depth 512 and the read kinds at
-    rank 10, padded to 12; wgmma with bf16 output for each operand layout,
-    and its split reduction).  The wgmma kernel must not spill: its 64
-    accumulators a thread stay in registers."""
+    rank 10, padded to 12; the wgmma and batched routes' kernel with bf16
+    output at each tile height and operand layout, and its split
+    reduction).  That kernel must not spill: its 64 accumulators a thread
+    stay in registers."""
     from repro_torch.kernels.sb_gemm import route_info
 
     for name, info in route_info(K=512, rp=12).items():
@@ -1346,7 +1444,8 @@ def launch_cost(A, B, kw) -> tuple[int, int]:
     return nbytes, flops
 
 
-def time_shapes(launches, reps: int = 20, per: str = "HOOI", top: int | None = None) -> dict:
+def time_shapes(launches, reps: int = 20, per: str = "HOOI", top: int | None = None,
+                summary: bool = True) -> dict:
     """Kernel, plain-version and library time at each launch shape of the
     main path, its route and the bound at its type's peak; two launches at
     each shape must be bit-identical, and the kernel's error against the
@@ -1355,11 +1454,12 @@ def time_shapes(launches, reps: int = 20, per: str = "HOOI", top: int | None = N
     timed both with their calls queued (device time, ``queued_ms``) and
     back to back (the call with its host time, ``cuda_ms``).  Per-``per``
     sums weight each shape by its launches; ``top`` keeps only the shapes
-    with the largest launches x bound."""
+    with the largest launches x bound; ``rows`` holds each shape's numbers
+    for one launch, and ``summary`` prints the sums."""
     from repro_torch.kernels.sb_gemm import native_gemm, native_gemm_ref, native_route
 
     keys = ("ms", "call_ms", "plain_ms", "library_ms", "library_call_ms", "bound_ms")
-    tot = dict.fromkeys(keys, 0.0) | dict(bytes=0, flops=0)
+    tot = dict.fromkeys(keys, 0.0) | dict(bytes=0, flops=0, rows=[])
     worst = 0.0
     items = sorted(launches.items(), key=lambda x: x[0][:3])
     if top is not None:
@@ -1404,12 +1504,16 @@ def time_shapes(launches, reps: int = 20, per: str = "HOOI", top: int | None = N
             tot[k] += n * v
         tot["bytes"] += n * nbytes
         tot["flops"] += n * flops
+        tot["rows"].append(dict(zip(keys, (ms, call_ms, plain, lib, lib_call, b_ms)),
+                                spec=spec, route=route, bound_by=by, bytes=nbytes, flops=flops,
+                                max_abs_err=(got.float() - want.float()).abs().max().item()))
     tot["max_abs_err"] = worst
     tot["bound_by"] = bound(tot["bytes"], tot["flops"], dtype)[1]
-    log(f"native_gemm per {per}{'' if top is None else f' (top {len(items)} shapes)'}: kernel "
-        f"{tot['ms']:.4f} ms queued ({tot['call_ms']:.4f} ms by "
-        f"events), bound {tot['bound_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, einsum "
-        f"{tot['library_ms']:.4f} ms queued ({tot['library_call_ms']:.4f} ms by events)")
+    if summary:
+        log(f"native_gemm per {per}{'' if top is None else f' (top {len(items)} shapes)'}: "
+            f"kernel {tot['ms']:.4f} ms queued ({tot['call_ms']:.4f} ms by "
+            f"events), bound {tot['bound_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, einsum "
+            f"{tot['library_ms']:.4f} ms queued ({tot['library_call_ms']:.4f} ms by events)")
     return tot
 
 
@@ -1960,9 +2064,10 @@ def serve_path(dev, seed: int, counters) -> dict:
     for c in counters:
         c.launches = 0
     native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
-    with recording_launches() as launches, native_routes_held() as held:
+    with recording_launches() as launches, native_routes_held("serve") as held:
         rt.serve(traffic)
         torch.cuda.synchronize()
+    TC_UNITS["serve"] = (1, "serve")
     counted = {c.__name__: c.launches for c in counters}
     routes = dict(native_gemm.launches_by_route)
     outputs = [r.output for r in traffic]
@@ -1991,8 +2096,8 @@ def serve_path(dev, seed: int, counters) -> dict:
     toks = torch.zeros((SERVE["slots"], 1), dtype=torch.long, device=dev)
     prompt = torch.as_tensor(traffic[0].prompt[:SERVE["chunk"]], device=dev)[None].long()
     # launches ``wgmma`` for the 7 dense products of a layer and the LM head,
-    # ``generic`` for the scores and P.V products
-    per_pass = {"wgmma": 7 * periods + 1, "generic": 2 * periods}
+    # ``batched`` for the scores and P.V products
+    per_pass = {"wgmma": 7 * periods + 1, "batched": 2 * periods}
     for name, run in (("decode pass", lambda: transformer.decode_step(cfg, params, scratch, toks)),
                       ("prefill chunk", lambda: transformer.prefill(
                           cfg, params, {"tokens": prompt},
@@ -2011,7 +2116,7 @@ def serve_path(dev, seed: int, counters) -> dict:
         log(f"serve: one {name}: {len(rec)} contractions, {n} native_gemm launches, by route "
             f"{by_route}")
     check(routes["wgmma"] * (9 * periods + 1) == per_pass["wgmma"] * counted["native_gemm"]
-          and routes["wgmma"] + routes["generic"] == counted["native_gemm"],
+          and routes["wgmma"] + routes["batched"] == counted["native_gemm"],
           f"serve: the counted serve's routes {routes} are not {per_pass['wgmma']} wgmma in "
           f"every {9 * periods + 1} launches")
     native_gemm.launches = counted["native_gemm"]
@@ -2171,14 +2276,15 @@ TRAIN = dict(arch="minicpm-2b", periods=4, seq_len=512, batch=4, steps=6, ckpt_a
 def train_launches_per_step(periods: int) -> dict:
     """``native_gemm`` launches of one train step on the kernel backend, by
     route, derived from the model: 9 contractions a layer (q, k, v, o, three
-    MLP products on ``wgmma``; scores and P.V on ``generic``) and the LM
+    MLP products on ``wgmma``; scores and P.V on ``batched``) and the LM
     head (``wgmma``), each launched in the forward; remat recomputes each
-    layer's 9 in the backward; each product's backward launches two, dX
-    (``wgmma`` for a dense product, whose weight carries n and k) and dW
-    (two contracted modes, b and s: ``generic``)."""
+    layer's 9 in the backward; each product's backward launches two: a
+    dense product's dX (its weight carries n and k) and dW (its two
+    contracted modes, b and s, fuse into one) on ``wgmma``, the scores'
+    and P.V's on ``batched``."""
     dense, attn = 7 * periods + 1, 2 * periods    # a forward's products (the head is dense)
-    return {"wgmma": dense + (dense - 1) + dense,          # forward, recompute, dX
-            "generic": attn + attn + 2 * attn + dense}     # forward, recompute, bwd, dW
+    return {"wgmma": dense + (dense - 1) + 2 * dense,      # forward, recompute, dX and dW
+            "batched": attn + attn + 2 * attn}            # forward, recompute, backward
 
 
 def timed_steps(step_fn, params, batch, n: int) -> list:
@@ -2249,11 +2355,12 @@ def train_path(dev, seed: int, counters) -> dict:
         native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        with native_routes_held() as held:
+        with native_routes_held("train") as held:
             hist = tr.run(at)
             tr.save(force=True)
             hist += tr.run(steps - at)
             torch.cuda.synchronize()
+        TC_UNITS["train"] = (steps, "step")
         counted = {c.__name__: c.launches for c in counters}
         routes = dict(native_gemm.launches_by_route)
         peak = torch.cuda.max_memory_allocated(dev)
@@ -2713,7 +2820,8 @@ def mesh_train(dev, mesh, seed: int, counters) -> dict:
         native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
         runs = {"sharded": [], "unsharded": []}
         recorded = {"sharded": {}, "unsharded": {}}
-        with native_routes_held() as held:
+        TC_UNITS["mesh train"] = (4, "step")
+        with native_routes_held("mesh train") as held:
             for which in ("unsharded", "sharded", "sharded", "unsharded"):
                 tr = ts if which == "sharded" else tu
                 torch.cuda.reset_peak_memory_stats(dev)
@@ -2828,9 +2936,10 @@ def mesh_serve(dev, mesh, seed: int, counters, serve_ref: dict) -> dict:
     for c in counters:
         c.launches = 0
     native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
-    with recording_launches() as launches, native_routes_held() as held:
+    with recording_launches() as launches, native_routes_held("mesh serve") as held:
         rts.serve(traffic)
         torch.cuda.synchronize()
+    TC_UNITS["mesh serve"] = (1, "serve")
     counted = {c.__name__: c.launches for c in counters}
     routes = dict(native_gemm.launches_by_route)
     outputs = [list(r.output) for r in traffic]
@@ -2974,11 +3083,8 @@ def recording_launch_keys():
     def recording(A, B, **kw):
         out = real(A, B, **kw)
         if out.numel():         # an empty output launches nothing
-            layout = tuple((tuple(t.shape), t.stride(), t.storage_offset(), t.dtype)
-                           for t in (A, B))
-            key = (kw["a_modes"], kw["b_modes"], kw["c_modes"], *layout, kw.get("out_dtype"),
-                   kw.get("u"), kw.get("walk"), kw.get("walk_mode"))
-            keys.setdefault(key, [0, (layout, dict(kw))])[0] += 1
+            key, layout = layout_key(A, B, kw)
+            keys.setdefault(key, [0, layout])[0] += 1
         return out
 
     ops.native_gemm = recording
@@ -3007,15 +3113,15 @@ def a2a_launches_per_step(cfg) -> dict:
     ``moe_impl="a2a"`` on a mesh of one, by route: a layer's forward makes
     the dense products q, k, v, o and each shared expert's (3 for swiglu:
     16 for qwen2-moe-a2.7b's 4), on ``wgmma``, and the batched ones,
-    scores, P.V and the expert products (3), on ``generic``; the LM head is
+    scores, P.V and the expert products (3), on ``batched``; the LM head is
     dense; remat recomputes the layers; each product's backward launches
-    two (a dense dX on ``wgmma``, its dW and every batched product's both
-    on ``generic``)."""
+    two (a dense dX and its dW, whose b and s fuse, on ``wgmma``, every
+    batched product's both on ``batched``)."""
     mlp = 3 if cfg.mlp_act == "swiglu" else 2
     dense = (4 + mlp * cfg.moe.n_shared) * cfg.n_periods + 1
     batched = (2 + mlp) * cfg.n_periods
-    return {"wgmma": dense + (dense - 1) + dense,
-            "generic": batched + batched + 2 * batched + dense}
+    return {"wgmma": dense + (dense - 1) + 2 * dense,
+            "batched": batched + batched + 2 * batched}
 
 
 @contextlib.contextmanager
@@ -3089,9 +3195,10 @@ def a2a_layer(dev, mesh, seed: int, counters) -> dict:
     for c in counters:
         c.launches = 0
     native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
-    with recording_launches() as launches, native_routes_held() as held:
+    with recording_launches() as launches, native_routes_held("a2a layer") as held:
         y = layer()
         torch.cuda.synchronize()
+    TC_UNITS["a2a layer"] = (1, "layer")
     counted = {c.__name__: c.launches for c in counters}
     routes = {r: n for r, n in native_gemm.launches_by_route.items() if n}
     check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
@@ -3104,9 +3211,9 @@ def a2a_layer(dev, mesh, seed: int, counters) -> dict:
     for n, (A, B, kw) in experts.values():
         expert_routes[native_route(A, B, a_modes=kw["a_modes"], b_modes=kw["b_modes"],
                                    c_modes=kw["c_modes"])] += n
-    check(n_expert == 3 and expert_routes == {"generic": 3},
+    check(n_expert == 3 and expert_routes == {"batched": 3},
           f"a2a layer: the expert products launched {n_expert} by route "
-          f"{dict(expert_routes)}, not 3 on generic")
+          f"{dict(expert_routes)}, not 3 on batched")
     check(bool(torch.isfinite(y).all()) and tuple(y.shape) == tuple(x.shape),
           "a2a layer: the output is not finite or not of the input's shape")
     saved = [c.launches for c in counters], dict(native_gemm.launches_by_route)
@@ -3140,7 +3247,7 @@ def a2a_layer(dev, mesh, seed: int, counters) -> dict:
         f"call on native_gemm_ref, {err_gshard:.3g} from the GShard path at capacity factor "
         f"{cf} (busiest expert {most} tokens; C2 {c2_nd}, GShard capacity {c_gshard}: "
         f"neither drops); native_gemm launches {counted['native_gemm']} by route {routes}, "
-        f"the expert products 3 on generic")
+        f"the expert products 3 on batched")
 
     # each expert product: kernel (queued) against one torch.bmm and its bound
     products, worst = [], 0.0
@@ -3166,7 +3273,7 @@ def a2a_layer(dev, mesh, seed: int, counters) -> dict:
                              launches=n, ms=ms, plain_ms=plain, bmm_ms=lib, bound_ms=b_ms,
                              bound_by=by, max_abs_err=abs_err, rel_err=err))
         log(f"a2a expert product {spec} A{tuple(A.shape)} B{tuple(B.shape)}{B.stride()} x{n} "
-            f"[generic] bf16: kernel {ms:.4f} ms queued, bound {b_ms:.4f} ms ({by}), "
+            f"[batched] bf16: kernel {ms:.4f} ms queued, bound {b_ms:.4f} ms ({by}), "
             f"{100 * b_ms / ms:.1f}% of bound; torch.bmm {lib:.4f} ms queued "
             f"({ms / lib:.1f}x); plain {plain:.4f} ms; {err:.2e} from the plain version")
     kernels = device_kernels(lambda: [native_gemm(A, B, **kw)
@@ -3258,7 +3365,8 @@ def a2a_train(dev, mesh, seed: int, counters) -> dict:
             c.launches = 0
         native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
         hist, by_step = [], []
-        with counting_expert_launches() as experts, native_routes_held() as held, \
+        TC_UNITS["a2a train"] = (steps, "step")
+        with counting_expert_launches() as experts, native_routes_held("a2a train") as held, \
                 recording_launch_keys() as keys:
             for _ in range(steps):
                 (h,), r, ms = step_launches(lambda: tr.run(1))
@@ -3288,7 +3396,7 @@ def a2a_train(dev, mesh, seed: int, counters) -> dict:
             f"{', '.join(f'{x:.6f}' for x in losses)}; step ms "
             f"{', '.join(f'{h['ms']:.1f}' for h in hist)}; native_gemm launches "
             f"{counted['native_gemm']} ({sum(per_step.values())} a step by route {per_step}, "
-            f"{12 * periods} of them the expert products on generic; every one on the route "
+            f"{12 * periods} of them the expert products on batched; every one on the route "
             f"native_route gives); peak memory {peak / 2**30:.2f} GiB")
         saved = [c.launches for c in counters], dict(native_gemm.launches_by_route)
         lap("trainer and 3 steps")
@@ -3445,10 +3553,12 @@ def pipeline_stage(dev, seed: int, counters) -> dict:
     # the main path: counts to 0 just before, read just after
     for c in counters:
         c.launches = 0
-    with torch.no_grad():
+    TC_UNITS["pipeline"] = (1, "forward")
+    with torch.no_grad(), native_routes_held("pipeline") as held:
         y = pipeline_forward(mesh, stage_fn, stacked, x)
         torch.cuda.synchronize()
     counted = {c.__name__: c.launches for c in counters}
+    check(held["generic"] == 0, f"pipeline: bf16 products on generic: {routes_text(held)}")
     native_gemm.launches = 0
     with torch.no_grad():
         want = sequential(x)
@@ -3469,9 +3579,13 @@ def pipeline_stage(dev, seed: int, counters) -> dict:
         return (out.float() * t).sum()
 
     native_gemm.launches = 0
-    loss = pipeline_loss(mesh, stage_fn, stacked, xg, target, loss_fn)
-    got = torch.autograd.grad(loss, leaves + [xg])
+    TC_UNITS["pipeline loss"] = (1, "loss")
+    with native_routes_held("pipeline loss") as held_loss:
+        loss = pipeline_loss(mesh, stage_fn, stacked, xg, target, loss_fn)
+        got = torch.autograd.grad(loss, leaves + [xg])
     n_pipe = native_gemm.launches
+    check(held_loss["generic"] == 0,
+          f"pipeline_loss: bf16 products on generic: {routes_text(held_loss)}")
     native_gemm.launches = 0
     ref_loss = loss_fn(sequential(xg), target)
     ref = torch.autograd.grad(ref_loss, leaves + [xg])
@@ -3482,9 +3596,9 @@ def pipeline_stage(dev, seed: int, counters) -> dict:
           f"pipeline_loss: loss bit-identical {torch.equal(loss, ref_loss)}; first gradient "
           f"that differs {diff and diff[0]}; launches {n_pipe} against {n_seq} sequentially")
     log(f"pipeline: output bit-identical to the block called on each microbatch, "
-        f"{counted['native_gemm']} native_gemm launches in both; pipeline_loss's loss and "
-        f"all {len(got)} gradients bit-identical to the sequential run's, {n_pipe} launches "
-        f"in both")
+        f"{counted['native_gemm']} native_gemm launches in both ({routes_text(held)}); "
+        f"pipeline_loss's loss and all {len(got)} gradients bit-identical to the sequential "
+        f"run's, {n_pipe} launches in both ({routes_text(held_loss)}); none on generic")
     for t in leaves:
         t.requires_grad_(False)
     del stacked, got, ref
@@ -3556,6 +3670,50 @@ def mesh_path(dev, seed: int, counters, serve_ref: dict) -> dict:
 # ------------------------------------------------------------------ phase 17
 #: the dry-run cells of phase 17 (a), (arch, shape, multi_pod), at their
 #: published widths with phase 13's depth cut (the one cut)
+# ------------------------------------------------------------------ phase 18
+def tc_shapes_path(dev, seed: int) -> dict:
+    """Phase 18: every launch shape of the counted runs of phases 11, 13,
+    15 and 16 that takes the batched route or fuses contracted modes
+    (:data:`TC_SHAPES`), on normal random operands laid out as the path's
+    own, held to the plain version (two launches bit-identical, within
+    ``TOL``) and timed as in phase 6 (queued against its bound, the plain
+    version and one ``torch.einsum``).  Returns, for each path and each of
+    the two kinds (``batched``; ``fused`` for the fused-K ``wgmma``
+    launches), the sums per unit of the path (a serve, a step, a layer)
+    and every shape's row."""
+    gen = torch.Generator(dev).manual_seed(seed + 18)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops")
+    per_path, rows, worst = {}, [], 0.0
+    for key, rec in sorted(TC_SHAPES.items(), key=lambda kv: str(kv[0])):
+        A, B, kw = operands_like(rec["layout"], gen, dev)
+        row = time_shapes({key: (1, (A, B, kw))}, reps=5, per="launch",
+                          summary=False)["rows"][0]
+        del A, B
+        kind = "batched" if rec["route"] == "batched" else "fused"
+        check(rec["route"] in ("batched", "wgmma"), f"phase 18: {row['spec']} on {rec['route']}")
+        worst = max(worst, row["max_abs_err"])
+        rows.append(dict(row, kind=kind, k_modes=rec["k_modes"], launches=rec["launches"]))
+        for path, n in rec["launches"].items():
+            units, unit = TC_UNITS[path]
+            tot = per_path.setdefault(path, {}).setdefault(
+                kind, dict.fromkeys(keys, 0.0) | dict(launches=0, unit=unit))
+            tot["launches"] += n / units
+            for k in keys:
+                tot[k] += n / units * row[k]
+    for path, kinds in per_path.items():
+        for kind, tot in kinds.items():
+            tot["bound_by"] = bound(tot["bytes"], tot["flops"], torch.bfloat16)[1]
+            log(f"phase 18 [{path}] {kind}, per {tot['unit']} ({tot['launches']:g} launches): "
+                f"kernel {tot['ms']:.4f} ms queued, bound {tot['bound_ms']:.4f} ms "
+                f"({tot['bound_by']}), plain {tot['plain_ms']:.4f} ms, einsum "
+                f"{tot['library_ms']:.4f} ms queued")
+    log(f"phase 18: {len(rows)} launch shapes ({sum(r['kind'] == 'batched' for r in rows)} "
+        f"batched, {sum(r['kind'] == 'fused' for r in rows)} fused-K wgmma) of the counted runs "
+        f"of phases 11, 13, 15 and 16, each within TOL of the plain version and bit-identical "
+        f"twice (max abs error {worst:.3g})")
+    return dict(paths=per_path, rows=rows, max_abs_err=worst)
+
+
 DRYRUN_CELLS = (("minicpm-2b", "train_4k", False), ("minicpm-2b", "train_4k", True),
                 ("internlm2-20b", "decode_32k", False))
 DRYRUN_OVERRIDES = {"n_periods": TRAIN["periods"]}
@@ -3831,6 +3989,8 @@ def main() -> int:
                  "launches_by_route": serve["launches_by_route"]}
     mesh = mesh_path(dev, args.seed, counters, serve_ref)
     lap("15-16")
+    tc = tc_shapes_path(dev, args.seed)
+    lap("18")
     print(json.dumps({"dryrun": dryrun_path(dev, args.seed, train["ms_per_step"])}))
     lap("17")
     log("time by phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
@@ -3862,6 +4022,14 @@ def main() -> int:
                          "pipeline": mesh["a2a"]["pipeline"]}),
         **records,
     }
+    # the batched route of native_gemm on its own line: phase 13's counted
+    # launches, its times per train step from phase 18
+    step = tc["paths"]["train"]["batched"]
+    records["native_gemm.batched"] = ("sb_gemm.cu", "sb_gemm.py:87", dict(
+        {k: step[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        launches=train["launches_by_route"]["batched"],
+        max_abs_err=max(r["max_abs_err"] for r in tc["rows"] if r["kind"] == "batched"),
+        tc_shapes=tc))
     kernels = [{"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}",
                 "replaces": f"src/repro/kernels/{tpu}",
@@ -3872,7 +4040,8 @@ def main() -> int:
                                        "sharded_launches", "sharded_launches_by_route",
                                        "sharded", "sharded_train", "sharded_serve",
                                        "mesh_cli_s", "a2a_launches", "a2a_launches_by_route",
-                                       "a2a", "pipeline_launches", "pipeline", "fma")
+                                       "a2a", "pipeline_launches", "pipeline", "fma",
+                                       "tc_shapes")
                      if k in rec}}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:

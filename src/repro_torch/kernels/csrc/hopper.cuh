@@ -57,8 +57,8 @@ __device__ __forceinline__ void hp_bar_wait(uint64_t* bar, int parity) {
   }
 }
 
-// One box of a 2-D or 3-D tensor map at coordinates (c0, c1[, c2]),
-// innermost first, into shared memory; its bytes count on bar.
+// One box of a 2-D to 5-D tensor map at coordinates (c0, c1[, c2[, c3[,
+// c4]]]), innermost first, into shared memory; its bytes count on bar.
 __device__ __forceinline__ void hp_tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1) {
   asm volatile(
@@ -74,6 +74,33 @@ __device__ __forceinline__ void hp_tma_load(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(hp_smem(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(hp_smem(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+__device__ __forceinline__ void hp_tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(hp_smem(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(hp_smem(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void hp_tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(hp_smem(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(hp_smem(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
+      : "memory");
+}
+// The same for a map of `rank` (2 to 5) dimensions, coordinates c[0..rank).
+__device__ __forceinline__ void hp_tma_load_n(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              const int* c, int rank) {
+  switch (rank) {
+    case 2: hp_tma_load(dst, map, bar, c[0], c[1]); break;
+    case 3: hp_tma_load(dst, map, bar, c[0], c[1], c[2]); break;
+    case 4: hp_tma_load(dst, map, bar, c[0], c[1], c[2], c[3]); break;
+    default: hp_tma_load(dst, map, bar, c[0], c[1], c[2], c[3], c[4]); break;
+  }
 }
 
 // cp.async: BYTES (16, or 4 for an unaligned float) from global src to
@@ -311,7 +338,7 @@ static HpEncodeFn hp_encoder() {
   return fn;
 }
 
-// A tensor map of `rank` dimensions (innermost first) of element type
+// A tensor map of `rank` (at most 5) dimensions (innermost first) of element type
 // `type`, with byte strides of dimensions 1.., read in boxes of `box`
 // elements under `swizzle`; out-of-range elements read as zero.  Returns 0,
 // HP_ERR_ENTRY or HP_ERR_ENCODE - CUresult.
@@ -320,7 +347,7 @@ static int hp_map_as(CUtensorMap* map, CUtensorMapDataType type, CUtensorMapSwiz
                      const cuuint64_t* strides, const cuuint32_t* box) {
   const HpEncodeFn encode = hp_encoder();
   if (!encode) return HP_ERR_ENTRY;
-  const cuuint32_t unit[3] = {1, 1, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};  // rank is at most 5
   const CUresult r =
       encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, unit,
              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -21,9 +21,10 @@
 //
 // Routes.  The wrapper's native_route picks one from layout and extents
 // alone (no fallback: a route that cannot build or launch raises):
-//   generic  (ng_outer_kernel, ng_kernel) every layout: batch modes,
-//            several contracted modes, mixed bf16 x f32 operands, layouts
-//            TMA cannot read, the Table II cases;
+//   generic  (ng_outer_kernel, ng_kernel) every layout: float32 batch
+//            modes, contracted modes that do not fuse into one, mixed
+//            bf16 x f32 operands, layouts TMA cannot read, the Table II
+//            cases at ragged extents;
 //   stream   (ns_read_kernel, nw_kernel) float32 with one big side and a
 //            narrow other one, e.g. the HOOI contractions of the 512^3
 //            tensor with a rank-10 factor;
@@ -32,7 +33,15 @@
 //            intermediates;
 //   wgmma    (nm_kernel, nm_reduce) bf16 weight streaming, C[m, n] =
 //            sum_k X[m, k] W[k, n] with both operands TMA-readable, e.g.
-//            every dense and LM-head product of a served model.
+//            every dense and LM-head product of a served model, and the
+//            weight gradients, whose contracted modes (b, s) fuse into one;
+//   batched  (nm_kernel) the same kernel for bf16 products with batch
+//            modes or contracted modes that do not fuse, C[g.., m, n] =
+//            sum over o.. and k of X[g.., o.., m, k] W[g.., o.., k, n],
+//            e.g. the attention scores and P.V and the MoE expert products.
+// The wrapper fuses contracted modes that are one mode in both operands
+// (neighbours in the same order, the outer stride the inner extent times
+// the inner stride) before it picks a route.
 //
 // Generic tiling.  One block of 256 threads owns a BM x BN tile of (u, v)
 // (128 x 16 when v is at most 16 wide, else 64 x 64) and loops over K in
@@ -101,7 +110,11 @@
 //            atomics, the same bits on every launch.  The split depends
 //            on N and K, never on M, so a row's bits do not depend on
 //            which rows share its launch (a batched decode step gives a
-//            request the tokens it gets alone).
+//            request the tokens it gets alone).  Only such a product is
+//            split: one with X M-major (a weight gradient), a grid mode or
+//            an outer contracted mode never is, so nothing a launch shares
+//            with other rows, requests or slots changes a row's sums.
+//   batched  see the section "wgmma and batched" below.
 //   generic  the remaining layouts at the tile sizes above; its loads are
 //            plain, not TMA, one element a thread, and it runs on the FMA
 //            units in f32 whatever the operand type.
@@ -835,46 +848,105 @@ nk_reduce(const float* __restrict__ ws, TC* __restrict__ C, const NrDesc d) {
   C[co] = ng_from_f32<TC>(sum);
 }
 
-// -------------------------------------------------------------------- wgmma
-// bf16 weight streaming: C[m, n] = sum_k X[m, k] W[k, n], X (M, K) and W
-// (K, N) each read by a 2-D tensor map (X K-major or M-major, W N-major or
-// K-major; the wrapper's native_plan checks the layout).  One block owns a
-// 64 x NM_BN tile of C: one consumer warpgroup runs wgmma m64nNM_BNk16 into
-// NM_BN / 2 f32 accumulators per thread, and lane 0 of one producer warp
-// feeds a ring of NM_STAGES stages by TMA under the 128-byte swizzle, each
-// stage a 64-deep slab of X (64 rows, 8 KB) and of W (NM_BN columns, 16
-// KB), guarded by a "full" and an "empty" mbarrier.  The maps' extents are
-// M, N and K, not the row strides, so rows past M and depth past K read as
-// zeros (a sliced operand reads no neighbour); the store masks rows >= M
-// and columns >= N.  blockIdx.x is the tile (m fastest, so the m-tiles of
-// one n-tile share W in L2), blockIdx.y the split of the contraction: kc
-// indices, a multiple of NM_BK, so only the last split runs past K.  One
-// split stores C; several store f32 partial sums to ws [split][M][N],
-// which nm_reduce sums in split order and casts.
-#define NM_TM 64          // output rows per block: one consumer warpgroup
+// --------------------------------------------------------- wgmma and batched
+// bf16 products on the tensor cores, C[g.., m, n] = sum over o.. and k of
+// X[g.., o.., m, k] W[g.., o.., k, n].  Route "wgmma" has neither g nor o:
+// X (M, K) and W (K, N) are plain matrices, as in weight streaming (every
+// dense and LM-head product of a served model) and the weight gradients,
+// whose contracted modes (b, s) the wrapper fuses into one k.  Route
+// "batched" has up to NM_MAX_EXTRA "extra" modes: grid modes g (batch modes,
+// in X, W and C: the attention heads, the MoE experts; and C modes of X that
+// do not fuse into the row mode m) and outer contracted modes o (one that
+// does not fuse with k: r beside s in a GQA attention's dK and dV).  X is
+// read K-major or M-major, W N-major or K-major (the wrapper's native_plan
+// checks the layout).  Both routes replace the same TPU kernel as the
+// routes above (native_gemm_pallas, src/repro/kernels/sb_gemm.py), whose
+// grid axes are every C mode; the batched products took the generic
+// kernels before.
+//
+// Design.  One block owns a TM x NM_BN tile of C at one grid index: TM is
+// NM_TM (one consumer warpgroup) where M <= NM_TM, as in weight streaming
+// and decode, else NM_TM_WIDE (two), which halves W's reads for wide M (a
+// weight gradient's 2304 to 122880 rows, S query rows, C2 expert tokens).
+// Each consumer warpgroup runs wgmma m64nNM_BNk16 into NM_BN / 2 f32
+// accumulators per thread, and lane 0 of one producer warp feeds a ring of
+// stages by TMA under the 128-byte swizzle, each stage a 64-deep slab of X
+// (TM rows, 8 KB per 64) and of W (NM_BN columns, 16 KB), guarded by a
+// "full" and an "empty" mbarrier.  The ring is NM_STAGES deep at NM_TM and
+// NM_STAGES_WIDE at NM_TM_WIDE: 96 KB either way, so two blocks share an
+// SM and one's loads cover the other's waits: on an H100 the paths' wide
+// products ran faster so than with a 4-deep ring and one block an SM, or
+// than on 64-row tiles (PERF.md).  The tensor maps have rank 2 + the
+// operand's extra modes (at most 5): its two matrix modes, and each extra
+// mode as a dimension of box extent 1, whose coordinate is the block's grid
+// index or, for an outer contracted mode, the producer's outer index (the
+// K loop runs k's stages within each outer index).  Dimensions are ordered
+// by stride, the stride-1 mode first.  The maps' extents are the true ones,
+// so rows past M, columns past N and depth past K (an expert's C2 = 341
+// tokens) read as zeros and a sliced operand reads no neighbour; the store
+// masks rows >= M and columns >= N.  blockIdx.x is the tile (m fastest, so
+// the m-tiles of one n-tile share W in L2, then n, then the grid index),
+// blockIdx.y the split of the contraction: kc indices, a multiple of
+// NM_BK, so only the last split runs past K.  One split stores C at its
+// grid offset; several (the wgmma route only) store f32 partial sums to ws
+// [split][M][N], which nm_reduce sums in split order and casts.
+//
+// Bound.  Weight streaming: see "wgmma" above.  The batched products sit
+// near the bf16 ridge on the bytes side: an expert product at C2 341 rows
+// does 118 GFLOP over 0.49 GB (0.146 ms of bytes against 0.119 of
+// operations on an H100), the scores of a 4 x 512-token train step 4.8
+// GFLOP over 0.094 GB (0.028 ms).  So both operands must stream at the
+// memory's rate and the sums must not hold them back: the generic kernels
+// staged scalar loads as f32 and summed on the CUDA cores (0.4-1.6% of the
+// bound on the card); here TMA reads and the tensor cores sum.
+#define NM_TM 64          // output rows per block at M <= NM_TM: one consumer warpgroup
+#define NM_TM_WIDE 128    // ... at M > NM_TM: two consumer warpgroups
 #define NM_BN 128         // output columns per block
 #define NM_BK 64          // depth per stage: 64 bf16 are one 128-byte swizzle span
-#define NM_STAGES 4       // ring depth: 4 x 24 KB
-#define NM_THREADS 160    // one consumer warpgroup + one producer warp
-#define NM_BOX (64 * NM_BK * 2)                          // one [64][64] bf16 box: 8 KB
-#define NM_STAGE_BYTES (NM_BOX + NM_BN / 64 * NM_BOX)     // X slab, then W slab: 24 KB
-#define NM_BAR_OFF (NM_STAGES * NM_STAGE_BYTES)
-#define NM_SMEM (1024 + NM_BAR_OFF + 8 * 2 * NM_STAGES)  // + alignment slack
+#define NM_STAGES 4       // ring depth at NM_TM: 4 x 24 KB
+#define NM_STAGES_WIDE 3  // ... at NM_TM_WIDE: 3 x 32 KB, so two blocks share an SM too
+#define NM_MAX_EXTRA 3    // grid and outer contracted modes: rank 2 + 3 = 5, TMA's most
+#define NM_BOX (64 * NM_BK * 2)  // one [64][64] bf16 box: 8 KB
+
+template <int TM>
+struct NmTile {
+  static constexpr int WGS = TM / 64;                                // consumer warpgroups
+  static constexpr int THREADS = WGS * 128 + 32;                     // + one producer warp
+  static constexpr int X_BYTES = WGS * NM_BOX;                       // X slab
+  static constexpr int STAGE_BYTES = X_BYTES + NM_BN / 64 * NM_BOX;  // X slab, then W slab
+  static constexpr int STAGES = TM == NM_TM ? NM_STAGES : NM_STAGES_WIDE;
+  static constexpr int BAR_OFF = STAGES * STAGE_BYTES;
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * 2 * STAGES;       // + alignment slack
+};
 
 struct NmDesc {
-  int64_t M, N, K, xm, xk, wn, wk, ldc;  // element strides; C[m * ldc + n]
-  int32_t kc, n_split;                   // contracted indices per split, splits
+  int64_t M, N, K;
+  int64_t ext[NM_MAX_EXTRA];     // extra modes' extents: n_grid grid modes, innermost in C
+                                 // first, then the outer contracted modes (1: unused)
+  int64_t xs[2 + NM_MAX_EXTRA];  // X's element strides: m, k, the extra modes
+  int64_t ws[2 + NM_MAX_EXTRA];  // W's: n, k, the extra modes (0: W lacks a grid mode)
+  int64_t cs[1 + NM_MAX_EXTRA];  // C's: m, the grid modes (n is stride-1; 0 past them)
+  int32_t n_grid, n_extra, kc, n_split;  // contracted indices per split, splits
+};
+
+// What each dimension of a tensor map stands for: 0 the operand's row or
+// column mode (m or n), 1 k, 2 + j extra mode j.
+struct NmRoles {
+  int8_t x[2 + NM_MAX_EXTRA], w[2 + NM_MAX_EXTRA];
+  int32_t x_rank, w_rank;
 };
 
 // One accumulator fragment (see hp_wgmma_ss) into rows m0.., columns n0..
 // of out (row stride ld), masked to M x N; pairs of columns are stored
-// together where ld is even (they then start 2-element aligned).
+// together where ld is even and out 2-element aligned (they then start
+// 2-element aligned).  Warp w of the block takes rows 16w.., so a second
+// consumer warpgroup (warps 4-7) stores rows 64.. of the tile.
 template <typename TO>
 __device__ __forceinline__ void nm_store(TO* __restrict__ out, int64_t ld, const float* acc,
                                          int64_t M, int64_t N, int m0, int n0) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = m0 + 16 * warp + lane / 4;
-  const bool pairs = ld % 2 == 0;
+  const bool pairs = ld % 2 == 0 && reinterpret_cast<uintptr_t>(out) % (2 * sizeof(TO)) == 0;
 #pragma unroll
   for (int i = 0; i < NM_BN / 8; ++i) {
     const int col = n0 + 8 * i + 2 * (lane % 4);
@@ -895,51 +967,103 @@ __device__ __forceinline__ void nm_store(TO* __restrict__ out, int64_t ld, const
   }
 }
 
-// XM: X is M-major (stored (K, M), wgmma's transpose bit for A); else
-// K-major.  WK: W is K-major (stored (N, K)); else N-major (wgmma's
-// transpose bit for B).
-template <int XM, int WK, typename TC>
-__global__ void __launch_bounds__(NM_THREADS)
+// One box of an operand's map at row or column mn, depth k and extra-mode
+// coordinates e.
+__device__ __forceinline__ void nm_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                        const int8_t* role, int rank, int mn, int k,
+                                        const int (&e)[NM_MAX_EXTRA]) {
+  int c[2 + NM_MAX_EXTRA];
+#pragma unroll
+  for (int i = 0; i < 2 + NM_MAX_EXTRA; ++i)  // constant indices only: c, e stay in registers
+    c[i] = role[i] == 0   ? mn
+           : role[i] == 1 ? k
+           : role[i] == 2 ? e[0]
+           : role[i] == 3 ? e[1]
+                          : e[2];
+  hp_tma_load_n(dst, map, bar, c, rank);
+}
+
+// TM: the tile's rows (NM_TM or NM_TM_WIDE).  XM: X is M-major (m
+// stride-1, wgmma's transpose bit for A); else K-major.  WK: W is K-major
+// (stored (N, K)); else N-major (n stride-1, wgmma's transpose bit for B).
+template <int TM, int XM, int WK, typename TC>
+__global__ void __launch_bounds__(NmTile<TM>::THREADS, 1)
 nm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
-          TC* __restrict__ C, float* __restrict__ ws, const NmDesc d) {
+          TC* __restrict__ C, float* __restrict__ ws, const NmDesc d, const NmRoles r) {
+  using T = NmTile<TM>;
   extern __shared__ uint8_t nm_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(nm_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(sm + NM_BAR_OFF);
-  uint64_t* empty = full + NM_STAGES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + T::BAR_OFF);
+  uint64_t* empty = full + T::STAGES;
 
-  const int mt = (int)((d.M + NM_TM - 1) / NM_TM);
-  const int m0 = (int)(blockIdx.x % mt) * NM_TM, n0 = (int)(blockIdx.x / mt) * NM_BN;
+  const int64_t mt = (d.M + TM - 1) / TM, nt = (d.N + NM_BN - 1) / NM_BN;
+  const int64_t tile = blockIdx.x % (mt * nt);
+  const int m0 = (int)(tile % mt) * TM, n0 = (int)(tile / mt) * NM_BN;
+  // the extra modes' coordinates: the block's grid index, innermost first;
+  // the producer sets the outer contracted ones as it goes
+  int e[NM_MAX_EXTRA];
+  int64_t g = blockIdx.x / (mt * nt);
+#pragma unroll
+  for (int j = 0; j < NM_MAX_EXTRA; ++j) {
+    e[j] = j < d.n_grid ? (int)(g % d.ext[j]) : 0;
+    if (j < d.n_grid) g /= d.ext[j];
+  }
   const int64_t k_begin = (int64_t)blockIdx.y * d.kc;
   const int64_t k_len = d.K - k_begin < d.kc ? d.K - k_begin : d.kc;
-  const int n_k = (int)((k_len + NM_BK - 1) / NM_BK);
+  const int n_in = (int)((k_len + NM_BK - 1) / NM_BK);  // k's stages per outer index
+  int n_k = n_in;
+  for (int j = d.n_grid; j < d.n_extra; ++j) n_k *= (int)d.ext[j];
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < NM_STAGES; ++s) {
+    for (int s = 0; s < T::STAGES; ++s) {
       hp_bar_init(&full[s], 1);
-      hp_bar_init(&empty[s], 4);  // lane 0 of each consumer warp
+      hp_bar_init(&empty[s], 4 * T::WGS);  // lane 0 of each consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp == 4) {  // producer warp: lane 0 issues every copy
+  if (warp == 4 * T::WGS) {  // producer warp: lane 0 issues every copy
+    // without extra modes both maps are 2-D, the stride-1 mode first (the
+    // order XM and WK give): their coordinates need no roles, and k's stage
+    // no division (weight streaming issues its loads as fast as it can)
+    const bool flat = d.n_extra == 0, outer = d.n_extra > d.n_grid;
     if (lane == 0) {
       for (int it = 0; it < n_k; ++it) {
-        const int s = it % NM_STAGES, k0 = (int)(k_begin + (int64_t)it * NM_BK);
-        if (it >= NM_STAGES) hp_bar_wait(&empty[s], (it / NM_STAGES - 1) & 1);
-        uint8_t* xs = sm + s * NM_STAGE_BYTES;
-        uint8_t* wsm = xs + NM_BOX;
-        hp_bar_expect(&full[s], NM_STAGE_BYTES);
-        if (XM) hp_tma_load(xs, &xmap, &full[s], m0, k0);  // [64 k][64 m]
-        else hp_tma_load(xs, &xmap, &full[s], k0, m0);     // [64 m][64 k]
-        if (WK) {
-          hp_tma_load(wsm, &wmap, &full[s], k0, n0);       // [NM_BN n][64 k]
-        } else {
+        const int s = it % T::STAGES;
+        const int k0 = (int)(k_begin + (int64_t)(outer ? it % n_in : it) * NM_BK);
+        if (outer) {
+          int o = it / n_in;
 #pragma unroll
-          for (int j = 0; j < NM_BN / 64; ++j)             // [64 k][64 n] boxes
-            hp_tma_load(wsm + j * NM_BOX, &wmap, &full[s], n0 + 64 * j, k0);
+          for (int j = 0; j < NM_MAX_EXTRA; ++j)
+            if (j >= d.n_grid && j < d.n_extra) {
+              e[j] = o % (int)d.ext[j];
+              o /= (int)d.ext[j];
+            }
+        }
+        if (it >= T::STAGES) hp_bar_wait(&empty[s], (it / T::STAGES - 1) & 1);
+        uint8_t* xs = sm + s * T::STAGE_BYTES;
+        uint8_t* wsm = xs + T::X_BYTES;
+        hp_bar_expect(&full[s], T::STAGE_BYTES);
+        if (XM) {  // [64 k][64 m] boxes, one per consumer warpgroup
+#pragma unroll
+          for (int j = 0; j < T::WGS; ++j)
+            if (flat) hp_tma_load(xs + j * NM_BOX, &xmap, &full[s], m0 + 64 * j, k0);
+            else nm_load(xs + j * NM_BOX, &xmap, &full[s], r.x, r.x_rank, m0 + 64 * j, k0, e);
+        } else {   // one [TM m][64 k] box
+          if (flat) hp_tma_load(xs, &xmap, &full[s], k0, m0);
+          else nm_load(xs, &xmap, &full[s], r.x, r.x_rank, m0, k0, e);
+        }
+        if (WK) {  // one [NM_BN n][64 k] box
+          if (flat) hp_tma_load(wsm, &wmap, &full[s], k0, n0);
+          else nm_load(wsm, &wmap, &full[s], r.w, r.w_rank, n0, k0, e);
+        } else {   // [64 k][64 n] boxes
+#pragma unroll
+          for (int j = 0; j < NM_BN / 64; ++j)
+            if (flat) hp_tma_load(wsm + j * NM_BOX, &wmap, &full[s], n0 + 64 * j, k0);
+            else nm_load(wsm + j * NM_BOX, &wmap, &full[s], r.w, r.w_rank, n0 + 64 * j, k0, e);
         }
       }
     }
@@ -949,10 +1073,20 @@ nm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
   float acc[NM_BN / 2];
 #pragma unroll
   for (int i = 0; i < NM_BN / 2; ++i) acc[i] = 0.f;
-  hp_consume_ring<XM, WK, NM_STAGES>(acc, sm, NM_STAGE_BYTES, 0, NM_BOX, full, empty, n_k);
+  // warpgroup w reads rows 64w.. of the X slab: its own box (M-major), or
+  // the rows 8 KB on in the one box (K-major, whole 8-row swizzle groups)
+  hp_consume_ring<XM, WK, T::STAGES>(acc, sm, T::STAGE_BYTES, (warp / 4) * NM_BOX, T::X_BYTES,
+                                     full, empty, n_k);
 
-  if (d.n_split == 1) nm_store<TC>(C, d.ldc, acc, d.M, d.N, m0, n0);
-  else nm_store<float>(ws + (int64_t)blockIdx.y * d.M * d.N, d.N, acc, d.M, d.N, m0, n0);
+  if (d.n_split == 1) {
+    int64_t off = 0;
+#pragma unroll
+    for (int j = 0; j < NM_MAX_EXTRA; ++j)
+      if (j < d.n_grid) off += e[j] * d.cs[1 + j];
+    nm_store<TC>(C + off, d.cs[0], acc, d.M, d.N, m0, n0);
+  } else {
+    nm_store<float>(ws + (int64_t)blockIdx.y * d.M * d.N, d.N, acc, d.M, d.N, m0, n0);
+  }
 }
 
 template <typename TC>
@@ -962,7 +1096,7 @@ nm_reduce(const float* __restrict__ ws, TC* __restrict__ C, const NmDesc d) {
   if (i >= plane) return;
   float sum = 0.f;
   for (int s = 0; s < d.n_split; ++s) sum += ws[s * plane + i];
-  C[i / d.N * d.ldc + i % d.N] = ng_from_f32<TC>(sum);
+  C[i / d.N * d.cs[0] + i % d.N] = ng_from_f32<TC>(sum);
 }
 
 // ------------------------------------------------------------- host launches
@@ -1089,46 +1223,101 @@ static int nk_launch_t(const void* X, const void* W, void* C, void* ws, const Nr
   return (int)cudaGetLastError();
 }
 
-// An (outer, inner) bf16 operand with outer stride ld (elements), read in
-// boxes of 64 inner elements x box_outer rows under the 128-byte swizzle.
-static int nm_map(CUtensorMap* map, const void* ptr, int64_t outer, int64_t inner, int64_t ld,
-                  int box_outer) {
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_outer};
-  return hp_map(map, ptr, 2, dims, strides, box);
+// One operand's tensor map for the wgmma and batched routes: its row or
+// column mode (extent e_mn, stride s_mn), k (K, s_k) and the extra modes it
+// carries (ext, s; stride 0: it lacks the mode), as dimensions ordered by
+// stride with the stride-1 matrix mode first.  Boxes: 64 along that mode;
+// along the other matrix mode 64 if it is k, else mn_box (TM rows of X,
+// NM_BN columns of W); 1 along each extra mode.  roles gets what each
+// dimension stands for (NmRoles).
+static int nm_map(CUtensorMap* map, int8_t* roles, int32_t* rank, const void* ptr,
+                  int64_t e_mn, int64_t s_mn, int mn_box, int64_t K, int64_t s_k,
+                  const int64_t* ext, const int64_t* s, int n_extra) {
+  int64_t dim[2 + NM_MAX_EXTRA], str[2 + NM_MAX_EXTRA];
+  int8_t role[2 + NM_MAX_EXTRA];
+  int n = 0;
+  auto add = [&](int64_t e, int64_t st, int ro) {
+    dim[n] = e;
+    str[n] = st;
+    role[n++] = (int8_t)ro;
+  };
+  const bool k_first = s_k == 1;
+  if (k_first) add(K, 1, 1), add(e_mn, s_mn, 0);
+  else add(e_mn, 1, 0), add(K, s_k, 1);
+  for (int j = 0; j < n_extra; ++j)
+    if (s[j]) add(ext[j], s[j], 2 + j);
+  // insertion sort of dimensions 1.. by stride (a stable order)
+  for (int i = 2; i < n; ++i)
+    for (int j = i; j > 1 && str[j] < str[j - 1]; --j) {
+      const int64_t e = dim[j], st = str[j];
+      const int8_t ro = role[j];
+      dim[j] = dim[j - 1], str[j] = str[j - 1], role[j] = role[j - 1];
+      dim[j - 1] = e, str[j - 1] = st, role[j - 1] = ro;
+    }
+  cuuint64_t dims[2 + NM_MAX_EXTRA], strides[1 + NM_MAX_EXTRA];
+  cuuint32_t box[2 + NM_MAX_EXTRA];
+  for (int i = 0; i < n; ++i) {
+    if (dim[i] < 1 || dim[i] >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+    dims[i] = (cuuint64_t)dim[i];
+    box[i] = i == 0 || role[i] == 1 ? 64 : role[i] == 0 ? mn_box : 1;
+    if (i > 0) {
+      if (str[i] <= 0 || str[i] % 8 || str[i] >= ((int64_t)1 << 39))
+        return (int)cudaErrorInvalidValue;
+      strides[i - 1] = (cuuint64_t)str[i] * 2;
+    }
+  }
+  for (int i = 0; i < 2 + NM_MAX_EXTRA; ++i) roles[i] = i < n ? role[i] : 0;
+  *rank = n;
+  return hp_map(map, ptr, n, dims, strides, box);
 }
 
-template <int XM, int WK, typename TC>
+template <int TM, int XM, int WK, typename TC>
 static int nm_go(const CUtensorMap& xmap, const CUtensorMap& wmap, void* C, void* ws,
-                 const NmDesc& d, dim3 grid, cudaStream_t st) {
+                 const NmDesc& d, const NmRoles& r, dim3 grid, cudaStream_t st) {
+  typedef NmTile<TM> T;
   static bool sized = false;  // once per kernel: its shared memory is above 48 KB
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        nm_kernel<XM, WK, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize, NM_SMEM);
+        nm_kernel<TM, XM, WK, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (err != cudaSuccess) return (int)err;
     sized = true;
   }
-  nm_kernel<XM, WK, TC><<<grid, NM_THREADS, NM_SMEM, st>>>(xmap, wmap, (TC*)C, (float*)ws, d);
+  nm_kernel<TM, XM, WK, TC><<<grid, T::THREADS, T::SMEM, st>>>(xmap, wmap, (TC*)C, (float*)ws,
+                                                               d, r);
   return (int)cudaGetLastError();
+}
+
+template <int TM, typename TC>
+static int nm_go_layout(bool xm_major, bool wk_major, const CUtensorMap& xmap,
+                        const CUtensorMap& wmap, void* C, void* ws, const NmDesc& d,
+                        const NmRoles& r, dim3 grid, cudaStream_t st) {
+  if (xm_major) return wk_major ? nm_go<TM, 1, 1, TC>(xmap, wmap, C, ws, d, r, grid, st)
+                                : nm_go<TM, 1, 0, TC>(xmap, wmap, C, ws, d, r, grid, st);
+  return wk_major ? nm_go<TM, 0, 1, TC>(xmap, wmap, C, ws, d, r, grid, st)
+                  : nm_go<TM, 0, 0, TC>(xmap, wmap, C, ws, d, r, grid, st);
 }
 
 template <typename TC>
 static int nm_launch_t(const void* X, const void* W, void* C, void* ws, const NmDesc& d,
                        cudaStream_t st) {
-  const bool xm_major = d.xk != 1, wk_major = d.wn != 1;
+  const bool xm_major = d.xs[1] != 1, wk_major = d.ws[0] != 1;
+  const int tm = d.M <= NM_TM ? NM_TM : NM_TM_WIDE;
   CUtensorMap xmap, wmap;
-  int rc = xm_major ? nm_map(&xmap, X, d.K, d.M, d.xk, 64) : nm_map(&xmap, X, d.M, d.K, d.xm, 64);
+  NmRoles r;
+  int rc = nm_map(&xmap, r.x, &r.x_rank, X, d.M, d.xs[0], tm, d.K, d.xs[1], d.ext, d.xs + 2,
+                  d.n_extra);
   if (!rc)
-    rc = wk_major ? nm_map(&wmap, W, d.N, d.K, d.wn, NM_BN) : nm_map(&wmap, W, d.K, d.N, d.wk, 64);
+    rc = nm_map(&wmap, r.w, &r.w_rank, W, d.N, d.ws[0], NM_BN, d.K, d.ws[1], d.ext, d.ws + 2,
+                d.n_extra);
   if (rc) return rc;
-  const int64_t tiles = (d.M + NM_TM - 1) / NM_TM * ((d.N + NM_BN - 1) / NM_BN);
+  int64_t G = 1;
+  for (int j = 0; j < d.n_grid; ++j) G *= d.ext[j];
+  const int64_t tiles = (d.M + tm - 1) / tm * ((d.N + NM_BN - 1) / NM_BN) * G;
   if (tiles >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)tiles, (unsigned)d.n_split);
-  if (xm_major) rc = wk_major ? nm_go<1, 1, TC>(xmap, wmap, C, ws, d, grid, st)
-                              : nm_go<1, 0, TC>(xmap, wmap, C, ws, d, grid, st);
-  else rc = wk_major ? nm_go<0, 1, TC>(xmap, wmap, C, ws, d, grid, st)
-                     : nm_go<0, 0, TC>(xmap, wmap, C, ws, d, grid, st);
+  rc = tm == NM_TM
+           ? nm_go_layout<NM_TM, TC>(xm_major, wk_major, xmap, wmap, C, ws, d, r, grid, st)
+           : nm_go_layout<NM_TM_WIDE, TC>(xm_major, wk_major, xmap, wmap, C, ws, d, r, grid, st);
   if (rc || d.n_split == 1) return rc;
   const int64_t n = d.M * d.N;
   nm_reduce<TC><<<(unsigned)((n + 255) / 256), 256, 0, st>>>((const float*)ws, (TC*)C, d);
@@ -1180,20 +1369,30 @@ extern "C" int nk_launch(const void* X, const void* W, void* C, void* ws, const 
   return nk_launch_t<__nv_bfloat16>(X, W, C, ws, *d, st);
 }
 
-// Route "wgmma": bf16 X (M, K) and W (K, N), each 16-byte aligned with a
-// layout nm_layout_ok takes; `ws` holds n_split * M * N floats when n_split
-// > 1 (else it may be null).  Type code tc: 0 = float32, 1 = bfloat16
-// output.  Returns a cudaError_t value or an HP_ERR_ code (hopper.cuh).
+// Routes "wgmma" and "batched": bf16 X and W, each 16-byte aligned, whose
+// (m, k) and (k, n) layouts nm_layout_ok takes, with n_grid grid modes and
+// n_extra - n_grid outer contracted modes, whose strides are positive
+// multiples of 8 elements in X (and in W; a grid mode may have 0 there,
+// where W lacks it); `ws` holds n_split * M * N floats when n_split > 1,
+// which only a launch with no extra mode may have (else it may be null).
+// Type code tc: 0 = float32, 1 = bfloat16 output.  Returns a cudaError_t
+// value or an HP_ERR_ code (hopper.cuh).
 extern "C" int nm_launch(const void* X, const void* W, void* C, void* ws, const NmDesc* d, int tc,
                          void* stream) {
   const int64_t lim = (int64_t)1 << 31;
-  if (tc < 0 || tc > 1 || d->M < 1 || d->N < 1 || d->K < 1 || d->M >= lim || d->N >= lim ||
-      d->K >= lim || !nm_layout_ok(d->xm, d->xk, d->M, d->K) ||
-      !nm_layout_ok(d->wk, d->wn, d->K, d->N) || ((uintptr_t)X | (uintptr_t)W) % 16 ||
-      d->kc < NM_BK || d->kc % NM_BK || d->n_split < 1 || d->n_split >= 65536 ||
-      (int64_t)d->kc * d->n_split < d->K || (int64_t)d->kc * (d->n_split - 1) >= d->K ||
-      (d->n_split > 1 && !ws))
-    return (int)cudaErrorInvalidValue;
+  bool ok = tc >= 0 && tc <= 1 && d->M >= 1 && d->N >= 1 && d->K >= 1 && d->M < lim &&
+            d->N < lim && d->K < lim && d->n_grid >= 0 && d->n_grid <= d->n_extra &&
+            d->n_extra <= NM_MAX_EXTRA && nm_layout_ok(d->xs[0], d->xs[1], d->M, d->K) &&
+            nm_layout_ok(d->ws[1], d->ws[0], d->K, d->N) &&
+            ((uintptr_t)X | (uintptr_t)W) % 16 == 0 && d->kc >= NM_BK && d->kc % NM_BK == 0 &&
+            d->n_split >= 1 && d->n_split < 65536 && (int64_t)d->kc * d->n_split >= d->K &&
+            (int64_t)d->kc * (d->n_split - 1) < d->K &&
+            (d->n_split == 1 || (ws && d->n_extra == 0));
+  for (int j = 0; j < NM_MAX_EXTRA; ++j)
+    ok = ok && d->ext[j] >= 1 && (j < d->n_extra ? d->xs[2 + j] > 0 : d->ext[j] == 1) &&
+         (j < d->n_grid || d->cs[1 + j] == 0) &&
+         (j < d->n_grid || j >= d->n_extra || d->ws[2 + j] > 0);
+  if (!ok) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (tc == 0) return nm_launch_t<float>(X, W, C, ws, *d, st);
   return nm_launch_t<__nv_bfloat16>(X, W, C, ws, *d, st);
@@ -1204,11 +1403,13 @@ extern "C" int nm_launch(const void* X, const void* W, void* C, void* ws, const 
 // stream read with k stride-1 (both at depth K, dynamic shared memory), 2
 // stream write, 3 splitk, 4 its reduction (static shared memory), all with
 // float32 output, rp the padded r of kinds 0, 1 and 3; kinds 5-8 the
-// bfloat16-output wgmma kernel with X K-major (5, 6) or M-major (7, 8) and
-// W N-major (5, 7) or K-major (6, 8), 9 its split reduction.
+// bfloat16-output wgmma kernel of NM_TM rows with X K-major (5, 6) or
+// M-major (7, 8) and W N-major (5, 7) or K-major (6, 8), 9 its split
+// reduction; kinds 10-13 the same kernel of NM_TM_WIDE rows.
 extern "C" int nr_info(int kind, int rp, int64_t K, int* out) {
   const void* fn = nullptr;
   size_t smem = 0;
+  typedef __nv_bfloat16 B16;
   if (kind == 0 || kind == 1) {
     fn = ns_read_fn<float>(rp, kind == 1);
     smem = ns_smem_bytes(K, rp);
@@ -1222,13 +1423,20 @@ extern "C" int nr_info(int kind, int rp, int64_t K, int* out) {
   } else if (kind == 4) {
     fn = (const void*)nk_reduce<float>;
   } else if (kind >= 5 && kind <= 8) {
-    typedef __nv_bfloat16 B16;
-    const void* fns[4] = {(const void*)nm_kernel<0, 0, B16>, (const void*)nm_kernel<0, 1, B16>,
-                          (const void*)nm_kernel<1, 0, B16>, (const void*)nm_kernel<1, 1, B16>};
+    const void* fns[4] = {
+        (const void*)nm_kernel<NM_TM, 0, 0, B16>, (const void*)nm_kernel<NM_TM, 0, 1, B16>,
+        (const void*)nm_kernel<NM_TM, 1, 0, B16>, (const void*)nm_kernel<NM_TM, 1, 1, B16>};
     fn = fns[kind - 5];
-    smem = NM_SMEM;
+    smem = NmTile<NM_TM>::SMEM;
   } else if (kind == 9) {
-    fn = (const void*)nm_reduce<__nv_bfloat16>;
+    fn = (const void*)nm_reduce<B16>;
+  } else if (kind >= 10 && kind <= 13) {
+    const void* fns[4] = {(const void*)nm_kernel<NM_TM_WIDE, 0, 0, B16>,
+                          (const void*)nm_kernel<NM_TM_WIDE, 0, 1, B16>,
+                          (const void*)nm_kernel<NM_TM_WIDE, 1, 0, B16>,
+                          (const void*)nm_kernel<NM_TM_WIDE, 1, 1, B16>};
+    fn = fns[kind - 10];
+    smem = NmTile<NM_TM_WIDE>::SMEM;
   }
   if (!fn) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;

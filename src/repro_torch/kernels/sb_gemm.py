@@ -16,8 +16,12 @@ a block's output tile; every other C mode is decoded from the block
 index; the contracted modes are one flattened in-block loop.  At most
 :data:`MAX_MODES` such modes fit one launch.
 
-Four routes, picked by :func:`native_route` from dtypes, extents and
-strides alone (the ``u``/``walk`` options only shape the generic tile):
+Five routes, picked by :func:`native_route` from dtypes, extents and
+strides alone (the ``u``/``walk`` options only shape the generic tile).
+Contracted modes that are one mode in both operands (neighbours in the same
+order, the outer one's stride the inner one's extent times its stride) are
+first fused into one, so a weight gradient ``bsf,bse->ef`` is a GEMM of
+depth b·s:
 
 - ``"stream"``: float32 with one big side and a narrow other side.  Read
   kind, ``C[m, r] = Σ_k X[m, k]·W[k, r]`` with ``r`` at most
@@ -28,13 +32,21 @@ strides alone (the ``u``/``walk`` options only shape the generic tile):
 - ``"splitk"``: float32 read kind with fewer rows: the contraction is
   split across blocks (:func:`splitk_plan`) and the partial sums reduced
   in a fixed order, so every launch gives the same bits.
-- ``"wgmma"``: bfloat16 weight-streaming products ``C[m, n] = Σ_k
-  X[m, k]·W[k, n]``, both operands read by TMA, on the tensor cores;
-  the contraction is split where the output tiles are too few to fill
-  the card (:func:`wgmma_plan`), again reduced in a fixed order.
-- ``"generic"``: everything else (batch modes, several contracted modes,
-  mixed bf16 x f32 operands, layouts TMA cannot read, wide float32
-  outputs on both sides).
+- ``"wgmma"``: bfloat16 products ``C[m, n] = Σ_k X[m, k]·W[k, n]``
+  (weight streaming, the weight gradients), both operands read by TMA,
+  on the tensor cores; the contraction is split where the output tiles
+  are too few to fill the card (:func:`wgmma_plan`), again reduced in a
+  fixed order.
+- ``"batched"``: the same kernel for bfloat16 products with batch modes
+  (the attention scores and P·V, the expert products), C modes of X that
+  do not fuse into one row mode, or contracted modes that do not fuse
+  into one: ``C[g.., m, n] = Σ_{o.., k} X[g.., o.., m, k]·W[g.., o.., k,
+  n]`` with up to :data:`WGMMA_MAX_EXTRA` grid modes ``g`` and outer
+  contracted modes ``o`` in all, each a box-1 dimension of the tensor map
+  of each operand that carries it; never split.
+- ``"generic"``: everything else (float32 batch modes or contracted
+  modes that do not fuse, mixed bf16 x f32 operands, layouts TMA cannot
+  read, wide float32 outputs on both sides).
 
 :func:`native_gemm_ref` is the plain PyTorch version (an f32 einsum).  The
 wrapper takes it only for tensors on the CPU; a CUDA tensor launches the
@@ -54,14 +66,14 @@ from repro_torch.core.notation import ContractionSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels.addressing import row_major_strides
 
-__all__ = ["MAX_MODES", "NARROW", "ROUTES", "STREAM_MIN_ROWS", "native_gemm",
-           "native_gemm_ref", "native_plan", "native_route", "route_info", "splitk_plan",
-           "wgmma_plan"]
+__all__ = ["MAX_MODES", "NARROW", "ROUTES", "STREAM_MIN_ROWS", "WGMMA_MAX_EXTRA",
+           "native_gemm", "native_gemm_ref", "native_plan", "native_route", "route_info",
+           "splitk_plan", "wgmma_plan"]
 
 #: mode slots one launch takes (u, v, other C modes, contracted modes)
 MAX_MODES = 8
 
-ROUTES = ("stream", "splitk", "wgmma", "generic")
+ROUTES = ("stream", "splitk", "wgmma", "batched", "generic")
 
 #: widest narrow mode the stream and splitk routes hold in registers: the
 #: read kind's ``r``, the write kind's ``k`` (``NR_NARROW``)
@@ -79,11 +91,16 @@ STREAM_W_BYTES = 32 * 1024
 #: rows per splitk block and X loads in flight per thread (``NK_TU``, ``NK_UNROLL``)
 SPLITK_ROWS, SPLITK_UNROLL = 128, 16
 SPLITK_BLOCKS_PER_SM = 8
-#: the wgmma route's output tile (rows x columns) and depth per ring stage
-#: (``NM_TM``, ``NM_BN``, ``NM_BK``); a split of the contraction spans at
-#: least :data:`WGMMA_MIN_SPLIT_STAGES` stages (``NM_STAGES``, one ring)
-WGMMA_TM, WGMMA_BN, WGMMA_BK = 64, 128, 64
+#: the wgmma and batched routes' output tile (rows x columns; rows
+#: :data:`WGMMA_TM` up to that many, else :data:`WGMMA_TM_WIDE`) and depth
+#: per ring stage (``NM_TM``, ``NM_TM_WIDE``, ``NM_BN``, ``NM_BK``); a split
+#: of the contraction spans at least :data:`WGMMA_MIN_SPLIT_STAGES` stages
+#: (``NM_STAGES``, one ring)
+WGMMA_TM, WGMMA_TM_WIDE, WGMMA_BN, WGMMA_BK = 64, 128, 128, 64
 WGMMA_MIN_SPLIT_STAGES = 4
+#: most grid and outer contracted modes of one launch (``NM_MAX_EXTRA``): a
+#: tensor map has at most 5 dimensions, two of them the operand's matrix
+WGMMA_MAX_EXTRA = 3
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -92,13 +109,16 @@ _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: sa, sb, sc over the slots; n_rest, n_k, walk), ``NrDesc`` (stream read
 #: kind and splitk: m_ext, m_xs, m_cs; M, K, xk, wk, R, wr, cr; n_m, kc,
 #: n_split, rp), ``NwDesc`` (stream write kind: M, P, K, xm, xk, wp, wk,
-#: cm) and ``NmDesc`` (wgmma: M, N, K, xm, xk, wn, wk, ldc; kc, n_split).
+#: cm) and ``NmDesc`` (wgmma and batched: M, N, K; the extra modes'
+#: extents, grid modes first; X's strides of m, k and the extra modes, W's
+#: of n, k and the extra modes, C's of m and the grid modes; n_grid,
+#: n_extra, kc, n_split).
 #: Every call packs one, and ``struct`` does it several times faster than a
 #: ctypes structure with array fields.
 _NG_DESC = struct.Struct(f"<{4 * MAX_MODES}q3i4x")
 _NR_DESC = struct.Struct("<16q4i")
 _NW_DESC = struct.Struct("<8q")
-_NM_DESC = struct.Struct("<8q2i")
+_NM_DESC = struct.Struct(f"<{3 + 3 + 5 + 5 + 4}q4i")
 
 _LIB = None
 
@@ -156,28 +176,34 @@ def splitk_plan(M: int, K: int, R: int) -> dict:
             "workspace": n_split * R * M if n_split > 1 else 0}
 
 
-def wgmma_plan(M: int, N: int, K: int) -> dict:
-    """The wgmma route's launch for ``M`` rows, ``N`` columns and depth
-    ``K``: ``tiles`` (output tiles of :data:`WGMMA_TM` x :data:`WGMMA_BN`),
-    ``n_split`` splits of ``kc`` contracted indices each, and
-    ``workspace``, the f32 partial sums the wrapper allocates (``n_split *
-    M * N``, or 0 for one split, which writes C directly).  ``kc`` is a
-    multiple of :data:`WGMMA_BK`, so only the last split's last stage runs
-    past K (where the tensor maps read zeros), never into the next
-    split's.  The column tiles times ``n_split`` come nearest to one block
-    per SM, with every split at least :data:`WGMMA_MIN_SPLIT_STAGES`
-    stages deep: a decode product's few wide tiles would leave most SMs
-    idle, and each SM's share of the weight is what bounds the launch.
-    The split depends on N and K only, never on M: a row of C is summed
-    in the same order whatever other rows share the launch, so a batched
-    decode step or a prefill chunk gives each row the bits it gets alone."""
+def wgmma_plan(M: int, N: int, K: int, G: int = 1, split: bool = True) -> dict:
+    """The launch of the wgmma and batched routes for ``G`` grid indices
+    of ``M`` rows, ``N`` columns and depth ``K``: ``tiles`` (output tiles
+    of :data:`WGMMA_TM` rows, or :data:`WGMMA_TM_WIDE` above that many, x
+    :data:`WGMMA_BN` columns, at every grid index), ``n_split`` splits of
+    ``kc`` contracted indices each (a multiple of :data:`WGMMA_BK`, so
+    only the last split's last stage runs past K) and ``workspace``, the
+    f32 partial sums the wrapper allocates (``n_split * M * N``, or 0 for
+    one split, which writes C directly).
+
+    Only a ``split`` product is split (X K-major with no grid or outer
+    contracted mode: weight streaming, whose few column tiles would leave
+    most SMs idle, and each SM's share of the weight is what bounds the
+    launch): to about one block per SM, with every split at least
+    :data:`WGMMA_MIN_SPLIT_STAGES` stages deep.  The split depends on N
+    and K only, so a row of C is summed in the same order whatever other
+    rows share the launch: a batched decode step or a prefill chunk gives
+    each row the bits it gets alone.  The products that are never split
+    (a weight gradient, whose X is M-major; a batched product, whose grid
+    grows with the batch of slots or requests) keep that too."""
+    tm = WGMMA_TM if M <= WGMMA_TM else WGMMA_TM_WIDE
     n_tiles = _cdiv(N, WGMMA_BN)
     stages = _cdiv(K, WGMMA_BK)
-    want = (2 * H100_SMS + n_tiles) // (2 * n_tiles)  # H100_SMS / n_tiles, rounded
+    want = (2 * H100_SMS + n_tiles) // (2 * n_tiles) if split else 1  # H100_SMS / n_tiles
     n_split = max(1, min(want, stages // WGMMA_MIN_SPLIT_STAGES))
     kc = _cdiv(stages, n_split) * WGMMA_BK
     n_split = _cdiv(K, kc)
-    return {"tiles": _cdiv(M, WGMMA_TM) * n_tiles, "n_split": n_split, "kc": kc,
+    return {"tiles": G * _cdiv(M, tm) * n_tiles, "n_split": n_split, "kc": kc,
             "workspace": n_split * M * N if n_split > 1 else 0}
 
 
@@ -235,29 +261,67 @@ def _fuse(ms):
     return fused
 
 
-def _wgmma_plan(A, B, a_live, b_live, k, c_live, dims, sa, sb, sc):
-    n = c_live[-1]
-    if b_live == [n]:
-        x_is_a, X, W, x_c, xs, ws = True, A, B, a_live, sa, sb
-    elif a_live == [n]:
-        x_is_a, X, W, x_c, xs, ws = False, B, A, b_live, sb, sa
-    else:
-        return "generic", None
-    fused = _fuse(sorted(([dims[m], xs[m], sc[m]] for m in x_c), key=lambda t: t[1]))
-    if len(fused) > 1:
-        return "generic", None
-    M, K, N = (fused[0][0] if fused else 1), dims[k], dims[n]
-    xk, wk, wn = xs[k], ws[k], ws[n]
+def _row_stride(M: int, xk: int, K: int, fused) -> int:
+    """X's stride along its row mode; a single row is never stepped along,
+    so its map gets a legal stride."""
     if M == 1:
-        # a single row is never stepped along: give the map a legal stride
-        xm, ldc = (_cdiv(K, 8) * 8 if xk == 1 else 1), N
-    else:
-        _, xm, ldc = fused[0]
-    if not (_bf16_map_ok(xm, xk, M, K) and _bf16_map_ok(wk, wn, K, N)
-            and max(M, N, K) < 2**31 and X.data_ptr() % 16 == 0 and W.data_ptr() % 16 == 0):
+        return _cdiv(K, 8) * 8 if xk == 1 else 1
+    return fused[1]
+
+
+def _map_stride_ok(s: int) -> bool:
+    """A tensor map can step a bf16 mode of this element stride past its
+    matrix modes: positive, a multiple of 16 bytes, within TMA's range."""
+    return 0 < s < 2**39 and s % 8 == 0
+
+
+def _tc_plan(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc):
+    """The wgmma or batched plan of bf16 A and B, or ``("generic",
+    None)``; ``outer`` the contracted modes that do not fuse with ``k``,
+    as ``(extent, A stride, B stride)``."""
+    n = c_live[-1]
+    if n in batch:
         return "generic", None
-    return "wgmma", {"kind": "wgmma", "x_is_a": x_is_a, "M": M, "N": N, "K": K, "xm": xm,
-                     "xk": xk, "wn": wn, "wk": wk, "ldc": ldc, **wgmma_plan(M, N, K)}
+    if n in b_c:
+        x_is_a, X, W, x_c, w_c, xs, ws = True, A, B, a_c, b_c, sa, sb
+    else:
+        x_is_a, X, W, x_c, w_c, xs, ws = False, B, A, b_c, a_c, sb, sa
+    if [m for m in w_c if m not in batch] != [n]:
+        return "generic", None
+    # X's own C modes fuse where they can; the widest is the row mode m,
+    # the rest are grid modes beside the batch modes
+    own = [m for m in x_c if m not in batch]
+    fused = _fuse(sorted(([dims[m], xs[m], sc[m]] for m in own), key=lambda t: t[1]))
+    row = max(fused, key=lambda f: f[0]) if fused else None
+    M, K, N = (row[0] if row else 1), dims[k], dims[n]
+    xk, wk, wn = xs[k], ws[k], ws[n]
+    xm = _row_stride(M, xk, K, row)
+    ldc = row[2] if row else N
+    # (extent, X stride, W stride, C stride), innermost in C first; W
+    # carries the batch modes, not X's own
+    grid = sorted([(dims[b], xs[b], ws[b], sc[b]) for b in batch]
+                  + [(f[0], f[1], 0, f[2]) for f in fused if f is not row], key=lambda g: g[3])
+    in_w = [g[2] != 0 for g in grid]
+    outer = [(e, a, b) if x_is_a else (e, b, a) for e, a, b in outer]
+    G = 1
+    for g in grid:
+        G *= g[0]
+    if not (len(grid) + len(outer) <= WGMMA_MAX_EXTRA
+            and _bf16_map_ok(xm, xk, M, K) and _bf16_map_ok(wk, wn, K, N)
+            and all(_map_stride_ok(g[1]) for g in grid)
+            and sum(in_w) == len(batch)
+            and all(_map_stride_ok(g[2]) for g, w in zip(grid, in_w) if w)
+            and all(_map_stride_ok(x) and _map_stride_ok(w) for _, x, w in outer)
+            and max(M, N, K, G) < 2**31 and X.data_ptr() % 16 == 0
+            and W.data_ptr() % 16 == 0):
+        return "generic", None
+    plan = wgmma_plan(M, N, K, G, split=not grid and not outer and xk == 1)
+    if plan["tiles"] >= 2**31:
+        return "generic", None
+    route = "batched" if grid or outer else "wgmma"
+    return route, {"kind": route, "x_is_a": x_is_a, "M": M, "N": N, "K": K, "xm": xm,
+                   "xk": xk, "wn": wn, "wk": wk, "ldc": ldc, "grid": grid, "outer": outer,
+                   "G": G, **plan}
 
 
 def native_plan(A, B, *, a_modes: str, b_modes: str, c_modes: str, dims=None):
@@ -266,9 +330,13 @@ def native_plan(A, B, *, a_modes: str, b_modes: str, c_modes: str, dims=None):
     extents, strides and the start's alignment, so it runs on CPU and
     meta tensors too.
 
-    Every route but ``"generic"`` needs exactly one contracted mode ``k``
-    of extent > 1 that is no C mode (extent-1 modes are ignored
-    everywhere), so no batch mode.  Float32 operands:
+    Extent-1 modes are ignored everywhere.  The contracted modes are fused
+    first: two that are neighbours in the same order in A and in B (the
+    outer one's stride the inner one's extent times its stride, in both)
+    are one mode.  The widest fused mode is ``k`` (the plan's ``k_modes``
+    names its modes, innermost first); every route but ``"generic"``
+    needs a ``k``, every route but ``"batched"`` no other contracted mode
+    and no batch mode (one in A, B and C).  Float32 operands:
 
     - read kind: one operand W has, besides ``k``, at most one mode ``r``
       (a C mode at most :data:`NARROW` wide; none: a matrix-vector
@@ -281,16 +349,24 @@ def native_plan(A, B, *, a_modes: str, b_modes: str, c_modes: str, dims=None):
     - write kind: ``k`` at most :data:`NARROW` deep, C two modes ``(m,
       p)``, W carrying ``p`` and ``k``, X ``m`` and ``k``: ``"stream"``.
 
-    Bfloat16 operands (both; any output type) take ``"wgmma"``
-    (:func:`wgmma_plan`) when ``n``, the minor-most C mode of extent > 1,
-    is carried by one operand W together with ``k`` and nothing else, and
-    the other operand X carries every other C mode, fusing into one row
-    mode ``m`` (none: M = 1); and when each operand is readable by a 2-D
-    tensor map: one of its two modes stride-1, the other's stride a
-    multiple of 16 bytes that steps past the first's extent (an extent-1
-    mode's stride is replaced by a legal one), and a 16-byte aligned
-    start.  Mixed bf16 x f32 operands, and everything else, take
-    ``"generic"``.
+    Bfloat16 operands (both; any output type) need ``n``, the minor-most C
+    mode, to be no batch mode and to be carried by one operand W together
+    with ``k``, batch modes and the other contracted modes and nothing
+    else; the other operand X carries every other C mode.  X's own C modes
+    fuse where they can: the widest is the row mode ``m`` (none: M = 1),
+    the rest join the batch modes as grid modes (the plan's ``grid``, as
+    ``(extent, X stride, W stride, C stride)``, W's 0 where it lacks the
+    mode); the contracted modes but ``k`` are outer modes (``outer``, as
+    ``(extent, X stride, W stride)``).  Each operand's ``(m, k)`` or ``(k,
+    n)`` must be readable by a tensor map: one of the two modes stride-1,
+    the other's stride a multiple of 16 bytes that steps past the first's
+    extent (an extent-1 mode's stride is replaced by a legal one), a
+    16-byte aligned start; every grid and outer mode's stride is a
+    positive multiple of 16 bytes where the operand carries it, and there
+    are at most :data:`WGMMA_MAX_EXTRA` such modes.  With neither grid
+    nor outer modes the product takes ``"wgmma"``, else ``"batched"``
+    (one kernel, :func:`wgmma_plan`).  Mixed bf16 x f32 operands and every
+    other layout take ``"generic"``.
     """
     if A.dtype != B.dtype or A.dtype not in (torch.float32, torch.bfloat16):
         return "generic", None
@@ -298,19 +374,44 @@ def native_plan(A, B, *, a_modes: str, b_modes: str, c_modes: str, dims=None):
         dims = infer_dims(ContractionSpec(a_modes, b_modes, c_modes), A, B)
     if 0 in dims.values():
         return "generic", None
-    shared = [m for m in a_modes if m in b_modes and dims[m] > 1]
-    if len(shared) != 1 or shared[0] in c_modes:
-        return "generic", None
-    k = shared[0]
     sa, sb = dict(zip(a_modes, A.stride())), dict(zip(b_modes, B.stride()))
+    shared = [m for m in a_modes if m in b_modes and dims[m] > 1]
+    contracted = [m for m in shared if m not in c_modes]
+    batch = [m for m in shared if m in c_modes]
+    # the contracted modes fused, innermost first by A's stride: [extent,
+    # A stride, B stride, names]; k is the widest, named after its
+    # innermost mode, with the fused extent and that mode's strides
+    groups = []
+    for m in sorted(contracted, key=lambda m: (sa[m], sb[m])):
+        g = groups[-1] if groups else None
+        if g and sa[m] == g[0] * g[1] and sb[m] == g[0] * g[2]:
+            g[0] *= dims[m]
+            g[3] += m
+        else:
+            groups.append([dims[m], sa[m], sb[m], m])
+    if not groups or len(groups) > 1 and A.dtype != torch.bfloat16:
+        return "generic", None
+    inner = max(groups, key=lambda g: g[0])
+    k = inner[3][0]
+    outer = [tuple(g[:3]) for g in groups if g is not inner]
+    dims = {**dims, k: inner[0]}
+    sa, sb = {**sa, k: inner[1]}, {**sb, k: inner[2]}
     sc = dict(zip(c_modes, row_major_strides([dims[m] for m in c_modes])))
-    a_c = [m for m in a_modes if m != k and dims[m] > 1]
-    b_c = [m for m in b_modes if m != k and dims[m] > 1]
+    a_c = [m for m in a_modes if m not in contracted and dims[m] > 1]
+    b_c = [m for m in b_modes if m not in contracted and dims[m] > 1]
     c_live = [m for m in c_modes if dims[m] > 1]
     if A.dtype == torch.bfloat16:
         if not c_live:
             return "generic", None
-        return _wgmma_plan(A, B, a_c, b_c, k, c_live, dims, sa, sb, sc)
+        route, plan = _tc_plan(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc)
+        return route, plan and {**plan, "k_modes": inner[3]}
+    if batch:
+        return "generic", None
+    route, plan = _float_plan(A, B, a_c, b_c, k, c_live, dims, sa, sb, sc)
+    return route, plan and {**plan, "k_modes": inner[3]}
+
+
+def _float_plan(A, B, a_c, b_c, k, c_live, dims, sa, sb, sc):
     read = [(w.numel(), x_is_a) for x_is_a, w, w_c, x_c in ((True, B, b_c, a_c),
                                                            (False, A, a_c, b_c))
             if x_c and (not w_c or len(w_c) == 1 and dims[w_c[0]] <= NARROW)]
@@ -342,18 +443,31 @@ def _read_desc(plan) -> bytes:
         plan.get("kc", 0), plan.get("n_split", 1), plan["rp"])
 
 
+def _tc_desc(plan) -> bytes:
+    extra = ([g[:3] for g in plan["grid"]] + [(e, x, w) for e, x, w in plan["outer"]]
+             + [(1, 0, 0)] * (WGMMA_MAX_EXTRA - len(plan["grid"]) - len(plan["outer"])))
+    cs = [g[3] for g in plan["grid"]] + [0] * (WGMMA_MAX_EXTRA - len(plan["grid"]))
+    return _NM_DESC.pack(
+        plan["M"], plan["N"], plan["K"], *(e[0] for e in extra), plan["xm"], plan["xk"],
+        *(e[1] for e in extra), plan["wn"], plan["wk"], *(e[2] for e in extra), plan["ldc"],
+        *cs, len(plan["grid"]), len(plan["grid"]) + len(plan["outer"]), plan["kc"],
+        plan["n_split"])
+
+
 def route_info(K: int = 512, rp: int = 12) -> dict:
     """Registers and spilled (local) bytes per thread, and shared bytes
-    per block, of the kernels of the stream, splitk and wgmma routes: the
-    float32-output stream and splitk kernels (the stream read kernels at
-    depth ``K``, the read kinds at padded width ``rp``), and the
-    bfloat16-output wgmma kernel for each operand layout, with its
-    split reduction.  Needs the card (it loads the library)."""
+    per block, of the kernels of the stream, splitk, wgmma and batched
+    routes: the float32-output stream and splitk kernels (the stream read
+    kernels at depth ``K``, the read kinds at padded width ``rp``), and
+    the bfloat16-output kernel of the wgmma and batched routes at each
+    tile height and operand layout, with its split reduction.  Needs the
+    card (it loads the library)."""
     lib = _library()
     kinds = {"stream read, m stride-1": 0, "stream read, k stride-1": 1,
              "stream write": 2, "splitk": 3, "splitk reduce": 4,
-             "wgmma, X K-major, W N-major": 5, "wgmma, X K-major, W K-major": 6,
-             "wgmma, X M-major, W N-major": 7, "wgmma, X M-major, W K-major": 8,
+             **{f"wgmma {tm} rows, X {x}-major, W {w}-major": first + 2 * i + j
+                for tm, first in ((WGMMA_TM, 5), (WGMMA_TM_WIDE, 10))
+                for i, x in enumerate("KM") for j, w in enumerate("NK")},
              "wgmma split reduce": 9}
     info = {}
     for name, kind in kinds.items():
@@ -458,9 +572,8 @@ def native_gemm(A, B, *, a_modes: str, b_modes: str, c_modes: str,
             *[1 if m is None else dims[m] for m in slots], *pad, *sa, *pad, *sb, *pad, *sc,
             *pad, len(rest), len(contracted), int(walk))
         X, Y = (B, A) if swap else (A, B)
-    elif route == "wgmma":
-        desc = _NM_DESC.pack(*(plan[f] for f in ("M", "N", "K", "xm", "xk", "wn", "wk", "ldc",
-                                                 "kc", "n_split")))
+    elif route in ("wgmma", "batched"):
+        desc = _tc_desc(plan)
         X, Y = (A, B) if plan["x_is_a"] else (B, A)
     else:
         desc = _read_desc(plan) if plan["kind"] == "read" else _NW_DESC.pack(
@@ -484,7 +597,7 @@ def native_gemm(A, B, *, a_modes: str, b_modes: str, c_modes: str,
         if route == "generic":
             rc = lib.ng_launch(X.data_ptr(), Y.data_ptr(), out.data_ptr(), desc,
                                _TYPE_CODES[X.dtype], _TYPE_CODES[Y.dtype], tc, stream)
-        elif route in ("splitk", "wgmma"):
+        elif route in ("splitk", "wgmma", "batched"):
             ws = (torch.empty(plan["workspace"], dtype=torch.float32, device=A.device)
                   if plan["workspace"] else None)
             launch = lib.nk_launch if route == "splitk" else lib.nm_launch

@@ -1,7 +1,8 @@
 """Route choice and launch plans of the port's native contraction kernel.
 
-``native_route`` picks ``stream``, ``splitk``, ``wgmma`` or ``generic``
-from dtypes, extents and strides alone, so it is tested here on CPU and
+``native_route`` picks ``stream``, ``splitk``, ``wgmma``, ``batched`` or
+``generic`` from dtypes, extents and strides alone, after fusing the
+contracted modes that are one mode in both operands, so it is tested here on CPU and
 meta tensors: the ten launch shapes of HOOI at 512³ with ranks 10 (meta
 tensors carry their exact shapes and strides without memory), the same
 contractions at a small size, the bf16 products of an internlm2-20b serve
@@ -24,8 +25,10 @@ from repro.core.table2 import CASES
 from repro.kernels.ref import ref_contract as jref_contract
 from repro_torch.kernels.sb_gemm import (
     H100_SMS, NARROW, SPLITK_BLOCKS_PER_SM, SPLITK_ROWS, SPLITK_UNROLL, STREAM_MIN_ROWS,
-    WGMMA_BK, WGMMA_BN, WGMMA_MIN_SPLIT_STAGES, WGMMA_TM, native_gemm, native_gemm_ref,
-    native_plan, native_route, splitk_plan, wgmma_plan)
+    WGMMA_BK, WGMMA_BN, WGMMA_MIN_SPLIT_STAGES, WGMMA_TM, WGMMA_TM_WIDE, native_gemm,
+    native_gemm_ref, native_plan, native_route, splitk_plan, wgmma_plan)
+
+from plan_emulation import emulate
 
 torch.set_num_threads(1)
 
@@ -126,7 +129,8 @@ def test_table2_case_is_generic(label):
 @pytest.mark.parametrize("spec,shapes,why", [
     ("mn,mi->ni", ((N, 4096), (N, R)), "bf16"),
     ("bmk,bkn->bmn", ((4, 9, 20), (4, 20, 3)), "batch mode"),
-    ("mkq,kqi->mi", ((40, 6, 7), (6, 7, 3)), "two contracted modes"),
+    # k and q are neighbours in A but in the other order in B: no fusing
+    ("mkq,qki->mi", ((40, 6, 7), (7, 6, 3)), "two contracted modes"),
     ("mn,mi->ni", ((N, 4096), (N, NARROW + 1)), "no narrow mode"),
     ("km,pk->mp", ((NARROW + 1, 4096), (64, NARROW + 1)), "contraction too deep to write"),
     ("am,an->mn", ((1, 50), (1, 60)), "outer product (extent-1 contraction)"),
@@ -215,23 +219,16 @@ def _flat(x):
 
 
 def _run_plan(plan, A, B, c_shape):
-    """Evaluate a stream or splitk plan by gathering through its strides
-    alone, as the kernel addresses memory (rows decoded innermost first)."""
+    """Evaluate a plan by gathering through its strides alone, as the
+    kernel addresses memory (rows decoded innermost first; the wgmma and
+    batched plans through ``plan_emulation``)."""
+    if plan["kind"] in ("wgmma", "batched"):
+        return emulate(plan, A, B, c_shape)
     X, W = (A, B) if plan["x_is_a"] else (B, A)
     xf, wf = _flat(X).double(), _flat(W).double()
     C = torch.full(c_shape, float("nan"), dtype=torch.float64)
     cf = C.view(-1)
     K = torch.arange(plan["K"])
-    if plan["kind"] == "wgmma":
-        m, n = torch.arange(plan["M"]), torch.arange(plan["N"])
-        acc = torch.zeros(plan["M"], plan["N"], dtype=torch.float64)
-        for s in range(plan["n_split"]):  # each split's k range, summed in split order
-            k = K[s * plan["kc"]:(s + 1) * plan["kc"]]
-            x = xf[m[:, None] * plan["xm"] + k[None] * plan["xk"]]      # (M, kc)
-            w = wf[k[:, None] * plan["wk"] + n[None] * plan["wn"]]      # (kc, N)
-            acc += x @ w
-        cf[m[:, None] * plan["ldc"] + n[None]] = acc
-        return C
     if plan["kind"] == "write":
         m, p = torch.arange(plan["M"]), torch.arange(plan["P"])
         x = xf[m[:, None] * plan["xm"] + K[None] * plan["xk"]]          # (M, K)
@@ -348,8 +345,8 @@ def test_serving_shape_takes_wgmma(spec, a_shape, a_stride, b_shape):
 def test_bf16_layouts_that_stay_generic(why):
     kw = _modes("be,ef->bf")
     A, B = _bf(4, 6144), _bf(6144, 1024)
-    if why == "batch mode":
-        A, B, kw = _bf(8, 4, 128), _bf(8, 128, 64), _modes("gbd,gdt->gbt")
+    if why == "batch mode":             # ... as C's minor-most mode: no W carries it alone
+        A, B, kw = _bf(8, 4, 128), _bf(8, 128, 64), _modes("gbd,gdt->btg")
     elif why == "mixed bf16 x f32":
         B = torch.empty(6144, 1024, device="meta")
     elif why == "misaligned start":      # 8 bytes past a 16-byte boundary
@@ -357,8 +354,9 @@ def test_bf16_layouts_that_stay_generic(why):
         B = torch.zeros(6144, 1024, dtype=BF16)
     elif why == "row stride 1030 bytes":  # W rows 515 elements apart
         B = _bf(6144, 512, stride=(515, 1))
-    elif why == "two contracted modes":
-        A, B, kw = _bf(4, 48, 128), _bf(48, 128, 1024), _modes("bhd,hde->be")
+    elif why == "two contracted modes":  # ... that do not fuse (h, d in A; d, h in B), and
+        # the outer one, h, 200 bytes apart in A: no tensor map can step it
+        A, B, kw = _bf(4, 48, 100), _bf(100, 48, 1024), _modes("bhd,dhe->be")
     elif why == "W carries a second C mode":
         A, B, kw = _bf(6144), _bf(6144, 4, 1024), _modes("e,etf->tf")
     elif why == "no mode stride-1":
@@ -391,7 +389,8 @@ def test_wgmma_plan_covers_k_and_fills_the_card(M, N, K):
     p = wgmma_plan(M, N, K)
     assert p["kc"] % WGMMA_BK == 0
     assert (p["n_split"] - 1) * p["kc"] < K <= p["n_split"] * p["kc"]
-    assert p["tiles"] == -(-M // WGMMA_TM) * -(-N // WGMMA_BN)
+    tm = WGMMA_TM if M <= WGMMA_TM else WGMMA_TM_WIDE
+    assert p["tiles"] == -(-M // tm) * -(-N // WGMMA_BN)
     assert p["workspace"] == (p["n_split"] * M * N if p["n_split"] > 1 else 0)
     stages = -(-K // WGMMA_BK)
     if p["n_split"] > 1:    # every split at least one ring deep
@@ -428,12 +427,13 @@ def test_wgmma_constants_mirror_the_cuda_source():
     assert int(define["NM_STAGES"]) == WGMMA_MIN_SPLIT_STAGES
 
 
-def _check_bf16_plan(spec, A, B):
-    """The wgmma plan of bf16 A and B, evaluated through its strides,
-    against the JAX package's reference on the same (exact) f32 values."""
+def _check_bf16_plan(spec, A, B, want_route="wgmma"):
+    """The wgmma (or batched) plan of bf16 A and B, evaluated through its
+    strides, against the JAX package's reference on the same (exact) f32
+    values."""
     modes = _modes(spec)
     route, plan = native_plan(A, B, **modes)
-    assert route == "wgmma"
+    assert route == want_route
     dims = dict(zip(modes["a_modes"], A.shape)) | dict(zip(modes["b_modes"], B.shape))
     got = _run_plan(plan, A, B, [dims[m] for m in modes["c_modes"]])
     want = jref_contract(spec, jnp.asarray(A.float().numpy()), jnp.asarray(B.float().numpy()))
@@ -485,12 +485,41 @@ def test_table2_case_in_bf16_at_aligned_dims(label):
     w_modes = modes["a_modes"] if n in modes["a_modes"] else modes["b_modes"]
     x_modes = modes["b_modes"] if w_modes is modes["a_modes"] else modes["a_modes"]
     x_c = [m for m in x_modes if m != "k"]
-    # X's C modes fuse when they are neighbours, in the same order, in X and C
+    # X's C modes fuse when they are neighbours, in the same order, in X and
+    # C; where they do not, the wider is the row mode and the other a grid
+    # mode of the batched route, which needs the row mode or k stride-1
+    # (every other stride here is a multiple of 16 bytes)
     fuses = len(x_c) == 1 or all("".join(x_c) in t for t in (x_modes, modes["c_modes"]))
-    expect = "wgmma" if sorted(w_modes) == sorted("k" + n) and fuses else "generic"
+    row = max(x_c, key=dims.get)
+    expect = ("generic" if sorted(w_modes) != sorted("k" + n)
+              else "wgmma" if fuses else "batched" if x_modes[-1] in (row, "k")
+              else "generic")
     assert native_route(A, B, **modes) == expect
-    if expect == "wgmma":
-        _check_bf16_plan(CASES[label].row_major(), A, B)
+    if expect != "generic":
+        _check_bf16_plan(CASES[label].row_major(), A, B, expect)
+
+
+@pytest.mark.parametrize("spec,shapes,route", [
+    ("mkq,kqi->mi", ((40, 6, 7), (6, 7, 3)), "splitk"),          # float32: k and q fuse
+    ("bsv,bse->ve", ((2, 24, 40), (2, 24, 16)), "wgmma"),         # bf16: b and s fuse
+    ("bse,bsf->fe", ((2, 24, 16), (2, 24, 5000)), "wgmma"),       # ... 5000 rows
+    ("bhd,dhe->be", ((4, 6, 16), (16, 6, 24)), "batched"),        # d, h do not fuse: h outer
+    ("xce,xef->xcf", ((3, 21, 32), (3, 32, 24)), "batched"),      # a batch mode
+    ("bgrst,btgd->bsgrd", ((2, 3, 2, 24, 40), (2, 40, 3, 16)), "batched"),  # 3 grid modes
+])
+def test_plan_addresses_fused_and_batched_products(spec, shapes, route):
+    """A fused contraction is read through its innermost mode's strides at
+    the fused extent; a batched plan at each grid index's offsets, and at
+    each index of an outer contracted mode."""
+    rng = np.random.default_rng(27)
+    A, B = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in shapes)
+    if route == "splitk":
+        _check_plan(spec, A, B, route)
+        assert native_plan(A, B, **_modes(spec))[1]["k_modes"] == "qk"
+    else:
+        plan = _check_bf16_plan(spec, A.to(BF16), B.to(BF16), route)
+        assert plan["k_modes"] == ("sb" if route == "wgmma" else "t" if "t" in spec
+                                   else "d" if "h" in spec else "e")
 
 
 def test_cpu_bf16_takes_the_plain_version_and_counts_no_route():
