@@ -12,12 +12,15 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    process each, all at once; prints the registers, spills and shared
    memory of the wgmma and fma kernels (attention at D = 64, 128, 256;
    grouped for each type) and of the ``stream`` and ``splitk`` kernels of
-   ``native_gemm`` and the one kernel of its ``wgmma`` and ``batched``
+   ``native_gemm``, the one kernel of its ``wgmma`` and ``batched``
    routes (at each tile height and operand layout, and its split
-   reduction; it may not spill); no fma kernel may spill, and each must have the
+   reduction; it may not spill) and the kernel of its ``fbatched`` route
+   (at each tile width and slab layout, and its split reduction; it may
+   not spill); no fma kernel may spill, and each must have the
    shared memory its plan (``fma_tiles``, ``KERNEL_TILES``) gives.
 3. Kernel vs plain version on the card: the 36 Table II cases (native and
-   batched strategies, f32 and bf16, ragged dims), the 8 exceptional cases
+   batched strategies, f32 and bf16, ragged dims; every f32 launch on
+   ``fbatched``), the 8 exceptional cases
    through ``ext_gemm``, the 100-spec layout-fuzz stream (integer-valued,
    bit-identical), the native kernel's gradients and a small HOOI, every
    ``native_gemm`` launch in them held to the route ``native_route``
@@ -35,7 +38,10 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    mode (``r`` beside ``s`` in a GQA dK and dV), a decode row and a
    1024-deep P.V, expert products with 341 rows and depth,
    GShard's, and experts whose rows are 500 bytes apart, which must stay
-   ``generic``), each launched twice and bit-identical; ``grouped_gemm`` on
+   ``generic``; ``fbatched`` float32 products: Table II layouts at ragged
+   extents, a split Gram, a stride-0 view, a start 4 bytes off, every
+   other column, batch modes, a big read kind no tensor map reads, bf16
+   output), each launched twice and bit-identical; ``grouped_gemm`` on
    the grouped cases of ``tests/test_runtime.py``, mixed bf16 x f32
    operands and the fig14 ragged set, then every ragged case again in
    bf16 under the default tiles
@@ -267,6 +273,15 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    are printed.  Its record is
    printed as a ``{"dryrun": ...}`` line, and at the end the seconds of
    every phase.
+19. Float32 products on ``fbatched``, right after phase 14: the 36 f32
+   Table II cases at n = 256 through ``contract(strategy="native")`` as a
+   counted run (36 launches, all ``fbatched``), then each case at n = 256
+   and 64 and Fig. 3's case 1.3 (``strategy="batched"``) at n = 16 to 256:
+   route, error against ``native_gemm_ref``, two launches bit-identical,
+   queued ms of the kernel, the conventional baseline, one
+   ``torch.einsum`` (TF32 off) and the plain version, against the bound.
+   Phase 14 re-times its 55 launch shapes (the three 512³ Grams and the
+   program's ``bik,kn->bin`` among them, on ``fbatched``).
 18. Tensor-core products, right after phase 16 (before 17): every launch
    shape of the counted runs of phases 11, 13, 15 and 16 (16 (c) too)
    that takes the ``batched`` route or fuses its contracted modes (noted by
@@ -275,8 +290,8 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    bit-identical, timed queued against its bound, the plain version and
    one ``torch.einsum``; sums per serve, step or layer of each path.
 
-Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13, 14, 15's training
-and serving, 16's layer, training and pipeline) is driven with every
+Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13, 14, 19, 15's
+training and serving, 16's layer, training and pipeline) is driven with every
 kernel's launch count set to 0 just before it and read just after;
 launches made to compare, time or tune a kernel do not count.  Phases 5 and 10 also read ``native_gemm``'s
 launches by route, which must be what ``native_route`` gives for each
@@ -307,7 +322,10 @@ layer, expert-product times and training checks under ``a2a`` and the
 pipeline's launches under ``pipeline_launches``), then
 ``native_gemm.batched``, the batched route on its own line: phase 13's
 counted launches on it, and its times per train step from phase 18 (every
-path's under ``tc_shapes``),
+path's under ``tc_shapes``), then ``native_gemm.f32``, the fbatched route
+on its own line: phase 19's counted launches and their summed times
+(every row under ``table2``, phase 14's fbatched shapes and Grams under
+``sharded_fbatched``),
 the card's name and power limit as ``nvidia-smi`` prints them, and the
 ``{"ok": true, ...}`` line.  Any failed check raises and exits non-zero without that line.
 """
@@ -483,8 +501,9 @@ class native_routes_held:
     ``kernels.ops``, where every path calls it) must launch the route
     ``native_route`` gives for its operands; ``tally`` counts the routes
     seen.  A call with an empty output launches nothing.  Given a
-    ``path`` label, each launch on the batched route or with fused
-    contracted modes is noted in :data:`TC_SHAPES` under it."""
+    ``path`` label, each launch on the batched route, or on the wgmma
+    route with fused contracted modes, is noted in :data:`TC_SHAPES`
+    under it."""
 
     def __init__(self, path: str | None = None):
         from repro_torch.kernels.sb_gemm import ROUTES
@@ -510,8 +529,8 @@ class native_routes_held:
                   f"A{tuple(A.shape)}{A.stride()} B{tuple(B.shape)}{B.stride()}: launched "
                   f"{ran}, native_route says {want}")
             self.tally[want] += launched
-            if self.path and launched and plan and (want == "batched"
-                                                    or len(plan["k_modes"]) > 1):
+            if self.path and launched and (want == "batched" or want == "wgmma"
+                                           and len(plan["k_modes"]) > 1):
                 key, layout = layout_key(A, B, kw)
                 rec = TC_SHAPES.setdefault(key, dict(layout=layout, route=want,
                                                      k_modes=plan["k_modes"], launches={}))
@@ -541,11 +560,12 @@ def check_table2(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n_checks = 0
-    with native_routes_held() as tally:
-        for label in sorted(CASES):
-            rm = CASES[label].row_major()
-            a, b, c = modes_of(rm)
-            for dt in worst:
+    tallies = {}
+    for label in sorted(CASES):
+        rm = CASES[label].row_major()
+        a, b, c = modes_of(rm)
+        for dt in worst:
+            with native_routes_held() as tally:
                 A = torch.randn([RAGGED_DIMS[m] for m in a], device=dev, generator=gen).to(dt)
                 B = torch.randn([RAGGED_DIMS[m] for m in b], device=dev, generator=gen).to(dt)
                 want = native_gemm_ref(A, B, a_modes=a, b_modes=b, c_modes=c,
@@ -561,9 +581,16 @@ def check_table2(dev) -> dict:
                     check(err <= TOL[dt], f"Table II {label} {rm} {how} {dt}: error {err}")
                     worst[dt] = max(worst[dt], err)
                     n_checks += 1
+            total = tallies.setdefault(dt, Counter())
+            total.update(tally)
+            # every float32 launch is a product of two float32 operands
+            check(dt != torch.float32 or set(+Counter(tally)) == {"fbatched"},
+                  f"Table II {label} {rm} f32: native_gemm routes {routes_text(tally)}, "
+                  f"not fbatched alone")
     log(f"table2: {n_checks} checks (36 cases x native/batched + 8 ext_gemm, f32 and bf16) "
         f"worst error f32 {worst[torch.float32]:.3g} bf16 {worst[torch.bfloat16]:.3g}; "
-        f"native_gemm routes: {routes_text(tally)}")
+        f"native_gemm routes: f32 {routes_text(tallies[torch.float32])} (fbatched alone), "
+        f"bf16 {routes_text(tallies[torch.bfloat16])}")
     return worst
 
 
@@ -653,8 +680,26 @@ def native_route_cases(dev):
               ("mp,pk->mk", ints(big, 80)[:, :77], ints(77, 16), None, "stream", True),
               ("km,pk->mp", ints(10, big), ints(130, 10), None, "stream", True),
               ("mnk,nj->mjk", ints(77, 300, 7), ints(300, 10), None, "splitk", True),
-              # a layout no new route takes: rows 77 floats apart
-              ("mp,pk->mk", rn(big, 77), rn(77, 10), None, "generic", False)]
+              # a big side no tensor map reads (rows 77 floats apart): fbatched
+              ("mp,pk->mk", rn(big, 77), rn(77, 10), None, "fbatched", False)]
+    # fbatched: Table II's layouts at ragged extents (grid modes in X, in W
+    # only, in neither), a split Gram (an outer contracted mode), a stride-0
+    # view, a start 4 bytes off, every other column, batch modes, bf16
+    # output, integer-valued inputs (exact sums)
+    cases += [("km,npk->pnm", rn(321, 383), rn(257, 47, 321), None, "fbatched", False),
+              ("kn,pmk->pnm", rn(321, 257), rn(47, 383, 321), None, "fbatched", False),
+              ("pk,kmn->pnm", rn(47, 321), rn(321, 383, 257), None, "fbatched", False),
+              ("mnp,mqp->nq", rn(300, 40, 256), rn(300, 72, 256), None, "fbatched", False),
+              ("mnp,mqp->nq", ints(300, 40, 256), ints(300, 72, 256), None, "fbatched", True),
+              ("mk,pkn->pnm", rn(1, 45).expand(300, 45), rn(20, 45, 190), None, "fbatched",
+               False),
+              ("mk,kn->mn", rn(400 * 68 + 1)[1:].view(400, 68)[:, :66], rn(66, 152), None,
+               "fbatched", False),
+              ("mk,kn->mn", rn(400, 140)[:, ::2], rn(70, 150), None, "fbatched", False),
+              ("bmk,bkn->bnm", rn(3, 140, 33), rn(3, 33, 170), None, "fbatched", False),
+              ("mk,kn->mn", rn(200, 66), rn(66, 152), torch.bfloat16, "fbatched", False),
+              ("km,pkn->pnm", ints(321, 383), ints(47, 321, 257), None, "fbatched", True),
+              ("kn,mkp->pnm", ints(321, 257), ints(383, 321, 47), None, "fbatched", True)]
 
     # wgmma: bf16 weight streaming, 1032 columns (a ragged last tile), rows
     # 1 (a stride-0 decode row) to 200, depths 6144 (split 14 ways), 1000
@@ -768,7 +813,8 @@ def check_native_routes(dev) -> None:
     log(f"native_gemm routes: {len(cases)} forced cases ({routes_text(counts)}; narrow widths "
         f"1/10/16, ragged rows and depths, bf16 weight streaming at 1-200 rows in every "
         f"operand layout, fused contracted modes, batched attention and expert products "
-        f"with up to 3 grid modes, bf16 and f32 output, integer-valued bit-identical), each "
+        f"with up to 3 grid modes, float32 Table II layouts, a split Gram and strided views "
+        f"on fbatched, bf16 and f32 output, integer-valued bit-identical), each "
         f"launched twice on its route, bit-identical, matching the plain version "
         f"(max abs error {worst:.3g})")
 
@@ -853,19 +899,21 @@ def check_grouped_case(As, Bs, tiles, ta=False, tb=False, exact=False, out_dtype
 
 
 def native_kernel_info() -> None:
-    """Registers, spills and shared memory of the built stream, splitk and
-    wgmma kernels of ``native_gemm`` (the first two with float32 output,
-    the stream read kernels at the HOOI depth 512 and the read kinds at
-    rank 10, padded to 12; the wgmma and batched routes' kernel with bf16
-    output at each tile height and operand layout, and its split
-    reduction).  That kernel must not spill: its 64 accumulators a thread
-    stay in registers."""
+    """Registers, spills and shared memory of the built stream, splitk,
+    wgmma and fbatched kernels of ``native_gemm`` (the first two with
+    float32 output, the stream read kernels at the HOOI depth 512 and the
+    read kinds at rank 10, padded to 12; the wgmma and batched routes'
+    kernel with bf16 output at each tile height and operand layout, and
+    its split reduction; the fbatched kernel with float32 output at each
+    tile width and slab layout, and its split reduction).  The wgmma and
+    fbatched kernels must not spill: their 64 accumulators a thread stay
+    in registers."""
     from repro_torch.kernels.sb_gemm import route_info
 
     for name, info in route_info(K=512, rp=12).items():
         log(f"sb_gemm.cu {name}: {info['registers']} registers/thread, {info['spill_bytes']} "
             f"bytes spilled (local)/thread, {info['smem_bytes']} bytes shared memory/block")
-        check(not name.startswith("wgmma") or info["spill_bytes"] == 0,
+        check(not name.startswith(("wgmma", "fbatched")) or info["spill_bytes"] == 0,
               f"sb_gemm.cu {name} spills {info['spill_bytes']} bytes a thread")
 
 
@@ -2488,7 +2536,7 @@ def spec_on(modes: str, shard: dict):
 
 
 #: name prefixes of ``native_gemm``'s ``__global__`` functions (csrc/sb_gemm.cu)
-NATIVE_KERNELS = ("ng_", "ns_", "nw_", "nk_", "nm_")
+NATIVE_KERNELS = ("ng_", "ns_", "nw_", "nk_", "nm_", "fb_")
 
 
 def device_kernels(fn) -> Counter | None:
@@ -2664,6 +2712,18 @@ def sharded_path(dev, working_set, seed: int, counters) -> dict:
 
         # every launch shape of the counted run against the plain version
         tot = time_shapes(launches, reps=SHARD_REPS_SHAPES, per="sharded run")
+        fb_rows = [r for r in tot["rows"] if r["route"] == "fbatched"]
+        fbatched = {k: sum(r[k] for r in fb_rows)
+                    for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        # the Grams of HOOI's 512^3 tensor: 512 x 512 outputs over 512 x 512 indices
+        gram = [r for r in fb_rows if r["flops"] == 2 * 512 ** 4]
+        gram_ms = ", ".join(f"{r['ms']:.4f}" for r in gram)
+        gram_lib = ", ".join(f"{r['library_ms']:.4f}" for r in gram)
+        log(f"sharded: {len(fb_rows)} of {len(tot['rows'])} launch shapes on fbatched, "
+            f"{fbatched['ms']:.4f} ms queued against einsum's {fbatched['library_ms']:.4f}; "
+            f"the Grams {', '.join(r['spec'] for r in gram)} {gram_ms} ms (einsum {gram_lib}); "
+            f"all {len(tot['rows'])} shapes {tot['ms']:.4f} ms against einsum's "
+            f"{tot['library_ms']:.4f}")
 
         # ms per call on the HOOI set and the MLP products, sharded against
         # unsharded
@@ -2693,9 +2753,130 @@ def sharded_path(dev, working_set, seed: int, counters) -> dict:
                     calls=len(cases), steps=n_steps, hooi_ms=hooi,
                     overhead_ms_per_call=overhead, calls_ms=calls,
                     shapes={k: tot[k] for k in ("ms", "library_ms", "bound_ms", "plain_ms",
-                                                "max_abs_err", "bound_by")})
+                                                "max_abs_err", "bound_by")},
+                    fbatched=dict(fbatched, launches=routes["fbatched"], shapes=len(fb_rows),
+                                  gram_ms=[r["ms"] for r in gram],
+                                  gram_library_ms=[r["library_ms"] for r in gram]))
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------------------ phase 19
+#: Table II's extents for phase 19 (the counted run first), and Fig. 3's
+#: (benchmarks/fig3_conventional_vs_sb.py ``SIZES``)
+TABLE2_SIZES = (256, 64)
+FIG3_SIZES = (16, 32, 64, 128, 256)
+TABLE2_REPS = 20
+
+
+def f32_products(dev, seed: int, counters) -> dict:
+    """Phase 19: the paper's experiment on the fbatched route.  The 36
+    float32 Table II cases at n = 256 through ``contract(strategy=
+    "native")`` with every kernel's count set to 0 just before and read
+    just after (36 ``native_gemm`` launches, all fbatched); then each case
+    at n = 256 and 64, and Fig. 3's case 1.3 (``strategy="batched"``, as
+    the benchmark runs it) at n = 16 to 256: its route, two launches
+    bit-identical, its error against ``native_gemm_ref`` within ``TOL``,
+    and queued ms of the kernel, of the conventional baseline
+    (``strategy="conventional"``: copies and a flat ``torch.matmul``), of
+    one ``torch.einsum`` (TF32 off) and of the plain version, against the
+    bound.  Returns the counted run's launches and the sums of its times,
+    and every row."""
+    from repro_torch.core.contract import contract
+    from repro_torch.core.table2 import CASES
+    from repro_torch.kernels.sb_gemm import native_gemm, native_gemm_ref, native_route
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+
+    def operands(spec, n):
+        a, b, _ = modes_of(spec)
+        return (torch.randn([n] * len(a), device=dev, generator=gen),
+                torch.randn([n] * len(b), device=dev, generator=gen))
+
+    labels = sorted(CASES)
+    counted = {n: [(l, CASES[l].row_major(), *operands(CASES[l].row_major(), n)) for l in labels]
+               for n in TABLE2_SIZES}
+    for c in counters:
+        c.launches = 0
+    native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
+    with native_routes_held() as held:
+        outs = [contract(spec, A, B, strategy="native", backend="kernel")
+                for _, spec, A, B in counted[TABLE2_SIZES[0]]]
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    routes = dict(native_gemm.launches_by_route)
+    check(launches["native_gemm"] == len(labels) and routes["fbatched"] == len(labels)
+          and launches["grouped_gemm"] == launches["flash_attention"] == 0,
+          f"table2 f32: launches {launches}, routes {routes}, held {held}")
+    for (label, spec, A, B), got in zip(counted[TABLE2_SIZES[0]], outs):
+        a, b, c = modes_of(spec)
+        err = rel_err(got, native_gemm_ref(A, B, a_modes=a, b_modes=b, c_modes=c))
+        check(err <= TOL[torch.float32], f"table2 f32 {label} {spec}: error {err}")
+    del outs
+    saved = launches["native_gemm"], routes
+
+    def row(label, spec, A, B, strategy):
+        a, b, c = modes_of(spec)
+        kw = dict(a_modes=a, b_modes=b, c_modes=c)
+        if strategy == "native":
+            route = native_route(A, B, **kw)
+            call = lambda: native_gemm(A, B, **kw)   # noqa: E731
+        else:
+            with native_routes_held() as tally:
+                contract(spec, A, B, strategy=strategy, backend="kernel")
+            route = "+".join(r for r, k in tally.items() if k)
+            call = lambda: contract(spec, A, B, strategy=strategy, backend="kernel")  # noqa: E731
+        got, again = call(), call()
+        want = native_gemm_ref(A, B, **kw)
+        check(torch.equal(got, again), f"table2 f32 {label} {spec}: two launches differ")
+        err = rel_err(got, want)
+        check(err <= TOL[torch.float32], f"table2 f32 {label} {spec}: error {err}")
+        nb, fl = launch_cost(A, B, kw)
+        b_ms, by = bound(nb, fl, torch.float32)
+        r = dict(label=label, spec=spec, n=A.shape[0], route=route, strategy=strategy,
+                 max_abs_err=(got - want).abs().max().item(), bound_ms=b_ms, bound_by=by,
+                 bytes=nb, flops=fl,
+                 ms=queued_ms(call, TABLE2_REPS),
+                 conventional_ms=queued_ms(lambda: contract(spec, A, B, strategy="conventional",
+                                                            backend="torch"), TABLE2_REPS),
+                 library_ms=queued_ms(lambda: torch.einsum(spec, A, B), TABLE2_REPS),
+                 plain_ms=queued_ms(lambda: native_gemm_ref(A, B, **kw), TABLE2_REPS))
+        log(f"table2 f32 [{label} {spec} n={r['n']} {strategy}] {route}: kernel {r['ms']:.4f} "
+            f"ms queued, {100 * b_ms / r['ms']:.1f}% of bound {b_ms:.4f} ({by}); conventional "
+            f"{r['conventional_ms']:.4f}; einsum {r['library_ms']:.4f} "
+            f"({r['library_ms'] / r['ms']:.2f}x the kernel's time); plain {r['plain_ms']:.4f}; "
+            f"error {err:.2e}, two launches bit-identical")
+        return r
+
+    rows = [row(l, spec, A, B, "native") for n in TABLE2_SIZES for l, spec, A, B in counted[n]]
+    del counted
+    fig3 = CASES["1.3"].row_major()
+    rows += [row("1.3", fig3, *operands(fig3, n), "batched") for n in FIG3_SIZES]
+    native_gemm.launches, native_gemm.launches_by_route = saved
+    for c in counters:
+        if c is not native_gemm:
+            c.launches = 0
+    sums = {}
+    for n in TABLE2_SIZES:
+        part = [r for r in rows if r["n"] == n and r["strategy"] == "native"]
+        tot = {k: sum(r[k] for r in part)
+               for k in ("ms", "conventional_ms", "library_ms", "plain_ms", "bound_ms", "bytes",
+                         "flops")}
+        tot["bound_by"] = bound(tot["bytes"], tot["flops"], torch.float32)[1]
+        slower = [r["label"] for r in part if r["ms"] > r["library_ms"]]
+        below = [r["label"] for r in part if r["bound_ms"] < 0.5 * r["ms"]]
+        log(f"table2 f32 n={n}: 36 cases on {sorted({r['route'] for r in part})}, kernel "
+            f"{tot['ms']:.4f} ms queued in all, bound {tot['bound_ms']:.4f}, conventional "
+            f"{tot['conventional_ms']:.4f}, einsum {tot['library_ms']:.4f}, plain "
+            f"{tot['plain_ms']:.4f}; slower than einsum: {slower or 'none'}; below half "
+            f"their bound: {below or 'none'}")
+        sums[n] = tot
+    big = sums[TABLE2_SIZES[0]]
+    return dict(launches=saved[0], launches_by_route=saved[1],
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                bound_by=big["bound_by"], ms=big["ms"], plain_ms=big["plain_ms"],
+                library_ms=big["library_ms"], bound_ms=big["bound_ms"],
+                conventional_ms=big["conventional_ms"], sums=sums, rows=rows)
 
 
 # ------------------------------------------------------------------ phase 15
@@ -3985,6 +4166,8 @@ def main() -> int:
     lap("13")
     sharded = sharded_path(dev, working_set, args.seed, counters)
     lap("14")
+    f32 = f32_products(dev, args.seed, counters)
+    lap("19")
     serve_ref = {"outputs": serve.pop("outputs"), "launches": serve["launches"],
                  "launches_by_route": serve["launches_by_route"]}
     mesh = mesh_path(dev, args.seed, counters, serve_ref)
@@ -4030,6 +4213,12 @@ def main() -> int:
         launches=train["launches_by_route"]["batched"],
         max_abs_err=max(r["max_abs_err"] for r in tc["rows"] if r["kind"] == "batched"),
         tc_shapes=tc))
+    # the fbatched route on its own line: phase 19's counted launches (Table
+    # II at n = 256) and their summed times; phase 14's fbatched shapes
+    records["native_gemm.f32"] = ("sb_gemm.cu", "sb_gemm.py:87", dict(
+        {k: f32[k] for k in ("launches", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                             "max_abs_err")},
+        table2=f32, sharded_fbatched=sharded["fbatched"]))
     kernels = [{"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}",
                 "replaces": f"src/repro/kernels/{tpu}",
@@ -4041,7 +4230,7 @@ def main() -> int:
                                        "sharded", "sharded_train", "sharded_serve",
                                        "mesh_cli_s", "a2a_launches", "a2a_launches_by_route",
                                        "a2a", "pipeline_launches", "pipeline", "fma",
-                                       "tc_shapes")
+                                       "tc_shapes", "table2", "sharded_fbatched")
                      if k in rec}}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:

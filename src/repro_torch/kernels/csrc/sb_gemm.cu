@@ -21,24 +21,27 @@
 //
 // Routes.  The wrapper's native_route picks one from layout and extents
 // alone (no fallback: a route that cannot build or launch raises):
-//   generic  (ng_outer_kernel, ng_kernel) every layout: float32 batch
-//            modes, contracted modes that do not fuse into one, mixed
-//            bf16 x f32 operands, layouts TMA cannot read, the Table II
-//            cases at ragged extents;
 //   stream   (ns_read_kernel, nw_kernel) float32 with one big side and a
 //            narrow other one, e.g. the HOOI contractions of the 512^3
 //            tensor with a rank-10 factor;
 //   splitk   (nk_kernel, nk_reduce) float32 with a narrow output and a
 //            long contraction, e.g. HOOI's contractions of the 512x512x10
 //            intermediates;
+//   fbatched (fb_kernel, fb_reduce) every other float32 product, C[g.., m,
+//            n] = sum over o.. and k of X[g.., o.., m, k] W[g.., o.., k, n]
+//            at any strides: the Table II cases at every extent, the
+//            paper's Figs. 1-8, HOOI's Gram mnp,mqp->nq, bik,kn->bin;
 //   wgmma    (nm_kernel, nm_reduce) bf16 weight streaming, C[m, n] =
 //            sum_k X[m, k] W[k, n] with both operands TMA-readable, e.g.
 //            every dense and LM-head product of a served model, and the
-//            weight gradients, whose contracted modes (b, s) fuse into one;
+//            weight gradients, whose contracted modes (b, s) fuse into one
+//            (bsv,bse->ve among them);
 //   batched  (nm_kernel) the same kernel for bf16 products with batch
 //            modes or contracted modes that do not fuse, C[g.., m, n] =
 //            sum over o.. and k of X[g.., o.., m, k] W[g.., o.., k, n],
-//            e.g. the attention scores and P.V and the MoE expert products.
+//            e.g. the attention scores and P.V and the MoE expert products;
+//   generic  (ng_outer_kernel, ng_kernel) mixed bf16 x f32 operands and bf16
+//            layouts that no tensor map can read.
 // The wrapper fuses contracted modes that are one mode in both operands
 // (neighbours in the same order, the outer stride the inner extent times
 // the inner stride) before it picks a route.
@@ -64,15 +67,14 @@
 // (HOOI's 512x512 Gram sums 262144 products) grows its rounding error with
 // the square root of the depth, and on an H100 put the Gram 2.2e-5 of the
 // result from cuBLAS's; chunks grow it with the square roots of 4096 and
-// of the number of chunks instead.  A shorter contraction sums exactly as
-// one running sum would and runs the variant without the second
-// accumulator (CHUNKED false), which took `bsv,bse->ve` (K 2048) in 295
-// ms on an H100 where the chunked one took 362.  Chunks are counted from
-// k = 0, so no result depends on the stage depth or the tile (a row's
-// bits never depend on the rows sharing its launch).  Ragged edges are
-// masked on load and store.  The TPU kernel's sequential grid
-// axes and VMEM accumulator become the in-block K loop: no state crosses
-// blocks.
+// of the number of chunks instead.  The fbatched route keeps these chunk
+// sums.  A shorter contraction sums exactly as one running sum would and
+// runs the variant without the second accumulator (CHUNKED false).
+// Chunks are counted from k = 0, so no result depends on the stage depth
+// or the tile (a row's bits never depend on the rows sharing its launch).
+// Ragged edges are masked on load and store.  The TPU kernel's sequential
+// grid axes and VMEM accumulator become the in-block K loop: no state
+// crosses blocks.
 //
 // Bounds on an H100 (3.35 TB/s; 67 TFLOP/s of f32 FMA).  At the HOOI
 // shapes every route is far below the f32 ridge (about 5 flop per byte at
@@ -115,6 +117,7 @@
 //            an outer contracted mode never is, so nothing a launch shares
 //            with other rows, requests or slots changes a row's sums.
 //   batched  see the section "wgmma and batched" below.
+//   fbatched see the section "fbatched" below: bound by operations.
 //   generic  the remaining layouts at the tile sizes above; its loads are
 //            plain, not TMA, one element a thread, and it runs on the FMA
 //            units in f32 whatever the operand type.
@@ -514,14 +517,15 @@ static int ng_launch_c(const void* A, const void* B, void* C, const NgDesc& d, i
   return ng_launch_tile<TA, TB, __nv_bfloat16>(A, B, C, d, stream);
 }
 
-// Type codes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t value.
+// Type codes: 0 = float32, 1 = bfloat16; not both operands float32 (the
+// fbatched route's).  Returns a cudaError_t value.
 extern "C" int ng_launch(const void* A, const void* B, void* C, const NgDesc* d, int ta,
                          int tb, int tc, void* stream) {
   if (ta < 0 || ta > 1 || tb < 0 || tb > 1 || tc < 0 || tc > 1 || d->walk < 1 ||
       d->n_rest < 0 || d->n_k < 0 || 2 + d->n_rest + d->n_k > NG_MAX_MODES)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (ta == 0 && tb == 0) return ng_launch_c<float, float>(A, B, C, *d, tc, st);
+  if (ta == 0 && tb == 0) return (int)cudaErrorInvalidValue;  // float32 takes fbatched
   if (ta == 0) return ng_launch_c<float, __nv_bfloat16>(A, B, C, *d, tc, st);
   if (tb == 0) return ng_launch_c<__nv_bfloat16, float>(A, B, C, *d, tc, st);
   return ng_launch_c<__nv_bfloat16, __nv_bfloat16>(A, B, C, *d, tc, st);
@@ -1099,6 +1103,404 @@ nm_reduce(const float* __restrict__ ws, TC* __restrict__ C, const NmDesc d) {
   C[i / d.N * d.cs[0] + i % d.N] = ng_from_f32<TC>(sum);
 }
 
+// ================================================================ fbatched
+// Every float32 product that takes neither stream nor splitk: the Table II
+// cases and the paper's Figs. 1-8 (n x n x n products, batch modes, both
+// operands wide), HOOI's Gram mnp,mqp->nq (two contracted modes that do
+// not fuse), the compiled program's bik,kn->bin.  The wrapper's
+// native_plan gives the product the batched route's form, C[g.., m, n] =
+// sum over o.. and k of X[g.., o.., m, k] W[g.., o.., k, n], with none of
+// its tensor-map limits: a grid mode g may be carried by X, by W or by both
+// (stride 0 in the operand that lacks it; the Table II cases in which the
+// operand with C's minor-most mode carries a second C mode), outer
+// contracted modes o are walked in the kernel, strides are any that
+// tensor.stride() gives, up to FB_MAX_EXTRA extra modes.  It replaces the
+// same TPU kernel as the routes above (native_gemm_pallas,
+// src/repro/kernels/sb_gemm.py); these products took ng_kernel and
+// ng_outer_kernel before.
+//
+// Bound.  Operations: Table II at n = 256 is 8.6 GFLOP over 0.13 GB (65
+// flop a byte, against the H100's f32 ridge of 20), 0.128 ms at 67 TFLOP/s
+// of f32 FMA; the Gram is 137 GFLOP, 2.05 ms.  So the FMA units must be fed
+// every cycle: the design is the classic SIMT GEMM on a cp.async ring.
+//
+// Design.  A block of FB_THREADS = 256 threads owns a TM x TN tile of C at
+// one grid index: FB_TM x FB_TN, or FB_TM x FB_TN_NARROW where N is at most
+// that wide, or FB_TM_SMALL x FB_TN_NARROW for a product of at most
+// FB_TM_SMALL rows (Table II's ragged p = 47) or one too small to give half
+// the SMs a tile and too shallow to split (Table II at n = 64, where
+// 128-row tiles ran up to 1.5x slower on an H100 than the generic kernels'
+// 64 x 64 ones).  Thread (ty, tx) (fb_ty, fb_tx: 16 x 16) owns TM / 16 x
+// TN / 16 outputs: rows 4 ty + i and, in a 128-row tile, 64 + 4 ty + i,
+// columns 4 tx + j and, in a 128-column one, 64 + 4 tx + j (i, j < 4), so
+// that each read of a k-row of a slab is a float4.  The walk is
+// the contraction flattened: FB_BK-deep stages along k within each outer
+// index, outer index slowest; FB_STAGES stages are in flight in a ring of
+// shared memory, loaded by cp.async (16-byte copies along an operand's
+// stride-1 mode where its strides and start allow, with the ragged tail's
+// bytes zero-filled by the copy itself, else 4-byte copies), and the
+// compute of one stage overlaps the loads of the next FB_STAGES - 1: one
+// barrier a stage.  Each slab is laid out for the stride-1 mode of its
+// operand: [FB_BK][rows] where the row mode (m of X, n of W) is the smaller
+// stride, so that a thread's 4 rows or columns are one float4; else
+// k-major, [rows][FB_BK], each row's eight 16-byte chunks swizzled (chunk q
+// of row r at q ^ ((r / 4) % 8)), so that a thread's four k at one row are
+// one float4 and the eight rows a quarter-warp reads at once (4 tx + j, tx
+// < 8) hit eight distinct bank groups.  All four layouts of X and W occur
+// in Table II.  One block owns one tile: a persistent grid, whose ring
+// ran on from one tile's walk into the next, took longer on an H100 in
+// an A/B of the two.  Tile, grid and split offsets are decoded once per
+// block, the outer offsets once per outer index.  Products accumulate in f32
+// registers with plain FMA (no TF32), in k order.
+//
+// Split and sums.  A walk of more than NG_SUM_CHUNK contracted indices
+// (FB_CHUNK_STAGES stages) keeps its running sums in shared memory and each
+// chunk's in registers, added at the chunk's end (flag FB_F_CHUNKED), as
+// the generic kernels' CHUNKED sums do: ((0 + c0) + c1) + ... over the
+// chunk sums c.  Where the output tiles are fewer than FB_SPLIT_PER_SM per
+// SM, the wrapper's fbatched_plan splits the walk across blocks
+// (blockIdx.y), one chunk a split; each split stores its chunk sum to the
+// workspace [split][g][m][n], and fb_reduce adds them in split order from
+// 0: the same sums in the same order as one block's chunked walk, so
+// whether a product splits (which depends on its rows and grid) moves no
+// bit of a row, and no atomics are used.  fb_launch refuses any other
+// split.
+#define FB_TM 128           // output rows per block
+#define FB_TN 128           // output columns per block
+#define FB_TN_NARROW 64     // ... where N is at most this wide
+#define FB_TM_SMALL 64      // rows (and FB_TN_NARROW columns) of a small product's tile
+#define FB_BK 32            // depth per stage: one 128-byte row of a k-major slab
+#define FB_STAGES 4         // ring depth: 4 x 32 KB at FB_TN
+#define FB_THREADS 256      // 16 x 16 threads, 8 x 8 outputs each at FB_TN
+#define FB_SPLIT_PER_SM 2   // a product with fewer tiles per SM is split
+#define FB_MAX_EXTRA NG_MAX_MODES
+#define FB_CHUNK_STAGES (NG_SUM_CHUNK / FB_BK)
+#define FB_F_CHUNKED 1      // flags: a block's walk is longer than one chunk
+#define FB_F_VEC_X 2        // X's slabs load 16 bytes at a time
+#define FB_F_VEC_W 4        // W's too
+#define FB_F_VEC_C 8        // C's rows store float4s (n stride-1, 16-byte aligned rows)
+#define FB_F_X_KMAJOR 16    // X's slabs are laid out k-major
+#define FB_F_W_KMAJOR 32    // W's too
+#define FB_F_NARROW_N 64    // the tile has FB_TN_NARROW columns
+#define FB_F_SMALL 128      // ... and FB_TM_SMALL rows
+
+struct FbDesc {
+  int64_t M, N, K;                // rows, columns, depth (0: C is zeros)
+  int64_t xm, xk, wn, wk, cm, cn;  // the tile modes' strides
+  int64_t ext[FB_MAX_EXTRA];       // n_grid grid modes, then the outer contracted modes
+  int64_t xs[FB_MAX_EXTRA];        // X's strides of the extra modes (0: X lacks a grid mode)
+  int64_t ws[FB_MAX_EXTRA];        // W's
+  int64_t cs[FB_MAX_EXTRA];        // C's (0 past the grid modes)
+  int64_t G, steps, spc;           // grid indices; stages of the walk; stages per split
+  int32_t n_grid, n_extra, n_split, flags;
+};
+
+__device__ __forceinline__ int fb_swz(int r) { return (r >> 2) & 7; }
+
+// The thread's place (ty, tx) in the 16 x 16 grid of a tile's 8 x 8 (8 x 4)
+// output blocks: a warp covers 4 ty by 8 tx, so a k-row read of a slab is 4
+// distinct float4s of X and 8 of W (one 128-byte wavefront each), where 2
+// by 16 took 2 of W; it ran faster on an H100 in an A/B of the two.
+__device__ __forceinline__ int fb_tx() { return threadIdx.x / 32 % 2 * 8 + threadIdx.x % 8; }
+__device__ __forceinline__ int fb_ty() { return threadIdx.x / 64 * 4 + threadIdx.x % 32 / 8; }
+
+// cp.async of 16 bytes of which the first `bytes` are read, the rest zeroed.
+__device__ __forceinline__ void fb_cp16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(hp_smem(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ int fb_clamp4(int64_t left) {
+  return left >= 4 ? 4 : left > 0 ? (int)left : 0;
+}
+
+// One operand's slab of one stage: R rows (m of X, n of W) by FB_BK k from
+// `base` (the slab's first row at the stage's first k), rows sr and k sk
+// apart; rows from r_left on and depth from k_left on read as zeros.  KM:
+// laid out k-major and swizzled (see "Design"), else [FB_BK][R].  vec:
+// 16-byte copies along the stored minor dimension, whose stride is then 1;
+// else 4-byte copies.  `safe` is a mapped address for copies of 0 bytes.
+template <int R, bool KM>
+__device__ __forceinline__ void fb_load(float* s, const float* __restrict__ base,
+                                        const float* safe, int64_t sr, int64_t sk,
+                                        int64_t r_left, int64_t k_left, bool vec) {
+  const int tid = threadIdx.x;
+  if (vec) {
+    if (KM) {
+      constexpr int PER = FB_BK / 4, N = R * PER / FB_THREADS, STEP = FB_THREADS / PER;
+      const int kk = (tid % PER) * 4, r0 = tid / PER;
+      const int nk = fb_clamp4(k_left - kk);
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const int r = r0 + c * STEP;
+        const int n = r < r_left ? nk : 0;
+        fb_cp16(s + r * FB_BK + (((kk >> 2) ^ fb_swz(r)) << 2), n ? base + r * sr + kk : safe,
+                4 * n);
+      }
+    } else {
+      constexpr int PER = R / 4, N = FB_BK * PER / FB_THREADS, STEP = FB_THREADS / PER;
+      const int r = (tid % PER) * 4, kk0 = tid / PER;
+      const int nr = fb_clamp4(r_left - r);
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const int kk = kk0 + c * STEP;
+        const int n = kk < k_left ? nr : 0;
+        fb_cp16(s + kk * R + r, n ? base + r + kk * sk : safe, 4 * n);
+      }
+    }
+  } else {
+    constexpr int N = R * FB_BK / FB_THREADS;
+    if (KM) {  // neighbouring threads on neighbouring k
+      const int kk = tid % FB_BK, r0 = tid / FB_BK;
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const int r = r0 + c * (FB_THREADS / FB_BK);
+        const bool ok = r < r_left && kk < k_left;
+        hp_cp_async<4>(s + r * FB_BK + (((kk >> 2) ^ fb_swz(r)) << 2) + (kk & 3),
+                       ok ? base + r * sr + kk * sk : safe, ok);
+      }
+    } else {   // neighbouring threads on neighbouring rows
+      const int r = tid % R, kk0 = tid / R;
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const int kk = kk0 + c * (FB_THREADS / R);
+        const bool ok = r < r_left && kk < k_left;
+        hp_cp_async<4>(s + kk * R + r, ok ? base + r * sr + kk * sk : safe, ok);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float fb_lane(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// One stage's products into a thread's sums, k in order.
+template <int TM, int TN, bool XK, bool WK>
+__device__ __forceinline__ void fb_stage_sum(float (&acc)[TM / 16][TN / 16], const float* xs,
+                                             const float* ws) {
+  constexpr int MI = TM / 16, NJ = TN / 16;
+  const int tx = fb_tx(), ty = fb_ty();
+#pragma unroll
+  for (int q = 0; q < FB_BK / 4; ++q) {
+    float4 xa[MI], wb[NJ];
+    if constexpr (XK) {
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        xa[i] = *reinterpret_cast<const float4*>(
+            xs + ((i < 4 ? 0 : 64) + 4 * ty + (i & 3)) * FB_BK + ((q ^ (ty & 7)) << 2));
+    }
+    if constexpr (WK) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        wb[j] = *reinterpret_cast<const float4*>(
+            ws + ((j < 4 ? 0 : 64) + 4 * tx + (j & 3)) * FB_BK + ((q ^ (tx & 7)) << 2));
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int kk = 4 * q + c;
+      float a[MI], b[NJ];
+      if constexpr (XK) {
+#pragma unroll
+        for (int i = 0; i < MI; ++i) a[i] = fb_lane(xa[i], c);
+      } else {
+#pragma unroll
+        for (int h = 0; h < MI / 4; ++h) {
+          const float4 v = *reinterpret_cast<const float4*>(xs + kk * TM + 64 * h + 4 * ty);
+          a[4 * h] = v.x, a[4 * h + 1] = v.y, a[4 * h + 2] = v.z, a[4 * h + 3] = v.w;
+        }
+      }
+      if constexpr (WK) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) b[j] = fb_lane(wb[j], c);
+      } else {
+#pragma unroll
+        for (int h = 0; h < NJ / 4; ++h) {
+          const float4 v = *reinterpret_cast<const float4*>(ws + kk * TN + 64 * h + 4 * tx);
+          b[4 * h] = v.x, b[4 * h + 1] = v.y, b[4 * h + 2] = v.z, b[4 * h + 3] = v.w;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+}
+
+// X's and W's offsets at outer index o (the outer modes innermost first).
+// Indices and extents are below 2^31 (fb_launch checks), so 32-bit
+// division decodes them: a small product's blocks are short enough for
+// 64-bit division to show.
+__device__ __forceinline__ void fb_outer(const FbDesc& d, int64_t o, int64_t& xo, int64_t& wo) {
+  xo = wo = 0;
+  uint32_t r = (uint32_t)o;
+#pragma unroll
+  for (int j = 0; j < FB_MAX_EXTRA; ++j)
+    if (j >= d.n_grid && j < d.n_extra) {
+      const uint32_t e = (uint32_t)d.ext[j], idx = r % e;
+      r /= e;
+      xo += idx * d.xs[j];
+      wo += idx * d.ws[j];
+    }
+}
+
+// A thread's sums into rows m0.., columns n0.. of out (strides cm, cn),
+// masked to M x N; float4 stores where `vec` (cn 1, rows 16-byte aligned).
+template <int TM, int TN, typename TO>
+__device__ __forceinline__ void fb_store(TO* __restrict__ out, int64_t cm, int64_t cn, bool vec,
+                                         const float (&acc)[TM / 16][TN / 16], int64_t m0,
+                                         int64_t n0, int64_t M, int64_t N) {
+  const int tx = fb_tx(), ty = fb_ty();
+#pragma unroll
+  for (int i = 0; i < TM / 16; ++i) {
+    const int64_t row = m0 + (i < 4 ? 0 : 64) + 4 * ty + (i & 3);
+    if (row >= M) continue;
+    TO* p = out + row * cm;
+#pragma unroll
+    for (int h = 0; h < TN / 64; ++h) {
+      const int64_t col = n0 + 64 * h + 4 * tx;
+      if constexpr (sizeof(TO) == 4) {
+        if (vec && col + 3 < N) {
+          *reinterpret_cast<float4*>(p + col) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+          continue;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (col + j < N) p[(col + j) * cn] = ng_from_f32<TO>(acc[i][4 * h + j]);
+    }
+  }
+}
+
+// Where tile t lies: its first row and column, its grid index, and its
+// offsets in X (with the first row), W (with the first column) and C.
+struct FbTile {
+  int64_t m0, n0, g, x, w, c;
+};
+
+template <int TM, int TN>
+__device__ __forceinline__ FbTile fb_tile(const FbDesc& d, uint32_t t) {
+  const uint32_t n_mt = (uint32_t)((d.M + TM - 1) / TM), n_nt = (uint32_t)((d.N + TN - 1) / TN);
+  FbTile tl;
+  tl.m0 = (int64_t)(t % n_mt) * TM;
+  t /= n_mt;
+  tl.n0 = (int64_t)(t % n_nt) * TN;
+  t /= n_nt;
+  tl.g = t;
+  tl.x = tl.m0 * d.xm;
+  tl.w = tl.n0 * d.wn;
+  tl.c = 0;
+#pragma unroll
+  for (int j = 0; j < FB_MAX_EXTRA; ++j)
+    if (j < d.n_grid) {
+      const uint32_t e = (uint32_t)d.ext[j], idx = t % e;
+      t /= e;
+      tl.x += idx * d.xs[j];
+      tl.w += idx * d.ws[j];
+      tl.c += idx * d.cs[j];
+    }
+  return tl;
+}
+
+// TM x TN: the tile (FB_TM x FB_TN, FB_TM x FB_TN_NARROW or FB_TM_SMALL x
+// FB_TN_NARROW).  XK, WK: X's and W's slabs laid out k-major.  Block x owns
+// tile x (m fastest, then n, then the grid) over split blockIdx.y's stages
+// of the walk.
+template <int TM, int TN, bool XK, bool WK, typename TC>
+__global__ void __launch_bounds__(FB_THREADS, 1)
+fb_kernel(const float* __restrict__ X, const float* __restrict__ W, TC* __restrict__ C,
+          float* __restrict__ ws, const FbDesc d) {
+  constexpr int MI = TM / 16, NJ = TN / 16, XS = TM * FB_BK, STAGE = (TM + TN) * FB_BK;
+  extern __shared__ __align__(16) float fb_sm[];
+  float* run = fb_sm + FB_STAGES * STAGE;  // chunked: the running sums, [output][thread]
+  const int tid = threadIdx.x;
+  const FbTile tl = fb_tile<TM, TN>(d, blockIdx.x);
+  // the block's stages of the walk, and where the loader starts in it
+  const int64_t per_k = (d.K + FB_BK - 1) / FB_BK;
+  const int64_t t_begin = (int64_t)blockIdx.y * d.spc;
+  const int n_steps = (int)((t_begin + d.spc < d.steps ? t_begin + d.spc : d.steps) - t_begin);
+  int64_t lo = per_k ? t_begin / per_k : 0, lk = per_k ? t_begin % per_k : 0, xo, wo;
+  fb_outer(d, lo, xo, wo);
+  const bool vx = d.flags & FB_F_VEC_X, vw = d.flags & FB_F_VEC_W;
+  const bool chunked = d.flags & FB_F_CHUNKED;
+
+  auto load = [&](int slot) {
+    float* xs = fb_sm + slot * STAGE;
+    const int64_t k0 = lk * FB_BK;
+    fb_load<TM, XK>(xs, X + tl.x + xo + k0 * d.xk, X, d.xm, d.xk, d.M - tl.m0, d.K - k0, vx);
+    fb_load<TN, WK>(xs + XS, W + tl.w + wo + k0 * d.wk, W, d.wn, d.wk, d.N - tl.n0, d.K - k0,
+                    vw);
+    if (++lk == per_k) {
+      lk = 0;
+      fb_outer(d, ++lo, xo, wo);
+    }
+  };
+
+  float acc[MI][NJ];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  if (chunked)
+#pragma unroll
+    for (int e = 0; e < MI * NJ; ++e) run[e * FB_THREADS + tid] = 0.f;
+
+  for (int s = 0; s < FB_STAGES - 1; ++s) {
+    if (s < n_steps) load(s);
+    hp_cp_commit();
+  }
+  for (int it = 0; it < n_steps; ++it) {
+    hp_cp_wait<FB_STAGES - 2>();  // this thread's copies of stage it have landed
+    __syncthreads();              // everyone's have, and stage it - 1 is computed
+    if (it + FB_STAGES - 1 < n_steps) load((it + FB_STAGES - 1) % FB_STAGES);
+    hp_cp_commit();
+    const float* xs = fb_sm + (it % FB_STAGES) * STAGE;
+    fb_stage_sum<TM, TN, XK, WK>(acc, xs, xs + XS);
+    if (chunked && (it + 1) % FB_CHUNK_STAGES == 0) {
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          run[(i * NJ + j) * FB_THREADS + tid] += acc[i][j];
+          acc[i][j] = 0.f;
+        }
+    }
+  }
+  if (chunked)
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] = run[(i * NJ + j) * FB_THREADS + tid] + acc[i][j];
+
+  if (d.n_split == 1)
+    fb_store<TM, TN, TC>(C + tl.c, d.cm, d.cn, d.flags & FB_F_VEC_C, acc, tl.m0, tl.n0, d.M,
+                         d.N);
+  else
+    fb_store<TM, TN, float>(ws + ((int64_t)blockIdx.y * d.G + tl.g) * d.M * d.N, d.N, 1,
+                            d.N % 4 == 0, acc, tl.m0, tl.n0, d.M, d.N);
+}
+
+// The split's partial sums [split][g][m][n], added in split order into C.
+template <typename TC>
+__global__ void __launch_bounds__(256)
+fb_reduce(const float* __restrict__ ws, TC* __restrict__ C, const FbDesc d) {
+  const int64_t plane = d.G * d.M * d.N, i = (int64_t)blockIdx.x * 256 + threadIdx.x;
+  if (i >= plane) return;
+  float sum = 0.f;
+  for (int s = 0; s < d.n_split; ++s) sum += ws[s * plane + i];
+  int64_t g = i / d.N / d.M, off = i / d.N % d.M * d.cm + i % d.N * d.cn;
+#pragma unroll
+  for (int j = 0; j < FB_MAX_EXTRA; ++j)
+    if (j < d.n_grid) {
+      off += g % d.ext[j] * d.cs[j];
+      g /= d.ext[j];
+    }
+  C[off] = ng_from_f32<TC>(sum);
+}
+
 // ------------------------------------------------------------- host launches
 static int nr_sm_count() {
   static int n = 0;
@@ -1324,6 +1726,60 @@ static int nm_launch_t(const void* X, const void* W, void* C, void* ws, const Nm
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ fbatched host
+static int fb_tm(const FbDesc& d) { return d.flags & FB_F_SMALL ? FB_TM_SMALL : FB_TM; }
+static int fb_tn(const FbDesc& d) { return d.flags & FB_F_NARROW_N ? FB_TN_NARROW : FB_TN; }
+
+static size_t fb_smem_bytes(int tm, int tn, bool chunked) {
+  return sizeof(float) * ((size_t)FB_STAGES * (tm + tn) * FB_BK +
+                          (chunked ? (size_t)(tm / 16) * (tn / 16) * FB_THREADS : 0));
+}
+
+template <int TM, int TN, bool XK, bool WK, typename TC>
+static int fb_go(const void* X, const void* W, void* C, void* ws, const FbDesc& d, dim3 grid,
+                 size_t smem, cudaStream_t st) {
+  static bool sized = false;  // once per kernel: its shared memory is above 48 KB
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fb_kernel<TM, TN, XK, WK, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)fb_smem_bytes(TM, TN, true));
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  fb_kernel<TM, TN, XK, WK, TC><<<grid, FB_THREADS, smem, st>>>(
+      (const float*)X, (const float*)W, (TC*)C, (float*)ws, d);
+  return (int)cudaGetLastError();
+}
+
+template <int TM, int TN, typename TC>
+static int fb_go_layout(const void* X, const void* W, void* C, void* ws, const FbDesc& d,
+                        dim3 grid, size_t smem, cudaStream_t st) {
+  const bool xk = d.flags & FB_F_X_KMAJOR, wk = d.flags & FB_F_W_KMAJOR;
+  if (xk) return wk ? fb_go<TM, TN, true, true, TC>(X, W, C, ws, d, grid, smem, st)
+                    : fb_go<TM, TN, true, false, TC>(X, W, C, ws, d, grid, smem, st);
+  return wk ? fb_go<TM, TN, false, true, TC>(X, W, C, ws, d, grid, smem, st)
+            : fb_go<TM, TN, false, false, TC>(X, W, C, ws, d, grid, smem, st);
+}
+
+template <typename TC>
+static int fb_launch_t(const void* X, const void* W, void* C, void* ws, const FbDesc& d,
+                       cudaStream_t st) {
+  const int tm = fb_tm(d), tn = fb_tn(d);
+  const int64_t tiles = d.G * ((d.M + tm - 1) / tm) * ((d.N + tn - 1) / tn);
+  if (tiles >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  if (tiles == 0) return (int)cudaSuccess;
+  const dim3 grid((unsigned)tiles, (unsigned)d.n_split);
+  const size_t smem = fb_smem_bytes(tm, tn, d.flags & FB_F_CHUNKED);
+  const int rc =
+      tm == FB_TM_SMALL ? fb_go_layout<FB_TM_SMALL, FB_TN_NARROW, TC>(X, W, C, ws, d, grid, smem, st)
+      : tn == FB_TN     ? fb_go_layout<FB_TM, FB_TN, TC>(X, W, C, ws, d, grid, smem, st)
+                        : fb_go_layout<FB_TM, FB_TN_NARROW, TC>(X, W, C, ws, d, grid, smem, st);
+  if (rc || d.n_split == 1) return rc;
+  const int64_t n = d.G * d.M * d.N;
+  fb_reduce<TC><<<(unsigned)((n + 255) / 256), 256, 0, st>>>((const float*)ws, (TC*)C, d);
+  return (int)cudaGetLastError();
+}
+
 // One operand's 2-D layout (element strides s_outer, s_inner over extents
 // outer, inner, either mode stride-1): what nm_map can encode.
 static bool nm_layout_ok(int64_t s0, int64_t s1, int64_t e0, int64_t e1) {
@@ -1398,6 +1854,43 @@ extern "C" int nm_launch(const void* X, const void* W, void* C, void* ws, const 
   return nm_launch_t<__nv_bfloat16>(X, W, C, ws, *d, st);
 }
 
+// Route "fbatched": float32 X and W with any strides, as native_plan
+// describes them; `ws` holds n_split * G * M * N floats when n_split > 1
+// (else it may be null).  The walk must be O * ceil(K / FB_BK) stages, O
+// the outer extents' product, split into n_split runs of spc stages, one
+// chunk (FB_CHUNK_STAGES stages) each where n_split > 1; a 16-byte copy
+// flag needs its operand 16-byte aligned with its slab's minor stride 1.
+// Type code tc: 0 = float32, 1 = bfloat16 output.  Returns a cudaError_t
+// value.
+extern "C" int fb_launch(const void* X, const void* W, void* C, void* ws, const FbDesc* d, int tc,
+                         void* stream) {
+  const int64_t lim = (int64_t)1 << 31;
+  bool ok = tc >= 0 && tc <= 1 && d->M >= 1 && d->N >= 1 && d->K >= 0 && d->G >= 1 &&
+            d->n_grid >= 0 && d->n_grid <= d->n_extra && d->n_extra <= FB_MAX_EXTRA &&
+            d->n_split >= 1 && d->n_split < 65536 && d->steps >= 0 && d->steps < lim;
+  int64_t G = 1, O = 1;
+  for (int j = 0; j < FB_MAX_EXTRA; ++j) {
+    ok = ok && d->ext[j] >= 1 && (j < d->n_grid || d->cs[j] == 0);
+    if (j < d->n_grid) G *= d->ext[j];
+    else if (j < d->n_extra) O *= d->ext[j];
+    else ok = ok && d->ext[j] == 1;
+  }
+  ok = ok && G == d->G && d->steps == O * ((d->K + FB_BK - 1) / FB_BK);
+  if (d->steps > 0)
+    ok = ok && d->spc >= 1 && (d->n_split - 1) * d->spc < d->steps &&
+         d->n_split * d->spc >= d->steps;
+  if (d->n_split > 1) ok = ok && ws && d->spc == FB_CHUNK_STAGES;
+  const bool xkm = d->flags & FB_F_X_KMAJOR, wkm = d->flags & FB_F_W_KMAJOR;
+  if (d->flags & FB_F_VEC_X) ok = ok && (uintptr_t)X % 16 == 0 && (xkm ? d->xk : d->xm) == 1;
+  if (d->flags & FB_F_VEC_W) ok = ok && (uintptr_t)W % 16 == 0 && (wkm ? d->wk : d->wn) == 1;
+  if (d->flags & FB_F_VEC_C) ok = ok && d->cn == 1 && d->cm % 4 == 0;
+  if (d->flags & FB_F_SMALL) ok = ok && (d->flags & FB_F_NARROW_N);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tc == 0) return fb_launch_t<float>(X, W, C, ws, *d, st);
+  return fb_launch_t<__nv_bfloat16>(X, W, C, ws, *d, st);
+}
+
 // Registers, local (spilled) bytes per thread and shared bytes per block of
 // one kernel of the new routes: kind 0 stream read with m stride-1, 1
 // stream read with k stride-1 (both at depth K, dynamic shared memory), 2
@@ -1405,7 +1898,12 @@ extern "C" int nm_launch(const void* X, const void* W, void* C, void* ws, const 
 // float32 output, rp the padded r of kinds 0, 1 and 3; kinds 5-8 the
 // bfloat16-output wgmma kernel of NM_TM rows with X K-major (5, 6) or
 // M-major (7, 8) and W N-major (5, 7) or K-major (6, 8), 9 its split
-// reduction; kinds 10-13 the same kernel of NM_TM_WIDE rows.
+// reduction; kinds 10-13 the same kernel of NM_TM_WIDE rows; kinds 14-21
+// the float32-output fbatched kernel of FB_TN (14-17) and FB_TN_NARROW
+// (18-21) columns with X m-major (14, 15) or k-major (16, 17) and W
+// n-major (14, 16) or k-major (15, 17), at its largest shared memory (a
+// chunked walk), 22 its split reduction, and 23-26 the same kernel with a
+// FB_TM_SMALL x FB_TN_NARROW tile in the layout order of 14-17.
 extern "C" int nr_info(int kind, int rp, int64_t K, int* out) {
   const void* fn = nullptr;
   size_t smem = 0;
@@ -1437,6 +1935,27 @@ extern "C" int nr_info(int kind, int rp, int64_t K, int* out) {
                           (const void*)nm_kernel<NM_TM_WIDE, 1, 1, B16>};
     fn = fns[kind - 10];
     smem = NmTile<NM_TM_WIDE>::SMEM;
+  } else if (kind >= 14 && kind <= 21) {
+    const void* fns[8] = {
+        (const void*)fb_kernel<FB_TM, FB_TN, false, false, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN, false, true, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN, true, false, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN, true, true, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN_NARROW, false, false, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN_NARROW, false, true, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN_NARROW, true, false, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN_NARROW, true, true, float>};
+    fn = fns[kind - 14];
+    smem = fb_smem_bytes(FB_TM, kind < 18 ? FB_TN : FB_TN_NARROW, true);
+  } else if (kind == 22) {
+    fn = (const void*)fb_reduce<float>;
+  } else if (kind >= 23 && kind <= 26) {
+    const void* fns[4] = {(const void*)fb_kernel<FB_TM_SMALL, FB_TN_NARROW, false, false, float>,
+                          (const void*)fb_kernel<FB_TM_SMALL, FB_TN_NARROW, false, true, float>,
+                          (const void*)fb_kernel<FB_TM_SMALL, FB_TN_NARROW, true, false, float>,
+                          (const void*)fb_kernel<FB_TM_SMALL, FB_TN_NARROW, true, true, float>};
+    fn = fns[kind - 23];
+    smem = fb_smem_bytes(FB_TM_SMALL, FB_TN_NARROW, true);
   }
   if (!fn) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;

@@ -7,7 +7,11 @@ a 3D tiling of B into cache".  On Hopper the native kernel
 (:func:`repro_torch.kernels.sb_gemm.native_gemm`) already reads any
 operand through its strides, so the extended transpose is a launch
 configuration of that kernel: each block walks ``batch_tile`` consecutive
-indices of the planner-chosen batch mode β.
+indices of the planner-chosen batch mode β.  The walk shapes only the
+``generic`` route's tile (mixed bf16 x f32 operands, bf16 layouts no
+tensor map reads): float32 operands take the ``fbatched`` route, whose
+tile and walk come from the operands' layout alone, and bf16 ones that a
+tensor map reads take ``batched``.
 
 Like its JAX counterpart this is the paper-named entry point kept for the
 §III-E benchmarks and the tests that pin it; ``contract(...,

@@ -16,7 +16,7 @@ a block's output tile; every other C mode is decoded from the block
 index; the contracted modes are one flattened in-block loop.  At most
 :data:`MAX_MODES` such modes fit one launch.
 
-Five routes, picked by :func:`native_route` from dtypes, extents and
+Six routes, picked by :func:`native_route` from dtypes, extents and
 strides alone (the ``u``/``walk`` options only shape the generic tile).
 Contracted modes that are one mode in both operands (neighbours in the same
 order, the outer one's stride the inner one's extent times its stride) are
@@ -44,9 +44,18 @@ depth b·s:
   n]`` with up to :data:`WGMMA_MAX_EXTRA` grid modes ``g`` and outer
   contracted modes ``o`` in all, each a box-1 dimension of the tensor map
   of each operand that carries it; never split.
-- ``"generic"``: everything else (float32 batch modes or contracted
-  modes that do not fuse, mixed bf16 x f32 operands, layouts TMA cannot
-  read, wide float32 outputs on both sides).
+- ``"fbatched"``: every other float32 product (both operands float32):
+  the same form, ``C[g.., m, n] = Σ_{o.., k} X[g.., o.., m, k]·W[g.., o..,
+  k, n]``, with grid modes carried by X, by W or by both (stride 0 in the
+  operand that lacks one), outer contracted modes walked in the kernel,
+  any strides, on the FMA units in float32 (no TF32).  The Table II
+  cases, the paper's Figs. 1-8, HOOI's Gram ``mnp,mqp->nq``.  The
+  contraction is split where the output tiles are too few to fill the
+  card (:func:`fbatched_plan`), one :data:`SUM_CHUNK` of indices a
+  split, reduced in split order: the chunk sums a single block adds in
+  the same order, so the split moves no bit.
+- ``"generic"``: mixed bf16 x f32 operands and bf16 layouts that no
+  tensor map can read.
 
 :func:`native_gemm_ref` is the plain PyTorch version (an f32 einsum).  The
 wrapper takes it only for tensors on the CPU; a CUDA tensor launches the
@@ -66,14 +75,14 @@ from repro_torch.core.notation import ContractionSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels.addressing import row_major_strides
 
-__all__ = ["MAX_MODES", "NARROW", "ROUTES", "STREAM_MIN_ROWS", "WGMMA_MAX_EXTRA",
-           "native_gemm", "native_gemm_ref", "native_plan", "native_route", "route_info",
-           "splitk_plan", "wgmma_plan"]
+__all__ = ["MAX_MODES", "NARROW", "ROUTES", "STREAM_MIN_ROWS", "SUM_CHUNK", "WGMMA_MAX_EXTRA",
+           "fbatched_plan", "native_gemm", "native_gemm_ref", "native_plan", "native_route",
+           "route_info", "splitk_plan", "wgmma_plan"]
 
 #: mode slots one launch takes (u, v, other C modes, contracted modes)
 MAX_MODES = 8
 
-ROUTES = ("stream", "splitk", "wgmma", "batched", "generic")
+ROUTES = ("stream", "splitk", "wgmma", "batched", "fbatched", "generic")
 
 #: widest narrow mode the stream and splitk routes hold in registers: the
 #: read kind's ``r``, the write kind's ``k`` (``NR_NARROW``)
@@ -101,6 +110,24 @@ WGMMA_MIN_SPLIT_STAGES = 4
 #: most grid and outer contracted modes of one launch (``NM_MAX_EXTRA``): a
 #: tensor map has at most 5 dimensions, two of them the operand's matrix
 WGMMA_MAX_EXTRA = 3
+#: the fbatched route's output tile (rows x columns, or x
+#: :data:`FBATCHED_TN_NARROW` columns where N is at most that wide, or
+#: :data:`FBATCHED_TM_SMALL` x :data:`FBATCHED_TN_NARROW` for a small
+#: product), depth per ring stage, ring depth and threads (``FB_TM``,
+#: ``FB_TN``, ``FB_TN_NARROW``, ``FB_TM_SMALL``, ``FB_BK``, ``FB_STAGES``,
+#: ``FB_THREADS``)
+FBATCHED_TM, FBATCHED_TN, FBATCHED_TN_NARROW, FBATCHED_BK = 128, 128, 64, 32
+FBATCHED_TM_SMALL = 64
+FBATCHED_STAGES, FBATCHED_THREADS = 4, 256
+#: contracted indices per partial sum (``NG_SUM_CHUNK``): a float32
+#: contraction deeper than this sums each chunk apart and adds the chunk
+#: sums in order, and a split spans one chunk
+SUM_CHUNK = 4096
+#: a product with fewer output tiles than this many per SM is split
+#: (``FB_SPLIT_PER_SM``), one chunk a split, where its partial sums (a
+#: float32 plane of C a chunk) take at most this many bytes
+FBATCHED_BLOCKS_PER_SM = 2
+FBATCHED_SPLIT_MAX_BYTES = 1 << 28
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -112,13 +139,20 @@ _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: cm) and ``NmDesc`` (wgmma and batched: M, N, K; the extra modes'
 #: extents, grid modes first; X's strides of m, k and the extra modes, W's
 #: of n, k and the extra modes, C's of m and the grid modes; n_grid,
-#: n_extra, kc, n_split).
+#: n_extra, kc, n_split) and ``FbDesc`` (fbatched: M, N, K; X's strides of m
+#: and k, W's of n and k, C's of m and n; the extra modes' extents and X, W
+#: and C strides, grid modes first; G, steps, spc; n_grid, n_extra,
+#: n_split, flags).
 #: Every call packs one, and ``struct`` does it several times faster than a
 #: ctypes structure with array fields.
 _NG_DESC = struct.Struct(f"<{4 * MAX_MODES}q3i4x")
 _NR_DESC = struct.Struct("<16q4i")
 _NW_DESC = struct.Struct("<8q")
 _NM_DESC = struct.Struct(f"<{3 + 3 + 5 + 5 + 4}q4i")
+_FB_DESC = struct.Struct(f"<{9 + 4 * MAX_MODES + 3}q4i")
+#: the fbatched descriptor's flag bits (``FB_F_*``)
+(_FB_CHUNKED, _FB_VEC_X, _FB_VEC_W, _FB_VEC_C, _FB_X_KMAJOR, _FB_W_KMAJOR, _FB_NARROW_N,
+ _FB_SMALL) = (1 << i for i in range(8))
 
 _LIB = None
 
@@ -133,9 +167,10 @@ def _library():
         lib.ns_launch_write.argtypes = [ptr, ptr, ptr, desc, i32, ptr]
         lib.nk_launch.argtypes = [ptr, ptr, ptr, ptr, desc, i32, ptr]
         lib.nm_launch.argtypes = [ptr, ptr, ptr, ptr, desc, i32, ptr]
+        lib.fb_launch.argtypes = [ptr, ptr, ptr, ptr, desc, i32, ptr]
         lib.nr_info.argtypes = [i32, i32, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)]
         for fn in (lib.ng_launch, lib.ns_launch_read, lib.ns_launch_write, lib.nk_launch,
-                   lib.nm_launch, lib.nr_info):
+                   lib.nm_launch, lib.fb_launch, lib.nr_info):
             fn.restype = ctypes.c_int
         lib.ng_error_string.argtypes = [ctypes.c_int]
         lib.ng_error_string.restype = ctypes.c_char_p
@@ -205,6 +240,52 @@ def wgmma_plan(M: int, N: int, K: int, G: int = 1, split: bool = True) -> dict:
     n_split = _cdiv(K, kc)
     return {"tiles": G * _cdiv(M, tm) * n_tiles, "n_split": n_split, "kc": kc,
             "workspace": n_split * M * N if n_split > 1 else 0}
+
+
+def fbatched_plan(M: int, N: int, K: int, G: int = 1, O: int = 1) -> dict:
+    """The fbatched route's launch for ``G`` grid indices of ``M`` rows and
+    ``N`` columns, contracted over ``O`` outer indices of depth ``K``:
+    ``tm`` and ``tn`` (the tile's rows and columns), ``tiles`` (output
+    tiles at every grid index), ``steps`` (ring stages of
+    :data:`FBATCHED_BK` along k, at each
+    outer index: the in-kernel walk, outer index slowest), ``n_split``
+    splits of ``spc`` stages each and ``workspace``, the f32 partial sums
+    the wrapper allocates (``n_split * G * M * N``, or 0 for one split,
+    which writes C directly); ``chunked``: a block's walk spans more than
+    one :data:`SUM_CHUNK`, so it keeps a second accumulator.
+
+    A product of at most :data:`FBATCHED_TM_SMALL` rows, or too small to
+    give half the SMs a 128-row tile and too shallow to split (one chunk
+    or less), takes :data:`FBATCHED_TM_SMALL`-row tiles instead: no more
+    than half of each tile idle (Table II's ragged p = 47 rows), or four
+    times the blocks for the same latency-bound work (Table II at n =
+    64; at n = 128, Fig. 3's 128 tiles ran faster on 128 rows).
+
+    A product with fewer than :data:`FBATCHED_BLOCKS_PER_SM` tiles per SM
+    and more than one chunk (``SUM_CHUNK / FBATCHED_BK`` stages) is split
+    one chunk a split, where the partial sums fit
+    :data:`FBATCHED_SPLIT_MAX_BYTES`: the reduction then adds the chunk
+    sums in order, ``((0 + c0) + c1) + ...``, as one block's chunked walk
+    adds them, so a split moves no bit.  Whether a product splits depends
+    on its rows and grid (a decode slot in a larger bucket, a prompt's
+    chunk against the whole prompt); what each output sums, and in which
+    order, does not: a row's bits never depend on what shares its
+    launch."""
+    tm, tn = FBATCHED_TM, FBATCHED_TN if N > FBATCHED_TN_NARROW else FBATCHED_TN_NARROW
+    steps = O * _cdiv(K, FBATCHED_BK)
+    chunk = SUM_CHUNK // FBATCHED_BK
+    if M <= FBATCHED_TM_SMALL or 2 * G * _cdiv(M, tm) * _cdiv(N, tn) < H100_SMS and steps <= chunk:
+        tm, tn = FBATCHED_TM_SMALL, FBATCHED_TN_NARROW
+    tiles = G * _cdiv(M, tm) * _cdiv(N, tn)
+    target = FBATCHED_BLOCKS_PER_SM * H100_SMS
+    n_split, spc = 1, steps
+    chunks = _cdiv(steps, chunk)
+    if (0 < tiles < target and 1 < chunks < 2**16
+            and 4 * chunks * G * M * N <= FBATCHED_SPLIT_MAX_BYTES):
+        n_split, spc = chunks, chunk
+    return {"tm": tm, "tn": tn, "tiles": tiles, "steps": steps, "n_split": n_split, "spc": spc,
+            "chunked": min(spc, steps) > chunk,
+            "workspace": n_split * G * M * N if n_split > 1 else 0}
 
 
 def _tma_readable(X, xm: int, xk: int, M: int, K: int) -> bool:
@@ -324,6 +405,108 @@ def _tc_plan(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc):
                    "G": G, **plan}
 
 
+def _row_mode(fused, k_stride: int):
+    """X's row mode among its own fused C modes ``[extent, stride, C
+    stride]``: the stride-1 one, so that its slabs load 16 bytes at a
+    time, where k is not stride-1 and that mode is at least ``min(widest,
+    FBATCHED_TM)`` wide; else the widest (ties: the smaller C stride);
+    None without a mode."""
+    if not fused:
+        return None
+    widest = max(fused, key=lambda f: (f[0], -f[2]))
+    unit = next((f for f in fused if f[1] == 1), None)
+    if k_stride != 1 and unit is not None and unit[0] >= min(widest[0], FBATCHED_TM):
+        return unit
+    return widest
+
+
+def _column_mode(fused):
+    """W's column mode: the own fused C mode innermost in C, so that C's
+    rows store whole sectors; None without a mode.  In the exceptional
+    Table II cases W carries C's minor-most mode and a second C mode that
+    is stride-1 in W; on an H100 they ran faster with this column than
+    with W's stride-1 mode, whose C stores went a word at a time."""
+    return min(fused, key=lambda f: f[2]) if fused else None
+
+
+def _k_major(sk: int, smn: int) -> bool:
+    """A slab is laid out k-major (k the stored minor dimension) where k's
+    stride is the smaller nonzero one of the two."""
+    def key(s):
+        return abs(s) if s else float("inf")
+    return key(sk) < key(smn)
+
+
+def _fb_plan(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc, zero_k=False):
+    """The fbatched plan of float32 A and B; ``k`` None where no mode is
+    contracted (then K is 1 at stride 0), ``zero_k`` where a contracted
+    mode has extent 0 (then K is 0 and C is zeros); ``outer`` the
+    contracted modes that do not fuse with ``k``, as ``(extent, A stride,
+    B stride)``."""
+    own_a = [m for m in a_c if m not in batch]
+    own_b = [m for m in b_c if m not in batch]
+    # W carries C's innermost mode that only one operand carries
+    n = next((m for m in reversed(c_live) if m in own_a or m in own_b), None)
+    x_is_a = n not in own_a
+    X, W, x_own, w_own, xs, ws = ((A, B, own_a, own_b, sa, sb) if x_is_a
+                                  else (B, A, own_b, own_a, sb, sa))
+    K, xk, wk = (dims[k], xs[k], ws[k]) if k else (1, 0, 0)
+    if zero_k:
+        K = 0
+    fx = _fuse(sorted(([dims[m], xs[m], sc[m]] for m in x_own), key=lambda t: t[1]))
+    fw = _fuse(sorted(([dims[m], ws[m], sc[m]] for m in w_own), key=lambda t: t[1]))
+    row = _row_mode(fx, xk)
+    col = _column_mode(fw)
+    M, xm, cm = row or (1, 0, 0)
+    N, wn, cn = col or (1, 0, 0)
+    # (extent, X stride, W stride, C stride), innermost in C first; neighbours
+    # that are one mode in X, W and C fuse
+    grid = sorted([(dims[b], xs[b], ws[b], sc[b]) for b in batch]
+                  + [(f[0], f[1], 0, f[2]) for f in fx if f is not row]
+                  + [(f[0], 0, f[1], f[2]) for f in fw if f is not col], key=lambda g: g[3])
+    fused = []
+    for g in grid:
+        f = fused[-1] if fused else None
+        if f and all(g[i] == f[0] * f[i] for i in (1, 2, 3)):
+            fused[-1] = (f[0] * g[0], *f[1:])
+        else:
+            fused.append(g)
+    grid = fused
+    outer = [(e, a, b) if x_is_a else (e, b, a) for e, a, b in outer]
+    G = O = 1
+    for g in grid:
+        G *= g[0]
+    for o in outer:
+        O *= o[0]
+    if len(grid) + len(outer) > MAX_MODES:
+        raise ValueError(f"fbatched takes at most {MAX_MODES} grid and outer modes, "
+                         f"not {len(grid) + len(outer)}")
+    plan = fbatched_plan(M, N, K, G, O)
+    if plan["tiles"] >= 2**31 or plan["steps"] >= 2**31:
+        raise ValueError(f"fbatched takes fewer than 2^31 tiles and 2^31 stages, not "
+                         f"{plan['tiles']} and {plan['steps']}")
+    x_km, w_km = _k_major(xk, xm), _k_major(wk, wn)
+
+    def vec(T, km, s_mn, s_k, extra):
+        # 16-byte copies along the slab's stored minor dimension
+        minor, other = (s_k, s_mn) if km else (s_mn, s_k)
+        return minor == 1 and all(s % 4 == 0 for s in (other, *extra)) and T.data_ptr() % 16 == 0
+
+    flags = ((_FB_CHUNKED if plan["chunked"] else 0)
+             | (_FB_VEC_X if vec(X, x_km, xm, xk, [g[1] for g in grid] + [o[1] for o in outer])
+                else 0)
+             | (_FB_VEC_W if vec(W, w_km, wn, wk, [g[2] for g in grid] + [o[2] for o in outer])
+                else 0)
+             | (_FB_VEC_C if cn == 1 and all(s % 4 == 0 for s in (cm, *(g[3] for g in grid)))
+                else 0)
+             | (_FB_X_KMAJOR if x_km else 0) | (_FB_W_KMAJOR if w_km else 0)
+             | (_FB_NARROW_N if plan["tn"] == FBATCHED_TN_NARROW else 0)
+             | (_FB_SMALL if plan["tm"] == FBATCHED_TM_SMALL else 0))
+    return "fbatched", {"kind": "fbatched", "x_is_a": x_is_a, "M": M, "N": N, "K": K,
+                        "xm": xm, "xk": xk, "wn": wn, "wk": wk, "cm": cm, "cn": cn,
+                        "grid": grid, "outer": outer, "G": G, "O": O, "flags": flags, **plan}
+
+
 def native_plan(A, B, *, a_modes: str, b_modes: str, c_modes: str, dims=None):
     """The route of :func:`native_gemm` and its launch plan: ``(route,
     plan)``, ``plan`` None on the generic route.  Reads only dtypes,
@@ -334,9 +517,10 @@ def native_plan(A, B, *, a_modes: str, b_modes: str, c_modes: str, dims=None):
     first: two that are neighbours in the same order in A and in B (the
     outer one's stride the inner one's extent times its stride, in both)
     are one mode.  The widest fused mode is ``k`` (the plan's ``k_modes``
-    names its modes, innermost first); every route but ``"generic"``
-    needs a ``k``, every route but ``"batched"`` no other contracted mode
-    and no batch mode (one in A, B and C).  Float32 operands:
+    names its modes, innermost first); every route but ``"generic"`` and
+    ``"fbatched"`` needs a ``k``, every route but ``"batched"`` and
+    ``"fbatched"`` no other contracted mode and no batch mode (one in A, B
+    and C).  Float32 operands:
 
     - read kind: one operand W has, besides ``k``, at most one mode ``r``
       (a C mode at most :data:`NARROW` wide; none: a matrix-vector
@@ -344,10 +528,24 @@ def native_plan(A, B, *, a_modes: str, b_modes: str, c_modes: str, dims=None):
       smaller W is taken where both fit).
       ``"stream"`` with at least :data:`STREAM_MIN_ROWS` rows, ``m`` one
       mode after fusing, X readable by a 2-D tensor map and W within
-      :data:`STREAM_W_BYTES`; else ``"generic"``.  Fewer rows, ``m`` up to
-      three modes: ``"splitk"`` (:func:`splitk_plan`).
+      :data:`STREAM_W_BYTES`; else ``"fbatched"``.  Fewer rows, ``m`` up
+      to three modes: ``"splitk"`` (:func:`splitk_plan`).
     - write kind: ``k`` at most :data:`NARROW` deep, C two modes ``(m,
       p)``, W carrying ``p`` and ``k``, X ``m`` and ``k``: ``"stream"``.
+    - everything else: ``"fbatched"``.  W is the operand that carries C's
+      innermost mode carried by one operand alone (none: W is B), X the
+      other.  Each operand's own C modes fuse where they can; one is its
+      tile mode (the row mode ``m`` of X: the stride-1 one where k is not
+      stride-1 and it is wide enough, else the widest, :func:`_row_mode`;
+      the column mode ``n`` of W: the innermost in C, :func:`_column_mode`),
+      the rest are grid modes carried by that
+      operand alone; batch modes are grid modes of both; grid modes that
+      are one mode in X, W and C fuse (the plan's ``grid``, as ``(extent,
+      X stride, W stride, C stride)``, 0 where an operand lacks the mode);
+      the contracted modes but ``k`` are outer modes (``outer``, as
+      ``(extent, X stride, W stride)``).  Any strides; the launch plan is
+      :func:`fbatched_plan`'s, and ``flags`` say which slabs load 16
+      bytes at a time and how each is laid out.
 
     Bfloat16 operands (both; any output type) need ``n``, the minor-most C
     mode, to be no batch mode and to be carried by one operand W together
@@ -372,7 +570,8 @@ def native_plan(A, B, *, a_modes: str, b_modes: str, c_modes: str, dims=None):
         return "generic", None
     if dims is None:
         dims = infer_dims(ContractionSpec(a_modes, b_modes, c_modes), A, B)
-    if 0 in dims.values():
+    f32 = A.dtype == torch.float32
+    if 0 in dims.values() and not f32:
         return "generic", None
     sa, sb = dict(zip(a_modes, A.stride())), dict(zip(b_modes, B.stride()))
     shared = [m for m in a_modes if m in b_modes and dims[m] > 1]
@@ -389,25 +588,31 @@ def native_plan(A, B, *, a_modes: str, b_modes: str, c_modes: str, dims=None):
             g[3] += m
         else:
             groups.append([dims[m], sa[m], sb[m], m])
-    if not groups or len(groups) > 1 and A.dtype != torch.bfloat16:
+    if not groups and not f32:
         return "generic", None
-    inner = max(groups, key=lambda g: g[0])
-    k = inner[3][0]
+    inner = max(groups, key=lambda g: g[0]) if groups else [1, 0, 0, ""]
+    k = inner[3][:1] or None
     outer = [tuple(g[:3]) for g in groups if g is not inner]
-    dims = {**dims, k: inner[0]}
-    sa, sb = {**sa, k: inner[1]}, {**sb, k: inner[2]}
+    if k:
+        dims = {**dims, k: inner[0]}
+        sa, sb = {**sa, k: inner[1]}, {**sb, k: inner[2]}
     sc = dict(zip(c_modes, row_major_strides([dims[m] for m in c_modes])))
     a_c = [m for m in a_modes if m not in contracted and dims[m] > 1]
     b_c = [m for m in b_modes if m not in contracted and dims[m] > 1]
     c_live = [m for m in c_modes if dims[m] > 1]
-    if A.dtype == torch.bfloat16:
+    if not f32:
         if not c_live:
             return "generic", None
         route, plan = _tc_plan(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc)
         return route, plan and {**plan, "k_modes": inner[3]}
-    if batch:
-        return "generic", None
-    route, plan = _float_plan(A, B, a_c, b_c, k, c_live, dims, sa, sb, sc)
+    route = "generic"
+    if groups and len(groups) == 1 and not batch and 0 not in dims.values():
+        route, plan = _float_plan(A, B, a_c, b_c, k, c_live, dims, sa, sb, sc)
+    if route == "generic":
+        # a contracted mode of extent 0 sums nothing: C is zeros
+        zero_k = any(dims[m] == 0 for m in a_modes if m in b_modes and m not in c_modes)
+        route, plan = _fb_plan(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc,
+                               zero_k)
     return route, plan and {**plan, "k_modes": inner[3]}
 
 
@@ -454,21 +659,40 @@ def _tc_desc(plan) -> bytes:
         plan["n_split"])
 
 
+def _fb_desc(plan) -> bytes:
+    pad = [(1, 0, 0, 0)] * (MAX_MODES - len(plan["grid"]) - len(plan["outer"]))
+    extra = plan["grid"] + [(e, x, w, 0) for e, x, w in plan["outer"]] + pad
+    return _FB_DESC.pack(
+        plan["M"], plan["N"], plan["K"], plan["xm"], plan["xk"], plan["wn"], plan["wk"],
+        plan["cm"], plan["cn"], *(e[0] for e in extra), *(e[1] for e in extra),
+        *(e[2] for e in extra), *(e[3] for e in extra), plan["G"], plan["steps"], plan["spc"],
+        len(plan["grid"]), len(plan["grid"]) + len(plan["outer"]), plan["n_split"],
+        plan["flags"])
+
+
 def route_info(K: int = 512, rp: int = 12) -> dict:
     """Registers and spilled (local) bytes per thread, and shared bytes
-    per block, of the kernels of the stream, splitk, wgmma and batched
-    routes: the float32-output stream and splitk kernels (the stream read
-    kernels at depth ``K``, the read kinds at padded width ``rp``), and
-    the bfloat16-output kernel of the wgmma and batched routes at each
-    tile height and operand layout, with its split reduction.  Needs the
-    card (it loads the library)."""
+    per block, of the kernels of the stream, splitk, wgmma, batched and
+    fbatched routes: the float32-output stream and splitk kernels (the
+    stream read kernels at depth ``K``, the read kinds at padded width
+    ``rp``), the bfloat16-output kernel of the wgmma and batched routes at
+    each tile height and operand layout, with its split reduction, and the
+    float32-output fbatched kernel at each tile and slab layout (at its
+    largest shared memory), with its split reduction.  Needs the card
+    (it loads the library)."""
     lib = _library()
     kinds = {"stream read, m stride-1": 0, "stream read, k stride-1": 1,
              "stream write": 2, "splitk": 3, "splitk reduce": 4,
              **{f"wgmma {tm} rows, X {x}-major, W {w}-major": first + 2 * i + j
                 for tm, first in ((WGMMA_TM, 5), (WGMMA_TM_WIDE, 10))
                 for i, x in enumerate("KM") for j, w in enumerate("NK")},
-             "wgmma split reduce": 9}
+             "wgmma split reduce": 9,
+             **{f"fbatched {tm}x{tn}, X {x}-major, W {w}-major": first + 2 * i + j
+                for tm, tn, first in ((FBATCHED_TM, FBATCHED_TN, 14),
+                                      (FBATCHED_TM, FBATCHED_TN_NARROW, 18),
+                                      (FBATCHED_TM_SMALL, FBATCHED_TN_NARROW, 23))
+                for i, x in enumerate("mk") for j, w in enumerate("nk")},
+             "fbatched split reduce": 22}
     info = {}
     for name, kind in kinds.items():
         out = (ctypes.c_int * 3)()
@@ -575,6 +799,9 @@ def native_gemm(A, B, *, a_modes: str, b_modes: str, c_modes: str,
     elif route in ("wgmma", "batched"):
         desc = _tc_desc(plan)
         X, Y = (A, B) if plan["x_is_a"] else (B, A)
+    elif route == "fbatched":
+        desc = _fb_desc(plan)
+        X, Y = (A, B) if plan["x_is_a"] else (B, A)
     else:
         desc = _read_desc(plan) if plan["kind"] == "read" else _NW_DESC.pack(
             *(plan[f] for f in ("M", "P", "K", "xm", "xk", "wp", "wk", "cm")))
@@ -597,10 +824,11 @@ def native_gemm(A, B, *, a_modes: str, b_modes: str, c_modes: str,
         if route == "generic":
             rc = lib.ng_launch(X.data_ptr(), Y.data_ptr(), out.data_ptr(), desc,
                                _TYPE_CODES[X.dtype], _TYPE_CODES[Y.dtype], tc, stream)
-        elif route in ("splitk", "wgmma", "batched"):
+        elif route in ("splitk", "wgmma", "batched", "fbatched"):
             ws = (torch.empty(plan["workspace"], dtype=torch.float32, device=A.device)
                   if plan["workspace"] else None)
-            launch = lib.nk_launch if route == "splitk" else lib.nm_launch
+            launch = {"splitk": lib.nk_launch, "fbatched": lib.fb_launch}.get(route,
+                                                                              lib.nm_launch)
             rc = launch(X.data_ptr(), Y.data_ptr(), out.data_ptr(),
                         None if ws is None else ws.data_ptr(), desc, tc, stream)
         elif plan["kind"] == "read":

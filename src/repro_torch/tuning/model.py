@@ -110,12 +110,14 @@ _KIND_ORDER = (
 )
 
 #: the ``native_gemm`` routes a kernel candidate's features flag, one
-#: indicator each; the generic route is the all-zero baseline, and the
+#: indicator each; the generic route is the all-zero baseline, the
 #: batched route sets the wgmma indicator (both are the bf16 tensor-core
-#: routes), so the kernel features stay 4 wide, the JAX package's 4 tile
-#: log2s
+#: routes) and the fbatched route the splitk one (both are f32 FMA routes
+#: whose contraction a fixed-order split spreads over the card), so the
+#: kernel features stay 4 wide, the JAX package's 4 tile log2s
 _ROUTE_FLAGS = ("stream", "splitk", "wgmma")
-assert set(ROUTES) == {*_ROUTE_FLAGS, "batched", "generic"}
+_FLAG_OF = {"batched": "wgmma", "fbatched": "splitk"}
+assert set(ROUTES) == {*_ROUTE_FLAGS, *_FLAG_OF, "generic"}
 
 #: feature vector layout (kept in one place so train and predict can
 #: never skew): 8 roofline/structure + kind one-hot + 3 plan flags +
@@ -165,7 +167,8 @@ def featurize(cs, dims: dict, dtype, candidate, *, transposes=None) -> np.ndarra
       role assignment (0 where the plan has no such role);
     * what the candidate runs: for ``kernel`` candidates an indicator
       of each ``native_gemm`` route but ``generic`` (all zero there;
-      ``batched`` sets the ``wgmma`` indicator) and
+      ``batched`` sets the ``wgmma`` indicator, ``fbatched`` the
+      ``splitk`` one) and
       log2 of the walk depth (:func:`kernel_route`); zeros for ``torch``
       candidates;
     * padding waste, always 0 (the kernel masks ragged edges; the column
@@ -212,7 +215,7 @@ def featurize(cs, dims: dict, dtype, candidate, *, transposes=None) -> np.ndarra
         feats.append(math.log2(d) if d else 0.0)
     if candidate.backend == "kernel" and plan is not None:
         route, walk = kernel_route(cs, dims, dtype, candidate)
-        flag = "wgmma" if route == "batched" else route
+        flag = _FLAG_OF.get(route, route)
         feats.extend(1.0 if flag == r else 0.0 for r in _ROUTE_FLAGS)
         feats.append(math.log2(walk))
     else:

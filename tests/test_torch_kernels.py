@@ -214,9 +214,9 @@ def test_cpu_tensor_takes_the_plain_version():
 
 @pytest.mark.gpu
 def test_kernel_matches_plain_version_on_the_card():
-    """Every Table II case (the generic route), then a case of each other
-    route at ragged extents, each launching the route ``native_route``
-    gives."""
+    """Every Table II case (the fbatched route), then a case of each other
+    float32 route at ragged extents, each launching the route
+    ``native_route`` gives."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
     dims = {"m": 383, "n": 257, "p": 47, "k": 321}
@@ -224,7 +224,7 @@ def test_kernel_matches_plain_version_on_the_card():
     for label in sorted(CASES):
         rm = CASES[label].row_major()
         An, Bn = _operands(np.random.default_rng(4), rm, dims)
-        cases.append((rm, torch.from_numpy(An).cuda(), torch.from_numpy(Bn).cuda(), "generic"))
+        cases.append((rm, torch.from_numpy(An).cuda(), torch.from_numpy(Bn).cuda(), "fbatched"))
     rng = np.random.default_rng(5)
     rows = STREAM_MIN_ROWS + 36
     for spec, sa, sb, route in (("mn,mi->ni", (77, rows), (77, 10), "stream"),
@@ -238,7 +238,7 @@ def test_kernel_matches_plain_version_on_the_card():
         cs = parse_spec(spec)
         modes = dict(a_modes=cs.a_modes, b_modes=cs.b_modes, c_modes=cs.c_modes)
         before = native_gemm.launches_by_route[route]
-        if route == "generic":
+        if route == "fbatched":
             got = contract(spec, A, B, strategy="native")
         else:
             assert native_route(A, B, **modes) == route

@@ -1,7 +1,7 @@
 """Route choice and launch plans of the port's native contraction kernel.
 
-``native_route`` picks ``stream``, ``splitk``, ``wgmma``, ``batched`` or
-``generic`` from dtypes, extents and strides alone, after fusing the
+``native_route`` picks ``stream``, ``splitk``, ``wgmma``, ``batched``,
+``fbatched`` or ``generic`` from dtypes, extents and strides alone, after fusing the
 contracted modes that are one mode in both operands, so it is tested here on CPU and
 meta tensors: the ten launch shapes of HOOI at 512³ with ranks 10 (meta
 tensors carry their exact shapes and strides without memory), the same
@@ -117,13 +117,14 @@ def test_small_hooi_stream_shapes_split_below_the_row_threshold():
 @pytest.mark.parametrize("label", sorted(CASES))
 def test_table2_case_is_generic(label):
     """At chip_smoke.py's ragged dims no mode is narrow: every Table II
-    case stays on the generic route, in float32 and bfloat16."""
+    case takes the fbatched route in float32 and stays on the generic
+    route in bfloat16 (no tensor map steps 47- or 383-element rows)."""
     dims = {"m": 383, "n": 257, "p": 47, "k": 321}
     modes = _modes(CASES[label].row_major())
-    for dt in (torch.float32, torch.bfloat16):
+    for dt, route in ((torch.float32, "fbatched"), (torch.bfloat16, "generic")):
         A = torch.empty([dims[m] for m in modes["a_modes"]], device="meta", dtype=dt)
         B = torch.empty([dims[m] for m in modes["b_modes"]], device="meta", dtype=dt)
-        assert native_route(A, B, **modes) == "generic"
+        assert native_route(A, B, **modes) == route
 
 
 @pytest.mark.parametrize("spec,shapes,why", [
@@ -136,33 +137,37 @@ def test_table2_case_is_generic(label):
     ("am,an->mn", ((1, 50), (1, 60)), "outer product (extent-1 contraction)"),
 ])
 def test_other_layouts_are_generic(spec, shapes, why):
+    """Float32 layouts that neither stream nor splitk take go to fbatched;
+    the bf16 one, whose factor's rows no tensor map can step, stays
+    generic."""
     A, B = (torch.zeros(s) for s in shapes)
+    route = "fbatched"
     if why == "bf16":
-        A, B = A.bfloat16(), B.bfloat16()
-    assert native_route(A, B, **_modes(spec)) == "generic", why
+        A, B, route = A.bfloat16(), B.bfloat16(), "generic"
+    assert native_route(A, B, **_modes(spec)) == route, why
 
 
 def test_stream_needs_a_tensor_map():
     """A big read-kind operand with neither mode stride-1, or a row stride
-    no multiple of 16 bytes, cannot be read by TMA: generic."""
+    no multiple of 16 bytes, cannot be read by TMA: fbatched."""
     f = torch.zeros(32, 8)
     kw = dict(a_modes="mk", b_modes="ki", c_modes="mi")
     # rows 34 floats apart (136 bytes) against 36 (144 bytes)
-    assert native_route(torch.zeros(STREAM_MIN_ROWS, 34)[:, :32], f, **kw) == "generic"
+    assert native_route(torch.zeros(STREAM_MIN_ROWS, 34)[:, :32], f, **kw) == "fbatched"
     assert native_route(torch.zeros(STREAM_MIN_ROWS, 36)[:, :32], f, **kw) == "stream"
     # every other column: no mode stride-1
-    assert native_route(torch.zeros(STREAM_MIN_ROWS, 64)[:, ::2], f, **kw) == "generic"
+    assert native_route(torch.zeros(STREAM_MIN_ROWS, 64)[:, ::2], f, **kw) == "fbatched"
     # a start 4 bytes past a 16-byte boundary
     assert native_route(torch.zeros(STREAM_MIN_ROWS * 36 + 1)[1:].view(-1, 36)[:, :32], f,
-                        **kw) == "generic"
+                        **kw) == "fbatched"
 
 
 def test_stream_keeps_w_within_its_shared_memory():
     """W sits beside the 192 KB ring: k padded to 32 times r padded to 4,
     at most 32 KB.  Depth 512 fits every width up to 16, depth 544 at
-    width 16 does not: generic."""
-    for k, r, route in ((512, 16, "stream"), (544, 16, "generic"), (2048, 4, "stream"),
-                        (2049, 4, "generic")):
+    width 16 does not: fbatched."""
+    for k, r, route in ((512, 16, "stream"), (544, 16, "fbatched"), (2048, 4, "stream"),
+                        (2049, 4, "fbatched")):
         A = _meta(k, STREAM_MIN_ROWS)
         assert native_route(A, _meta(k, r), a_modes="mn", b_modes="mi",
                             c_modes="ni") == route, (k, r)
@@ -220,9 +225,9 @@ def _flat(x):
 
 def _run_plan(plan, A, B, c_shape):
     """Evaluate a plan by gathering through its strides alone, as the
-    kernel addresses memory (rows decoded innermost first; the wgmma and
-    batched plans through ``plan_emulation``)."""
-    if plan["kind"] in ("wgmma", "batched"):
+    kernel addresses memory (rows decoded innermost first; the wgmma,
+    batched and fbatched plans through ``plan_emulation``)."""
+    if plan["kind"] in ("wgmma", "batched", "fbatched"):
         return emulate(plan, A, B, c_shape)
     X, W = (A, B) if plan["x_is_a"] else (B, A)
     xf, wf = _flat(X).double(), _flat(W).double()

@@ -361,14 +361,18 @@ def test_kernel_features_carry_the_route_and_walk():
 def test_kernel_features_flag_each_route_but_generic():
     """The kernel features are an indicator per ``native_gemm`` route
     (``stream``, ``splitk``, ``wgmma``, at x[19:22]) with ``generic`` the
-    all-zero baseline and ``batched`` flagged as ``wgmma`` (both the bf16
-    tensor-core routes), and log2 of the walk at x[22]: four features,
-    the JAX package's four tile log2s, so ``N_FEATURES`` stays its 25."""
+    all-zero baseline, ``batched`` flagged as ``wgmma`` (both the bf16
+    tensor-core routes) and ``fbatched`` as ``splitk`` (both f32 FMA
+    routes with a fixed-order split), and log2 of the walk at x[22]: four
+    features, the JAX package's four tile log2s, so ``N_FEATURES`` stays
+    its 25."""
     assert model.N_FEATURES == jmodel.N_FEATURES == 25
     cases = [("mk,kn->mn", {"m": 4, "k": 64, "n": 128}, torch.bfloat16, "wgmma", 2),
              ("xce,xef->xcf", {"x": 8, "c": 64, "e": 64, "f": 128}, torch.bfloat16,
               "batched", 2),
-             ("mk,kn->mn", {"m": 40, "k": 64, "n": 128}, torch.float32, "generic", None),
+             ("mk,kn->mn", {"m": 40, "k": 64, "n": 128}, torch.float32, "fbatched", 1),
+             # bf16 rows 60 elements (120 bytes) apart: no tensor map
+             ("mk,kn->mn", {"m": 40, "k": 60, "n": 128}, torch.bfloat16, "generic", None),
              ("mnp,pk->mnk", {"m": 512, "n": 512, "p": 512, "k": 10}, torch.float32,
               "stream", 0),
              ("kn,mkp->pnm", DIMS, torch.float32, "splitk", 1)]
