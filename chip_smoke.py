@@ -14,13 +14,15 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    grouped for each type) and of the ``stream`` and ``splitk`` kernels of
    ``native_gemm``, the one kernel of its ``wgmma`` and ``batched``
    routes (at each tile height and operand layout, and its split
-   reduction; it may not spill) and the kernel of its ``fbatched`` route
+   reduction; it may not spill), the kernel of its ``fbatched`` route
    (at each tile width and slab layout, and its split reduction; it may
-   not spill); no fma kernel may spill, and each must have the
+   not spill) and the gathering ``nm_gather_kernel`` of its ``gathered``
+   route (at each tile height and stage layout; it may not spill); no fma
+   kernel may spill, and each must have the
    shared memory its plan (``fma_tiles``, ``KERNEL_TILES``) gives.
 3. Kernel vs plain version on the card: the 36 Table II cases (native and
    batched strategies, f32 and bf16, ragged dims; every f32 launch on
-   ``fbatched``), the 8 exceptional cases
+   ``fbatched``, every bf16 one on ``gathered``), the 8 exceptional cases
    through ``ext_gemm``, the 100-spec layout-fuzz stream (integer-valued,
    bit-identical), the native kernel's gradients and a small HOOI, every
    ``native_gemm`` launch in them held to the route ``native_route``
@@ -29,19 +31,22 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    tile sizes, bf16 output, integer-valued bit-identical; for ``wgmma``
    bf16 weight streaming at rows 1 (a stride-0 decode row), 2, 4, 63, 64,
    65 and 200, depths 6144, 1000 and 328, 1032 columns, each operand
-   layout, bf16 and f32 output; and a bf16 case whose rows are no
-   multiple of 16 bytes apart, which must stay ``generic``; weight
+   layout, bf16 and f32 output; and bf16 cases whose rows are no
+   multiple of 16 bytes apart, which take ``gathered``; weight
    gradients whose contracted modes ``b`` and ``s`` fuse, on ``wgmma``
    unsplit at 40 to 5000 rows, a K-major fused product split, and a
    float32 pair of fusing modes on ``splitk``; ``batched`` attention
    products with up to 3 grid modes, an M-major X, an outer contracted
    mode (``r`` beside ``s`` in a GQA dK and dV), a decode row and a
-   1024-deep P.V, expert products with 341 rows and depth,
-   GShard's, and experts whose rows are 500 bytes apart, which must stay
-   ``generic``; ``fbatched`` float32 products: Table II layouts at ragged
-   extents, a split Gram, a stride-0 view, a start 4 bytes off, every
-   other column, batch modes, a big read kind no tensor map reads, bf16
-   output), each launched twice and bit-identical; ``grouped_gemm`` on
+   1024-deep P.V, expert products with 341 rows and depth, GShard's;
+   ``gathered`` bf16 products no tensor map reads (experts whose rows are
+   500 bytes apart, four grid modes and an outer contracted mode, a start
+   2 bytes off); ``fbatched`` float32 products (Table II layouts at
+   ragged extents, a split Gram, a stride-0 view, a start 4 bytes off,
+   every other column, batch modes, a big read kind no tensor map reads,
+   bf16 output), mixed bf16 x f32 products (either operand bf16, a split
+   chunked walk) and degenerate bf16 ones (an outer product, no own C
+   mode)), each launched twice and bit-identical; ``grouped_gemm`` on
    the grouped cases of ``tests/test_runtime.py``, mixed bf16 x f32
    operands and the fig14 ragged set, then every ragged case again in
    bf16 under the default tiles
@@ -247,9 +252,9 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    output bit-identical to the block called on each microbatch with the
    same launches, and ``pipeline_loss``'s loss and gradients bit-identical
    to the sequential run's, with the same launches; each launch of both on
-   ``native_route``'s route, none on ``generic`` (the GQA dK and dV, whose
-   ``r`` does not fuse with ``s``, take ``batched`` with ``r`` as an outer
-   contracted mode).  The seconds of each part are printed.
+   ``native_route``'s route, none ``gathered`` (every bf16 product is read
+   by tensor maps; the GQA dK and dV, whose ``r`` does not fuse with
+   ``s``, take ``batched`` with ``r`` as an outer contracted mode).  The seconds of each part are printed.
 17. The dry run, after phase 16's world is destroyed.  (a) ``python -m
    repro_torch.launch.dryrun`` in a subprocess for each of minicpm-2b x
    ``train_4k`` on 16x16 and 2x16x16 and internlm2-20b x ``decode_32k``
@@ -282,6 +287,17 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    ``torch.einsum`` (TF32 off) and the plain version, against the bound.
    Phase 14 re-times its 55 launch shapes (the three 512³ Grams and the
    program's ``bik,kn->bin`` among them, on ``fbatched``).
+20. The products the retired ``generic`` route took, right after phase
+   19: the 36 bf16 Table II cases at ragged extents (``gathered``) and the
+   36 with A bf16 and B float32 at n = 256 (``fbatched``, widening) as a
+   counted run (72 launches, 36 on each), then both on integer-valued
+   operands bit-identical, then each case of three sets (bf16 at ragged
+   extents and at n = 255, mixed at n = 256): route, error against
+   ``native_gemm_ref``, two launches bit-identical, queued ms of the
+   kernel, one ``torch.einsum`` (the mixed set: of A cast to float32, the
+   cast included) and the plain version, against the bound; and a
+   gathered product's rows in launches of 1, 64 and 1000 rows, bit for
+   bit.
 18. Tensor-core products, right after phase 16 (before 17): every launch
    shape of the counted runs of phases 11, 13, 15 and 16 (16 (c) too)
    that takes the ``batched`` route or fuses its contracted modes (noted by
@@ -290,7 +306,7 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    bit-identical, timed queued against its bound, the plain version and
    one ``torch.einsum``; sums per serve, step or layer of each path.
 
-Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13, 14, 19, 15's
+Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13, 14, 19, 20, 15's
 training and serving, 16's layer, training and pipeline) is driven with every
 kernel's launch count set to 0 just before it and read just after;
 launches made to compare, time or tune a kernel do not count.  Phases 5 and 10 also read ``native_gemm``'s
@@ -325,7 +341,10 @@ counted launches on it, and its times per train step from phase 18 (every
 path's under ``tc_shapes``), then ``native_gemm.f32``, the fbatched route
 on its own line: phase 19's counted launches and their summed times
 (every row under ``table2``, phase 14's fbatched shapes and Grams under
-``sharded_fbatched``),
+``sharded_fbatched``), then ``native_gemm.gathered`` and
+``native_gemm.mixed``, the gathered route and fbatched's widening kernel
+each on its own line: phase 20's counted launches on it and its set's
+summed times (every set's sums under ``former_generic``),
 the card's name and power limit as ``nvidia-smi`` prints them, and the
 ``{"ok": true, ...}`` line.  Any failed check raises and exits non-zero without that line.
 """
@@ -492,8 +511,8 @@ def layout_key(A, B, kw) -> tuple:
     """A launch's modes, operand shapes, strides, storage offsets and
     types, and options: what :func:`operands_like` rebuilds it from."""
     layout = tuple((tuple(t.shape), t.stride(), t.storage_offset(), t.dtype) for t in (A, B))
-    return (kw["a_modes"], kw["b_modes"], kw["c_modes"], *layout, kw.get("out_dtype"),
-            kw.get("u"), kw.get("walk"), kw.get("walk_mode")), (layout, dict(kw))
+    return (kw["a_modes"], kw["b_modes"], kw["c_modes"], *layout,
+            kw.get("out_dtype")), (layout, dict(kw))
 
 
 class native_routes_held:
@@ -583,14 +602,16 @@ def check_table2(dev) -> dict:
                     n_checks += 1
             total = tallies.setdefault(dt, Counter())
             total.update(tally)
-            # every float32 launch is a product of two float32 operands
-            check(dt != torch.float32 or set(+Counter(tally)) == {"fbatched"},
-                  f"Table II {label} {rm} f32: native_gemm routes {routes_text(tally)}, "
-                  f"not fbatched alone")
+            # every float32 launch is a product of two float32 operands; no
+            # tensor map steps a bf16 row of RAGGED_DIMS
+            alone = "fbatched" if dt == torch.float32 else "gathered"
+            check(set(+Counter(tally)) == {alone},
+                  f"Table II {label} {rm} {dt}: native_gemm routes {routes_text(tally)}, "
+                  f"not {alone} alone")
     log(f"table2: {n_checks} checks (36 cases x native/batched + 8 ext_gemm, f32 and bf16) "
         f"worst error f32 {worst[torch.float32]:.3g} bf16 {worst[torch.bfloat16]:.3g}; "
         f"native_gemm routes: f32 {routes_text(tallies[torch.float32])} (fbatched alone), "
-        f"bf16 {routes_text(tallies[torch.bfloat16])}")
+        f"bf16 {routes_text(tallies[torch.bfloat16])} (gathered alone)")
     return worst
 
 
@@ -728,8 +749,11 @@ def native_route_cases(dev):
               ("be,ef->bf", bints(2, 6144), bints(6144, n), None, "wgmma", True),
               ("be,fe->bf", bints(200, 6144), bints(n, 6144), torch.float32, "wgmma", True),
               ("eb,ef->bf", bints(328, 64), bints(328, n), None, "wgmma", True),
-              # bf16 that TMA cannot read: W's rows 1030 bytes apart
-              ("be,ef->bf", bf(4, 6144), bf(6144, 515)[:, :512], None, "generic", False)]
+              # bf16 that TMA cannot read: W's rows 1030 bytes apart, gathered
+              ("be,ef->bf", bf(4, 6144), bf(6144, 515)[:, :512], None, "gathered", False),
+              ("be,ef->bf", bints(4, 6144), bints(6144, 515)[:, :512], torch.float32,
+               "gathered", True),
+              ("be,ef->bf", bf(1000, 6144), bf(6144, 515)[:, :512], None, "gathered", False)]
 
     # fused contracted modes (b, s) on wgmma: weight gradients, X M-major
     # (never split) at 136 to 5000 rows (64- and 128-row tiles); and X
@@ -777,8 +801,30 @@ def native_route_cases(dev):
                "batched", True),
               ("bgrst,btgd->bsgrd", bints(1, 2, 6, 1, 1024), bints(1, 1024, 2, 128),
                torch.float32, "batched", True),
-              # experts whose rows are 500 bytes apart: no tensor map
-              ("xce,xef->xcf", bf(3, 341, 250), bf(3, 250, 200), None, "generic", False)]
+              # experts whose rows are 500 bytes apart: no tensor map; gathered
+              ("xce,xef->xcf", bf(3, 341, 250), bf(3, 250, 200), None, "gathered", False),
+              ("xce,xef->xcf", bints(3, 341, 250), bints(3, 250, 200), torch.float32,
+               "gathered", True)]
+    # gathered: four grid modes and an outer contracted mode (q beside k,
+    # in the other order in B), past the three a tensor map holds; a start
+    # 2 bytes off; a 2-mode product with rows 66 elements apart
+    cases += [("abcdmqk,dcbakqn->abcdmn", bf(2, 2, 2, 2, 70, 3, 66), bf(2, 2, 2, 2, 66, 3, 150),
+               None, "gathered", False),
+              ("abcdmqk,dcbakqn->abcdmn", bints(2, 2, 2, 2, 70, 3, 66),
+               bints(2, 2, 2, 2, 66, 3, 150), torch.float32, "gathered", True),
+              ("mk,kn->mn", bf(200 * 64 + 1)[1:].view(200, 64), bf(64, 152), None, "gathered",
+               False),
+              ("mk,kn->mn", bints(200, 66), bints(66, 152), torch.float32, "gathered", True)]
+    # fbatched with a bf16 operand, widened: mixed bf16 x f32 (either
+    # operand bf16; 16-byte and element loads; a split, chunked walk), and
+    # the degenerate bf16 products (an outer product, no own C mode)
+    cases += [("mk,kn->mn", bf(200, 66), rn(66, 152), None, "fbatched", False),
+              ("km,pkn->pnm", bints(321, 383), ints(47, 321, 257), None, "fbatched", True),
+              ("km,pkn->pnm", ints(321, 383), bints(47, 321, 257), None, "fbatched", True),
+              ("mk,kn->mn", bints(200, 64), ints(64, 152), None, "fbatched", True),
+              ("mk,kn->mn", bf(300, 9000), rn(9000, 20), None, "fbatched", False),
+              ("m,n->mn", bints(300), bints(200), torch.float32, "fbatched", True),
+              ("bk,bk->b", bf(40, 300), bf(40, 300), torch.float32, "fbatched", False)]
     return cases
 
 
@@ -813,8 +859,9 @@ def check_native_routes(dev) -> None:
     log(f"native_gemm routes: {len(cases)} forced cases ({routes_text(counts)}; narrow widths "
         f"1/10/16, ragged rows and depths, bf16 weight streaming at 1-200 rows in every "
         f"operand layout, fused contracted modes, batched attention and expert products "
-        f"with up to 3 grid modes, float32 Table II layouts, a split Gram and strided views "
-        f"on fbatched, bf16 and f32 output, integer-valued bit-identical), each "
+        f"with up to 3 grid modes, bf16 layouts no tensor map reads on gathered, float32 "
+        f"Table II layouts, a split Gram and strided views, mixed bf16 x f32 and degenerate "
+        f"bf16 products on fbatched, bf16 and f32 output, integer-valued bit-identical), each "
         f"launched twice on its route, bit-identical, matching the plain version "
         f"(max abs error {worst:.3g})")
 
@@ -905,15 +952,18 @@ def native_kernel_info() -> None:
     read kinds at rank 10, padded to 12; the wgmma and batched routes'
     kernel with bf16 output at each tile height and operand layout, and
     its split reduction; the fbatched kernel with float32 output at each
-    tile width and slab layout, and its split reduction).  The wgmma and
-    fbatched kernels must not spill: their 64 accumulators a thread stay
-    in registers."""
+    tile width and slab layout, and its split reduction, and with a bf16
+    operand ("widening"); the gathered kernel with bf16 output at each
+    tile height and stage layout).  The wgmma, fbatched and widening
+    kernels must not spill: their 64 accumulators a thread stay in
+    registers.  The 128-row gathered kernels, 384 threads at 168
+    registers, may spill a few bytes; they are printed."""
     from repro_torch.kernels.sb_gemm import route_info
 
     for name, info in route_info(K=512, rp=12).items():
         log(f"sb_gemm.cu {name}: {info['registers']} registers/thread, {info['spill_bytes']} "
             f"bytes spilled (local)/thread, {info['smem_bytes']} bytes shared memory/block")
-        check(not name.startswith(("wgmma", "fbatched")) or info["spill_bytes"] == 0,
+        check(not name.startswith(("wgmma", "fbatched", "widening")) or info["spill_bytes"] == 0,
               f"sb_gemm.cu {name} spills {info['spill_bytes']} bytes a thread")
 
 
@@ -1242,7 +1292,7 @@ def recording_launches():
 
     def recording(A, B, **kw):
         key = (kw["a_modes"], kw["b_modes"], kw["c_modes"], tuple(A.shape), A.stride(),
-               tuple(B.shape), B.stride(), kw.get("u"), kw.get("walk"), kw.get("walk_mode"))
+               tuple(B.shape), B.stride())
         n, _ = launches.get(key, (0, None))
         launches[key] = (n + 1, (A, B, kw))
         return real(A, B, **kw)
@@ -2536,7 +2586,7 @@ def spec_on(modes: str, shard: dict):
 
 
 #: name prefixes of ``native_gemm``'s ``__global__`` functions (csrc/sb_gemm.cu)
-NATIVE_KERNELS = ("ng_", "ns_", "nw_", "nk_", "nm_", "fb_")
+NATIVE_KERNELS = ("ns_", "nw_", "nk_", "nm_", "fb_")
 
 
 def device_kernels(fn) -> Counter | None:
@@ -2877,6 +2927,164 @@ def f32_products(dev, seed: int, counters) -> dict:
                 bound_by=big["bound_by"], ms=big["ms"], plain_ms=big["plain_ms"],
                 library_ms=big["library_ms"], bound_ms=big["bound_ms"],
                 conventional_ms=big["conventional_ms"], sums=sums, rows=rows)
+
+
+# ------------------------------------------------------------------ phase 20
+#: phase 20's extents besides RAGGED_DIMS: the bf16 Table II cases at n =
+#: GATHER_N (every stride odd: no tensor map reads any case) and the mixed
+#: set (A bf16, B float32) at n = MIXED_N
+GATHER_N, MIXED_N = 255, 256
+FORMER_REPS = 10
+#: the rows of the launches in which a gathered product's rows must keep
+#: their bits
+GATHER_ROWS = (1, 64, 1000)
+
+
+def former_generic(dev, seed: int, counters) -> dict:
+    """Phase 20: the products the retired ``generic`` route took, on their
+    new routes.  (a) The 36 bf16 Table II cases at ``RAGGED_DIMS`` and the
+    36 with A bf16 and B float32 at n = ``MIXED_N`` through
+    ``contract(strategy="native")``, with every kernel's count set to 0
+    just before and read just after: 72 ``native_gemm`` launches, 36
+    ``gathered`` and 36 ``fbatched``, each within ``TOL`` of
+    ``native_gemm_ref``.  (b) Both sets again on integer-valued operands:
+    bit-identical to ``native_gemm_ref``.  (c) Each case of three sets,
+    bf16 at ``RAGGED_DIMS`` and at n = ``GATHER_N`` and mixed at n =
+    ``MIXED_N``: its route, two launches bit-identical, its error within
+    ``TOL``, and queued ms of the kernel, of one ``torch.einsum`` on the
+    same operands (the mixed set: ``torch.einsum`` of A cast to float32
+    and B, the cast included, since no one call takes mixed operands) and
+    of the plain version, against the bound (bf16 peaks for the bf16 sets;
+    the FMA peak for the mixed set, whose products are float32).  (d) A
+    gathered product's rows in launches of ``GATHER_ROWS`` rows, bit for
+    bit.  Returns the counted run's launches and each set's sums and rows."""
+    from repro_torch.core.contract import contract
+    from repro_torch.core.table2 import CASES
+    from repro_torch.kernels.sb_gemm import native_gemm, native_gemm_ref, native_route
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    labels = sorted(CASES)
+    bf, f32 = torch.bfloat16, torch.float32
+    sets = {"bf16 ragged": (RAGGED_DIMS, bf, bf, "gathered"),
+            f"bf16 n={GATHER_N}": (dict.fromkeys("mnpk", GATHER_N), bf, bf, "gathered"),
+            f"mixed n={MIXED_N}": (dict.fromkeys("mnpk", MIXED_N), bf, f32, "fbatched")}
+    counted_sets = ("bf16 ragged", f"mixed n={MIXED_N}")
+
+    def operands(spec, dims, a_dt, b_dt, ints=False):
+        a, b, _ = modes_of(spec)
+
+        def make(modes, dt):
+            shape = [dims[m] for m in modes]
+            t = (torch.randint(-3, 4, shape, device=dev, generator=gen).float() if ints
+                 else torch.randn(shape, device=dev, generator=gen))
+            return t.to(dt)
+
+        return make(a, a_dt), make(b, b_dt)
+
+    # (a) the counted run, then (b) exactness on integer-valued operands
+    for ints in (False, True):
+        cases = [(name, l, CASES[l].row_major(),
+                  *operands(CASES[l].row_major(), *sets[name][:3], ints=ints))
+                 for name in counted_sets for l in labels]
+        if not ints:
+            for c in counters:
+                c.launches = 0
+            native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
+        with native_routes_held() as held:
+            outs = [contract(spec, A, B, strategy="native", backend="kernel")
+                    for _, _, spec, A, B in cases]
+        torch.cuda.synchronize()
+        if not ints:
+            launches = {c.__name__: c.launches for c in counters}
+            routes = dict(native_gemm.launches_by_route)
+            check(launches["native_gemm"] == 2 * len(labels) and routes["gathered"] == len(labels)
+                  and routes["fbatched"] == len(labels)
+                  and launches["grouped_gemm"] == launches["flash_attention"] == 0,
+                  f"former generic: launches {launches}, routes {routes}, held {held}")
+        for (name, label, spec, A, B), got in zip(cases, outs):
+            a, b, c = modes_of(spec)
+            want = native_gemm_ref(A, B, a_modes=a, b_modes=b, c_modes=c)
+            if ints:
+                check(torch.equal(got, want),
+                      f"former generic {name} {label} {spec}: integer-valued case not "
+                      f"bit-identical")
+            else:
+                err = rel_err(got, want)
+                check(err <= TOL[got.dtype], f"former generic {name} {label} {spec}: error {err}")
+        del cases, outs
+    log(f"former generic: counted run of {2 * len(labels)} launches "
+        f"({routes_text(routes)}), each within TOL of native_gemm_ref; the same on "
+        f"integer-valued operands bit-identical")
+
+    # (c) each case of each set, timed
+    rows = []
+    for name, (dims, a_dt, b_dt, want_route) in sets.items():
+        mixed = a_dt != b_dt
+        for label in labels:
+            spec = CASES[label].row_major()
+            A, B = operands(spec, dims, a_dt, b_dt)
+            a, b, c = modes_of(spec)
+            kw = dict(a_modes=a, b_modes=b, c_modes=c)
+            route = native_route(A, B, **kw)
+            check(route == want_route, f"former generic {name} {label} {spec}: {route}, not "
+                                       f"{want_route}")
+            before = dict(native_gemm.launches_by_route)
+            got, again = native_gemm(A, B, **kw), native_gemm(A, B, **kw)
+            torch.cuda.synchronize()
+            ran = {r: n - before[r] for r, n in native_gemm.launches_by_route.items()}
+            check(ran == {r: 2 * (r == route) for r in ran},
+                  f"former generic {name} {label}: launched {ran}")
+            check(torch.equal(got, again), f"former generic {name} {label}: two launches differ")
+            want = native_gemm_ref(A, B, **kw)
+            err = rel_err(got, want)
+            check(err <= TOL[got.dtype], f"former generic {name} {label} {spec}: error {err}")
+            nb, fl = launch_cost(A, B, kw)
+            b_ms, by = bound(nb, fl, f32 if mixed else bf)
+            lib = ((lambda: torch.einsum(spec, A.float(), B)) if mixed  # noqa: E731
+                   else (lambda: torch.einsum(spec, A, B)))
+            r = dict(set=name, label=label, spec=spec, route=route, bytes=nb, flops=fl,
+                     bound_ms=b_ms, bound_by=by,
+                     max_abs_err=(got.float() - want.float()).abs().max().item(),
+                     ms=queued_ms(lambda: native_gemm(A, B, **kw), FORMER_REPS),
+                     library_ms=queued_ms(lib, FORMER_REPS),
+                     plain_ms=queued_ms(lambda: native_gemm_ref(A, B, **kw), FORMER_REPS))
+            log(f"former generic [{name} {label} {spec}] {route}: kernel {r['ms']:.4f} ms "
+                f"queued, {100 * b_ms / r['ms']:.1f}% of bound {b_ms:.4f} ({by}); einsum "
+                f"{r['library_ms']:.4f} ({r['ms'] / r['library_ms']:.2f}x its time); plain "
+                f"{r['plain_ms']:.4f}; error {err:.2e}, two launches bit-identical")
+            rows.append(r)
+            del A, B, got, again, want
+    sums = {}
+    for name in sets:
+        part = [r for r in rows if r["set"] == name]
+        tot = {k: sum(r[k] for r in part)
+               for k in ("ms", "library_ms", "plain_ms", "bound_ms", "bytes", "flops")}
+        tot["bound_by"] = bound(tot["bytes"], tot["flops"],
+                                f32 if name.startswith("mixed") else bf)[1]
+        tot["max_abs_err"] = max(r["max_abs_err"] for r in part)
+        slow = [r["label"] for r in part if r["ms"] > 2 * r["library_ms"]]
+        log(f"former generic {name}: 36 cases on {sorted({r['route'] for r in part})}, kernel "
+            f"{tot['ms']:.4f} ms queued in all, bound {tot['bound_ms']:.4f} "
+            f"({tot['bound_by']}), einsum {tot['library_ms']:.4f} ({tot['ms'] / tot['library_ms']:.2f}x), "
+            f"plain {tot['plain_ms']:.4f}; over twice einsum's time: {slow or 'none'}")
+        sums[name] = tot
+
+    # (d) a gathered product's rows in launches of any size: W's rows 1030
+    # bytes apart, so no tensor map reads it
+    X = torch.randn(max(GATHER_ROWS), 6144, device=dev, generator=gen).to(bf)
+    W = torch.randn(6144, 515, device=dev, generator=gen).to(bf)[:, :512]
+    kw = dict(a_modes="be", b_modes="ef", c_modes="bf")
+    full = native_gemm(X, W, **kw)
+    for m in GATHER_ROWS:
+        check(native_route(X[:m], W, **kw) == "gathered", f"former generic: {m} rows not gathered")
+        part = native_gemm(X[:m], W, **kw)
+        check(torch.equal(part, full[:m]),
+              f"former generic: rows of a {m}-row gathered launch differ from a "
+              f"{max(GATHER_ROWS)}-row one's")
+    torch.cuda.synchronize()
+    log(f"former generic: a gathered product's rows bit-identical in launches of "
+        f"{', '.join(map(str, GATHER_ROWS))} rows")
+    return dict(launches=launches["native_gemm"], launches_by_route=routes, sums=sums, rows=rows)
 
 
 # ------------------------------------------------------------------ phase 15
@@ -3739,7 +3947,8 @@ def pipeline_stage(dev, seed: int, counters) -> dict:
         y = pipeline_forward(mesh, stage_fn, stacked, x)
         torch.cuda.synchronize()
     counted = {c.__name__: c.launches for c in counters}
-    check(held["generic"] == 0, f"pipeline: bf16 products on generic: {routes_text(held)}")
+    check(held["gathered"] == 0,
+          f"pipeline: bf16 products no tensor map reads: {routes_text(held)}")
     native_gemm.launches = 0
     with torch.no_grad():
         want = sequential(x)
@@ -3765,8 +3974,8 @@ def pipeline_stage(dev, seed: int, counters) -> dict:
         loss = pipeline_loss(mesh, stage_fn, stacked, xg, target, loss_fn)
         got = torch.autograd.grad(loss, leaves + [xg])
     n_pipe = native_gemm.launches
-    check(held_loss["generic"] == 0,
-          f"pipeline_loss: bf16 products on generic: {routes_text(held_loss)}")
+    check(held_loss["gathered"] == 0,
+          f"pipeline_loss: bf16 products no tensor map reads: {routes_text(held_loss)}")
     native_gemm.launches = 0
     ref_loss = loss_fn(sequential(xg), target)
     ref = torch.autograd.grad(ref_loss, leaves + [xg])
@@ -3779,7 +3988,7 @@ def pipeline_stage(dev, seed: int, counters) -> dict:
     log(f"pipeline: output bit-identical to the block called on each microbatch, "
         f"{counted['native_gemm']} native_gemm launches in both ({routes_text(held)}); "
         f"pipeline_loss's loss and all {len(got)} gradients bit-identical to the sequential "
-        f"run's, {n_pipe} launches in both ({routes_text(held_loss)}); none on generic")
+        f"run's, {n_pipe} launches in both ({routes_text(held_loss)}); none gathered")
     for t in leaves:
         t.requires_grad_(False)
     del stacked, got, ref
@@ -4168,6 +4377,8 @@ def main() -> int:
     lap("14")
     f32 = f32_products(dev, args.seed, counters)
     lap("19")
+    former = former_generic(dev, args.seed, counters)
+    lap("20")
     serve_ref = {"outputs": serve.pop("outputs"), "launches": serve["launches"],
                  "launches_by_route": serve["launches_by_route"]}
     mesh = mesh_path(dev, args.seed, counters, serve_ref)
@@ -4219,6 +4430,18 @@ def main() -> int:
         {k: f32[k] for k in ("launches", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                              "max_abs_err")},
         table2=f32, sharded_fbatched=sharded["fbatched"]))
+    # the products the retired generic route took: the gathered route (its
+    # own nm_kernel producer) on the bf16 Table II cases at ragged extents,
+    # and fbatched's widening fb_kernel on the mixed set, each on its own line
+    # with phase 20's counted launches and its set's summed times
+    for key, name, route in (("native_gemm.gathered", "bf16 ragged", "gathered"),
+                             ("native_gemm.mixed", f"mixed n={MIXED_N}", "fbatched")):
+        tot = former["sums"][name]
+        records[key] = ("sb_gemm.cu", "sb_gemm.py:87", dict(
+            {k: tot[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                 "max_abs_err")},
+            launches=former["launches_by_route"][route],
+            former_generic={n: {k: v for k, v in t.items()} for n, t in former["sums"].items()}))
     kernels = [{"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}",
                 "replaces": f"src/repro/kernels/{tpu}",
@@ -4230,7 +4453,8 @@ def main() -> int:
                                        "sharded", "sharded_train", "sharded_serve",
                                        "mesh_cli_s", "a2a_launches", "a2a_launches_by_route",
                                        "a2a", "pipeline_launches", "pipeline", "fma",
-                                       "tc_shapes", "table2", "sharded_fbatched")
+                                       "tc_shapes", "table2", "sharded_fbatched",
+                                       "former_generic")
                      if k in rec}}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:

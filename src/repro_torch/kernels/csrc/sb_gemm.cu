@@ -6,18 +6,11 @@
 // A[a_modes] * B[b_modes], for any mode order, with an f32 accumulator and
 // the result cast to the output type on store.
 //
-// Addressing.  The wrapper (repro_torch/kernels/sb_gemm.py) describes the
-// problem as up to NG_MAX_MODES "slots", each with an extent and one
-// element stride per tensor (0 where the tensor lacks the mode, or where a
-// view broadcasts it):
-//   slot 0      u: the output tile's row mode (extent 1 if C has one mode)
-//   slot 1      v: the output tile's column mode, C's minor-most mode
-//   slots 2..   the other C modes ("rest"), decoded from the tile index;
-//               one block walks `walk` consecutive indices of slot 2
-//   then        the contracted modes, walked as one flattened K in-kernel
-//               (last contracted slot fastest)
-// Strides come straight from tensor.stride(), so transposed, sliced and
-// stride-0 views are read in place: no operand is permuted or copied.
+// Addressing.  The wrapper (repro_torch/kernels/sb_gemm.py) describes each
+// launch by the modes it walks, each with an extent and one element stride
+// per tensor (0 where the tensor lacks the mode, or where a view broadcasts
+// it).  Strides come straight from tensor.stride(), so transposed, sliced
+// and stride-0 views are read in place: no operand is permuted or copied.
 //
 // Routes.  The wrapper's native_route picks one from layout and extents
 // alone (no fallback: a route that cannot build or launch raises):
@@ -27,10 +20,6 @@
 //   splitk   (nk_kernel, nk_reduce) float32 with a narrow output and a
 //            long contraction, e.g. HOOI's contractions of the 512x512x10
 //            intermediates;
-//   fbatched (fb_kernel, fb_reduce) every other float32 product, C[g.., m,
-//            n] = sum over o.. and k of X[g.., o.., m, k] W[g.., o.., k, n]
-//            at any strides: the Table II cases at every extent, the
-//            paper's Figs. 1-8, HOOI's Gram mnp,mqp->nq, bik,kn->bin;
 //   wgmma    (nm_kernel, nm_reduce) bf16 weight streaming, C[m, n] =
 //            sum_k X[m, k] W[k, n] with both operands TMA-readable, e.g.
 //            every dense and LM-head product of a served model, and the
@@ -40,41 +29,21 @@
 //            modes or contracted modes that do not fuse, C[g.., m, n] =
 //            sum over o.. and k of X[g.., o.., m, k] W[g.., o.., k, n],
 //            e.g. the attention scores and P.V and the MoE expert products;
-//   generic  (ng_outer_kernel, ng_kernel) mixed bf16 x f32 operands and bf16
-//            layouts that no tensor map can read.
+//   gathered (nm_gather_kernel) the same consumer for every other bf16
+//            product with a contracted mode and an own C mode, its stages
+//            gathered through any strides by a producer warpgroup: bf16
+//            rows no tensor map can step, the Table II layouts in bf16;
+//   fbatched (fb_kernel, fb_reduce) every other product, C[g.., m, n] =
+//            sum over o.. and k of X[g.., o.., m, k] W[g.., o.., k, n] at
+//            any strides on the FMA units: float32 (the Table II cases at
+//            every extent, the paper's Figs. 1-8, HOOI's Gram
+//            mnp,mqp->nq, bik,kn->bin), mixed bf16 x float32, degenerate
+//            bf16 (outer products, no own C mode).
 // The wrapper fuses contracted modes that are one mode in both operands
 // (neighbours in the same order, the outer stride the inner extent times
-// the inner stride) before it picks a route.
-//
-// Generic tiling.  One block of 256 threads owns a BM x BN tile of (u, v)
-// (128 x 16 when v is at most 16 wide, else 64 x 64) and loops over K in
-// stages.  Each stage stages one "brick" per operand in shared memory,
-// over only the tile dimensions the operand carries, converted to f32;
-// loads put neighbouring threads on the operand's smallest-stride brick
-// dimension, so the big operand's reads coalesce whichever of its modes
-// is stride-1.  Two kernels share this design:
-//   ng_outer_kernel  the common GEMM shape (A varies along u, B along v,
-//                    both along one contracted mode): 2D bricks of
-//                    compile-time size, and the next stage loaded into
-//                    registers during compute;
-//   ng_kernel        every other layout (an operand that varies along both
-//                    u and v, or several contracted modes): 3D bricks sized
-//                    at launch, the flattened K decoded per element.
-// Products accumulate in f32 registers with plain FMA (no TF32), in k
-// order.  A contraction of more than NG_SUM_CHUNK = 4096 indices sums
-// each chunk of 4096 into a partial sum, added to the running total at
-// the chunk's end (CHUNKED true): one running sum over a long contraction
-// (HOOI's 512x512 Gram sums 262144 products) grows its rounding error with
-// the square root of the depth, and on an H100 put the Gram 2.2e-5 of the
-// result from cuBLAS's; chunks grow it with the square roots of 4096 and
-// of the number of chunks instead.  The fbatched route keeps these chunk
-// sums.  A shorter contraction sums exactly as one running sum would and
-// runs the variant without the second accumulator (CHUNKED false).
-// Chunks are counted from k = 0, so no result depends on the stage depth
-// or the tile (a row's bits never depend on the rows sharing its launch).
-// Ragged edges are masked on load and store.  The TPU kernel's sequential
-// grid axes and VMEM accumulator become the in-block K loop: no state
-// crosses blocks.
+// the inner stride) before it picks a route.  Every route accumulates in
+// f32 and casts on store; splits reduce in a fixed order, with no atomics,
+// so a launch gives the same bits every time.
 //
 // Bounds on an H100 (3.35 TB/s; 67 TFLOP/s of f32 FMA).  At the HOOI
 // shapes every route is far below the f32 ridge (about 5 flop per byte at
@@ -117,10 +86,8 @@
 //            an outer contracted mode never is, so nothing a launch shares
 //            with other rows, requests or slots changes a row's sums.
 //   batched  see the section "wgmma and batched" below.
+//   gathered see the section "gathered" below: bound by bytes.
 //   fbatched see the section "fbatched" below: bound by operations.
-//   generic  the remaining layouts at the tile sizes above; its loads are
-//            plain, not TMA, one element a thread, and it runs on the FMA
-//            units in f32 whatever the operand type.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,407 +95,16 @@
 
 #include "hopper.cuh"
 
-#define NG_MAX_MODES 8
-#define NG_THREADS 256
-#define NG_SMEM_BYTES 49152
-#define NG_MAX_BK 32
-// contracted indices per partial sum (see "Products accumulate" above); a
-// multiple of NG_MAX_BK, counted from k = 0
-#define NG_SUM_CHUNK 4096
+// most grid and outer contracted modes of one fbatched or gathered launch
+#define SB_MAX_MODES 8
+// contracted indices per partial sum of a float32 walk (see "Split and
+// sums" under "fbatched"), counted from k = 0
+#define SB_SUM_CHUNK 4096
 
-struct NgDesc {
-  int64_t ext[NG_MAX_MODES];
-  int64_t sa[NG_MAX_MODES];
-  int64_t sb[NG_MAX_MODES];
-  int64_t sc[NG_MAX_MODES];
-  int32_t n_rest;  // C modes besides u and v (slots 2 .. 2+n_rest-1)
-  int32_t n_k;     // contracted modes (the slots after the rest)
-  int32_t walk;    // slot-2 indices one block walks (>= 1)
-};
-
-// Per-operand brick geometry, worked out once per launch on the host.
-struct NgBrick {
-  int32_t du, dv;         // brick extent along u and v (tile size or 1)
-  int32_t su, sv, sk;     // shared-memory strides of the brick
-  int32_t order[3];       // brick dims outer -> inner for loads: 0=k 1=u 2=v
-};
-
-template <typename T> __device__ __forceinline__ float ng_to_f32(T x);
-template <> __device__ __forceinline__ float ng_to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float ng_to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T ng_from_f32(float x);
-template <> __device__ __forceinline__ float ng_from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 ng_from_f32<__nv_bfloat16>(float x) {
+template <typename T> __device__ __forceinline__ T sb_from_f32(float x);
+template <> __device__ __forceinline__ float sb_from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 sb_from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-// Offset of flattened contracted index kf under one tensor's strides.
-__device__ __forceinline__ int64_t ng_k_offset(const NgDesc& d, const int64_t* s,
-                                               int64_t kf) {
-  const int k0 = 2 + d.n_rest;
-  if (d.n_k == 1) return kf * s[k0];
-  int64_t off = 0;
-  for (int i = d.n_k - 1; i >= 0; --i) {
-    const int64_t e = d.ext[k0 + i];
-    off += (kf % e) * s[k0 + i];
-    kf /= e;
-  }
-  return off;
-}
-
-// Where tile `tile` starts: its u and v origins, the offsets of its other C
-// modes in A, B and C (the walked slot-2 index included), and how many
-// slot-2 indices it walks.
-struct NgTile {
-  int64_t u0, v0, oa, ob, oc;
-  int n_walk;
-};
-
-__device__ __forceinline__ NgTile ng_tile(const NgDesc& d, int64_t t, int BM, int BN) {
-  const int64_t nu = (d.ext[0] + BM - 1) / BM, nv = (d.ext[1] + BN - 1) / BN;
-  NgTile tl;
-  tl.v0 = (t % nv) * BN;
-  t /= nv;
-  tl.u0 = (t % nu) * BM;
-  t /= nu;
-  tl.oa = tl.ob = tl.oc = 0;
-  tl.n_walk = 1;
-  if (!d.n_rest) return tl;
-  const int64_t nw = (d.ext[2] + d.walk - 1) / d.walk;
-  const int64_t w0 = (t % nw) * d.walk;
-  t /= nw;
-  tl.n_walk = (int)(d.ext[2] - w0 < d.walk ? d.ext[2] - w0 : d.walk);
-  tl.oa = w0 * d.sa[2];
-  tl.ob = w0 * d.sb[2];
-  tl.oc = w0 * d.sc[2];
-  for (int sl = 3; sl < 2 + d.n_rest; ++sl) {
-    const int64_t idx = t % d.ext[sl];
-    t /= d.ext[sl];
-    tl.oa += idx * d.sa[sl];
-    tl.ob += idx * d.sb[sl];
-    tl.oc += idx * d.sc[sl];
-  }
-  return tl;
-}
-
-// Stage one operand's brick for K range [kbase, kbase + bk) into smem.
-template <typename T>
-__device__ __forceinline__ void ng_stage(float* smem, const T* __restrict__ X,
-                                         const NgDesc& d, const int64_t* s,
-                                         const NgBrick& br, int bk, int64_t base,
-                                         int64_t u0, int64_t v0, int64_t kbase,
-                                         int64_t K) {
-  const int size[3] = {bk, br.du, br.dv};
-  const int n = bk * br.du * br.dv;
-  const int o0 = br.order[0], o1 = br.order[1], o2 = br.order[2];
-  for (int e = threadIdx.x; e < n; e += NG_THREADS) {
-    int c[3];
-    int r = e;
-    c[o2] = r % size[o2];
-    r /= size[o2];
-    c[o1] = r % size[o1];
-    c[o0] = r / size[o1];
-    const int64_t gu = u0 + c[1], gv = v0 + c[2], gk = kbase + c[0];
-    float val = 0.f;
-    if (gu < d.ext[0] && gv < d.ext[1] && gk < K) {
-      const int64_t off = base + gu * s[0] + gv * s[1] + (d.n_k ? ng_k_offset(d, s, gk) : 0);
-      val = ng_to_f32<T>(X[off]);
-    }
-    smem[c[0] * br.sk + c[1] * br.su + c[2] * br.sv] = val;
-  }
-}
-
-// Adds a chunk's partial sums to the running totals and restarts them.
-template <int TM, int TN>
-__device__ __forceinline__ void ng_fold(float (&acc)[TM][TN], float (&part)[TM][TN]) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      acc[i][j] += part[i][j];
-      part[i][j] = 0.f;
-    }
-}
-
-// Products of the staged bricks' indices [k0, k1) into a thread's sums.
-template <int TM, int TN>
-__device__ __forceinline__ void ng_stage_sum(float (&part)[TM][TN], const float* As,
-                                             const float* Bs, const NgBrick& ba,
-                                             const NgBrick& bb, int tx, int ty, int k0,
-                                             int k1) {
-  for (int kk = k0; kk < k1; ++kk) {
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int ui = ty + 16 * i, vj = tx + 16 * j;
-        part[i][j] = fmaf(As[kk * ba.sk + ui * ba.su + vj * ba.sv],
-                          Bs[kk * bb.sk + ui * bb.su + vj * bb.sv], part[i][j]);
-      }
-  }
-}
-
-template <typename TA, typename TB, typename TC, int TM, int TN, bool CHUNKED>
-__global__ void __launch_bounds__(NG_THREADS)
-ng_kernel(const TA* __restrict__ A, const TB* __restrict__ B, TC* __restrict__ C,
-          const NgDesc d, const NgBrick ba, const NgBrick bb, int bk, int64_t K,
-          int64_t n_tiles) {
-  constexpr int BM = 16 * TM, BN = 16 * TN;
-  extern __shared__ float smem[];
-  float* As = smem;
-  float* Bs = smem + bk * ba.sk;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const NgTile tl = ng_tile(d, tile, BM, BN);
-    const int64_t u0 = tl.u0, v0 = tl.v0;
-    for (int w = 0; w < tl.n_walk; ++w) {
-      const int64_t pa = tl.oa + w * d.sa[2], pb = tl.ob + w * d.sb[2],
-                    pc = tl.oc + w * d.sc[2];
-      float acc[TM][TN], part[TM][TN];
-      float (&sum)[TM][TN] = CHUNKED ? part : acc;
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = part[i][j] = 0.f;
-
-      for (int64_t kbase = 0; kbase < K; kbase += bk) {
-        ng_stage<TA>(As, A, d, d.sa, ba, bk, pa, u0, v0, kbase, K);
-        ng_stage<TB>(Bs, B, d, d.sb, bb, bk, pb, u0, v0, kbase, K);
-        __syncthreads();
-        if constexpr (CHUNKED) {
-          // the chunk ends after `left` more indices: at most once a stage
-          const int64_t left = NG_SUM_CHUNK - kbase % NG_SUM_CHUNK;
-          const int cut = left < bk ? (int)left : bk;
-          ng_stage_sum<TM, TN>(sum, As, Bs, ba, bb, tx, ty, 0, cut);
-          if (cut == left) ng_fold<TM, TN>(acc, part);
-          ng_stage_sum<TM, TN>(sum, As, Bs, ba, bb, tx, ty, cut, bk);
-        } else {
-          ng_stage_sum<TM, TN>(sum, As, Bs, ba, bb, tx, ty, 0, bk);
-        }
-        __syncthreads();
-      }
-      if constexpr (CHUNKED) ng_fold<TM, TN>(acc, part);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int64_t gu = u0 + ty + 16 * i, gv = v0 + tx + 16 * j;
-          if (gu < d.ext[0] && gv < d.ext[1])
-            C[pc + gu * d.sc[0] + gv * d.sc[1]] = ng_from_f32<TC>(acc[i][j]);
-        }
-    }
-  }
-}
-
-// The common GEMM shape ("outer"): A varies along u and one contracted
-// mode only, B along v and that contracted mode only.  Each operand's
-// brick is then a BK x W slab with compile-time extents, so a thread's
-// element coordinates cost a mask and a shift instead of divisions, and
-// the next stage's elements are loaded into registers while the current
-// stage is computed.  `w_fast` puts neighbouring threads on the brick's
-// W dimension (when that is the operand's smaller stride), else on k.
-template <typename T, int W, int BK>
-__device__ __forceinline__ void ng_load_slab(float (&r)[W * BK / NG_THREADS],
-                                             const T* __restrict__ X, int64_t base,
-                                             int64_t x0, int64_t w_ext, int64_t w_stride,
-                                             int64_t k_stride, bool w_fast, int64_t kbase,
-                                             int64_t K) {
-#pragma unroll
-  for (int i = 0; i < W * BK / NG_THREADS; ++i) {
-    const int e = threadIdx.x + i * NG_THREADS;
-    const int w = w_fast ? e % W : e / BK, k = w_fast ? e / W : e % BK;
-    r[i] = x0 + w < w_ext && kbase + k < K
-               ? ng_to_f32<T>(X[base + (x0 + w) * w_stride + (kbase + k) * k_stride])
-               : 0.f;
-  }
-}
-
-template <int W, int BK>
-__device__ __forceinline__ void ng_store_slab(float* sm, const float (&r)[W * BK / NG_THREADS],
-                                              bool w_fast) {
-#pragma unroll
-  for (int i = 0; i < W * BK / NG_THREADS; ++i) {
-    const int e = threadIdx.x + i * NG_THREADS;
-    const int w = w_fast ? e % W : e / BK, k = w_fast ? e / W : e % BK;
-    sm[k * (W + 1) + w] = r[i];  // one pad word per k row: no bank conflicts
-  }
-}
-
-template <typename TA, typename TB, typename TC, int TM, int TN, bool CHUNKED>
-__global__ void __launch_bounds__(NG_THREADS)
-ng_outer_kernel(const TA* __restrict__ A, const TB* __restrict__ B, TC* __restrict__ C,
-                const NgDesc d, int64_t K, int64_t a_k_stride, int64_t b_k_stride,
-                int64_t n_tiles, bool a_u_fast, bool b_v_fast) {
-  constexpr int BM = 16 * TM, BN = 16 * TN, BK = NG_MAX_BK;
-  static_assert(BM * BK % NG_THREADS == 0 && BN * BK % NG_THREADS == 0, "slab split");
-  __shared__ float As[BK * (BM + 1)];
-  __shared__ float Bs[BK * (BN + 1)];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const NgTile tl = ng_tile(d, tile, BM, BN);
-    const int64_t u0 = tl.u0, v0 = tl.v0;
-    for (int w = 0; w < tl.n_walk; ++w) {
-      const int64_t pa = tl.oa + w * d.sa[2], pb = tl.ob + w * d.sb[2],
-                    pc = tl.oc + w * d.sc[2];
-      float acc[TM][TN], part[TM][TN];
-      float (&sum)[TM][TN] = CHUNKED ? part : acc;
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = part[i][j] = 0.f;
-
-      float ra[BM * BK / NG_THREADS], rb[BN * BK / NG_THREADS];
-      ng_load_slab<TA, BM, BK>(ra, A, pa, u0, d.ext[0], d.sa[0], a_k_stride, a_u_fast, 0, K);
-      ng_load_slab<TB, BN, BK>(rb, B, pb, v0, d.ext[1], d.sb[1], b_k_stride, b_v_fast, 0, K);
-      for (int64_t kbase = 0; kbase < K; kbase += BK) {
-        ng_store_slab<BM, BK>(As, ra, a_u_fast);
-        ng_store_slab<BN, BK>(Bs, rb, b_v_fast);
-        __syncthreads();
-        if (kbase + BK < K) {  // next stage in flight while this one computes
-          ng_load_slab<TA, BM, BK>(ra, A, pa, u0, d.ext[0], d.sa[0], a_k_stride, a_u_fast,
-                                   kbase + BK, K);
-          ng_load_slab<TB, BN, BK>(rb, B, pb, v0, d.ext[1], d.sb[1], b_k_stride, b_v_fast,
-                                   kbase + BK, K);
-        }
-#pragma unroll 8
-        for (int kk = 0; kk < BK; ++kk) {
-          float a[TM], b[TN];
-#pragma unroll
-          for (int i = 0; i < TM; ++i) a[i] = As[kk * (BM + 1) + ty + 16 * i];
-#pragma unroll
-          for (int j = 0; j < TN; ++j) b[j] = Bs[kk * (BN + 1) + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int j = 0; j < TN; ++j) sum[i][j] = fmaf(a[i], b[j], sum[i][j]);
-        }
-        if constexpr (CHUNKED)
-          if ((kbase + BK) % NG_SUM_CHUNK == 0) ng_fold<TM, TN>(acc, part);
-        __syncthreads();
-      }
-      if constexpr (CHUNKED) ng_fold<TM, TN>(acc, part);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int64_t gu = u0 + ty + 16 * i, gv = v0 + tx + 16 * j;
-          if (gu < d.ext[0] && gv < d.ext[1])
-            C[pc + gu * d.sc[0] + gv * d.sc[1]] = ng_from_f32<TC>(acc[i][j]);
-        }
-    }
-  }
-}
-
-static inline int64_t ng_abs(int64_t x) { return x < 0 ? -x : x; }
-
-// Brick of one operand: which tile dims it spans, its smem strides, and
-// the load order that puts neighbouring threads on its smallest stride.
-static NgBrick ng_brick(const NgDesc& d, const int64_t* s, int bm, int bn) {
-  NgBrick br;
-  br.du = s[0] ? bm : 1;
-  br.dv = s[1] ? bn : 1;
-  br.sv = s[1] ? 1 : 0;
-  br.su = s[0] ? br.dv : 0;
-  // one pad word per k-slice: loads that walk k put neighbouring threads
-  // on neighbouring k, which would otherwise hit one shared-memory bank
-  br.sk = br.du * br.dv + 1;
-  const int64_t ks = d.n_k ? s[1 + d.n_rest + d.n_k] : 0;  // fastest contracted slot
-  int64_t key[3] = {ks, s[0], s[1]};
-  for (int i = 0; i < 3; ++i) {
-    if (key[i] < 0) key[i] = -key[i];
-    br.order[i] = i;
-  }
-  // outer -> inner: descending stride; a dim the brick does not span
-  // (stride 0) is innermost, where its single index costs nothing
-  for (int i = 0; i < 3; ++i)
-    for (int j = i + 1; j < 3; ++j) {
-      const int64_t ki = key[br.order[i]] ? key[br.order[i]] : -1;
-      const int64_t kj = key[br.order[j]] ? key[br.order[j]] : -1;
-      if (kj > ki) {
-        const int tmp = br.order[i];
-        br.order[i] = br.order[j];
-        br.order[j] = tmp;
-      }
-    }
-  return br;
-}
-
-template <typename TA, typename TB, typename TC, int TM, int TN>
-static int ng_launch_t(const void* A, const void* B, void* C, const NgDesc& d,
-                       cudaStream_t stream) {
-  constexpr int BM = 16 * TM, BN = 16 * TN;
-  const NgBrick ba = ng_brick(d, d.sa, BM, BN), bb = ng_brick(d, d.sb, BM, BN);
-  const int per_k = ba.sk + bb.sk;
-  int bk = NG_SMEM_BYTES / (int)(sizeof(float) * per_k);
-  int64_t K = 1;
-  for (int i = 0; i < d.n_k; ++i) K *= d.ext[2 + d.n_rest + i];
-  if (bk > NG_MAX_BK) bk = NG_MAX_BK;
-  if (bk > K) bk = (int)K;
-  if (bk < 1) bk = 1;
-  int64_t n_tiles = ((d.ext[0] + BM - 1) / BM) * ((d.ext[1] + BN - 1) / BN);
-  if (d.n_rest) n_tiles *= (d.ext[2] + d.walk - 1) / d.walk;
-  for (int sl = 3; sl < 2 + d.n_rest; ++sl) n_tiles *= d.ext[sl];
-  if (n_tiles == 0) return (int)cudaSuccess;
-  const int64_t max_grid = (int64_t)1 << 24;
-  const unsigned grid = (unsigned)(n_tiles < max_grid ? n_tiles : max_grid);
-  // a sum of at most one chunk is the same in both variants, bit for bit,
-  // and the variant without the second accumulator is the faster one
-  const bool chunked = K > NG_SUM_CHUNK;
-  if (d.sa[1] == 0 && d.sb[0] == 0 && d.n_k <= 1) {
-    // neighbouring threads go along the slab's smaller-stride dimension
-    const int64_t ka = d.n_k ? d.sa[2 + d.n_rest] : 0;
-    const int64_t kb = d.n_k ? d.sb[2 + d.n_rest] : 0;
-    const bool a_u_fast = d.sa[0] && (!ka || ng_abs(d.sa[0]) <= ng_abs(ka));
-    const bool b_v_fast = d.sb[1] && (!kb || ng_abs(d.sb[1]) <= ng_abs(kb));
-    if (chunked)
-      ng_outer_kernel<TA, TB, TC, TM, TN, true><<<grid, NG_THREADS, 0, stream>>>(
-          (const TA*)A, (const TB*)B, (TC*)C, d, K, ka, kb, n_tiles, a_u_fast, b_v_fast);
-    else
-      ng_outer_kernel<TA, TB, TC, TM, TN, false><<<grid, NG_THREADS, 0, stream>>>(
-          (const TA*)A, (const TB*)B, (TC*)C, d, K, ka, kb, n_tiles, a_u_fast, b_v_fast);
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = sizeof(float) * (size_t)bk * per_k;
-  if (chunked)
-    ng_kernel<TA, TB, TC, TM, TN, true><<<grid, NG_THREADS, smem, stream>>>(
-        (const TA*)A, (const TB*)B, (TC*)C, d, ba, bb, bk, K, n_tiles);
-  else
-    ng_kernel<TA, TB, TC, TM, TN, false><<<grid, NG_THREADS, smem, stream>>>(
-        (const TA*)A, (const TB*)B, (TC*)C, d, ba, bb, bk, K, n_tiles);
-  return (int)cudaGetLastError();
-}
-
-template <typename TA, typename TB, typename TC>
-static int ng_launch_tile(const void* A, const void* B, void* C, const NgDesc& d,
-                          cudaStream_t stream) {
-  // a narrow v (the HOOI ranks) takes a 128 x 16 tile, anything wider 64 x 64
-  if (d.ext[1] <= 16) return ng_launch_t<TA, TB, TC, 8, 1>(A, B, C, d, stream);
-  return ng_launch_t<TA, TB, TC, 4, 4>(A, B, C, d, stream);
-}
-
-template <typename TA, typename TB>
-static int ng_launch_c(const void* A, const void* B, void* C, const NgDesc& d, int tc,
-                       cudaStream_t stream) {
-  if (tc == 0) return ng_launch_tile<TA, TB, float>(A, B, C, d, stream);
-  return ng_launch_tile<TA, TB, __nv_bfloat16>(A, B, C, d, stream);
-}
-
-// Type codes: 0 = float32, 1 = bfloat16; not both operands float32 (the
-// fbatched route's).  Returns a cudaError_t value.
-extern "C" int ng_launch(const void* A, const void* B, void* C, const NgDesc* d, int ta,
-                         int tb, int tc, void* stream) {
-  if (ta < 0 || ta > 1 || tb < 0 || tb > 1 || tc < 0 || tc > 1 || d->walk < 1 ||
-      d->n_rest < 0 || d->n_k < 0 || 2 + d->n_rest + d->n_k > NG_MAX_MODES)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (ta == 0 && tb == 0) return (int)cudaErrorInvalidValue;  // float32 takes fbatched
-  if (ta == 0) return ng_launch_c<float, __nv_bfloat16>(A, B, C, *d, tc, st);
-  if (tb == 0) return ng_launch_c<__nv_bfloat16, float>(A, B, C, *d, tc, st);
-  return ng_launch_c<__nv_bfloat16, __nv_bfloat16>(A, B, C, *d, tc, st);
 }
 
 // ===================================================== routes stream and splitk
@@ -574,7 +150,7 @@ __device__ __forceinline__ void nr_store_row(TC* __restrict__ C, int64_t co, con
                                              const float (&acc)[RP]) {
 #pragma unroll
   for (int r = 0; r < RP; ++r)
-    if (r < d.R) C[co + r * d.cr] = ng_from_f32<TC>(acc[r]);
+    if (r < d.R) C[co + r * d.cr] = sb_from_f32<TC>(acc[r]);
 }
 
 // ---------------------------------------------------------- stream, read kind
@@ -766,7 +342,7 @@ nw_kernel(const float* __restrict__ X, const float* __restrict__ W, TC* __restri
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (p0 + j < d.P) c[j] = ng_from_f32<TC>(a[j]);
+          if (p0 + j < d.P) c[j] = sb_from_f32<TC>(a[j]);
       }
     }
   }
@@ -849,7 +425,7 @@ nk_reduce(const float* __restrict__ ws, TC* __restrict__ C, const NrDesc d) {
     co += rem % d.m_ext[j] * d.m_cs[j];
     rem /= d.m_ext[j];
   }
-  C[co] = ng_from_f32<TC>(sum);
+  C[co] = sb_from_f32<TC>(sum);
 }
 
 // --------------------------------------------------------- wgmma and batched
@@ -865,8 +441,7 @@ nk_reduce(const float* __restrict__ ws, TC* __restrict__ C, const NrDesc d) {
 // read K-major or M-major, W N-major or K-major (the wrapper's native_plan
 // checks the layout).  Both routes replace the same TPU kernel as the
 // routes above (native_gemm_pallas, src/repro/kernels/sb_gemm.py), whose
-// grid axes are every C mode; the batched products took the generic
-// kernels before.
+// grid axes are every C mode.
 //
 // Design.  One block owns a TM x NM_BN tile of C at one grid index: TM is
 // NM_TM (one consumer warpgroup) where M <= NM_TM, as in weight streaming
@@ -900,9 +475,9 @@ nk_reduce(const float* __restrict__ ws, TC* __restrict__ C, const NrDesc d) {
 // does 118 GFLOP over 0.49 GB (0.146 ms of bytes against 0.119 of
 // operations on an H100), the scores of a 4 x 512-token train step 4.8
 // GFLOP over 0.094 GB (0.028 ms).  So both operands must stream at the
-// memory's rate and the sums must not hold them back: the generic kernels
-// staged scalar loads as f32 and summed on the CUDA cores (0.4-1.6% of the
-// bound on the card); here TMA reads and the tensor cores sum.
+// memory's rate and the sums must not hold them back: the first slice's
+// kernels staged scalar loads as f32 and summed on the CUDA cores (0.4-1.6%
+// of the bound on the card); here TMA reads and the tensor cores sum.
 #define NM_TM 64          // output rows per block at M <= NM_TM: one consumer warpgroup
 #define NM_TM_WIDE 128    // ... at M > NM_TM: two consumer warpgroups
 #define NM_BN 128         // output columns per block
@@ -941,16 +516,18 @@ struct NmRoles {
 };
 
 // One accumulator fragment (see hp_wgmma_ss) into rows m0.., columns n0..
-// of out (row stride ld), masked to M x N; pairs of columns are stored
-// together where ld is even and out 2-element aligned (they then start
-// 2-element aligned).  Warp w of the block takes rows 16w.., so a second
-// consumer warpgroup (warps 4-7) stores rows 64.. of the tile.
+// of out (row stride ld, column stride cn), masked to M x N; pairs of
+// columns are stored together where cn is 1, ld even and out 2-element
+// aligned (they then start 2-element aligned).  Warp w of the block takes
+// rows 16w.., so a second consumer warpgroup (warps 4-7) stores rows 64..
+// of the tile.
 template <typename TO>
-__device__ __forceinline__ void nm_store(TO* __restrict__ out, int64_t ld, const float* acc,
-                                         int64_t M, int64_t N, int m0, int n0) {
+__device__ __forceinline__ void nm_store(TO* __restrict__ out, int64_t ld, int64_t cn,
+                                         const float* acc, int64_t M, int64_t N, int m0, int n0) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = m0 + 16 * warp + lane / 4;
-  const bool pairs = ld % 2 == 0 && reinterpret_cast<uintptr_t>(out) % (2 * sizeof(TO)) == 0;
+  const bool pairs = cn == 1 && ld % 2 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % (2 * sizeof(TO)) == 0;
 #pragma unroll
   for (int i = 0; i < NM_BN / 8; ++i) {
     const int col = n0 + 8 * i + 2 * (lane % 4);
@@ -959,13 +536,13 @@ __device__ __forceinline__ void nm_store(TO* __restrict__ out, int64_t ld, const
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h;
       if (row >= M) continue;
-      TO* p = out + (int64_t)row * ld + col;
+      TO* p = out + (int64_t)row * ld + col * cn;
       const float x0 = acc[4 * i + 2 * h], x1 = acc[4 * i + 2 * h + 1];
       if (pairs && col + 1 < N) {
         hp_store2<TO>(p, x0, x1);
       } else {
-        p[0] = ng_from_f32<TO>(x0);
-        if (col + 1 < N) p[1] = ng_from_f32<TO>(x1);
+        p[0] = sb_from_f32<TO>(x0);
+        if (col + 1 < N) p[cn] = sb_from_f32<TO>(x1);
       }
     }
   }
@@ -1087,9 +664,9 @@ nm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
 #pragma unroll
     for (int j = 0; j < NM_MAX_EXTRA; ++j)
       if (j < d.n_grid) off += e[j] * d.cs[1 + j];
-    nm_store<TC>(C + off, d.cs[0], acc, d.M, d.N, m0, n0);
+    nm_store<TC>(C + off, d.cs[0], 1, acc, d.M, d.N, m0, n0);
   } else {
-    nm_store<float>(ws + (int64_t)blockIdx.y * d.M * d.N, d.N, acc, d.M, d.N, m0, n0);
+    nm_store<float>(ws + (int64_t)blockIdx.y * d.M * d.N, d.N, 1, acc, d.M, d.N, m0, n0);
   }
 }
 
@@ -1100,14 +677,16 @@ nm_reduce(const float* __restrict__ ws, TC* __restrict__ C, const NmDesc d) {
   if (i >= plane) return;
   float sum = 0.f;
   for (int s = 0; s < d.n_split; ++s) sum += ws[s * plane + i];
-  C[i / d.N * d.cs[0] + i % d.N] = ng_from_f32<TC>(sum);
+  C[i / d.N * d.cs[0] + i % d.N] = sb_from_f32<TC>(sum);
 }
 
 // ================================================================ fbatched
 // Every float32 product that takes neither stream nor splitk: the Table II
 // cases and the paper's Figs. 1-8 (n x n x n products, batch modes, both
 // operands wide), HOOI's Gram mnp,mqp->nq (two contracted modes that do
-// not fuse), the compiled program's bik,kn->bin.  The wrapper's
+// not fuse), the compiled program's bik,kn->bin; every mixed bf16 x
+// float32 product; the bf16 products with no contracted or no own C mode
+// (outer products, batch modes alone), which no tensor-core tile fits.  The wrapper's
 // native_plan gives the product the batched route's form, C[g.., m, n] =
 // sum over o.. and k of X[g.., o.., m, k] W[g.., o.., k, n], with none of
 // its tensor-map limits: a grid mode g may be carried by X, by W or by both
@@ -1116,8 +695,7 @@ nm_reduce(const float* __restrict__ ws, TC* __restrict__ C, const NmDesc d) {
 // contracted modes o are walked in the kernel, strides are any that
 // tensor.stride() gives, up to FB_MAX_EXTRA extra modes.  It replaces the
 // same TPU kernel as the routes above (native_gemm_pallas,
-// src/repro/kernels/sb_gemm.py); these products took ng_kernel and
-// ng_outer_kernel before.
+// src/repro/kernels/sb_gemm.py).
 //
 // Bound.  Operations: Table II at n = 256 is 8.6 GFLOP over 0.13 GB (65
 // flop a byte, against the H100's f32 ridge of 20), 0.128 ms at 67 TFLOP/s
@@ -1129,7 +707,7 @@ nm_reduce(const float* __restrict__ ws, TC* __restrict__ C, const NmDesc d) {
 // that wide, or FB_TM_SMALL x FB_TN_NARROW for a product of at most
 // FB_TM_SMALL rows (Table II's ragged p = 47) or one too small to give half
 // the SMs a tile and too shallow to split (Table II at n = 64, where
-// 128-row tiles ran up to 1.5x slower on an H100 than the generic kernels'
+// 128-row tiles ran up to 1.5x slower on an H100 than the first slice's
 // 64 x 64 ones).  Thread (ty, tx) (fb_ty, fb_tx: 16 x 16) owns TM / 16 x
 // TN / 16 outputs: rows 4 ty + i and, in a 128-row tile, 64 + 4 ty + i,
 // columns 4 tx + j and, in a 128-column one, 64 + 4 tx + j (i, j < 4), so
@@ -1153,18 +731,41 @@ nm_reduce(const float* __restrict__ ws, TC* __restrict__ C, const NmDesc d) {
 // block, the outer offsets once per outer index.  Products accumulate in f32
 // registers with plain FMA (no TF32), in k order.
 //
-// Split and sums.  A walk of more than NG_SUM_CHUNK contracted indices
+// A bf16 operand (flags FB_F_X_BF16, FB_F_W_BF16) cannot take the f32
+// slabs' cp.async, which copies bytes and cannot widen.  Where its slab
+// loads 16 bytes at a time (FB_F_VEC_*), its raw bf16 slabs take a ring of
+// their own (FB_F_RAW_X or FB_F_RAW_W, one operand at most: the 128 x 128
+// tile's smem holds one such ring), filled by cp.async FB_STAGES - 1
+// stages ahead like the f32 ones; each thread widens the 16-byte chunks it
+// copied itself into the f32 slab right after its copies of the stage
+// land and before the stage's barrier, so no other thread waits on them
+// and nothing is held in registers across the FMA.  Any other bf16
+// operand (element loads, or the second of two) is loaded into registers,
+// an element at a time, by each thread right after its FMA of stage it,
+// for stage it + 1, and stored widened before the next barrier: its loads
+// overlap the FMA the other warps still run.  (Both ways keep registers free: loading before
+// the FMA, as a pre-Ampere double buffer does, keeps the loaded values
+// live across it, and on an H100 the 128-row kernels, at 255 registers,
+// then spilled, and so did the float32 walk beside such a walk in one
+// kernel.)  A launch with a bf16 operand runs fb_kernel's WIDEN
+// instantiation; the float32 ones are the walk alone.
+//
+// Split and sums.  A walk of more than SB_SUM_CHUNK contracted indices
 // (FB_CHUNK_STAGES stages) keeps its running sums in shared memory and each
-// chunk's in registers, added at the chunk's end (flag FB_F_CHUNKED), as
-// the generic kernels' CHUNKED sums do: ((0 + c0) + c1) + ... over the
-// chunk sums c.  Where the output tiles are fewer than FB_SPLIT_PER_SM per
-// SM, the wrapper's fbatched_plan splits the walk across blocks
-// (blockIdx.y), one chunk a split; each split stores its chunk sum to the
-// workspace [split][g][m][n], and fb_reduce adds them in split order from
-// 0: the same sums in the same order as one block's chunked walk, so
-// whether a product splits (which depends on its rows and grid) moves no
-// bit of a row, and no atomics are used.  fb_launch refuses any other
-// split.
+// chunk's in registers, added at the chunk's end (flag FB_F_CHUNKED):
+// ((0 + c0) + c1) + ... over the chunk sums c.  One running sum over a long
+// contraction (HOOI's 512 x 512 Gram sums 262144 products) grows its
+// rounding error with the square root of the depth, and on an H100 put the
+// Gram 2.2e-5 of the result from cuBLAS's; chunks grow it with the square
+// roots of 4096 and of the number of chunks instead.  Chunks are counted
+// from k = 0, so no result depends on the tile.  Where the output tiles
+// are fewer than FB_SPLIT_PER_SM per SM, the wrapper's fbatched_plan
+// splits the walk across blocks (blockIdx.y), one chunk a split; each
+// split stores its chunk sum to the workspace [split][g][m][n], and
+// fb_reduce adds them in split order from 0: the same sums in the same
+// order as one block's chunked walk, so whether a product splits (which
+// depends on its rows and grid) moves no bit of a row, and no atomics are
+// used.  fb_launch refuses any other split.
 #define FB_TM 128           // output rows per block
 #define FB_TN 128           // output columns per block
 #define FB_TN_NARROW 64     // ... where N is at most this wide
@@ -1173,8 +774,8 @@ nm_reduce(const float* __restrict__ ws, TC* __restrict__ C, const NmDesc d) {
 #define FB_STAGES 4         // ring depth: 4 x 32 KB at FB_TN
 #define FB_THREADS 256      // 16 x 16 threads, 8 x 8 outputs each at FB_TN
 #define FB_SPLIT_PER_SM 2   // a product with fewer tiles per SM is split
-#define FB_MAX_EXTRA NG_MAX_MODES
-#define FB_CHUNK_STAGES (NG_SUM_CHUNK / FB_BK)
+#define FB_MAX_EXTRA SB_MAX_MODES
+#define FB_CHUNK_STAGES (SB_SUM_CHUNK / FB_BK)
 #define FB_F_CHUNKED 1      // flags: a block's walk is longer than one chunk
 #define FB_F_VEC_X 2        // X's slabs load 16 bytes at a time
 #define FB_F_VEC_W 4        // W's too
@@ -1183,6 +784,10 @@ nm_reduce(const float* __restrict__ ws, TC* __restrict__ C, const NmDesc d) {
 #define FB_F_W_KMAJOR 32    // W's too
 #define FB_F_NARROW_N 64    // the tile has FB_TN_NARROW columns
 #define FB_F_SMALL 128      // ... and FB_TM_SMALL rows
+#define FB_F_X_BF16 256     // X is bf16: its slabs are widened on the way to shared memory
+#define FB_F_W_BF16 512     // W too
+#define FB_F_RAW_X 16384    // X's bf16 slabs go through the raw ring (see "A bf16 operand")
+#define FB_F_RAW_W 32768    // ... W's (one operand at most)
 
 struct FbDesc {
   int64_t M, N, K;                // rows, columns, depth (0: C is zeros)
@@ -1370,7 +975,7 @@ __device__ __forceinline__ void fb_store(TO* __restrict__ out, int64_t cm, int64
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (col + j < N) p[(col + j) * cn] = ng_from_f32<TO>(acc[i][4 * h + j]);
+        if (col + j < N) p[(col + j) * cn] = sb_from_f32<TO>(acc[i][4 * h + j]);
     }
   }
 }
@@ -1405,60 +1010,200 @@ __device__ __forceinline__ FbTile fb_tile(const FbDesc& d, uint32_t t) {
   return tl;
 }
 
-// TM x TN: the tile (FB_TM x FB_TN, FB_TM x FB_TN_NARROW or FB_TM_SMALL x
-// FB_TN_NARROW).  XK, WK: X's and W's slabs laid out k-major.  Block x owns
-// tile x (m fastest, then n, then the grid) over split blockIdx.y's stages
-// of the walk.
-template <int TM, int TN, bool XK, bool WK, typename TC>
-__global__ void __launch_bounds__(FB_THREADS, 1)
-fb_kernel(const float* __restrict__ X, const float* __restrict__ W, TC* __restrict__ C,
-          float* __restrict__ ws, const FbDesc d) {
-  constexpr int MI = TM / 16, NJ = TN / 16, XS = TM * FB_BK, STAGE = (TM + TN) * FB_BK;
-  extern __shared__ __align__(16) float fb_sm[];
-  float* run = fb_sm + FB_STAGES * STAGE;  // chunked: the running sums, [output][thread]
+// One bf16 operand's slab of one stage into registers, one element a load,
+// packed two a register: the R x FB_BK elements fb_load would copy (its
+// element-copy mapping), zeros where fb_load zero-fills.
+template <int R, bool KM>
+__device__ __forceinline__ void fb_fetch(uint32_t (&v)[R / 16],
+                                         const __nv_bfloat16* __restrict__ base, int64_t sr,
+                                         int64_t sk, int64_t r_left, int64_t k_left) {
   const int tid = threadIdx.x;
-  const FbTile tl = fb_tile<TM, TN>(d, blockIdx.x);
-  // the block's stages of the walk, and where the loader starts in it
+  const uint16_t* b = reinterpret_cast<const uint16_t*>(base);
+#pragma unroll
+  for (int c = 0; c < R / 16; ++c) {
+    uint32_t h[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = 2 * c + e;
+      const int r = KM ? tid / FB_BK + i * (FB_THREADS / FB_BK) : tid % R;
+      const int kk = KM ? tid % FB_BK : tid / R + i * (FB_THREADS / R);
+      h[e] = r < r_left && kk < k_left ? __ldg(b + r * sr + kk * sk) : 0;
+    }
+    v[c] = h[0] | h[1] << 16;
+  }
+}
+
+// R / 8 bf16 values of this thread, packed two a register, widened to f32
+// into the slab s where fb_load would have put them: vec, fb_load_raw's
+// 16-byte chunks; else fb_fetch's elements.
+template <int R, bool KM>
+__device__ __forceinline__ void fb_widen(float* s, const uint32_t (&v)[R / 16], bool vec) {
+  const int tid = threadIdx.x;
+  if (vec) {
+    constexpr int PER = KM ? FB_BK / 8 : R / 8, STEP = FB_THREADS / PER;
+#pragma unroll
+    for (int c = 0; c < R / 64; ++c) {
+      float f[8];
+      hp_unpack16<__nv_bfloat16>(make_uint4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]),
+                                 f);
+      const float4 lo = make_float4(f[0], f[1], f[2], f[3]);
+      const float4 hi = make_float4(f[4], f[5], f[6], f[7]);
+      if (KM) {
+        const int r = tid / PER + c * STEP, q = (tid % PER) * 2;
+        *reinterpret_cast<float4*>(s + r * FB_BK + ((q ^ fb_swz(r)) << 2)) = lo;
+        *reinterpret_cast<float4*>(s + r * FB_BK + (((q + 1) ^ fb_swz(r)) << 2)) = hi;
+      } else {
+        const int r = (tid % PER) * 8, kk = tid / PER + c * STEP;
+        *reinterpret_cast<float4*>(s + kk * R + r) = lo;
+        *reinterpret_cast<float4*>(s + kk * R + r + 4) = hi;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < R / 8; ++i) {
+      const float x = __uint_as_float(i % 2 ? v[i / 2] & 0xffff0000u : v[i / 2] << 16);
+      const int r = KM ? tid / FB_BK + i * (FB_THREADS / FB_BK) : tid % R;
+      const int kk = KM ? tid % FB_BK : tid / R + i * (FB_THREADS / R);
+      if (KM) s[r * FB_BK + (((kk >> 2) ^ fb_swz(r)) << 2) + (kk & 3)] = x;
+      else s[kk * R + r] = x;
+    }
+  }
+}
+
+// One bf16 operand's raw slab of one stage into the raw ring slot s (R
+// rows by FB_BK k, stored as fb_widen's vec mapping reads it: each thread's
+// 16-byte chunks at its own places) by 16-byte cp.async, zero-filled past
+// the edges; the operand loads 16 bytes at a time (vec).
+template <int R, bool KM>
+__device__ __forceinline__ void fb_load_raw(uint16_t* s, const __nv_bfloat16* __restrict__ base,
+                                            const void* safe, int64_t sr, int64_t sk,
+                                            int64_t r_left, int64_t k_left) {
+  const int tid = threadIdx.x;
+  const uint16_t* b = reinterpret_cast<const uint16_t*>(base);
+  constexpr int PER = KM ? FB_BK / 8 : R / 8, STEP = FB_THREADS / PER;
+#pragma unroll
+  for (int c = 0; c < R / 64; ++c) {
+    const int r = KM ? tid / PER + c * STEP : (tid % PER) * 8;
+    const int kk = KM ? (tid % PER) * 8 : tid / PER + c * STEP;
+    const int64_t left = KM ? (r < r_left ? k_left - kk : 0) : (kk < k_left ? r_left - r : 0);
+    const int n = left >= 8 ? 8 : left > 0 ? (int)left : 0;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                     hp_smem(s + 8 * (tid + c * FB_THREADS))),
+                 "l"(n ? static_cast<const void*>(b + r * sr + kk * sk) : safe), "r"(2 * n)
+                 : "memory");
+  }
+}
+
+// The chunks fb_load_raw copied for this thread, widened into the f32 slab.
+template <int R, bool KM>
+__device__ __forceinline__ void fb_widen_raw(float* s, const uint16_t* raw) {
+  uint32_t v[R / 16];
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int c = 0; c < R / 64; ++c) {
+    const uint4 x = *reinterpret_cast<const uint4*>(raw + 8 * (tid + c * FB_THREADS));
+    v[4 * c] = x.x, v[4 * c + 1] = x.y, v[4 * c + 2] = x.z, v[4 * c + 3] = x.w;
+  }
+  fb_widen<R, KM>(s, v, true);
+}
+
+// Where a walk stands: outer index o, its stage kb along k, and X's and W's
+// offsets at o.
+struct FbPos {
+  int64_t o, kb, xo, wo;
+};
+
+__device__ __forceinline__ void fb_next(const FbDesc& d, int64_t per_k, FbPos& p) {
+  if (++p.kb == per_k) {
+    p.kb = 0;
+    fb_outer(d, ++p.o, p.xo, p.wo);
+  }
+}
+
+// The block's n_steps stages from t_begin into acc (and run, chunked): the
+// cp.async ring for float32 operands; under WIDEN, bf16 operands through
+// the raw ring or registers (see "A bf16 operand" above).
+template <int TM, int TN, bool XK, bool WK, bool WIDEN>
+__device__ __forceinline__ void fb_walk(float (&acc)[TM / 16][TN / 16], float* fb_sm, float* run,
+                                        uint16_t* raw, const void* X, const void* W,
+                                        const FbDesc& d, const FbTile& tl, int64_t t_begin,
+                                        int n_steps) {
+  constexpr int MI = TM / 16, NJ = TN / 16, XS = TM * FB_BK, STAGE = (TM + TN) * FB_BK;
+  constexpr int RAW = (TM > TN ? TM : TN) * FB_BK;  // bf16 elements a raw slot
+  const int tid = threadIdx.x;
   const int64_t per_k = (d.K + FB_BK - 1) / FB_BK;
-  const int64_t t_begin = (int64_t)blockIdx.y * d.spc;
-  const int n_steps = (int)((t_begin + d.spc < d.steps ? t_begin + d.spc : d.steps) - t_begin);
-  int64_t lo = per_k ? t_begin / per_k : 0, lk = per_k ? t_begin % per_k : 0, xo, wo;
-  fb_outer(d, lo, xo, wo);
   const bool vx = d.flags & FB_F_VEC_X, vw = d.flags & FB_F_VEC_W;
   const bool chunked = d.flags & FB_F_CHUNKED;
+  // which slabs the cp.async ring fills as float32, which as raw bf16, and
+  // which go through registers after each stage's FMA
+  const bool xb = WIDEN && (d.flags & FB_F_X_BF16), wb = WIDEN && (d.flags & FB_F_W_BF16);
+  const bool rx_ = WIDEN && (d.flags & FB_F_RAW_X), rw_ = WIDEN && (d.flags & FB_F_RAW_W);
+  const bool sx = xb && !rx_, sw = wb && !rw_;
+  const float* Xf = static_cast<const float*>(X);
+  const float* Wf = static_cast<const float*>(W);
+  const __nv_bfloat16* Xh = static_cast<const __nv_bfloat16*>(X);
+  const __nv_bfloat16* Wh = static_cast<const __nv_bfloat16*>(W);
+  // where the cp.async loads stand (FB_STAGES - 1 stages ahead) and where
+  // the register fetches do (one stage ahead)
+  FbPos ap;
+  ap.o = per_k ? t_begin / per_k : 0;
+  ap.kb = per_k ? t_begin % per_k : 0;
+  fb_outer(d, ap.o, ap.xo, ap.wo);
+  FbPos rp = ap;
 
   auto load = [&](int slot) {
     float* xs = fb_sm + slot * STAGE;
-    const int64_t k0 = lk * FB_BK;
-    fb_load<TM, XK>(xs, X + tl.x + xo + k0 * d.xk, X, d.xm, d.xk, d.M - tl.m0, d.K - k0, vx);
-    fb_load<TN, WK>(xs + XS, W + tl.w + wo + k0 * d.wk, W, d.wn, d.wk, d.N - tl.n0, d.K - k0,
-                    vw);
-    if (++lk == per_k) {
-      lk = 0;
-      fb_outer(d, ++lo, xo, wo);
+    const int64_t k0 = ap.kb * FB_BK;
+    if (!xb)
+      fb_load<TM, XK>(xs, Xf + tl.x + ap.xo + k0 * d.xk, Xf, d.xm, d.xk, d.M - tl.m0, d.K - k0,
+                      vx);
+    else if (rx_)
+      fb_load_raw<TM, XK>(raw + slot * RAW, Xh + tl.x + ap.xo + k0 * d.xk, X, d.xm, d.xk,
+                          d.M - tl.m0, d.K - k0);
+    if (!wb)
+      fb_load<TN, WK>(xs + XS, Wf + tl.w + ap.wo + k0 * d.wk, Wf, d.wn, d.wk, d.N - tl.n0,
+                      d.K - k0, vw);
+    else if (rw_)
+      fb_load_raw<TN, WK>(raw + slot * RAW, Wh + tl.w + ap.wo + k0 * d.wk, W, d.wn, d.wk,
+                          d.N - tl.n0, d.K - k0);
+    fb_next(d, per_k, ap);
+  };
+  auto fetch_widen = [&](int slot) {
+    float* xs = fb_sm + slot * STAGE;
+    const int64_t k0 = rp.kb * FB_BK;
+    if (sx) {
+      uint32_t v[TM / 16];
+      fb_fetch<TM, XK>(v, Xh + tl.x + rp.xo + k0 * d.xk, d.xm, d.xk, d.M - tl.m0, d.K - k0);
+      fb_widen<TM, XK>(xs, v, false);
     }
+    if (sw) {
+      uint32_t v[TN / 16];
+      fb_fetch<TN, WK>(v, Wh + tl.w + rp.wo + k0 * d.wk, d.wn, d.wk, d.N - tl.n0, d.K - k0);
+      fb_widen<TN, WK>(xs + XS, v, false);
+    }
+    fb_next(d, per_k, rp);
   };
 
-  float acc[MI][NJ];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  if (chunked)
-#pragma unroll
-    for (int e = 0; e < MI * NJ; ++e) run[e * FB_THREADS + tid] = 0.f;
-
+  if (WIDEN && (sx || sw) && n_steps > 0) fetch_widen(0);
   for (int s = 0; s < FB_STAGES - 1; ++s) {
     if (s < n_steps) load(s);
     hp_cp_commit();
   }
   for (int it = 0; it < n_steps; ++it) {
     hp_cp_wait<FB_STAGES - 2>();  // this thread's copies of stage it have landed
+    if (WIDEN && (rx_ || rw_)) {  // ... so it widens its own raw chunks of them
+      float* xs = fb_sm + (it % FB_STAGES) * STAGE;
+      if (rx_) fb_widen_raw<TM, XK>(xs, raw + (it % FB_STAGES) * RAW);
+      else fb_widen_raw<TN, WK>(xs + XS, raw + (it % FB_STAGES) * RAW);
+    }
     __syncthreads();              // everyone's have, and stage it - 1 is computed
     if (it + FB_STAGES - 1 < n_steps) load((it + FB_STAGES - 1) % FB_STAGES);
     hp_cp_commit();
     const float* xs = fb_sm + (it % FB_STAGES) * STAGE;
     fb_stage_sum<TM, TN, XK, WK>(acc, xs, xs + XS);
+    // slot (it + 1) % FB_STAGES was last read for stage it + 1 - FB_STAGES,
+    // before this iteration's barrier
+    if (WIDEN && (sx || sw) && it + 1 < n_steps) fetch_widen((it + 1) % FB_STAGES);
     if (chunked && (it + 1) % FB_CHUNK_STAGES == 0) {
 #pragma unroll
       for (int i = 0; i < MI; ++i)
@@ -1469,6 +1214,40 @@ fb_kernel(const float* __restrict__ X, const float* __restrict__ W, TC* __restri
         }
     }
   }
+}
+
+// TM x TN: the tile (FB_TM x FB_TN, FB_TM x FB_TN_NARROW or FB_TM_SMALL x
+// FB_TN_NARROW).  XK, WK: X's and W's slabs laid out k-major.  WIDEN: X or
+// W (the flags say which) is bf16; else both are float32.  Block x owns
+// tile x (m fastest, then n, then the grid) over split blockIdx.y's stages
+// of the walk.
+template <int TM, int TN, bool XK, bool WK, bool WIDEN, typename TC>
+__global__ void __launch_bounds__(FB_THREADS, 1)
+fb_kernel(const void* __restrict__ X, const void* __restrict__ W, TC* __restrict__ C,
+          float* __restrict__ ws, const FbDesc d) {
+  constexpr int MI = TM / 16, NJ = TN / 16, STAGE = (TM + TN) * FB_BK;
+  extern __shared__ __align__(16) float fb_sm[];
+  float* run = fb_sm + FB_STAGES * STAGE;  // chunked: the running sums, [output][thread]
+  // then the raw bf16 ring (FB_F_RAW_*)
+  uint16_t* raw =
+      reinterpret_cast<uint16_t*>(run + (d.flags & FB_F_CHUNKED ? MI * NJ * FB_THREADS : 0));
+  const int tid = threadIdx.x;
+  const FbTile tl = fb_tile<TM, TN>(d, blockIdx.x);
+  // the block's stages of the walk
+  const int64_t t_begin = (int64_t)blockIdx.y * d.spc;
+  const int n_steps = (int)((t_begin + d.spc < d.steps ? t_begin + d.spc : d.steps) - t_begin);
+  const bool chunked = d.flags & FB_F_CHUNKED;
+
+  float acc[MI][NJ];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  if (chunked)
+#pragma unroll
+    for (int e = 0; e < MI * NJ; ++e) run[e * FB_THREADS + tid] = 0.f;
+
+  fb_walk<TM, TN, XK, WK, WIDEN>(acc, fb_sm, run, raw, X, W, d, tl, t_begin, n_steps);
   if (chunked)
 #pragma unroll
     for (int i = 0; i < MI; ++i)
@@ -1498,7 +1277,261 @@ fb_reduce(const float* __restrict__ ws, TC* __restrict__ C, const FbDesc d) {
       off += g % d.ext[j] * d.cs[j];
       g /= d.ext[j];
     }
-  C[off] = ng_from_f32<TC>(sum);
+  C[off] = sb_from_f32<TC>(sum);
+}
+
+// ================================================================ gathered
+// Every bf16 product with a contracted mode and an own C mode that the
+// tensor maps of wgmma and batched cannot read: modes whose strides are no
+// multiple of 16 bytes (Table II in bf16 at odd extents, expert rows 500
+// bytes apart), a start off a 16-byte boundary, more than NM_MAX_EXTRA
+// grid and outer modes, a second own C mode of W.  The wrapper's
+// native_plan gives it fbatched's form (FbDesc: grid modes from X, W or
+// both, outer contracted modes, any strides, up to SB_MAX_MODES of them),
+// with an operand's stride-1 own mode as its tile mode where k is not
+// stride-1.  It replaces the same TPU kernel as the routes above
+// (native_gemm_pallas, src/repro/kernels/sb_gemm.py).
+//
+// Bound.  Bytes: Table II in bf16 at n = 255 moves 33 MB of its 3-mode
+// operand and 33 MB of C for 8.5 GFLOP (0.020 ms of bytes against 0.009
+// of operations on an H100), and the expert products sit near the bf16
+// ridge.  So the operands must stream, and the tensor cores sum.
+//
+// Design.  nm_kernel's consumer (hp_consume_ring: one or two consumer
+// warpgroups on wgmma m64n128k16 into TM x NM_BN tiles, NM_BK-deep stages
+// under the 128-byte swizzle) behind a producer warpgroup that gathers each
+// stage instead of issuing TMA.  Its GA_PRODUCERS threads load a slab
+// through the operand's strides with ld.global, neighbouring threads on
+// neighbouring elements of the slab's stored minor dimension: where that
+// mode is stride-1, 16 bytes at a time at any alignment (ga_slab16: aligned
+// 16-byte loads of the block holding a chunk's first element and of the
+// next, shifted together; odd strides, as every Table II case at n = 255
+// has, start each line 2 bytes off a 16-byte boundary), else one element
+// at a time (ga_slab1; cp.async cannot copy a lone 2-byte element).  They
+// store them with st.shared at the swizzled places TMA would have written,
+// zeros past M, N and K (TMA's out-of-bounds fill, so the ragged depth adds
+// nothing); then each fences (fence.proxy.async.shared::cta: wgmma reads
+// shared memory through the async proxy, the stores went through the
+// generic one) and arrives on the stage's full barrier, which counts
+// GA_PRODUCERS arrivals.  A thread keeps one batch of loads in flight
+// (GA_BATCH elements, or GA_BATCH / 4 chunks) before it stores them, each
+// address one add from the last, and the batches are a loop the compiler
+// does not unroll into each other.  On an H100: a first build that loaded
+// a slab's 64 elements a thread at once, each at its own 64-bit address,
+// ran at 255 registers, spilled and took 5-10x einsum; one that loaded 16,
+// 8 or 4 bytes only where the strides and start were aligned to them loaded
+// Table II at n = 255 an element at a time; unrolled batches let the
+// compiler raise every load of a slab above the stores, and the 128-row
+// kernels (384 threads, 168 registers) spilled up to 752 bytes.  A stage's
+// layout follows its operand: X M-major where m is the smaller stride, W
+// K-major where k is; the wrapper's stage layout flags pick the kernel.
+// GA_STAGES stages a ring, one block an SM.  Never split: each output is
+// one walk over every outer index and stage, so a row's bits never depend
+// on what shares its launch.
+#define GA_STAGES 4
+#define GA_PRODUCERS 128
+#define GA_BATCH 32       // element loads a producer thread keeps in flight
+#define GA_F_WIDE_X 1024  // flags: X's stored minor dimension is stride-1: 16-byte loads
+#define GA_F_WIDE_W 2048  // ... W's
+
+template <int TM>
+struct GaTile {
+  static constexpr int WGS = TM / 64;                                // consumer warpgroups
+  static constexpr int THREADS = WGS * 128 + GA_PRODUCERS;           // + the producer warpgroup
+  static constexpr int X_BYTES = WGS * NM_BOX;                       // X slab
+  static constexpr int STAGE_BYTES = X_BYTES + NM_BN / 64 * NM_BOX;  // X slab, then W slab
+  static constexpr int BAR_OFF = GA_STAGES * STAGE_BYTES;
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * 2 * GA_STAGES;    // + alignment slack
+};
+
+// Byte offset of a slab's element (r, kk) (row r of X's m or W's n, depth
+// kk) where TMA's 128-byte swizzle puts it: KMAJ, [rows][NM_BK k], one
+// 128-byte row a row; else [NM_BK k][64 rows] boxes, NM_BOX bytes each;
+// 16-byte chunk c of a 128-byte row j at c ^ (j % 8).
+template <bool KMAJ>
+__device__ __forceinline__ int ga_off(int r, int kk) {
+  if (KMAJ) return r * 128 + (((kk >> 3) ^ (r & 7)) << 4) + (kk & 7) * 2;
+  return (r >> 6) * NM_BOX + kk * 128 + ((((r & 63) >> 3) ^ (kk & 7)) << 4) + (r & 7) * 2;
+}
+
+// One operand's slab of one stage, R rows by NM_BK k, gathered by the
+// producer thread pt of GA_PRODUCERS into s, one element a load (the
+// stored minor dimension, k where KMAJ, else the rows, is not stride-1):
+// from base (the slab's first row at the stage's first k), rows sr and k sk
+// apart; rows from r_left on and depth from k_left on are zeros.  Thread
+// pt keeps one place along the minor dimension and steps the other
+// GA_PRODUCERS / PER at a time, GA_BATCH loads in flight before it stores
+// them, each address one add from the last.
+template <int R, bool KMAJ>
+__device__ __forceinline__ void ga_slab1(uint8_t* s, const uint16_t* base, int64_t sr,
+                                         int64_t sk, int64_t r_left, int64_t k_left, int pt) {
+  constexpr int PER = KMAJ ? NM_BK : R;                 // loads along the minor dimension
+  constexpr int N = R * NM_BK / GA_PRODUCERS;           // loads a thread
+  constexpr int STEP = GA_PRODUCERS / PER;              // the major dimension between them
+  constexpr int BATCH = N < GA_BATCH ? N : GA_BATCH;
+  static_assert(GA_PRODUCERS % PER == 0 && N % BATCH == 0, "slab split");
+  const int minor = pt % PER, major0 = pt / PER;
+  const int64_t s_major = KMAJ ? sr : sk;
+  const bool in_minor = minor < (KMAJ ? k_left : r_left);
+  const int64_t major_left = (KMAJ ? r_left : k_left) - major0;
+  const uint16_t* p = base + minor * (KMAJ ? sk : sr) + major0 * s_major;
+  const int64_t step = STEP * s_major;
+#pragma unroll 1  // one batch's loads in flight: unrolled, the next ones' rise above the stores
+  for (int b = 0; b < N; b += BATCH) {
+    uint16_t buf[BATCH];
+#pragma unroll
+    for (int c = 0; c < BATCH; ++c)
+      buf[c] = in_minor && (b + c) * STEP < major_left ? __ldg(p + (b + c) * step) : 0;
+#pragma unroll
+    for (int c = 0; c < BATCH; ++c) {
+      const int major = major0 + (b + c) * STEP;
+      *reinterpret_cast<uint16_t*>(s + ga_off<KMAJ>(KMAJ ? major : minor, KMAJ ? minor : major)) =
+          buf[c];
+    }
+  }
+}
+
+// The same where the stored minor dimension is stride-1, at any alignment:
+// each thread gathers 16-byte chunks (8 elements along a line of the minor
+// dimension) with aligned 16-byte loads of the block that holds the
+// chunk's first element and, where the line starts off a 16-byte
+// boundary, of the next block, whose bytes it shifts in (funnel shifts of
+// 32-bit words); elements past the line's valid ones are zeros, and a
+// block holding none of them is not read.  GA_BATCH / 4 chunks in flight.
+template <int R, bool KMAJ>
+__device__ __forceinline__ void ga_slab16(uint8_t* s, const uint16_t* base, int64_t sr,
+                                          int64_t sk, int64_t r_left, int64_t k_left, int pt) {
+  constexpr int PER = (KMAJ ? NM_BK : R) / 8;           // chunks along a line
+  constexpr int N = R * NM_BK / 8 / GA_PRODUCERS;       // chunks a thread
+  constexpr int STEP = GA_PRODUCERS / PER;              // lines between them
+  constexpr int BATCH = N < GA_BATCH / 4 ? N : GA_BATCH / 4;
+  static_assert(GA_PRODUCERS % PER == 0 && N % BATCH == 0, "slab split");
+  const int j = pt % PER, major0 = pt / PER;
+  const int64_t s_major = KMAJ ? sr : sk;
+  const int64_t left = (KMAJ ? k_left : r_left) - 8 * j;  // the chunk's valid elements
+  const int n = left >= 8 ? 8 : left > 0 ? (int)left : 0;
+  const int64_t major_left = (KMAJ ? r_left : k_left) - major0;
+  const uint16_t* p = base + 8 * j + major0 * s_major;
+  const int64_t step = STEP * s_major;
+#pragma unroll 1
+  for (int b = 0; b < N; b += BATCH) {
+    uint4 lo[BATCH], hi[BATCH];
+#pragma unroll
+    for (int c = 0; c < BATCH; ++c) {
+      const uint16_t* q = p + (b + c) * step;
+      const int sh = (int)(reinterpret_cast<uintptr_t>(q) & 15);
+      const uint4* a = reinterpret_cast<const uint4*>(reinterpret_cast<uintptr_t>(q) - sh);
+      const bool live = n > 0 && (b + c) * STEP < major_left;
+      lo[c] = live ? __ldg(a) : make_uint4(0, 0, 0, 0);
+      hi[c] = live && sh + 2 * n > 16 ? __ldg(a + 1) : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int c = 0; c < BATCH; ++c) {
+      // bytes sh .. sh + 15 of lo, hi: 32-bit words q8 + i, shifted by a half
+      // word where sh is 2 mod 4
+      const int sh = (int)(reinterpret_cast<uintptr_t>(p + (b + c) * step) & 15);
+      const int q8 = sh >> 2;
+      const uint32_t w[8] = {lo[c].x, lo[c].y, lo[c].z, lo[c].w,
+                             hi[c].x, hi[c].y, hi[c].z, hi[c].w};
+      uint32_t x[5], out[4];
+#pragma unroll
+      for (int i = 0; i < 5; ++i)
+        x[i] = q8 == 0 ? w[i] : q8 == 1 ? w[i + 1] : q8 == 2 ? w[i + 2] : w[i + 3];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t v = sh & 2 ? __funnelshift_r(x[i], x[i + 1], 16) : x[i];
+        out[i] = 2 * i + 1 < n ? v : 2 * i < n ? v & 0xffffu : 0u;
+      }
+      const int major = major0 + (b + c) * STEP;
+      *reinterpret_cast<uint4*>(s + ga_off<KMAJ>(KMAJ ? major : 8 * j, KMAJ ? 8 * j : major)) =
+          make_uint4(out[0], out[1], out[2], out[3]);
+    }
+  }
+}
+
+// wide: the stored minor dimension is stride-1 (ga_slab16), else one
+// element a load (ga_slab1).
+template <int R, bool KMAJ>
+__device__ __forceinline__ void ga_slab(uint8_t* s, const uint16_t* base, int64_t sr, int64_t sk,
+                                        int64_t r_left, int64_t k_left, bool wide, int pt) {
+  if (wide) ga_slab16<R, KMAJ>(s, base, sr, sk, r_left, k_left, pt);
+  else ga_slab1<R, KMAJ>(s, base, sr, sk, r_left, k_left, pt);
+}
+
+// TM: the tile's rows (NM_TM or NM_TM_WIDE).  XM: X's stages M-major (m
+// stored stride-1), else K-major; WK: W's K-major, else N-major.  Block x
+// owns tile x (m fastest, then n, then the grid).
+template <int TM, int XM, int WK, typename TC>
+__global__ void __launch_bounds__(GaTile<TM>::THREADS, 1)
+nm_gather_kernel(const uint16_t* __restrict__ X, const uint16_t* __restrict__ W,
+                 TC* __restrict__ C, const FbDesc d) {
+  using T = GaTile<TM>;
+  extern __shared__ uint8_t ga_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(ga_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + T::BAR_OFF);
+  uint64_t* empty = full + GA_STAGES;
+
+  // the tile and its grid index (indices and extents below 2^31: ga_launch
+  // checks)
+  const uint32_t n_mt = (uint32_t)((d.M + TM - 1) / TM);
+  const uint32_t n_nt = (uint32_t)((d.N + NM_BN - 1) / NM_BN);
+  uint32_t t = blockIdx.x;
+  const int m0 = (int)(t % n_mt) * TM;
+  t /= n_mt;
+  const int n0 = (int)(t % n_nt) * NM_BN;
+  t /= n_nt;
+  int64_t xg = m0 * d.xm, wg = n0 * d.wn, cg = 0;
+#pragma unroll
+  for (int j = 0; j < FB_MAX_EXTRA; ++j)
+    if (j < d.n_grid) {
+      const uint32_t e = (uint32_t)d.ext[j], idx = t % e;
+      t /= e;
+      xg += idx * d.xs[j];
+      wg += idx * d.ws[j];
+      cg += idx * d.cs[j];
+    }
+  const int n_k = (int)d.steps;  // the outer indices' stages, outer index slowest
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GA_STAGES; ++s) {
+      hp_bar_init(&full[s], GA_PRODUCERS);  // every producer thread
+      hp_bar_init(&empty[s], 4 * T::WGS);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp >= 4 * T::WGS) {  // the producer warpgroup
+    const int pt = threadIdx.x - 128 * T::WGS;
+    const bool wx = d.flags & GA_F_WIDE_X, ww = d.flags & GA_F_WIDE_W;
+    const int64_t per_k = (d.K + NM_BK - 1) / NM_BK;
+    int64_t o = 0, kb = 0, xo = 0, wo = 0;
+    for (int it = 0; it < n_k; ++it) {
+      const int s = it % GA_STAGES;
+      if (it >= GA_STAGES) hp_bar_wait(&empty[s], (it / GA_STAGES - 1) & 1);
+      uint8_t* xs = sm + s * T::STAGE_BYTES;
+      const int64_t k0 = kb * NM_BK;
+      ga_slab<TM, !XM>(xs, X + xg + xo + k0 * d.xk, d.xm, d.xk, d.M - m0, d.K - k0, wx, pt);
+      ga_slab<NM_BN, WK>(xs + T::X_BYTES, W + wg + wo + k0 * d.wk, d.wn, d.wk, d.N - n0,
+                         d.K - k0, ww, pt);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      hp_bar_arrive(&full[s]);
+      if (++kb == per_k) {
+        kb = 0;
+        fb_outer(d, ++o, xo, wo);
+      }
+    }
+    return;
+  }
+
+  float acc[NM_BN / 2];
+#pragma unroll
+  for (int i = 0; i < NM_BN / 2; ++i) acc[i] = 0.f;
+  hp_consume_ring<XM, WK, GA_STAGES>(acc, sm, T::STAGE_BYTES, (warp / 4) * NM_BOX, T::X_BYTES,
+                                     full, empty, n_k);
+  nm_store<TC>(C + cg, d.cm, d.cn, acc, d.M, d.N, m0, n0);
 }
 
 // ------------------------------------------------------------- host launches
@@ -1730,35 +1763,45 @@ static int nm_launch_t(const void* X, const void* W, void* C, void* ws, const Nm
 static int fb_tm(const FbDesc& d) { return d.flags & FB_F_SMALL ? FB_TM_SMALL : FB_TM; }
 static int fb_tn(const FbDesc& d) { return d.flags & FB_F_NARROW_N ? FB_TN_NARROW : FB_TN; }
 
-static size_t fb_smem_bytes(int tm, int tn, bool chunked) {
+// The ring of f32 slabs, the chunked walk's running sums, and the raw bf16
+// ring (raw_rows: 0, or the rows of the operand that takes it).
+static size_t fb_smem_bytes(int tm, int tn, bool chunked, int raw_rows = 0) {
   return sizeof(float) * ((size_t)FB_STAGES * (tm + tn) * FB_BK +
-                          (chunked ? (size_t)(tm / 16) * (tn / 16) * FB_THREADS : 0));
+                          (chunked ? (size_t)(tm / 16) * (tn / 16) * FB_THREADS : 0)) +
+         (raw_rows ? 2 * (size_t)FB_STAGES * (tm > tn ? tm : tn) * FB_BK : 0);
 }
 
-template <int TM, int TN, bool XK, bool WK, typename TC>
+template <int TM, int TN, bool XK, bool WK, bool WIDEN, typename TC>
 static int fb_go(const void* X, const void* W, void* C, void* ws, const FbDesc& d, dim3 grid,
                  size_t smem, cudaStream_t st) {
   static bool sized = false;  // once per kernel: its shared memory is above 48 KB
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fb_kernel<TM, TN, XK, WK, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)fb_smem_bytes(TM, TN, true));
+        fb_kernel<TM, TN, XK, WK, WIDEN, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)fb_smem_bytes(TM, TN, true, WIDEN ? 1 : 0));
     if (err != cudaSuccess) return (int)err;
     sized = true;
   }
-  fb_kernel<TM, TN, XK, WK, TC><<<grid, FB_THREADS, smem, st>>>(
-      (const float*)X, (const float*)W, (TC*)C, (float*)ws, d);
+  fb_kernel<TM, TN, XK, WK, WIDEN, TC><<<grid, FB_THREADS, smem, st>>>(X, W, (TC*)C, (float*)ws,
+                                                                        d);
   return (int)cudaGetLastError();
 }
 
-template <int TM, int TN, typename TC>
+template <int TM, int TN, bool WIDEN, typename TC>
 static int fb_go_layout(const void* X, const void* W, void* C, void* ws, const FbDesc& d,
                         dim3 grid, size_t smem, cudaStream_t st) {
   const bool xk = d.flags & FB_F_X_KMAJOR, wk = d.flags & FB_F_W_KMAJOR;
-  if (xk) return wk ? fb_go<TM, TN, true, true, TC>(X, W, C, ws, d, grid, smem, st)
-                    : fb_go<TM, TN, true, false, TC>(X, W, C, ws, d, grid, smem, st);
-  return wk ? fb_go<TM, TN, false, true, TC>(X, W, C, ws, d, grid, smem, st)
-            : fb_go<TM, TN, false, false, TC>(X, W, C, ws, d, grid, smem, st);
+  if (xk) return wk ? fb_go<TM, TN, true, true, WIDEN, TC>(X, W, C, ws, d, grid, smem, st)
+                    : fb_go<TM, TN, true, false, WIDEN, TC>(X, W, C, ws, d, grid, smem, st);
+  return wk ? fb_go<TM, TN, false, true, WIDEN, TC>(X, W, C, ws, d, grid, smem, st)
+            : fb_go<TM, TN, false, false, WIDEN, TC>(X, W, C, ws, d, grid, smem, st);
+}
+
+template <int TM, int TN, typename TC>
+static int fb_go_widen(bool widen, const void* X, const void* W, void* C, void* ws,
+                       const FbDesc& d, dim3 grid, size_t smem, cudaStream_t st) {
+  return widen ? fb_go_layout<TM, TN, true, TC>(X, W, C, ws, d, grid, smem, st)
+               : fb_go_layout<TM, TN, false, TC>(X, W, C, ws, d, grid, smem, st);
 }
 
 template <typename TC>
@@ -1769,15 +1812,55 @@ static int fb_launch_t(const void* X, const void* W, void* C, void* ws, const Fb
   if (tiles >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
   if (tiles == 0) return (int)cudaSuccess;
   const dim3 grid((unsigned)tiles, (unsigned)d.n_split);
-  const size_t smem = fb_smem_bytes(tm, tn, d.flags & FB_F_CHUNKED);
+  const bool widen = d.flags & (FB_F_X_BF16 | FB_F_W_BF16);
+  const size_t smem = fb_smem_bytes(tm, tn, d.flags & FB_F_CHUNKED,
+                                    d.flags & (FB_F_RAW_X | FB_F_RAW_W) ? 1 : 0);
   const int rc =
-      tm == FB_TM_SMALL ? fb_go_layout<FB_TM_SMALL, FB_TN_NARROW, TC>(X, W, C, ws, d, grid, smem, st)
-      : tn == FB_TN     ? fb_go_layout<FB_TM, FB_TN, TC>(X, W, C, ws, d, grid, smem, st)
-                        : fb_go_layout<FB_TM, FB_TN_NARROW, TC>(X, W, C, ws, d, grid, smem, st);
+      tm == FB_TM_SMALL
+          ? fb_go_widen<FB_TM_SMALL, FB_TN_NARROW, TC>(widen, X, W, C, ws, d, grid, smem, st)
+      : tn == FB_TN ? fb_go_widen<FB_TM, FB_TN, TC>(widen, X, W, C, ws, d, grid, smem, st)
+                    : fb_go_widen<FB_TM, FB_TN_NARROW, TC>(widen, X, W, C, ws, d, grid, smem, st);
   if (rc || d.n_split == 1) return rc;
   const int64_t n = d.G * d.M * d.N;
   fb_reduce<TC><<<(unsigned)((n + 255) / 256), 256, 0, st>>>((const float*)ws, (TC*)C, d);
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ gathered host
+template <int TM, int XM, int WK, typename TC>
+static int ga_go(const void* X, const void* W, void* C, const FbDesc& d, unsigned grid,
+                 cudaStream_t st) {
+  typedef GaTile<TM> T;
+  static bool sized = false;  // once per kernel: its shared memory is above 48 KB
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nm_gather_kernel<TM, XM, WK, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  nm_gather_kernel<TM, XM, WK, TC><<<grid, T::THREADS, T::SMEM, st>>>(
+      (const uint16_t*)X, (const uint16_t*)W, (TC*)C, d);
+  return (int)cudaGetLastError();
+}
+
+template <int TM, typename TC>
+static int ga_go_layout(bool xm_major, bool wk_major, const void* X, const void* W, void* C,
+                        const FbDesc& d, unsigned grid, cudaStream_t st) {
+  if (xm_major) return wk_major ? ga_go<TM, 1, 1, TC>(X, W, C, d, grid, st)
+                                : ga_go<TM, 1, 0, TC>(X, W, C, d, grid, st);
+  return wk_major ? ga_go<TM, 0, 1, TC>(X, W, C, d, grid, st)
+                  : ga_go<TM, 0, 0, TC>(X, W, C, d, grid, st);
+}
+
+template <typename TC>
+static int ga_launch_t(const void* X, const void* W, void* C, const FbDesc& d, cudaStream_t st) {
+  const int tm = d.M <= NM_TM ? NM_TM : NM_TM_WIDE;
+  const int64_t tiles = d.G * ((d.M + tm - 1) / tm) * ((d.N + NM_BN - 1) / NM_BN);
+  if (tiles >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  const bool xm_major = !(d.flags & FB_F_X_KMAJOR), wk_major = d.flags & FB_F_W_KMAJOR;
+  return tm == NM_TM
+             ? ga_go_layout<NM_TM, TC>(xm_major, wk_major, X, W, C, d, (unsigned)tiles, st)
+             : ga_go_layout<NM_TM_WIDE, TC>(xm_major, wk_major, X, W, C, d, (unsigned)tiles, st);
 }
 
 // One operand's 2-D layout (element strides s_outer, s_inner over extents
@@ -1854,12 +1937,13 @@ extern "C" int nm_launch(const void* X, const void* W, void* C, void* ws, const 
   return nm_launch_t<__nv_bfloat16>(X, W, C, ws, *d, st);
 }
 
-// Route "fbatched": float32 X and W with any strides, as native_plan
-// describes them; `ws` holds n_split * G * M * N floats when n_split > 1
-// (else it may be null).  The walk must be O * ceil(K / FB_BK) stages, O
-// the outer extents' product, split into n_split runs of spc stages, one
-// chunk (FB_CHUNK_STAGES stages) each where n_split > 1; a 16-byte copy
-// flag needs its operand 16-byte aligned with its slab's minor stride 1.
+// Route "fbatched": float32 or (flags FB_F_X_BF16, FB_F_W_BF16) bf16 X and
+// W with any strides, as native_plan describes them; `ws` holds n_split *
+// G * M * N floats when n_split > 1 (else it may be null).  The walk must
+// be O * ceil(K / FB_BK) stages, O the outer extents' product, split into
+// n_split runs of spc stages, one chunk (FB_CHUNK_STAGES stages) each where
+// n_split > 1; a 16-byte load flag needs its operand 16-byte aligned with
+// its slab's minor stride 1.
 // Type code tc: 0 = float32, 1 = bfloat16 output.  Returns a cudaError_t
 // value.
 extern "C" int fb_launch(const void* X, const void* W, void* C, void* ws, const FbDesc* d, int tc,
@@ -1885,10 +1969,42 @@ extern "C" int fb_launch(const void* X, const void* W, void* C, void* ws, const 
   if (d->flags & FB_F_VEC_W) ok = ok && (uintptr_t)W % 16 == 0 && (wkm ? d->wk : d->wn) == 1;
   if (d->flags & FB_F_VEC_C) ok = ok && d->cn == 1 && d->cm % 4 == 0;
   if (d->flags & FB_F_SMALL) ok = ok && (d->flags & FB_F_NARROW_N);
+  if (d->flags & FB_F_RAW_X) ok = ok && (d->flags & FB_F_X_BF16) && (d->flags & FB_F_VEC_X);
+  if (d->flags & FB_F_RAW_W)
+    ok = ok && (d->flags & FB_F_W_BF16) && (d->flags & FB_F_VEC_W) && !(d->flags & FB_F_RAW_X);
   if (!ok) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (tc == 0) return fb_launch_t<float>(X, W, C, ws, *d, st);
   return fb_launch_t<__nv_bfloat16>(X, W, C, ws, *d, st);
+}
+
+// Route "gathered": bf16 X and W with any strides, as native_plan
+// describes them (fbatched's descriptor; one split, the walk O *
+// ceil(K / NM_BK) stages); GA_F_WIDE_* needs the operand's stage minor
+// stride 1.  Type code tc: 0 = float32, 1 = bfloat16
+// output.  Returns a cudaError_t value.
+extern "C" int ga_launch(const void* X, const void* W, void* C, const FbDesc* d, int tc,
+                         void* stream) {
+  const int64_t lim = (int64_t)1 << 31;
+  bool ok = tc >= 0 && tc <= 1 && d->M >= 1 && d->N >= 1 && d->K >= 1 && d->M < lim &&
+            d->N < lim && d->K < lim && d->G >= 1 && d->n_grid >= 0 &&
+            d->n_grid <= d->n_extra && d->n_extra <= FB_MAX_EXTRA && d->n_split == 1 &&
+            d->steps >= 1 && d->steps < lim;
+  int64_t G = 1, O = 1;
+  for (int j = 0; j < FB_MAX_EXTRA; ++j) {
+    ok = ok && d->ext[j] >= 1 && d->ext[j] < lim && (j < d->n_grid || d->cs[j] == 0);
+    if (j < d->n_grid) G *= d->ext[j];
+    else if (j < d->n_extra) O *= d->ext[j];
+    else ok = ok && d->ext[j] == 1;
+  }
+  ok = ok && G == d->G && d->steps == O * ((d->K + NM_BK - 1) / NM_BK);
+  const bool xkm = d->flags & FB_F_X_KMAJOR, wkm = d->flags & FB_F_W_KMAJOR;
+  if (d->flags & GA_F_WIDE_X) ok = ok && (xkm ? d->xk : d->xm) == 1;
+  if (d->flags & GA_F_WIDE_W) ok = ok && (wkm ? d->wk : d->wn) == 1;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tc == 0) return ga_launch_t<float>(X, W, C, *d, st);
+  return ga_launch_t<__nv_bfloat16>(X, W, C, *d, st);
 }
 
 // Registers, local (spilled) bytes per thread and shared bytes per block of
@@ -1902,8 +2018,13 @@ extern "C" int fb_launch(const void* X, const void* W, void* C, void* ws, const 
 // the float32-output fbatched kernel of FB_TN (14-17) and FB_TN_NARROW
 // (18-21) columns with X m-major (14, 15) or k-major (16, 17) and W
 // n-major (14, 16) or k-major (15, 17), at its largest shared memory (a
-// chunked walk), 22 its split reduction, and 23-26 the same kernel with a
-// FB_TM_SMALL x FB_TN_NARROW tile in the layout order of 14-17.
+// chunked walk), 22 its split reduction, 23-26 the same kernel with a
+// FB_TM_SMALL x FB_TN_NARROW tile in the layout order of 14-17, and 27-34
+// the bfloat16-output gathered kernel of NM_TM (27-30) and NM_TM_WIDE
+// (31-34) rows in the layout order of 5-8, and 35-46 the float32-output
+// fbatched kernel with a bf16 operand (WIDEN) in the tile and layout order
+// of 14-21 and 23-26, at its largest shared memory (a chunked walk with the
+// raw ring).
 extern "C" int nr_info(int kind, int rp, int64_t K, int* out) {
   const void* fn = nullptr;
   size_t smem = 0;
@@ -1937,25 +2058,57 @@ extern "C" int nr_info(int kind, int rp, int64_t K, int* out) {
     smem = NmTile<NM_TM_WIDE>::SMEM;
   } else if (kind >= 14 && kind <= 21) {
     const void* fns[8] = {
-        (const void*)fb_kernel<FB_TM, FB_TN, false, false, float>,
-        (const void*)fb_kernel<FB_TM, FB_TN, false, true, float>,
-        (const void*)fb_kernel<FB_TM, FB_TN, true, false, float>,
-        (const void*)fb_kernel<FB_TM, FB_TN, true, true, float>,
-        (const void*)fb_kernel<FB_TM, FB_TN_NARROW, false, false, float>,
-        (const void*)fb_kernel<FB_TM, FB_TN_NARROW, false, true, float>,
-        (const void*)fb_kernel<FB_TM, FB_TN_NARROW, true, false, float>,
-        (const void*)fb_kernel<FB_TM, FB_TN_NARROW, true, true, float>};
+        (const void*)fb_kernel<FB_TM, FB_TN, false, false, false, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN, false, true, false, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN, true, false, false, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN, true, true, false, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN_NARROW, false, false, false, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN_NARROW, false, true, false, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN_NARROW, true, false, false, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN_NARROW, true, true, false, float>};
     fn = fns[kind - 14];
     smem = fb_smem_bytes(FB_TM, kind < 18 ? FB_TN : FB_TN_NARROW, true);
   } else if (kind == 22) {
     fn = (const void*)fb_reduce<float>;
   } else if (kind >= 23 && kind <= 26) {
-    const void* fns[4] = {(const void*)fb_kernel<FB_TM_SMALL, FB_TN_NARROW, false, false, float>,
-                          (const void*)fb_kernel<FB_TM_SMALL, FB_TN_NARROW, false, true, float>,
-                          (const void*)fb_kernel<FB_TM_SMALL, FB_TN_NARROW, true, false, float>,
-                          (const void*)fb_kernel<FB_TM_SMALL, FB_TN_NARROW, true, true, float>};
+    const void* fns[4] = {
+        (const void*)fb_kernel<FB_TM_SMALL, FB_TN_NARROW, false, false, false, float>,
+        (const void*)fb_kernel<FB_TM_SMALL, FB_TN_NARROW, false, true, false, float>,
+        (const void*)fb_kernel<FB_TM_SMALL, FB_TN_NARROW, true, false, false, float>,
+        (const void*)fb_kernel<FB_TM_SMALL, FB_TN_NARROW, true, true, false, float>};
     fn = fns[kind - 23];
     smem = fb_smem_bytes(FB_TM_SMALL, FB_TN_NARROW, true);
+  } else if (kind >= 35 && kind <= 46) {
+    const void* fns[12] = {
+        (const void*)fb_kernel<FB_TM, FB_TN, false, false, true, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN, false, true, true, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN, true, false, true, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN, true, true, true, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN_NARROW, false, false, true, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN_NARROW, false, true, true, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN_NARROW, true, false, true, float>,
+        (const void*)fb_kernel<FB_TM, FB_TN_NARROW, true, true, true, float>,
+        (const void*)fb_kernel<FB_TM_SMALL, FB_TN_NARROW, false, false, true, float>,
+        (const void*)fb_kernel<FB_TM_SMALL, FB_TN_NARROW, false, true, true, float>,
+        (const void*)fb_kernel<FB_TM_SMALL, FB_TN_NARROW, true, false, true, float>,
+        (const void*)fb_kernel<FB_TM_SMALL, FB_TN_NARROW, true, true, true, float>};
+    fn = fns[kind - 35];
+    const int tm = kind < 43 ? FB_TM : FB_TM_SMALL, tn = kind < 39 ? FB_TN : FB_TN_NARROW;
+    smem = fb_smem_bytes(tm, tn, true, 1);
+  } else if (kind >= 27 && kind <= 30) {
+    const void* fns[4] = {(const void*)nm_gather_kernel<NM_TM, 0, 0, B16>,
+                          (const void*)nm_gather_kernel<NM_TM, 0, 1, B16>,
+                          (const void*)nm_gather_kernel<NM_TM, 1, 0, B16>,
+                          (const void*)nm_gather_kernel<NM_TM, 1, 1, B16>};
+    fn = fns[kind - 27];
+    smem = GaTile<NM_TM>::SMEM;
+  } else if (kind >= 31 && kind <= 34) {
+    const void* fns[4] = {(const void*)nm_gather_kernel<NM_TM_WIDE, 0, 0, B16>,
+                          (const void*)nm_gather_kernel<NM_TM_WIDE, 0, 1, B16>,
+                          (const void*)nm_gather_kernel<NM_TM_WIDE, 1, 0, B16>,
+                          (const void*)nm_gather_kernel<NM_TM_WIDE, 1, 1, B16>};
+    fn = fns[kind - 31];
+    smem = GaTile<NM_TM_WIDE>::SMEM;
   }
   if (!fn) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
@@ -1967,4 +2120,4 @@ extern "C" int nr_info(int kind, int rp, int64_t K, int* out) {
   return 0;
 }
 
-extern "C" const char* ng_error_string(int code) { return hp_error_string(code); }
+extern "C" const char* sb_error_string(int code) { return hp_error_string(code); }

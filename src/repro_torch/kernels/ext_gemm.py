@@ -5,13 +5,13 @@ operand's stride-1 mode ("no-first-mode rule" violations, §III-E).  The
 paper's fix is an extended ``op`` parameter whose implementation "performs
 a 3D tiling of B into cache".  On Hopper the native kernel
 (:func:`repro_torch.kernels.sb_gemm.native_gemm`) already reads any
-operand through its strides, so the extended transpose is a launch
-configuration of that kernel: each block walks ``batch_tile`` consecutive
-indices of the planner-chosen batch mode β.  The walk shapes only the
-``generic`` route's tile (mixed bf16 x f32 operands, bf16 layouts no
-tensor map reads): float32 operands take the ``fbatched`` route, whose
-tile and walk come from the operands' layout alone, and bf16 ones that a
-tensor map reads take ``batched``.
+operand through its strides, and on the card its tile comes from the
+operands' layout alone: float32 and mixed operands take the ``fbatched``
+route, bf16 ones ``batched`` where a tensor map reads them and
+``gathered`` where none does, each picking its tile and walk from the
+strides (``native_plan``).  ``batch_tile``, the number of consecutive
+indices of the planner-chosen batch mode β one block walks in the JAX
+package, is kept and checked (a positive int), and shapes no launch.
 
 Like its JAX counterpart this is the paper-named entry point kept for the
 §III-E benchmarks and the tests that pin it; ``contract(...,

@@ -6,9 +6,10 @@ kernel (:func:`plan_roles`), fuses the plan's flattened mode groups as
 views, and launches :func:`~repro_torch.kernels.sb_gemm.native_gemm`
 once.  Nested batch modes (paper Listing 2's outer loops, lifted with
 ``jax.vmap`` in the JAX package) are just more C modes of that one launch:
-the kernel decodes them from its block index.  Exceptional plans walk the
-batch mode ``EXT_BATCH_TILE`` indices per block (the extended transpose,
-see ``ext_gemm.py``).
+the kernel decodes them from its block index.  Exceptional plans name a
+walk of ``EXT_BATCH_TILE`` batch indices per block (the extended
+transpose, see ``ext_gemm.py``), which the card's kernel takes from the
+layout.
 
 ``execute_native(spec, A, B)`` is the layout-oblivious entry (the
 ``"native"`` strategy): no plan, no roles, no layout precondition.  Plans
@@ -75,18 +76,28 @@ def sb_contract(spec_a: str, spec_b: str, spec_c: str, A, B, *, roles: dict,
                 tiles: dict | None = None, out_dtype=None):
     """One kernel launch for a core contraction under a role table.
 
-    The ``u`` role picks the tile's row mode; the ``b`` role's mode is
-    walked ``tiles["b"]`` indices per block.  Other C modes (the plan's
-    nested batch modes) are decoded from the block index.  No padding:
-    the kernel masks ragged edges.
+    The JAX package's interface: the ``u`` role names the tile's row mode
+    and the ``b`` role's mode is walked ``tiles["b"]`` indices per block.
+    Both are checked as they are there (``u`` a C mode other than the
+    minor-most and the walked one, ``b`` a C mode other than the
+    minor-most, the walk a positive int), but on the card the kernel's
+    route, tile and launch come from the operands' layout alone
+    (:func:`~repro_torch.kernels.sb_gemm.native_plan`), so neither is
+    passed on.  No padding: the kernel masks ragged edges.
     """
     tiles = {**DEFAULT_TILES, **(tiles or {})}
     by_role = {r: m for m, r in roles.items()}
-    walk_mode = by_role.get("b")
-    return native_gemm(
-        A, B, a_modes=spec_a, b_modes=spec_b, c_modes=spec_c,
-        out_dtype=out_dtype, u=by_role.get("u"),
-        walk=tiles["b"] if walk_mode else 1, walk_mode=walk_mode)
+    u, walk_mode, others = by_role.get("u"), by_role.get("b"), spec_c[:-1]
+    if u is not None and (u not in others or u == walk_mode):
+        raise ValueError(f"u={u!r} must be a C mode other than the minor-most "
+                         f"and the walked one")
+    if walk_mode is not None and walk_mode not in others:
+        raise ValueError(f"walk_mode={walk_mode!r} is not a batch mode of C")
+    walk = tiles["b"]
+    if not isinstance(walk, int) or isinstance(walk, bool) or walk < 1:
+        raise ValueError(f"tile b={walk!r} must be a positive int")
+    return native_gemm(A, B, a_modes=spec_a, b_modes=spec_b, c_modes=spec_c,
+                       out_dtype=out_dtype)
 
 
 class _NativeContraction(torch.autograd.Function):

@@ -9,19 +9,11 @@ transposed, sliced and stride-0 views cost no permute and no copy, which
 is the paper's claim (Listing 1's ``lda``/``loa`` walk) carried to every
 mode.  There is no padding either: the kernel masks ragged edges.
 
-The generic route's geometry, from the wrapper's point of view: C's
-minor-most mode ``v`` and one other C mode ``u`` (by default the largest, as
-:func:`~repro_torch.kernels.addressing.native_mode_tiles` picks it) span
-a block's output tile; every other C mode is decoded from the block
-index; the contracted modes are one flattened in-block loop.  At most
-:data:`MAX_MODES` such modes fit one launch.
-
 Six routes, picked by :func:`native_route` from dtypes, extents and
-strides alone (the ``u``/``walk`` options only shape the generic tile).
-Contracted modes that are one mode in both operands (neighbours in the same
-order, the outer one's stride the inner one's extent times its stride) are
-first fused into one, so a weight gradient ``bsf,bse->ef`` is a GEMM of
-depth b·s:
+strides alone.  Contracted modes that are one mode in both operands
+(neighbours in the same order, the outer one's stride the inner one's
+extent times its stride) are first fused into one, so a weight gradient
+``bsf,bse->ef`` is a GEMM of depth b·s:
 
 - ``"stream"``: float32 with one big side and a narrow other side.  Read
   kind, ``C[m, r] = Σ_k X[m, k]·W[k, r]`` with ``r`` at most
@@ -44,18 +36,24 @@ depth b·s:
   n]`` with up to :data:`WGMMA_MAX_EXTRA` grid modes ``g`` and outer
   contracted modes ``o`` in all, each a box-1 dimension of the tensor map
   of each operand that carries it; never split.
-- ``"fbatched"``: every other float32 product (both operands float32):
-  the same form, ``C[g.., m, n] = Σ_{o.., k} X[g.., o.., m, k]·W[g.., o..,
+- ``"gathered"``: every other bfloat16 product with a contracted mode
+  and an own C mode: the fbatched form below (grid modes from either
+  operand, up to :data:`MAX_MODES` grid and outer modes, any strides) on
+  the same tensor-core consumer, its stages gathered through the
+  operands' strides by a producer warpgroup instead of TMA (bf16 rows no
+  tensor map can step, Table II's layouts in bf16); never split.
+- ``"fbatched"``: every other product, float32, mixed bf16 x float32 or
+  degenerate bf16 (an outer product, no own C mode, a zero extent): the
+  same form, ``C[g.., m, n] = Σ_{o.., k} X[g.., o.., m, k]·W[g.., o..,
   k, n]``, with grid modes carried by X, by W or by both (stride 0 in the
   operand that lacks one), outer contracted modes walked in the kernel,
-  any strides, on the FMA units in float32 (no TF32).  The Table II
-  cases, the paper's Figs. 1-8, HOOI's Gram ``mnp,mqp->nq``.  The
-  contraction is split where the output tiles are too few to fill the
-  card (:func:`fbatched_plan`), one :data:`SUM_CHUNK` of indices a
-  split, reduced in split order: the chunk sums a single block adds in
-  the same order, so the split moves no bit.
-- ``"generic"``: mixed bf16 x f32 operands and bf16 layouts that no
-  tensor map can read.
+  any strides, on the FMA units in float32 (no TF32; a bf16 operand is
+  widened on its way to shared memory).  The Table II cases, the paper's
+  Figs. 1-8, HOOI's Gram ``mnp,mqp->nq``.  The contraction is split where
+  the output tiles are too few to fill the card (:func:`fbatched_plan`),
+  one :data:`SUM_CHUNK` of indices a split, reduced in split order: the
+  chunk sums a single block adds in the same order, so the split moves
+  no bit.
 
 :func:`native_gemm_ref` is the plain PyTorch version (an f32 einsum).  The
 wrapper takes it only for tensors on the CPU; a CUDA tensor launches the
@@ -79,10 +77,11 @@ __all__ = ["MAX_MODES", "NARROW", "ROUTES", "STREAM_MIN_ROWS", "SUM_CHUNK", "WGM
            "fbatched_plan", "native_gemm", "native_gemm_ref", "native_plan", "native_route",
            "route_info", "splitk_plan", "wgmma_plan"]
 
-#: mode slots one launch takes (u, v, other C modes, contracted modes)
+#: most grid and outer contracted modes of one fbatched or gathered launch
+#: (``SB_MAX_MODES``)
 MAX_MODES = 8
 
-ROUTES = ("stream", "splitk", "wgmma", "batched", "fbatched", "generic")
+ROUTES = ("stream", "splitk", "wgmma", "batched", "gathered", "fbatched")
 
 #: widest narrow mode the stream and splitk routes hold in registers: the
 #: read kind's ``r``, the write kind's ``k`` (``NR_NARROW``)
@@ -119,7 +118,7 @@ WGMMA_MAX_EXTRA = 3
 FBATCHED_TM, FBATCHED_TN, FBATCHED_TN_NARROW, FBATCHED_BK = 128, 128, 64, 32
 FBATCHED_TM_SMALL = 64
 FBATCHED_STAGES, FBATCHED_THREADS = 4, 256
-#: contracted indices per partial sum (``NG_SUM_CHUNK``): a float32
+#: contracted indices per partial sum (``SB_SUM_CHUNK``): a float32
 #: contraction deeper than this sums each chunk apart and adds the chunk
 #: sums in order, and a split spans one chunk
 SUM_CHUNK = 4096
@@ -128,31 +127,39 @@ SUM_CHUNK = 4096
 #: float32 plane of C a chunk) take at most this many bytes
 FBATCHED_BLOCKS_PER_SM = 2
 FBATCHED_SPLIT_MAX_BYTES = 1 << 28
+#: the gathered route's ring depth and producer threads (``GA_STAGES``,
+#: ``GA_PRODUCERS``); its tile and stage depth are the wgmma route's
+GATHERED_STAGES, GATHERED_PRODUCERS = 4, 128
+#: the narrowest stride-1 mode the gathered route takes as a tile mode
+#: where k is not stride-1 (:func:`_unit_mode`): a quarter of a 64-row tile
+GATHERED_MIN_UNIT = 16
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: the launch descriptors, packed as the C structs of ``csrc/sb_gemm.cu``
-#: lay them out (little-endian, 8-byte aligned): ``NgDesc`` (generic: ext,
-#: sa, sb, sc over the slots; n_rest, n_k, walk), ``NrDesc`` (stream read
+#: lay them out (little-endian, 8-byte aligned): ``NrDesc`` (stream read
 #: kind and splitk: m_ext, m_xs, m_cs; M, K, xk, wk, R, wr, cr; n_m, kc,
 #: n_split, rp), ``NwDesc`` (stream write kind: M, P, K, xm, xk, wp, wk,
-#: cm) and ``NmDesc`` (wgmma and batched: M, N, K; the extra modes'
-#: extents, grid modes first; X's strides of m, k and the extra modes, W's
-#: of n, k and the extra modes, C's of m and the grid modes; n_grid,
-#: n_extra, kc, n_split) and ``FbDesc`` (fbatched: M, N, K; X's strides of m
-#: and k, W's of n and k, C's of m and n; the extra modes' extents and X, W
-#: and C strides, grid modes first; G, steps, spc; n_grid, n_extra,
+#: cm), ``NmDesc`` (wgmma and batched: M, N, K; the extra modes' extents,
+#: grid modes first; X's strides of m, k and the extra modes, W's of n, k
+#: and the extra modes, C's of m and the grid modes; n_grid, n_extra, kc,
+#: n_split) and ``FbDesc`` (fbatched and gathered: M, N, K; X's strides of
+#: m and k, W's of n and k, C's of m and n; the extra modes' extents and
+#: X, W and C strides, grid modes first; G, steps, spc; n_grid, n_extra,
 #: n_split, flags).
 #: Every call packs one, and ``struct`` does it several times faster than a
 #: ctypes structure with array fields.
-_NG_DESC = struct.Struct(f"<{4 * MAX_MODES}q3i4x")
 _NR_DESC = struct.Struct("<16q4i")
 _NW_DESC = struct.Struct("<8q")
 _NM_DESC = struct.Struct(f"<{3 + 3 + 5 + 5 + 4}q4i")
 _FB_DESC = struct.Struct(f"<{9 + 4 * MAX_MODES + 3}q4i")
-#: the fbatched descriptor's flag bits (``FB_F_*``)
+#: the fbatched descriptor's flag bits (``FB_F_*``); the gathered route
+#: reads the two layout bits and whether X's and W's stages load 16 bytes
+#: at a time (``GA_F_WIDE_X``, ``GA_F_WIDE_W``)
 (_FB_CHUNKED, _FB_VEC_X, _FB_VEC_W, _FB_VEC_C, _FB_X_KMAJOR, _FB_W_KMAJOR, _FB_NARROW_N,
- _FB_SMALL) = (1 << i for i in range(8))
+ _FB_SMALL, _FB_X_BF16, _FB_W_BF16) = (1 << i for i in range(10))
+_FB_RAW_X, _FB_RAW_W = 1 << 14, 1 << 15
+_GA_WIDE_X, _GA_WIDE_W = 1 << 10, 1 << 11
 
 _LIB = None
 
@@ -162,18 +169,18 @@ def _library():
     if _LIB is None:
         lib = _build.load("sb_gemm")
         ptr, desc, i32 = ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int
-        lib.ng_launch.argtypes = [ptr, ptr, ptr, desc, i32, i32, i32, ptr]
         lib.ns_launch_read.argtypes = [ptr, ptr, ptr, desc, i32, ptr]
         lib.ns_launch_write.argtypes = [ptr, ptr, ptr, desc, i32, ptr]
         lib.nk_launch.argtypes = [ptr, ptr, ptr, ptr, desc, i32, ptr]
         lib.nm_launch.argtypes = [ptr, ptr, ptr, ptr, desc, i32, ptr]
         lib.fb_launch.argtypes = [ptr, ptr, ptr, ptr, desc, i32, ptr]
+        lib.ga_launch.argtypes = [ptr, ptr, ptr, desc, i32, ptr]
         lib.nr_info.argtypes = [i32, i32, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)]
-        for fn in (lib.ng_launch, lib.ns_launch_read, lib.ns_launch_write, lib.nk_launch,
-                   lib.nm_launch, lib.fb_launch, lib.nr_info):
+        for fn in (lib.ns_launch_read, lib.ns_launch_write, lib.nk_launch, lib.nm_launch,
+                   lib.fb_launch, lib.ga_launch, lib.nr_info):
             fn.restype = ctypes.c_int
-        lib.ng_error_string.argtypes = [ctypes.c_int]
-        lib.ng_error_string.restype = ctypes.c_char_p
+        lib.sb_error_string.argtypes = [ctypes.c_int]
+        lib.sb_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
@@ -313,9 +320,9 @@ def _read_plan(X, x_modes, xs, r, ws, k, dims, sc, x_is_a):
         if (len(fused) == 1 and _tma_readable(X, fused[0][1], xs[k], M, K)
                 and _cdiv(K, STREAM_BK) * STREAM_BK * plan["rp"] * 4 <= STREAM_W_BYTES):
             return "stream", plan
-        return "generic", None
+        return None, None
     if len(fused) > 3:
-        return "generic", None
+        return None, None
     plan.update(splitk_plan(M, K, R))
     return "splitk", plan
 
@@ -357,18 +364,18 @@ def _map_stride_ok(s: int) -> bool:
 
 
 def _tc_plan(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc):
-    """The wgmma or batched plan of bf16 A and B, or ``("generic",
-    None)``; ``outer`` the contracted modes that do not fuse with ``k``,
-    as ``(extent, A stride, B stride)``."""
+    """The wgmma or batched plan of bf16 A and B, or ``(None, None)``
+    where a tensor map cannot read them; ``outer`` the contracted modes
+    that do not fuse with ``k``, as ``(extent, A stride, B stride)``."""
     n = c_live[-1]
     if n in batch:
-        return "generic", None
+        return None, None
     if n in b_c:
         x_is_a, X, W, x_c, w_c, xs, ws = True, A, B, a_c, b_c, sa, sb
     else:
         x_is_a, X, W, x_c, w_c, xs, ws = False, B, A, b_c, a_c, sb, sa
     if [m for m in w_c if m not in batch] != [n]:
-        return "generic", None
+        return None, None
     # X's own C modes fuse where they can; the widest is the row mode m,
     # the rest are grid modes beside the batch modes
     own = [m for m in x_c if m not in batch]
@@ -395,10 +402,10 @@ def _tc_plan(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc):
             and all(_map_stride_ok(x) and _map_stride_ok(w) for _, x, w in outer)
             and max(M, N, K, G) < 2**31 and X.data_ptr() % 16 == 0
             and W.data_ptr() % 16 == 0):
-        return "generic", None
+        return None, None
     plan = wgmma_plan(M, N, K, G, split=not grid and not outer and xk == 1)
     if plan["tiles"] >= 2**31:
-        return "generic", None
+        return None, None
     route = "batched" if grid or outer else "wgmma"
     return route, {"kind": route, "x_is_a": x_is_a, "M": M, "N": N, "K": K, "xm": xm,
                    "xk": xk, "wn": wn, "wk": wk, "ldc": ldc, "grid": grid, "outer": outer,
@@ -437,12 +444,27 @@ def _k_major(sk: int, smn: int) -> bool:
     return key(sk) < key(smn)
 
 
-def _fb_plan(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc, zero_k=False):
-    """The fbatched plan of float32 A and B; ``k`` None where no mode is
-    contracted (then K is 1 at stride 0), ``zero_k`` where a contracted
-    mode has extent 0 (then K is 0 and C is zeros); ``outer`` the
-    contracted modes that do not fuse with ``k``, as ``(extent, A stride,
-    B stride)``."""
+def _unit_mode(fused, k_stride: int):
+    """The gathered route's tile mode of an operand with k not stride-1:
+    its own fused C mode ``[extent, stride, C stride]`` that is stride-1,
+    where it is at least :data:`GATHERED_MIN_UNIT` wide, so that its
+    stages load neighbouring elements; else None."""
+    unit = next((f for f in fused if f[1] == 1), None)
+    return unit if k_stride != 1 and unit is not None and unit[0] >= GATHERED_MIN_UNIT else None
+
+
+def _strided_form(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc, zero_k,
+                  gather=False):
+    """The form ``C[g.., m, n] = Σ_{o.., k} X[g.., o.., m, k]·W[g.., o..,
+    k, n]`` of the fbatched and gathered routes: ``(plan, X, W)``, the
+    plan's ``M``, ``N``, ``K``, the tile modes' strides, ``grid``,
+    ``outer``, ``G`` and ``O``; ``k`` None where no mode is contracted
+    (then K is 1 at stride 0), ``zero_k`` where a contracted mode has
+    extent 0 (then K is 0 and C is zeros); ``outer`` the contracted modes
+    that do not fuse with ``k``, as ``(extent, A stride, B stride)``.
+    ``gather``: the tile modes are each operand's stride-1 own mode where
+    k is not stride-1 (:func:`_unit_mode`), else as fbatched picks them.
+    Raises where the grid and outer modes are more than :data:`MAX_MODES`."""
     own_a = [m for m in a_c if m not in batch]
     own_b = [m for m in b_c if m not in batch]
     # W carries C's innermost mode that only one operand carries
@@ -455,8 +477,8 @@ def _fb_plan(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc, zero_k=F
         K = 0
     fx = _fuse(sorted(([dims[m], xs[m], sc[m]] for m in x_own), key=lambda t: t[1]))
     fw = _fuse(sorted(([dims[m], ws[m], sc[m]] for m in w_own), key=lambda t: t[1]))
-    row = _row_mode(fx, xk)
-    col = _column_mode(fw)
+    row = (_unit_mode(fx, xk) if gather else None) or _row_mode(fx, xk)
+    col = (_unit_mode(fw, wk) if gather else None) or _column_mode(fw)
     M, xm, cm = row or (1, 0, 0)
     N, wn, cn = col or (1, 0, 0)
     # (extent, X stride, W stride, C stride), innermost in C first; neighbours
@@ -479,46 +501,89 @@ def _fb_plan(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc, zero_k=F
     for o in outer:
         O *= o[0]
     if len(grid) + len(outer) > MAX_MODES:
-        raise ValueError(f"fbatched takes at most {MAX_MODES} grid and outer modes, "
-                         f"not {len(grid) + len(outer)}")
-    plan = fbatched_plan(M, N, K, G, O)
+        raise ValueError(f"the product needs {len(grid) + len(outer)} grid and outer mode "
+                         f"slots; native_gemm takes at most {MAX_MODES} grid and outer modes")
+    return {"x_is_a": x_is_a, "M": M, "N": N, "K": K, "xm": xm, "xk": xk, "wn": wn, "wk": wk,
+            "cm": cm, "cn": cn, "grid": grid, "outer": outer, "G": G, "O": O}, X, W
+
+
+def _fb_plan(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc, zero_k=False):
+    """The fbatched plan of A and B, each float32 or bfloat16 (see
+    :func:`_strided_form`)."""
+    form, X, W = _strided_form(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc,
+                               zero_k)
+    M, N, K, xm, xk, wn, wk, cm, grid = (form[f] for f in ("M", "N", "K", "xm", "xk", "wn",
+                                                           "wk", "cm", "grid"))
+    outer = form["outer"]
+    plan = fbatched_plan(M, N, K, form["G"], form["O"])
     if plan["tiles"] >= 2**31 or plan["steps"] >= 2**31:
         raise ValueError(f"fbatched takes fewer than 2^31 tiles and 2^31 stages, not "
                          f"{plan['tiles']} and {plan['steps']}")
     x_km, w_km = _k_major(xk, xm), _k_major(wk, wn)
 
     def vec(T, km, s_mn, s_k, extra):
-        # 16-byte copies along the slab's stored minor dimension
+        # 16-byte loads along the slab's stored minor dimension
         minor, other = (s_k, s_mn) if km else (s_mn, s_k)
-        return minor == 1 and all(s % 4 == 0 for s in (other, *extra)) and T.data_ptr() % 16 == 0
+        per = 16 // T.element_size()
+        return (minor == 1 and all(s % per == 0 for s in (other, *extra))
+                and T.data_ptr() % 16 == 0)
 
     flags = ((_FB_CHUNKED if plan["chunked"] else 0)
              | (_FB_VEC_X if vec(X, x_km, xm, xk, [g[1] for g in grid] + [o[1] for o in outer])
                 else 0)
              | (_FB_VEC_W if vec(W, w_km, wn, wk, [g[2] for g in grid] + [o[2] for o in outer])
                 else 0)
-             | (_FB_VEC_C if cn == 1 and all(s % 4 == 0 for s in (cm, *(g[3] for g in grid)))
-                else 0)
+             | (_FB_VEC_C if form["cn"] == 1
+                and all(s % 4 == 0 for s in (cm, *(g[3] for g in grid))) else 0)
              | (_FB_X_KMAJOR if x_km else 0) | (_FB_W_KMAJOR if w_km else 0)
              | (_FB_NARROW_N if plan["tn"] == FBATCHED_TN_NARROW else 0)
-             | (_FB_SMALL if plan["tm"] == FBATCHED_TM_SMALL else 0))
-    return "fbatched", {"kind": "fbatched", "x_is_a": x_is_a, "M": M, "N": N, "K": K,
-                        "xm": xm, "xk": xk, "wn": wn, "wk": wk, "cm": cm, "cn": cn,
-                        "grid": grid, "outer": outer, "G": G, "O": O, "flags": flags, **plan}
+             | (_FB_SMALL if plan["tm"] == FBATCHED_TM_SMALL else 0)
+             | (_FB_X_BF16 if X.dtype == torch.bfloat16 else 0)
+             | (_FB_W_BF16 if W.dtype == torch.bfloat16 else 0))
+    # a bf16 operand that loads 16 bytes at a time takes the raw ring (one
+    # operand at most, X first); any other is widened through registers
+    if flags & _FB_X_BF16 and flags & _FB_VEC_X:
+        flags |= _FB_RAW_X
+    elif flags & _FB_W_BF16 and flags & _FB_VEC_W:
+        flags |= _FB_RAW_W
+    return "fbatched", {"kind": "fbatched", **form, "flags": flags, **plan}
+
+
+def _gather_plan(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc):
+    """The gathered plan of bf16 A and B (the form of :func:`_strided_form`
+    on the wgmma route's tiles, never split), or ``(None, None)`` for a
+    product with no own C mode (M = N = 1), which fbatched takes."""
+    form, X, W = _strided_form(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc,
+                               False, gather=True)
+    M, N, K, G, O = (form[f] for f in "MNKGO")
+    if M == 1 and N == 1:
+        return None, None
+    plan = wgmma_plan(M, N, K, G, split=False)
+    steps = O * _cdiv(K, WGMMA_BK)
+    if plan["tiles"] >= 2**31 or steps >= 2**31 or max(M, N, K) >= 2**31:
+        return None, None
+    xm, xk, wn, wk, grid, outer = (form[f] for f in ("xm", "xk", "wn", "wk", "grid", "outer"))
+    # each stage is stored along its operand's smaller stride; where that
+    # is 1 the producer loads it 16 bytes at a time, at any alignment
+    x_km, w_km = _k_major(xk, xm), _k_major(wk, wn)
+    flags = ((_FB_X_KMAJOR if x_km else 0) | (_FB_W_KMAJOR if w_km else 0)
+             | (_GA_WIDE_X if (xk if x_km else xm) == 1 else 0)
+             | (_GA_WIDE_W if (wk if w_km else wn) == 1 else 0))
+    return "gathered", {"kind": "gathered", **form, "flags": flags, "tiles": plan["tiles"],
+                        "steps": steps, "spc": steps, "n_split": 1}
 
 
 def native_plan(A, B, *, a_modes: str, b_modes: str, c_modes: str, dims=None):
     """The route of :func:`native_gemm` and its launch plan: ``(route,
-    plan)``, ``plan`` None on the generic route.  Reads only dtypes,
-    extents, strides and the start's alignment, so it runs on CPU and
-    meta tensors too.
+    plan)``.  Reads only dtypes, extents, strides and the start's
+    alignment, so it runs on CPU and meta tensors too.
 
     Extent-1 modes are ignored everywhere.  The contracted modes are fused
     first: two that are neighbours in the same order in A and in B (the
     outer one's stride the inner one's extent times its stride, in both)
     are one mode.  The widest fused mode is ``k`` (the plan's ``k_modes``
-    names its modes, innermost first); every route but ``"generic"`` and
-    ``"fbatched"`` needs a ``k``, every route but ``"batched"`` and
+    names its modes, innermost first); every route but ``"fbatched"``
+    needs a ``k``, every route but ``"batched"``, ``"gathered"`` and
     ``"fbatched"`` no other contracted mode and no batch mode (one in A, B
     and C).  Float32 operands:
 
@@ -545,34 +610,37 @@ def native_plan(A, B, *, a_modes: str, b_modes: str, c_modes: str, dims=None):
       the contracted modes but ``k`` are outer modes (``outer``, as
       ``(extent, X stride, W stride)``).  Any strides; the launch plan is
       :func:`fbatched_plan`'s, and ``flags`` say which slabs load 16
-      bytes at a time and how each is laid out.
+      bytes at a time, how each is laid out and which operand is bf16.
 
-    Bfloat16 operands (both; any output type) need ``n``, the minor-most C
-    mode, to be no batch mode and to be carried by one operand W together
-    with ``k``, batch modes and the other contracted modes and nothing
-    else; the other operand X carries every other C mode.  X's own C modes
-    fuse where they can: the widest is the row mode ``m`` (none: M = 1),
-    the rest join the batch modes as grid modes (the plan's ``grid``, as
-    ``(extent, X stride, W stride, C stride)``, W's 0 where it lacks the
-    mode); the contracted modes but ``k`` are outer modes (``outer``, as
-    ``(extent, X stride, W stride)``).  Each operand's ``(m, k)`` or ``(k,
-    n)`` must be readable by a tensor map: one of the two modes stride-1,
-    the other's stride a multiple of 16 bytes that steps past the first's
-    extent (an extent-1 mode's stride is replaced by a legal one), a
-    16-byte aligned start; every grid and outer mode's stride is a
-    positive multiple of 16 bytes where the operand carries it, and there
-    are at most :data:`WGMMA_MAX_EXTRA` such modes.  With neither grid
-    nor outer modes the product takes ``"wgmma"``, else ``"batched"``
-    (one kernel, :func:`wgmma_plan`).  Mixed bf16 x f32 operands and every
-    other layout take ``"generic"``.
+    Bfloat16 operands (both; any output type) with a ``k`` and a live C
+    mode take ``"wgmma"`` or ``"batched"`` where tensor maps read them:
+    ``n``, the minor-most C mode, is no batch mode and is carried by one
+    operand W together with ``k``, batch modes and the other contracted
+    modes and nothing else; the other operand X carries every other C
+    mode.  X's own C modes fuse where they can: the widest is the row mode
+    ``m`` (none: M = 1), the rest join the batch modes as grid modes (the
+    plan's ``grid``, as ``(extent, X stride, W stride, C stride)``, W's 0
+    where it lacks the mode); the contracted modes but ``k`` are outer
+    modes (``outer``, as ``(extent, X stride, W stride)``).  Each
+    operand's ``(m, k)`` or ``(k, n)`` must be readable by a tensor map:
+    one of the two modes stride-1, the other's stride a multiple of 16
+    bytes that steps past the first's extent (an extent-1 mode's stride is
+    replaced by a legal one), a 16-byte aligned start; every grid and
+    outer mode's stride is a positive multiple of 16 bytes where the
+    operand carries it, and there are at most :data:`WGMMA_MAX_EXTRA` such
+    modes.  With neither grid nor outer modes the product takes
+    ``"wgmma"``, else ``"batched"`` (one kernel, :func:`wgmma_plan`).
+    Every other such product with an own C mode takes ``"gathered"``: the
+    fbatched form (:func:`_strided_form`) on the wgmma tiles, never split;
+    ``flags`` say how each operand's stage is laid out in shared memory
+    and whether its stored minor mode is stride-1 (16-byte loads).  Mixed bf16 x f32
+    operands and the bf16 products left (no ``k``, no live or no own C
+    mode, a zero extent) take ``"fbatched"``.
     """
-    if A.dtype != B.dtype or A.dtype not in (torch.float32, torch.bfloat16):
-        return "generic", None
     if dims is None:
         dims = infer_dims(ContractionSpec(a_modes, b_modes, c_modes), A, B)
-    f32 = A.dtype == torch.float32
-    if 0 in dims.values() and not f32:
-        return "generic", None
+    f32 = A.dtype == B.dtype == torch.float32
+    bf16 = A.dtype == B.dtype == torch.bfloat16
     sa, sb = dict(zip(a_modes, A.stride())), dict(zip(b_modes, B.stride()))
     shared = [m for m in a_modes if m in b_modes and dims[m] > 1]
     contracted = [m for m in shared if m not in c_modes]
@@ -588,8 +656,6 @@ def native_plan(A, B, *, a_modes: str, b_modes: str, c_modes: str, dims=None):
             g[3] += m
         else:
             groups.append([dims[m], sa[m], sb[m], m])
-    if not groups and not f32:
-        return "generic", None
     inner = max(groups, key=lambda g: g[0]) if groups else [1, 0, 0, ""]
     k = inner[3][:1] or None
     outer = [tuple(g[:3]) for g in groups if g is not inner]
@@ -600,20 +666,20 @@ def native_plan(A, B, *, a_modes: str, b_modes: str, c_modes: str, dims=None):
     a_c = [m for m in a_modes if m not in contracted and dims[m] > 1]
     b_c = [m for m in b_modes if m not in contracted and dims[m] > 1]
     c_live = [m for m in c_modes if dims[m] > 1]
-    if not f32:
-        if not c_live:
-            return "generic", None
-        route, plan = _tc_plan(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc)
-        return route, plan and {**plan, "k_modes": inner[3]}
-    route = "generic"
-    if groups and len(groups) == 1 and not batch and 0 not in dims.values():
-        route, plan = _float_plan(A, B, a_c, b_c, k, c_live, dims, sa, sb, sc)
-    if route == "generic":
+    args = (A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc)
+    route = None
+    if 0 not in dims.values():
+        if bf16 and k and c_live:
+            route, plan = _tc_plan(*args)
+            if route is None:
+                route, plan = _gather_plan(*args)
+        elif f32 and groups and len(groups) == 1 and not batch:
+            route, plan = _float_plan(*args[:4], k, c_live, dims, sa, sb, sc)
+    if route is None:
         # a contracted mode of extent 0 sums nothing: C is zeros
         zero_k = any(dims[m] == 0 for m in a_modes if m in b_modes and m not in c_modes)
-        route, plan = _fb_plan(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc,
-                               zero_k)
-    return route, plan and {**plan, "k_modes": inner[3]}
+        route, plan = _fb_plan(*args, zero_k)
+    return route, {**plan, "k_modes": inner[3]}
 
 
 def _float_plan(A, B, a_c, b_c, k, c_live, dims, sa, sb, sc):
@@ -631,7 +697,7 @@ def _float_plan(A, B, a_c, b_c, k, c_live, dims, sa, sb, sc):
                 return "stream", {"kind": "write", "x_is_a": x_is_a, "M": dims[m],
                                   "P": dims[p], "K": dims[k], "xm": xs[m], "xk": xs[k],
                                   "wp": ws[p], "wk": ws[k], "cm": sc[m]}
-    return "generic", None
+    return None, None
 
 
 def native_route(A, B, *, a_modes: str, b_modes: str, c_modes: str) -> str:
@@ -672,14 +738,16 @@ def _fb_desc(plan) -> bytes:
 
 def route_info(K: int = 512, rp: int = 12) -> dict:
     """Registers and spilled (local) bytes per thread, and shared bytes
-    per block, of the kernels of the stream, splitk, wgmma, batched and
-    fbatched routes: the float32-output stream and splitk kernels (the
+    per block, of the kernels of the stream, splitk, wgmma, batched,
+    fbatched and gathered routes: the float32-output stream and splitk kernels (the
     stream read kernels at depth ``K``, the read kinds at padded width
     ``rp``), the bfloat16-output kernel of the wgmma and batched routes at
     each tile height and operand layout, with its split reduction, and the
     float32-output fbatched kernel at each tile and slab layout (at its
-    largest shared memory), with its split reduction.  Needs the card
-    (it loads the library)."""
+    largest shared memory), with its split reduction, the same with a bf16
+    operand ("widening"), and the bfloat16-output gathered kernel at each
+    tile height and stage layout.
+    Needs the card (it loads the library)."""
     lib = _library()
     kinds = {"stream read, m stride-1": 0, "stream read, k stride-1": 1,
              "stream write": 2, "splitk": 3, "splitk reduce": 4,
@@ -692,20 +760,26 @@ def route_info(K: int = 512, rp: int = 12) -> dict:
                                       (FBATCHED_TM, FBATCHED_TN_NARROW, 18),
                                       (FBATCHED_TM_SMALL, FBATCHED_TN_NARROW, 23))
                 for i, x in enumerate("mk") for j, w in enumerate("nk")},
-             "fbatched split reduce": 22}
+             "fbatched split reduce": 22,
+             **{f"gathered {tm} rows, X {x}-major, W {w}-major": first + 2 * i + j
+                for tm, first in ((WGMMA_TM, 27), (WGMMA_TM_WIDE, 31))
+                for i, x in enumerate("KM") for j, w in enumerate("NK")},
+             **{f"widening {tm}x{tn}, X {x}-major, W {w}-major": first + 2 * i + j
+                for tm, tn, first in ((FBATCHED_TM, FBATCHED_TN, 35),
+                                      (FBATCHED_TM, FBATCHED_TN_NARROW, 39),
+                                      (FBATCHED_TM_SMALL, FBATCHED_TN_NARROW, 43))
+                for i, x in enumerate("mk") for j, w in enumerate("nk")}}
     info = {}
     for name, kind in kinds.items():
         out = (ctypes.c_int * 3)()
         rc = lib.nr_info(kind, rp, K, out)
         if rc != 0:
-            raise RuntimeError(f"nr_info: {lib.ng_error_string(rc).decode()}")
+            raise RuntimeError(f"nr_info: {lib.sb_error_string(rc).decode()}")
         info[name] = {"registers": out[0], "spill_bytes": out[1], "smem_bytes": out[2]}
     return info
 
 
-def native_gemm(A, B, *, a_modes: str, b_modes: str, c_modes: str,
-                out_dtype=None, u: str | None = None, walk: int = 1,
-                walk_mode: str | None = None):
+def native_gemm(A, B, *, a_modes: str, b_modes: str, c_modes: str, out_dtype=None):
     """Single-launch contraction of ``A`` and ``B`` in their native layouts.
 
     Args:
@@ -715,15 +789,10 @@ def native_gemm(A, B, *, a_modes: str, b_modes: str, c_modes: str,
       c_modes: the output's modes, row-major; non-empty.  Operand modes
         absent from it are contracted.
       out_dtype: float32 or bfloat16 (default: the promoted operand dtype).
-      u: the C mode that spans the generic route's tile rows (default:
-        the largest C mode other than the minor-most).
-      walk, walk_mode: on the generic route, one block walks ``walk``
-        consecutive indices of the C mode ``walk_mode`` (the paper's
-        extended-transpose brick depth).  Both are checked on every route
-        and shape only the generic tile.
 
-    Launches the route :func:`native_route` picks.  Returns a new
-    contiguous tensor with modes ``c_modes``.
+    Launches the route :func:`native_route` picks; its tile and launch
+    come from the operands' layout alone.  Returns a new contiguous tensor
+    with modes ``c_modes``.
     """
     if A.device != B.device:
         raise ValueError(f"operands on different devices: {A.device} vs {B.device}")
@@ -743,69 +812,17 @@ def native_gemm(A, B, *, a_modes: str, b_modes: str, c_modes: str,
             or c - a - b or (a ^ b) - c):
         raise ValueError(f"native_gemm cannot evaluate {a_modes},{b_modes}->{c_modes}")
 
-    v = c_modes[-1]
-    others = c_modes[:-1]
-    if u is None:
-        # a plan with no u role (matrix-vector cores) still walks its batch
-        # mode: the tile's rows go to the largest remaining C mode, if any
-        u = max((m for m in others if m != walk_mode), key=lambda m: dims[m],
-                default=None)
-    if u is not None and (u not in others or u == walk_mode):
-        raise ValueError(f"u={u!r} must be a C mode other than the minor-most "
-                         f"and the walked one")
-    rest = [m for m in reversed(others) if m != u]
-    if walk_mode is not None:
-        if walk_mode not in rest:
-            raise ValueError(f"walk_mode={walk_mode!r} is not a batch mode of C")
-        rest.remove(walk_mode)
-        rest.insert(0, walk_mode)
-    elif walk != 1:
-        raise ValueError("walk > 1 needs walk_mode")
-    contracted = [m for m in a_modes if m in b_modes and m not in c_modes]
-    if 2 + len(rest) + len(contracted) > MAX_MODES:
-        raise ValueError(
-            f"{a_modes},{b_modes}->{c_modes} needs {2 + len(rest) + len(contracted)} "
-            f"mode slots; native_gemm takes at most {MAX_MODES}")
-
     route, plan = native_plan(A, B, a_modes=a_modes, b_modes=b_modes, c_modes=c_modes,
                               dims=dims)
     c_shape = [dims[m] for m in c_modes]
-    if route == "generic":
-        # flattened K walks its last mode fastest: give that place to the
-        # mode with the smallest stride in the larger operand
-        big, big_modes = (A, a_modes) if A.numel() >= B.numel() else (B, b_modes)
-        contracted.sort(key=lambda m: -big.stride(big_modes.index(m)))
-        slots = [u, v, *rest, *contracted]
-
-        def strides(shape_strides, modes):
-            # extent-1 modes (and an absent u) get stride 0: the kernel then
-            # stages nothing along them
-            return [shape_strides[modes.index(m)] if m is not None and m in modes
-                    and dims[m] > 1 else 0 for m in slots]
-
-        sa, sb = strides(A.stride(), a_modes), strides(B.stride(), b_modes)
-        sc = strides(row_major_strides(c_shape), c_modes)
-        # the kernel's fast path wants A varying along u only and B along v
-        # only; the product commutes, so swap operands that arrive the other
-        # way
-        swap = bool((sa[1] or sb[0]) and not (sb[1] or sa[0]))
-        if swap:
-            sa, sb = sb, sa
-        pad = [0] * (MAX_MODES - len(slots))
-        desc = _NG_DESC.pack(
-            *[1 if m is None else dims[m] for m in slots], *pad, *sa, *pad, *sb, *pad, *sc,
-            *pad, len(rest), len(contracted), int(walk))
-        X, Y = (B, A) if swap else (A, B)
-    elif route in ("wgmma", "batched"):
+    X, Y = (A, B) if plan["x_is_a"] else (B, A)
+    if route in ("wgmma", "batched"):
         desc = _tc_desc(plan)
-        X, Y = (A, B) if plan["x_is_a"] else (B, A)
-    elif route == "fbatched":
+    elif route in ("fbatched", "gathered"):
         desc = _fb_desc(plan)
-        X, Y = (A, B) if plan["x_is_a"] else (B, A)
     else:
         desc = _read_desc(plan) if plan["kind"] == "read" else _NW_DESC.pack(
             *(plan[f] for f in ("M", "P", "K", "xm", "xk", "wp", "wk", "cm")))
-        X, Y = (A, B) if plan["x_is_a"] else (B, A)
 
     if A.device.type == "cpu":
         # the route and launch geometry above are built on every device;
@@ -821,9 +838,8 @@ def native_gemm(A, B, *, a_modes: str, b_modes: str, c_modes: str,
     tc = _TYPE_CODES[out_dtype]
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        if route == "generic":
-            rc = lib.ng_launch(X.data_ptr(), Y.data_ptr(), out.data_ptr(), desc,
-                               _TYPE_CODES[X.dtype], _TYPE_CODES[Y.dtype], tc, stream)
+        if route == "gathered":
+            rc = lib.ga_launch(X.data_ptr(), Y.data_ptr(), out.data_ptr(), desc, tc, stream)
         elif route in ("splitk", "wgmma", "batched", "fbatched"):
             ws = (torch.empty(plan["workspace"], dtype=torch.float32, device=A.device)
                   if plan["workspace"] else None)
@@ -839,7 +855,7 @@ def native_gemm(A, B, *, a_modes: str, b_modes: str, c_modes: str,
                                      desc, tc, stream)
     if rc != 0:
         raise RuntimeError(f"native_gemm launch failed on the {route} route: "
-                           f"{lib.ng_error_string(rc).decode()}")
+                           f"{lib.sb_error_string(rc).decode()}")
     native_gemm.launches += 1
     native_gemm.launches_by_route[route] += 1
     return out

@@ -47,8 +47,10 @@ __all__ = [
 BACKENDS = ("torch", "kernel")
 
 #: brick depths tried for exceptional plans (the extended-transpose 3D
-#: tile of the stride-1-batched operand, paper §III-E)
-EXT_BRICK_GRID = (4, EXT_BATCH_TILE, 16)
+#: tile of the stride-1-batched operand, paper §III-E): one, since the
+#: card's kernel takes its tile from the layout and more depths would be
+#: identical launches
+EXT_BRICK_GRID = (EXT_BATCH_TILE,)
 
 _ROLE_NAMES = ("u", "v", "k", "b")
 

@@ -110,14 +110,13 @@ _KIND_ORDER = (
 )
 
 #: the ``native_gemm`` routes a kernel candidate's features flag, one
-#: indicator each; the generic route is the all-zero baseline, the
-#: batched route sets the wgmma indicator (both are the bf16 tensor-core
-#: routes) and the fbatched route the splitk one (both are f32 FMA routes
-#: whose contraction a fixed-order split spreads over the card), so the
+#: indicator each; the fbatched route (every product the others do not
+#: take) is the all-zero baseline, and the batched and gathered routes set
+#: the wgmma indicator (all three are the bf16 tensor-core routes), so the
 #: kernel features stay 4 wide, the JAX package's 4 tile log2s
 _ROUTE_FLAGS = ("stream", "splitk", "wgmma")
-_FLAG_OF = {"batched": "wgmma", "fbatched": "splitk"}
-assert set(ROUTES) == {*_ROUTE_FLAGS, *_FLAG_OF, "generic"}
+_FLAG_OF = {"batched": "wgmma", "gathered": "wgmma"}
+assert set(ROUTES) == {*_ROUTE_FLAGS, *_FLAG_OF, "fbatched"}
 
 #: feature vector layout (kept in one place so train and predict can
 #: never skew): 8 roofline/structure + kind one-hot + 3 plan flags +
@@ -166,10 +165,10 @@ def featurize(cs, dims: dict, dtype, candidate, *, transposes=None) -> np.ndarra
     * role extents: log2 size of the u/v/k/b modes under the plan's
       role assignment (0 where the plan has no such role);
     * what the candidate runs: for ``kernel`` candidates an indicator
-      of each ``native_gemm`` route but ``generic`` (all zero there;
-      ``batched`` sets the ``wgmma`` indicator, ``fbatched`` the
-      ``splitk`` one) and
-      log2 of the walk depth (:func:`kernel_route`); zeros for ``torch``
+      of each ``native_gemm`` route but ``fbatched`` (all zero there;
+      ``batched`` and ``gathered`` set the ``wgmma`` indicator) and log2
+      of the candidate's ``b`` tile as the JAX package's tile log2 (the
+      walk :func:`kernel_route` gives; 0 without one); zeros for ``torch``
       candidates;
     * padding waste, always 0 (the kernel masks ragged edges; the column
       keeps the JAX package's layout), and the candidate's transpose

@@ -1,6 +1,7 @@
-"""The launch plans of ``native_gemm``'s ``wgmma``, ``batched`` and
-``fbatched`` routes, evaluated on the CPU through their own addressing:
-what the kernel reads and where it writes, without the card."""
+"""The launch plans of ``native_gemm``'s ``wgmma``, ``batched``,
+``gathered`` and ``fbatched`` routes, evaluated on the CPU through their
+own addressing: what the kernel reads and where it writes, without the
+card."""
 
 import torch
 
@@ -19,9 +20,9 @@ def _offsets(modes, tensors):
 
 
 def emulate(plan, A, B, c_shape):
-    """C of a ``wgmma``, ``batched`` or ``fbatched`` plan of A and B, in
-    float64 (``fbatched``: see :func:`emulate_fbatched`).  ``wgmma`` and
-    ``batched``: at
+    """C of a ``wgmma``, ``batched``, ``gathered`` or ``fbatched`` plan of
+    A and B, in float64 (``fbatched``: see :func:`emulate_fbatched`,
+    ``gathered``: :func:`emulate_gathered`).  ``wgmma`` and ``batched``: at
     every grid index, X's (M, K) and W's (K, N) as ``as_strided`` views at
     the grid offsets (and at each outer contracted index's), one matmul per
     split and outer index, summed in the kernel's order, stored to C's rows
@@ -30,6 +31,8 @@ def emulate(plan, A, B, c_shape):
     bit wherever the plan addresses the right elements."""
     if plan["kind"] == "fbatched":
         return emulate_fbatched(plan, A, B, c_shape)
+    if plan["kind"] == "gathered":
+        return emulate_gathered(plan, A, B, c_shape)
     X, W = (A, B) if plan["x_is_a"] else (B, A)
     C = torch.full(c_shape, float("nan"), dtype=torch.float64)
     M, N, K = plan["M"], plan["N"], plan["K"]
@@ -113,4 +116,30 @@ def emulate_fbatched(plan, A, B, c_shape):
             return value(node[1]) + value(node[2]) if node[0] == "+" else walk(*node)
 
         torch.as_strided(C, (M, N), (plan["cm"], plan["cn"]), cg).copy_(value(order))
+    return C
+
+
+def emulate_gathered(plan, A, B, c_shape):
+    """C of a ``gathered`` plan, in float64: at every grid index (offsets
+    from X, W or both, the first grid mode fastest, as the kernel decodes
+    the block index), the sum over every outer index (the first outer mode
+    fastest) of X's (M, K) times W's (K, N), each an ``as_strided`` view at
+    the grid and outer offsets, stored to C's (M, N) at the grid offset
+    with C's strides of m and n.  The kernel's stages walk the same
+    elements, NM_BK of k at a time, with wgmma's sums, so on small-integer
+    operands this equals ``native_gemm_ref`` bit for bit wherever the
+    plan addresses the right elements."""
+    X, W = (A, B) if plan["x_is_a"] else (B, A)
+    C = torch.full(c_shape, float("nan"), dtype=torch.float64)
+    M, N, K = plan["M"], plan["N"], plan["K"]
+    outer = _offsets(plan["outer"], 2)
+    for xg, wg, cg in _offsets(plan["grid"], 3):
+        acc = torch.zeros(M, N, dtype=torch.float64)
+        for xo, wo in outer:
+            x = torch.as_strided(X, (M, K), (plan["xm"], plan["xk"]),
+                                 X.storage_offset() + xg + xo)
+            w = torch.as_strided(W, (K, N), (plan["wk"], plan["wn"]),
+                                 W.storage_offset() + wg + wo)
+            acc += x.double() @ w.double()
+        torch.as_strided(C, (M, N), (plan["cm"], plan["cn"]), cg).copy_(acc)
     return C

@@ -304,8 +304,8 @@ def test_fbatched_constants_mirror_the_cuda_source():
     assert int(define["FB_STAGES"]) == FBATCHED_STAGES
     assert int(define["FB_THREADS"]) == FBATCHED_THREADS
     assert int(define["FB_SPLIT_PER_SM"]) == FBATCHED_BLOCKS_PER_SM
-    assert int(define["NG_SUM_CHUNK"]) == SUM_CHUNK
-    assert define["FB_MAX_EXTRA"] == "NG_MAX_MODES" and int(define["NG_MAX_MODES"]) == MAX_MODES
+    assert int(define["SB_SUM_CHUNK"]) == SUM_CHUNK
+    assert define["FB_MAX_EXTRA"] == "SB_MAX_MODES" and int(define["SB_MAX_MODES"]) == MAX_MODES
 
 
 #: the card's cases: the Table II cases at chip_smoke.py's ragged extents

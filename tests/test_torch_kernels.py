@@ -192,15 +192,20 @@ def test_wrapper_validates_the_launch_on_the_cpu():
     for a_modes, b_modes, c_modes in (("mk", "nk", "m"), ("mm", "nm", "n"), ("mk", "nk", "mq")):
         with pytest.raises(ValueError, match="cannot evaluate"):
             native_gemm(sq, sq, a_modes=a_modes, b_modes=b_modes, c_modes=c_modes)
+    # the role table's walk is checked where it is given (the card's kernel
+    # takes its tile from the layout)
     with pytest.raises(ValueError, match="walk_mode"):
-        native_gemm(x, x, a_modes="mk", b_modes="nk", c_modes="mn", walk=2, walk_mode="n")
-    with pytest.raises(ValueError, match="needs walk_mode"):
-        native_gemm(x, x, a_modes="mk", b_modes="nk", c_modes="mn", walk=2)
-    modes = "abcdefghi"[:MAX_MODES + 1]
-    big = torch.ones([1] * len(modes))
+        ops.sb_contract("mk", "nk", "mn", x, x, roles={"k": "k", "m": "u", "n": "b"})
+    with pytest.raises(ValueError, match="positive int"):
+        ops.sb_contract("mk", "nk", "mn", x, x, roles={"k": "k", "m": "b", "n": "v"},
+                    tiles={"b": 0})
+    # more grid modes than a launch holds: C's modes in the opposite order,
+    # so none fuse
+    modes = "abcdefghij"[:MAX_MODES + 2]
+    big = torch.ones([2] * len(modes) + [3])
     with pytest.raises(ValueError, match="mode slots"):
-        native_gemm(big, torch.ones(1, 1), a_modes=modes, b_modes="ax",
-                    c_modes=modes[1:] + "x")
+        native_gemm(big, torch.ones(3, 4), a_modes=modes + "k", b_modes="kx",
+                    c_modes=modes[::-1] + "x")
     assert native_gemm.launches == 0
 
 

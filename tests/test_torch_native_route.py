@@ -1,7 +1,7 @@
 """Route choice and launch plans of the port's native contraction kernel.
 
 ``native_route`` picks ``stream``, ``splitk``, ``wgmma``, ``batched``,
-``fbatched`` or ``generic`` from dtypes, extents and strides alone, after fusing the
+``gathered`` or ``fbatched`` from dtypes, extents and strides alone, after fusing the
 contracted modes that are one mode in both operands, so it is tested here on CPU and
 meta tensors: the ten launch shapes of HOOI at 512³ with ranks 10 (meta
 tensors carry their exact shapes and strides without memory), the same
@@ -117,11 +117,12 @@ def test_small_hooi_stream_shapes_split_below_the_row_threshold():
 @pytest.mark.parametrize("label", sorted(CASES))
 def test_table2_case_is_generic(label):
     """At chip_smoke.py's ragged dims no mode is narrow: every Table II
-    case takes the fbatched route in float32 and stays on the generic
-    route in bfloat16 (no tensor map steps 47- or 383-element rows)."""
+    case takes the fbatched route in float32 and the gathered route in
+    bfloat16 (no tensor map steps 47- or 383-element rows; the first
+    slice's generic route took these before)."""
     dims = {"m": 383, "n": 257, "p": 47, "k": 321}
     modes = _modes(CASES[label].row_major())
-    for dt, route in ((torch.float32, "fbatched"), (torch.bfloat16, "generic")):
+    for dt, route in ((torch.float32, "fbatched"), (torch.bfloat16, "gathered")):
         A = torch.empty([dims[m] for m in modes["a_modes"]], device="meta", dtype=dt)
         B = torch.empty([dims[m] for m in modes["b_modes"]], device="meta", dtype=dt)
         assert native_route(A, B, **modes) == route
@@ -138,12 +139,12 @@ def test_table2_case_is_generic(label):
 ])
 def test_other_layouts_are_generic(spec, shapes, why):
     """Float32 layouts that neither stream nor splitk take go to fbatched;
-    the bf16 one, whose factor's rows no tensor map can step, stays
-    generic."""
+    the bf16 one, whose factor's rows no tensor map can step, takes the
+    gathered route (the generic route's, before it was retired)."""
     A, B = (torch.zeros(s) for s in shapes)
     route = "fbatched"
     if why == "bf16":
-        A, B, route = A.bfloat16(), B.bfloat16(), "generic"
+        A, B, route = A.bfloat16(), B.bfloat16(), "gathered"
     assert native_route(A, B, **_modes(spec)) == route, why
 
 
@@ -226,8 +227,8 @@ def _flat(x):
 def _run_plan(plan, A, B, c_shape):
     """Evaluate a plan by gathering through its strides alone, as the
     kernel addresses memory (rows decoded innermost first; the wgmma,
-    batched and fbatched plans through ``plan_emulation``)."""
-    if plan["kind"] in ("wgmma", "batched", "fbatched"):
+    batched, gathered and fbatched plans through ``plan_emulation``)."""
+    if plan["kind"] in ("wgmma", "batched", "gathered", "fbatched"):
         return emulate(plan, A, B, c_shape)
     X, W = (A, B) if plan["x_is_a"] else (B, A)
     xf, wf = _flat(X).double(), _flat(W).double()
@@ -348,6 +349,8 @@ def test_serving_shape_takes_wgmma(spec, a_shape, a_stride, b_shape):
                                  "row stride 1030 bytes", "two contracted modes",
                                  "W carries a second C mode", "no mode stride-1"])
 def test_bf16_layouts_that_stay_generic(why):
+    """bf16 layouts no tensor map reads, which the retired generic route
+    took: the gathered route takes them, mixed operands fbatched."""
     kw = _modes("be,ef->bf")
     A, B = _bf(4, 6144), _bf(6144, 1024)
     if why == "batch mode":             # ... as C's minor-most mode: no W carries it alone
@@ -366,7 +369,8 @@ def test_bf16_layouts_that_stay_generic(why):
         A, B, kw = _bf(6144), _bf(6144, 4, 1024), _modes("e,etf->tf")
     elif why == "no mode stride-1":
         A = _bf(4, 6144, stride=(12288, 2))
-    assert native_route(A, B, **kw) == "generic", why
+    want = "fbatched" if why == "mixed bf16 x f32" else "gathered"
+    assert native_route(A, B, **kw) == want, why
 
 
 def test_wgmma_plan_of_the_serving_shapes():
@@ -433,9 +437,9 @@ def test_wgmma_constants_mirror_the_cuda_source():
 
 
 def _check_bf16_plan(spec, A, B, want_route="wgmma"):
-    """The wgmma (or batched) plan of bf16 A and B, evaluated through its
-    strides, against the JAX package's reference on the same (exact) f32
-    values."""
+    """The wgmma (or batched, or gathered) plan of bf16 A and B, evaluated
+    through its strides, against the JAX package's reference on the same
+    (exact) f32 values."""
     modes = _modes(spec)
     route, plan = native_plan(A, B, **modes)
     assert route == want_route
@@ -496,12 +500,11 @@ def test_table2_case_in_bf16_at_aligned_dims(label):
     # (every other stride here is a multiple of 16 bytes)
     fuses = len(x_c) == 1 or all("".join(x_c) in t for t in (x_modes, modes["c_modes"]))
     row = max(x_c, key=dims.get)
-    expect = ("generic" if sorted(w_modes) != sorted("k" + n)
+    expect = ("gathered" if sorted(w_modes) != sorted("k" + n)
               else "wgmma" if fuses else "batched" if x_modes[-1] in (row, "k")
-              else "generic")
+              else "gathered")
     assert native_route(A, B, **modes) == expect
-    if expect != "generic":
-        _check_bf16_plan(CASES[label].row_major(), A, B, expect)
+    _check_bf16_plan(CASES[label].row_major(), A, B, expect)
 
 
 @pytest.mark.parametrize("spec,shapes,route", [
