@@ -267,17 +267,32 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    must hold every cell, and the 16x16 train cell must sum gradients
    over its data axis (nonzero all-reduce or reduce-scatter bytes); each
    record, its roofline row (H100 ceilings) and its seconds are printed.
-   (b) Phase 13's step on the torch backend (minicpm-2b, 4 layers, 4 x
-   512 tokens, unsharded) traced on fake CUDA tensors under
+   Beside them, in its own subprocess at once, the minicpm-2b
+   ``train_4k`` 16x16 cell on the kernel backend (``contract_strategy
+   "native"``: each block product one ``repro_torch::native_gemm`` op,
+   traced by the op's fake kernel): ``ok``, 147 ops, its flops the
+   library cell's plus one down projection a layer (remat's recompute
+   stops after an ``autograd.Function``'s forward but before an
+   ``aten.mm``), and both cells' bytes, fused bytes, peaks and roofline
+   rows printed with their differences.
+   (b) Phase 13's step (minicpm-2b, 4 layers, 4 x 512 tokens, unsharded)
+   on each backend, torch and kernel, traced on fake CUDA tensors under
    ``repro_torch.utils.CostCounter``, then run for real under the same
    counter: equal flops, and the traced peak within 10% of
    ``max_memory_allocated`` over the real step (above what was allocated
-   before its inputs); the step's roofline bound (its flops at the bf16
-   peak, or its bytes fused to its products at the HBM rate, whichever
-   is longer) and its fraction of phase 13's ms per step on each backend
-   are printed.  Its record is
-   printed as a ``{"dryrun": ...}`` line, and at the end the seconds of
-   every phase.
+   before its inputs); on the kernel backend the traced
+   ``repro_torch.native_gemm`` ops and their routes equal the real step's
+   ``native_gemm`` launches by route (147); the step's roofline bound
+   (its flops at the bf16 peak, or its bytes fused to its products at the
+   HBM rate, whichever is longer) and its fraction of phase 13's ms per
+   step on that backend are printed.  Its record is
+   printed as a ``{"dryrun": ...}`` line.
+21. Host cost of a launch, after phase 17: phase 11's decode-shaped bf16
+   ``wgmma`` product (one row of internlm2-20b's KV projection, 6144 x
+   1024) called 2000 times back to back with one synchronize at the end:
+   the host µs a call (the loop before the synchronize) and the wall µs
+   (to its end); ``tools/launch_host_us.py`` times the same on another
+   checkout.  Then the seconds of every phase.
 19. Float32 products on ``fbatched``, right after phase 14: the 36 f32
    Table II cases at n = 256 through ``contract(strategy="native")`` as a
    counted run (36 launches, all ``fbatched``), then each case at n = 256
@@ -335,7 +350,8 @@ phase 15's under ``sharded_train`` (launches by route, ms per step, peak
 memory) and ``sharded_serve`` (launches, tokens/s), and phase 16's a2a
 training launches under ``a2a_launches``/``a2a_launches_by_route``, its
 layer, expert-product times and training checks under ``a2a`` and the
-pipeline's launches under ``pipeline_launches``), then
+pipeline's launches under ``pipeline_launches``, and phase 21's host µs
+a call under ``host``), then
 ``native_gemm.batched``, the batched route on its own line: phase 13's
 counted launches on it, and its times per train step from phase 18 (every
 path's under ``tc_shapes``), then ``native_gemm.f32``, the fbatched route
@@ -4107,6 +4123,11 @@ def tc_shapes_path(dev, seed: int) -> dict:
 DRYRUN_CELLS = (("minicpm-2b", "train_4k", False), ("minicpm-2b", "train_4k", True),
                 ("internlm2-20b", "decode_32k", False))
 DRYRUN_OVERRIDES = {"n_periods": TRAIN["periods"]}
+#: phase 17 (a)'s kernel-backend cell, beside the library cell of the same
+#: arch, shape and mesh; a training step differentiates the kernel backend
+#: through strategy "native"
+DRYRUN_KERNEL_CELL = ("minicpm-2b", "train_4k", False)
+KERNEL_BACKEND = {"contract_backend": "kernel", "contract_strategy": "native"}
 #: the traced peak's largest distance from the measured one, relative
 PEAK_TOL = 0.10
 
@@ -4138,17 +4159,28 @@ def dryrun_launchers(device: str = "cuda") -> dict:
                                     f"{proc.stderr[-4000:]}")
         return proc.stdout, time.perf_counter() - t0
 
+    def cell_args(c, over, out_dir):
+        return (["repro_torch.launch.dryrun", "--arch", c[0], "--shape", c[1], "--device",
+                 device, "--cfg-overrides", json.dumps(over), "--out", str(out_dir)]
+                + (["--multi-pod"] if c[2] else []))
+
+    kernel_tag = cell_tag(*DRYRUN_KERNEL_CELL)
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "results" / "torch"
-        cells = {cell_tag(*c): ["repro_torch.launch.dryrun", "--arch", c[0], "--shape", c[1],
-                                "--device", device, "--cfg-overrides",
-                                json.dumps(DRYRUN_OVERRIDES), "--out", str(out / "dryrun")]
-                 + (["--multi-pod"] if c[2] else []) for c in DRYRUN_CELLS}
+        cells = {cell_tag(*c): cell_args(c, DRYRUN_OVERRIDES, out / "dryrun")
+                 for c in DRYRUN_CELLS}
+        # the kernel-backend cell writes elsewhere: launch.roofline and
+        # launch.report read one record a cell from results/torch/dryrun
+        cells["kernel"] = cell_args(DRYRUN_KERNEL_CELL, {**DRYRUN_OVERRIDES, **KERNEL_BACKEND},
+                                    out / "dryrun_kernel")
         with ThreadPoolExecutor(len(cells)) as pool:
             ran = dict(zip(cells, pool.map(run, cells.values())))
         records, rows, secs = {}, {}, {}
         for tag in cells:
-            with open(out / "dryrun" / f"{tag}.json") as f:
+            where = out / "dryrun" / f"{tag}.json"
+            if tag == "kernel":
+                where = out / "dryrun_kernel" / f"{kernel_tag}.json"
+            with open(where) as f:
                 records[tag] = rec = json.load(f)
             secs[tag] = ran[tag][1]
             check(rec["status"] == "ok", f"dryrun: {tag} is not ok: {rec}")
@@ -4161,7 +4193,8 @@ def dryrun_launchers(device: str = "cuda") -> dict:
               f"dryrun: launch.roofline's rows {single} differ from roofline_cell's")
         report, report_s = run(["repro_torch.launch.report"], cwd=tmp)
         check(all(f"| {r['arch']} | {r['shape']} | {r['mesh']} | ok |" in report
-                  for r in records.values()), f"dryrun: the report lacks a cell:\n{report}")
+                  for t, r in records.items() if t != "kernel"),
+              f"dryrun: the report lacks a cell:\n{report}")
     for tag, rec in records.items():
         log(f"dryrun: {tag} in {secs[tag]:.1f} s: {json.dumps(rec)}")
         log(f"dryrun: {tag} roofline (H100 ceilings): {json.dumps(rows[tag])}")
@@ -4170,21 +4203,71 @@ def dryrun_launchers(device: str = "cuda") -> dict:
     grad_sync = records[cell_tag("minicpm-2b", "train_4k", False)]["collective_bytes"]
     check(grad_sync["all-reduce"] + grad_sync["reduce-scatter"] > 0,
           f"dryrun: the 16x16 train cell sums no gradient over its data axis: {grad_sync}")
+    kernel_vs_library(records["kernel"], records[kernel_tag], rows["kernel"], rows[kernel_tag])
     return dict(records=records, roofline=rows, seconds=secs)
+
+
+def kernel_vs_library(kern: dict, lib: dict, kern_row: dict, lib_row: dict) -> None:
+    """Phase 17 (a)'s kernel-backend cell against the library cell of the
+    same arch, shape and mesh: 147 ``repro_torch.native_gemm`` ops at 4
+    layers (9 a layer and the head, remat, 2 a product's backward), one a
+    library product and one more a layer: remat's recompute stops once it
+    holds every tensor the backward saved, which an ``aten.mm`` saves
+    before it runs and an ``autograd.Function`` after, so the kernel
+    backend alone recomputes each layer's last product, the MLP's down
+    projection; its flops exactly that product's more.  Prints what the
+    no-copy path saves a 256-rank step, as traced."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+
+    cfg, shape = get_config(kern["arch"], **kern["cfg_overrides"]), SHAPES[kern["shape"]]
+    periods = cfg.n_periods
+    ops = kern["ops"].get("repro_torch.native_gemm", 0)
+    check(ops == 36 * periods + 3 and set(kern["ops"]) == {"repro_torch.native_gemm"},
+          f"dryrun: the kernel cell's products {kern['ops']}, not {36 * periods + 3} "
+          f"native_gemm ops")
+    check(sum(lib["ops"].values()) == ops - periods,
+          f"dryrun: the library cell's products {lib['ops']}, not {ops - periods}")
+    # the down projection's local product on 16x16: tokens over data, d_ff
+    # over model
+    down = 2 * shape.global_batch * shape.seq_len * cfg.d_ff * cfg.d_model // 256
+    check(kern["flops"] == lib["flops"] + periods * down,
+          f"dryrun: kernel cell {kern['flops']} flops, the library cell's {lib['flops']} + "
+          f"{periods} x {down} (the recomputed down projections)")
+    log(f"dryrun: kernel cell (contract_backend kernel, strategy native) ok: {ops} "
+        f"native_gemm ops by route {kern['routes']['repro_torch.native_gemm']}; the library "
+        f"cell's {lib['ops']}; flops {kern['flops']} = the library cell's {lib['flops']} + "
+        f"{periods} recomputed down projections of {down}")
+    for key in ("bytes_accessed", "fused_bytes_accessed", "peak_bytes_per_device",
+                "temp_bytes"):
+        log(f"dryrun: {key}: kernel {kern[key]}, library {lib[key]}, kernel - library "
+            f"{kern[key] - lib[key]} ({kern[key] / lib[key]:.4f}x)")
+    log(f"dryrun: roofline (H100 ceilings): kernel {json.dumps(kern_row)}; library "
+        f"{json.dumps(lib_row)}")
 
 
 def predicted_step(dev, seed: int, train_ms: dict) -> dict:
     """Phase 17 (b): phase 13's step (minicpm-2b, 4 layers, 4 x 512
-    tokens, unsharded) on the torch backend, traced on fake CUDA tensors
-    under ``repro_torch.utils.CostCounter``, against the same step run for
-    real under the same counter: equal flops, and the traced peak within
-    ``PEAK_TOL`` of ``max_memory_allocated`` over the real step (above
-    what was allocated before its inputs were made).  Prints the step's
-    roofline bound and its fraction of phase 13's ms per step on each
-    backend."""
+    tokens, unsharded) on each backend, torch and kernel
+    (:func:`predicted_backend_step`).  Returns each backend's record."""
+    return {backend: predicted_backend_step(dev, seed, backend, train_ms[backend])
+            for backend in ("torch", "kernel")}
+
+
+def predicted_backend_step(dev, seed: int, backend: str, train_ms: list) -> dict:
+    """Phase 13's step on ``backend``, traced on fake CUDA tensors under
+    ``repro_torch.utils.CostCounter``, against the same step run for real
+    under the same counter: equal flops, products by op and routes, and
+    the traced peak within ``PEAK_TOL`` of ``max_memory_allocated`` over
+    the real step (above what was allocated before its inputs were made);
+    on the kernel backend the traced ``repro_torch.native_gemm`` ops and
+    their routes are the real step's ``native_gemm`` launches by route.
+    Prints the step's roofline bound and its fraction of phase 13's ms per
+    step on the backend."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.sb_gemm import native_gemm
     from repro_torch.models.transformer import init_params
     from repro_torch.obs.roofline import device_peaks
     from repro_torch.training.data import SyntheticLM
@@ -4192,8 +4275,9 @@ def predicted_step(dev, seed: int, train_ms: dict) -> dict:
     from repro_torch.training.trainer import TrainConfig, make_train_step
     from repro_torch.utils import CostCounter
 
-    cfg = get_config(TRAIN["arch"]).with_(n_periods=TRAIN["periods"], contract_backend="torch",
-                                          contract_strategy="auto")
+    over = (KERNEL_BACKEND if backend == "kernel"
+            else {"contract_backend": "torch", "contract_strategy": "auto"})
+    cfg = get_config(TRAIN["arch"]).with_(n_periods=TRAIN["periods"], **over)
     opt = AdamWConfig(lr=TRAIN["lr"], schedule="wsd", warmup_steps=TRAIN["warmup"],
                       total_steps=TRAIN["total_steps"])
     step = make_train_step(cfg, TrainConfig(opt=opt))
@@ -4220,52 +4304,78 @@ def predicted_step(dev, seed: int, train_ms: dict) -> dict:
                        global_batch=TRAIN["batch"], seed=seed)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in next(data).items()}
     resident = torch.cuda.memory_allocated(dev) - base
+    saved = (native_gemm.launches, native_gemm.launches_by_route)
+    native_gemm.launches = 0
+    native_gemm.launches_by_route = dict.fromkeys(saved[1], 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    with CostCounter() as real:
-        real.hold((params, state, batch))
-        out = step(params, state, batch, None)
-        real.output(out)
-        torch.cuda.synchronize()
+    try:
+        with CostCounter() as real:
+            real.hold((params, state, batch))
+            out = step(params, state, batch, None)
+            real.output(out)
+            torch.cuda.synchronize()
+        launched = (native_gemm.launches,
+                    {r: n for r, n in native_gemm.launches_by_route.items() if n})
+    finally:
+        native_gemm.launches, native_gemm.launches_by_route = saved
     real_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) - base
     loss = float(out[3]["loss"])
     del out, params, state, batch
     got = real.costs()
     ratio = pred["peak_bytes"] / peak
-    log(f"predict: phase 13's step traced on fake CUDA tensors in {trace_s:.1f} s: "
+    log(f"predict [{backend}]: phase 13's step traced on fake CUDA tensors in {trace_s:.1f} s: "
         f"{pred['flops']} flops, {pred['fused_bytes']} bytes fused to its products, "
-        f"{pred['bytes']} bytes unfused (upper bound), peak "
-        f"{pred['peak_bytes'] / 2**30:.3f} GiB of which {pred['argument_bytes'] / 2**30:.3f} "
-        f"GiB arguments; the real torch-backend step ({real_s:.2f} s under the counter, loss "
-        f"{loss:.6f}): {got['flops']} flops, {got['bytes']} bytes, the counter's peak "
-        f"{got['peak_bytes'] / 2**30:.3f} GiB; inputs resident {resident / 2**30:.3f} GiB over "
-        f"{base / 2**30:.3f} GiB allocated before them; max_memory_allocated over the step "
-        f"{peak / 2**30:.3f} GiB above that: predicted/measured peak {ratio:.4f} (limit "
-        f"1 +- {PEAK_TOL})")
-    check(np.isfinite(loss), f"predict: the real step's loss {loss} is not finite")
+        f"{pred['bytes']} bytes unfused (upper bound), products {pred['ops']}, routes "
+        f"{pred['routes']}, peak {pred['peak_bytes'] / 2**30:.3f} GiB of which "
+        f"{pred['argument_bytes'] / 2**30:.3f} GiB arguments; the real step ({real_s:.2f} s "
+        f"under the counter, loss {loss:.6f}): {got['flops']} flops, {got['bytes']} bytes, "
+        f"products {got['ops']}, native_gemm launches {launched[0]} by route {launched[1]}, "
+        f"the counter's peak {got['peak_bytes'] / 2**30:.3f} GiB; inputs resident "
+        f"{resident / 2**30:.3f} GiB over {base / 2**30:.3f} GiB allocated before them; "
+        f"max_memory_allocated over the step {peak / 2**30:.3f} GiB above that: "
+        f"predicted/measured peak {ratio:.4f} (limit 1 +- {PEAK_TOL})")
+    check(np.isfinite(loss), f"predict [{backend}]: the real step's loss {loss} is not finite")
     check(got["flops"] == pred["flops"],
-          f"predict: the real step counts {got['flops']} flops, the trace {pred['flops']}")
+          f"predict [{backend}]: the real step counts {got['flops']} flops, the trace "
+          f"{pred['flops']}")
+    check(got["ops"] == pred["ops"] and got["routes"] == pred["routes"],
+          f"predict [{backend}]: the real step's products {got['ops']} by route "
+          f"{got['routes']}, the trace's {pred['ops']} by route {pred['routes']}")
+    if backend == "kernel":
+        per_step = train_launches_per_step(TRAIN["periods"])
+        check(pred["ops"] == {"repro_torch.native_gemm": launched[0]}
+              and launched[0] == sum(per_step.values())
+              and pred["routes"] == {"repro_torch.native_gemm": launched[1]},
+              f"predict: the trace's native_gemm ops {pred['ops']} by route "
+              f"{pred['routes']}; the real step launched {launched[0]} by route "
+              f"{launched[1]} ({sum(per_step.values())} a step: {per_step})")
+    else:
+        check(launched[0] == 0, f"predict: the torch step launched native_gemm {launched}")
     for key in ("bytes", "fused_bytes"):
         same = "equal" if got[key] == pred[key] else "differ from"
-        log(f"predict: the real step's {key} {same} the trace's ({got[key]} and "
+        log(f"predict [{backend}]: the real step's {key} {same} the trace's ({got[key]} and "
             f"{pred[key]})")
     check(abs(ratio - 1) <= PEAK_TOL,
-          f"predict: traced peak {pred['peak_bytes']} is {ratio:.4f} of the measured {peak}")
+          f"predict [{backend}]: traced peak {pred['peak_bytes']} is {ratio:.4f} of the "
+          f"measured {peak}")
     peaks = device_peaks(torch.cuda.get_device_name(0))
     dtype = str(cfg.activation_dtype()).removeprefix("torch.")
     t_compute = pred["flops"] / peaks["flops_per_s"][dtype]
     t_memory = pred["fused_bytes"] / peaks["hbm_bytes_per_s"]
     bound_ms = max(t_compute, t_memory) * 1e3
-    ms = {b: sorted(v)[len(v) // 2] for b, v in train_ms.items()}
-    fraction = {b: bound_ms / m for b, m in ms.items()}
-    log(f"predict: roofline bound of the step {bound_ms:.3f} ms (compute {t_compute * 1e3:.3f} "
-        f"ms at the {dtype} peak, memory {t_memory * 1e3:.3f} ms for the fused bytes; the "
-        f"unfused bytes would take {pred['bytes'] / peaks['hbm_bytes_per_s'] * 1e3:.3f} ms); "
-        f"phase 13's ms per step {', '.join(f'{b} {m:.1f}' for b, m in ms.items())}: roofline "
-        f"fraction {', '.join(f'{b} {f:.4f}' for b, f in fraction.items())}")
+    ms = sorted(train_ms)[len(train_ms) // 2]
+    fraction = bound_ms / ms
+    log(f"predict [{backend}]: roofline bound of the step {bound_ms:.3f} ms (compute "
+        f"{t_compute * 1e3:.3f} ms at the {dtype} peak, memory {t_memory * 1e3:.3f} ms for the "
+        f"fused bytes; the unfused bytes would take "
+        f"{pred['bytes'] / peaks['hbm_bytes_per_s'] * 1e3:.3f} ms); phase 13's ms per step "
+        f"{ms:.1f}: roofline fraction {fraction:.4f}")
     return dict(flops=pred["flops"], bytes=pred["bytes"], fused_bytes=pred["fused_bytes"],
+                ops=pred["ops"], routes=pred["routes"], launches=launched[0],
+                launches_by_route=launched[1],
                 peak_bytes=pred["peak_bytes"], argument_bytes=pred["argument_bytes"],
                 measured_peak_bytes=peak,
                 counter_peak_bytes_real=got["peak_bytes"], peak_ratio=ratio,
@@ -4284,6 +4394,52 @@ def dryrun_path(dev, seed: int, train_ms: dict) -> dict:
     log(f"dryrun: phase 17 took {time.perf_counter() - t0:.1f} s: (a) {t1 - t0:.1f} s, "
         f"(b) {time.perf_counter() - t1:.1f} s")
     return dict(launchers=launchers, step=step)
+
+
+# ------------------------------------------------------------------ phase 21
+#: calls back to back per timed loop of phase 21 (and tools/launch_host_us.py)
+HOST_CALLS = 2000
+
+
+def host_cost(dev, seed: int) -> dict:
+    """Phase 21: host µs per ``native_gemm`` call of phase 11's decode-shaped
+    bf16 ``wgmma`` product, one row of internlm2-20b's KV projection
+    (``bse,ef->bsf``, E = d_model, F = KV heads x head dim): ``HOST_CALLS``
+    calls back to back with one synchronize at the end, twice; the host µs
+    a call is the loop's time before the synchronize, the wall µs its time
+    to the synchronize's end.  Timing only: the launches count nowhere."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.sb_gemm import native_gemm, native_route
+
+    cfg = get_config(SERVE["arch"])
+    E, F = cfg.d_model, cfg.n_kv_heads * cfg.hd
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(1, 1, E, generator=gen, device=dev).bfloat16()
+    w = torch.randn(E, F, generator=gen, device=dev).bfloat16()
+    kw = dict(a_modes="bse", b_modes="ef", c_modes="bsf")
+    route = native_route(x, w, **kw)
+    check(route == "wgmma", f"host: the decode-shaped product takes {route}, not wgmma")
+    saved = (native_gemm.launches, dict(native_gemm.launches_by_route))
+    try:
+        for _ in range(50):
+            native_gemm(x, w, **kw)
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                native_gemm(x, w, **kw)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            runs.append(((t1 - t0) / HOST_CALLS * 1e6, (t2 - t0) / HOST_CALLS * 1e6))
+    finally:
+        native_gemm.launches, native_gemm.launches_by_route = saved
+    log(f"host: native_gemm bse,ef->bsf at 1 x {E} x {F} bf16 on {route}, {HOST_CALLS} calls "
+        f"back to back, twice: host µs a call {', '.join(f'{h:.2f}' for h, _ in runs)}; wall "
+        f"µs a call {', '.join(f'{w:.2f}' for _, w in runs)}")
+    return dict(spec="bse,ef->bsf", rows=1, E=E, F=F, route=route, calls=HOST_CALLS,
+                host_us=[h for h, _ in runs], wall_us=[w for _, w in runs])
 
 
 # ---------------------------------------------------------------------- main
@@ -4387,6 +4543,8 @@ def main() -> int:
     lap("18")
     print(json.dumps({"dryrun": dryrun_path(dev, args.seed, train["ms_per_step"])}))
     lap("17")
+    host = host_cost(dev, args.seed)
+    lap("21")
     log("time by phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
         + f"; all {time.perf_counter() - t0:.1f} s after the device line")
     records = {
@@ -4413,7 +4571,7 @@ def main() -> int:
                          "a2a_launches_by_route": mesh["a2a"]["train"]["launches_by_route"],
                          "a2a": {k: v for k, v in mesh["a2a"].items() if k != "pipeline"},
                          "pipeline_launches": mesh["a2a"]["pipeline"]["launches"],
-                         "pipeline": mesh["a2a"]["pipeline"]}),
+                         "pipeline": mesh["a2a"]["pipeline"], "host": host}),
         **records,
     }
     # the batched route of native_gemm on its own line: phase 13's counted
@@ -4454,7 +4612,7 @@ def main() -> int:
                                        "mesh_cli_s", "a2a_launches", "a2a_launches_by_route",
                                        "a2a", "pipeline_launches", "pipeline", "fma",
                                        "tc_shapes", "table2", "sharded_fbatched",
-                                       "former_generic")
+                                       "former_generic", "host")
                      if k in rec}}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:

@@ -53,6 +53,7 @@ __all__ = [
     "local_block",
     "NamedSharding",
     "device_put",
+    "own_block",
     "reduce_partial",
     "rank_grid",
     "DEFAULT_RULES",
@@ -230,6 +231,18 @@ def device_put(tree, shardings):
     from repro_torch.models.tree import tree_map
 
     return tree_map(lambda x, s: as_dtensor(x, s.spec, s.mesh), tree, shardings)
+
+
+def own_block(x):
+    """A DTensor ``x`` with this rank's block copied into a storage of its
+    own (:func:`device_put` gives views of the global tensor's, which keep
+    it alive)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(x.to_local().clone(memory_format=torch.contiguous_format),
+                              x.device_mesh, x.placements, run_check=False, shape=x.shape,
+                              stride=x.stride())
 
 
 def reduce_partial(x):

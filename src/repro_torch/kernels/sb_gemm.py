@@ -55,27 +55,36 @@ extent times its stride) are first fused into one, so a weight gradient
   chunk sums a single block adds in the same order, so the split moves
   no bit.
 
-:func:`native_gemm_ref` is the plain PyTorch version (an f32 einsum).  The
-wrapper takes it only for tensors on the CPU; a CUDA tensor launches the
-kernel or raises.  ``native_gemm.launches`` counts launches, and
-``native_gemm.launches_by_route`` counts them by route.
+:func:`native_gemm` checks a call and hands it to the registered operator
+``repro_torch::native_gemm`` (:data:`NATIVE_GEMM_OP`), whose CUDA kernel
+launches the route's kernel or raises, whose CPU kernel runs
+:func:`native_gemm_ref`, the plain PyTorch version (an f32 einsum), and
+whose fake kernel gives C's shape alone, so a step on the kernel backend
+traces under ``FakeTensorMode`` (:mod:`repro_torch.launch.dryrun`).
+``native_gemm.launches`` counts launches, and
+``native_gemm.launches_by_route`` counts them by route; only the CUDA
+kernel counts.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import struct
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core.contract import infer_dims
 from repro_torch.core.notation import ContractionSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels.addressing import row_major_strides
+from repro_torch.utils import ROUTERS
 
-__all__ = ["MAX_MODES", "NARROW", "ROUTES", "STREAM_MIN_ROWS", "SUM_CHUNK", "WGMMA_MAX_EXTRA",
-           "fbatched_plan", "native_gemm", "native_gemm_ref", "native_plan", "native_route",
-           "route_info", "splitk_plan", "wgmma_plan"]
+__all__ = ["MAX_MODES", "NARROW", "NATIVE_GEMM_OP", "ROUTES", "STREAM_MIN_ROWS", "SUM_CHUNK",
+           "WGMMA_MAX_EXTRA", "fbatched_plan", "native_gemm", "native_gemm_ref", "native_plan",
+           "native_route", "route_info", "splitk_plan", "wgmma_plan"]
 
 #: most grid and outer contracted modes of one fbatched or gathered launch
 #: (``SB_MAX_MODES``)
@@ -301,7 +310,7 @@ def _tma_readable(X, xm: int, xk: int, M: int, K: int) -> bool:
     that fit int32."""
     other = xm if xk == 1 else xk if xm == 1 else 0
     return (other > 0 and other % 4 == 0 and other < 2**38 and M < 2**31 and K < 2**31
-            and X.data_ptr() % 16 == 0)
+            and _address(X) % 16 == 0)
 
 
 def _read_plan(X, x_modes, xs, r, ws, k, dims, sc, x_is_a):
@@ -400,8 +409,8 @@ def _tc_plan(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc):
             and sum(in_w) == len(batch)
             and all(_map_stride_ok(g[2]) for g, w in zip(grid, in_w) if w)
             and all(_map_stride_ok(x) and _map_stride_ok(w) for _, x, w in outer)
-            and max(M, N, K, G) < 2**31 and X.data_ptr() % 16 == 0
-            and W.data_ptr() % 16 == 0):
+            and max(M, N, K, G) < 2**31 and _address(X) % 16 == 0
+            and _address(W) % 16 == 0):
         return None, None
     plan = wgmma_plan(M, N, K, G, split=not grid and not outer and xk == 1)
     if plan["tiles"] >= 2**31:
@@ -526,7 +535,7 @@ def _fb_plan(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc, zero_k=F
         minor, other = (s_k, s_mn) if km else (s_mn, s_k)
         per = 16 // T.element_size()
         return (minor == 1 and all(s % per == 0 for s in (other, *extra))
-                and T.data_ptr() % 16 == 0)
+                and _address(T) % 16 == 0)
 
     flags = ((_FB_CHUNKED if plan["chunked"] else 0)
              | (_FB_VEC_X if vec(X, x_km, xm, xk, [g[1] for g in grid] + [o[1] for o in outer])
@@ -576,7 +585,8 @@ def _gather_plan(A, B, a_c, b_c, k, batch, outer, c_live, dims, sa, sb, sc):
 def native_plan(A, B, *, a_modes: str, b_modes: str, c_modes: str, dims=None):
     """The route of :func:`native_gemm` and its launch plan: ``(route,
     plan)``.  Reads only dtypes, extents, strides and the start's
-    alignment, so it runs on CPU and meta tensors too.
+    alignment, so it runs on CPU, meta and fake tensors too (a fake
+    tensor's start is its storage offset over an aligned base).
 
     Extent-1 modes are ignored everywhere.  The contracted modes are fused
     first: two that are neighbours in the same order in A and in B (the
@@ -790,9 +800,13 @@ def native_gemm(A, B, *, a_modes: str, b_modes: str, c_modes: str, out_dtype=Non
         absent from it are contracted.
       out_dtype: float32 or bfloat16 (default: the promoted operand dtype).
 
-    Launches the route :func:`native_route` picks; its tile and launch
-    come from the operands' layout alone.  Returns a new contiguous tensor
-    with modes ``c_modes``.
+    Checks the call, then calls the registered operator
+    ``torch.ops.repro_torch.native_gemm`` (see :data:`NATIVE_GEMM_OP`),
+    which launches the route :func:`native_route` picks; its tile and
+    launch come from the operands' layout alone.  Returns a new contiguous
+    tensor with modes ``c_modes``.  Forward only: the output carries no
+    gradient (:func:`repro_torch.kernels.ops.execute_native` differentiates
+    it).
     """
     if A.device != B.device:
         raise ValueError(f"operands on different devices: {A.device} vs {B.device}")
@@ -804,18 +818,38 @@ def native_gemm(A, B, *, a_modes: str, b_modes: str, c_modes: str, out_dtype=Non
     for name, dt in (("A", A.dtype), ("B", B.dtype), ("out", out_dtype)):
         if dt not in _TYPE_CODES:
             raise TypeError(f"native_gemm takes float32/bfloat16, got {name} {dt}")
-    dims = infer_dims(ContractionSpec(a_modes, b_modes, c_modes), A, B)
     # every mode once per tensor; an operand mode missing from C must be
     # contracted, i.e. appear in the other operand too
     a, b, c = set(a_modes), set(b_modes), set(c_modes)
     if (len(a) != len(a_modes) or len(b) != len(b_modes) or len(c) != len(c_modes)
             or c - a - b or (a ^ b) - c):
         raise ValueError(f"native_gemm cannot evaluate {a_modes},{b_modes}->{c_modes}")
+    return NATIVE_GEMM_OP(A, B, a_modes, b_modes, c_modes, out_dtype)
 
+
+native_gemm.launches = 0
+native_gemm.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def _address(T) -> int:
+    """``T``'s start address, for the alignment checks: a fake tensor has
+    no memory, so its storage offset in bytes over a base that is 256-byte
+    aligned, as the caching allocator's blocks are (a meta tensor's
+    ``data_ptr()`` is the same)."""
+    if isinstance(T, FakeTensor):
+        return T.storage_offset() * T.element_size()
+    return T.data_ptr()
+
+
+def _launch(A, B, a_modes: str, b_modes: str, c_modes: str):
+    """``(route, plan, desc, c_shape)`` of a call: the extents checked
+    (:func:`~repro_torch.core.contract.infer_dims`), the route and launch
+    plan (:func:`native_plan`), the packed descriptor and C's shape.  Built
+    on every device, so a call on the CPU or on fake tensors fails where
+    the card's would."""
+    dims = infer_dims(ContractionSpec(a_modes, b_modes, c_modes), A, B)
     route, plan = native_plan(A, B, a_modes=a_modes, b_modes=b_modes, c_modes=c_modes,
                               dims=dims)
-    c_shape = [dims[m] for m in c_modes]
-    X, Y = (A, B) if plan["x_is_a"] else (B, A)
     if route in ("wgmma", "batched"):
         desc = _tc_desc(plan)
     elif route in ("fbatched", "gathered"):
@@ -823,14 +857,25 @@ def native_gemm(A, B, *, a_modes: str, b_modes: str, c_modes: str, out_dtype=Non
     else:
         desc = _read_desc(plan) if plan["kind"] == "read" else _NW_DESC.pack(
             *(plan[f] for f in ("M", "P", "K", "xm", "xk", "wp", "wk", "cm")))
+    return route, plan, desc, [dims[m] for m in c_modes]
 
-    if A.device.type == "cpu":
-        # the route and launch geometry above are built on every device;
-        # the CPU has no kernel and takes the plain version, contiguous as
-        # the kernel's C is: a backward pass's next product then sees the
-        # card's strides and takes the card's route
-        return native_gemm_ref(A, B, a_modes=a_modes, b_modes=b_modes,
-                               c_modes=c_modes, out_dtype=out_dtype).contiguous()
+
+def _native_gemm_cpu(A, B, a_modes, b_modes, c_modes, out_dtype):
+    """The operator's CPU kernel: no kernel to launch, so the plain
+    version, contiguous as the card's C is (a backward pass's next product
+    then sees the card's strides and takes the card's route); outside
+    autograd, as the card's launch is."""
+    _launch(A, B, a_modes, b_modes, c_modes)
+    with torch.no_grad():
+        return native_gemm_ref(A, B, a_modes=a_modes, b_modes=b_modes, c_modes=c_modes,
+                               out_dtype=out_dtype).contiguous()
+
+
+def _native_gemm_cuda(A, B, a_modes, b_modes, c_modes, out_dtype):
+    """The operator's CUDA kernel: one launch of the route's kernel, or a
+    raise; the only place that counts launches."""
+    route, plan, desc, c_shape = _launch(A, B, a_modes, b_modes, c_modes)
+    X, Y = (A, B) if plan["x_is_a"] else (B, A)
     out = torch.empty(c_shape, dtype=out_dtype, device=A.device)
     if out.numel() == 0:
         return out
@@ -841,6 +886,8 @@ def native_gemm(A, B, *, a_modes: str, b_modes: str, c_modes: str, out_dtype=Non
         if route == "gathered":
             rc = lib.ga_launch(X.data_ptr(), Y.data_ptr(), out.data_ptr(), desc, tc, stream)
         elif route in ("splitk", "wgmma", "batched", "fbatched"):
+            # the split's partial sums: allocated here, so a dry run's
+            # counter never sees them
             ws = (torch.empty(plan["workspace"], dtype=torch.float32, device=A.device)
                   if plan["workspace"] else None)
             launch = {"splitk": lib.nk_launch, "fbatched": lib.fb_launch}.get(route,
@@ -861,5 +908,45 @@ def native_gemm(A, B, *, a_modes: str, b_modes: str, c_modes: str, out_dtype=Non
     return out
 
 
-native_gemm.launches = 0
-native_gemm.launches_by_route = dict.fromkeys(ROUTES, 0)
+def _native_gemm_fake(A, B, a_modes, b_modes, c_modes, out_dtype):
+    """The operator's fake kernel (fake and meta tensors): C's shape, type
+    and device, contiguous; plans as the card would, launches and counts
+    nothing."""
+    c_shape = _launch(A, B, a_modes, b_modes, c_modes)[3]
+    return A.new_empty(c_shape, dtype=out_dtype)
+
+
+def _flops(a_shape, b_shape, a_modes, b_modes, c_modes, out_dtype, *, out_shape=None,
+           **kwargs) -> int:
+    """Two flops per element of the product's iteration space (every
+    distinct mode's extent multiplied), as ``torch.utils.flop_counter``
+    counts ``mm`` and ``bmm``."""
+    dims = {**dict(zip(a_modes, a_shape)), **dict(zip(b_modes, b_shape))}
+    return 2 * math.prod(dims.values())
+
+
+def _route_of(A, B, a_modes, b_modes, c_modes, out_dtype) -> str:
+    return native_plan(A, B, a_modes=a_modes, b_modes=b_modes, c_modes=c_modes)[0]
+
+
+#: ``repro_torch::native_gemm(Tensor A, Tensor B, str a_modes, str b_modes,
+#: str c_modes, ScalarType out_dtype) -> Tensor``, defined at import: a CPU
+#: kernel (the plain version), a CUDA kernel (the launch), a fake kernel
+#: (shapes only, so ``FakeTensorMode`` traces the kernel backend) and a
+#: flop formula (``torch.utils.flop_counter``, hence
+#: :class:`repro_torch.utils.CostCounter`, counts it as a product, and
+#: counts its calls by route).  Its ``Autograd`` key falls through: the
+#: operator is forward only, on every device.  No DTensor strategy: the mesh
+#: route hands it local blocks.  A ``torch.library.Library`` with a kernel
+#: per dispatch key, not ``torch.library.custom_op``, whose Python
+#: autograd and schema handling cost several times the host time a call.
+_OPS = torch.library.Library("repro_torch", "DEF")
+_OPS.define("native_gemm(Tensor A, Tensor B, str a_modes, str b_modes, str c_modes, "
+            "ScalarType out_dtype) -> Tensor")
+_OPS.impl("native_gemm", _native_gemm_cpu, "CPU")
+_OPS.impl("native_gemm", _native_gemm_cuda, "CUDA")
+_OPS.impl("native_gemm", torch.library.fallthrough_kernel, "Autograd")
+torch.library.register_fake("repro_torch::native_gemm", _native_gemm_fake, lib=_OPS)
+register_flop_formula(torch.ops.repro_torch.native_gemm)(_flops)
+NATIVE_GEMM_OP = torch.ops.repro_torch.native_gemm.default
+ROUTERS[NATIVE_GEMM_OP] = _route_of

@@ -16,14 +16,27 @@ The fake world is started inside :func:`dryrun_cell` and destroyed on the
 way out, on an error too; nothing runs at import and no environment
 variable is set.  A world already started (a real one) makes
 :func:`dryrun_cell` raise: it never joins or tears down a world it did not
-start.  A cell on ``contract_backend="kernel"`` raises: ``native_gemm`` is
-a call on real memory, which a fake tensor does not have.
+start.
+
+A cell on ``contract_backend="kernel"`` traces too: ``native_gemm`` is the
+registered operator ``repro_torch::native_gemm``, whose fake kernel
+(``_native_gemm_fake`` in :mod:`repro_torch.kernels.sb_gemm`) gives C's
+shape, type and device, so each local block product of the mesh route is
+one op of the trace.  Its flop formula makes it a product of the counter
+(its flops, the storages it reads and writes in the fused bytes), the
+record's ``ops`` counts its calls (the launches a rank would make) and
+``routes`` their routes, planned as the card plans them (a fake tensor's
+start taken as its storage offset over a 256-byte aligned base).  A
+split's partial sums are allocated inside the CUDA kernel's launch, so
+neither the trace nor a counter around a real step sees them.
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch minicpm-2b \\
         --shape train_4k [--multi-pod] [--device cuda|cpu] [--out results/torch/dryrun] \\
         [--cfg-overrides '{"n_periods": 4}']
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch minicpm-2b --shape train_4k \\
+        --cfg-overrides '{"contract_backend": "kernel", "contract_strategy": "native"}'
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
 """
 
@@ -40,7 +53,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.configs.shapes import SHAPES, ShapeSpec, applicable_shapes
-from repro_torch.distributed.sharding import ShardingRules, device_put, use_rules
+from repro_torch.distributed.sharding import ShardingRules, device_put, own_block, use_rules
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.shardings import (
     batch_logical_axes,
@@ -148,14 +161,7 @@ def fake_world(n: int):
 def shard_blocks(tree, shardings):
     """``tree`` on ``shardings``, each rank's block in a storage of its own
     (``device_put`` gives views of the global tensor's)."""
-    from torch.distributed.tensor import DTensor
-
-    def own(x):
-        return DTensor.from_local(x.to_local().clone(memory_format=torch.contiguous_format),
-                                  x.device_mesh, x.placements, run_check=False,
-                                  shape=x.shape, stride=x.stride())
-
-    return tree_map(own, device_put(tree, shardings))
+    return tree_map(own_block, device_put(tree, shardings))
 
 
 def trace_step(cfg, opt_cfg, shape: ShapeSpec, rules: ShardingRules, device: str) -> dict:
@@ -218,7 +224,8 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     ``peak_bytes_per_device``
     the peak of live storage, arguments included; ``temp_bytes`` the peak
     less the arguments; ``peak_live``, beyond the JAX package's keys, the
-    largest storages live at that peak).  ``device`` is the fake tensors' device (the
+    largest storages live at that peak; ``ops``, the products' calls by op,
+    and ``routes``, ``native_gemm``'s by route).  ``device`` is the fake tensors' device (the
     card's by default; ``"cpu"`` traces the same step without one).  With
     ``cfg_overrides`` the record carries them, so that
     :mod:`repro_torch.launch.roofline` rebuilds the same config."""
@@ -228,12 +235,6 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     if app[shape_name] is None:
         return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
                 "status": "skipped", "reason": _skip_reason(cfg, shape_name)}
-    if cfg.contract_backend == "kernel":
-        raise NotImplementedError(
-            f"{arch}: contract_backend='kernel' cannot be traced: native_gemm is a call on "
-            f"real CPU or CUDA memory, which a fake tensor does not have; dry-run the torch "
-            f"backend")
-
     cfg, opt_cfg = arch_preset(cfg)
     with fake_world(512 if multi_pod else 256):
         mesh = make_production_mesh(multi_pod=multi_pod, device=device)
@@ -260,6 +261,8 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "peak_live": c["peak_live"],
         "collective_bytes": {k: c["collective_bytes"][k] for k in COLLECTIVES},
         "collective_counts": {k: c["collective_counts"][k] for k in COLLECTIVES},
+        "ops": c["ops"],
+        "routes": c["routes"],
         "params": cfg.param_count(),
         "params_active": cfg.param_count(active_only=True),
     }

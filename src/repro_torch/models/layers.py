@@ -29,7 +29,8 @@ own dispatch, ``logical(...)`` annotations where the JAX package has them,
 and every contraction through :func:`contraction`'s mesh route, which
 hands ``xeinsum`` the mesh and the operands' specs, so the products run
 on each rank's local blocks (one ``native_gemm`` launch per block product
-on the kernel backend: DTensor dispatch cannot reach a ``ctypes`` kernel)
+on the kernel backend: the ``repro_torch::native_gemm`` operator has no
+DTensor strategy)
 with the plan's collectives.
 """
 

@@ -31,9 +31,9 @@ from the same data seed, and each step runs under ``use_rules``, so every
 model contraction takes the mesh route (local blocks, explicit
 collectives; on the kernel backend one ``native_gemm`` launch per block
 product).  Gradients still come from ``torch.autograd.grad`` on detached
-leaves, now DTensors.  bf16 compression and microbatches work on them;
-int8 compression raises under rules (its blocks run over each leaf
-flattened whole, across the shards).
+leaves, now DTensors.  bf16 and int8 compression and microbatches work on
+them; the int8 residual is placed as the parameters and travels in
+:meth:`Trainer.state_tree`, so a sharded checkpoint holds it.
 """
 
 from __future__ import annotations
@@ -142,11 +142,8 @@ class Trainer:
         self.device = tree_leaves(params)[0].device
         self.opt_state = adamw_init(params)
         self.params = params
+        self.compressor = Int8Compressor() if tcfg.compression == "int8" else None
         if rules is not None:
-            if tcfg.compression == "int8":
-                raise NotImplementedError(
-                    "int8 compression under sharding rules: its 256-element blocks run "
-                    "over each leaf flattened whole, across the shards")
             from repro_torch.launch import shardings as sh
 
             self.shardings = {
@@ -154,11 +151,12 @@ class Trainer:
                 "opt": sh.tree_shardings(rules, sh.opt_state_logical_axes(params),
                                          self.opt_state),
             }
+            if self.compressor:
+                self.shardings["residual"] = self.shardings["params"]
             self.params = device_put(params, self.shardings["params"])
             self.opt_state = device_put(self.opt_state, self.shardings["opt"])
-        self.compressor = Int8Compressor() if tcfg.compression == "int8" else None
         self.residual = (
-            self.compressor.init_residual(params) if self.compressor else None
+            self.compressor.init_residual(self.params) if self.compressor else None
         )
         self.step = 0
         self.straggler_steps = 0

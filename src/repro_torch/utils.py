@@ -36,13 +36,17 @@ rank and counts:
   the JAX package sums the result shapes of the HLO's collectives.  A
   point-to-point shift counts on its receiving side only (``recv_``), as
   XLA's collective-permute counts its result once.
+* ``ops`` — the calls of each op with a flop formula (the products), by
+  name (``aten.mm``, ``repro_torch.native_gemm``): the launches a step
+  makes; ``routes`` — for an op in :data:`ROUTERS`, its calls by the
+  route its kernel takes.
 * ``peak_bytes`` — the most bytes held by live storages at once:
   :meth:`CostCounter.hold` registers the step's arguments, and every
   storage an op creates counts from its creation until it is freed.
   ``argument_bytes`` are the arguments' part; ``peak_live`` names the
   largest storages live at the peak (the op that made each, its shape
   and type).  Memory an op's kernel takes internally (a library's
-  workspace) is not seen.
+  workspace, ``native_gemm``'s split partial sums) is not seen.
 
 The JAX package's ``normalize_cost_analysis`` / ``compiled_costs`` are not
 carried over: they normalise XLA's ``cost_analysis()``, which has no
@@ -58,7 +62,12 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-__all__ = ["CostCounter", "COLLECTIVE_KINDS", "collective_kind", "tensor_bytes"]
+__all__ = ["CostCounter", "COLLECTIVE_KINDS", "ROUTERS", "collective_kind", "tensor_bytes"]
+
+#: op overload → a function of its arguments that names the route its
+#: kernel takes; :class:`CostCounter` counts such an op's calls by route
+#: (``repro_torch.kernels.sb_gemm`` registers ``repro_torch.native_gemm``)
+ROUTERS: dict = {}
 
 #: collective op name (any of the c10d namespaces) → the JAX package's kind
 _KIND_OF = {
@@ -126,6 +135,8 @@ class CostCounter(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_bytes = 0
         self.argument_bytes = 0
+        self.ops: dict[str, int] = {}
+        self.routes: dict[str, dict[str, int]] = {}
         self._live: dict[int, int] = {}
         self._made: dict[int, tuple] = {}   # storage → (op, shape, dtype)
         self._at_peak: dict[int, tuple] = {}
@@ -250,6 +261,13 @@ class CostCounter(TorchDispatchMode):
         else:
             if formula is not None:
                 self.flops += int(formula(*args, **kwargs, out_val=out))
+                name = f"{func.namespace}.{func.overloadpacket.__name__}"
+                self.ops[name] = self.ops.get(name, 0) + 1
+                router = ROUTERS.get(func)
+                if router is not None:
+                    by = self.routes.setdefault(name, {})
+                    route = router(*args, **kwargs)
+                    by[route] = by.get(route, 0) + 1
             written = tensor_bytes(out)
             if written and not func.is_view and func.overloadpacket.__name__ not in _NO_DATA:
                 self.bytes += tensor_bytes((args, kwargs)) + written
@@ -283,15 +301,19 @@ class CostCounter(TorchDispatchMode):
     def costs(self) -> dict:
         """The counts so far: ``flops``, ``bytes`` (unfused upper bound),
         ``fused_bytes``, ``collective_bytes`` and ``collective_counts`` by
-        kind, ``peak_bytes`` (arguments included), ``argument_bytes``,
-        ``output_bytes``, ``temp_bytes`` (the peak less the arguments) and
-        ``peak_live`` (:meth:`peak_live`)."""
+        kind, ``ops`` (the products' calls by name), ``routes`` (by op
+        and route, for the ops of :data:`ROUTERS`), ``peak_bytes``
+        (arguments included), ``argument_bytes``, ``output_bytes``,
+        ``temp_bytes`` (the peak less the arguments) and ``peak_live``
+        (:meth:`peak_live`)."""
         return {
             "flops": self.flops,
             "bytes": self.bytes,
             "fused_bytes": self.fused_bytes,
             "collective_bytes": dict(self.collective_bytes),
             "collective_counts": dict(self.collective_counts),
+            "ops": dict(self.ops),
+            "routes": {k: dict(v) for k, v in self.routes.items()},
             "peak_bytes": self.peak_bytes,
             "argument_bytes": self.argument_bytes,
             "output_bytes": self.output_bytes,

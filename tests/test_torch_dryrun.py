@@ -579,11 +579,35 @@ def test_argument_bytes_are_the_shards(smoke):
     assert costs["flops"] > 0 and costs["peak_bytes"] > want
 
 
-def test_kernel_backend_cell_raises(smoke):
-    with pytest.raises(NotImplementedError, match="native_gemm"):
-        dryrun.dryrun_cell("minicpm-2b", "train_4k", device="cpu",
-                           cfg_overrides={"contract_backend": "kernel"})
+#: the kernel backend as a training config takes it: the role-based core is
+#: forward only, so a step differentiates through ``strategy="native"``
+KERNEL = {"contract_backend": "kernel", "contract_strategy": "native"}
+
+
+def test_kernel_backend_cell_traces(smoke):
+    """The smoke minicpm-2b ``train_4k`` cell on 16x16 on the kernel
+    backend: ``ok``, one ``repro_torch.native_gemm`` op per block product.
+    Its flops are the torch backend's plus one product a layer: remat's
+    recompute (``torch.utils.checkpoint``, non-reentrant) stops once it has
+    every tensor the backward saved, which an ``aten.mm`` saves before it
+    runs and an ``autograd.Function`` after, so the recompute runs each
+    layer's last product, the MLP's down projection, on the kernel backend
+    alone.  No world is left behind."""
+    torch_rec = dryrun.dryrun_cell("minicpm-2b", "train_4k", verbose=False, device="cpu")
+    rec = dryrun.dryrun_cell("minicpm-2b", "train_4k", verbose=False, device="cpu",
+                             cfg_overrides=KERNEL)
     assert not dist.is_initialized()
+    assert rec["status"] == torch_rec["status"] == "ok", rec
+    cfg, shape = smoke_config("minicpm-2b"), SHAPES["train_4k"]
+    # the down projection's local product: tokens over data, d_ff over model
+    down = 2 * shape.global_batch * shape.seq_len * cfg.d_ff * cfg.d_model // 256
+    assert rec["flops"] == torch_rec["flops"] + cfg.n_periods * down
+    n = 36 * cfg.n_periods + 3   # 9 a layer and the head, remat, 2 a product's backward
+    assert rec["ops"] == {"repro_torch.native_gemm": n}
+    assert sum(rec["routes"]["repro_torch.native_gemm"].values()) == n
+    assert sum(torch_rec["ops"].values()) == n - cfg.n_periods
+    assert set(torch_rec["ops"]) == {"aten.mm", "aten.bmm"} and torch_rec["routes"] == {}
+    assert rec["collective_bytes"]["all-reduce"] + rec["collective_bytes"]["reduce-scatter"] > 0
 
 
 def test_kimi_a2a_smoke_variant_traces_on_16x16(smoke):
@@ -659,17 +683,22 @@ def test_owned_counts_equal_bincount(sizes, n_experts):
     assert torch.equal(_bincount(idx, D), torch.bincount(idx, minlength=D))
 
 
-def test_traced_step_counts_what_the_real_step_does():
+@pytest.mark.parametrize("backend", ["torch", "kernel"])
+def test_traced_step_counts_what_the_real_step_does(backend):
     """Phase 13's step at smoke widths on the CPU: traced on fake tensors,
-    it counts the flops, bytes (unfused and fused) and peak that the same
-    step counts run on real tensors (a fake tensor's metadata queries move
-    nothing)."""
+    it counts the flops, bytes (unfused and fused), peak, products by op
+    and ``native_gemm``'s routes that the same step counts run on real
+    tensors (a fake tensor's metadata queries move nothing), on both
+    backends; on the kernel backend every product is one
+    ``repro_torch.native_gemm`` op, 147 a step at 4 layers as on the card
+    (75 at these 2)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.trainer import TrainConfig, make_train_step
 
-    cfg = smoke_config("minicpm-2b").with_(n_periods=2)
+    cfg = smoke_config("minicpm-2b").with_(n_periods=2, **(KERNEL if backend == "kernel"
+                                                          else {}))
     step = make_train_step(cfg, TrainConfig(opt=AdamWConfig()))
 
     def run(params):
@@ -685,4 +714,9 @@ def test_traced_step_counts_what_the_real_step_does():
     real = run(init_params(torch.Generator().manual_seed(0), cfg))
     assert traced == real
     assert real["flops"] > 0 and real["peak_bytes"] > real["argument_bytes"] > 0
+    if backend == "kernel":
+        assert real["ops"] == {"repro_torch.native_gemm": 36 * 2 + 3}
+        assert sum(real["routes"]["repro_torch.native_gemm"].values()) == 36 * 2 + 3
+    else:
+        assert real["routes"] == {} and real["ops"].keys() <= {"aten.mm", "aten.bmm"}
     assert real["bytes"] > real["fused_bytes"] > real["argument_bytes"] + real["output_bytes"]

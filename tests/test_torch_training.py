@@ -369,7 +369,9 @@ def test_checkpoint_and_trainer_take_sharding(tmp_path):
     """On a gloo world of one: ``restore_checkpoint(shardings=)`` places
     each leaf on its sharding, and ``Trainer(rules=)`` trains placed
     DTensors to the unsharded trainer's losses (every block is the whole
-    tensor); int8 compression under rules raises, naming why."""
+    tensor); with int8 compression too, its residual a DTensor per leaf
+    placed as the parameters, equal to the unsharded trainer's, and a
+    sharded checkpoint restores it bit-equal, placed the same."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -393,9 +395,21 @@ def test_checkpoint_and_trainer_take_sharding(tmp_path):
                      rules=ShardingRules(mesh))
         assert all(isinstance(p, DTensor) for p in tree_leaves(tr.params))
         assert [h["loss"] for h in tr.run(2)] == want
-        with pytest.raises(NotImplementedError, match="int8"):
-            Trainer(cfg, TrainConfig(compression="int8"), params, None,
-                    rules=ShardingRules(mesh))
+        int8 = TrainConfig(**_opt(), compression="int8", ckpt_dir=str(tmp_path / "c"))
+        plain = Trainer(cfg, int8, params, SyntheticLM(**data))
+        want8 = [h["loss"] for h in plain.run(2)]
+        tr = Trainer(cfg, int8, params, SyntheticLM(**data), rules=ShardingRules(mesh))
+        assert [h["loss"] for h in tr.run(2)] == want8
+        for r, p, q in zip(tree_leaves(tr.residual), tree_leaves(tr.params),
+                           tree_leaves(plain.residual)):
+            assert isinstance(r, DTensor) and r.placements == p.placements
+            assert torch.equal(r.full_tensor(), q)
+        tr.save(force=True)
+        back = Trainer(cfg, int8, params, SyntheticLM(**data), rules=ShardingRules(mesh))
+        assert back.restore() == 2
+        for r, b in zip(tree_leaves(tr.residual), tree_leaves(back.residual)):
+            assert isinstance(b, DTensor) and b.placements == r.placements
+            assert torch.equal(b.full_tensor(), r.full_tensor())
     finally:
         dist.destroy_process_group()
 

@@ -368,11 +368,48 @@ def sharded_train(mesh, arch: str, overrides: dict, np_params, data_kw: dict,
     losses = [h["loss"] for h in tr.run(steps)]
     if ckpt_dir is not None:
         tr.save(force=True)
+    residual = tree_leaves(tr.residual) if tr.residual is not None else []
     return dict(losses=losses, step=tr.step,
                 params=[p.full_tensor().numpy() for p in tree_leaves(tr.params)],
                 placements=[tuple(map(str, p.placements)) for p in tree_leaves(tr.params)],
                 opt_placements=[tuple(map(str, p.placements))
-                                for p in tree_leaves(tr.opt_state["mu"])])
+                                for p in tree_leaves(tr.opt_state["mu"])],
+                residual=[r.full_tensor().numpy() for r in residual],
+                residual_placements=[tuple(map(str, r.placements)) for r in residual])
+
+
+def sharded_int8(mesh, arch: str, overrides: dict, np_params, np_batch, np_residual) -> dict:
+    """``value_and_grad`` on the placed weights and batch under the default
+    rules, then ``Int8Compressor.compress`` of that DTensor gradient with
+    the residual ``np_residual`` (one array per leaf) placed as the
+    parameters: the gradient, the compressed gradient and the new residual,
+    each leaf gathered whole, and whether every compressed and residual
+    leaf is a DTensor placed as its parameter."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.compress import Int8Compressor
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.models.tree import tree_leaves, tree_unflatten
+    from repro_torch.training.trainer import value_and_grad
+
+    cfg = _smoke_config(arch, overrides)
+    rules, params = place(mesh, params_from_numpy(cfg, np_params, "cpu"),
+                          "param_logical_axes")
+    _, batch = place(mesh, {k: torch.from_numpy(v) for k, v in np_batch.items()},
+                     "batch_logical_axes")
+    _, residual = place(mesh, tree_unflatten(params, [torch.from_numpy(r) for r in np_residual]),
+                        "param_logical_axes")
+    with use_rules(rules):
+        _, _, grads = value_and_grad(cfg, params, batch)
+    deq, res = Int8Compressor().compress(grads, residual)
+    placed = all(isinstance(x, DTensor) and x.placements == p.placements
+                 for p, d, r in zip(tree_leaves(params), tree_leaves(deq), tree_leaves(res))
+                 for x in (d, r))
+    return dict(grads=[g.full_tensor().numpy() for g in tree_leaves(grads)],
+                deq=[d.full_tensor().numpy() for d in tree_leaves(deq)],
+                res=[r.full_tensor().numpy() for r in tree_leaves(res)], placed=placed)
 
 
 def sharded_serve(mesh, arch: str, overrides: dict, np_params, prompts, max_new: int,
