@@ -274,7 +274,12 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    library cell's plus one down projection a layer (remat's recompute
    stops after an ``autograd.Function``'s forward but before an
    ``aten.mm``), and both cells' bytes, fused bytes, peaks and roofline
-   rows printed with their differences.
+   rows printed with their differences.  The loss under sharding rules is
+   vocab-parallel (``models.layers.token_nll``): in the three training
+   cells no storage live at the traced peak has the vocab as its last
+   dim, and each cell's peak per device is printed beside its peak when
+   the loss gathered the vocab (612.67 GB on 16x16 on either backend,
+   805.66 GB on 2x16x16), with the card's name and power limit.
    (b) Phase 13's step (minicpm-2b, 4 layers, 4 x 512 tokens, unsharded)
    on each backend, torch and kernel, traced on fake CUDA tensors under
    ``repro_torch.utils.CostCounter``, then run for real under the same
@@ -4073,9 +4078,6 @@ def mesh_path(dev, seed: int, counters, serve_ref: dict) -> dict:
     return dict(sharded_train=train, sharded_serve=serve, cli_s=clis, a2a=a2a)
 
 
-# ------------------------------------------------------------------ phase 17
-#: the dry-run cells of phase 17 (a), (arch, shape, multi_pod), at their
-#: published widths with phase 13's depth cut (the one cut)
 # ------------------------------------------------------------------ phase 18
 def tc_shapes_path(dev, seed: int) -> dict:
     """Phase 18: every launch shape of the counted runs of phases 11, 13,
@@ -4120,6 +4122,9 @@ def tc_shapes_path(dev, seed: int) -> dict:
     return dict(paths=per_path, rows=rows, max_abs_err=worst)
 
 
+# ------------------------------------------------------------------ phase 17
+#: the dry-run cells of phase 17 (a), (arch, shape, multi_pod), at their
+#: published widths with phase 13's depth cut (the one cut)
 DRYRUN_CELLS = (("minicpm-2b", "train_4k", False), ("minicpm-2b", "train_4k", True),
                 ("internlm2-20b", "decode_32k", False))
 DRYRUN_OVERRIDES = {"n_periods": TRAIN["periods"]}
@@ -4130,6 +4135,11 @@ DRYRUN_KERNEL_CELL = ("minicpm-2b", "train_4k", False)
 KERNEL_BACKEND = {"contract_backend": "kernel", "contract_strategy": "native"}
 #: the traced peak's largest distance from the measured one, relative
 PEAK_TOL = 0.10
+#: phase 17 (a)'s training cells' traced peaks per device, in GB, when
+#: the loss under rules gathered the vocab and built its gradient at the
+#: global (batch, seq, vocab) shape on every rank
+GATHERED_LOSS_PEAK_GB = {"minicpm-2b__train_4k__16x16": 612.67,
+                         "minicpm-2b__train_4k__2x16x16": 805.66, "kernel": 612.67}
 
 
 def cell_tag(arch: str, shape: str, multi_pod: bool) -> str:
@@ -4204,7 +4214,26 @@ def dryrun_launchers(device: str = "cuda") -> dict:
     check(grad_sync["all-reduce"] + grad_sync["reduce-scatter"] > 0,
           f"dryrun: the 16x16 train cell sums no gradient over its data axis: {grad_sync}")
     kernel_vs_library(records["kernel"], records[kernel_tag], rows["kernel"], rows[kernel_tag])
+    vocab_parallel_peaks(records)
     return dict(records=records, roofline=rows, seconds=secs)
+
+
+def vocab_parallel_peaks(records: dict) -> None:
+    """Phase 17 (a)'s training cells under the vocab-parallel loss: no
+    storage live at the traced peak has the vocab as its last dim, and each
+    peak per device is printed beside the gathered loss's, with the card."""
+    from repro_torch.configs import get_config
+
+    card = device_line()
+    for tag, before in GATHERED_LOSS_PEAK_GB.items():
+        rec = records[tag]
+        vocab = get_config(rec["arch"]).vocab_size
+        wide = [e for e in rec["peak_live"] if e["shape"][-1] == vocab]
+        check(not wide, f"dryrun: {tag} holds the vocab's full width at its peak: {wide}")
+        peak = rec["peak_bytes_per_device"]
+        log(f"dryrun: {tag} traced peak {peak / 1e9:.2f} GB a device ({peak} bytes) against "
+            f"{before:.2f} GB with the loss gathering the vocab ({peak / 1e9 / before:.4f}x); "
+            f"no storage of vocab width ({vocab}) at the peak; {card}")
 
 
 def kernel_vs_library(kern: dict, lib: dict, kern_row: dict, lib_row: dict) -> None:

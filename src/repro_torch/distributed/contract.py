@@ -391,9 +391,9 @@ def _nshards(mesh: DeviceMesh, group: AxisGroup) -> int:
     return math.prod(sizes[a] for a in group)
 
 
-def _all_reduce_(x, pg):
+def _all_reduce_(x, pg, op=dist.ReduceOp.SUM):
     x = x.contiguous()
-    dist.all_reduce(x, group=pg)
+    dist.all_reduce(x, op=op, group=pg)
     return x
 
 
@@ -468,14 +468,18 @@ def _differentiable(x) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
 
-def _all_reduce(x, mesh: DeviceMesh, group: AxisGroup):
+def _all_reduce(x, mesh: DeviceMesh, group: AxisGroup, op=dist.ReduceOp.SUM):
+    """``x`` reduced by ``op`` over ``group``'s ranks; only a sum carries a
+    gradient."""
     if _nshards(mesh, group) == 1:
         return x
     group = tuple(sorted(group, key=tuple(mesh.mesh_dim_names).index))  # a sum has no order
     pg = _process_group(mesh, group)
     if _differentiable(x):
+        if op != dist.ReduceOp.SUM:
+            raise ValueError(f"an all-reduce by {op} carries no gradient: detach its input")
         return _AllReduce.apply(x, pg)
-    return _all_reduce_(x, pg)
+    return _all_reduce_(x, pg, op)
 
 
 def _reduce_scatter(x, pos: int, mesh: DeviceMesh, group: AxisGroup):

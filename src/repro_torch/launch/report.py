@@ -3,7 +3,9 @@ results/torch/*.json.  Run after ``repro_torch.launch.dryrun --all``,
 ``repro_torch.launch.roofline`` and ``repro_torch.launch.perf``.
 
 The JAX package's report with the port's result paths; the §Roofline
-header names the H100's ceilings (``repro_torch.obs.roofline.DEVICE_PEAKS``)."""
+header names the H100's ceilings (``repro_torch.obs.roofline.DEVICE_PEAKS``),
+and the two sections' notes say how the port counts: a step traced on fake
+tensors over a fake world, every period traced (no scan correction)."""
 
 from __future__ import annotations
 
@@ -21,10 +23,10 @@ def _fmt_b(x):
 def dryrun_section(dryrun_dir="results/torch/dryrun"):
     lines = [
         "## §Dry-run — every (arch × shape × mesh) cell\n",
-        "`lower().compile()` on 256-chip (16×16 `data×model`) and 512-chip "
-        "(2×16×16 `pod×data×model`) host-device meshes; memory/cost from the "
-        "compiled SPMD module (per device). Skips are assignment rules, not "
-        "failures.\n",
+        "One step traced on fake tensors in a fake world of 256 ranks (16×16 "
+        "`data×model`) or 512 (2×16×16 `pod×data×model`); memory/cost per rank "
+        "as `CostCounter` counts the traced ops, with no compiler (`compile s` is "
+        "the trace's). Skips are assignment rules, not failures.\n",
         "| arch | shape | mesh | status | compile s | args GB/dev | temp GB/dev | flops/dev | AG GB | AR GB | A2A GB |",
         "|---|---|---|---|---|---|---|---|---|---|---|",
     ]
@@ -61,8 +63,9 @@ def roofline_section(path="results/torch/roofline.json"):
     rows.sort(key=lambda r: (r["arch"], r["shape"]))
     lines = [
         "## §Roofline — single-pod (256 × H100: 989 TF/s bf16, 3.35 TB/s HBM, 900 GB/s NVLink)\n",
-        "Scan-trip-count-corrected per-chip terms (see roofline.py docstring). "
-        "`useful` = MODEL_FLOPS / total HLO FLOPs (remat/redundancy overhead); "
+        "Per-rank terms of the traced step, every period traced, so no scan "
+        "correction (see roofline.py docstring). "
+        "`useful` = MODEL_FLOPS / total traced FLOPs (remat/redundancy overhead); "
         "`roof-frac` = achievable MFU at the dominant bound.\n",
         "| arch | shape | t_compute s | t_memory s | t_collective s | bound | useful | roof-frac | one-line fix |",
         "|---|---|---|---|---|---|---|---|---|",

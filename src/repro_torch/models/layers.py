@@ -31,7 +31,9 @@ hands ``xeinsum`` the mesh and the operands' specs, so the products run
 on each rank's local blocks (one ``native_gemm`` launch per block product
 on the kernel backend: the ``repro_torch::native_gemm`` operator has no
 DTensor strategy)
-with the plan's collectives.
+with the plan's collectives.  The loss's log-likelihoods
+(:func:`token_nll`) run on each rank's vocab block, with three
+all-reduces of one value a position.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ from repro_torch.distributed.sharding import (
 __all__ = [
     "rms_norm", "rope", "attention", "mlp", "init_attn", "init_mlp",
     "dense", "init_dense", "softcap", "contraction", "mesh_scope", "replicated",
-    "reshape",
+    "reshape", "token_nll",
 ]
 
 _NEG_INF = -2.0**30  # large-negative mask value safe in bf16
@@ -158,6 +160,73 @@ def replicated(x):
     if isinstance(x, DTensor):
         return x if list(x.placements) == whole else x.redistribute(rules.mesh, whole)
     return DTensor.from_local(x, rules.mesh, whole, run_check=False)
+
+
+def token_nll(logits, targets):
+    """``-log_softmax(logits)[..., target]`` at each position, computed so
+    that nothing of the vocab's width leaves a rank.
+
+    ``logits`` (..., V) and ``targets`` (...) integer ids.  On a DTensor,
+    each rank works on its own vocab block: the row max (detached) and the
+    sum of ``exp(logits - max)`` are all-reduced (max, sum) over the mesh
+    dims that shard the vocab, and the target's shifted logit comes from
+    the rank whose block holds it (0 elsewhere, summed); the targets are
+    placed as the logits' other dims first.  The result is a DTensor
+    placed as the logits less the vocab's sharding.  With the vocab whole
+    on every rank, or on a plain tensor, the same arithmetic runs with no
+    collective, so a mesh of one rank computes the plain tensor's bits.
+    ``log_softmax`` and ``gather`` on a DTensor would instead gather the
+    vocab and build the gradient at the global shape on every rank."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(logits, DTensor):
+        return _nll_block(logits, targets.long(), 0, lambda x, op: x)
+    from repro_torch.distributed.contract import _all_reduce
+
+    logits = reduce_partial(logits)
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    vocab = [d for d, p in enumerate(logits.placements)
+             if isinstance(p, Shard) and p.dim == last]
+    rest = [Replicate() if d in vocab else p for d, p in enumerate(logits.placements)]
+    if not isinstance(targets, DTensor):  # the global ids on every rank
+        targets = DTensor.from_local(targets, mesh, [Replicate()] * mesh.ndim,
+                                     run_check=False)
+    targets = targets.redistribute(mesh, rest)
+    group = tuple(mesh.mesh_dim_names[d] for d in vocab)
+    nll = _nll_block(logits.to_local(), targets.to_local().long(),
+                     _block_start(logits.shape[-1], mesh, vocab),
+                     lambda x, op: _all_reduce(x, mesh, group, op))
+    shape = tuple(targets.shape)
+    return DTensor.from_local(nll, mesh, rest, run_check=False, shape=shape,
+                              stride=tuple(math.prod(shape[i + 1:]) for i in range(len(shape))))
+
+
+def _nll_block(x, t, offset: int, reduce):
+    """:func:`token_nll` on one vocab block ``x`` whose first column is
+    vocab id ``offset``; ``reduce(y, op)`` all-reduces ``y`` over the
+    blocks (``op`` a ``ReduceOp``)."""
+    from torch.distributed import ReduceOp
+
+    m = reduce(x.detach().amax(-1), ReduceOp.MAX)
+    z = x - m[..., None]
+    lse = torch.log(reduce(torch.exp(z).sum(-1), ReduceOp.SUM))
+    idx = t - offset
+    held = (idx >= 0) & (idx < x.shape[-1])
+    zt = torch.gather(z, -1, torch.where(held, idx, 0)[..., None])[..., 0]
+    return lse - reduce(torch.where(held, zt, 0.0), ReduceOp.SUM)
+
+
+def _block_start(n: int, mesh, dims) -> int:
+    """The first index of this rank's block of a dim of ``n`` sharded over
+    mesh dims ``dims`` (DTensor's ``Shard``: ``torch.chunk`` by each mesh
+    dim in turn, the first outermost)."""
+    coord = mesh.get_coordinate()
+    start = 0
+    for d in sorted(dims):
+        chunk = -(-n // mesh.shape[d])
+        lo = min(coord[d] * chunk, n)
+        start, n = start + lo, min(lo + chunk, n) - lo
+    return start
 
 
 def reshape(x, *shape):

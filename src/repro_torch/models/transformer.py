@@ -24,7 +24,6 @@ from __future__ import annotations
 
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
@@ -248,7 +247,11 @@ def prefill(cfg: ModelConfig, params, batch, cache):
 
 def lm_loss(cfg: ModelConfig, params, batch, *, remat: bool = True,
             lb_coeff: float = 0.01):
-    """Next-token (or frame-target) cross-entropy + MoE balance loss."""
+    """Next-token (or frame-target) cross-entropy + MoE balance loss.
+
+    The log-likelihoods are :func:`~repro_torch.models.layers.token_nll`'s:
+    under sharding rules each rank keeps its own vocab block of the logits
+    and of their gradient."""
     with mesh_scope():
         logits, aux = forward(cfg, params, batch, remat=remat)
         if cfg.encoder_only or cfg.frontend is not None:
@@ -258,8 +261,7 @@ def lm_loss(cfg: ModelConfig, params, batch, *, remat: bool = True,
         else:
             targets = batch["tokens"][:, 1:]
             logits_t = logits[:, :-1]
-        logp = F.log_softmax(logits_t, dim=-1)
-        nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+        nll = L.token_nll(logits_t, targets)
         mask = batch.get("mask")
         if mask is not None:
             mask = mask[:, -targets.shape[1]:]

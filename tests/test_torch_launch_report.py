@@ -3,9 +3,12 @@ package's, and the four launchers end to end on the CPU.
 
 The JAX package's report imports only ``glob``, ``json`` and ``os``, so
 both modules load here.  The port's is a copy, pinned by syntax tree, that
-differs in its result paths (``results/torch/...``), its docstring and the
-§Roofline header, which names the H100's ceilings.  Fed the same results
-tree, the two print the same report but for that header line.
+differs in its result paths (``results/torch/...``), its docstring, the
+§Roofline header, which names the H100's ceilings, and the notes under the
+§Dry-run and §Roofline headers, which say how the port counts (a step
+traced on fake tensors over a fake world, no scan correction).  Fed the
+same results tree, the two print the same report but for those three
+lines.
 """
 
 import ast
@@ -23,9 +26,16 @@ from repro_torch.launch import dryrun, perf, report, roofline
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+#: the first words of each package's note under a section's header, and
+#: the note each normalises to
+NOTES = {"`lower().compile()` on": "(dry-run note)", "One step traced on fake": "(dry-run note)",
+         "Scan-trip-count-corrected": "(roofline note)",
+         "Per-rank terms of the traced": "(roofline note)"}
+
+
 class _Normalise(ast.NodeTransformer):
-    """Drops the module docstring and maps the port's result paths and
-    §Roofline header onto the JAX package's."""
+    """Drops the module docstring and maps the port's result paths,
+    §Roofline header and section notes onto the JAX package's."""
 
     def visit_Module(self, node):
         if node.body and isinstance(node.body[0], ast.Expr):
@@ -37,6 +47,7 @@ class _Normalise(ast.NodeTransformer):
             v = node.value.replace("results/torch/", "results/")
             if v.startswith("## §Roofline — single-pod"):
                 v = "## §Roofline — single-pod (ceilings)\n"
+            v = next((n for start, n in NOTES.items() if v.startswith(start)), v)
             return ast.copy_location(ast.Constant(v), node)
         return node
 
@@ -96,15 +107,31 @@ def _main_output(module, cwd) -> list[str]:
 
 
 def test_report_output_matches_jax_but_the_roofline_header(tmp_path):
+    """The same report but for the §Roofline header and the two notes,
+    which describe the port's trace where the JAX package's describe its
+    compiled module."""
     _results_tree(str(tmp_path / "jax" / "results"))
     _results_tree(str(tmp_path / "port" / "results" / "torch"))
     want = _main_output(jreport, tmp_path / "jax")
     got = _main_output(report, tmp_path / "port")
     assert len(got) == len(want) > 20
     differ = [(g, w) for g, w in zip(got, want) if g != w]
-    assert differ == [(
-        "## §Roofline — single-pod (256 × H100: 989 TF/s bf16, 3.35 TB/s HBM, 900 GB/s NVLink)",
-        "## §Roofline — single-pod (256 × v5e: 197 TF/s bf16, 819 GB/s HBM, 50 GB/s/link)")]
+    assert differ == [
+        ("One step traced on fake tensors in a fake world of 256 ranks (16×16 `data×model`) "
+         "or 512 (2×16×16 `pod×data×model`); memory/cost per rank as `CostCounter` counts "
+         "the traced ops, with no compiler (`compile s` is the trace's). Skips are "
+         "assignment rules, not failures.",
+         "`lower().compile()` on 256-chip (16×16 `data×model`) and 512-chip (2×16×16 "
+         "`pod×data×model`) host-device meshes; memory/cost from the compiled SPMD module "
+         "(per device). Skips are assignment rules, not failures."),
+        ("## §Roofline — single-pod (256 × H100: 989 TF/s bf16, 3.35 TB/s HBM, 900 GB/s NVLink)",
+         "## §Roofline — single-pod (256 × v5e: 197 TF/s bf16, 819 GB/s HBM, 50 GB/s/link)"),
+        ("Per-rank terms of the traced step, every period traced, so no scan correction "
+         "(see roofline.py docstring). `useful` = MODEL_FLOPS / total traced FLOPs "
+         "(remat/redundancy overhead); `roof-frac` = achievable MFU at the dominant bound.",
+         "Scan-trip-count-corrected per-chip terms (see roofline.py docstring). `useful` = "
+         "MODEL_FLOPS / total HLO FLOPs (remat/redundancy overhead); `roof-frac` = "
+         "achievable MFU at the dominant bound.")]
     assert any("CONFIRMED" in line for line in got) and any("failed" in line for line in got)
 
 

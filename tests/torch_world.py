@@ -271,13 +271,13 @@ def _smoke_config(arch: str, overrides: dict):
     return get_config(arch, smoke=True).with_(**overrides)
 
 
-def place(mesh, tree, axes_fn: str):
-    """``tree`` on ``mesh`` by the default rules and the
-    :mod:`repro_torch.launch.shardings` assignment ``axes_fn``."""
+def place(mesh, tree, axes_fn: str, rules_overrides: dict | None = None):
+    """``tree`` on ``mesh`` by the default rules (with ``rules_overrides``)
+    and the :mod:`repro_torch.launch.shardings` assignment ``axes_fn``."""
     from repro_torch.distributed.sharding import ShardingRules, device_put
     from repro_torch.launch import shardings
 
-    rules = ShardingRules(mesh)
+    rules = ShardingRules(mesh, rules_overrides)
     axes = getattr(shardings, axes_fn)(tree)
     return rules, device_put(tree, shardings.tree_shardings(rules, axes, tree))
 
@@ -302,10 +302,11 @@ def sharded_loss(mesh, arch: str, overrides: dict, np_params, np_batch) -> float
 
 
 def sharded_grads(mesh, arch: str, overrides: dict, np_params, np_batch,
-                  backward_thread: bool = False) -> dict:
+                  backward_thread: bool = False, rules_overrides: dict | None = None) -> dict:
     """``value_and_grad`` on the placed weights and batch under the default
-    rules: the loss and every gradient leaf gathered whole (numpy, in
-    ``tree_leaves`` order).  With ``backward_thread`` the backward pass
+    rules (with ``rules_overrides``): the loss and every gradient leaf
+    gathered whole (numpy, in ``tree_leaves`` order).  With
+    ``backward_thread`` the backward pass
     runs on a thread of its own, which has neither the rules nor DTensor's
     implicit replication (per-thread settings), as autograd's device
     thread on the card has not."""
@@ -320,9 +321,9 @@ def sharded_grads(mesh, arch: str, overrides: dict, np_params, np_batch,
 
     cfg = _smoke_config(arch, overrides)
     rules, params = place(mesh, params_from_numpy(cfg, np_params, "cpu"),
-                          "param_logical_axes")
+                          "param_logical_axes", rules_overrides)
     _, batch = place(mesh, {k: torch.from_numpy(v) for k, v in np_batch.items()},
-                     "batch_logical_axes")
+                     "batch_logical_axes", rules_overrides)
     grad = torch.autograd.grad
     if backward_thread:
         def on_a_thread(*args, **kwargs):
@@ -342,6 +343,30 @@ def sharded_grads(mesh, arch: str, overrides: dict, np_params, np_batch,
         torch.autograd.grad = grad
     return dict(loss=float(loss.full_tensor()),
                 grads=[g.full_tensor().numpy() for g in tree_leaves(grads)])
+
+
+def vocab_loss(mesh, arch: str, overrides: dict, np_params, np_batch,
+               rules_overrides: dict | None = None) -> dict:
+    """:func:`sharded_grads` under the default rules with
+    ``rules_overrides``, and what ``layers.token_nll`` got: the logits'
+    ``PartitionSpec`` and the width of this rank's vocab block."""
+    from repro_torch.distributed.sharding import spec_of
+    from repro_torch.models import layers
+
+    seen, real = [], layers.token_nll
+
+    def spy(logits, targets):
+        seen.append((tuple(spec_of(logits)), logits.to_local().shape[-1]))
+        return real(logits, targets)
+
+    layers.token_nll = spy
+    try:
+        out = sharded_grads(mesh, arch, overrides, np_params, np_batch,
+                            rules_overrides=rules_overrides)
+    finally:
+        layers.token_nll = real
+    (spec, width), = seen
+    return dict(out, spec=spec, vocab_block=width)
 
 
 def sharded_train(mesh, arch: str, overrides: dict, np_params, data_kw: dict,
