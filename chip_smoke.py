@@ -297,7 +297,43 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    1024) called 2000 times back to back with one synchronize at the end:
    the host µs a call (the loop before the synchronize) and the wall µs
    (to its end); ``tools/launch_host_us.py`` times the same on another
-   checkout.  Then the seconds of every phase.
+   checkout.
+22. Serving a state-space model at published width and depth, after phase
+   21: mamba2-1.3b (48 layers, d_model 2048, d_state 128, headdim 64,
+   expand 2, chunk 128, vocab 50280 padded to 50304, tied embeddings),
+   bf16 activations over f32 master weights drawn on the card from
+   ``--seed``, ``contract_backend="kernel"`` with ``contract_strategy=
+   "native"`` (one ``native_gemm`` launch a product).  8 greedy requests of
+   64, 100, 128, 131 (prime: chunks of 1), 256, 512, 2048 and 8192 prompt
+   tokens drawn from ``--seed``, 16 new tokens each, through
+   ``ServingRuntime(slots=4, max_len=8208)`` with whole-prompt prefill (the
+   runtime's rule for SSM stacks): a warm-up serve, then the counted serve,
+   which must give every request its 16 tokens, build no bucket entry and
+   launch only ``native_gemm``, each launch on the route ``native_route``
+   gives: every prefill 289 launches (97 ``wgmma``, 48 ``fbatched``, 48
+   ``gathered``, 96 ``batched``; the 131-token one 97 ``wgmma``, 144
+   ``fbatched``, 48 ``batched``), every decode pass 145 (97 ``wgmma``, 48
+   ``batched``).  (a) Each request's served prefill logits within 2e-2 of
+   the largest magnitude of ``transformer.forward``'s last-position logits
+   on its prompt; (b) after the 512-token prefill, each layer's conv window
+   and state against a token-by-token ``decode_step`` loop, both against
+   a float32-activation prefill of the same weights: the prefill's no
+   farther from it than the larger of 2e-2 and twice the loop's (two bf16
+   summation orders drift apart with depth; printed); (c) the tokens
+   equal ``ServeEngine``'s, and against a float32 forward on the torch
+   backend over each request's served tokens the runtime's logits (every
+   prefill and decode row) no farther than the larger of 2e-2 and twice
+   the torch backend's runtime's (its rows fed the same tokens); at 48
+   layers two bf16 runs differ by more than 2e-2 (printed), as each does
+   from float32; (e) every SSD launch shape of the 512- and
+   8192-token prefills and a 4-slot decode pass on random operands of its
+   layout within ``TOL`` of the plain version, bit-identical twice, timed
+   queued against its bound, the plain version and one ``torch.einsum``;
+   (f) the two backends in turns (kernel, torch, torch, kernel; the torch
+   backend with ``contract_strategy="auto"``, library GEMMs): ms per
+   prefill by length, ms per decode pass by bucket, tokens/s; where a
+   decode pass and the 8192-token prefill spend device time, and its idle
+   share, on each backend; the counted serve's peak memory.  Then the seconds of every phase.
 19. Float32 products on ``fbatched``, right after phase 14: the 36 f32
    Table II cases at n = 256 through ``contract(strategy="native")`` as a
    counted run (36 launches, all ``fbatched``), then each case at n = 256
@@ -327,7 +363,7 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    one ``torch.einsum``; sums per serve, step or layer of each path.
 
 Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13, 14, 19, 20, 15's
-training and serving, 16's layer, training and pipeline) is driven with every
+training and serving, 16's layer, training and pipeline, 22) is driven with every
 kernel's launch count set to 0 just before it and read just after;
 launches made to compare, time or tune a kernel do not count.  Phases 5 and 10 also read ``native_gemm``'s
 launches by route, which must be what ``native_route`` gives for each
@@ -355,8 +391,10 @@ phase 15's under ``sharded_train`` (launches by route, ms per step, peak
 memory) and ``sharded_serve`` (launches, tokens/s), and phase 16's a2a
 training launches under ``a2a_launches``/``a2a_launches_by_route``, its
 layer, expert-product times and training checks under ``a2a`` and the
-pipeline's launches under ``pipeline_launches``, and phase 21's host µs
-a call under ``host``), then
+pipeline's launches under ``pipeline_launches``, phase 21's host µs
+a call under ``host``, and phase 22's launches under
+``ssm_serve_launches``/``ssm_serve_launches_by_route`` and its checks and
+times under ``ssm_serve``), then
 ``native_gemm.batched``, the batched route on its own line: phase 13's
 counted launches on it, and its times per train step from phase 18 (every
 path's under ``tc_shapes``), then ``native_gemm.f32``, the fbatched route
@@ -365,7 +403,11 @@ on its own line: phase 19's counted launches and their summed times
 ``sharded_fbatched``), then ``native_gemm.gathered`` and
 ``native_gemm.mixed``, the gathered route and fbatched's widening kernel
 each on its own line: phase 20's counted launches on it and its set's
-summed times (every set's sums under ``former_generic``),
+summed times (every set's sums under ``former_generic``); the batched,
+fbatched and gathered lines also carry each route's launches on phase
+22's mamba2 serve (``model_launches``: per prefill in chunks of more than
+one token and in the counted serve) and its SSD launch shapes there,
+summed (``ssm_shapes``),
 the card's name and power limit as ``nvidia-smi`` prints them, and the
 ``{"ok": true, ...}`` line.  Any failed check raises and exits non-zero without that line.
 """
@@ -4471,6 +4513,374 @@ def host_cost(dev, seed: int) -> dict:
                 host_us=[h for h, _ in runs], wall_us=[w for _, w in runs])
 
 
+# ------------------------------------------------------------------ phase 22
+#: the SSM serving cell: mamba2-1.3b (src/repro/configs/mamba2_1p3b.py) at
+#: its published widths and depth (no cut) on the kernel backend, one
+#: ``native_gemm`` launch a product; 8 greedy requests of the prompt lengths
+#: below (131 is prime: chunks of 1; 100 one chunk of 100; 8192 64 chunks of
+#: 128), 16 new tokens each, on 4 slots with whole-prompt prefill;
+#: ``state_check`` is the prompt whose cache is held to a token-by-token
+#: decode loop, ``shape_lens`` the prefills whose SSD launch shapes are timed
+SSM_SERVE = dict(arch="mamba2-1.3b", prompts=(64, 100, 128, 131, 256, 512, 2048, 8192),
+                 max_new=16, slots=4, state_check=512, shape_lens=(512, 8192))
+#: the products of a mamba2 pass that are not the SSD's: in_proj, out_proj
+#: and the tied LM head
+SSM_DENSE = ("ble,ef->blf", "bld,de->ble", "bse,ve->bsv")
+
+
+def mag_err(got, want) -> float:
+    """Largest absolute difference over the largest magnitude of ``want``."""
+    diff = (got.float() - want.float()).abs().max().item()
+    return diff / max(want.float().abs().max().item(), torch.finfo(torch.float32).tiny)
+
+
+def ssm_traffic(cfg, seed: int):
+    from repro_torch.runtime.scheduler import Request
+
+    rng = np.random.default_rng(seed + 22)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    max_new_tokens=SSM_SERVE["max_new"])
+            for i, n in enumerate(SSM_SERVE["prompts"])]
+
+
+def ssm_routes(cfg, L: int | None = None) -> dict:
+    """``native_gemm`` launches of one mamba2 pass by route: in_proj and
+    out_proj each layer and the tied head on ``wgmma``; a decode pass's
+    ``bhn,bhnp->bhp`` on ``batched``; a prefill of ``L`` tokens in chunks of
+    Q (the largest divisor of L up to the chunk) its four SSD products a
+    layer: ``CBt`` (float32 operands) on ``fbatched``, ``y_intra`` (W with
+    the head minor-most) on ``gathered``, the chunk states and ``y_inter``
+    on ``batched`` (chunks of 2 to 16 rows would take ``splitk`` for
+    ``CBt``: not this phase's traffic); in chunks of 1 the first three on
+    ``fbatched`` (nothing to contract, or f32) and ``y_inter`` on
+    ``batched``."""
+    n = cfg.n_periods
+    dense = 2 * n + 1
+    if L is None:
+        return {"wgmma": dense, "batched": n}
+    Q = min(cfg.ssm.chunk, L)
+    while L % Q:
+        Q -= 1
+    check(Q == 1 or Q > 16, f"ssm routes: chunks of {Q} are not this phase's traffic")
+    if Q == 1:
+        return {"wgmma": dense, "fbatched": 3 * n, "batched": n}
+    return {"wgmma": dense, "fbatched": n, "gathered": n, "batched": 2 * n}
+
+
+@contextlib.contextmanager
+def served_events(rt, logits: dict, routes: list):
+    """Within the block the runtime ``rt`` records every request's logits
+    as float32 on the host under ``(rid, tokens generated before)``: a
+    prefill's under ``(rid, 0)``, each decode pass's rows under their
+    requests; each prefill and decode pass appends ``(kind, length or
+    bucket, native_gemm launches by route)`` to ``routes``."""
+    from repro_torch.kernels.sb_gemm import native_gemm
+
+    prefill, decode, sample = rt._run_prefill_chunk_impl, rt._run_decode_impl, rt._sample
+
+    def launched(fn, kind, size):
+        before = dict(native_gemm.launches_by_route)
+        fn()
+        routes.append((kind, size, {r: n - before[r] for r, n in
+                                    native_gemm.launches_by_route.items() if n > before[r]}))
+
+    def sampled(state, row):
+        logits[(state.rid, len(state.request.output))] = row.float().cpu()
+        return sample(state, row)
+
+    def decoded(decodes):
+        bucket = rt.lattice.decode_bucket(len(decodes))
+        rows = ([s.slot for s in decodes] if bucket == rt.slots
+                else list(range(len(decodes))))
+        keys = [(s.rid, len(s.request.output)) for s in decodes]
+        rt.logits_probe = lambda out: logits.update(
+            {k: out[r].float().cpu() for k, r in zip(keys, rows)})
+        launched(lambda: decode(decodes), "decode", bucket)
+
+    rt._sample = sampled
+    rt._run_prefill_chunk_impl = lambda state, chunk: launched(
+        lambda: prefill(state, chunk), "prefill", chunk)
+    rt._run_decode_impl = decoded
+    try:
+        yield logits
+    finally:
+        del rt._sample, rt._run_prefill_chunk_impl, rt._run_decode_impl
+        rt.logits_probe = None
+
+
+def ssm_serve_path(dev, seed: int, counters) -> dict:
+    """Phase 22: mamba2-1.3b at its published widths and depth through
+    ``ServingRuntime`` on the kernel backend (see the module docstring).
+    Returns ``native_gemm``'s SSM serving record."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.sb_gemm import native_gemm
+    from repro_torch.models import transformer
+    from repro_torch.runtime.engine import ServingRuntime, slot_cache
+    from repro_torch.serving.engine import ServeEngine
+
+    t_start = time.perf_counter()
+    cfg = get_config(SSM_SERVE["arch"]).with_(**KERNEL_BACKEND)
+    cfg_t = cfg.with_(contract_backend="torch", contract_strategy="auto")
+    raw = get_config(SSM_SERVE["arch"], pad_vocab=False).vocab_size
+    s = cfg.ssm
+    log(f"ssm: {cfg.arch_id} {cfg.n_periods} layers (no cut), d_model {cfg.d_model}, d_state "
+        f"{s.d_state}, headdim {s.headdim}, expand {s.expand}, chunk {s.chunk}, vocab {raw} "
+        f"padded to {cfg.vocab_size}, tied embeddings {cfg.tie_embeddings}, {cfg.dtype} "
+        f"activations, {cfg.param_dtype} params, contract_backend {cfg.contract_backend}, "
+        f"strategy {cfg.contract_strategy}; {cfg.param_count() / 1e9:.3f}B params")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    params = transformer.init_params(torch.Generator(dev).manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    log(f"ssm: random weights drawn on the card, "
+        f"{(torch.cuda.memory_allocated(dev) - base) / 2**30:.2f} GiB")
+    max_len = max(SSM_SERVE["prompts"]) + SSM_SERVE["max_new"]
+    kw = dict(slots=SSM_SERVE["slots"], max_len=max_len)
+    rt = ServingRuntime(cfg, params, **kw)
+    check(not rt.lattice.chunked, "ssm: the runtime chunks an SSM model's prompts")
+    warm = rt.serve(ssm_traffic(cfg, seed))
+    entries = rt.buckets.compiles
+
+    # the main path: counts to 0 just before, read just after
+    traffic = ssm_traffic(cfg, seed)
+    seen, events = {}, []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters:
+        c.launches = 0
+    native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
+    t0 = time.perf_counter()
+    with native_routes_held() as held, served_events(rt, seen, events):
+        rt.serve(traffic)
+        torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counted = {c.__name__: c.launches for c in counters}
+    routes = dict(native_gemm.launches_by_route)
+    peak = torch.cuda.max_memory_allocated(dev)
+    outputs = [r.output for r in traffic]
+    check(all(r.done and len(r.output) == SSM_SERVE["max_new"] for r in traffic),
+          f"ssm: not every request finished with its {SSM_SERVE['max_new']} tokens: "
+          f"{[(r.rid, r.status, len(r.output)) for r in traffic]}")
+    check(outputs == [r.output for r in warm], "ssm: the warm-up serve gave other tokens")
+    check(rt.buckets.compiles == entries,
+          f"ssm: the counted serve built {rt.buckets.compiles - entries} bucket entries")
+    check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
+          f"ssm: another kernel launched on the path: {counted}")
+    check(routes == held and counted["native_gemm"] == sum(held.values()),
+          f"ssm: launches {counted['native_gemm']} by route {routes}, native_route gives {held}")
+    # (d) every prefill and decode pass launches what its products give
+    for kind, size, by in events:
+        want = ssm_routes(cfg, size if kind == "prefill" else None)
+        check(by == want, f"ssm: a {kind} of {size} launched by route {by}, not {want}")
+    check(sum(sum(by.values()) for *_, by in events) == counted["native_gemm"],
+          "ssm: launches outside a prefill or decode pass")
+    prefills = {size: by for kind, size, by in events if kind == "prefill"}
+    decodes = [by for kind, _, by in events if kind == "decode"]
+    check(sorted(prefills) == sorted(SSM_SERVE["prompts"]),
+          f"ssm: prefills of {sorted(prefills)}, not one per prompt")
+    log(f"ssm: {len(traffic)} requests, prompts {SSM_SERVE['prompts']}, "
+        f"{sum(map(len, outputs))} tokens in {serve_s:.2f} s; native_gemm launches "
+        f"{counted['native_gemm']} by route {routes}; grouped_gemm {counted['grouped_gemm']}, "
+        f"flash_attention {counted['flash_attention']}; bucket entries {entries}, none built "
+        f"by the counted serve; peak {peak / 2**30:.2f} GiB allocated")
+    for L in SSM_SERVE["prompts"]:
+        log(f"ssm: prefill of {L}: {sum(prefills[L].values())} launches, {prefills[L]}")
+    log(f"ssm: {len(decodes)} decode passes, each {sum(decodes[0].values())} launches, "
+        f"{decodes[0]}")
+
+    # (a) each request's prefill logits against the forward's last position
+    errs_a = {}
+    with torch.no_grad():
+        for r in traffic:
+            toks = torch.as_tensor(r.prompt, device=dev)[None].long()
+            full, _ = transformer.forward(cfg, params, {"tokens": toks})
+            want = full[0, -1]
+            got = seen[(r.rid, 0)]
+            check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (cfg.vocab_size,),
+                  f"ssm: prefill logits of {len(r.prompt)} not finite or of the wrong shape")
+            errs_a[len(r.prompt)] = mag_err(got, want.cpu())
+            del full
+    worst_a = max(errs_a.values())
+    check(worst_a <= TOL[torch.bfloat16],
+          f"ssm: served prefill logits against forward's last position {errs_a} (limit "
+          f"{TOL[torch.bfloat16]} of the largest magnitude)")
+    log(f"ssm: (a) served prefill logits against transformer.forward's last position, by "
+        f"prompt length: {', '.join(f'{L}: {e:.3g}' for L, e in errs_a.items())} of the largest "
+        f"magnitude (limit {TOL[torch.bfloat16]:g})")
+
+    # (b) the cache after a prefill against a token-by-token decode loop,
+    # both held to the cache of a float32-activation prefill (the same
+    # weights): two bf16 summation orders drift apart with depth
+    L = SSM_SERVE["state_check"]
+    prompt = torch.as_tensor(next(r.prompt for r in traffic if len(r.prompt) == L),
+                             device=dev)[None].long()
+    with torch.no_grad():
+        _, pre = transformer.prefill(cfg, params, {"tokens": prompt},
+                                     transformer.init_cache(cfg, 1, max_len, device=dev))
+        cfg32 = cfg.with_(dtype="float32")
+        _, ref32 = transformer.prefill(cfg32, params, {"tokens": prompt},
+                                       transformer.init_cache(cfg32, 1, max_len, device=dev))
+        loop = transformer.init_cache(cfg, 1, max_len, device=dev)
+        t0 = time.perf_counter()
+        for t in range(L):
+            _, loop = transformer.decode_step(cfg, params, loop, prompt[:, t:t + 1])
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    check(int(pre["length"]) == int(loop["length"]) == L, "ssm: cache lengths")
+    errs_b = {}
+    for leaf in ("conv", "state"):
+        def layer(cache, i):
+            return cache["pattern"][0][leaf][i]
+        n = range(cfg.n_periods)
+        e = errs_b[leaf] = dict(
+            direct=[mag_err(layer(pre, i), layer(loop, i)) for i in n],
+            prefill_off=[mag_err(layer(pre, i), layer(ref32, i)) for i in n],
+            loop_off=[mag_err(layer(loop, i), layer(ref32, i)) for i in n])
+        far = [i for i in n if e["prefill_off"][i] > max(TOL[torch.bfloat16],
+                                                         2 * e["loop_off"][i])]
+        check(not far, f"ssm: {leaf} of layers {far} after the {L}-token prefill farther from "
+                       f"the float32 prefill's than twice the decode loop's: "
+                       f"{e['prefill_off']} against {e['loop_off']}")
+        log(f"ssm: (b) {leaf} of the {cfg.n_periods} layers after the {L}-token prefill, "
+            f"against a token-by-token decode_step loop ({loop_s:.1f} s): worst layer "
+            f"{max(e['direct']):.3g} of its largest magnitude; from the float32 prefill's: "
+            f"prefill worst {max(e['prefill_off']):.3g}, loop worst {max(e['loop_off']):.3g} "
+            f"(a layer's prefill within the larger of {TOL[torch.bfloat16]:g} and twice its "
+            f"loop's)")
+    del pre, ref32, loop
+
+    # (c) the legacy engine's tokens; the logits of the runtime on each
+    # backend against a float32 forward on the library backend
+    legacy = ServeEngine(cfg, params, **kw).serve(ssm_traffic(cfg, seed))
+    check([r.output for r in legacy] == outputs,
+          "ssm: the runtime's tokens differ from ServeEngine's (the legacy oracle)")
+    rt_t = ServingRuntime(cfg_t, params, **kw)
+    seen_t = {}
+    with served_events(rt_t, seen_t, []):
+        torch_out = {r.rid: r.output for r in rt_t.serve(ssm_traffic(cfg, seed))}
+    kern_out = {r.rid: r.output for r in traffic}
+    ref = {}
+    with torch.no_grad():
+        for r in traffic:
+            seq = np.concatenate([r.prompt, np.asarray(r.output[:-1], np.int32)])
+            full, _ = transformer.forward(cfg_t.with_(dtype="float32"), params, {
+                "tokens": torch.as_tensor(seq, device=dev)[None].long()})
+            rows = full[0, len(r.prompt) - 1:].cpu()
+            ref.update({(r.rid, pos): rows[pos] for pos in range(len(r.output))})
+            del full
+    # a position of the torch backend compares where it fed the request the
+    # kernel backend's tokens
+    same = [k for k in seen_t if torch_out[k[0]][:k[1]] == kern_out[k[0]][:k[1]]]
+    check(seen.keys() == ref.keys() and sum(pos == 0 for _, pos in same) == len(traffic),
+          f"ssm: {len(seen)} logits recorded for {len(ref)} positions")
+    err_k = max(mag_err(seen[k], ref[k]) for k in seen)
+    err_t = max(mag_err(seen_t[k], ref[k]) for k in same)
+    direct = max(mag_err(seen[k], seen_t[k]) for k in same)
+    limit = max(TOL[torch.bfloat16], 2 * err_t)
+    check(err_k <= limit, f"ssm: the kernel runtime's logits {err_k} from a float32 forward's, "
+                          f"the torch backend's {err_t} (limit {limit})")
+    agree = sum(kern_out[i] == torch_out[i] for i in kern_out)
+    log(f"ssm: (c) tokens equal ServeEngine's; against a float32 forward (torch backend) on the "
+        f"served tokens, worst of the largest magnitude: kernel runtime {err_k:.3g} at "
+        f"{len(seen)} positions, torch backend runtime {err_t:.3g} at the {len(same)} fed the "
+        f"same tokens (limit for the kernel: the larger of {TOL[torch.bfloat16]:g} and twice "
+        f"the torch backend's); kernel against torch directly {direct:.3g}; greedy tokens "
+        f"equal in {agree} of {len(traffic)} requests")
+    del ref
+
+    # (e) every SSD launch shape of two prefills and a 4-slot decode pass
+    scratch = slot_cache(cfg, SSM_SERVE["slots"], max_len, device=dev)
+    toks4 = torch.zeros((SSM_SERVE["slots"], 1), dtype=torch.long, device=dev)
+    passes = {f"prefill {n}": (lambda n=n: transformer.prefill(
+                  cfg, params, {"tokens": torch.as_tensor(
+                      next(r.prompt for r in traffic if len(r.prompt) == n),
+                      device=dev)[None].long()},
+                  transformer.init_cache(cfg, 1, max_len, device=dev)))
+              for n in SSM_SERVE["shape_lens"]}
+    passes["decode pass"] = lambda: transformer.decode_step(cfg, params, scratch, toks4)
+    saved = native_gemm.launches, dict(native_gemm.launches_by_route)
+    gen = torch.Generator(dev).manual_seed(seed + 22)
+    shapes, per_pass = [], {}
+    for name, run in passes.items():
+        with torch.no_grad(), recording_launch_keys() as keys:
+            run()
+        tot = per_pass.setdefault(name, dict.fromkeys(("ms", "plain_ms", "library_ms",
+                                                       "bound_ms"), 0.0) | dict(launches=0))
+        for key, (n, layout) in sorted(keys.items(), key=lambda kv: str(kv[0])):
+            if f"{key[0]},{key[1]}->{key[2]}" in SSM_DENSE:
+                continue
+            A, B, kw_ = operands_like(layout, gen, dev)
+            row = time_shapes({key: (1, (A, B, kw_))}, reps=5, per=name,
+                              summary=False)["rows"][0]
+            del A, B
+            shapes.append(dict(row, path=name, launches=n))
+            tot["launches"] += n
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                tot[k] += n * row[k]
+        log(f"ssm: (e) {name}: {tot['launches']} SSD launches, kernel {tot['ms']:.4f} ms queued, "
+            f"bound {tot['bound_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, einsum "
+            f"{tot['library_ms']:.4f} ms queued")
+    native_gemm.launches, native_gemm.launches_by_route = saved
+    by_route = {}
+    for row in shapes:
+        tot = by_route.setdefault(row["route"], dict.fromkeys(
+            ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops"), 0.0)
+            | dict(launches=0, max_abs_err=0.0))
+        tot["launches"] += row["launches"]
+        tot["max_abs_err"] = max(tot["max_abs_err"], row["max_abs_err"])
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops"):
+            tot[k] += row["launches"] * row[k]
+    for route, tot in by_route.items():
+        tot["bound_by"] = bound(tot["bytes"], tot["flops"], torch.bfloat16)[1]
+        log(f"ssm: (e) {route}, over the three passes ({tot['launches']} launches): kernel "
+            f"{tot['ms']:.4f} ms queued, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}), "
+            f"plain {tot['plain_ms']:.4f} ms, einsum {tot['library_ms']:.4f} ms queued")
+
+    # (f) times: the two backends in turns; a decode pass's idle share
+    saved = [c.launches for c in counters]
+    runs = {"kernel": [], "torch": []}
+    for backend in ("kernel", "torch", "torch", "kernel"):
+        res = timed_serve(rt if backend == "kernel" else rt_t, ssm_traffic(cfg, seed))
+        runs[backend].append(res)
+        log(f"ssm [{backend}]: {res['tokens']} tokens in {res['wall_ms']:.1f} ms, "
+            f"{res['tokens_per_s']:.2f} tokens/s; ms per prefill by length: "
+            f"{', '.join(f'{c}: {m:.3f}' for c, m in res['chunk_ms_by_len'].items())}; "
+            f"ms per decode pass by bucket: "
+            f"{', '.join(f'{b}: {m:.3f} (x{res['ticks_by_bucket'][b]})' for b, m in res['tick_ms_by_bucket'].items())}")
+    check(all(r["outputs"] == outputs for r in runs["kernel"]),
+          "ssm: a timed kernel serve gave other tokens")
+    profiles = {}
+    longest = torch.as_tensor(next(r.prompt for r in traffic
+                                   if len(r.prompt) == max(SSM_SERVE["prompts"])),
+                              device=dev)[None].long()
+    with torch.no_grad():
+        for backend, conf in (("kernel", cfg), ("torch", cfg_t)):
+            for step, fn in (
+                    ("decode pass", lambda conf=conf: transformer.decode_step(
+                        conf, params, scratch, toks4)),
+                    (f"prefill of {longest.shape[1]}", lambda conf=conf: transformer.prefill(
+                        conf, params, {"tokens": longest},
+                        transformer.init_cache(conf, 1, max_len, device=dev)))):
+                fn()
+                profiles[f"{backend} {step}"] = profile_device(
+                    f"one mamba2 {step} [{backend}]", fn, top=6)
+    for c, n in zip(counters, saved):
+        c.launches = n
+    del rt, rt_t, legacy, scratch, params
+    log(f"ssm: phase 22 took {time.perf_counter() - t_start:.1f} s")
+    return dict(launches=counted["native_gemm"], launches_by_route=routes,
+                prefill_launches_by_route={str(L): prefills[L] for L in SSM_SERVE["prompts"]},
+                decode_launches_by_route=decodes[0], prefill_logits_err=errs_a,
+                state_err={leaf: {k: max(v) for k, v in e.items()} for leaf, e in errs_b.items()},
+                logits_err=dict(kernel=err_k, torch=err_t, kernel_vs_torch=direct),
+                peak_bytes=peak, shapes=shapes, shapes_by_route=by_route, per_pass=per_pass,
+                profiles=profiles,
+                tokens_per_s={b: [r["tokens_per_s"] for r in v] for b, v in runs.items()},
+                runs={b: [{k: v for k, v in r.items() if k != "outputs"} for r in rs]
+                      for b, rs in runs.items()})
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4574,6 +4984,8 @@ def main() -> int:
     lap("17")
     host = host_cost(dev, args.seed)
     lap("21")
+    ssm = ssm_serve_path(dev, args.seed, counters)
+    lap("22")
     log("time by phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
         + f"; all {time.perf_counter() - t0:.1f} s after the device line")
     records = {
@@ -4600,7 +5012,11 @@ def main() -> int:
                          "a2a_launches_by_route": mesh["a2a"]["train"]["launches_by_route"],
                          "a2a": {k: v for k, v in mesh["a2a"].items() if k != "pipeline"},
                          "pipeline_launches": mesh["a2a"]["pipeline"]["launches"],
-                         "pipeline": mesh["a2a"]["pipeline"], "host": host}),
+                         "pipeline": mesh["a2a"]["pipeline"], "host": host,
+                         "ssm_serve_launches": ssm["launches"],
+                         "ssm_serve_launches_by_route": ssm["launches_by_route"],
+                         "ssm_serve": {k: v for k, v in ssm.items()
+                                       if k not in ("launches", "launches_by_route")}}),
         **records,
     }
     # the batched route of native_gemm on its own line: phase 13's counted
@@ -4629,6 +5045,16 @@ def main() -> int:
                                  "max_abs_err")},
             launches=former["launches_by_route"][route],
             former_generic={n: {k: v for k, v in t.items()} for n, t in former["sums"].items()}))
+    # each route's launches on the mamba2 serve of phase 22, per prefill (a
+    # prompt in chunks of more than 1) and in the counted serve, and the
+    # route's SSD launch shapes there, summed
+    for key, route in (("native_gemm.batched", "batched"), ("native_gemm.f32", "fbatched"),
+                       ("native_gemm.gathered", "gathered")):
+        records[key][2]["model_launches"] = {
+            "mamba2-1.3b prefill": ssm["prefill_launches_by_route"][
+                str(SSM_SERVE["prompts"][0])].get(route, 0),
+            "mamba2-1.3b serve": ssm["launches_by_route"].get(route, 0)}
+        records[key][2]["ssm_shapes"] = ssm["shapes_by_route"].get(route)
     kernels = [{"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}",
                 "replaces": f"src/repro/kernels/{tpu}",
@@ -4641,7 +5067,9 @@ def main() -> int:
                                        "mesh_cli_s", "a2a_launches", "a2a_launches_by_route",
                                        "a2a", "pipeline_launches", "pipeline", "fma",
                                        "tc_shapes", "table2", "sharded_fbatched",
-                                       "former_generic", "host")
+                                       "former_generic", "host", "ssm_serve_launches",
+                                       "ssm_serve_launches_by_route", "ssm_serve",
+                                       "model_launches", "ssm_shapes")
                      if k in rec}}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:

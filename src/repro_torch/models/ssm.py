@@ -8,7 +8,12 @@ through ``repro_torch.core.einsum.xeinsum``.
 
 Decode is O(1) in sequence length: the recurrent state (B, H, N, P) *is*
 the "KV cache".  Every row of the batch carries its own state, so the
-decode step serves a batch of independent requests as it stands.
+decode step serves a batch of independent requests as it stands.  A
+cached call of more than one token (a prefill) runs the chunked SSD from
+the cache's conv window and state, so the whole prompt reaches the state.
+The JAX package's mixer instead sends every cached call to its one-token
+step, which folds a multi-token prompt into its last token; the port does
+not copy that.
 
 The port of ``repro.models.ssm``: the ``jax.lax.scan`` over chunks is a
 loop here.
@@ -84,12 +89,15 @@ def _causal_conv(xbc, w, b, cache=None):
 
 
 def mamba_mixer(cfg: ModelConfig, params, x, *, positions=None, kv_cache=None):
-    """Full-sequence SSD forward.  x: (B, L, E) → (B, L, E).
+    """Chunked SSD over the sequence.  x: (B, L, E) → ((B, L, E), cache).
 
-    If ``kv_cache`` is given (dict with conv/ssm state), runs as a
-    single-step decode (L == 1 expected) via the recurrent form.
+    Without ``kv_cache`` the conv window and the state start at zero and
+    the cache returned is ``None``.  With one (a dict with ``conv`` and
+    ``state``) the L tokens continue from it, and the call returns the
+    cache after the last token; a single token takes the recurrent step,
+    :func:`mamba_decode_step`.
     """
-    if kv_cache is not None:
+    if kv_cache is not None and x.shape[1] == 1:
         return mamba_decode_step(cfg, params, x, kv_cache)
     ctr = _ctr(cfg)
     s, d_in, heads = _dims(cfg)
@@ -102,7 +110,8 @@ def mamba_mixer(cfg: ModelConfig, params, x, *, positions=None, kv_cache=None):
 
     proj = ctr("ble,ef->blf", x, params["in_proj"].to(x.dtype))
     z, xbc, dt_raw = _split_proj(cfg, proj)
-    xbc, _ = _causal_conv(xbc, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype))
+    xbc, new_conv = _causal_conv(xbc, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype),
+                                 None if kv_cache is None else kv_cache["conv"])
     xs, Bm, Cm = torch.split(xbc, [d_in, G * N, G * N], dim=-1)
     xs = reshape(xs, B, L, heads, P)
     Bm = reshape(Bm, B, L, G, N)
@@ -145,7 +154,10 @@ def mamba_mixer(cfg: ModelConfig, params, x, *, positions=None, kv_cache=None):
 
     # loop over chunks: running = running · exp(Σ dA) + S_c
     chunk_decay = torch.exp(torch.sum(dA, dim=2))                      # (B,nc,H)
-    carry = torch.zeros((B, heads, N, P), dtype=x.dtype, device=x.device)
+    if kv_cache is None:
+        carry = torch.zeros((B, heads, N, P), dtype=x.dtype, device=x.device)
+    else:
+        carry = kv_cache["state"]
     prev = []
     for c in range(nc):
         prev.append(carry)  # the state *before* this chunk
@@ -162,7 +174,8 @@ def mamba_mixer(cfg: ModelConfig, params, x, *, positions=None, kv_cache=None):
     y = reshape(y, B, L, d_in)
     y = rms_norm(y * F.silu(z), params["norm"], cfg.rms_eps)
     out = ctr("bld,de->ble", y, params["out_proj"].to(x.dtype))
-    return logical(out, "batch", "seq_sharded", None), None
+    new_cache = None if kv_cache is None else {"conv": new_conv, "state": carry}
+    return logical(out, "batch", "seq_sharded", None), new_cache
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, *, lead=(), device="cuda"):

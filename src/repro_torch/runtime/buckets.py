@@ -77,8 +77,7 @@ class BucketLattice:
 
     ``chunked=False`` collapses the prefill lattice to exact prompt
     lengths (one chunk per prompt — the legacy engine's behavior, and
-    the required mode for SSM/hybrid architectures whose recurrent
-    decode path folds a multi-token chunk into its last token).
+    the mode SSM/hybrid and frontend architectures serve in).
     ``bucketed_decode=False`` pins every decode launch to the full slot
     count (legacy step-locked behavior).
     """

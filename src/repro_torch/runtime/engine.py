@@ -63,9 +63,9 @@ Correctness invariants the tests pin:
   hit (``BucketTable.compiles`` frozen).
 
 Chunked prefill is auto-disabled for SSM/hybrid and frontend
-architectures: the recurrent decode path folds a multi-token chunk into
-its last token, so only whole-prompt prefill matches the legacy oracle
-there.
+architectures, the JAX package's rule: those prefill the whole prompt in
+one shot (an SSM layer runs its chunked SSD over the prompt from the
+cache's state; a frontend model prepends non-token features).
 """
 
 from __future__ import annotations
@@ -93,12 +93,12 @@ __all__ = ["ServingRuntime", "supports_chunked_prefill"]
 
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
-    """Chunked prefill is exact only for pure-attention decoder stacks.
+    """Chunked prefill serves pure-attention decoder stacks only.
 
-    SSM/hybrid blocks run their cached prefill through the recurrent
-    decode step, which folds a multi-token chunk into its last token;
-    frontend models prepend non-token features.  Both must prefill the
-    whole prompt in one shot to match the legacy engine.
+    The JAX package's rule, kept: SSM/hybrid stacks prefill the whole
+    prompt in one shot (their cached prefill runs the SSD over it from
+    the cache's state), and frontend models prepend non-token features to
+    the prompt, so both take whole-prompt prefill.
     """
     specs = tuple(cfg.prefix) + tuple(cfg.pattern)
     return cfg.frontend is None and all(s.mixer == "attn" for s in specs)
@@ -222,9 +222,9 @@ class ServingRuntime:
             chunked_prefill = supports_chunked_prefill(cfg)
         elif chunked_prefill and not supports_chunked_prefill(cfg):
             raise ValueError(
-                f"{cfg.arch_id} has SSM/frontend layers: chunked prefill "
-                f"would not match whole-prompt prefill (pass "
-                f"chunked_prefill=False)"
+                f"{cfg.arch_id} has SSM/frontend layers, which take "
+                f"whole-prompt prefill: chunked prefill serves "
+                f"pure-attention stacks only (pass chunked_prefill=False)"
             )
         self.paged = bool(paged)
         self.page_size = int(page_size)

@@ -8,6 +8,9 @@ logits, aux and ``lm_loss``, and (decoders) prefill plus three decode
 steps, must match the JAX ``xla`` backend within 1e-4 of the largest
 magnitude, on the port's ``torch`` backend and on its ``kernel`` backend
 (whose wrapper takes ``native_gemm``'s plain version for CPU tensors).
+For the models with SSM layers the JAX side prefills token by token
+through its ``decode_step`` (its own ``prefill`` folds the prompt into the
+last token; ``tests/test_torch_ssm_prefill.py`` pins that).
 Then the paths the smoke configs do not reach (int8 KV cache, chunked
 attention, a gemma2 window shorter than the sequence, capacity drops,
 top-k ties), the port's own invariants, and one architecture through the
@@ -162,10 +165,11 @@ def test_forward_and_loss_match_jax(arch, backend):
 
 
 # --------------------------------------------------------- prefill + decode
-def prefill_decode(pkg, cfg, params, prompt, steps, cache):
+def prefill_decode(pkg, cfg, params, prompt, steps, cache, jax_prefill=None):
     """Last logits of a prefill of ``prompt`` (a dict of numpy arrays)
-    and of ``steps`` greedy decode steps after it, as numpy."""
-    run_prefill = functools.partial(pkg.prefill, cfg)
+    and of ``steps`` greedy decode steps after it, as numpy.  On the JAX
+    side ``jax_prefill`` replaces the package's ``prefill``."""
+    run_prefill = functools.partial(jax_prefill or pkg.prefill, cfg)
     run_decode = functools.partial(pkg.decode_step, cfg)
     if pkg is jtransformer:
         arr, argmax = jnp.asarray, lambda x: jnp.argmax(x, -1)[:, None]
@@ -181,12 +185,27 @@ def prefill_decode(pkg, cfg, params, prompt, steps, cache):
     return out, cache
 
 
+def jax_prefill_by_steps(cfg, params, batch, cache):
+    """The JAX oracle of an SSM model's prefill: its ``decode_step`` over
+    the prompt one token at a time.  (The JAX package's ``prefill`` sends
+    a cached SSM call to the one-token step, which folds the prompt into
+    its last token; the port's prefill runs the SSD over the prompt.)"""
+    for t in range(batch["tokens"].shape[1]):
+        logits, cache = jtransformer.decode_step(cfg, params, cache, batch["tokens"][:, t:t + 1])
+    return logits, cache
+
+
+def has_ssm(cfg) -> bool:
+    return any(s.mixer == "mamba" for s in tuple(cfg.prefix) + tuple(cfg.pattern))
+
+
 def check_prefill_decode(jcfg, tcfg, backends=("torch", "kernel"), S=12, steps=3):
     jp, tp = carried_params(jcfg, tcfg)
     prompt = smoke_batch(jcfg, S=S, seed=3)            # a vision model's patches too
     prompt.pop("labels", None)
     want, _ = prefill_decode(jtransformer, jcfg, jp, prompt, steps,
-                             jtransformer.init_cache(jcfg, 2, 32))
+                             jtransformer.init_cache(jcfg, 2, 32),
+                             jax_prefill=jax_prefill_by_steps if has_ssm(jcfg) else None)
     for backend in backends:
         cfg = tcfg.with_(contract_backend=backend)
         got, _ = prefill_decode(transformer, cfg, tp, prompt, steps,
@@ -282,11 +301,12 @@ def test_ssd_chunked_matches_recurrent():
     torch.testing.assert_close(y_chunk, torch.cat(ys, dim=1), rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("arch", ["internlm2-20b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["internlm2-20b", "gemma2-27b", "mamba2-1.3b"])
 def test_prefill_then_decode_equals_forward(arch):
     """Prefill of 8 tokens then 4 decode steps give the forward's logits
-    at positions 7..11.  (Not for MoE: the forward routes all tokens as
-    one dispatch group, a decode step its own tokens, so capacity drops
+    at positions 7..11 (mamba2: the SSD over the prompt, then the
+    recurrent step).  (Not for MoE: the forward routes all tokens as one
+    dispatch group, a decode step its own tokens, so capacity drops
     differ.)"""
     cfg = get_config(arch, smoke=True)
     params = transformer.init_params(torch.Generator().manual_seed(0), cfg)
