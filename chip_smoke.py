@@ -211,14 +211,15 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    next loss.  (c) internlm2-20b with phase 11's cut and traffic through
    ``ServingRuntime(mesh=)`` on the kernel backend: ``paged=True`` with a
    mesh raises; the counted serve's tokens and ``native_gemm`` launches by
-   route equal phase 11's unpaged kernel serve; tokens/s, sharded against
-   unsharded in turns, and a profiled decode pass each (idle share).
+   route equal phase 11's unpaged kernel serve; tokens/s of one timed
+   serve each (sharded, then unsharded), and a profiled decode pass each
+   (idle share).
    Every launch shape of (a) and (c) that the unsharded runs do not launch
    is held to the plain version and timed as in phase 6.  The process
    group is destroyed; then (d) ``python -m repro_torch.launch.train
    --arch minicpm-2b --smoke --mesh 1x1 --steps 3`` and ``python -m
    repro_torch.launch.serve --arch minicpm-2b --smoke --mesh 1x1`` run in
-   subprocesses on the card and exit 0.
+   subprocesses on the card, both at once, and exit 0.
 16. Expert and pipeline parallelism, on phase 15's world and mesh before
    it is destroyed.  (a) One qwen2-moe-a2.7b ``moe_ffn`` with
    ``moe_impl="a2a"`` at full width (60 experts top-4 of 1408, 4 shared)
@@ -315,7 +316,8 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    ``fbatched``, 48 ``batched``), every decode pass 145 (97 ``wgmma``, 48
    ``batched``).  (a) Each request's served prefill logits within 2e-2 of
    the largest magnitude of ``transformer.forward``'s last-position logits
-   on its prompt; (b) after the 512-token prefill, each layer's conv window
+   on its prompt; (b) after the 256-token prefill (two chunks), each
+   layer's conv window
    and state against a token-by-token ``decode_step`` loop, both against
    a float32-activation prefill of the same weights: the prefill's no
    farther from it than the larger of 2e-2 and twice the loop's (two bf16
@@ -333,7 +335,41 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    backend with ``contract_strategy="auto"``, library GEMMs): ms per
    prefill by length, ms per decode pass by bucket, tokens/s; where a
    decode pass and the 8192-token prefill spend device time, and its idle
-   share, on each backend; the counted serve's peak memory.  Then the seconds of every phase.
+   share, on each backend; the counted serve's peak memory.
+23. Training a state-space model at published width and depth, after
+   phase 22: mamba2-1.3b as in phase 22 (48 layers, no cut; 1.344B
+   params, f32 masters, bf16 activations), ``contract_backend="kernel"``
+   with ``contract_strategy="native"``, through the port's ``Trainer``
+   with ``remat=True``, ``SyntheticLM(seq_len=2048, global_batch=2)``
+   (the Mamba-2 paper's training context) and phase 13's lr, warmup and
+   schedule.  (1) The counted run, 6 steps: every loss finite, step 6's
+   below step 1's; 1155 ``native_gemm`` launches a step, each on the route
+   ``native_route`` gives and by route what the model gives
+   (``ssm_train_launches_per_step``: in_proj and out_proj on ``wgmma``,
+   ``CBt`` (float32) on ``fbatched``, ``y_intra`` (W with the head
+   minor-most) on ``gathered``, the chunk states and ``y_inter`` on
+   ``batched``, each launched in the forward, in remat's recompute and
+   twice in the backward, and the tied head three times: 387 ``wgmma``,
+   384 ``batched``, 192 ``fbatched``, 192 ``gathered``), no other kernel;
+   the run's peak memory.  (2) From the initial weights and the first
+   batch, ``value_and_grad`` four ways: the torch backend in float32 (TF32
+   off; the reference), the kernel backend in float32, the torch backend
+   in bf16, the kernel backend in bf16, at most two gradient trees on the
+   card at once: every leaf's gradient finite in each, and zero exactly on
+   the leaves the loss does not reach (``unreached_leaves``: the ``norm2``
+   of the layers without a feed-forward); the float32 kernel step within
+   1e-3 of the reference on every leaf (largest difference over the
+   reference's largest magnitude) and on the loss; the bf16 kernel step
+   within the larger of 5e-2 and twice the bf16 torch step's distance on
+   every leaf, its loss within 2e-2; the worst leaf of each printed.  (3)
+   Every launch layout of one recorded step (21) on random operands of
+   its layout within ``TOL`` of the plain version, bit-identical twice,
+   timed queued against its bound, the plain version and one
+   ``torch.einsum``; per-step sums, the top 8 by time and each backward
+   layout printed.  (4) ms per step and tokens/s, the backends in turns
+   (kernel, torch, torch, kernel; 2 steps a turn), and one profiled step
+   each (top 8 device kernels, idle share).  Then the seconds of every
+   phase.
 19. Float32 products on ``fbatched``, right after phase 14: the 36 f32
    Table II cases at n = 256 through ``contract(strategy="native")`` as a
    counted run (36 launches, all ``fbatched``), then each case at n = 256
@@ -363,7 +399,7 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    one ``torch.einsum``; sums per serve, step or layer of each path.
 
 Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13, 14, 19, 20, 15's
-training and serving, 16's layer, training and pipeline, 22) is driven with every
+training and serving, 16's layer, training and pipeline, 22, 23) is driven with every
 kernel's launch count set to 0 just before it and read just after;
 launches made to compare, time or tune a kernel do not count.  Phases 5 and 10 also read ``native_gemm``'s
 launches by route, which must be what ``native_route`` gives for each
@@ -394,7 +430,8 @@ layer, expert-product times and training checks under ``a2a`` and the
 pipeline's launches under ``pipeline_launches``, phase 21's host µs
 a call under ``host``, and phase 22's launches under
 ``ssm_serve_launches``/``ssm_serve_launches_by_route`` and its checks and
-times under ``ssm_serve``), then
+times under ``ssm_serve``, and phase 23's launches, losses, oracle
+distances, launch layouts, times and peak memory under ``ssm_train``), then
 ``native_gemm.batched``, the batched route on its own line: phase 13's
 counted launches on it, and its times per train step from phase 18 (every
 path's under ``tc_shapes``), then ``native_gemm.f32``, the fbatched route
@@ -406,7 +443,8 @@ each on its own line: phase 20's counted launches on it and its set's
 summed times (every set's sums under ``former_generic``); the batched,
 fbatched and gathered lines also carry each route's launches on phase
 22's mamba2 serve (``model_launches``: per prefill in chunks of more than
-one token and in the counted serve) and its SSD launch shapes there,
+one token and in the counted serve; and per train step of phase 23) and
+its SSD launch shapes on the serve,
 summed (``ssm_shapes``),
 the card's name and power limit as ``nvidia-smi`` prints them, and the
 ``{"ok": true, ...}`` line.  Any failed check raises and exits non-zero without that line.
@@ -1690,12 +1728,16 @@ def profile_hooi(T, n_iter: int, variant: str, top: int = 10) -> None:
 
 def device_spans(fn) -> tuple[list, float]:
     """The device activities of one call of ``fn`` under ``torch.profiler``,
-    as sorted ``(start_us, end_us, name)``, and the host wall time in µs."""
+    as sorted ``(start_us, end_us, name)``, and the host wall time in µs.
+    Only device activity is recorded: host ops are not read here, and
+    recording them too made a mamba2-1.3b train step's 30k device
+    activities take ~20 s to list instead of ~7 (H100 80GB HBM3, torch
+    2.11)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2446,6 +2488,21 @@ def train_launches_per_step(periods: int) -> dict:
     dense, attn = 7 * periods + 1, 2 * periods    # a forward's products (the head is dense)
     return {"wgmma": dense + (dense - 1) + 2 * dense,      # forward, recompute, dX and dW
             "batched": attn + attn + 2 * attn}            # forward, recompute, backward
+
+
+def ssm_train_launches_per_step(cfg) -> dict:
+    """``native_gemm`` launches of one mamba2 train step on the kernel
+    backend, by route, derived from the model: each product of a forward
+    over ``SSM_TRAIN["seq_len"]`` tokens (:func:`ssm_routes`) launches in
+    the forward, again in remat's recompute (every layer product: the
+    recompute stops only after an autograd Function's forward has
+    launched, so out_proj runs as well; ROADMAP C2b), and twice in the
+    backward (dX and dW, each on its forward's route); the tied LM head,
+    outside remat, launches once in the forward and twice in the
+    backward, so one ``wgmma`` launch fewer than four times the
+    forward's."""
+    forward = ssm_routes(cfg, SSM_TRAIN["seq_len"])
+    return {r: 4 * n - (r == "wgmma") for r, n in forward.items()}
 
 
 def timed_steps(step_fn, params, batch, n: int) -> list:
@@ -3409,7 +3466,7 @@ def mesh_serve(dev, mesh, seed: int, counters, serve_ref: dict) -> dict:
     saved = [c.launches for c in counters], dict(routes)
 
     runs = {"sharded": [], "unsharded": []}
-    for which in ("unsharded", "sharded", "sharded", "unsharded"):
+    for which in ("sharded", "unsharded"):
         res = timed_serve(rts if which == "sharded" else rt, serve_traffic(cfg, seed))
         check(res["outputs"] == outputs, f"mesh serve: a timed {which} serve gave other "
                                          f"tokens")
@@ -3441,21 +3498,32 @@ def mesh_serve(dev, mesh, seed: int, counters, serve_ref: dict) -> dict:
 
 def mesh_clis(dev) -> dict:
     """Phase 15 (d): the launchers with ``--mesh 1x1`` in subprocesses on
-    the card; seconds each."""
+    the card, all started at once (each world of one rendezvouses in its
+    own process); seconds from the start to each one's exit.  Every
+    subprocess is stopped before this returns or raises."""
     import os
 
     env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
     secs = {}
-    for args, marker in MESH_CLIS:
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
-                              env=env, timeout=300, stdin=subprocess.DEVNULL)
-        secs[args[0]] = time.perf_counter() - t0
-        check(proc.returncode == 0 and marker in proc.stdout and "mesh: 1x1" in proc.stdout,
-              f"mesh cli {' '.join(args)}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n"
-              f"{proc.stderr[-4000:]}")
-        log(f"mesh cli: python -m {' '.join(args)} exited 0 in {secs[args[0]]:.1f} s "
-            f"({marker!r} in its output)")
+    t0 = time.perf_counter()
+    procs = [(args, marker, subprocess.Popen(
+                [sys.executable, "-m", *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, env=env, stdin=subprocess.DEVNULL))
+             for args, marker in MESH_CLIS]
+    try:
+        for args, marker, proc in procs:
+            out, err = proc.communicate(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+            secs[args[0]] = time.perf_counter() - t0
+            check(proc.returncode == 0 and marker in out and "mesh: 1x1" in out,
+                  f"mesh cli {' '.join(args)}: exit {proc.returncode}\n{out[-2000:]}\n"
+                  f"{err[-4000:]}")
+            log(f"mesh cli: python -m {' '.join(args)} exited 0 in {secs[args[0]]:.1f} s "
+                f"({marker!r} in its output)")
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     return secs
 
 
@@ -4522,7 +4590,7 @@ def host_cost(dev, seed: int) -> dict:
 #: ``state_check`` is the prompt whose cache is held to a token-by-token
 #: decode loop, ``shape_lens`` the prefills whose SSD launch shapes are timed
 SSM_SERVE = dict(arch="mamba2-1.3b", prompts=(64, 100, 128, 131, 256, 512, 2048, 8192),
-                 max_new=16, slots=4, state_check=512, shape_lens=(512, 8192))
+                 max_new=16, slots=4, state_check=256, shape_lens=(512, 8192))
 #: the products of a mamba2 pass that are not the SSD's: in_proj, out_proj
 #: and the tied LM head
 SSM_DENSE = ("ble,ef->blf", "bld,de->ble", "bse,ve->bsv")
@@ -4881,6 +4949,222 @@ def ssm_serve_path(dev, seed: int, counters) -> dict:
                       for b, rs in runs.items()})
 
 
+# ------------------------------------------------------------------ phase 23
+#: mamba2-1.3b trained at its published widths and depth (48 layers, no
+#: cut), ``batch`` sequences of ``seq_len`` tokens a step (the Mamba-2
+#: paper's training context), ``steps`` steps of ``Trainer`` with phase
+#: 13's lr, warmup and schedule; the float32 oracle's limits: the float32
+#: kernel step ``f32_tol`` of each leaf's largest magnitude (and relative on
+#: the loss), the bf16 kernel step the larger of ``bf16_floor`` and twice
+#: the bf16 torch step's distance, its loss ``loss_tol`` relative
+SSM_TRAIN = dict(arch="mamba2-1.3b", seq_len=2048, batch=2, steps=6, timed_steps=2,
+                 top_shapes=8, f32_tol=1e-3, bf16_floor=5e-2, loss_tol=2e-2)
+
+
+def unreached_leaves(cfg) -> set:
+    """Paths of the parameter leaves the loss does not reach, whose gradient
+    is identically zero (in the JAX package too): the ``norm2`` of every
+    pattern layer without a feed-forward, since its block never reads it."""
+    return {("pattern", j, "norm2") for j, spec in enumerate(cfg.pattern) if spec.ff == "none"}
+
+
+def ssm_train_path(dev, seed: int, counters) -> dict:
+    """Phase 23: mamba2-1.3b at its published widths and depth trained
+    through ``Trainer`` on the kernel backend with ``contract_strategy=
+    "native"`` (see the module docstring).  Returns ``native_gemm``'s SSM
+    training record."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.sb_gemm import native_gemm
+    from repro_torch.models import transformer
+    from repro_torch.models.tree import tree_leaves_with_path
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.trainer import (
+        TrainConfig, Trainer, make_train_step, value_and_grad,
+    )
+
+    t_start = time.perf_counter()
+    took, mark = {}, [t_start]
+
+    def lap(label):
+        took[label] = round(time.perf_counter() - mark[0], 1)
+        mark[0] = time.perf_counter()
+
+    cfg = get_config(SSM_TRAIN["arch"]).with_(**KERNEL_BACKEND)
+    cfg_t = cfg.with_(contract_backend="torch", contract_strategy="auto")
+    steps, tokens = SSM_TRAIN["steps"], SSM_TRAIN["seq_len"] * SSM_TRAIN["batch"]
+    per_step = ssm_train_launches_per_step(cfg)
+    n_step = sum(per_step.values())
+    check(n_step == 24 * cfg.n_periods + 3,
+          f"ssm train: {per_step} is not 6 products a layer x4 (forward, recompute, dX, dW) "
+          f"+ 3 for the head")
+    zero = unreached_leaves(cfg)
+    s = cfg.ssm
+    log(f"ssm train: {cfg.arch_id} {cfg.n_periods} layers (no cut), d_model {cfg.d_model}, "
+        f"{s.expand * cfg.d_model // s.headdim} heads of {s.headdim}, d_state {s.d_state}, "
+        f"chunk {s.chunk}, vocab {cfg.vocab_size}, tied embeddings; {cfg.dtype} activations over "
+        f"{cfg.param_dtype} masters, remat on; {cfg.param_count() / 1e9:.3f}B params; "
+        f"{SSM_TRAIN['batch']} x {SSM_TRAIN['seq_len']} tokens a step; kernel backend, "
+        f"contract_strategy native; leaves the loss does not reach: {sorted(zero)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = transformer.init_params(torch.Generator(dev).manual_seed(seed), cfg)
+    opt = AdamWConfig(lr=TRAIN["lr"], schedule="wsd", warmup_steps=TRAIN["warmup"],
+                      total_steps=TRAIN["total_steps"])
+
+    def data():
+        return SyntheticLM(vocab_size=cfg.vocab_size, seq_len=SSM_TRAIN["seq_len"],
+                           global_batch=SSM_TRAIN["batch"], seed=seed)
+
+    # (1) the main path: counts to 0 just before, read just after
+    tr = Trainer(cfg, TrainConfig(opt=opt, remat=True), params, data())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters:
+        c.launches = 0
+    native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
+    with native_routes_held() as held:
+        hist = tr.run(steps)
+        torch.cuda.synchronize()
+    counted = {c.__name__: c.launches for c in counters}
+    routes = dict(native_gemm.launches_by_route)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del tr
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)), f"ssm train: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"ssm train: step {steps}'s loss {losses[-1]} is not below "
+                                  f"step 1's {losses[0]}")
+    check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
+          f"ssm train: another kernel launched on the path: {counted}")
+    check(routes == held, f"ssm train: routes {routes} differ from native_route's {held}")
+    by_step = {r: n // steps for r, n in routes.items() if n}
+    check(counted["native_gemm"] == steps * n_step and by_step == per_step
+          and all(n % steps == 0 for n in routes.values()),
+          f"ssm train: {counted['native_gemm']} native_gemm launches by route {routes} in "
+          f"{steps} steps; the model gives {per_step} a step")
+    log(f"ssm train: {steps} steps, losses {', '.join(f'{x:.6f}' for x in losses)}; step ms "
+        f"{', '.join(f'{h['step_time_s'] * 1e3:.1f}' for h in hist)}; lr "
+        f"{', '.join(f'{h['lr']:.3g}' for h in hist)}; native_gemm launches "
+        f"{counted['native_gemm']} ({n_step} a step: by route {by_step}, every one on the route "
+        f"native_route gives); grouped_gemm {counted['grouped_gemm']}, flash_attention "
+        f"{counted['flash_attention']}; peak memory {peak / 2**30:.2f} GiB "
+        f"({peak / 1e9:.2f} GB) allocated")
+    lap("(1) trainer")
+
+    # (2) the float32 oracle: at most two gradient trees on the card at once
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in next(data()).items()}
+
+    def step_of(conf, label):
+        loss, _, grads = value_and_grad(conf, params, batch)
+        grads = tree_leaves_with_path(grads)
+        bad = [p for p, g in grads if not bool(torch.isfinite(g).all())]
+        check(not bad, f"ssm train: [{label}] non-finite gradients on {bad}")
+        zeros = {p for p, g in grads if not bool(g.abs().max() > 0)}
+        check(zeros == zero, f"ssm train: [{label}] leaves with a zero gradient {zeros}, the "
+                             f"config gives {zero}")
+        return float(loss), grads
+
+    loss_ref, ref = step_of(cfg_t.with_(dtype="float32"), "float32 torch")
+
+    def distance(label, conf):
+        loss, grads = step_of(conf, label)
+        dist = {p: mag_err(g, r) for (p, g), (_, r) in zip(grads, ref)}
+        worst = max(dist, key=dist.get)
+        log(f"ssm train: (2) [{label}] loss {loss:.6f} against the float32 torch step's "
+            f"{loss_ref:.6f} ({abs(loss - loss_ref) / abs(loss_ref):.3g} relative); worst leaf "
+            f"{'/'.join(map(str, worst))} {dist[worst]:.3g} of its largest magnitude")
+        return loss, dist
+
+    loss_k32, d_k32 = distance("float32 kernel", cfg.with_(dtype="float32"))
+    loss_t16, d_t16 = distance("bf16 torch", cfg_t)
+    loss_k16, d_k16 = distance("bf16 kernel", cfg)
+    del ref
+    f32_tol, floor = SSM_TRAIN["f32_tol"], SSM_TRAIN["bf16_floor"]
+    far = {p: e for p, e in d_k32.items() if e > f32_tol}
+    check(not far and abs(loss_k32 - loss_ref) <= f32_tol * abs(loss_ref),
+          f"ssm train: the float32 kernel step from the float32 torch step's beyond {f32_tol}: "
+          f"leaves {far}, loss {loss_k32} against {loss_ref}")
+    far = {p: (e, d_t16[p]) for p, e in d_k16.items() if e > max(floor, 2 * d_t16[p])}
+    check(not far, f"ssm train: bf16 kernel gradients farther from float32 than the larger of "
+                   f"{floor} and twice the bf16 torch step's: {far}")
+    check(abs(loss_k16 - loss_ref) <= SSM_TRAIN["loss_tol"] * abs(loss_ref),
+          f"ssm train: the bf16 kernel loss {loss_k16} from the float32 loss {loss_ref}")
+    log(f"ssm train: (2) every leaf's gradient finite in all four steps, nonzero except "
+        f"{sorted(zero)}; float32 kernel within {f32_tol:g} on every leaf; bf16 kernel within "
+        f"the larger of {floor:g} and twice the bf16 torch step's distance on every leaf, its "
+        f"loss within {SSM_TRAIN['loss_tol']:g}")
+    lap("(2) oracle")
+
+    # (3) each launch layout of one recorded step against its plain version
+    saved = [c.launches for c in counters]
+    with recording_launch_keys() as keys:
+        value_and_grad(cfg, params, batch)
+        torch.cuda.synchronize()
+    check(sum(n for n, _ in keys.values()) == n_step,
+          f"ssm train: the recorded step launched {sum(n for n, _ in keys.values())}")
+    gen = torch.Generator(dev).manual_seed(seed + 23)
+    with recording_launch_keys() as fwd, torch.no_grad():
+        transformer.forward(cfg, params, batch)
+    forward = {f"{a},{b}->{c}" for a, b, c, *_ in fwd}
+    rows = []
+    for key, (n, layout) in sorted(keys.items(), key=lambda kv: str(kv[0])):
+        A, B, kw_ = operands_like(layout, gen, dev)
+        row = time_shapes({key: (n, (A, B, kw_))}, reps=3, per="step", summary=False)["rows"][0]
+        del A, B
+        rows.append(dict(row, launches=n))
+    tot = {k: sum(r["launches"] * r[k] for r in rows)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    top = sorted(rows, key=lambda r: -r["launches"] * r["ms"])[:SSM_TRAIN["top_shapes"]]
+    log(f"ssm train: (3) {len(rows)} launch layouts of a step, each within TOL of the plain "
+        f"version and bit-identical twice; per step: kernel {tot['ms']:.4f} ms queued, bound "
+        f"{tot['bound_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, einsum "
+        f"{tot['library_ms']:.4f} ms queued; top {len(top)} by time: " + "; ".join(
+            f"{r['spec']} x{r['launches']} [{r['route']}] {r['launches'] * r['ms']:.4f} ms "
+            f"(einsum {r['launches'] * r['library_ms']:.4f}, bound "
+            f"{r['launches'] * r['bound_ms']:.4f})" for r in top))
+    backward = [r for r in rows if r["spec"] not in forward]
+    for r in backward:
+        log(f"ssm train: (3) backward {r['spec']} [{r['route']}] x{r['launches']}: kernel "
+            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ({r['bound_by']}, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}%), einsum {r['library_ms']:.4f} "
+            f"({r['ms'] / r['library_ms']:.2f}x einsum's time), plain {r['plain_ms']:.4f}")
+    lap("(3) layouts")
+
+    # (4) ms per step, the two backends in turns; one profiled step each
+    steps_fn = {b: make_train_step(conf, TrainConfig(opt=opt, remat=True))
+                for b, conf in (("kernel", cfg), ("torch", cfg_t))}
+    timed_steps(steps_fn["torch"], params, batch, 1)
+    runs = {"kernel": [], "torch": []}
+    for backend in ("kernel", "torch", "torch", "kernel"):
+        ms = timed_steps(steps_fn[backend], params, batch, SSM_TRAIN["timed_steps"])
+        runs[backend] += ms
+        log(f"ssm train [{backend}]: ms per step {', '.join(f'{m:.1f}' for m in ms)}, "
+            f"{tokens / (min(ms) / 1e3):.1f} tokens/s at the fastest")
+    ms_step = {b: sorted(v)[len(v) // 2] for b, v in runs.items()}
+    profiles = {}
+    for backend in ("kernel", "torch"):
+        state = adamw_init(params)
+        profiles[backend] = profile_device(
+            f"one mamba2 train step [{backend}]",
+            lambda b=backend, st=state: steps_fn[b](params, st, batch, None), top=8)
+        del state
+    for c, n in zip(counters, saved):
+        c.launches = n
+    lap("(4) times")
+    del params, batch
+    log(f"ssm train: phase 23 took {time.perf_counter() - t_start:.1f} s: "
+        + ", ".join(f"{k} {v} s" for k, v in took.items()))
+    return dict(launches=counted["native_gemm"], launches_by_route=routes,
+                launches_per_step=per_step, losses=losses, peak_bytes=peak,
+                loss=dict(float32_torch=loss_ref, float32_kernel=loss_k32, bf16_torch=loss_t16,
+                          bf16_kernel=loss_k16),
+                grad_err={label: max(d.values()) for label, d in (
+                    ("float32_kernel", d_k32), ("bf16_torch", d_t16), ("bf16_kernel", d_k16))},
+                shapes=rows, per_step=tot, profiles=profiles,
+                ms_per_step=runs, tokens_per_s={b: tokens / (ms_step[b] / 1e3) for b in ms_step},
+                seconds=took)
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4986,6 +5270,8 @@ def main() -> int:
     lap("21")
     ssm = ssm_serve_path(dev, args.seed, counters)
     lap("22")
+    ssm_train = ssm_train_path(dev, args.seed, counters)
+    lap("23")
     log("time by phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
         + f"; all {time.perf_counter() - t0:.1f} s after the device line")
     records = {
@@ -5016,7 +5302,8 @@ def main() -> int:
                          "ssm_serve_launches": ssm["launches"],
                          "ssm_serve_launches_by_route": ssm["launches_by_route"],
                          "ssm_serve": {k: v for k, v in ssm.items()
-                                       if k not in ("launches", "launches_by_route")}}),
+                                       if k not in ("launches", "launches_by_route")},
+                         "ssm_train": ssm_train}),
         **records,
     }
     # the batched route of native_gemm on its own line: phase 13's counted
@@ -5046,14 +5333,16 @@ def main() -> int:
             launches=former["launches_by_route"][route],
             former_generic={n: {k: v for k, v in t.items()} for n, t in former["sums"].items()}))
     # each route's launches on the mamba2 serve of phase 22, per prefill (a
-    # prompt in chunks of more than 1) and in the counted serve, and the
-    # route's SSD launch shapes there, summed
+    # prompt in chunks of more than 1) and in the counted serve, and per
+    # train step of phase 23; the route's SSD launch shapes of the serve,
+    # summed
     for key, route in (("native_gemm.batched", "batched"), ("native_gemm.f32", "fbatched"),
                        ("native_gemm.gathered", "gathered")):
         records[key][2]["model_launches"] = {
             "mamba2-1.3b prefill": ssm["prefill_launches_by_route"][
                 str(SSM_SERVE["prompts"][0])].get(route, 0),
-            "mamba2-1.3b serve": ssm["launches_by_route"].get(route, 0)}
+            "mamba2-1.3b serve": ssm["launches_by_route"].get(route, 0),
+            "mamba2-1.3b train step": ssm_train["launches_per_step"].get(route, 0)}
         records[key][2]["ssm_shapes"] = ssm["shapes_by_route"].get(route)
     kernels = [{"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -5069,7 +5358,7 @@ def main() -> int:
                                        "tc_shapes", "table2", "sharded_fbatched",
                                        "former_generic", "host", "ssm_serve_launches",
                                        "ssm_serve_launches_by_route", "ssm_serve",
-                                       "model_launches", "ssm_shapes")
+                                       "ssm_train", "model_launches", "ssm_shapes")
                      if k in rec}}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:

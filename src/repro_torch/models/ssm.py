@@ -132,7 +132,11 @@ def mamba_mixer(cfg: ModelConfig, params, x, *, positions=None, kv_cache=None):
     # intra-chunk kernel: Lmat[i,j] = exp(s_i - s_j) · dt_j  for i ≥ j
     diff = seg[:, :, :, None, :] - seg[:, :, None, :, :]               # (B,nc,Q,Q,H)
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    Lmat = torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0)
+    # masked before the exp: above the diagonal diff > 0, and once dt grows
+    # exp overflows there (past ~88), where the reference's where(mask,
+    # exp(diff), 0) has the finite forward but the gradient 0·inf = NaN;
+    # exp(-inf) = 0 keeps this forward's bits
+    Lmat = torch.exp(torch.where(mask[None, None, :, :, None], diff, float("-inf")))
     Lmat = Lmat * dt_c[:, :, None, :, :]                               # apply dt_j
 
     # CBt[b,c,i,j,g] = C_i · B_j   (batched GEMM over (b, c, g))

@@ -530,3 +530,42 @@ def test_kernel_train_step_on_the_card():
     for (path, g), w in zip(tree_leaves_with_path(out["cuda"][2]), tree_leaves(out["cpu"][2])):
         scale = max(1.0, float(w.abs().max()))
         assert float((g.cpu() - w).abs().max()) <= TOL * scale, path
+
+
+@pytest.mark.gpu
+def test_mamba2_kernel_train_step_on_the_card():
+    """On the card, a mamba2 smoke train step (2 periods, 2 x 64 tokens in
+    chunks of 16, float32) on ``kernel`` + ``native``: the loss and every
+    gradient within 1e-4 of each leaf's largest magnitude of the torch
+    backend's float32 step on the card (TF32 off), the ``norm2`` leaf of the
+    feed-forward-free layers zero in both; 24 ``native_gemm`` launches a
+    layer (six products: forward, remat's recompute, dX, dW) and 3 for the
+    tied head."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.sb_gemm import native_gemm
+    from repro_torch.training.trainer import value_and_grad
+
+    cfg = get_config("mamba2-1.3b", smoke=True, n_periods=2, contract_backend="kernel",
+                     contract_strategy="native")
+    params = tree_map(lambda t: t.cuda(), Model(cfg).init(torch.Generator().manual_seed(0)))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(SyntheticLM(
+        vocab_size=cfg.vocab_size, seq_len=64, global_batch=2, seed=1)).items()}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = native_gemm.launches
+        got = value_and_grad(cfg, params, batch)
+        launched = native_gemm.launches - before
+        want = value_and_grad(cfg.with_(contract_backend="torch", contract_strategy="auto"),
+                              params, batch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert launched == 24 * cfg.n_periods + 3
+    assert abs(float(got[0]) - float(want[0])) <= TOL * abs(float(want[0]))
+    for (path, g), w in zip(tree_leaves_with_path(got[2]), tree_leaves(want[2])):
+        assert bool(torch.isfinite(g).all()), path
+        if path == ("pattern", 0, "norm2"):
+            assert not bool(g.any()) and not bool(w.any()), path
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= TOL * scale, path
