@@ -331,8 +331,9 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    8192-token prefills and a 4-slot decode pass on random operands of its
    layout within ``TOL`` of the plain version, bit-identical twice, timed
    queued against its bound, the plain version and one ``torch.einsum``;
-   (f) the two backends in turns (kernel, torch, torch, kernel; the torch
-   backend with ``contract_strategy="auto"``, library GEMMs): ms per
+   (f) one timed serve on each backend (kernel, then torch; the torch
+   backend with ``contract_strategy="auto"``, library GEMMs; phase 24
+   times a serve's backends in turns): ms per
    prefill by length, ms per decode pass by bucket, tokens/s; where a
    decode pass and the 8192-token prefill spend device time, and its idle
    share, on each backend; the counted serve's peak memory.
@@ -368,8 +369,45 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    ``torch.einsum``; per-step sums, the top 8 by time and each backward
    layout printed.  (4) ms per step and tokens/s, the backends in turns
    (kernel, torch, torch, kernel; 2 steps a turn), and one profiled step
-   each (top 8 device kernels, idle share).  Then the seconds of every
-   phase.
+   each (top 8 device kernels, idle share).
+24. Serving a hybrid SSD + GQA + MoE stack at published width, after
+   phase 23: jamba-v0.1-52b (d_model 4096, 32 query heads over 8 KV heads
+   of 128, d_ff 14336, vocab 65536; 16 experts top-2 with d_expert 14336,
+   capacity factor 1.25, on every other layer; SSD d_state 16, headdim 64,
+   expand 2, chunk 128), depth cut to one period of 8 layers (seven Mamba
+   mixers, attention at position 4; 13.268B params, 53.07 GB of f32
+   masters drawn on the card from ``--seed``), bf16 activations,
+   ``contract_backend="kernel"`` with ``contract_strategy="native"``.  8
+   greedy requests of 64, 100, 128, 131 (prime: chunks of 1), 256, 512,
+   2048 and 4096 prompt tokens drawn from ``--seed``, 16 new tokens each,
+   through ``ServingRuntime(slots=4, max_len=4112)`` with whole-prompt
+   prefill (the runtime's rule for hybrid stacks; a prompt routes its MoE
+   tokens as one dispatch group, a decode row its token alone): a warm-up
+   serve (counting the tokens GShard drops in each prefill, printed), then
+   the counted serve, which must give every request its 16 tokens, build
+   no bucket entry and launch only ``native_gemm``, each launch on the
+   route ``native_route`` gives: every prefill 73 launches (256 to 4096
+   tokens 31 ``wgmma``, 7 ``fbatched``, 7 ``gathered``, 28 ``batched``;
+   131 tokens 31 ``wgmma``, 21 ``fbatched``, 21 ``batched``; one chunk,
+   64 to 128 tokens, ``CBt`` on ``stream``), every decode pass 52 (31
+   ``wgmma``, 21 ``batched``), as ``ssm_routes`` derives them from the
+   layer pattern; the serve's peak memory.  (a) Each request's served
+   prefill logits within 2e-2 of the largest magnitude of
+   ``transformer.forward``'s last-position logits on its prompt; (b) the
+   tokens equal ``ServeEngine``'s; (c) the runtime on the torch backend in
+   bf16 and in float32 (TF32 off; the oracle), each fed the kernel
+   runtime's tokens, so that every row routes its MoE tokens as the served
+   row did: every prefill and decode row of the kernel runtime no farther
+   from the oracle than the larger of 2e-2 and twice the bf16 torch
+   runtime's worst row; (d) every launch layout of the 128-, 512- and
+   4096-token prefills and a 4-slot decode pass on random operands of its layout
+   within ``TOL`` of the plain version, bit-identical twice, timed queued
+   against its bound, the plain version and one ``torch.einsum``; one MoE
+   layer's expert weight casts to bf16 timed against their byte bound;
+   (e) the two backends in turns (kernel, torch, torch, kernel): ms per
+   prefill by length, ms per decode pass, tokens/s; where a decode pass
+   and the 4096-token prefill spend device time, and the idle share, on
+   each backend.  Then the seconds of every phase.
 19. Float32 products on ``fbatched``, right after phase 14: the 36 f32
    Table II cases at n = 256 through ``contract(strategy="native")`` as a
    counted run (36 launches, all ``fbatched``), then each case at n = 256
@@ -399,7 +437,7 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    one ``torch.einsum``; sums per serve, step or layer of each path.
 
 Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13, 14, 19, 20, 15's
-training and serving, 16's layer, training and pipeline, 22, 23) is driven with every
+training and serving, 16's layer, training and pipeline, 22, 23, 24) is driven with every
 kernel's launch count set to 0 just before it and read just after;
 launches made to compare, time or tune a kernel do not count.  Phases 5 and 10 also read ``native_gemm``'s
 launches by route, which must be what ``native_route`` gives for each
@@ -431,7 +469,10 @@ pipeline's launches under ``pipeline_launches``, phase 21's host µs
 a call under ``host``, and phase 22's launches under
 ``ssm_serve_launches``/``ssm_serve_launches_by_route`` and its checks and
 times under ``ssm_serve``, and phase 23's launches, losses, oracle
-distances, launch layouts, times and peak memory under ``ssm_train``), then
+distances, launch layouts, times and peak memory under ``ssm_train``, and
+phase 24's launches under ``jamba_serve_launches``/
+``jamba_serve_launches_by_route`` and its drops, checks, layouts, casts,
+times and peak memory under ``jamba_serve``), then
 ``native_gemm.batched``, the batched route on its own line: phase 13's
 counted launches on it, and its times per train step from phase 18 (every
 path's under ``tc_shapes``), then ``native_gemm.f32``, the fbatched route
@@ -443,9 +484,10 @@ each on its own line: phase 20's counted launches on it and its set's
 summed times (every set's sums under ``former_generic``); the batched,
 fbatched and gathered lines also carry each route's launches on phase
 22's mamba2 serve (``model_launches``: per prefill in chunks of more than
-one token and in the counted serve; and per train step of phase 23) and
-its SSD launch shapes on the serve,
-summed (``ssm_shapes``),
+one token and in the counted serve; per train step of phase 23; per
+4096-token prefill and in the counted serve of phase 24's jamba) and
+its SSD launch shapes on the mamba2 serve and its launch layouts on the
+jamba serve, summed (``ssm_shapes``, ``jamba_shapes``),
 the card's name and power limit as ``nvidia-smi`` prints them, and the
 ``{"ok": true, ...}`` line.  Any failed check raises and exits non-zero without that line.
 """
@@ -454,6 +496,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import json
 import subprocess
@@ -4602,46 +4645,65 @@ def mag_err(got, want) -> float:
     return diff / max(want.float().abs().max().item(), torch.finfo(torch.float32).tiny)
 
 
-def ssm_traffic(cfg, seed: int):
+def ssm_traffic(cfg, seed: int, serve: dict = SSM_SERVE, salt: int = 22):
+    """The greedy requests of ``serve``'s prompt lengths, tokens drawn from
+    ``seed + salt``, ``serve["max_new"]`` new tokens each."""
     from repro_torch.runtime.scheduler import Request
 
-    rng = np.random.default_rng(seed + 22)
+    rng = np.random.default_rng(seed + salt)
     return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
-                    max_new_tokens=SSM_SERVE["max_new"])
-            for i, n in enumerate(SSM_SERVE["prompts"])]
+                    max_new_tokens=serve["max_new"])
+            for i, n in enumerate(serve["prompts"])]
 
 
 def ssm_routes(cfg, L: int | None = None) -> dict:
-    """``native_gemm`` launches of one mamba2 pass by route: in_proj and
-    out_proj each layer and the tied head on ``wgmma``; a decode pass's
-    ``bhn,bhnp->bhp`` on ``batched``; a prefill of ``L`` tokens in chunks of
-    Q (the largest divisor of L up to the chunk) its four SSD products a
-    layer: ``CBt`` (float32 operands) on ``fbatched``, ``y_intra`` (W with
-    the head minor-most) on ``gathered``, the chunk states and ``y_inter``
-    on ``batched`` (chunks of 2 to 16 rows would take ``splitk`` for
-    ``CBt``: not this phase's traffic); in chunks of 1 the first three on
-    ``fbatched`` (nothing to contract, or f32) and ``y_inter`` on
-    ``batched``."""
+    """``native_gemm`` launches of one pass of a mamba2 or jamba stack by
+    route, from its layer pattern.  On ``wgmma``: in_proj and out_proj of
+    each Mamba layer, Q, K, V and O of each attention layer, the 2 or 3
+    products of each dense MLP, the head.  On ``batched``: an attention
+    layer's scores and P·V and a MoE layer's 2 or 3 expert products; a
+    decode pass's ``bhn,bhnp->bhp`` of each Mamba layer.  A prefill of ``L``
+    tokens in chunks of Q (the largest divisor of L up to the chunk) runs
+    four SSD products a Mamba layer: ``CBt`` (float32 operands) on
+    ``fbatched`` (on ``stream`` where it writes one chunk of one group
+    from a contraction at most ``NARROW`` deep: jamba's d_state 16 in a
+    prompt of one chunk), ``y_intra`` (W with the head minor-most) on
+    ``gathered``, the chunk states and ``y_inter`` on ``batched`` (chunks
+    of 2 to 16 rows would take ``splitk`` for ``CBt``: not these phases'
+    traffic); in chunks of 1 the first three on ``fbatched`` (nothing to
+    contract, or f32) and ``y_inter`` on ``batched``."""
+    from repro_torch.kernels.sb_gemm import NARROW
+
     n = cfg.n_periods
-    dense = 2 * n + 1
-    if L is None:
-        return {"wgmma": dense, "batched": n}
-    Q = min(cfg.ssm.chunk, L)
-    while L % Q:
-        Q -= 1
-    check(Q == 1 or Q > 16, f"ssm routes: chunks of {Q} are not this phase's traffic")
-    if Q == 1:
-        return {"wgmma": dense, "fbatched": 3 * n, "batched": n}
-    return {"wgmma": dense, "fbatched": n, "gathered": n, "batched": 2 * n}
+    ff = 3 if cfg.mlp_act == "swiglu" else 2
+    mamba, attn, dense, moe = (n * sum(pick(s) for s in cfg.pattern) for pick in (
+        lambda s: s.mixer == "mamba", lambda s: s.mixer == "attn",
+        lambda s: s.ff == "dense", lambda s: s.ff == "moe"))
+    routes = {"wgmma": 2 * mamba + 4 * attn + ff * dense + 1,
+              "batched": 2 * attn + ff * moe + mamba}
+    if L is not None:
+        Q = min(cfg.ssm.chunk, L)
+        while L % Q:
+            Q -= 1
+        check(Q == 1 or Q > 16, f"ssm routes: chunks of {Q} are not this phase's traffic")
+        if Q == 1:
+            routes["fbatched"] = 3 * mamba
+        else:
+            one = Q == L and cfg.ssm.n_groups == 1 and cfg.ssm.d_state <= NARROW
+            routes |= {"stream" if one else "fbatched": mamba, "gathered": mamba}
+            routes["batched"] += mamba
+    return {r: k for r, k in routes.items() if k}
 
 
 @contextlib.contextmanager
-def served_events(rt, logits: dict, routes: list):
+def served_events(rt, logits: dict, routes: list, forced: dict | None = None):
     """Within the block the runtime ``rt`` records every request's logits
     as float32 on the host under ``(rid, tokens generated before)``: a
     prefill's under ``(rid, 0)``, each decode pass's rows under their
     requests; each prefill and decode pass appends ``(kind, length or
-    bucket, native_gemm launches by route)`` to ``routes``."""
+    bucket, native_gemm launches by route)`` to ``routes``.  With
+    ``forced`` (rid to tokens) every request is fed those tokens in place
+    of its own samples: each decode row runs on the forced token."""
     from repro_torch.kernels.sb_gemm import native_gemm
 
     prefill, decode, sample = rt._run_prefill_chunk_impl, rt._run_decode_impl, rt._sample
@@ -4653,8 +4715,9 @@ def served_events(rt, logits: dict, routes: list):
                                     native_gemm.launches_by_route.items() if n > before[r]}))
 
     def sampled(state, row):
-        logits[(state.rid, len(state.request.output))] = row.float().cpu()
-        return sample(state, row)
+        pos = len(state.request.output)
+        logits[(state.rid, pos)] = row.float().cpu()
+        return sample(state, row) if forced is None else forced[state.rid][pos]
 
     def decoded(decodes):
         bucket = rt.lattice.decode_bucket(len(decodes))
@@ -4664,6 +4727,9 @@ def served_events(rt, logits: dict, routes: list):
         rt.logits_probe = lambda out: logits.update(
             {k: out[r].float().cpu() for k, r in zip(keys, rows)})
         launched(lambda: decode(decodes), "decode", bucket)
+        if forced is not None:
+            for s, (rid, pos) in zip(decodes, keys):
+                s.request.output[pos] = rt._tokens[s.slot, 0] = forced[rid][pos]
 
     rt._sample = sampled
     rt._run_prefill_chunk_impl = lambda state, chunk: launched(
@@ -4676,14 +4742,175 @@ def served_events(rt, logits: dict, routes: list):
         rt.logits_probe = None
 
 
+def counted_serve(tag: str, rt, cfg, traffic, warm, counters) -> dict:
+    """The main path of a serving phase: ``traffic`` through ``rt`` with
+    every kernel's launch count set to 0 just before and read just after.
+    Every request must get its tokens, the warm-up serve's (``warm``),
+    with no bucket entry built and only ``native_gemm`` launched, each
+    launch on the route ``native_route`` gives and each prefill and decode
+    pass by the routes :func:`ssm_routes` derives.  Returns the logits by
+    ``(rid, position)`` (``seen``), the launches by kernel (``counted``)
+    and by route (``routes``), each prefill's routes by prompt length,
+    the decode passes' routes, the peak memory and the serve's seconds."""
+    from repro_torch.kernels.sb_gemm import native_gemm
+
+    entries = rt.buckets.compiles
+    seen, events = {}, []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
+    t0 = time.perf_counter()
+    with native_routes_held() as held, served_events(rt, seen, events):
+        rt.serve(traffic)
+        torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counted = {c.__name__: c.launches for c in counters}
+    routes = dict(native_gemm.launches_by_route)
+    peak = torch.cuda.max_memory_allocated()
+    outputs = [r.output for r in traffic]
+    max_new = traffic[0].max_new_tokens
+    check(all(r.done and len(r.output) == r.max_new_tokens for r in traffic),
+          f"{tag}: not every request finished with its {max_new} tokens: "
+          f"{[(r.rid, r.status, len(r.output)) for r in traffic]}")
+    check(outputs == [r.output for r in warm], f"{tag}: the warm-up serve gave other tokens")
+    check(rt.buckets.compiles == entries,
+          f"{tag}: the counted serve built {rt.buckets.compiles - entries} bucket entries")
+    check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
+          f"{tag}: another kernel launched on the path: {counted}")
+    check(routes == held and counted["native_gemm"] == sum(held.values()),
+          f"{tag}: launches {counted['native_gemm']} by route {routes}, native_route gives "
+          f"{held}")
+    for kind, size, by in events:
+        want = ssm_routes(cfg, size if kind == "prefill" else None)
+        check(by == want, f"{tag}: a {kind} of {size} launched by route {by}, not {want}")
+    check(sum(sum(by.values()) for *_, by in events) == counted["native_gemm"],
+          f"{tag}: launches outside a prefill or decode pass")
+    prefills = {size: by for kind, size, by in events if kind == "prefill"}
+    decodes = [by for kind, _, by in events if kind == "decode"]
+    lens = [len(r.prompt) for r in traffic]
+    check(sorted(prefills) == sorted(lens),
+          f"{tag}: prefills of {sorted(prefills)}, not one per prompt")
+    log(f"{tag}: {len(traffic)} requests, prompts {tuple(lens)}, "
+        f"{sum(map(len, outputs))} tokens in {serve_s:.2f} s; native_gemm launches "
+        f"{counted['native_gemm']} by route {routes}, each on the route native_route gives; "
+        f"grouped_gemm {counted['grouped_gemm']}, flash_attention "
+        f"{counted['flash_attention']}; bucket entries {entries}, none built by the counted "
+        f"serve; peak {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB) allocated")
+    for L in lens:
+        log(f"{tag}: prefill of {L}: {sum(prefills[L].values())} launches, {prefills[L]}")
+    log(f"{tag}: {len(decodes)} decode passes, each {sum(decodes[0].values())} launches, "
+        f"{decodes[0]}")
+    return dict(seen=seen, counted=counted, routes=routes, prefills=prefills,
+                decodes=decodes, peak=peak, outputs=outputs)
+
+
+def prefill_vs_forward(tag: str, cfg, params, traffic, seen: dict, dev) -> dict:
+    """Check (a) of a serving phase: each request's served prefill logits
+    (``seen[(rid, 0)]``), finite and of the vocab's width, within 2e-2 of
+    the largest magnitude of ``transformer.forward``'s last position on
+    its prompt.  Returns the distances by prompt length."""
+    from repro_torch.models import transformer
+
+    errs = {}
+    with torch.no_grad():
+        for r in traffic:
+            toks = torch.as_tensor(r.prompt, device=dev)[None].long()
+            full, _ = transformer.forward(cfg, params, {"tokens": toks})
+            got = seen[(r.rid, 0)]
+            check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (cfg.vocab_size,),
+                  f"{tag}: prefill logits of {len(r.prompt)} not finite or of the wrong shape")
+            errs[len(r.prompt)] = mag_err(got, full[0, -1].cpu())
+            del full
+    check(max(errs.values()) <= TOL[torch.bfloat16],
+          f"{tag}: served prefill logits against forward's last position {errs} (limit "
+          f"{TOL[torch.bfloat16]} of the largest magnitude)")
+    log(f"{tag}: (a) served prefill logits against transformer.forward's last position, by "
+        f"prompt length: {', '.join(f'{L}: {e:.3g}' for L, e in errs.items())} of the "
+        f"largest magnitude (limit {TOL[torch.bfloat16]:g})")
+    return errs
+
+
+def pass_layouts(tag: str, passes: dict, gen, dev, skip=()) -> tuple:
+    """Every ``native_gemm`` launch layout of each pass in ``passes`` (name
+    to a function that runs it), but the specs in ``skip``, on random
+    operands of its layout from ``gen``: within ``TOL`` of the plain
+    version, bit-identical twice, timed queued against its bound, the
+    plain version and one ``torch.einsum`` (:func:`time_shapes`, 3 calls).
+    Returns the rows (one a layout and pass, with its launches), the sums
+    per pass and the sums by route, each weighted by launches; the
+    comparison launches do not count."""
+    from repro_torch.kernels.sb_gemm import native_gemm
+
+    keys4 = ("ms", "plain_ms", "library_ms", "bound_ms")
+    saved = native_gemm.launches, dict(native_gemm.launches_by_route)
+    shapes, per_pass = [], {}
+    for name, run in passes.items():
+        with torch.no_grad(), recording_launch_keys() as keys:
+            run()
+        tot = per_pass[name] = dict.fromkeys(keys4, 0.0) | dict(launches=0)
+        for key, (n, layout) in sorted(keys.items(), key=lambda kv: str(kv[0])):
+            if f"{key[0]},{key[1]}->{key[2]}" in skip:
+                continue
+            A, B, kw = operands_like(layout, gen, dev)
+            row = time_shapes({key: (1, (A, B, kw))}, reps=3, per=name,
+                              summary=False)["rows"][0]
+            del A, B
+            shapes.append(dict(row, path=name, launches=n))
+            tot["launches"] += n
+            for k in keys4:
+                tot[k] += n * row[k]
+        log(f"{tag} {name}: {tot['launches']} launches timed, kernel {tot['ms']:.4f} ms "
+            f"queued, bound {tot['bound_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, einsum "
+            f"{tot['library_ms']:.4f} ms queued")
+    native_gemm.launches, native_gemm.launches_by_route = saved
+    by_route = {}
+    for row in shapes:
+        tot = by_route.setdefault(row["route"], dict.fromkeys(keys4 + ("bytes", "flops"), 0.0)
+                                  | dict(launches=0, max_abs_err=0.0))
+        tot["launches"] += row["launches"]
+        tot["max_abs_err"] = max(tot["max_abs_err"], row["max_abs_err"])
+        for k in keys4 + ("bytes", "flops"):
+            tot[k] += row["launches"] * row[k]
+    for route, tot in by_route.items():
+        tot["bound_by"] = bound(tot["bytes"], tot["flops"], torch.bfloat16)[1]
+        log(f"{tag} {route}, over the {len(passes)} passes ({tot['launches']} launches): "
+            f"kernel {tot['ms']:.4f} ms queued, bound {tot['bound_ms']:.4f} ms "
+            f"({tot['bound_by']}), plain {tot['plain_ms']:.4f} ms, einsum "
+            f"{tot['library_ms']:.4f} ms queued")
+    return shapes, per_pass, by_route
+
+
+def serve_passes(cfg, params, traffic, lens, slots: int, max_len: int, dev) -> dict:
+    """The passes a serving phase times and profiles: a prefill of each
+    prompt length in ``lens`` (that request's prompt, from an empty batch-1
+    cache) and a decode pass over ``slots`` empty slots, by name, each a
+    function of the config to run it with (``cfg`` by default)."""
+    from repro_torch.models import transformer
+    from repro_torch.runtime.engine import slot_cache
+
+    scratch = slot_cache(cfg, slots, max_len, device=dev)
+    toks = torch.zeros((slots, 1), dtype=torch.long, device=dev)
+
+    def prefill(n, conf=cfg):
+        prompt = next(r.prompt for r in traffic if len(r.prompt) == n)
+        return transformer.prefill(conf, params, {
+            "tokens": torch.as_tensor(prompt, device=dev)[None].long()},
+            transformer.init_cache(conf, 1, max_len, device=dev))
+
+    passes = {f"prefill {n}": (lambda conf=cfg, n=n: prefill(n, conf)) for n in lens}
+    passes["decode pass"] = lambda conf=cfg: transformer.decode_step(conf, params, scratch, toks)
+    return passes
+
+
 def ssm_serve_path(dev, seed: int, counters) -> dict:
     """Phase 22: mamba2-1.3b at its published widths and depth through
     ``ServingRuntime`` on the kernel backend (see the module docstring).
     Returns ``native_gemm``'s SSM serving record."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.sb_gemm import native_gemm
     from repro_torch.models import transformer
-    from repro_torch.runtime.engine import ServingRuntime, slot_cache
+    from repro_torch.runtime.engine import ServingRuntime
     from repro_torch.serving.engine import ServeEngine
 
     t_start = time.perf_counter()
@@ -4708,74 +4935,17 @@ def ssm_serve_path(dev, seed: int, counters) -> dict:
     rt = ServingRuntime(cfg, params, **kw)
     check(not rt.lattice.chunked, "ssm: the runtime chunks an SSM model's prompts")
     warm = rt.serve(ssm_traffic(cfg, seed))
-    entries = rt.buckets.compiles
 
-    # the main path: counts to 0 just before, read just after
+    # the main path, with (d): every prefill and decode pass launches what
+    # its products give
     traffic = ssm_traffic(cfg, seed)
-    seen, events = {}, []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    for c in counters:
-        c.launches = 0
-    native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
-    t0 = time.perf_counter()
-    with native_routes_held() as held, served_events(rt, seen, events):
-        rt.serve(traffic)
-        torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    counted = {c.__name__: c.launches for c in counters}
-    routes = dict(native_gemm.launches_by_route)
-    peak = torch.cuda.max_memory_allocated(dev)
-    outputs = [r.output for r in traffic]
-    check(all(r.done and len(r.output) == SSM_SERVE["max_new"] for r in traffic),
-          f"ssm: not every request finished with its {SSM_SERVE['max_new']} tokens: "
-          f"{[(r.rid, r.status, len(r.output)) for r in traffic]}")
-    check(outputs == [r.output for r in warm], "ssm: the warm-up serve gave other tokens")
-    check(rt.buckets.compiles == entries,
-          f"ssm: the counted serve built {rt.buckets.compiles - entries} bucket entries")
-    check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
-          f"ssm: another kernel launched on the path: {counted}")
-    check(routes == held and counted["native_gemm"] == sum(held.values()),
-          f"ssm: launches {counted['native_gemm']} by route {routes}, native_route gives {held}")
-    # (d) every prefill and decode pass launches what its products give
-    for kind, size, by in events:
-        want = ssm_routes(cfg, size if kind == "prefill" else None)
-        check(by == want, f"ssm: a {kind} of {size} launched by route {by}, not {want}")
-    check(sum(sum(by.values()) for *_, by in events) == counted["native_gemm"],
-          "ssm: launches outside a prefill or decode pass")
-    prefills = {size: by for kind, size, by in events if kind == "prefill"}
-    decodes = [by for kind, _, by in events if kind == "decode"]
-    check(sorted(prefills) == sorted(SSM_SERVE["prompts"]),
-          f"ssm: prefills of {sorted(prefills)}, not one per prompt")
-    log(f"ssm: {len(traffic)} requests, prompts {SSM_SERVE['prompts']}, "
-        f"{sum(map(len, outputs))} tokens in {serve_s:.2f} s; native_gemm launches "
-        f"{counted['native_gemm']} by route {routes}; grouped_gemm {counted['grouped_gemm']}, "
-        f"flash_attention {counted['flash_attention']}; bucket entries {entries}, none built "
-        f"by the counted serve; peak {peak / 2**30:.2f} GiB allocated")
-    for L in SSM_SERVE["prompts"]:
-        log(f"ssm: prefill of {L}: {sum(prefills[L].values())} launches, {prefills[L]}")
-    log(f"ssm: {len(decodes)} decode passes, each {sum(decodes[0].values())} launches, "
-        f"{decodes[0]}")
+    main = counted_serve("ssm", rt, cfg, traffic, warm, counters)
+    seen, counted, routes = main["seen"], main["counted"], main["routes"]
+    prefills, decodes, peak, outputs = (main[k] for k in ("prefills", "decodes", "peak",
+                                                          "outputs"))
 
     # (a) each request's prefill logits against the forward's last position
-    errs_a = {}
-    with torch.no_grad():
-        for r in traffic:
-            toks = torch.as_tensor(r.prompt, device=dev)[None].long()
-            full, _ = transformer.forward(cfg, params, {"tokens": toks})
-            want = full[0, -1]
-            got = seen[(r.rid, 0)]
-            check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (cfg.vocab_size,),
-                  f"ssm: prefill logits of {len(r.prompt)} not finite or of the wrong shape")
-            errs_a[len(r.prompt)] = mag_err(got, want.cpu())
-            del full
-    worst_a = max(errs_a.values())
-    check(worst_a <= TOL[torch.bfloat16],
-          f"ssm: served prefill logits against forward's last position {errs_a} (limit "
-          f"{TOL[torch.bfloat16]} of the largest magnitude)")
-    log(f"ssm: (a) served prefill logits against transformer.forward's last position, by "
-        f"prompt length: {', '.join(f'{L}: {e:.3g}' for L, e in errs_a.items())} of the largest "
-        f"magnitude (limit {TOL[torch.bfloat16]:g})")
+    errs_a = prefill_vs_forward("ssm", cfg, params, traffic, seen, dev)
 
     # (b) the cache after a prefill against a token-by-token decode loop,
     # both held to the cache of a float32-activation prefill (the same
@@ -4858,57 +5028,16 @@ def ssm_serve_path(dev, seed: int, counters) -> dict:
     del ref
 
     # (e) every SSD launch shape of two prefills and a 4-slot decode pass
-    scratch = slot_cache(cfg, SSM_SERVE["slots"], max_len, device=dev)
-    toks4 = torch.zeros((SSM_SERVE["slots"], 1), dtype=torch.long, device=dev)
-    passes = {f"prefill {n}": (lambda n=n: transformer.prefill(
-                  cfg, params, {"tokens": torch.as_tensor(
-                      next(r.prompt for r in traffic if len(r.prompt) == n),
-                      device=dev)[None].long()},
-                  transformer.init_cache(cfg, 1, max_len, device=dev)))
-              for n in SSM_SERVE["shape_lens"]}
-    passes["decode pass"] = lambda: transformer.decode_step(cfg, params, scratch, toks4)
-    saved = native_gemm.launches, dict(native_gemm.launches_by_route)
-    gen = torch.Generator(dev).manual_seed(seed + 22)
-    shapes, per_pass = [], {}
-    for name, run in passes.items():
-        with torch.no_grad(), recording_launch_keys() as keys:
-            run()
-        tot = per_pass.setdefault(name, dict.fromkeys(("ms", "plain_ms", "library_ms",
-                                                       "bound_ms"), 0.0) | dict(launches=0))
-        for key, (n, layout) in sorted(keys.items(), key=lambda kv: str(kv[0])):
-            if f"{key[0]},{key[1]}->{key[2]}" in SSM_DENSE:
-                continue
-            A, B, kw_ = operands_like(layout, gen, dev)
-            row = time_shapes({key: (1, (A, B, kw_))}, reps=5, per=name,
-                              summary=False)["rows"][0]
-            del A, B
-            shapes.append(dict(row, path=name, launches=n))
-            tot["launches"] += n
-            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                tot[k] += n * row[k]
-        log(f"ssm: (e) {name}: {tot['launches']} SSD launches, kernel {tot['ms']:.4f} ms queued, "
-            f"bound {tot['bound_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, einsum "
-            f"{tot['library_ms']:.4f} ms queued")
-    native_gemm.launches, native_gemm.launches_by_route = saved
-    by_route = {}
-    for row in shapes:
-        tot = by_route.setdefault(row["route"], dict.fromkeys(
-            ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops"), 0.0)
-            | dict(launches=0, max_abs_err=0.0))
-        tot["launches"] += row["launches"]
-        tot["max_abs_err"] = max(tot["max_abs_err"], row["max_abs_err"])
-        for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops"):
-            tot[k] += row["launches"] * row[k]
-    for route, tot in by_route.items():
-        tot["bound_by"] = bound(tot["bytes"], tot["flops"], torch.bfloat16)[1]
-        log(f"ssm: (e) {route}, over the three passes ({tot['launches']} launches): kernel "
-            f"{tot['ms']:.4f} ms queued, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}), "
-            f"plain {tot['plain_ms']:.4f} ms, einsum {tot['library_ms']:.4f} ms queued")
+    passes = serve_passes(cfg, params, traffic, SSM_SERVE["shape_lens"], SSM_SERVE["slots"],
+                          max_len, dev)
+    shapes, per_pass, by_route = pass_layouts("ssm: (e)", passes,
+                                              torch.Generator(dev).manual_seed(seed + 22),
+                                              dev, skip=SSM_DENSE)
 
-    # (f) times: the two backends in turns; a decode pass's idle share
+    # (f) times: one serve on each backend; a decode pass's idle share
     saved = [c.launches for c in counters]
     runs = {"kernel": [], "torch": []}
-    for backend in ("kernel", "torch", "torch", "kernel"):
+    for backend in runs:
         res = timed_serve(rt if backend == "kernel" else rt_t, ssm_traffic(cfg, seed))
         runs[backend].append(res)
         log(f"ssm [{backend}]: {res['tokens']} tokens in {res['wall_ms']:.1f} ms, "
@@ -4919,23 +5048,16 @@ def ssm_serve_path(dev, seed: int, counters) -> dict:
     check(all(r["outputs"] == outputs for r in runs["kernel"]),
           "ssm: a timed kernel serve gave other tokens")
     profiles = {}
-    longest = torch.as_tensor(next(r.prompt for r in traffic
-                                   if len(r.prompt) == max(SSM_SERVE["prompts"])),
-                              device=dev)[None].long()
     with torch.no_grad():
         for backend, conf in (("kernel", cfg), ("torch", cfg_t)):
-            for step, fn in (
-                    ("decode pass", lambda conf=conf: transformer.decode_step(
-                        conf, params, scratch, toks4)),
-                    (f"prefill of {longest.shape[1]}", lambda conf=conf: transformer.prefill(
-                        conf, params, {"tokens": longest},
-                        transformer.init_cache(conf, 1, max_len, device=dev)))):
+            for step in ("decode pass", f"prefill {max(SSM_SERVE['prompts'])}"):
+                fn = functools.partial(passes[step], conf)
                 fn()
                 profiles[f"{backend} {step}"] = profile_device(
                     f"one mamba2 {step} [{backend}]", fn, top=6)
     for c, n in zip(counters, saved):
         c.launches = n
-    del rt, rt_t, legacy, scratch, params
+    del rt, rt_t, legacy, passes, params
     log(f"ssm: phase 22 took {time.perf_counter() - t_start:.1f} s")
     return dict(launches=counted["native_gemm"], launches_by_route=routes,
                 prefill_launches_by_route={str(L): prefills[L] for L in SSM_SERVE["prompts"]},
@@ -5165,6 +5287,232 @@ def ssm_train_path(dev, seed: int, counters) -> dict:
                 seconds=took)
 
 
+# ------------------------------------------------------------------ phase 24
+#: the hybrid serving cell: jamba-v0.1-52b (src/repro/configs/jamba_v0p1_52b.py)
+#: at its published widths, depth cut to ``periods`` periods of 8 layers
+#: (one period's f32 masters take 53 GB of the card's 80), on the kernel
+#: backend; 8 greedy requests of the prompt lengths below (131 is prime:
+#: chunks of 1; 100 one chunk of 100), 16 new tokens each, on 4 slots with
+#: whole-prompt prefill.  Prompts stop at 4096: an 8192-token prefill's
+#: dense attention needs 22.4 GB of temporaries, which beside the masters
+#: leaves no room for the float32 oracle.  ``shape_lens`` are the prefills
+#: whose launch layouts are timed (128: one chunk, ``CBt`` on ``stream``)
+JAMBA_SERVE = dict(arch="jamba-v0.1-52b", periods=1,
+                   prompts=(64, 100, 128, 131, 256, 512, 2048, 4096), max_new=16, slots=4,
+                   shape_lens=(128, 512, 4096))
+
+
+@contextlib.contextmanager
+def dropped_tokens():
+    """Within the block every GShard dispatch appends ``(tokens per group,
+    capacity, tokens that lost a slot to capacity)`` to the list it yields
+    (one host read a dispatch)."""
+    from repro_torch.models import moe
+
+    real, seen = moe._dispatch_tensors, []
+
+    def counting(gates, top_w, top_e, n_experts, capacity):
+        dispatch, combine = real(gates, top_w, top_e, n_experts, capacity)
+        lost = int((dispatch.sum((-1, -2)) < top_e.shape[-1]).sum())
+        seen.append((top_e.shape[1], capacity, lost))
+        return dispatch, combine
+
+    moe._dispatch_tensors = counting
+    try:
+        yield seen
+    finally:
+        moe._dispatch_tensors = real
+
+
+def jamba_serve_path(dev, seed: int, counters) -> dict:
+    """Phase 24: jamba-v0.1-52b at its published widths, one period deep,
+    through ``ServingRuntime`` on the kernel backend (see the module
+    docstring).  Returns ``native_gemm``'s hybrid serving record."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.runtime.engine import ServingRuntime
+    from repro_torch.serving.engine import ServeEngine
+
+    t_start = time.perf_counter()
+    took, mark = {}, [t_start]
+
+    def lap(label):
+        took[label] = round(time.perf_counter() - mark[0], 1)
+        mark[0] = time.perf_counter()
+
+    spec = JAMBA_SERVE
+    full = get_config(spec["arch"])
+    cfg = full.with_(n_periods=spec["periods"], **KERNEL_BACKEND)
+    cfg_t = cfg.with_(contract_backend="torch", contract_strategy="auto")
+    s, m = cfg.ssm, cfg.moe
+    layers = [f"{sp.mixer}+{sp.ff}" for sp in cfg.pattern]
+    log(f"jamba: {cfg.arch_id} at published widths, depth cut to {cfg.n_periods} period of "
+        f"{len(cfg.pattern)} layers ({len(cfg.pattern) * cfg.n_periods} of "
+        f"{len(full.pattern) * full.n_periods}): {', '.join(layers)}; d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}; MoE {m.n_experts} experts top-{m.top_k}, d_expert "
+        f"{m.d_expert}, capacity factor {m.capacity_factor}; SSD d_state {s.d_state}, headdim "
+        f"{s.headdim}, expand {s.expand}, chunk {s.chunk}; {cfg.dtype} activations, "
+        f"{cfg.param_dtype} params, contract_backend {cfg.contract_backend}, strategy "
+        f"{cfg.contract_strategy}; {cfg.param_count() / 1e9:.3f}B params, "
+        f"{cfg.param_count(active_only=True) / 1e9:.3f}B active")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    params = transformer.init_params(torch.Generator(dev).manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    masters = torch.cuda.memory_allocated(dev) - base
+    log(f"jamba: random weights drawn on the card, {masters / 1e9:.2f} GB "
+        f"({base / 2**30:.2f} GiB allocated before)")
+    max_len = max(spec["prompts"]) + spec["max_new"]
+    kw = dict(slots=spec["slots"], max_len=max_len)
+
+    def traffic_of():
+        return ssm_traffic(cfg, seed, spec, 24)
+
+    rt = ServingRuntime(cfg, params, **kw)
+    check(not rt.lattice.chunked, "jamba: the runtime chunks a hybrid model's prompts")
+    with dropped_tokens() as dispatched:
+        warm = rt.serve(traffic_of())
+    lap("warm-up")
+
+    # the main path, and every prefill and decode pass by its routes
+    traffic = traffic_of()
+    main = counted_serve("jamba", rt, cfg, traffic, warm, counters)
+    seen, counted, routes = main["seen"], main["counted"], main["routes"]
+    prefills, decodes, peak, outputs = (main[k] for k in ("prefills", "decodes", "peak",
+                                                          "outputs"))
+    log(f"jamba: the serve's peak {(peak - masters) / 1e9:.2f} GB above the masters")
+    # GShard's drops: a prefill routes its prompt as one group, a decode
+    # row its token alone (4 slots an expert for its top-2: none drop)
+    drops = {}
+    for t, cap, lost in dispatched:
+        drops.setdefault(t, []).append((cap, lost))
+    check(all(lost == 0 for cap, lost in drops.get(1, [])),
+          "jamba: a decode row lost an expert slot")
+    for L in spec["prompts"]:
+        log(f"jamba: tokens GShard dropped in the prefill of {L} (capacity "
+            f"{drops[L][0][0]}), by MoE layer: {[lost for _, lost in drops[L]]}")
+    lap("counted serve")
+
+    # (a) each request's prefill logits against the forward's last position
+    errs_a = prefill_vs_forward("jamba", cfg, params, traffic, seen, dev)
+
+    # (b) the legacy engine's tokens
+    legacy = ServeEngine(cfg, params, **kw).serve(traffic_of())
+    check([r.output for r in legacy] == outputs,
+          "jamba: the runtime's tokens differ from ServeEngine's (the legacy oracle)")
+    del legacy
+    log("jamba: (b) tokens equal ServeEngine's")
+    lap("(a), (b)")
+
+    # (c) the runtime on the torch backend in bf16 and in float32 (the
+    # oracle), each fed the kernel runtime's tokens: every row routes its
+    # MoE tokens as the served row did
+    kern_out = {r.rid: list(r.output) for r in traffic}
+
+    def fed(conf):
+        rt_x, seen_x = ServingRuntime(conf, params, **kw), {}
+        with served_events(rt_x, seen_x, [], forced=kern_out):
+            done = rt_x.serve(traffic_of())
+        check(all(r.output == kern_out[r.rid] for r in done),
+              "jamba: a runtime fed the kernel's tokens generated others")
+        return rt_x, seen_x
+
+    rt_t, seen_t = fed(cfg_t)
+    rt32, ref = fed(cfg_t.with_(dtype="float32"))
+    del rt32
+    phase_peak = torch.cuda.max_memory_allocated(dev)
+    check(seen.keys() == ref.keys() == seen_t.keys()
+          and len(ref) == len(traffic) * spec["max_new"],
+          f"jamba: logits recorded at {len(seen)}, {len(seen_t)} and {len(ref)} positions")
+    e_k = {k: mag_err(seen[k], ref[k]) for k in ref}
+    e_t = {k: mag_err(seen_t[k], ref[k]) for k in ref}
+    direct = max(mag_err(seen[k], seen_t[k]) for k in ref)
+    err_k, err_t = max(e_k.values()), max(e_t.values())
+    limit = max(TOL[torch.bfloat16], 2 * err_t)
+    far = {k: (e, e_t[k]) for k, e in e_k.items() if e > limit}
+    check(not far, f"jamba: kernel runtime rows farther from the float32 oracle than {limit} "
+                   f"(the larger of {TOL[torch.bfloat16]} and twice the torch backend's "
+                   f"worst {err_t}): {far}")
+    agree = sum(int(torch.argmax(ref[(rid, pos)])) == tok
+                for rid, toks in kern_out.items() for pos, tok in enumerate(toks))
+
+    def worst(errs, pre):
+        return max(e for (_, pos), e in errs.items() if (pos == 0) == pre)
+
+    log(f"jamba: (c) against the float32 runtime (torch backend, TF32 off) fed the same "
+        f"tokens, worst of the largest magnitude over {len(ref)} rows: kernel runtime "
+        f"{err_k:.3g} (prefill rows {worst(e_k, True):.3g}, decode rows "
+        f"{worst(e_k, False):.3g}; median {sorted(e_k.values())[len(e_k) // 2]:.3g}), torch "
+        f"backend runtime {err_t:.3g} (prefill {worst(e_t, True):.3g}, decode "
+        f"{worst(e_t, False):.3g}; median {sorted(e_t.values())[len(e_t) // 2]:.3g}); limit "
+        f"for the kernel {limit:.3g}; kernel against torch directly {direct:.3g}; the "
+        f"oracle's argmax is the kernel's token at {agree} of {len(ref)} positions; phase "
+        f"peak {phase_peak / 1e9:.2f} GB allocated")
+    del ref, seen_t
+    lap("(c)")
+
+    # (d) every launch layout of three prefills and a 4-slot decode pass
+    passes = serve_passes(cfg, params, traffic, spec["shape_lens"], spec["slots"], max_len,
+                          dev)
+    shapes, per_pass, by_route = pass_layouts("jamba: (d)", passes,
+                                              torch.Generator(dev).manual_seed(seed + 24), dev)
+    # the expert weights' casts to bf16, made by every MoE layer's call
+    j = next(i for i, sp in enumerate(cfg.pattern) if sp.ff == "moe")
+    experts = [params["pattern"][j]["moe"][k][0] for k in ("wi", "wg", "wo")]
+    cast_bytes = sum(w.numel() * (w.element_size() + 2) for w in experts)
+    cast_ms = queued_ms(lambda: [w.to(torch.bfloat16) for w in experts], 3)
+    n_moe = cfg.n_periods * sum(sp.ff == "moe" for sp in cfg.pattern)
+    cast_bound = bound(cast_bytes, 0, torch.bfloat16)[0]
+    log(f"jamba: (d) one MoE layer's expert weight casts to bf16 ({len(experts)} weights, "
+        f"{cast_bytes / 1e9:.2f} GB read and written): {cast_ms:.4f} ms queued, bound "
+        f"{cast_bound:.4f} ms (bytes); {n_moe} MoE layers: {n_moe * cast_ms:.3f} ms a pass")
+    lap("(d)")
+
+    # (e) times: the two backends in turns; a decode pass and the longest
+    # prefill profiled on each
+    saved = [c.launches for c in counters]
+    runs = {"kernel": [], "torch": []}
+    for backend in ("kernel", "torch", "torch", "kernel"):
+        res = timed_serve(rt if backend == "kernel" else rt_t, traffic_of())
+        runs[backend].append(res)
+        log(f"jamba [{backend}]: {res['tokens']} tokens in {res['wall_ms']:.1f} ms, "
+            f"{res['tokens_per_s']:.2f} tokens/s; ms per prefill by length: "
+            f"{', '.join(f'{c}: {v:.3f}' for c, v in res['chunk_ms_by_len'].items())}; "
+            f"ms per decode pass by bucket: "
+            f"{', '.join(f'{b}: {v:.3f} (x{res['ticks_by_bucket'][b]})' for b, v in res['tick_ms_by_bucket'].items())}")
+    check(all(r["outputs"] == outputs for r in runs["kernel"]),
+          "jamba: a timed kernel serve gave other tokens")
+    profiles = {}
+    with torch.no_grad():
+        for backend, conf in (("kernel", cfg), ("torch", cfg_t)):
+            for step in ("decode pass", f"prefill {max(spec['prompts'])}"):
+                fn = functools.partial(passes[step], conf)
+                fn()
+                profiles[f"{backend} {step}"] = profile_device(
+                    f"one jamba {step} [{backend}]", fn, top=8)
+    for c, n in zip(counters, saved):
+        c.launches = n
+    lap("(e)")
+    del rt, rt_t, passes, params, experts
+    log(f"jamba: phase 24 took {time.perf_counter() - t_start:.1f} s: "
+        + ", ".join(f"{k} {v} s" for k, v in took.items()))
+    return dict(launches=counted["native_gemm"], launches_by_route=routes,
+                prefill_launches_by_route={str(L): prefills[L] for L in spec["prompts"]},
+                decode_launches_by_route=decodes[0], prefill_logits_err=errs_a,
+                dropped={str(L): [lost for _, lost in drops[L]] for L in spec["prompts"]},
+                logits_err=dict(kernel=err_k, torch=err_t, kernel_vs_torch=direct),
+                peak_bytes=peak, phase_peak_bytes=phase_peak, master_bytes=masters,
+                shapes=shapes, shapes_by_route=by_route, per_pass=per_pass,
+                moe_cast=dict(ms=cast_ms, bound_ms=cast_bound, bytes=cast_bytes, layers=n_moe),
+                profiles=profiles,
+                tokens_per_s={b: [r["tokens_per_s"] for r in v] for b, v in runs.items()},
+                runs={b: [{k: v for k, v in r.items() if k != "outputs"} for r in rs]
+                      for b, rs in runs.items()},
+                seconds=took)
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5272,6 +5620,8 @@ def main() -> int:
     lap("22")
     ssm_train = ssm_train_path(dev, args.seed, counters)
     lap("23")
+    jamba = jamba_serve_path(dev, args.seed, counters)
+    lap("24")
     log("time by phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
         + f"; all {time.perf_counter() - t0:.1f} s after the device line")
     records = {
@@ -5303,7 +5653,11 @@ def main() -> int:
                          "ssm_serve_launches_by_route": ssm["launches_by_route"],
                          "ssm_serve": {k: v for k, v in ssm.items()
                                        if k not in ("launches", "launches_by_route")},
-                         "ssm_train": ssm_train}),
+                         "ssm_train": ssm_train,
+                         "jamba_serve_launches": jamba["launches"],
+                         "jamba_serve_launches_by_route": jamba["launches_by_route"],
+                         "jamba_serve": {k: v for k, v in jamba.items()
+                                         if k not in ("launches", "launches_by_route")}}),
         **records,
     }
     # the batched route of native_gemm on its own line: phase 13's counted
@@ -5342,8 +5696,12 @@ def main() -> int:
             "mamba2-1.3b prefill": ssm["prefill_launches_by_route"][
                 str(SSM_SERVE["prompts"][0])].get(route, 0),
             "mamba2-1.3b serve": ssm["launches_by_route"].get(route, 0),
-            "mamba2-1.3b train step": ssm_train["launches_per_step"].get(route, 0)}
+            "mamba2-1.3b train step": ssm_train["launches_per_step"].get(route, 0),
+            "jamba-v0.1-52b prefill": jamba["prefill_launches_by_route"][
+                str(max(JAMBA_SERVE["prompts"]))].get(route, 0),
+            "jamba-v0.1-52b serve": jamba["launches_by_route"].get(route, 0)}
         records[key][2]["ssm_shapes"] = ssm["shapes_by_route"].get(route)
+        records[key][2]["jamba_shapes"] = jamba["shapes_by_route"].get(route)
     kernels = [{"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}",
                 "replaces": f"src/repro/kernels/{tpu}",
@@ -5358,7 +5716,9 @@ def main() -> int:
                                        "tc_shapes", "table2", "sharded_fbatched",
                                        "former_generic", "host", "ssm_serve_launches",
                                        "ssm_serve_launches_by_route", "ssm_serve",
-                                       "ssm_train", "model_launches", "ssm_shapes")
+                                       "ssm_train", "jamba_serve_launches",
+                                       "jamba_serve_launches_by_route", "jamba_serve",
+                                       "model_launches", "ssm_shapes", "jamba_shapes")
                      if k in rec}}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:
