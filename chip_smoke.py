@@ -82,8 +82,9 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    back-to-back calls, ``cuda_ms``), against its bound, the plain version
    and ``torch.einsum`` timed both ways; two launches at each shape must
    be bit-identical.
-7. A profile of one HOOI of each variant: device time by kernel name and
-   the device's idle share.
+7. A profile of one HOOI on the kernel backend: device time by kernel
+   name and the device's idle share (the torch and conventional variants'
+   profiles were cut for phase 25).
 8. Grouped path at full width: the routed experts of qwen2-moe-a2.7b (60
    experts, top-4, d_model 2048 -> d_expert 1408) over 4096 tokens with a
    skewed routing that leaves one expert empty, through ``grouped_matmul``
@@ -211,9 +212,10 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    next loss.  (c) internlm2-20b with phase 11's cut and traffic through
    ``ServingRuntime(mesh=)`` on the kernel backend: ``paged=True`` with a
    mesh raises; the counted serve's tokens and ``native_gemm`` launches by
-   route equal phase 11's unpaged kernel serve; tokens/s of one timed
-   serve each (sharded, then unsharded), and a profiled decode pass each
-   (idle share).
+   route equal phase 11's unpaged kernel serve, as do the tokens of the
+   sharded warm-up serve and of an unsharded serve; a profiled decode pass
+   each, sharded and unsharded (device time, host wall, idle share: what
+   the mesh route costs a pass; the timed serves were cut for phase 25).
    Every launch shape of (a) and (c) that the unsharded runs do not launch
    is held to the plain version and timed as in phase 6.  The process
    group is destroyed; then (d) ``python -m repro_torch.launch.train
@@ -331,12 +333,13 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    8192-token prefills and a 4-slot decode pass on random operands of its
    layout within ``TOL`` of the plain version, bit-identical twice, timed
    queued against its bound, the plain version and one ``torch.einsum``;
-   (f) one timed serve on each backend (kernel, then torch; the torch
-   backend with ``contract_strategy="auto"``, library GEMMs; phase 24
-   times a serve's backends in turns): ms per
+   (f) the times of the kernel backend's counted serve and of the torch
+   backend's serve of (c) (``contract_strategy="auto"``, library GEMMs),
+   both recording every row's logits on the host as they run: ms per
    prefill by length, ms per decode pass by bucket, tokens/s; where a
-   decode pass and the 8192-token prefill spend device time, and its idle
-   share, on each backend; the counted serve's peak memory.
+   decode pass spends device time, and its idle share, on each backend;
+   the counted serve's peak memory.  (Cut for phase 25: two further timed
+   serves, and the 8192-token prefill's profiles.)
 23. Training a state-space model at published width and depth, after
    phase 22: mamba2-1.3b as in phase 22 (48 layers, no cut; 1.344B
    params, f32 masters, bf16 activations), ``contract_backend="kernel"``
@@ -367,9 +370,9 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    its layout within ``TOL`` of the plain version, bit-identical twice,
    timed queued against its bound, the plain version and one
    ``torch.einsum``; per-step sums, the top 8 by time and each backward
-   layout printed.  (4) ms per step and tokens/s, the backends in turns
-   (kernel, torch, torch, kernel; 2 steps a turn), and one profiled step
-   each (top 8 device kernels, idle share).
+   layout printed.  (4) ms per step and tokens/s, 2 steps on each backend
+   (the torch backend warmed by one; the turns were cut for phase 25),
+   and one profiled step each (top 8 device kernels, idle share).
 24. Serving a hybrid SSD + GQA + MoE stack at published width, after
    phase 23: jamba-v0.1-52b (d_model 4096, 32 query heads over 8 KV heads
    of 128, d_ff 14336, vocab 65536; 16 experts top-2 with d_expert 14336,
@@ -404,10 +407,53 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    within ``TOL`` of the plain version, bit-identical twice, timed queued
    against its bound, the plain version and one ``torch.einsum``; one MoE
    layer's expert weight casts to bf16 timed against their byte bound;
-   (e) the two backends in turns (kernel, torch, torch, kernel): ms per
-   prefill by length, ms per decode pass, tokens/s; where a decode pass
-   and the 4096-token prefill spend device time, and the idle share, on
-   each backend.  Then the seconds of every phase.
+   (e) one serve on each backend: ms per prefill by length, ms per decode
+   pass, tokens/s (the kernel serve's tokens checked); where a decode pass spends device time, and the
+   idle share, on each backend (the turns and the 4096-token prefill's
+   profiles were cut for phase 25).
+25. Serving sliding-window attention at published width and Gemma 2's
+   context, after phase 24: gemma2-27b (d_model 4608, 32 query heads over
+   16 KV heads of 128, d_ff 36864, vocab 256000 tied; a local layer with a
+   4096-token window alternating with a global one; attention softcap 50,
+   final-logit softcap 30), depth cut from 46 to 16 layers (10.239B
+   params, 40.96 GB of f32 masters drawn on the card from ``--seed``),
+   bf16 activations, ``contract_backend="kernel"`` with
+   ``contract_strategy="native"``.  8 greedy requests of 64, 511, 2048,
+   4095, 4096, 4097, 6000 and 8192 prompt tokens drawn from ``--seed``, 16
+   new tokens each, through ``ServingRuntime(slots=4, max_len=8208,
+   prefill_chunk=512)`` (chunked prefill, bucketed decode): a warm-up
+   serve, then the counted serve (timed: the kernel backend's times),
+   which must give every request its 16 tokens, build no bucket entry and launch only ``native_gemm``,
+   each launch on the route ``native_route`` gives, every prefill chunk
+   (``chunk_schedule``'s, 78 for the 8 prompts) and decode pass 145
+   launches (113 ``wgmma``, 32 ``batched``); then the same traffic off
+   the page pool (``paged=True, page_size=16``, its default 2053 pages,
+   every bucket entry built first, the kernels warm): the unpaged serve's tokens, the same
+   launches, the pool whole after the drain, no entry built.  (b) Layer 0
+   (local) at the 8192-token prompt's last 512 query rows, its cache
+   filled by the rows before in chunks of 512: the kernel backend's
+   attention output within 2e-2 of the largest magnitude of the float32
+   torch backend's, and the same layer with ``window=None`` farther than
+   10x that; (d) the tokens equal ``ServeEngine``'s at every prompt (its
+   whole-prompt prefill beside the 4-slot cache); (e) the runtime on the
+   torch backend in bf16 (its fed serve timed) and in float32 (TF32 off;
+   the oracle), each fed the kernel runtime's tokens, one cache on the
+   card at a time: every prefill and decode row of the kernel runtime no
+   farther from the oracle than the larger of 2e-2 and twice the bf16
+   torch runtime's worst row; (c) each served prefill's logits within 2e-2
+   of ``transformer.forward``'s last position at every prompt, the
+   longest last; (f) every launch layout of the 8192 prompt's
+   last chunk and a 4-slot decode pass at 8208 rows on random operands of
+   its layout within ``TOL`` of the plain version, bit-identical twice,
+   timed queued against its bound, the plain version and one
+   ``torch.einsum``; the 113 dense weights' casts to bf16 and one layer's
+   cache rewrite against their byte bounds; (g) ms per prefill by prompt
+   length, per chunk and per decode pass, tokens/s, on each backend (the
+   kernel's counted serve and the torch backend's fed serve, both
+   recording every row's logits on the host as they run); where a decode
+   pass spends device time, and the idle share, on each backend; the
+   peak memory of each stage.
+   Then the seconds of every phase.
 19. Float32 products on ``fbatched``, right after phase 14: the 36 f32
    Table II cases at n = 256 through ``contract(strategy="native")`` as a
    counted run (36 launches, all ``fbatched``), then each case at n = 256
@@ -437,7 +483,8 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    one ``torch.einsum``; sums per serve, step or layer of each path.
 
 Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13, 14, 19, 20, 15's
-training and serving, 16's layer, training and pipeline, 22, 23, 24) is driven with every
+training and serving, 16's layer, training and pipeline, 22, 23, 24, 25 and its
+paged serve) is driven with every
 kernel's launch count set to 0 just before it and read just after;
 launches made to compare, time or tune a kernel do not count.  Phases 5 and 10 also read ``native_gemm``'s
 launches by route, which must be what ``native_route`` gives for each
@@ -472,7 +519,10 @@ times under ``ssm_serve``, and phase 23's launches, losses, oracle
 distances, launch layouts, times and peak memory under ``ssm_train``, and
 phase 24's launches under ``jamba_serve_launches``/
 ``jamba_serve_launches_by_route`` and its drops, checks, layouts, casts,
-times and peak memory under ``jamba_serve``), then
+times and peak memory under ``jamba_serve``, and phase 25's launches under
+``gemma2_serve_launches``/``gemma2_serve_launches_by_route`` and its
+paged launches, checks, layouts, casts, times and peaks under
+``gemma2_serve``), then
 ``native_gemm.batched``, the batched route on its own line: phase 13's
 counted launches on it, and its times per train step from phase 18 (every
 path's under ``tc_shapes``), then ``native_gemm.f32``, the fbatched route
@@ -485,9 +535,11 @@ summed times (every set's sums under ``former_generic``); the batched,
 fbatched and gathered lines also carry each route's launches on phase
 22's mamba2 serve (``model_launches``: per prefill in chunks of more than
 one token and in the counted serve; per train step of phase 23; per
-4096-token prefill and in the counted serve of phase 24's jamba) and
-its SSD launch shapes on the mamba2 serve and its launch layouts on the
-jamba serve, summed (``ssm_shapes``, ``jamba_shapes``),
+4096-token prefill and in the counted serve of phase 24's jamba; per
+prefill chunk or decode pass and in the counted serve of phase 25's
+gemma2) and its SSD launch shapes on the mamba2 serve and its launch
+layouts on the jamba and gemma2 serves, summed (``ssm_shapes``,
+``jamba_shapes``, ``gemma2_shapes``),
 the card's name and power limit as ``nvidia-smi`` prints them, and the
 ``{"ok": true, ...}`` line.  Any failed check raises and exits non-zero without that line.
 """
@@ -2237,8 +2289,9 @@ def paged_serve(cfg, params, rt, outputs, seed: int, counters, kw) -> dict:
 def timed_serve(rt, traffic) -> dict:
     """Serve ``traffic`` with every prefill chunk and decode tick timed by
     the host clock between device synchronisations: ms per chunk by its
-    length, ms per tick by its bucket, tokens/s over the whole serve."""
-    chunks, ticks = {}, {}
+    length, ms per prompt by its length (its chunks summed), ms per tick
+    by its bucket, tokens/s over the whole serve."""
+    chunks, ticks, prompts = {}, {}, {}
     prefill_impl, decode_impl = rt._run_prefill_chunk_impl, rt._run_decode_impl
 
     def timed(fn, into, key):
@@ -2247,9 +2300,14 @@ def timed_serve(rt, traffic) -> dict:
         fn()
         torch.cuda.synchronize()
         into.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+        return into[key][-1]
 
-    rt._run_prefill_chunk_impl = lambda state, chunk: timed(
-        lambda: prefill_impl(state, chunk), chunks, chunk)
+    def prefill_timed(state, chunk):
+        L = len(state.request.prompt)
+        prompts[L] = prompts.get(L, 0.0) + timed(lambda: prefill_impl(state, chunk), chunks,
+                                                 chunk)
+
+    rt._run_prefill_chunk_impl = prefill_timed
     rt._run_decode_impl = lambda decodes: timed(
         lambda: decode_impl(decodes), ticks, rt.lattice.decode_bucket(len(decodes)))
     try:
@@ -2265,6 +2323,7 @@ def timed_serve(rt, traffic) -> dict:
     return dict(wall_ms=wall_ms, tokens_per_s=tokens / wall_ms * 1e3, tokens=tokens,
                 chunk_ms=sum(map(sum, chunks.values())) / n_chunks, n_chunks=n_chunks,
                 chunk_ms_by_len={c: sum(v) / len(v) for c, v in sorted(chunks.items())},
+                prefill_ms_by_prompt=dict(sorted(prompts.items())),
                 tick_ms_by_bucket={b: sum(v) / len(v) for b, v in sorted(ticks.items())},
                 ticks_by_bucket={b: len(v) for b, v in sorted(ticks.items())},
                 outputs=[list(r.output) for r in traffic])
@@ -3478,10 +3537,15 @@ def mesh_serve(dev, mesh, seed: int, counters, serve_ref: dict) -> dict:
     torch.cuda.synchronize()
     log(f"mesh serve: sharded runtime built and warmed in {time.perf_counter() - t0:.2f} s "
         f"({rts.program_stats})")
-    rts.serve(serve_traffic(cfg, seed))
+    warm = {"sharded warm-up": serve_traffic(cfg, seed), "unsharded": serve_traffic(cfg, seed)}
+    rts.serve(warm["sharded warm-up"])
     rt = ServingRuntime(cfg, params, **kw)
     with recording_launches() as plain_launches:
-        rt.serve(serve_traffic(cfg, seed))
+        rt.serve(warm["unsharded"])
+    for which, reqs in warm.items():
+        check([list(r.output) for r in reqs] == serve_ref["outputs"],
+              f"mesh serve: the {which} serve's tokens differ from phase 11's unpaged kernel "
+              f"serve")
 
     # the main path: counts to 0 just before, read just after
     traffic = serve_traffic(cfg, seed)
@@ -3508,16 +3572,7 @@ def mesh_serve(dev, mesh, seed: int, counters, serve_ref: dict) -> dict:
         f"{routes}, as phase 11's, each on the route native_route gives")
     saved = [c.launches for c in counters], dict(routes)
 
-    runs = {"sharded": [], "unsharded": []}
-    for which in ("sharded", "unsharded"):
-        res = timed_serve(rts if which == "sharded" else rt, serve_traffic(cfg, seed))
-        check(res["outputs"] == outputs, f"mesh serve: a timed {which} serve gave other "
-                                         f"tokens")
-        runs[which].append(res)
-        log(f"mesh serve [{which}]: {res['tokens']} tokens in {res['wall_ms']:.1f} ms, "
-            f"{res['tokens_per_s']:.1f} tokens/s; prefill {res['chunk_ms']:.3f} ms per "
-            f"chunk; decode ms per tick by bucket: "
-            f"{', '.join(f'{b}: {m:.3f}' for b, m in res['tick_ms_by_bucket'].items())}")
+    # what the mesh route costs a decode pass, sharded against unsharded
     scratch = {w: r._place_cache(slot_cache(cfg, SERVE["slots"], SERVE["max_len"], device=dev))
                for w, r in (("unsharded", rt), ("sharded", rts))}
     toks = torch.zeros((SERVE["slots"], 1), dtype=torch.long, device=dev)
@@ -3533,9 +3588,6 @@ def mesh_serve(dev, mesh, seed: int, counters, serve_ref: dict) -> dict:
         c.launches = n
     native_gemm.launches_by_route = saved[1]
     return dict(launches=counted["native_gemm"], launches_by_route=routes,
-                tokens_per_s={w: [r["tokens_per_s"] for r in rs] for w, rs in runs.items()},
-                tick_ms_by_bucket={w: [r["tick_ms_by_bucket"] for r in rs]
-                                   for w, rs in runs.items()},
                 profiles=profiles, launch_keys=launches, plain_keys=plain_launches)
 
 
@@ -4671,7 +4723,8 @@ def ssm_routes(cfg, L: int | None = None) -> dict:
     ``gathered``, the chunk states and ``y_inter`` on ``batched`` (chunks
     of 2 to 16 rows would take ``splitk`` for ``CBt``: not these phases'
     traffic); in chunks of 1 the first three on ``fbatched`` (nothing to
-    contract, or f32) and ``y_inter`` on ``batched``."""
+    contract, or f32) and ``y_inter`` on ``batched``.  A stack without
+    Mamba layers (gemma2) launches the same routes whatever ``L``."""
     from repro_torch.kernels.sb_gemm import NARROW
 
     n = cfg.n_periods
@@ -4681,7 +4734,7 @@ def ssm_routes(cfg, L: int | None = None) -> dict:
         lambda s: s.ff == "dense", lambda s: s.ff == "moe"))
     routes = {"wgmma": 2 * mamba + 4 * attn + ff * dense + 1,
               "batched": 2 * attn + ff * moe + mamba}
-    if L is not None:
+    if L is not None and mamba:
         Q = min(cfg.ssm.chunk, L)
         while L % Q:
             Q -= 1
@@ -4721,7 +4774,7 @@ def served_events(rt, logits: dict, routes: list, forced: dict | None = None):
 
     def decoded(decodes):
         bucket = rt.lattice.decode_bucket(len(decodes))
-        rows = ([s.slot for s in decodes] if bucket == rt.slots
+        rows = ([s.slot for s in decodes] if bucket == rt.slots and not rt.paged
                 else list(range(len(decodes))))
         keys = [(s.rid, len(s.request.output)) for s in decodes]
         rt.logits_probe = lambda out: logits.update(
@@ -4729,7 +4782,11 @@ def served_events(rt, logits: dict, routes: list, forced: dict | None = None):
         launched(lambda: decode(decodes), "decode", bucket)
         if forced is not None:
             for s, (rid, pos) in zip(decodes, keys):
-                s.request.output[pos] = rt._tokens[s.slot, 0] = forced[rid][pos]
+                s.request.output[pos] = forced[rid][pos]
+                # a request that finished in this pass has freed its slot
+                # (``slot`` None): its slot's next token is not its own
+                if s.slot is not None:
+                    rt._tokens[s.slot, 0] = forced[rid][pos]
 
     rt._sample = sampled
     rt._run_prefill_chunk_impl = lambda state, chunk: launched(
@@ -4751,8 +4808,13 @@ def counted_serve(tag: str, rt, cfg, traffic, warm, counters) -> dict:
     pass by the routes :func:`ssm_routes` derives.  Returns the logits by
     ``(rid, position)`` (``seen``), the launches by kernel (``counted``)
     and by route (``routes``), each prefill's routes by prompt length,
-    the decode passes' routes, the peak memory and the serve's seconds."""
+    the decode passes' routes, the peak memory, the serve's seconds and
+    its times (``timed``, :func:`timed_serve`'s, every row's logits
+    recorded on the host as it ran).
+    With chunked prefill a prefill is a chunk: the chunks must be those of
+    each prompt's ``chunk_schedule``, and ``prefills`` is keyed by chunk."""
     from repro_torch.kernels.sb_gemm import native_gemm
+    from repro_torch.runtime.buckets import chunk_schedule
 
     entries = rt.buckets.compiles
     seen, events = {}, []
@@ -4763,8 +4825,7 @@ def counted_serve(tag: str, rt, cfg, traffic, warm, counters) -> dict:
     native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
     t0 = time.perf_counter()
     with native_routes_held() as held, served_events(rt, seen, events):
-        rt.serve(traffic)
-        torch.cuda.synchronize()
+        timed = timed_serve(rt, traffic)
     serve_s = time.perf_counter() - t0
     counted = {c.__name__: c.launches for c in counters}
     routes = dict(native_gemm.launches_by_route)
@@ -4774,7 +4835,9 @@ def counted_serve(tag: str, rt, cfg, traffic, warm, counters) -> dict:
     check(all(r.done and len(r.output) == r.max_new_tokens for r in traffic),
           f"{tag}: not every request finished with its {max_new} tokens: "
           f"{[(r.rid, r.status, len(r.output)) for r in traffic]}")
-    check(outputs == [r.output for r in warm], f"{tag}: the warm-up serve gave other tokens")
+    differ = [r.rid for r, w in zip(traffic, warm) if r.output != w.output]
+    check(not differ, f"{tag}: tokens differ from the warm-up serve's (a paged serve: the "
+                      f"unpaged serve's) for requests {differ}")
     check(rt.buckets.compiles == entries,
           f"{tag}: the counted serve built {rt.buckets.compiles - entries} bucket entries")
     check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
@@ -4790,34 +4853,44 @@ def counted_serve(tag: str, rt, cfg, traffic, warm, counters) -> dict:
     prefills = {size: by for kind, size, by in events if kind == "prefill"}
     decodes = [by for kind, _, by in events if kind == "decode"]
     lens = [len(r.prompt) for r in traffic]
-    check(sorted(prefills) == sorted(lens),
-          f"{tag}: prefills of {sorted(prefills)}, not one per prompt")
+    # one prefill a prompt, or with chunked prefill one a chunk of its schedule
+    want = sorted(c for L in lens for c in (
+        chunk_schedule(L, rt.lattice.chunk_buckets) if rt.lattice.chunked else [L]))
+    got = sorted(size for kind, size, _ in events if kind == "prefill")
+    check(got == want, f"{tag}: prefills of {got}, not {want}")
     log(f"{tag}: {len(traffic)} requests, prompts {tuple(lens)}, "
         f"{sum(map(len, outputs))} tokens in {serve_s:.2f} s; native_gemm launches "
         f"{counted['native_gemm']} by route {routes}, each on the route native_route gives; "
         f"grouped_gemm {counted['grouped_gemm']}, flash_attention "
         f"{counted['flash_attention']}; bucket entries {entries}, none built by the counted "
         f"serve; peak {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB) allocated")
-    for L in lens:
-        log(f"{tag}: prefill of {L}: {sum(prefills[L].values())} launches, {prefills[L]}")
+    for L in sorted(prefills):
+        log(f"{tag}: prefill{' chunk' if rt.lattice.chunked else ''} of {L} "
+            f"(x{got.count(L)}): {sum(prefills[L].values())} launches, {prefills[L]}")
     log(f"{tag}: {len(decodes)} decode passes, each {sum(decodes[0].values())} launches, "
         f"{decodes[0]}")
     return dict(seen=seen, counted=counted, routes=routes, prefills=prefills,
-                decodes=decodes, peak=peak, outputs=outputs)
+                decodes=decodes, peak=peak, outputs=outputs, n_prefills=len(got), timed=timed)
 
 
-def prefill_vs_forward(tag: str, cfg, params, traffic, seen: dict, dev) -> dict:
+def prefill_vs_forward(tag: str, cfg, params, traffic, seen: dict, dev,
+                       peaks: dict | None = None, label: str = "(a)") -> dict:
     """Check (a) of a serving phase: each request's served prefill logits
     (``seen[(rid, 0)]``), finite and of the vocab's width, within 2e-2 of
     the largest magnitude of ``transformer.forward``'s last position on
-    its prompt.  Returns the distances by prompt length."""
+    its prompt.  Returns the distances by prompt length; ``peaks``, where
+    given, gets each forward's peak allocated bytes by prompt length."""
     from repro_torch.models import transformer
 
     errs = {}
     with torch.no_grad():
         for r in traffic:
             toks = torch.as_tensor(r.prompt, device=dev)[None].long()
+            if peaks is not None:
+                torch.cuda.reset_peak_memory_stats()
             full, _ = transformer.forward(cfg, params, {"tokens": toks})
+            if peaks is not None:
+                peaks[len(r.prompt)] = torch.cuda.max_memory_allocated()
             got = seen[(r.rid, 0)]
             check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (cfg.vocab_size,),
                   f"{tag}: prefill logits of {len(r.prompt)} not finite or of the wrong shape")
@@ -4826,7 +4899,7 @@ def prefill_vs_forward(tag: str, cfg, params, traffic, seen: dict, dev) -> dict:
     check(max(errs.values()) <= TOL[torch.bfloat16],
           f"{tag}: served prefill logits against forward's last position {errs} (limit "
           f"{TOL[torch.bfloat16]} of the largest magnitude)")
-    log(f"{tag}: (a) served prefill logits against transformer.forward's last position, by "
+    log(f"{tag}: {label} served prefill logits against transformer.forward's last position, by "
         f"prompt length: {', '.join(f'{L}: {e:.3g}' for L, e in errs.items())} of the "
         f"largest magnitude (limit {TOL[torch.bfloat16]:g})")
     return errs
@@ -4937,10 +5010,11 @@ def ssm_serve_path(dev, seed: int, counters) -> dict:
     warm = rt.serve(ssm_traffic(cfg, seed))
 
     # the main path, with (d): every prefill and decode pass launches what
-    # its products give
+    # its products give; timed, it gives the kernel backend's times
     traffic = ssm_traffic(cfg, seed)
     main = counted_serve("ssm", rt, cfg, traffic, warm, counters)
     seen, counted, routes = main["seen"], main["counted"], main["routes"]
+    runs = {"kernel": [main["timed"]]}
     prefills, decodes, peak, outputs = (main[k] for k in ("prefills", "decodes", "peak",
                                                           "outputs"))
 
@@ -4994,9 +5068,10 @@ def ssm_serve_path(dev, seed: int, counters) -> dict:
     check([r.output for r in legacy] == outputs,
           "ssm: the runtime's tokens differ from ServeEngine's (the legacy oracle)")
     rt_t = ServingRuntime(cfg_t, params, **kw)
-    seen_t = {}
+    seen_t, served_t = {}, ssm_traffic(cfg, seed)
     with served_events(rt_t, seen_t, []):
-        torch_out = {r.rid: r.output for r in rt_t.serve(ssm_traffic(cfg, seed))}
+        runs["torch"] = [timed_serve(rt_t, served_t)]
+    torch_out = {r.rid: r.output for r in served_t}
     kern_out = {r.rid: r.output for r in traffic}
     ref = {}
     with torch.no_grad():
@@ -5034,27 +5109,23 @@ def ssm_serve_path(dev, seed: int, counters) -> dict:
                                               torch.Generator(dev).manual_seed(seed + 22),
                                               dev, skip=SSM_DENSE)
 
-    # (f) times: one serve on each backend; a decode pass's idle share
+    # (f) times: the kernel's counted serve and the torch backend's serve of
+    # (c), both recording every row's logits on the host; a decode pass's
+    # idle share on each
     saved = [c.launches for c in counters]
-    runs = {"kernel": [], "torch": []}
-    for backend in runs:
-        res = timed_serve(rt if backend == "kernel" else rt_t, ssm_traffic(cfg, seed))
-        runs[backend].append(res)
+    for backend, (res,) in runs.items():
         log(f"ssm [{backend}]: {res['tokens']} tokens in {res['wall_ms']:.1f} ms, "
             f"{res['tokens_per_s']:.2f} tokens/s; ms per prefill by length: "
             f"{', '.join(f'{c}: {m:.3f}' for c, m in res['chunk_ms_by_len'].items())}; "
             f"ms per decode pass by bucket: "
             f"{', '.join(f'{b}: {m:.3f} (x{res['ticks_by_bucket'][b]})' for b, m in res['tick_ms_by_bucket'].items())}")
-    check(all(r["outputs"] == outputs for r in runs["kernel"]),
-          "ssm: a timed kernel serve gave other tokens")
     profiles = {}
     with torch.no_grad():
         for backend, conf in (("kernel", cfg), ("torch", cfg_t)):
-            for step in ("decode pass", f"prefill {max(SSM_SERVE['prompts'])}"):
-                fn = functools.partial(passes[step], conf)
-                fn()
-                profiles[f"{backend} {step}"] = profile_device(
-                    f"one mamba2 {step} [{backend}]", fn, top=6)
+            fn = functools.partial(passes["decode pass"], conf)
+            fn()
+            profiles[f"{backend} decode pass"] = profile_device(
+                f"one mamba2 decode pass [{backend}]", fn, top=6)
     for c, n in zip(counters, saved):
         c.launches = n
     del rt, rt_t, legacy, passes, params
@@ -5252,12 +5323,13 @@ def ssm_train_path(dev, seed: int, counters) -> dict:
             f"({r['ms'] / r['library_ms']:.2f}x einsum's time), plain {r['plain_ms']:.4f}")
     lap("(3) layouts")
 
-    # (4) ms per step, the two backends in turns; one profiled step each
+    # (4) ms per step on each backend, the torch backend warmed first; one
+    # profiled step each
     steps_fn = {b: make_train_step(conf, TrainConfig(opt=opt, remat=True))
                 for b, conf in (("kernel", cfg), ("torch", cfg_t))}
     timed_steps(steps_fn["torch"], params, batch, 1)
     runs = {"kernel": [], "torch": []}
-    for backend in ("kernel", "torch", "torch", "kernel"):
+    for backend in runs:
         ms = timed_steps(steps_fn[backend], params, batch, SSM_TRAIN["timed_steps"])
         runs[backend] += ms
         log(f"ssm train [{backend}]: ms per step {', '.join(f'{m:.1f}' for m in ms)}, "
@@ -5470,11 +5542,10 @@ def jamba_serve_path(dev, seed: int, counters) -> dict:
         f"{cast_bound:.4f} ms (bytes); {n_moe} MoE layers: {n_moe * cast_ms:.3f} ms a pass")
     lap("(d)")
 
-    # (e) times: the two backends in turns; a decode pass and the longest
-    # prefill profiled on each
+    # (e) times: one serve on each backend; a decode pass profiled on each
     saved = [c.launches for c in counters]
     runs = {"kernel": [], "torch": []}
-    for backend in ("kernel", "torch", "torch", "kernel"):
+    for backend in runs:
         res = timed_serve(rt if backend == "kernel" else rt_t, traffic_of())
         runs[backend].append(res)
         log(f"jamba [{backend}]: {res['tokens']} tokens in {res['wall_ms']:.1f} ms, "
@@ -5487,11 +5558,10 @@ def jamba_serve_path(dev, seed: int, counters) -> dict:
     profiles = {}
     with torch.no_grad():
         for backend, conf in (("kernel", cfg), ("torch", cfg_t)):
-            for step in ("decode pass", f"prefill {max(spec['prompts'])}"):
-                fn = functools.partial(passes[step], conf)
-                fn()
-                profiles[f"{backend} {step}"] = profile_device(
-                    f"one jamba {step} [{backend}]", fn, top=8)
+            fn = functools.partial(passes["decode pass"], conf)
+            fn()
+            profiles[f"{backend} decode pass"] = profile_device(
+                f"one jamba decode pass [{backend}]", fn, top=8)
     for c, n in zip(counters, saved):
         c.launches = n
     lap("(e)")
@@ -5510,6 +5580,344 @@ def jamba_serve_path(dev, seed: int, counters) -> dict:
                 tokens_per_s={b: [r["tokens_per_s"] for r in v] for b, v in runs.items()},
                 runs={b: [{k: v for k, v in r.items() if k != "outputs"} for r in rs]
                       for b, rs in runs.items()},
+                seconds=took)
+
+
+# ------------------------------------------------------------------ phase 25
+#: the sliding-window cell: gemma2-27b (src/repro/configs/gemma2_27b.py) at
+#: its published widths, depth cut from 46 layers to ``periods`` periods of a
+#: local layer (window 4096) and a global one, on the kernel backend; 8
+#: greedy requests of the prompt lengths below (4095 crosses the window
+#: while decoding, 4097 drops key 0 at its last prompt token, 8192 fills
+#: Gemma 2's context), 16 new tokens each, on 4 slots with chunked prefill
+#: in chunks of up to ``chunk`` tokens, unpaged and off the page pool
+#: (``page_size``-row pages, the default pool).  Traced on fake tensors, a
+#: whole 8192-token prompt peaks under 75 GB (1e9) beside the masters, in
+#: ``transformer.forward`` and in the legacy engine's prefill
+#: (``tests/test_torch_gemma2_serve.py``), so (c) and (d) run at every prompt
+GEMMA_SERVE = dict(arch="gemma2-27b", periods=8,
+                   prompts=(64, 511, 2048, 4095, 4096, 4097, 6000, 8192), max_new=16,
+                   slots=4, chunk=512, page_size=16)
+
+
+def gemma2_serve_path(dev, seed: int, counters) -> dict:
+    """Phase 25: gemma2-27b at its published widths, 16 of 46 layers,
+    through ``ServingRuntime`` with chunked prefill, unpaged and paged, on
+    the kernel backend (see the module docstring).  Returns
+    ``native_gemm``'s sliding-window serving record."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, transformer
+    from repro_torch.models.tree import tree_map
+    from repro_torch.runtime.buckets import chunk_schedule
+    from repro_torch.runtime.engine import ServingRuntime, slot_cache
+    from repro_torch.serving.engine import ServeEngine
+
+    t_start = time.perf_counter()
+    took, mark = {}, [t_start]
+
+    def lap(label):
+        took[label] = round(time.perf_counter() - mark[0], 1)
+        mark[0] = time.perf_counter()
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    spec = GEMMA_SERVE
+    full = get_config(spec["arch"])
+    cfg = full.with_(n_periods=spec["periods"], **KERNEL_BACKEND)
+    cfg_t = cfg.with_(contract_backend="torch", contract_strategy="auto")
+    cfg32 = cfg_t.with_(dtype="float32")
+    local = cfg.pattern[0].window
+    check(local is not None and cfg.pattern[1].window is None
+          and max(spec["prompts"]) - spec["chunk"] >= local,
+          f"gemma2: the pattern's windows {[sp.window for sp in cfg.pattern]}: the last "
+          f"chunk of the longest prompt must drop keys on the local layer")
+    H, G, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    log(f"gemma2: {cfg.arch_id} at published widths, depth cut from "
+        f"{len(full.pattern) * full.n_periods} layers to {len(cfg.pattern) * cfg.n_periods} "
+        f"({cfg.n_periods} periods of a local layer, window {local}, and a global one); "
+        f"d_model {cfg.d_model}, {H} query heads over {G} KV heads of {D} (query width "
+        f"{H * D}), d_ff {cfg.d_ff} ({cfg.mlp_act}), vocab {cfg.vocab_size} tied "
+        f"{cfg.tie_embeddings}, softcaps {cfg.attn_softcap:g} (attention) and "
+        f"{cfg.final_softcap:g} (logits); {cfg.dtype} activations, {cfg.param_dtype} params, "
+        f"contract_backend {cfg.contract_backend}, strategy {cfg.contract_strategy}; "
+        f"{cfg.param_count() / 1e9:.3f}B params")
+    release()
+    base = torch.cuda.memory_allocated(dev)
+    params = transformer.init_params(torch.Generator(dev).manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    masters = torch.cuda.memory_allocated(dev) - base
+    log(f"gemma2: random weights drawn on the card, {masters / 1e9:.2f} GB "
+        f"({base / 2**30:.2f} GiB allocated before)")
+    max_len = max(spec["prompts"]) + spec["max_new"]
+    kw = dict(slots=spec["slots"], max_len=max_len, prefill_chunk=spec["chunk"])
+    peaks = {}
+
+    def traffic_of(prompts=spec["prompts"]):
+        return [r for r in ssm_traffic(cfg, seed, spec, 25) if len(r.prompt) in prompts]
+
+    t0 = time.perf_counter()
+    rt = ServingRuntime(cfg, params, **kw)
+    torch.cuda.synchronize()
+    check(rt.lattice.chunked and rt.lattice.max_chunk == spec["chunk"],
+          f"gemma2: the runtime's lattice {rt.lattice.describe()}")
+    log(f"gemma2: runtime built, every lattice point {rt.lattice.describe()} run once in "
+        f"{time.perf_counter() - t0:.1f} s")
+    warm = rt.serve(traffic_of())
+    lap("warm-up")
+
+    # (a) the main path: every prefill chunk and decode pass by its routes
+    traffic = traffic_of()
+    main = counted_serve("gemma2", rt, cfg, traffic, warm, counters)
+    seen, counted, routes, decodes, outputs = (main[k] for k in (
+        "seen", "counted", "routes", "decodes", "outputs"))
+    runs = {"kernel": main["timed"]}
+    peaks["serve"] = main["peak"]
+    per_pass = ssm_routes(cfg)
+    n_pass = sum(per_pass.values())
+    schedule = {L: chunk_schedule(L, rt.lattice.chunk_buckets) for L in spec["prompts"]}
+    n_chunks = sum(map(len, schedule.values()))
+    check(main["n_prefills"] == n_chunks
+          and counted["native_gemm"] == n_pass * (n_chunks + len(decodes)),
+          f"gemma2: {counted['native_gemm']} launches over {main['n_prefills']} chunks and "
+          f"{len(decodes)} decode passes, not {n_pass} a pass over {n_chunks} chunks")
+    log(f"gemma2: (a) {n_chunks} prefill chunks ({', '.join(f'{L}: {len(c)}' for L, c in schedule.items())} "
+        f"by prompt) and {len(decodes)} decode passes, each {n_pass} launches {per_pass}: "
+        f"{counted['native_gemm']} in all, the {max(spec['prompts'])}-token prompt's "
+        f"{n_pass * len(schedule[max(spec['prompts'])])}; the serve's peak "
+        f"{(main['peak'] - masters) / 1e9:.2f} GB above the masters")
+    del rt
+    release()
+    lap("counted serve")
+
+    # (a) off the page pool: the unpaged serve's tokens, a whole pool, no
+    # bucket entry built after the warm-up (every lattice entry built; the
+    # kernels and programs warm from the unpaged serves)
+    t0 = time.perf_counter()
+    rt_p = ServingRuntime(cfg, params, paged=True, page_size=spec["page_size"],
+                          precompile=False, **kw)
+    entries = rt_p.precompile_buckets()
+    log(f"gemma2 paged: pool of {rt_p.pool.usable} usable pages x {rt_p.pool.page_size} rows, "
+        f"lattice {rt_p.lattice.describe()}; built with its {entries} bucket entries in "
+        f"{time.perf_counter() - t0:.1f} s")
+    traffic_p = traffic_of()
+    paged = counted_serve("gemma2 paged", rt_p, cfg, traffic_p, traffic, counters)
+    peaks["paged serve"] = paged["peak"]
+    check_pool_whole(rt_p, "gemma2 paged serve")
+    stats = rt_p.pool.stats()
+    log(f"gemma2 paged: tokens equal the unpaged serve's; pool whole after the drain "
+        f"({stats['pages_free']} of {stats['pages_total']} free, {stats['page_allocs']} "
+        f"allocations); bucket entries {rt_p.buckets.compiles}, none built by the counted "
+        f"serve; {paged['counted']['native_gemm']} launches by route {paged['routes']}")
+    del rt_p
+    release()
+    lap("paged serves")
+
+    # (b) the window at width: layer 0 (local) at the 8192-token prompt's
+    # last chunk of query rows, after the rows before it filled its cache
+    L = max(spec["prompts"])
+    rows = spec["chunk"]
+    toks = torch.as_tensor(next(r.prompt for r in traffic if len(r.prompt) == L),
+                           device=dev)[None].long()
+    layer = tree_map(lambda t: t[0], params["pattern"][0])
+
+    def filled(conf):
+        dt = conf.activation_dtype()
+        h = layers.rms_norm(params["embed"][toks].to(dt), layer["norm1"], conf.rms_eps)
+        cache = {"k": torch.zeros((1, max_len, G, D), dtype=dt, device=dev),
+                 "v": torch.zeros((1, max_len, G, D), dtype=dt, device=dev),
+                 "length": torch.zeros((), dtype=torch.int32, device=dev)}
+        for start in range(0, L - rows, rows):
+            _, cache = layers.attention(conf, layer["attn"], h[:, start:start + rows],
+                                        positions=torch.arange(start, start + rows, device=dev),
+                                        window=local, kv_cache=cache)
+        return h[:, L - rows:], cache
+
+    def last(conf, h, cache, window):
+        out, _ = layers.attention(conf, layer["attn"], h,
+                                  positions=torch.arange(L - rows, L, device=dev),
+                                  window=window, kv_cache=cache)
+        return out.float()
+
+    with torch.no_grad():
+        h, cache = filled(cfg)
+        out_k, out_none = last(cfg, h, cache, local), last(cfg, h, cache, None)
+        h, cache = filled(cfg32)
+        out_32 = last(cfg32, h, cache, local)
+        del h, cache
+    e_win, e_none = mag_err(out_k, out_32), mag_err(out_none, out_32)
+    check(e_win <= TOL[torch.bfloat16] and e_none > 10 * e_win,
+          f"gemma2: (b) layer 0's attention at rows {L - rows}-{L - 1}: the kernel's "
+          f"{e_win} from float32 (limit {TOL[torch.bfloat16]}), without the window "
+          f"{e_none} (must exceed 10x the kernel's)")
+    log(f"gemma2: (b) layer 0 (window {local}) attention at query rows {L - rows}-{L - 1} "
+        f"of the {L}-token prompt (each row drops {L - rows - local + 1}-{L - local} keys) "
+        f"against the float32 torch backend's, of its largest magnitude: kernel backend "
+        f"{e_win:.3g} (limit {TOL[torch.bfloat16]:g}); the same layer with window=None "
+        f"{e_none:.3g} ({e_none / max(e_win, 1e-30):.0f}x the kernel's; must exceed 10x)")
+    del out_k, out_none, out_32
+    release()
+    lap("(b)")
+
+    # (d) the legacy engine's tokens (whole-prompt prefill beside its
+    # 4-slot cache)
+    torch.cuda.reset_peak_memory_stats()
+    legacy = ServeEngine(cfg, params, slots=spec["slots"], max_len=max_len).serve(traffic_of())
+    peaks["legacy"] = torch.cuda.max_memory_allocated()
+    check([r.output for r in legacy] == outputs,
+          "gemma2: the runtime's tokens differ from ServeEngine's (the legacy oracle)")
+    log(f"gemma2: (d) tokens equal ServeEngine's (whole-prompt prefill, the 4-slot cache "
+        f"held) at every prompt; its peak {peaks['legacy'] / 1e9:.2f} GB allocated")
+    del legacy
+    release()
+    lap("(d)")
+
+    # (e) the runtime on the torch backend in bf16 (its fed serve, timed as
+    # the kernel's counted serve is, gives the torch backend's times) and in
+    # float32 (the oracle), each fed the kernel runtime's tokens, one cache
+    # on the card at a time
+    kern_out = {r.rid: list(r.output) for r in traffic}
+
+    def fed(conf, timed):
+        rt_x, seen_x, reqs = ServingRuntime(conf, params, precompile=False, **kw), {}, traffic_of()
+        with served_events(rt_x, seen_x, [], forced=kern_out):
+            res = timed_serve(rt_x, reqs) if timed else rt_x.serve(reqs)
+        check(all(r.output == kern_out[r.rid] for r in reqs),
+              "gemma2: a runtime fed the kernel's tokens generated others")
+        return (res if timed else None), seen_x
+
+    runs["torch"], seen_t = fed(cfg_t, True)
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    _, ref = fed(cfg32, False)
+    peaks["float32 oracle"] = torch.cuda.max_memory_allocated()
+    release()
+    check(seen.keys() == ref.keys() == seen_t.keys()
+          and len(ref) == len(traffic) * spec["max_new"],
+          f"gemma2: logits recorded at {len(seen)}, {len(seen_t)} and {len(ref)} positions")
+    e_k = {k: mag_err(seen[k], ref[k]) for k in ref}
+    e_t = {k: mag_err(seen_t[k], ref[k]) for k in ref}
+    direct = max(mag_err(seen[k], seen_t[k]) for k in ref)
+    err_k, err_t = max(e_k.values()), max(e_t.values())
+    limit = max(TOL[torch.bfloat16], 2 * err_t)
+    far = {k: (e, e_t[k]) for k, e in e_k.items() if e > limit}
+    check(not far, f"gemma2: kernel runtime rows farther from the float32 oracle than {limit} "
+                   f"(the larger of {TOL[torch.bfloat16]} and twice the torch backend's "
+                   f"worst {err_t}): {far}")
+    agree = sum(int(torch.argmax(ref[(rid, pos)])) == tok
+                for rid, toks_ in kern_out.items() for pos, tok in enumerate(toks_))
+
+    def worst(errs, pre):
+        return max(e for (_, pos), e in errs.items() if (pos == 0) == pre)
+
+    log(f"gemma2: (e) against the float32 runtime (torch backend, TF32 off) fed the same "
+        f"tokens, worst of the largest magnitude over {len(ref)} rows: kernel runtime "
+        f"{err_k:.3g} (prefill rows {worst(e_k, True):.3g}, decode rows "
+        f"{worst(e_k, False):.3g}; median {sorted(e_k.values())[len(e_k) // 2]:.3g}), torch "
+        f"backend runtime {err_t:.3g} (prefill {worst(e_t, True):.3g}, decode "
+        f"{worst(e_t, False):.3g}; median {sorted(e_t.values())[len(e_t) // 2]:.3g}); limit "
+        f"for the kernel {limit:.3g}; kernel against torch directly {direct:.3g}; the "
+        f"oracle's argmax is the kernel's token at {agree} of {len(ref)} positions; the "
+        f"float32 runtime's peak {peaks['float32 oracle'] / 1e9:.2f} GB allocated")
+    del ref, seen_t
+    lap("(e)")
+
+    # (c) each served prefill against transformer.forward's last position,
+    # the longest last, nothing else on the card
+    fwd_peaks = {}
+    errs_c = prefill_vs_forward("gemma2", cfg, params, sorted(
+        traffic_of(), key=lambda r: len(r.prompt)), seen, dev, fwd_peaks, "(c)")
+    peaks["forward"] = max(fwd_peaks.values())
+    log("gemma2: (c) forward's peak by prompt length, allocated: "
+        + ", ".join(f"{n}: {p / 1e9:.2f}" for n, p in fwd_peaks.items()) + " GB")
+    release()
+    lap("(c)")
+
+    # (f) every launch layout of the 8192-token prompt's last chunk and of a
+    # 4-slot decode pass at the cache's full width
+    scratch = slot_cache(cfg, spec["slots"], max_len, device=dev)
+    toks4 = torch.zeros((spec["slots"], 1), dtype=torch.long, device=dev)
+
+    def chunk_pass(conf=cfg):
+        cache = transformer.init_cache(conf, 1, max_len, device=dev)
+        for leaf in (cache["length"], *(c["length"] for c in cache["pattern"])):
+            leaf.fill_(L - rows)
+        return transformer.prefill(conf, params, {"tokens": toks[:, L - rows:]}, cache)
+
+    passes = {f"prefill chunk of {rows} at {L - rows}": chunk_pass,
+              "decode pass": lambda conf=cfg: transformer.decode_step(conf, params, scratch,
+                                                                      toks4)}
+    shapes, per_pass_t, by_route = pass_layouts(
+        "gemma2: (f)", passes, torch.Generator(dev).manual_seed(seed + 25), dev)
+    # what a pass pays besides its products: every dense weight's cast to
+    # bf16 (dense() casts its f32 master on every call), and one layer's
+    # out-of-place cache write (_write_rows) of a decode pass
+    weights = [params["embed"]] + [
+        w[i] for blk in params["pattern"] for w in (*blk["attn"].values(), *blk["mlp"].values())
+        for i in range(cfg.n_periods)]
+    cast_bytes = sum(w.numel() * (w.element_size() + 2) for w in weights)
+
+    def cast_all():
+        for w in weights:
+            w.to(torch.bfloat16)
+
+    cast_ms = queued_ms(cast_all, 2)
+    cast_bound = bound(cast_bytes, 0, torch.bfloat16)[0]
+    k0 = scratch["pattern"][0]["k"][0]
+    new = torch.zeros((spec["slots"], 1, G, D), dtype=k0.dtype, device=dev)
+    at = torch.full((spec["slots"],), L, dtype=torch.int32, device=dev)
+    write_ms = queued_ms(lambda: layers._write_rows(k0, new, at), 5)
+    write_bound = bound(2 * k0.numel() * k0.element_size(), 0, torch.bfloat16)[0]
+    n_writes = 2 * len(cfg.pattern) * cfg.n_periods
+    log(f"gemma2: (f) the casts of the {len(weights)} dense weights a pass to bf16 "
+        f"({cast_bytes / 1e9:.2f} GB read and written): {cast_ms:.3f} ms queued, bound "
+        f"{cast_bound:.3f} ms (bytes); one layer's K cache rewrite in a decode pass "
+        f"(_write_rows, {tuple(k0.shape)}): {write_ms:.4f} ms queued, bound {write_bound:.4f} "
+        f"ms; x{n_writes} a pass: {n_writes * write_ms:.3f} ms")
+    del new
+    lap("(f)")
+
+    # (g) the timed serves (the kernel's counted serve, the torch backend's
+    # fed serve: both record every row's logits on the host); where a decode
+    # pass spends device time on each backend (both paths warm from the
+    # serves)
+    for backend, res in runs.items():
+        log(f"gemma2 [{backend}]: {res['tokens']} tokens in {res['wall_ms']:.1f} ms, "
+            f"{res['tokens_per_s']:.2f} tokens/s; ms per prefill by prompt length (its "
+            f"chunks summed): "
+            f"{', '.join(f'{n}: {v:.1f}' for n, v in res['prefill_ms_by_prompt'].items())}; "
+            f"ms per chunk by length: "
+            f"{', '.join(f'{c}: {v:.2f}' for c, v in res['chunk_ms_by_len'].items())}; "
+            f"ms per decode pass by bucket: "
+            f"{', '.join(f'{b}: {v:.2f} (x{res['ticks_by_bucket'][b]})' for b, v in res['tick_ms_by_bucket'].items())}")
+    profiles = {}
+    with torch.no_grad():
+        for backend, conf in (("kernel", cfg), ("torch", cfg_t)):
+            profiles[f"{backend} decode pass"] = profile_device(
+                f"one gemma2 decode pass [{backend}]",
+                functools.partial(passes["decode pass"], conf), top=8)
+    del scratch, passes, params, weights, k0
+    release()
+    lap("(g)")
+    log(f"gemma2: peaks allocated by stage: "
+        + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in peaks.items())
+        + f"; phase 25 took {time.perf_counter() - t_start:.1f} s: "
+        + ", ".join(f"{k} {v} s" for k, v in took.items()))
+    return dict(launches=counted["native_gemm"], launches_by_route=routes,
+                launches_per_pass=per_pass, prefill_chunks=n_chunks, decode_passes=len(decodes),
+                paged_launches=paged["counted"]["native_gemm"],
+                paged_launches_by_route=paged["routes"],
+                window_err=dict(kernel=e_win, no_window=e_none), prefill_logits_err=errs_c,
+                logits_err=dict(kernel=err_k, torch=err_t, kernel_vs_torch=direct),
+                peak_bytes=peaks, master_bytes=masters, forward_peak_bytes=fwd_peaks,
+                shapes=shapes, shapes_by_route=by_route, per_pass=per_pass_t,
+                weight_cast=dict(ms=cast_ms, bound_ms=cast_bound, bytes=cast_bytes),
+                cache_write=dict(ms=write_ms, bound_ms=write_bound, per_pass=n_writes),
+                profiles=profiles,
+                tokens_per_s={b: r["tokens_per_s"] for b, r in runs.items()},
+                runs={b: {k: v for k, v in r.items() if k != "outputs"}
+                      for b, r in runs.items()},
                 seconds=took)
 
 
@@ -5579,8 +5987,7 @@ def main() -> int:
     lap("10")
     tot = time_shapes(launches)
     lap("6")
-    for variant in VARIANTS:
-        profile_hooi(T, args.n_iter, variant)
+    profile_hooi(T, args.n_iter, "kernel")
     del T, launches, rec  # the recorded operands hold the tensor too
     lap("7")
 
@@ -5622,6 +6029,8 @@ def main() -> int:
     lap("23")
     jamba = jamba_serve_path(dev, args.seed, counters)
     lap("24")
+    gemma = gemma2_serve_path(dev, args.seed, counters)
+    lap("25")
     log("time by phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
         + f"; all {time.perf_counter() - t0:.1f} s after the device line")
     records = {
@@ -5657,7 +6066,11 @@ def main() -> int:
                          "jamba_serve_launches": jamba["launches"],
                          "jamba_serve_launches_by_route": jamba["launches_by_route"],
                          "jamba_serve": {k: v for k, v in jamba.items()
-                                         if k not in ("launches", "launches_by_route")}}),
+                                         if k not in ("launches", "launches_by_route")},
+                         "gemma2_serve_launches": gemma["launches"],
+                         "gemma2_serve_launches_by_route": gemma["launches_by_route"],
+                         "gemma2_serve": {k: v for k, v in gemma.items()
+                                          if k not in ("launches", "launches_by_route")}}),
         **records,
     }
     # the batched route of native_gemm on its own line: phase 13's counted
@@ -5699,9 +6112,12 @@ def main() -> int:
             "mamba2-1.3b train step": ssm_train["launches_per_step"].get(route, 0),
             "jamba-v0.1-52b prefill": jamba["prefill_launches_by_route"][
                 str(max(JAMBA_SERVE["prompts"]))].get(route, 0),
-            "jamba-v0.1-52b serve": jamba["launches_by_route"].get(route, 0)}
+            "jamba-v0.1-52b serve": jamba["launches_by_route"].get(route, 0),
+            "gemma2-27b prefill chunk or decode pass": gemma["launches_per_pass"].get(route, 0),
+            "gemma2-27b serve": gemma["launches_by_route"].get(route, 0)}
         records[key][2]["ssm_shapes"] = ssm["shapes_by_route"].get(route)
         records[key][2]["jamba_shapes"] = jamba["shapes_by_route"].get(route)
+        records[key][2]["gemma2_shapes"] = gemma["shapes_by_route"].get(route)
     kernels = [{"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}",
                 "replaces": f"src/repro/kernels/{tpu}",
@@ -5718,7 +6134,10 @@ def main() -> int:
                                        "ssm_serve_launches_by_route", "ssm_serve",
                                        "ssm_train", "jamba_serve_launches",
                                        "jamba_serve_launches_by_route", "jamba_serve",
-                                       "model_launches", "ssm_shapes", "jamba_shapes")
+                                       "gemma2_serve_launches",
+                                       "gemma2_serve_launches_by_route", "gemma2_serve",
+                                       "model_launches", "ssm_shapes", "jamba_shapes",
+                                       "gemma2_shapes")
                      if k in rec}}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:

@@ -24,9 +24,11 @@ __all__ = ["NVCC_FLAGS", "build_root", "find_nvcc", "library_path", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
+#: ``--split-compile=0``: nvcc optimises the device code in parallel
+#: chunks over every core (one source holds dozens of kernel instances)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "--split-compile=0",
 )
 
 _LOCK = threading.Lock()

@@ -41,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -54,10 +55,11 @@ from repro_torch.distributed.sharding import (
 __all__ = [
     "rms_norm", "rope", "attention", "mlp", "init_attn", "init_mlp",
     "dense", "init_dense", "softcap", "contraction", "mesh_scope", "replicated",
-    "reshape", "token_nll",
+    "reshape", "token_nll", "cached_rows",
 ]
 
 _NEG_INF = -2.0**30  # large-negative mask value safe in bf16
+_ROWS = threading.local()  # the cached rows' softmax width (:func:`cached_rows`)
 
 
 def contraction(spec: str, *operands, strategy: str, backend: str = "torch"):
@@ -367,6 +369,41 @@ def _attn_mask(q_pos, k_pos, *, causal: bool, window: int | None):
     return ok
 
 
+@contextlib.contextmanager
+def cached_rows(max_len: int):
+    """Within the block every cached attention row's softmax is taken over
+    ``max_len`` keys rounded up to a multiple of 16 (outside, over its
+    cache's width).  A cached row is as wide as its cache: a serving
+    runtime's slot cache (``max_len`` rows) or a page view of its pool (a
+    lattice width).  The keys past a request's length come out of the
+    softmax as exact zeros, but CUDA's softmax sums a row in an order that
+    depends on its width (the kernel it picks by width, the row's split
+    over threads and vector loads), so a request would get other bits from
+    a page view than from its slot.  A runtime runs its model steps in
+    this context with its ``max_len``: a narrower row is padded with
+    masked keys and a wider one cut (its keys there lie past every
+    request) to one width, at which every row starts 64-byte aligned.
+    Per thread; nests."""
+    prev = getattr(_ROWS, "width", None)
+    _ROWS.width = -(-max_len // 16) * 16
+    try:
+        yield
+    finally:
+        _ROWS.width = prev
+
+
+def _row_softmax(scores, width: int):
+    """Softmax over the keys (last axis) of cached rows, taken over
+    ``width`` keys: masked keys padded on, or the keys past ``width`` cut
+    off and given probability 0."""
+    T = scores.shape[-1]
+    if T == width:
+        return torch.softmax(scores, dim=-1)
+    if T < width:
+        return torch.softmax(F.pad(scores, (0, width - T), value=_NEG_INF), dim=-1)[..., :T]
+    return F.pad(torch.softmax(scores[..., :width], dim=-1), (0, T - width))
+
+
 def _write_rows(cache, update, start):
     """``update`` (B, S, ...) written into ``cache`` (B, T, ...) from row
     ``start`` (a scalar or one per batch row) on, out of place; the start
@@ -456,7 +493,10 @@ def attention(
         if mask.ndim == 2:
             mask = mask[None]
         scores = torch.where(mask[:, None, None], scores, _NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        width = getattr(_ROWS, "width", None)
+        probs = (torch.softmax(scores, dim=-1) if kv_cache is None or width is None
+                 else _row_softmax(scores, width)).to(x.dtype,
+                                                      memory_format=torch.contiguous_format)
 
         out = ctr("bgrst,btgd->bsgrd", probs, v.to(x.dtype))
     out = reshape(out, B, S, H * D)

@@ -78,7 +78,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import ShardingRules, device_put
-from repro_torch.models.layers import mesh_scope
+from repro_torch.models.layers import cached_rows, mesh_scope
 from repro_torch.models.transformer import decode_step, init_cache, prefill
 from repro_torch.models.tree import tree_map
 from repro_torch.obs import trace as _trace
@@ -324,11 +324,15 @@ class ServingRuntime:
     def _fingerprint(self):
         return tuning_key_component(self.cfg.contract_strategy)
 
+    # every cached attention row at the runtime's width, so that a request
+    # gets the same bits from a page view as from its slot
     def _decode(self, params, cache, toks):
-        return decode_step(self.cfg, params, cache, toks)
+        with cached_rows(self.max_len):
+            return decode_step(self.cfg, params, cache, toks)
 
     def _prefill(self, params, toks, cache):
-        return prefill(self.cfg, params, {"tokens": toks}, cache)
+        with cached_rows(self.max_len):
+            return prefill(self.cfg, params, {"tokens": toks}, cache)
 
     # ----------------------------------------------------------- autotuning
     def _trace_working_set(self, recorder, prompt_lens) -> list:
