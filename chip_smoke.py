@@ -453,6 +453,35 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    recording every row's logits on the host as they run); where a decode
    pass spends device time, and the idle share, on each backend; the
    peak memory of each stage.
+26. Training an encoder at published width and depth, after phase 25:
+   hubert-xlarge (d_model 1280, 16 heads of 80, d_ff 5120 with GELU, the
+   504-entry codebook head padded to 512 and untied, bidirectional
+   attention, an audio frontend projecting 512-d frames; 48 layers, no
+   cut; f32 masters drawn on the card from ``--seed``, bf16
+   activations), ``contract_backend="kernel"`` with
+   ``contract_strategy="native"``, through ``Trainer`` with
+   ``remat=True`` on ``SyntheticLM(seq_len=781, global_batch=4,
+   with_features=(None, 512), labels=True)`` as ``launch.train`` builds
+   it (781 frames: fairseq's HuBERT crop cap of 250000 samples at 16 kHz
+   after the wav2vec 2.0 conv stack) and phase 13's warmup and schedule
+   at lr 1e-4 (at phase 13's 1e-3 both backends' losses climb for 5
+   steps before they fall).  Phase 23's checks (``train_at_width``): (1) 6 steps, losses
+   finite and falling, 1541 ``native_gemm`` launches a step, each on the
+   route ``native_route`` gives and by route what the model gives
+   (``hubert_train_launches_per_step``: the dense products on ``wgmma``
+   four times each, the frontend twice, the head three times; the
+   scores and dP on ``batched``; P.V, dV, dQ and dK on ``gathered``,
+   since a 781-key bf16 probability row is no multiple of 16 bytes:
+   1157, 144, 240), no other kernel, the peak memory; (2) the float32
+   oracle, the zero gradient only on ``embed``, which an audio model
+   never reads (``unreached_leaves``); (3) every launch layout of a
+   step; (4) ms per step and tokens (frames)/s, 2 steps a backend, one profiled
+   step each with device time summed by kind (``STEP_KINDS``:
+   ``native_gemm``'s kernels, f32 adds, fills, copies).  Then (5) the 8
+   attention layouts of one layer at 768 frames (every one on
+   ``batched``), each within ``TOL``, bit-identical twice and timed,
+   beside the same product at 781 frames, and one layer's weight casts
+   to bf16 against their byte bound.
    Then the seconds of every phase.
 19. Float32 products on ``fbatched``, right after phase 14: the 36 f32
    Table II cases at n = 256 through ``contract(strategy="native")`` as a
@@ -484,7 +513,7 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
 
 Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13, 14, 19, 20, 15's
 training and serving, 16's layer, training and pipeline, 22, 23, 24, 25 and its
-paged serve) is driven with every
+paged serve, 26) is driven with every
 kernel's launch count set to 0 just before it and read just after;
 launches made to compare, time or tune a kernel do not count.  Phases 5 and 10 also read ``native_gemm``'s
 launches by route, which must be what ``native_route`` gives for each
@@ -522,7 +551,9 @@ phase 24's launches under ``jamba_serve_launches``/
 times and peak memory under ``jamba_serve``, and phase 25's launches under
 ``gemma2_serve_launches``/``gemma2_serve_launches_by_route`` and its
 paged launches, checks, layouts, casts, times and peaks under
-``gemma2_serve``), then
+``gemma2_serve``, and phase 26's launches, losses, oracle distances,
+layouts, attention at both lengths, casts, times and peak memory under
+``hubert_train``), then
 ``native_gemm.batched``, the batched route on its own line: phase 13's
 counted launches on it, and its times per train step from phase 18 (every
 path's under ``tc_shapes``), then ``native_gemm.f32``, the fbatched route
@@ -537,7 +568,7 @@ fbatched and gathered lines also carry each route's launches on phase
 one token and in the counted serve; per train step of phase 23; per
 4096-token prefill and in the counted serve of phase 24's jamba; per
 prefill chunk or decode pass and in the counted serve of phase 25's
-gemma2) and its SSD launch shapes on the mamba2 serve and its launch
+gemma2; per train step of phase 26's hubert) and its SSD launch shapes on the mamba2 serve and its launch
 layouts on the jamba and gemma2 serves, summed (``ssm_shapes``,
 ``jamba_shapes``, ``gemma2_shapes``),
 the card's name and power limit as ``nvidia-smi`` prints them, and the
@@ -610,9 +641,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-#: cycles of the sleeping kernel that a run of calls queues behind in
-#: ``queued_ms``: about 50 ms at the H100's 1980 MHz
-QUEUE_SLEEP_CYCLES = 100_000_000
+#: cycles of the sleeping kernel that a run of calls first queues behind in
+#: ``queued_ms``: about 5 ms at the H100's 1980 MHz, doubled while the host
+#: cannot queue the calls in time; a run that would need ``QUEUE_SLEEP_MAX``
+#: (about 400 ms) fails
+QUEUE_SLEEP_CYCLES = 10_000_000
+QUEUE_SLEEP_MAX = 800_000_000
 
 
 def queued_ms(fn, reps: int) -> float:
@@ -638,7 +672,7 @@ def queued_ms(fn, reps: int) -> float:
         if queued:
             rounds += 1
         else:
-            check(cycles < 8 * QUEUE_SLEEP_CYCLES, "calls could not be queued behind the sleep")
+            check(cycles < QUEUE_SLEEP_MAX, "calls could not be queued behind the sleep")
             cycles *= 2
     return start.elapsed_time(end) / reps
 
@@ -1841,11 +1875,14 @@ def device_spans(fn) -> tuple[list, float]:
                   for e in prof.events() if e.device_type == DeviceType.CUDA), wall_us
 
 
-def profile_device(label: str, fn, top: int = 10) -> dict | None:
+def profile_device(label: str, fn, top: int = 10, kinds: dict | None = None) -> dict | None:
     """Where one call of ``fn`` spends device time, by kernel name, and the
     device's idle share: of the host wall time under the profiler, and of
-    the span from the first device activity to the last.  Returns the
-    busy and wall ms and the idle share of the wall, or ``None`` when the
+    the span from the first device activity to the last.  ``kinds`` maps a
+    label to a test of a kernel's name: the device time of the kernels it
+    accepts is summed under it (a kernel counts under its first label).
+    Returns the busy and wall ms, the idle share
+    of the wall and the kinds' ``[ms, launches]``, or ``None`` when the
     profiler recorded no device activity."""
     spans, wall_us = device_spans(fn)
     if not spans:
@@ -1864,7 +1901,18 @@ def profile_device(label: str, fn, top: int = 10) -> dict | None:
         f"{len(spans)} device activities")
     for name, (us, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:top]:
         log(f"  {us / 1e3:9.3f} ms {100 * us / busy:5.1f}%  x{n:<5d} {name[:80]}")
-    return dict(busy_ms=busy / 1e3, wall_ms=wall_us / 1e3, idle_share=1 - busy / wall_us)
+    by_kind = {k: [0.0, 0] for k in kinds or ()}
+    for name, (us, n) in by_name.items():
+        kind = next((k for k, accepts in (kinds or {}).items() if accepts(name)), None)
+        if kind is not None:
+            by_kind[kind][0] += us / 1e3
+            by_kind[kind][1] += n
+    if kinds:
+        log(f"profile of {label} by kind: " + "; ".join(
+            f"{k} {ms:.3f} ms x{n} ({100 * ms * 1e3 / busy:.1f}%)"
+            for k, (ms, n) in by_kind.items()))
+    return dict(busy_ms=busy / 1e3, wall_ms=wall_us / 1e3, idle_share=1 - busy / wall_us,
+                by_kind=by_kind)
 
 
 # ------------------------------------------------------------------- phase 8
@@ -5151,63 +5199,69 @@ def ssm_serve_path(dev, seed: int, counters) -> dict:
 #: the loss), the bf16 kernel step the larger of ``bf16_floor`` and twice
 #: the bf16 torch step's distance, its loss ``loss_tol`` relative
 SSM_TRAIN = dict(arch="mamba2-1.3b", seq_len=2048, batch=2, steps=6, timed_steps=2,
-                 top_shapes=8, f32_tol=1e-3, bf16_floor=5e-2, loss_tol=2e-2)
+                 top_shapes=8, f32_tol=1e-3, bf16_floor=5e-2, loss_tol=2e-2, lr=TRAIN["lr"])
+
+
+#: device kernels a train step's profile sums by kind (by name):
+#: ``native_gemm``'s, the float32 adds and fills that the stacked
+#: parameters' gradient costs (ROADMAP E4), and copies (the weights' casts
+#: to bf16 among them)
+STEP_KINDS = {"native_gemm": lambda name: name.removeprefix("void ").startswith(NATIVE_KERNELS),
+              "f32 adds": lambda name: "CUDAFunctor_add<float>" in name,
+              "fills": lambda name: "FillFunctor" in name,
+              "copies": lambda name: "copy" in name}
 
 
 def unreached_leaves(cfg) -> set:
     """Paths of the parameter leaves the loss does not reach, whose gradient
     is identically zero (in the JAX package too): the ``norm2`` of every
-    pattern layer without a feed-forward, since its block never reads it."""
-    return {("pattern", j, "norm2") for j, spec in enumerate(cfg.pattern) if spec.ff == "none"}
+    pattern layer without a feed-forward, since its block never reads it,
+    and ``embed`` under an audio frontend, whose frames are the whole
+    sequence, so no token is ever looked up."""
+    audio = cfg.frontend is not None and cfg.frontend.kind == "audio"
+    return ({("pattern", j, "norm2") for j, spec in enumerate(cfg.pattern) if spec.ff == "none"}
+            | ({("embed",)} if audio else set()))
 
 
-def ssm_train_path(dev, seed: int, counters) -> dict:
-    """Phase 23: mamba2-1.3b at its published widths and depth trained
-    through ``Trainer`` on the kernel backend with ``contract_strategy=
-    "native"`` (see the module docstring).  Returns ``native_gemm``'s SSM
-    training record."""
-    from repro_torch.configs import get_config
+def train_at_width(dev, seed: int, counters, tag: str, cfg, data, per_step: dict,
+                   settings: dict) -> dict:
+    """``cfg`` (at its published widths, kernel backend with
+    ``contract_strategy="native"``) trained through ``Trainer``, and held
+    to account (phases 23 and 26): (1) ``settings["steps"]`` steps with
+    every count set to 0 just before and read just after: finite losses,
+    the last below the first, ``per_step`` ``native_gemm`` launches a step
+    by route, each on ``native_route``'s route, no other kernel; the peak
+    memory.  (2) The float32 oracle from the first weights and batch.  (3)
+    Every launch layout of one recorded step on random operands of its
+    layout against the plain version, bit-identical twice, timed.  (4) ms
+    per step and tokens/s (an audio model's frames are its tokens) on
+    each backend, one profiled step each.
+    ``data()`` gives a fresh stream of the phase's batches; ``tag`` starts
+    every line.  Returns the record, its ``seconds`` by part."""
     from repro_torch.kernels.sb_gemm import native_gemm
     from repro_torch.models import transformer
     from repro_torch.models.tree import tree_leaves_with_path
-    from repro_torch.training.data import SyntheticLM
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     from repro_torch.training.trainer import (
         TrainConfig, Trainer, make_train_step, value_and_grad,
     )
 
-    t_start = time.perf_counter()
-    took, mark = {}, [t_start]
+    took, mark = {}, [time.perf_counter()]
 
     def lap(label):
         took[label] = round(time.perf_counter() - mark[0], 1)
         mark[0] = time.perf_counter()
 
-    cfg = get_config(SSM_TRAIN["arch"]).with_(**KERNEL_BACKEND)
     cfg_t = cfg.with_(contract_backend="torch", contract_strategy="auto")
-    steps, tokens = SSM_TRAIN["steps"], SSM_TRAIN["seq_len"] * SSM_TRAIN["batch"]
-    per_step = ssm_train_launches_per_step(cfg)
+    steps = settings["steps"]
+    tokens = settings["seq_len"] * settings["batch"]
     n_step = sum(per_step.values())
-    check(n_step == 24 * cfg.n_periods + 3,
-          f"ssm train: {per_step} is not 6 products a layer x4 (forward, recompute, dX, dW) "
-          f"+ 3 for the head")
     zero = unreached_leaves(cfg)
-    s = cfg.ssm
-    log(f"ssm train: {cfg.arch_id} {cfg.n_periods} layers (no cut), d_model {cfg.d_model}, "
-        f"{s.expand * cfg.d_model // s.headdim} heads of {s.headdim}, d_state {s.d_state}, "
-        f"chunk {s.chunk}, vocab {cfg.vocab_size}, tied embeddings; {cfg.dtype} activations over "
-        f"{cfg.param_dtype} masters, remat on; {cfg.param_count() / 1e9:.3f}B params; "
-        f"{SSM_TRAIN['batch']} x {SSM_TRAIN['seq_len']} tokens a step; kernel backend, "
-        f"contract_strategy native; leaves the loss does not reach: {sorted(zero)}")
     gc.collect()
     torch.cuda.empty_cache()
     params = transformer.init_params(torch.Generator(dev).manual_seed(seed), cfg)
-    opt = AdamWConfig(lr=TRAIN["lr"], schedule="wsd", warmup_steps=TRAIN["warmup"],
+    opt = AdamWConfig(lr=settings["lr"], schedule="wsd", warmup_steps=TRAIN["warmup"],
                       total_steps=TRAIN["total_steps"])
-
-    def data():
-        return SyntheticLM(vocab_size=cfg.vocab_size, seq_len=SSM_TRAIN["seq_len"],
-                           global_batch=SSM_TRAIN["batch"], seed=seed)
 
     # (1) the main path: counts to 0 just before, read just after
     tr = Trainer(cfg, TrainConfig(opt=opt, remat=True), params, data())
@@ -5224,24 +5278,25 @@ def ssm_train_path(dev, seed: int, counters) -> dict:
     peak = torch.cuda.max_memory_allocated(dev)
     del tr
     losses = [h["loss"] for h in hist]
-    check(all(np.isfinite(losses)), f"ssm train: a loss is not finite: {losses}")
-    check(losses[-1] < losses[0], f"ssm train: step {steps}'s loss {losses[-1]} is not below "
-                                  f"step 1's {losses[0]}")
-    check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
-          f"ssm train: another kernel launched on the path: {counted}")
-    check(routes == held, f"ssm train: routes {routes} differ from native_route's {held}")
     by_step = {r: n // steps for r, n in routes.items() if n}
-    check(counted["native_gemm"] == steps * n_step and by_step == per_step
-          and all(n % steps == 0 for n in routes.values()),
-          f"ssm train: {counted['native_gemm']} native_gemm launches by route {routes} in "
-          f"{steps} steps; the model gives {per_step} a step")
-    log(f"ssm train: {steps} steps, losses {', '.join(f'{x:.6f}' for x in losses)}; step ms "
+    log(f"{tag}: {steps} steps, losses {', '.join(f'{x:.6f}' for x in losses)}; step ms "
         f"{', '.join(f'{h['step_time_s'] * 1e3:.1f}' for h in hist)}; lr "
         f"{', '.join(f'{h['lr']:.3g}' for h in hist)}; native_gemm launches "
-        f"{counted['native_gemm']} ({n_step} a step: by route {by_step}, every one on the route "
-        f"native_route gives); grouped_gemm {counted['grouped_gemm']}, flash_attention "
-        f"{counted['flash_attention']}; peak memory {peak / 2**30:.2f} GiB "
-        f"({peak / 1e9:.2f} GB) allocated")
+        f"{counted['native_gemm']} ({n_step} a step: by route {by_step}); grouped_gemm "
+        f"{counted['grouped_gemm']}, flash_attention {counted['flash_attention']}; peak memory "
+        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) allocated")
+    check(all(np.isfinite(losses)), f"{tag}: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"{tag}: step {steps}'s loss {losses[-1]} is not below "
+                                  f"step 1's {losses[0]}")
+    check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
+          f"{tag}: another kernel launched on the path: {counted}")
+    check(routes == held, f"{tag}: routes {routes} differ from native_route's {held}")
+    check(counted["native_gemm"] == steps * n_step and by_step == per_step
+          and all(n % steps == 0 for n in routes.values()),
+          f"{tag}: {counted['native_gemm']} native_gemm launches by route {routes} in "
+          f"{steps} steps; the model gives {per_step} a step")
+    log(f"{tag}: (1) every loss finite, the last below the first; every launch on the route "
+        f"native_route gives, none of grouped_gemm or flash_attention")
     lap("(1) trainer")
 
     # (2) the float32 oracle: at most two gradient trees on the card at once
@@ -5251,9 +5306,9 @@ def ssm_train_path(dev, seed: int, counters) -> dict:
         loss, _, grads = value_and_grad(conf, params, batch)
         grads = tree_leaves_with_path(grads)
         bad = [p for p, g in grads if not bool(torch.isfinite(g).all())]
-        check(not bad, f"ssm train: [{label}] non-finite gradients on {bad}")
+        check(not bad, f"{tag}: [{label}] non-finite gradients on {bad}")
         zeros = {p for p, g in grads if not bool(g.abs().max() > 0)}
-        check(zeros == zero, f"ssm train: [{label}] leaves with a zero gradient {zeros}, the "
+        check(zeros == zero, f"{tag}: [{label}] leaves with a zero gradient {zeros}, the "
                              f"config gives {zero}")
         return float(loss), grads
 
@@ -5263,7 +5318,7 @@ def ssm_train_path(dev, seed: int, counters) -> dict:
         loss, grads = step_of(conf, label)
         dist = {p: mag_err(g, r) for (p, g), (_, r) in zip(grads, ref)}
         worst = max(dist, key=dist.get)
-        log(f"ssm train: (2) [{label}] loss {loss:.6f} against the float32 torch step's "
+        log(f"{tag}: (2) [{label}] loss {loss:.6f} against the float32 torch step's "
             f"{loss_ref:.6f} ({abs(loss - loss_ref) / abs(loss_ref):.3g} relative); worst leaf "
             f"{'/'.join(map(str, worst))} {dist[worst]:.3g} of its largest magnitude")
         return loss, dist
@@ -5272,20 +5327,20 @@ def ssm_train_path(dev, seed: int, counters) -> dict:
     loss_t16, d_t16 = distance("bf16 torch", cfg_t)
     loss_k16, d_k16 = distance("bf16 kernel", cfg)
     del ref
-    f32_tol, floor = SSM_TRAIN["f32_tol"], SSM_TRAIN["bf16_floor"]
+    f32_tol, floor = settings["f32_tol"], settings["bf16_floor"]
     far = {p: e for p, e in d_k32.items() if e > f32_tol}
     check(not far and abs(loss_k32 - loss_ref) <= f32_tol * abs(loss_ref),
-          f"ssm train: the float32 kernel step from the float32 torch step's beyond {f32_tol}: "
+          f"{tag}: the float32 kernel step from the float32 torch step's beyond {f32_tol}: "
           f"leaves {far}, loss {loss_k32} against {loss_ref}")
     far = {p: (e, d_t16[p]) for p, e in d_k16.items() if e > max(floor, 2 * d_t16[p])}
-    check(not far, f"ssm train: bf16 kernel gradients farther from float32 than the larger of "
+    check(not far, f"{tag}: bf16 kernel gradients farther from float32 than the larger of "
                    f"{floor} and twice the bf16 torch step's: {far}")
-    check(abs(loss_k16 - loss_ref) <= SSM_TRAIN["loss_tol"] * abs(loss_ref),
-          f"ssm train: the bf16 kernel loss {loss_k16} from the float32 loss {loss_ref}")
-    log(f"ssm train: (2) every leaf's gradient finite in all four steps, nonzero except "
+    check(abs(loss_k16 - loss_ref) <= settings["loss_tol"] * abs(loss_ref),
+          f"{tag}: the bf16 kernel loss {loss_k16} from the float32 loss {loss_ref}")
+    log(f"{tag}: (2) every leaf's gradient finite in all four steps, nonzero except "
         f"{sorted(zero)}; float32 kernel within {f32_tol:g} on every leaf; bf16 kernel within "
         f"the larger of {floor:g} and twice the bf16 torch step's distance on every leaf, its "
-        f"loss within {SSM_TRAIN['loss_tol']:g}")
+        f"loss within {settings['loss_tol']:g}")
     lap("(2) oracle")
 
     # (3) each launch layout of one recorded step against its plain version
@@ -5294,33 +5349,27 @@ def ssm_train_path(dev, seed: int, counters) -> dict:
         value_and_grad(cfg, params, batch)
         torch.cuda.synchronize()
     check(sum(n for n, _ in keys.values()) == n_step,
-          f"ssm train: the recorded step launched {sum(n for n, _ in keys.values())}")
-    gen = torch.Generator(dev).manual_seed(seed + 23)
+          f"{tag}: the recorded step launched {sum(n for n, _ in keys.values())}")
     with recording_launch_keys() as fwd, torch.no_grad():
         transformer.forward(cfg, params, batch)
     forward = {f"{a},{b}->{c}" for a, b, c, *_ in fwd}
-    rows = []
-    for key, (n, layout) in sorted(keys.items(), key=lambda kv: str(kv[0])):
-        A, B, kw_ = operands_like(layout, gen, dev)
-        row = time_shapes({key: (n, (A, B, kw_))}, reps=3, per="step", summary=False)["rows"][0]
-        del A, B
-        rows.append(dict(row, launches=n))
+    rows = layout_rows(keys, torch.Generator(dev).manual_seed(seed + 23), dev)
     tot = {k: sum(r["launches"] * r[k] for r in rows)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    top = sorted(rows, key=lambda r: -r["launches"] * r["ms"])[:SSM_TRAIN["top_shapes"]]
-    log(f"ssm train: (3) {len(rows)} launch layouts of a step, each within TOL of the plain "
+    top = sorted(rows, key=lambda r: -r["launches"] * r["ms"])[:settings["top_shapes"]]
+    log(f"{tag}: (3) {len(rows)} launch layouts of a step, each within TOL of the plain "
         f"version and bit-identical twice; per step: kernel {tot['ms']:.4f} ms queued, bound "
         f"{tot['bound_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, einsum "
         f"{tot['library_ms']:.4f} ms queued; top {len(top)} by time: " + "; ".join(
             f"{r['spec']} x{r['launches']} [{r['route']}] {r['launches'] * r['ms']:.4f} ms "
             f"(einsum {r['launches'] * r['library_ms']:.4f}, bound "
             f"{r['launches'] * r['bound_ms']:.4f})" for r in top))
-    backward = [r for r in rows if r["spec"] not in forward]
-    for r in backward:
-        log(f"ssm train: (3) backward {r['spec']} [{r['route']}] x{r['launches']}: kernel "
-            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ({r['bound_by']}, "
-            f"{100 * r['bound_ms'] / r['ms']:.1f}%), einsum {r['library_ms']:.4f} "
-            f"({r['ms'] / r['library_ms']:.2f}x einsum's time), plain {r['plain_ms']:.4f}")
+    for r in rows:
+        if r["spec"] not in forward:
+            log(f"{tag}: (3) backward {r['spec']} [{r['route']}] x{r['launches']}: kernel "
+                f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ({r['bound_by']}, "
+                f"{100 * r['bound_ms'] / r['ms']:.1f}%), einsum {r['library_ms']:.4f} "
+                f"({r['ms'] / r['library_ms']:.2f}x einsum's time), plain {r['plain_ms']:.4f}")
     lap("(3) layouts")
 
     # (4) ms per step on each backend, the torch backend warmed first; one
@@ -5330,33 +5379,76 @@ def ssm_train_path(dev, seed: int, counters) -> dict:
     timed_steps(steps_fn["torch"], params, batch, 1)
     runs = {"kernel": [], "torch": []}
     for backend in runs:
-        ms = timed_steps(steps_fn[backend], params, batch, SSM_TRAIN["timed_steps"])
-        runs[backend] += ms
-        log(f"ssm train [{backend}]: ms per step {', '.join(f'{m:.1f}' for m in ms)}, "
-            f"{tokens / (min(ms) / 1e3):.1f} tokens/s at the fastest")
+        runs[backend] = timed_steps(steps_fn[backend], params, batch, settings["timed_steps"])
+        log(f"{tag} [{backend}]: ms per step {', '.join(f'{m:.1f}' for m in runs[backend])}, "
+            f"{tokens / (min(runs[backend]) / 1e3):.1f} tokens/s at the fastest")
     ms_step = {b: sorted(v)[len(v) // 2] for b, v in runs.items()}
     profiles = {}
     for backend in ("kernel", "torch"):
         state = adamw_init(params)
         profiles[backend] = profile_device(
-            f"one mamba2 train step [{backend}]",
-            lambda b=backend, st=state: steps_fn[b](params, st, batch, None), top=8)
+            f"one {cfg.arch_id} train step [{backend}]",
+            lambda b=backend, st=state: steps_fn[b](params, st, batch, None), top=8,
+            kinds=STEP_KINDS)
         del state
     for c, n in zip(counters, saved):
         c.launches = n
     lap("(4) times")
-    del params, batch
-    log(f"ssm train: phase 23 took {time.perf_counter() - t_start:.1f} s: "
-        + ", ".join(f"{k} {v} s" for k, v in took.items()))
     return dict(launches=counted["native_gemm"], launches_by_route=routes,
                 launches_per_step=per_step, losses=losses, peak_bytes=peak,
                 loss=dict(float32_torch=loss_ref, float32_kernel=loss_k32, bf16_torch=loss_t16,
                           bf16_kernel=loss_k16),
                 grad_err={label: max(d.values()) for label, d in (
                     ("float32_kernel", d_k32), ("bf16_torch", d_t16), ("bf16_kernel", d_k16))},
-                shapes=rows, per_step=tot, profiles=profiles,
-                ms_per_step=runs, tokens_per_s={b: tokens / (ms_step[b] / 1e3) for b in ms_step},
-                seconds=took)
+                shapes=rows, per_step=tot, profiles=profiles, ms_per_step=runs,
+                tokens_per_s={b: tokens / (ms_step[b] / 1e3) for b in ms_step}, seconds=took)
+
+
+def layout_rows(keys: dict, gen, dev) -> list:
+    """Each recorded launch layout (:func:`recording_launch_keys`) on
+    random operands from ``gen``: within ``TOL`` of the plain version,
+    bit-identical twice, timed as :func:`time_shapes` times it; its row
+    with its ``launches``."""
+    rows = []
+    for key, (n, layout) in sorted(keys.items(), key=lambda kv: str(kv[0])):
+        A, B, kw_ = operands_like(layout, gen, dev)
+        row = time_shapes({key: (n, (A, B, kw_))}, reps=3, per="step", summary=False)["rows"][0]
+        del A, B
+        rows.append(dict(row, launches=n))
+    return rows
+
+
+def ssm_train_path(dev, seed: int, counters) -> dict:
+    """Phase 23: mamba2-1.3b at its published widths and depth trained
+    through ``Trainer`` on the kernel backend with ``contract_strategy=
+    "native"`` (see the module docstring).  Returns ``native_gemm``'s SSM
+    training record."""
+    from repro_torch.configs import get_config
+    from repro_torch.training.data import SyntheticLM
+
+    t_start = time.perf_counter()
+    cfg = get_config(SSM_TRAIN["arch"]).with_(**KERNEL_BACKEND)
+    per_step = ssm_train_launches_per_step(cfg)
+    check(sum(per_step.values()) == 24 * cfg.n_periods + 3,
+          f"ssm train: {per_step} is not 6 products a layer x4 (forward, recompute, dX, dW) "
+          f"+ 3 for the head")
+    s = cfg.ssm
+    log(f"ssm train: {cfg.arch_id} {cfg.n_periods} layers (no cut), d_model {cfg.d_model}, "
+        f"{s.expand * cfg.d_model // s.headdim} heads of {s.headdim}, d_state {s.d_state}, "
+        f"chunk {s.chunk}, vocab {cfg.vocab_size}, tied embeddings; {cfg.dtype} activations over "
+        f"{cfg.param_dtype} masters, remat on; {cfg.param_count() / 1e9:.3f}B params; "
+        f"{SSM_TRAIN['batch']} x {SSM_TRAIN['seq_len']} tokens a step; kernel backend, "
+        f"contract_strategy native; leaves the loss does not reach: "
+        f"{sorted(unreached_leaves(cfg))}")
+
+    def data():
+        return SyntheticLM(vocab_size=cfg.vocab_size, seq_len=SSM_TRAIN["seq_len"],
+                           global_batch=SSM_TRAIN["batch"], seed=seed)
+
+    out = train_at_width(dev, seed, counters, "ssm train", cfg, data, per_step, SSM_TRAIN)
+    log(f"ssm train: phase 23 took {time.perf_counter() - t_start:.1f} s: "
+        + ", ".join(f"{k} {v} s" for k, v in out["seconds"].items()))
+    return out
 
 
 # ------------------------------------------------------------------ phase 24
@@ -5921,6 +6013,139 @@ def gemma2_serve_path(dev, seed: int, counters) -> dict:
                 seconds=took)
 
 
+# ------------------------------------------------------------------ phase 26
+#: the encoder-only training cell: hubert-xlarge (src/repro/configs/
+#: hubert_xlarge.py) at its published widths and depth (48 layers, no
+#: cut), ``batch`` crops of ``seq_len`` frames a step: fairseq's HuBERT
+#: pretraining crop cap, 250000 samples at 16 kHz, after the wav2vec 2.0
+#: conv stack (strides 5,2,2,2,2,2,2; kernels 10,3,3,3,3,2,2); the oracle's
+#: limits as phase 23's; phase 13's warmup and schedule at a tenth of its
+#: lr, since at 1e-3 both backends' losses climb alike for 5 steps (to 17.0
+#: at step 4) before they fall; ``aligned_len`` frames, whose bf16
+#: probability rows are a multiple of 16 bytes, time the attention layouts
+#: once more
+HUBERT_TRAIN = dict(arch="hubert-xlarge", seq_len=781, batch=4, steps=6, timed_steps=2,
+                    top_shapes=8, f32_tol=1e-3, bf16_floor=5e-2, loss_tol=2e-2, lr=1e-4,
+                    aligned_len=768)
+
+
+def hubert_train_launches_per_step(cfg, seq_len: int, batch: int = 1) -> dict:
+    """``native_gemm`` launches of one kernel-backend train step of an
+    encoder-only attention stack fed by an audio frontend, ``batch`` crops
+    of ``seq_len`` frames, by route, derived from the model.  A layer's Q,
+    K, V, O and its 2 (gelu) or 3 (swiglu) MLP products on ``wgmma``, each
+    launched in the forward, in remat's recompute (the down projection
+    too: the recompute stops only after an autograd Function's forward has
+    launched, ROADMAP C2b) and twice in the backward (dX, and dW whose
+    ``b`` and ``s`` fuse).  Its attention: the scores in the forward and
+    the recompute and dP (scores-shaped, from dO and V) on ``batched``;
+    P.V in the forward and the recompute, and the three backward products
+    that read P or dS (dV, dQ, dK) on the route ``native_route`` gives
+    P.V on a bf16 probability tensor of ``seq_len`` keys: ``batched``
+    where a row is a multiple of 16 bytes, ``gathered`` where no tensor
+    map reads it.  The frontend's projection twice (forward and dW: the
+    features need no gradient), the untied head three times."""
+    from repro_torch.kernels.sb_gemm import native_route
+
+    G, D, S = cfg.n_kv_heads, cfg.hd, seq_len
+    probs = torch.empty((batch, G, cfg.n_heads // G, S, S), dtype=torch.bfloat16, device="meta")
+    v = torch.empty((batch, S, G, D), dtype=torch.bfloat16, device="meta")
+    pv = native_route(probs, v, a_modes="bgrst", b_modes="btgd", c_modes="bsgrd")
+    ff = 3 if cfg.mlp_act == "swiglu" else 2
+    n = cfg.n_periods
+    attn = n * sum(s.mixer == "attn" for s in cfg.pattern)
+    dense = n * sum(s.ff == "dense" for s in cfg.pattern)
+    routes = Counter({"wgmma": 4 * (4 * attn + ff * dense) + 2 + 3, "batched": 3 * attn})
+    routes[pv] += 5 * attn
+    return {r: k for r, k in routes.items() if k}
+
+
+def hubert_train_path(dev, seed: int, counters) -> dict:
+    """Phase 26: hubert-xlarge at its published widths and depth trained
+    through ``Trainer`` on the kernel backend with ``contract_strategy=
+    "native"`` (phase 23's checks, :func:`train_at_width`), then every
+    attention layout of a step at ``aligned_len`` frames against the same
+    product at ``seq_len``, and one layer's weight casts (see the module
+    docstring).  Returns ``native_gemm``'s encoder training record."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.trainer import value_and_grad
+
+    t_start = time.perf_counter()
+    cfg = get_config(HUBERT_TRAIN["arch"]).with_(**KERNEL_BACKEND)
+    S, B = HUBERT_TRAIN["seq_len"], HUBERT_TRAIN["batch"]
+    per_step = hubert_train_launches_per_step(cfg, S, B)
+    check(sum(per_step.values()) == 32 * cfg.n_periods + 5,
+          f"hubert train: {per_step} is not 8 products a layer x4 (forward, recompute, dX, dW) "
+          f"+ 2 for the frontend + 3 for the head")
+    fe = cfg.frontend
+    log(f"hubert train: {cfg.arch_id} {cfg.n_periods} layers (no cut), d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.hd}, d_ff {cfg.d_ff} ({cfg.mlp_act}), vocab "
+        f"{cfg.vocab_size} untied, bidirectional (causal {cfg.causal}, encoder_only "
+        f"{cfg.encoder_only}), {fe.kind} frontend from {fe.feature_dim}-d frames; {cfg.dtype} "
+        f"activations over {cfg.param_dtype} masters, remat on; {cfg.param_count() / 1e9:.3f}B "
+        f"params; {B} x {S} frames a step; kernel backend, contract_strategy native; launches "
+        f"a step {per_step}; leaves the loss does not reach: {sorted(unreached_leaves(cfg))}")
+
+    def data(seq_len=S):
+        return SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=B, seed=seed,
+                           with_features=(fe.n_positions or None, fe.feature_dim), labels=True)
+
+    out = train_at_width(dev, seed, counters, "hubert train", cfg, data, per_step, HUBERT_TRAIN)
+    t0 = time.perf_counter()
+
+    # (5) the attention layouts again at aligned_len frames, from one layer
+    # (each layer's are the same), and one layer's weight casts to bf16
+    one = cfg.with_(n_periods=1)
+    params = transformer.init_params(torch.Generator(dev).manual_seed(seed), one)
+    T = HUBERT_TRAIN["aligned_len"]
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in next(data(T)).items()}
+    saved = [c.launches for c in counters]
+    with recording_launch_keys() as keys:
+        value_and_grad(one, params, batch)
+        torch.cuda.synchronize()
+    for c, n in zip(counters, saved):
+        c.launches = n
+    attn = {k: v for k, v in keys.items() if "t" in k[0] + k[1]}     # t: the key frames
+    n_attn = sum(n for n, _ in attn.values())
+    check(n_attn == 8, f"hubert train: {n_attn} attention launches a layer at {T} frames")
+    aligned = layout_rows(attn, torch.Generator(dev).manual_seed(seed + 26), dev)
+    check({r["route"] for r in aligned} == {"batched"},
+          f"hubert train: attention at {T} frames took {sorted({r['route'] for r in aligned})}")
+    crop = [r for r in out["shapes"] if "t" in r["spec"].split("->")[0]]
+    compare = {}
+    for spec in sorted({r["spec"] for r in crop}):
+        compare[spec] = {}
+        for k, rs, layers in (("crop", crop, cfg.n_periods), ("aligned", aligned, 1)):
+            mine = [r for r in rs if r["spec"] == spec]
+            compare[spec][k] = dict(routes=sorted({r["route"] for r in mine}),
+                                    **{m: sum(r["launches"] * r[m] for r in mine) / layers
+                                       for m in ("ms", "bound_ms", "library_ms", "plain_ms")})
+        c, a = compare[spec]["crop"], compare[spec]["aligned"]
+        log(f"hubert train: (5) {spec} a layer: {S} frames {c['routes']} {c['ms']:.4f} ms "
+            f"({100 * c['bound_ms'] / c['ms']:.1f}% of bound {c['bound_ms']:.4f}; einsum "
+            f"{c['library_ms']:.4f}), {T} frames {a['routes']} {a['ms']:.4f} ms "
+            f"({100 * a['bound_ms'] / a['ms']:.1f}% of bound {a['bound_ms']:.4f}; einsum "
+            f"{a['library_ms']:.4f})")
+    layer = params["pattern"][0]
+    weights = [w for w in (*layer["attn"].values(), *layer["mlp"].values()) if w.ndim == 3]
+    cast_bytes = sum(w.numel() * (w.element_size() + 2) for w in weights)
+    cast_ms = queued_ms(lambda: [w.to(torch.bfloat16) for w in weights], 3)
+    cast_bound = bound(cast_bytes, 0, torch.bfloat16)[0]
+    log(f"hubert train: (5) one layer's {len(weights)} weight casts to bf16 "
+        f"({cast_bytes / 1e9:.3f} GB read and written) {cast_ms:.4f} ms queued, bound "
+        f"{cast_bound:.4f} ms (bytes); in the forward and the recompute of {cfg.n_periods} "
+        f"layers: {2 * cfg.n_periods * cast_ms:.2f} ms a step")
+    del params, batch
+    out["seconds"]["(5) aligned"] = round(time.perf_counter() - t0, 1)
+    log(f"hubert train: phase 26 took {time.perf_counter() - t_start:.1f} s: "
+        + ", ".join(f"{k} {v} s" for k, v in out["seconds"].items()))
+    return dict(out, aligned_shapes=aligned, attention=compare,
+                weight_cast=dict(ms=cast_ms, bound_ms=cast_bound, bytes=cast_bytes,
+                                 per_step=2 * cfg.n_periods))
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -6031,6 +6256,8 @@ def main() -> int:
     lap("24")
     gemma = gemma2_serve_path(dev, args.seed, counters)
     lap("25")
+    hubert = hubert_train_path(dev, args.seed, counters)
+    lap("26")
     log("time by phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
         + f"; all {time.perf_counter() - t0:.1f} s after the device line")
     records = {
@@ -6070,7 +6297,8 @@ def main() -> int:
                          "gemma2_serve_launches": gemma["launches"],
                          "gemma2_serve_launches_by_route": gemma["launches_by_route"],
                          "gemma2_serve": {k: v for k, v in gemma.items()
-                                          if k not in ("launches", "launches_by_route")}}),
+                                          if k not in ("launches", "launches_by_route")},
+                         "hubert_train": hubert}),
         **records,
     }
     # the batched route of native_gemm on its own line: phase 13's counted
@@ -6114,7 +6342,8 @@ def main() -> int:
                 str(max(JAMBA_SERVE["prompts"]))].get(route, 0),
             "jamba-v0.1-52b serve": jamba["launches_by_route"].get(route, 0),
             "gemma2-27b prefill chunk or decode pass": gemma["launches_per_pass"].get(route, 0),
-            "gemma2-27b serve": gemma["launches_by_route"].get(route, 0)}
+            "gemma2-27b serve": gemma["launches_by_route"].get(route, 0),
+            "hubert-xlarge train step": hubert["launches_per_step"].get(route, 0)}
         records[key][2]["ssm_shapes"] = ssm["shapes_by_route"].get(route)
         records[key][2]["jamba_shapes"] = jamba["shapes_by_route"].get(route)
         records[key][2]["gemma2_shapes"] = gemma["shapes_by_route"].get(route)
@@ -6132,7 +6361,7 @@ def main() -> int:
                                        "tc_shapes", "table2", "sharded_fbatched",
                                        "former_generic", "host", "ssm_serve_launches",
                                        "ssm_serve_launches_by_route", "ssm_serve",
-                                       "ssm_train", "jamba_serve_launches",
+                                       "ssm_train", "hubert_train", "jamba_serve_launches",
                                        "jamba_serve_launches_by_route", "jamba_serve",
                                        "gemma2_serve_launches",
                                        "gemma2_serve_launches_by_route", "gemma2_serve",
