@@ -482,6 +482,28 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    ``batched``), each within ``TOL``, bit-identical twice and timed,
    beside the same product at 781 frames, and one layer's weight casts
    to bf16 against their byte bound.
+27. Serving multi-query attention at published width, after phase 26:
+   granite-20b (d_model 6144, 48 query heads over one KV head of 128,
+   d_ff 24576 with GELU, vocab 49152 untied), depth cut from 52 to 16
+   layers (6.669B params, 26.68 GB of f32 masters drawn on the card from
+   ``--seed``), bf16 activations, ``contract_backend="kernel"`` with
+   ``contract_strategy="native"``; code completion over repository
+   context: 8 greedy requests of 64, 511, 512, 513, 2048, 4097, 6000 and
+   8192 prompt tokens drawn from ``--seed``, 16 new tokens each, through
+   phase 25's ``serve_at_width`` (the same runtime, its checks (a) and
+   (c)-(g), chunk and decode-pass launches derived from the layer
+   pattern: 129 a pass, 97 ``wgmma`` and 32 ``batched``).  Its (b) is the
+   broadcast: ``native_plan`` on layer 0's own scores and P·V at the
+   8192 prompt's last chunk puts the 48 query heads on a grid mode of
+   ``batched`` whose K (V) stride is 0, one K (V) tile serving all 48 with
+   no copy, and in a 4-slot decode pass at 8208 rows makes them the
+   tile's 48 rows, W carrying no head mode (both plans' grids and tiles
+   logged); layer 0's output there within 2e-2 of the float32 torch
+   backend's, and the same layer with K and V copied out to 48 heads (G =
+   48, the copy the broadcast avoids) within 2e-2 of it; the scores timed
+   queued three ways: broadcast, copy then GEMM, ``torch.einsum``.  The
+   decode pass's P·V (4 tiles, 8208 deep, never split) is logged by name
+   beside its bound and einsum.
    Then the seconds of every phase.
 19. Float32 products on ``fbatched``, right after phase 14: the 36 f32
    Table II cases at n = 256 through ``contract(strategy="native")`` as a
@@ -513,7 +535,7 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
 
 Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13, 14, 19, 20, 15's
 training and serving, 16's layer, training and pipeline, 22, 23, 24, 25 and its
-paged serve, 26) is driven with every
+paged serve, 26, 27 and its paged serve) is driven with every
 kernel's launch count set to 0 just before it and read just after;
 launches made to compare, time or tune a kernel do not count.  Phases 5 and 10 also read ``native_gemm``'s
 launches by route, which must be what ``native_route`` gives for each
@@ -553,7 +575,10 @@ times and peak memory under ``jamba_serve``, and phase 25's launches under
 paged launches, checks, layouts, casts, times and peaks under
 ``gemma2_serve``, and phase 26's launches, losses, oracle distances,
 layouts, attention at both lengths, casts, times and peak memory under
-``hubert_train``), then
+``hubert_train``, and phase 27's launches under ``granite_serve_launches``/
+``granite_serve_launches_by_route`` and its plans, broadcast checks and
+times, paged launches, layouts, casts, times and peaks under
+``granite_serve``), then
 ``native_gemm.batched``, the batched route on its own line: phase 13's
 counted launches on it, and its times per train step from phase 18 (every
 path's under ``tc_shapes``), then ``native_gemm.f32``, the fbatched route
@@ -568,9 +593,9 @@ fbatched and gathered lines also carry each route's launches on phase
 one token and in the counted serve; per train step of phase 23; per
 4096-token prefill and in the counted serve of phase 24's jamba; per
 prefill chunk or decode pass and in the counted serve of phase 25's
-gemma2; per train step of phase 26's hubert) and its SSD launch shapes on the mamba2 serve and its launch
-layouts on the jamba and gemma2 serves, summed (``ssm_shapes``,
-``jamba_shapes``, ``gemma2_shapes``),
+gemma2 and phase 27's granite; per train step of phase 26's hubert) and its SSD launch shapes on the mamba2 serve and its launch
+layouts on the jamba, gemma2 and granite serves, summed (``ssm_shapes``,
+``jamba_shapes``, ``gemma2_shapes``, ``granite_shapes``),
 the card's name and power limit as ``nvidia-smi`` prints them, and the
 ``{"ok": true, ...}`` line.  Any failed check raises and exits non-zero without that line.
 """
@@ -4772,7 +4797,9 @@ def ssm_routes(cfg, L: int | None = None) -> dict:
     of 2 to 16 rows would take ``splitk`` for ``CBt``: not these phases'
     traffic); in chunks of 1 the first three on ``fbatched`` (nothing to
     contract, or f32) and ``y_inter`` on ``batched``.  A stack without
-    Mamba layers (gemma2) launches the same routes whatever ``L``."""
+    Mamba layers (gemma2) launches the same routes whatever ``L``; so does
+    one of granite's one KV head, whose one-row passes copy their row
+    (``layers.attention``) to keep the scores and P·V on ``batched``."""
     from repro_torch.kernels.sb_gemm import NARROW
 
     n = cfg.n_periods
@@ -5692,14 +5719,56 @@ GEMMA_SERVE = dict(arch="gemma2-27b", periods=8,
                    slots=4, chunk=512, page_size=16)
 
 
-def gemma2_serve_path(dev, seed: int, counters) -> dict:
-    """Phase 25: gemma2-27b at its published widths, 16 of 46 layers,
-    through ``ServingRuntime`` with chunked prefill, unpaged and paged, on
-    the kernel backend (see the module docstring).  Returns
-    ``native_gemm``'s sliding-window serving record."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import layers, transformer
+def layer0_filled(conf, params, toks, rows: int, max_len: int, window, dev) -> tuple:
+    """Layer 0 of the first pattern entry on the last ``rows`` positions of
+    ``toks`` (1, L): its attention params, its normed input there and its
+    KV cache of ``max_len`` rows filled by the positions before, in chunks
+    of ``rows`` (``window`` on every chunk)."""
+    from repro_torch.models import layers
     from repro_torch.models.tree import tree_map
+
+    L, G, D = toks.shape[1], conf.n_kv_heads, conf.hd
+    layer = tree_map(lambda t: t[0], params["pattern"][0])
+    dt = conf.activation_dtype()
+    h = layers.rms_norm(params["embed"][toks].to(dt), layer["norm1"], conf.rms_eps)
+    cache = {"k": torch.zeros((1, max_len, G, D), dtype=dt, device=dev),
+             "v": torch.zeros((1, max_len, G, D), dtype=dt, device=dev),
+             "length": torch.zeros((), dtype=torch.int32, device=dev)}
+    for start in range(0, L - rows, rows):
+        _, cache = layers.attention(conf, layer["attn"], h[:, start:start + rows],
+                                    positions=torch.arange(start, start + rows, device=dev),
+                                    window=window, kv_cache=cache)
+    return layer["attn"], h[:, L - rows:], cache
+
+
+def layer0_last(conf, attn, h, cache, L: int, window, dev):
+    """Layer 0's attention output (float32) at the query rows ``h`` that
+    end at position ``L``, against ``cache``."""
+    from repro_torch.models import layers
+
+    out, _ = layers.attention(conf, attn, h, positions=torch.arange(L - h.shape[1], L, device=dev),
+                              window=window, kv_cache=cache)
+    return out.float()
+
+
+def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: dict,
+                   probe) -> dict:
+    """The serving checks of phases 25 and 27: ``cfg`` (published widths,
+    depth cut, the kernel backend) with random weights from ``seed``
+    through ``ServingRuntime(slots, max_len, prefill_chunk=spec["chunk"])``
+    on the greedy requests of ``spec``'s prompts (drawn from ``seed +
+    phase``), ``max_len`` the longest prompt plus ``max_new``: (a) a warm-up
+    serve, the counted serve and the paged serve (:func:`counted_serve`:
+    every chunk and decode pass by the routes :func:`ssm_routes` derives
+    from the layer pattern); (b) the phase's own check, ``probe(params,
+    toks, max_len)`` on the longest prompt's tokens ``toks`` (1, L), whose
+    dict joins the record; (d) ``ServeEngine``'s tokens; (e) the float32
+    oracle; (c) each served prefill against ``forward``; (f) every launch
+    layout of the longest prompt's last chunk and of a decode pass, the
+    dense weights' casts and one layer's cache rewrite; (g) the times,
+    decode-pass profiles and peaks by stage.  Returns ``native_gemm``'s
+    serving record."""
+    from repro_torch.models import layers, transformer
     from repro_torch.runtime.buckets import chunk_schedule
     from repro_torch.runtime.engine import ServingRuntime, slot_cache
     from repro_torch.serving.engine import ServeEngine
@@ -5715,53 +5784,36 @@ def gemma2_serve_path(dev, seed: int, counters) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-    spec = GEMMA_SERVE
-    full = get_config(spec["arch"])
-    cfg = full.with_(n_periods=spec["periods"], **KERNEL_BACKEND)
     cfg_t = cfg.with_(contract_backend="torch", contract_strategy="auto")
     cfg32 = cfg_t.with_(dtype="float32")
-    local = cfg.pattern[0].window
-    check(local is not None and cfg.pattern[1].window is None
-          and max(spec["prompts"]) - spec["chunk"] >= local,
-          f"gemma2: the pattern's windows {[sp.window for sp in cfg.pattern]}: the last "
-          f"chunk of the longest prompt must drop keys on the local layer")
-    H, G, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    log(f"gemma2: {cfg.arch_id} at published widths, depth cut from "
-        f"{len(full.pattern) * full.n_periods} layers to {len(cfg.pattern) * cfg.n_periods} "
-        f"({cfg.n_periods} periods of a local layer, window {local}, and a global one); "
-        f"d_model {cfg.d_model}, {H} query heads over {G} KV heads of {D} (query width "
-        f"{H * D}), d_ff {cfg.d_ff} ({cfg.mlp_act}), vocab {cfg.vocab_size} tied "
-        f"{cfg.tie_embeddings}, softcaps {cfg.attn_softcap:g} (attention) and "
-        f"{cfg.final_softcap:g} (logits); {cfg.dtype} activations, {cfg.param_dtype} params, "
-        f"contract_backend {cfg.contract_backend}, strategy {cfg.contract_strategy}; "
-        f"{cfg.param_count() / 1e9:.3f}B params")
+    G, D = cfg.n_kv_heads, cfg.hd
     release()
     base = torch.cuda.memory_allocated(dev)
     params = transformer.init_params(torch.Generator(dev).manual_seed(seed), cfg)
     torch.cuda.synchronize()
     masters = torch.cuda.memory_allocated(dev) - base
-    log(f"gemma2: random weights drawn on the card, {masters / 1e9:.2f} GB "
+    log(f"{tag}: random weights drawn on the card, {masters / 1e9:.2f} GB "
         f"({base / 2**30:.2f} GiB allocated before)")
     max_len = max(spec["prompts"]) + spec["max_new"]
     kw = dict(slots=spec["slots"], max_len=max_len, prefill_chunk=spec["chunk"])
     peaks = {}
 
     def traffic_of(prompts=spec["prompts"]):
-        return [r for r in ssm_traffic(cfg, seed, spec, 25) if len(r.prompt) in prompts]
+        return [r for r in ssm_traffic(cfg, seed, spec, phase) if len(r.prompt) in prompts]
 
     t0 = time.perf_counter()
     rt = ServingRuntime(cfg, params, **kw)
     torch.cuda.synchronize()
     check(rt.lattice.chunked and rt.lattice.max_chunk == spec["chunk"],
-          f"gemma2: the runtime's lattice {rt.lattice.describe()}")
-    log(f"gemma2: runtime built, every lattice point {rt.lattice.describe()} run once in "
+          f"{tag}: the runtime's lattice {rt.lattice.describe()}")
+    log(f"{tag}: runtime built, every lattice point {rt.lattice.describe()} run once in "
         f"{time.perf_counter() - t0:.1f} s")
     warm = rt.serve(traffic_of())
     lap("warm-up")
 
     # (a) the main path: every prefill chunk and decode pass by its routes
     traffic = traffic_of()
-    main = counted_serve("gemma2", rt, cfg, traffic, warm, counters)
+    main = counted_serve(tag, rt, cfg, traffic, warm, counters)
     seen, counted, routes, decodes, outputs = (main[k] for k in (
         "seen", "counted", "routes", "decodes", "outputs"))
     runs = {"kernel": main["timed"]}
@@ -5772,9 +5824,9 @@ def gemma2_serve_path(dev, seed: int, counters) -> dict:
     n_chunks = sum(map(len, schedule.values()))
     check(main["n_prefills"] == n_chunks
           and counted["native_gemm"] == n_pass * (n_chunks + len(decodes)),
-          f"gemma2: {counted['native_gemm']} launches over {main['n_prefills']} chunks and "
+          f"{tag}: {counted['native_gemm']} launches over {main['n_prefills']} chunks and "
           f"{len(decodes)} decode passes, not {n_pass} a pass over {n_chunks} chunks")
-    log(f"gemma2: (a) {n_chunks} prefill chunks ({', '.join(f'{L}: {len(c)}' for L, c in schedule.items())} "
+    log(f"{tag}: (a) {n_chunks} prefill chunks ({', '.join(f'{L}: {len(c)}' for L, c in schedule.items())} "
         f"by prompt) and {len(decodes)} decode passes, each {n_pass} launches {per_pass}: "
         f"{counted['native_gemm']} in all, the {max(spec['prompts'])}-token prompt's "
         f"{n_pass * len(schedule[max(spec['prompts'])])}; the serve's peak "
@@ -5790,15 +5842,15 @@ def gemma2_serve_path(dev, seed: int, counters) -> dict:
     rt_p = ServingRuntime(cfg, params, paged=True, page_size=spec["page_size"],
                           precompile=False, **kw)
     entries = rt_p.precompile_buckets()
-    log(f"gemma2 paged: pool of {rt_p.pool.usable} usable pages x {rt_p.pool.page_size} rows, "
+    log(f"{tag} paged: pool of {rt_p.pool.usable} usable pages x {rt_p.pool.page_size} rows, "
         f"lattice {rt_p.lattice.describe()}; built with its {entries} bucket entries in "
         f"{time.perf_counter() - t0:.1f} s")
     traffic_p = traffic_of()
-    paged = counted_serve("gemma2 paged", rt_p, cfg, traffic_p, traffic, counters)
+    paged = counted_serve(f"{tag} paged", rt_p, cfg, traffic_p, traffic, counters)
     peaks["paged serve"] = paged["peak"]
-    check_pool_whole(rt_p, "gemma2 paged serve")
+    check_pool_whole(rt_p, f"{tag} paged serve")
     stats = rt_p.pool.stats()
-    log(f"gemma2 paged: tokens equal the unpaged serve's; pool whole after the drain "
+    log(f"{tag} paged: tokens equal the unpaged serve's; pool whole after the drain "
         f"({stats['pages_free']} of {stats['pages_total']} free, {stats['page_allocs']} "
         f"allocations); bucket entries {rt_p.buckets.compiles}, none built by the counted "
         f"serve; {paged['counted']['native_gemm']} launches by route {paged['routes']}")
@@ -5806,49 +5858,12 @@ def gemma2_serve_path(dev, seed: int, counters) -> dict:
     release()
     lap("paged serves")
 
-    # (b) the window at width: layer 0 (local) at the 8192-token prompt's
-    # last chunk of query rows, after the rows before it filled its cache
+    # (b) the phase's own check on the longest prompt
     L = max(spec["prompts"])
     rows = spec["chunk"]
     toks = torch.as_tensor(next(r.prompt for r in traffic if len(r.prompt) == L),
                            device=dev)[None].long()
-    layer = tree_map(lambda t: t[0], params["pattern"][0])
-
-    def filled(conf):
-        dt = conf.activation_dtype()
-        h = layers.rms_norm(params["embed"][toks].to(dt), layer["norm1"], conf.rms_eps)
-        cache = {"k": torch.zeros((1, max_len, G, D), dtype=dt, device=dev),
-                 "v": torch.zeros((1, max_len, G, D), dtype=dt, device=dev),
-                 "length": torch.zeros((), dtype=torch.int32, device=dev)}
-        for start in range(0, L - rows, rows):
-            _, cache = layers.attention(conf, layer["attn"], h[:, start:start + rows],
-                                        positions=torch.arange(start, start + rows, device=dev),
-                                        window=local, kv_cache=cache)
-        return h[:, L - rows:], cache
-
-    def last(conf, h, cache, window):
-        out, _ = layers.attention(conf, layer["attn"], h,
-                                  positions=torch.arange(L - rows, L, device=dev),
-                                  window=window, kv_cache=cache)
-        return out.float()
-
-    with torch.no_grad():
-        h, cache = filled(cfg)
-        out_k, out_none = last(cfg, h, cache, local), last(cfg, h, cache, None)
-        h, cache = filled(cfg32)
-        out_32 = last(cfg32, h, cache, local)
-        del h, cache
-    e_win, e_none = mag_err(out_k, out_32), mag_err(out_none, out_32)
-    check(e_win <= TOL[torch.bfloat16] and e_none > 10 * e_win,
-          f"gemma2: (b) layer 0's attention at rows {L - rows}-{L - 1}: the kernel's "
-          f"{e_win} from float32 (limit {TOL[torch.bfloat16]}), without the window "
-          f"{e_none} (must exceed 10x the kernel's)")
-    log(f"gemma2: (b) layer 0 (window {local}) attention at query rows {L - rows}-{L - 1} "
-        f"of the {L}-token prompt (each row drops {L - rows - local + 1}-{L - local} keys) "
-        f"against the float32 torch backend's, of its largest magnitude: kernel backend "
-        f"{e_win:.3g} (limit {TOL[torch.bfloat16]:g}); the same layer with window=None "
-        f"{e_none:.3g} ({e_none / max(e_win, 1e-30):.0f}x the kernel's; must exceed 10x)")
-    del out_k, out_none, out_32
+    found = probe(params, toks, max_len)
     release()
     lap("(b)")
 
@@ -5858,8 +5873,8 @@ def gemma2_serve_path(dev, seed: int, counters) -> dict:
     legacy = ServeEngine(cfg, params, slots=spec["slots"], max_len=max_len).serve(traffic_of())
     peaks["legacy"] = torch.cuda.max_memory_allocated()
     check([r.output for r in legacy] == outputs,
-          "gemma2: the runtime's tokens differ from ServeEngine's (the legacy oracle)")
-    log(f"gemma2: (d) tokens equal ServeEngine's (whole-prompt prefill, the 4-slot cache "
+          f"{tag}: the runtime's tokens differ from ServeEngine's (the legacy oracle)")
+    log(f"{tag}: (d) tokens equal ServeEngine's (whole-prompt prefill, the 4-slot cache "
         f"held) at every prompt; its peak {peaks['legacy'] / 1e9:.2f} GB allocated")
     del legacy
     release()
@@ -5876,7 +5891,7 @@ def gemma2_serve_path(dev, seed: int, counters) -> dict:
         with served_events(rt_x, seen_x, [], forced=kern_out):
             res = timed_serve(rt_x, reqs) if timed else rt_x.serve(reqs)
         check(all(r.output == kern_out[r.rid] for r in reqs),
-              "gemma2: a runtime fed the kernel's tokens generated others")
+              f"{tag}: a runtime fed the kernel's tokens generated others")
         return (res if timed else None), seen_x
 
     runs["torch"], seen_t = fed(cfg_t, True)
@@ -5887,14 +5902,14 @@ def gemma2_serve_path(dev, seed: int, counters) -> dict:
     release()
     check(seen.keys() == ref.keys() == seen_t.keys()
           and len(ref) == len(traffic) * spec["max_new"],
-          f"gemma2: logits recorded at {len(seen)}, {len(seen_t)} and {len(ref)} positions")
+          f"{tag}: logits recorded at {len(seen)}, {len(seen_t)} and {len(ref)} positions")
     e_k = {k: mag_err(seen[k], ref[k]) for k in ref}
     e_t = {k: mag_err(seen_t[k], ref[k]) for k in ref}
     direct = max(mag_err(seen[k], seen_t[k]) for k in ref)
     err_k, err_t = max(e_k.values()), max(e_t.values())
     limit = max(TOL[torch.bfloat16], 2 * err_t)
     far = {k: (e, e_t[k]) for k, e in e_k.items() if e > limit}
-    check(not far, f"gemma2: kernel runtime rows farther from the float32 oracle than {limit} "
+    check(not far, f"{tag}: kernel runtime rows farther from the float32 oracle than {limit} "
                    f"(the larger of {TOL[torch.bfloat16]} and twice the torch backend's "
                    f"worst {err_t}): {far}")
     agree = sum(int(torch.argmax(ref[(rid, pos)])) == tok
@@ -5903,7 +5918,7 @@ def gemma2_serve_path(dev, seed: int, counters) -> dict:
     def worst(errs, pre):
         return max(e for (_, pos), e in errs.items() if (pos == 0) == pre)
 
-    log(f"gemma2: (e) against the float32 runtime (torch backend, TF32 off) fed the same "
+    log(f"{tag}: (e) against the float32 runtime (torch backend, TF32 off) fed the same "
         f"tokens, worst of the largest magnitude over {len(ref)} rows: kernel runtime "
         f"{err_k:.3g} (prefill rows {worst(e_k, True):.3g}, decode rows "
         f"{worst(e_k, False):.3g}; median {sorted(e_k.values())[len(e_k) // 2]:.3g}), torch "
@@ -5918,15 +5933,15 @@ def gemma2_serve_path(dev, seed: int, counters) -> dict:
     # (c) each served prefill against transformer.forward's last position,
     # the longest last, nothing else on the card
     fwd_peaks = {}
-    errs_c = prefill_vs_forward("gemma2", cfg, params, sorted(
+    errs_c = prefill_vs_forward(tag, cfg, params, sorted(
         traffic_of(), key=lambda r: len(r.prompt)), seen, dev, fwd_peaks, "(c)")
     peaks["forward"] = max(fwd_peaks.values())
-    log("gemma2: (c) forward's peak by prompt length, allocated: "
+    log(f"{tag}: (c) forward's peak by prompt length, allocated: "
         + ", ".join(f"{n}: {p / 1e9:.2f}" for n, p in fwd_peaks.items()) + " GB")
     release()
     lap("(c)")
 
-    # (f) every launch layout of the 8192-token prompt's last chunk and of a
+    # (f) every launch layout of the longest prompt's last chunk and of a
     # 4-slot decode pass at the cache's full width
     scratch = slot_cache(cfg, spec["slots"], max_len, device=dev)
     toks4 = torch.zeros((spec["slots"], 1), dtype=torch.long, device=dev)
@@ -5941,11 +5956,12 @@ def gemma2_serve_path(dev, seed: int, counters) -> dict:
               "decode pass": lambda conf=cfg: transformer.decode_step(conf, params, scratch,
                                                                       toks4)}
     shapes, per_pass_t, by_route = pass_layouts(
-        "gemma2: (f)", passes, torch.Generator(dev).manual_seed(seed + 25), dev)
+        f"{tag}: (f)", passes, torch.Generator(dev).manual_seed(seed + phase), dev)
     # what a pass pays besides its products: every dense weight's cast to
-    # bf16 (dense() casts its f32 master on every call), and one layer's
-    # out-of-place cache write (_write_rows) of a decode pass
-    weights = [params["embed"]] + [
+    # bf16 (dense() casts its f32 master on every call; the head first),
+    # and one layer's out-of-place cache write (_write_rows) of a decode pass
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    weights = [head] + [
         w[i] for blk in params["pattern"] for w in (*blk["attn"].values(), *blk["mlp"].values())
         for i in range(cfg.n_periods)]
     cast_bytes = sum(w.numel() * (w.element_size() + 2) for w in weights)
@@ -5962,7 +5978,7 @@ def gemma2_serve_path(dev, seed: int, counters) -> dict:
     write_ms = queued_ms(lambda: layers._write_rows(k0, new, at), 5)
     write_bound = bound(2 * k0.numel() * k0.element_size(), 0, torch.bfloat16)[0]
     n_writes = 2 * len(cfg.pattern) * cfg.n_periods
-    log(f"gemma2: (f) the casts of the {len(weights)} dense weights a pass to bf16 "
+    log(f"{tag}: (f) the casts of the {len(weights)} dense weights a pass to bf16 "
         f"({cast_bytes / 1e9:.2f} GB read and written): {cast_ms:.3f} ms queued, bound "
         f"{cast_bound:.3f} ms (bytes); one layer's K cache rewrite in a decode pass "
         f"(_write_rows, {tuple(k0.shape)}): {write_ms:.4f} ms queued, bound {write_bound:.4f} "
@@ -5975,7 +5991,7 @@ def gemma2_serve_path(dev, seed: int, counters) -> dict:
     # pass spends device time on each backend (both paths warm from the
     # serves)
     for backend, res in runs.items():
-        log(f"gemma2 [{backend}]: {res['tokens']} tokens in {res['wall_ms']:.1f} ms, "
+        log(f"{tag} [{backend}]: {res['tokens']} tokens in {res['wall_ms']:.1f} ms, "
             f"{res['tokens_per_s']:.2f} tokens/s; ms per prefill by prompt length (its "
             f"chunks summed): "
             f"{', '.join(f'{n}: {v:.1f}' for n, v in res['prefill_ms_by_prompt'].items())}; "
@@ -5987,20 +6003,19 @@ def gemma2_serve_path(dev, seed: int, counters) -> dict:
     with torch.no_grad():
         for backend, conf in (("kernel", cfg), ("torch", cfg_t)):
             profiles[f"{backend} decode pass"] = profile_device(
-                f"one gemma2 decode pass [{backend}]",
+                f"one {tag} decode pass [{backend}]",
                 functools.partial(passes["decode pass"], conf), top=8)
     del scratch, passes, params, weights, k0
     release()
     lap("(g)")
-    log(f"gemma2: peaks allocated by stage: "
+    log(f"{tag}: peaks allocated by stage: "
         + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in peaks.items())
-        + f"; phase 25 took {time.perf_counter() - t_start:.1f} s: "
+        + f"; phase {phase} took {time.perf_counter() - t_start:.1f} s: "
         + ", ".join(f"{k} {v} s" for k, v in took.items()))
     return dict(launches=counted["native_gemm"], launches_by_route=routes,
                 launches_per_pass=per_pass, prefill_chunks=n_chunks, decode_passes=len(decodes),
                 paged_launches=paged["counted"]["native_gemm"],
-                paged_launches_by_route=paged["routes"],
-                window_err=dict(kernel=e_win, no_window=e_none), prefill_logits_err=errs_c,
+                paged_launches_by_route=paged["routes"], **found, prefill_logits_err=errs_c,
                 logits_err=dict(kernel=err_k, torch=err_t, kernel_vs_torch=direct),
                 peak_bytes=peaks, master_bytes=masters, forward_peak_bytes=fwd_peaks,
                 shapes=shapes, shapes_by_route=by_route, per_pass=per_pass_t,
@@ -6011,6 +6026,59 @@ def gemma2_serve_path(dev, seed: int, counters) -> dict:
                 runs={b: {k: v for k, v in r.items() if k != "outputs"}
                       for b, r in runs.items()},
                 seconds=took)
+
+
+def gemma2_serve_path(dev, seed: int, counters) -> dict:
+    """Phase 25: gemma2-27b at its published widths, 16 of 46 layers,
+    through ``ServingRuntime`` with chunked prefill, unpaged and paged, on
+    the kernel backend (:func:`serve_at_width`; its (b) is the window at
+    width).  Returns ``native_gemm``'s sliding-window serving record."""
+    from repro_torch.configs import get_config
+
+    spec = GEMMA_SERVE
+    full = get_config(spec["arch"])
+    cfg = full.with_(n_periods=spec["periods"], **KERNEL_BACKEND)
+    cfg32 = cfg.with_(contract_backend="torch", contract_strategy="auto", dtype="float32")
+    local = cfg.pattern[0].window
+    check(local is not None and cfg.pattern[1].window is None
+          and max(spec["prompts"]) - spec["chunk"] >= local,
+          f"gemma2: the pattern's windows {[sp.window for sp in cfg.pattern]}: the last "
+          f"chunk of the longest prompt must drop keys on the local layer")
+    H, G, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    log(f"gemma2: {cfg.arch_id} at published widths, depth cut from "
+        f"{len(full.pattern) * full.n_periods} layers to {len(cfg.pattern) * cfg.n_periods} "
+        f"({cfg.n_periods} periods of a local layer, window {local}, and a global one); "
+        f"d_model {cfg.d_model}, {H} query heads over {G} KV heads of {D} (query width "
+        f"{H * D}), d_ff {cfg.d_ff} ({cfg.mlp_act}), vocab {cfg.vocab_size} tied "
+        f"{cfg.tie_embeddings}, softcaps {cfg.attn_softcap:g} (attention) and "
+        f"{cfg.final_softcap:g} (logits); {cfg.dtype} activations, {cfg.param_dtype} params, "
+        f"contract_backend {cfg.contract_backend}, strategy {cfg.contract_strategy}; "
+        f"{cfg.param_count() / 1e9:.3f}B params")
+
+    def window_check(params, toks, max_len):
+        # (b) the window at width: layer 0 (local) at the longest prompt's
+        # last chunk of query rows, after the rows before it filled its cache
+        L, rows = toks.shape[1], spec["chunk"]
+        with torch.no_grad():
+            attn, h, cache = layer0_filled(cfg, params, toks, rows, max_len, local, dev)
+            out_k = layer0_last(cfg, attn, h, cache, L, local, dev)
+            out_none = layer0_last(cfg, attn, h, cache, L, None, dev)
+            attn, h, cache = layer0_filled(cfg32, params, toks, rows, max_len, local, dev)
+            out_32 = layer0_last(cfg32, attn, h, cache, L, local, dev)
+            del h, cache
+        e_win, e_none = mag_err(out_k, out_32), mag_err(out_none, out_32)
+        check(e_win <= TOL[torch.bfloat16] and e_none > 10 * e_win,
+              f"gemma2: (b) layer 0's attention at rows {L - rows}-{L - 1}: the kernel's "
+              f"{e_win} from float32 (limit {TOL[torch.bfloat16]}), without the window "
+              f"{e_none} (must exceed 10x the kernel's)")
+        log(f"gemma2: (b) layer 0 (window {local}) attention at query rows {L - rows}-{L - 1} "
+            f"of the {L}-token prompt (each row drops {L - rows - local + 1}-{L - local} keys) "
+            f"against the float32 torch backend's, of its largest magnitude: kernel backend "
+            f"{e_win:.3g} (limit {TOL[torch.bfloat16]:g}); the same layer with window=None "
+            f"{e_none:.3g} ({e_none / max(e_win, 1e-30):.0f}x the kernel's; must exceed 10x)")
+        return dict(window_err=dict(kernel=e_win, no_window=e_none))
+
+    return serve_at_width(dev, seed, counters, "gemma2", 25, cfg, spec, window_check)
 
 
 # ------------------------------------------------------------------ phase 26
@@ -6146,6 +6214,211 @@ def hubert_train_path(dev, seed: int, counters) -> dict:
                                  per_step=2 * cfg.n_periods))
 
 
+# ------------------------------------------------------------------ phase 27
+#: the multi-query cell: granite-20b (src/repro/configs/granite_20b.py) at
+#: its published widths, 48 query heads over one KV head of 128, depth cut
+#: from 52 layers to ``periods`` (phase 25's cut: 6.669B params, 26.68 GB of
+#: f32 masters; at 52 layers 81.26 GB leave the card no room), on the
+#: kernel backend; code completion over repository context: 8 greedy
+#: requests of the prompt lengths below (511, 512 and 513 on the chunk's
+#: edge, 4097 one past a page and a chunk edge, 8192 granite-20b-code's
+#: context, arXiv:2405.04324), 16 new tokens each, on 4 slots with chunked
+#: prefill in chunks of up to ``chunk`` tokens, unpaged and off the page
+#: pool (``page_size``-row pages, the default pool).  Traced on fake
+#: tensors, the legacy engine's whole 8192-token prefill and
+#: ``transformer.forward`` peak under 62 GB (1e9) with the masters
+#: (``tests/test_torch_granite_serve.py``), so (c) and (d) run at every
+#: prompt
+GRANITE_SERVE = dict(arch="granite-20b", periods=16,
+                     prompts=(64, 511, 512, 513, 2048, 4097, 6000, 8192), max_new=16,
+                     slots=4, chunk=512, page_size=16)
+#: the attention products of a pass: the scores and P·V
+ATTN_SPECS = ("bsgrd,btgd->bgrst", "bgrst,btgd->bsgrd")
+
+
+@contextlib.contextmanager
+def recording_plans():
+    """Within the block, each ``native_gemm`` launch through ``kernels.ops``
+    has its route and plan (``native_plan`` on its own operands) recorded
+    under its spec, with its operands' shapes: yields ``{spec: [(route,
+    plan, shapes), ...]}``.  No operand is kept."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sb_gemm import native_plan
+
+    plans: dict = {}
+    real = ops.native_gemm
+
+    def recording(A, B, **kw):
+        spec = f"{kw['a_modes']},{kw['b_modes']}->{kw['c_modes']}"
+        route, plan = native_plan(A, B, a_modes=kw["a_modes"], b_modes=kw["b_modes"],
+                                  c_modes=kw["c_modes"])
+        plans.setdefault(spec, []).append((route, plan, (tuple(A.shape), tuple(B.shape))))
+        return real(A, B, **kw)
+
+    ops.native_gemm = recording
+    try:
+        yield plans
+    finally:
+        ops.native_gemm = real
+
+
+def broadcast_mode(plan, heads: int):
+    """The plan's grid mode of extent ``heads`` that W does not carry
+    (W stride 0: one W tile serves every query head), or None."""
+    return next((g for g in plan["grid"] if g[0] == heads and g[2] == 0), None)
+
+
+def granite_serve_path(dev, seed: int, counters) -> dict:
+    """Phase 27: granite-20b at its published widths, 16 of 52 layers,
+    through ``ServingRuntime`` with chunked prefill, unpaged and paged, on
+    the kernel backend (:func:`serve_at_width`; its (b) is the broadcast of
+    the one KV head across the 48 query heads).  Returns ``native_gemm``'s
+    multi-query serving record."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.sb_gemm import H100_SMS, native_gemm
+    from repro_torch.models import transformer
+    from repro_torch.runtime.engine import slot_cache
+
+    t_start = time.perf_counter()
+    spec = GRANITE_SERVE
+    full = get_config(spec["arch"])
+    cfg = full.with_(n_periods=spec["periods"], **KERNEL_BACKEND)
+    cfg32 = cfg.with_(contract_backend="torch", contract_strategy="auto", dtype="float32")
+    H, G, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    check(G == 1 and not cfg.tie_embeddings and cfg.mlp_act == "gelu",
+          f"granite: {G} KV heads, tied head {cfg.tie_embeddings}, {cfg.mlp_act}: not the "
+          f"published multi-query config")
+    log(f"granite: {cfg.arch_id} at published widths, depth cut from "
+        f"{len(full.pattern) * full.n_periods} layers to {len(cfg.pattern) * cfg.n_periods}; "
+        f"d_model {cfg.d_model}, {H} query heads over {G} KV head of {D} (multi-query: R = "
+        f"{H // G} query heads share it), d_ff {cfg.d_ff} ({cfg.mlp_act}), vocab "
+        f"{cfg.vocab_size} tied {cfg.tie_embeddings}; {cfg.dtype} activations, "
+        f"{cfg.param_dtype} params, contract_backend {cfg.contract_backend}, strategy "
+        f"{cfg.contract_strategy}; {cfg.param_count() / 1e9:.3f}B params ({full.param_count() / 1e9:.3f}B "
+        f"at {full.n_periods} layers)")
+
+    def broadcast_check(params, toks, max_len):
+        # (b) the broadcast: the plans of layer 0's scores and P·V at the
+        # longest prompt's last chunk and in a 4-slot and a 1-slot decode
+        # pass over the full cache width; layer 0's output there against
+        # float32 and against the same layer with K and V copied out to H
+        # heads
+        L, rows = toks.shape[1], spec["chunk"]
+        with torch.no_grad():
+            attn, h, cache = layer0_filled(cfg, params, toks, rows, max_len, None, dev)
+            with recording_plans() as chunk_plans:
+                out_k = layer0_last(cfg, attn, h, cache, L, None, dev)
+            decode_plans = {}
+            for where, slots in (("decode", spec["slots"]), ("one-row decode", 1)):
+                with recording_plans() as decode_plans[where]:
+                    transformer.decode_step(cfg, params, slot_cache(cfg, slots, max_len,
+                                                                    device=dev),
+                                            torch.zeros((slots, 1), dtype=torch.long, device=dev))
+            plans = {}
+            for where, got in (("chunk", chunk_plans), *decode_plans.items()):
+                for s in ATTN_SPECS:
+                    check(s in got, f"granite: (b) no {s} launch in the {where} pass")
+                    route, plan, shapes = got[s][0]
+                    plans[f"{where} {s}"] = dict(route=route, shapes=shapes, M=plan["M"],
+                                                 N=plan["N"], K=plan["K"], grid=plan["grid"],
+                                                 G=plan["G"], tiles=plan["tiles"],
+                                                 n_split=plan["n_split"])
+            for s in ATTN_SPECS:
+                c, d = plans[f"chunk {s}"], plans[f"decode {s}"]
+                mode = broadcast_mode(c, H)
+                check(c["route"] == d["route"] == "batched" and mode is not None
+                      and d["M"] == H and broadcast_mode(d, H) is None
+                      and all(g[2] != 0 for g in d["grid"]),
+                      f"granite: (b) {s}: the chunk's plan {c}, the decode pass's {d}: not "
+                      f"batched with a grid mode of {H} at W stride 0 in the chunk, and the "
+                      f"{H} heads as the decode pass's row mode")
+                log(f"granite: (b) {s} in a {rows}-token chunk at {L - rows}: [{c['route']}] "
+                    f"A{c['shapes'][0]} B{c['shapes'][1]}, M {c['M']} x N {c['N']} x K "
+                    f"{c['K']}, grid (extent, X stride, W stride, C stride) {c['grid']}: the "
+                    f"{H} query heads a grid mode whose W stride is {mode[2]} (one K/V tile "
+                    f"serves all {H}, no copy), {c['tiles']} tiles; in a {spec['slots']}-slot "
+                    f"decode pass at {max_len} rows: [{d['route']}] A{d['shapes'][0]} "
+                    f"B{d['shapes'][1]}, M {d['M']} x N {d['N']} x K {d['K']}, grid "
+                    f"{d['grid']} (the slots): the {H} heads are the tile's row mode (M "
+                    f"{d['M']}), W carries no head mode, {d['tiles']} tiles")
+                o = plans[f"one-row decode {s}"]
+                check(o["route"] == "batched" and o["M"] == H and o["n_split"] == 1
+                      and [g[0] for g in o["grid"]] == [2],
+                      f"granite: (b) {s} in a 1-slot decode pass: {o}, not batched and "
+                      f"unsplit over the row and its copy")
+                log(f"granite: (b) {s} in a 1-slot decode pass (its row copied, "
+                    f"layers.attention): [{o['route']}] A{o['shapes'][0]} B{o['shapes'][1]}, "
+                    f"M {o['M']} x N {o['N']} x K {o['K']}, grid {o['grid']}, {o['tiles']} "
+                    f"tiles, unsplit (without the copy: wgmma, P·V split over the cache width)")
+            # the copy the broadcast avoids: K and V out to H heads (G = H),
+            # the new rows' K and V from the projections repeated per head
+            cfg_c = cfg.with_(n_kv_heads=H)
+            attn_c = dict(attn, wk=attn["wk"].repeat(1, H), wv=attn["wv"].repeat(1, H))
+            cache_c = dict(cache, **{k: cache[k].expand(-1, -1, H, -1).contiguous()
+                                     for k in ("k", "v")})
+            out_c = layer0_last(cfg_c, attn_c, h, cache_c, L, None, dev)
+            del attn_c, cache_c
+            # the three scores: broadcast, copy then GEMM, einsum (random
+            # operands of the chunk's layout; the comparison launches do not
+            # count)
+            q = torch.randn((1, rows, G, H, D), device=dev).to(torch.bfloat16)
+            k = torch.randn((1, max_len, G, D), device=dev).to(torch.bfloat16)
+            spec_s = ATTN_SPECS[0]
+            saved = native_gemm.launches, dict(native_gemm.launches_by_route)
+
+            def broadcast():
+                return native_gemm(q, k, a_modes="bsgrd", b_modes="btgd", c_modes="bgrst")
+
+            def copied():
+                return native_gemm(q.view(1, rows, H, 1, D),
+                                   k.expand(-1, -1, H, -1).contiguous(),
+                                   a_modes="bsgrd", b_modes="btgd", c_modes="bgrst")
+
+            got_b, got_c = (f().view(1, H, rows, max_len) for f in (broadcast, copied))
+            same = torch.equal(got_b, got_c)
+            e_s = mag_err(got_c, got_b)
+            check(e_s <= TOL[torch.bfloat16],
+                  f"granite: (b) the scores on the copied K {e_s} from the broadcast's")
+            del got_b, got_c
+            times = dict(broadcast=queued_ms(broadcast, 5), copy_then_gemm=queued_ms(copied, 5),
+                         einsum=queued_ms(lambda: torch.einsum(spec_s, q, k), 5))
+            native_gemm.launches, native_gemm.launches_by_route = saved
+            del q, k
+            attn, h, cache = layer0_filled(cfg32, params, toks, rows, max_len, None, dev)
+            out_32 = layer0_last(cfg32, attn, h, cache, L, None, dev)
+            del h, cache
+        e_k, e_c = mag_err(out_k, out_32), mag_err(out_c, out_k)
+        check(e_k <= TOL[torch.bfloat16] and e_c <= TOL[torch.bfloat16],
+              f"granite: (b) layer 0's attention at rows {L - rows}-{L - 1}: the kernel's "
+              f"{e_k} from float32, the copied K/V's {e_c} from the broadcast's (limit "
+              f"{TOL[torch.bfloat16]})")
+        log(f"granite: (b) layer 0 attention at query rows {L - rows}-{L - 1} of the "
+            f"{L}-token prompt against the float32 torch backend's, of its largest "
+            f"magnitude: kernel backend {e_k:.3g} (limit {TOL[torch.bfloat16]:g}); with K and "
+            f"V copied out to {H} heads (G = {H}) against the broadcast: {e_c:.3g} (limit "
+            f"{TOL[torch.bfloat16]:g}); the scores {spec_s} at q (1, {rows}, {G}, {H}, {D}), "
+            f"k (1, {max_len}, {G}, {D}), queued: broadcast {times['broadcast']:.4f} ms, copy "
+            f"then GEMM {times['copy_then_gemm']:.4f} ms, einsum {times['einsum']:.4f} ms "
+            f"(the two GEMMs' scores {'bit-identical' if same else f'{e_s:.3g} apart'})")
+        return dict(broadcast=dict(plans=plans, kernel_err=e_k, copy_err=e_c, scores_ms=times,
+                                   scores_identical=same, scores_err=e_s))
+
+    rec = serve_at_width(dev, seed, counters, "granite", 27, cfg, spec, broadcast_check)
+    # the decode P·V by name: one tile a slot
+    pv = next(r for r in rec["shapes"]
+              if r["path"] == "decode pass" and r["spec"] == ATTN_SPECS[1])
+    tiles = rec["broadcast"]["plans"][f"decode {ATTN_SPECS[1]}"]["tiles"]
+    log(f"granite: (f) the decode pass's P·V {pv['spec']} [{pv['route']}], {tiles} tiles on "
+        f"{H100_SMS} SMs, an unsplit "
+        f"{max(spec['prompts']) + spec['max_new']}-deep contraction: {pv['ms']:.4f} ms queued "
+        f"({100 * pv['bound_ms'] / pv['ms']:.1f}% of its {pv['bound_ms']:.4f} ms bound, "
+        f"{pv['bound_by']}), einsum {pv['library_ms']:.4f} ms, plain {pv['plain_ms']:.4f} ms; "
+        f"x{pv['launches']} a pass")
+    took = time.perf_counter() - t_start
+    log(f"granite: phase 27 took {took:.1f} s (limit 120 s)")
+    return dict(rec, decode_pv=dict(pv, tiles=tiles), phase_s=took)
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -6258,6 +6531,8 @@ def main() -> int:
     lap("25")
     hubert = hubert_train_path(dev, args.seed, counters)
     lap("26")
+    granite = granite_serve_path(dev, args.seed, counters)
+    lap("27")
     log("time by phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
         + f"; all {time.perf_counter() - t0:.1f} s after the device line")
     records = {
@@ -6298,7 +6573,11 @@ def main() -> int:
                          "gemma2_serve_launches_by_route": gemma["launches_by_route"],
                          "gemma2_serve": {k: v for k, v in gemma.items()
                                           if k not in ("launches", "launches_by_route")},
-                         "hubert_train": hubert}),
+                         "hubert_train": hubert,
+                         "granite_serve_launches": granite["launches"],
+                         "granite_serve_launches_by_route": granite["launches_by_route"],
+                         "granite_serve": {k: v for k, v in granite.items()
+                                           if k not in ("launches", "launches_by_route")}}),
         **records,
     }
     # the batched route of native_gemm on its own line: phase 13's counted
@@ -6343,10 +6622,13 @@ def main() -> int:
             "jamba-v0.1-52b serve": jamba["launches_by_route"].get(route, 0),
             "gemma2-27b prefill chunk or decode pass": gemma["launches_per_pass"].get(route, 0),
             "gemma2-27b serve": gemma["launches_by_route"].get(route, 0),
-            "hubert-xlarge train step": hubert["launches_per_step"].get(route, 0)}
+            "hubert-xlarge train step": hubert["launches_per_step"].get(route, 0),
+            "granite-20b prefill chunk or decode pass": granite["launches_per_pass"].get(route, 0),
+            "granite-20b serve": granite["launches_by_route"].get(route, 0)}
         records[key][2]["ssm_shapes"] = ssm["shapes_by_route"].get(route)
         records[key][2]["jamba_shapes"] = jamba["shapes_by_route"].get(route)
         records[key][2]["gemma2_shapes"] = gemma["shapes_by_route"].get(route)
+        records[key][2]["granite_shapes"] = granite["shapes_by_route"].get(route)
     kernels = [{"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}",
                 "replaces": f"src/repro/kernels/{tpu}",
@@ -6365,8 +6647,10 @@ def main() -> int:
                                        "jamba_serve_launches_by_route", "jamba_serve",
                                        "gemma2_serve_launches",
                                        "gemma2_serve_launches_by_route", "gemma2_serve",
+                                       "granite_serve_launches",
+                                       "granite_serve_launches_by_route", "granite_serve",
                                        "model_launches", "ssm_shapes", "jamba_shapes",
-                                       "gemma2_shapes")
+                                       "gemma2_shapes", "granite_shapes")
                      if k in rec}}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:

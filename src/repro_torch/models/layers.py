@@ -475,6 +475,18 @@ def attention(
         valid = None
         new_cache = None
 
+    # one cached query row of a multi-query stack (a 1-token chunk, a
+    # 1-slot decode): its scores and P·V would have no grid mode, so
+    # native_gemm would take them as plain GEMMs and split P·V's
+    # contraction over the cache width at width-dependent points, giving
+    # the row other bits in a page view than in its slot, and than in a
+    # pass of more rows.  A copy of the row keeps a grid mode: both
+    # products stay unsplit, as in every other pass; the copy is dropped.
+    one_row = kv_cache is not None and B == 1 and S == 1 and G == 1 and R > 1
+    if one_row:
+        q = torch.cat([q, q], dim=1)
+        positions = torch.cat([positions, positions], dim=-1)
+
     causal = cfg.causal and not cfg.encoder_only
     if cfg.attn_impl == "chunked" and kv_cache is None and S > cfg.attn_chunk:
         out = _chunked_attention(
@@ -499,6 +511,8 @@ def attention(
                                                       memory_format=torch.contiguous_format)
 
         out = ctr("bgrst,btgd->bsgrd", probs, v.to(x.dtype))
+    if one_row:
+        out = out[:, :S]
     out = reshape(out, B, S, H * D)
     out = dense(cfg, out, params["wo"], "bsh,he->bse")
     return logical(out, "batch", "seq_sharded", None), new_cache

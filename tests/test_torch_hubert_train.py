@@ -30,6 +30,7 @@ hubert-xlarge at its published width.
 import importlib.util
 import pathlib
 
+import chip_rehearsal
 import numpy as np
 import pytest
 import torch
@@ -74,10 +75,7 @@ def _np(x):
 
 
 def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return chip_rehearsal.chip_smoke()
 
 
 def _narrow(backend: str = "torch", **kw):
@@ -287,46 +285,6 @@ def test_kernel_train_step_launches_by_route_at_published_width(periods, seq_len
 
 
 # ------------------------------------------- phases 23 and 26 on the CPU
-def _card_stubbed(monkeypatch, cs) -> tuple:
-    """``chip_smoke`` with its card-only calls stubbed (the CUDA memory
-    functions and ``synchronize``, the timers, the bound, the profiler) and
-    ``native_gemm`` wrapped to count each launch on the route
-    ``native_route`` gives, since a CPU call counts none.  Returns the
-    counters a phase takes and the profiled labels."""
-    from repro_torch.kernels import ops, sb_gemm
-    from repro_torch.kernels.flash_attn import flash_attention
-    from repro_torch.kernels.grouped_gemm import grouped_gemm
-
-    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
-        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
-    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
-    monkeypatch.setattr(cs, "queued_ms", lambda fn, reps: _cpu_time(fn))
-    monkeypatch.setattr(cs, "cuda_ms", lambda fn, reps: _cpu_time(fn))
-    monkeypatch.setattr(cs, "bound", lambda nbytes, flops, dtype: (1e-3, "bytes"))
-    profiled = []
-
-    def profile_device(label, fn, top=10, kinds=None):
-        fn()
-        profiled.append(label)
-
-    monkeypatch.setattr(cs, "profile_device", profile_device)
-    real = sb_gemm.native_gemm
-
-    def native_gemm(A, B, **kw):
-        route = sb_gemm.native_route(A, B, a_modes=kw["a_modes"], b_modes=kw["b_modes"],
-                                     c_modes=kw["c_modes"])
-        out = real(A, B, **kw)
-        native_gemm.launches += 1
-        native_gemm.launches_by_route[route] += 1
-        return out
-
-    native_gemm.launches = 0
-    native_gemm.launches_by_route = dict.fromkeys(sb_gemm.ROUTES, 0)
-    monkeypatch.setattr(sb_gemm, "native_gemm", native_gemm)
-    monkeypatch.setattr(ops, "native_gemm", native_gemm)
-    return [native_gemm, grouped_gemm, flash_attention], profiled
-
-
 def test_phase_26_rehearses_on_the_cpu(monkeypatch):
     """``chip_smoke.hubert_train_path`` at the narrow widths in bf16, 2
     crops of 13 frames (the products that read P on ``gathered``) and 16
@@ -342,7 +300,7 @@ def test_phase_26_rehearses_on_the_cpu(monkeypatch):
                         lambda arch, **kw: real_get(arch, **kw).with_(**NARROW))
     monkeypatch.setattr(cs, "HUBERT_TRAIN", dict(cs.HUBERT_TRAIN, seq_len=13, batch=2,
                                                  aligned_len=16))
-    counters, profiled = _card_stubbed(monkeypatch, cs)
+    counters, profiled = chip_rehearsal.card_stubbed(monkeypatch, cs)
     rec = cs.hubert_train_path(torch.device("cpu"), 0, counters)
     assert rec["launches_per_step"] == {"wgmma": 53, "batched": 6, "gathered": 10}
     assert rec["launches"] == 6 * 69
@@ -379,7 +337,7 @@ def test_phase_23_rehearses_on_the_cpu(monkeypatch):
 
     monkeypatch.setattr(configs, "get_config", smoke)
     monkeypatch.setattr(cs, "SSM_TRAIN", dict(cs.SSM_TRAIN, seq_len=128, batch=2))
-    counters, profiled = _card_stubbed(monkeypatch, cs)
+    counters, profiled = chip_rehearsal.card_stubbed(monkeypatch, cs)
     rec = cs.ssm_train_path(torch.device("cpu"), 0, counters)
     assert rec["launches_per_step"] == {"wgmma": 19, "batched": 16, "fbatched": 8,
                                         "gathered": 8}
@@ -410,9 +368,3 @@ def test_a_step_profile_sums_device_time_by_kind(monkeypatch):
         "native_gemm": (0.014, 2), "f32 adds": (0.006, 1), "fills": (0.003, 1),
         "copies": (0.007, 1)}
 
-
-def _cpu_time(fn) -> float:
-    """A CPU stand-in for the card's timers: calls ``fn`` once; the time
-    means nothing."""
-    fn()
-    return 1.0
