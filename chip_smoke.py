@@ -415,8 +415,8 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    context, after phase 24: gemma2-27b (d_model 4608, 32 query heads over
    16 KV heads of 128, d_ff 36864, vocab 256000 tied; a local layer with a
    4096-token window alternating with a global one; attention softcap 50,
-   final-logit softcap 30), depth cut from 46 to 16 layers (10.239B
-   params, 40.96 GB of f32 masters drawn on the card from ``--seed``),
+   final-logit softcap 30), depth cut from 46 to 8 layers (5.710B
+   params, 22.84 GB of f32 masters drawn on the card from ``--seed``),
    bf16 activations, ``contract_backend="kernel"`` with
    ``contract_strategy="native"``.  8 greedy requests of 64, 511, 2048,
    4095, 4096, 4097, 6000 and 8192 prompt tokens drawn from ``--seed``, 16
@@ -425,8 +425,8 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    serve, then the counted serve (timed: the kernel backend's times),
    which must give every request its 16 tokens, build no bucket entry and launch only ``native_gemm``,
    each launch on the route ``native_route`` gives, every prefill chunk
-   (``chunk_schedule``'s, 78 for the 8 prompts) and decode pass 145
-   launches (113 ``wgmma``, 32 ``batched``); then the same traffic off
+   (``chunk_schedule``'s, 78 for the 8 prompts) and decode pass 73
+   launches (57 ``wgmma``, 16 ``batched``); then the same traffic off
    the page pool (``paged=True, page_size=16``, its default 2053 pages,
    every bucket entry built first, the kernels warm): the unpaged serve's tokens, the same
    launches, the pool whole after the drain, no entry built.  (b) Layer 0
@@ -446,7 +446,7 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    last chunk and a 4-slot decode pass at 8208 rows on random operands of
    its layout within ``TOL`` of the plain version, bit-identical twice,
    timed queued against its bound, the plain version and one
-   ``torch.einsum``; the 113 dense weights' casts to bf16 and one layer's
+   ``torch.einsum``; the 57 weights' casts to bf16 and one layer's
    cache rewrite against their byte bounds; (g) ms per prefill by prompt
    length, per chunk and per decode pass, tokens/s, on each backend (the
    kernel's counted serve and the torch backend's fed serve, both
@@ -484,15 +484,15 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    to bf16 against their byte bound.
 27. Serving multi-query attention at published width, after phase 26:
    granite-20b (d_model 6144, 48 query heads over one KV head of 128,
-   d_ff 24576 with GELU, vocab 49152 untied), depth cut from 52 to 16
-   layers (6.669B params, 26.68 GB of f32 masters drawn on the card from
+   d_ff 24576 with GELU, vocab 49152 untied), depth cut from 52 to 8
+   layers (3.637B params, 14.55 GB of f32 masters drawn on the card from
    ``--seed``), bf16 activations, ``contract_backend="kernel"`` with
    ``contract_strategy="native"``; code completion over repository
    context: 8 greedy requests of 64, 511, 512, 513, 2048, 4097, 6000 and
    8192 prompt tokens drawn from ``--seed``, 16 new tokens each, through
    phase 25's ``serve_at_width`` (the same runtime, its checks (a) and
    (c)-(g), chunk and decode-pass launches derived from the layer
-   pattern: 129 a pass, 97 ``wgmma`` and 32 ``batched``).  Its (b) is the
+   pattern: 65 a pass, 49 ``wgmma`` and 16 ``batched``).  Its (b) is the
    broadcast: ``native_plan`` on layer 0's own scores and P·V at the
    8192 prompt's last chunk puts the 48 query heads on a grid mode of
    ``batched`` whose K (V) stride is 0, one K (V) tile serving all 48 with
@@ -504,11 +504,43 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    queued three ways: broadcast, copy then GEMM, ``torch.einsum``.  The
    decode pass's P·V (4 tiles, 8208 deep, never split) is logged by name
    beside its bound and einsum.
+28. Serving a MoE at published width and depth, after phase 27:
+   qwen2-moe-a2.7b (d_model 2048, 16 heads over 16 KV heads of 128; every
+   layer MoE: 60 routed experts of 1408 top-4, renormalised, and 4
+   ungated shared experts of 1408, SwiGLU; vocab 151936 untied), 24 of 24
+   layers (14.316B params, 57.26 GB of f32 masters drawn on the card from
+   ``--seed``), bf16 activations, ``contract_backend="kernel"`` with
+   ``contract_strategy="native"``; a chat assistant's traffic: 8 greedy
+   requests of 64, 511, 512, 513, 1024, 2048, 4096 and 4097 prompt tokens
+   drawn from ``--seed``, 8 new tokens each, through ``serve_at_width``
+   (``ServingRuntime(slots=4, max_len=4112, prefill_chunk=512)``, unpaged
+   and paged; every chunk and decode pass 505 launches, 385 ``wgmma``: Q,
+   K, V, O and the 4 shared experts' 3 products a layer, the head; 120
+   ``batched``: the scores, P·V and the 3 expert products a layer).  A
+   MoE stack's chunked prefill routes each chunk as dispatch groups of
+   its own, so (c) and (d) hold a whole-prompt serve
+   (``chunked_prefill=False``), which routes as ``forward`` and
+   ``ServeEngine`` do, and the chunked serve only at prompts of one chunk
+   (64, 512); GShard's drops are logged by MoE layer for every chunk,
+   whole-prompt prefill and decode pass (a decode pass must drop none);
+   the float32 oracle runs on 3 slots (4 would not fit beside the
+   masters); no warm-up serve (the runtime's build runs every lattice
+   point; the paged serve repeats the counted serve's tokens).  Its (b) is the experts at width: ``native_plan`` on layer
+   0's expert products at the 4097 prompt's last 512 rows and in a 4-slot
+   decode pass puts the 60 experts on a grid mode of ``batched`` that X
+   and W walk at a stride (no copy), and the decode's up-projections'
+   slots on a grid mode of W stride 0 (the weights re-read a slot, bytes
+   logged); layer 0's MoE output there within 2e-2 of the float32 torch
+   backend's on the same input, the rows whose top-4 sets differ from
+   float32's own counted; the expert products queued three ways: the
+   kernel, ``torch.einsum``, and ``expert_in`` copied to (x, g·c, e) then
+   one ``torch.bmm`` (the conventional path).  The decode pass's expert
+   up-projection is logged by name beside its bound and einsum.
    Then the seconds of every phase.
 19. Float32 products on ``fbatched``, right after phase 14: the 36 f32
    Table II cases at n = 256 through ``contract(strategy="native")`` as a
    counted run (36 launches, all ``fbatched``), then each case at n = 256
-   and 64 and Fig. 3's case 1.3 (``strategy="batched"``) at n = 16 to 256:
+   and Fig. 3's case 1.3 (``strategy="batched"``) at n = 16 to 256:
    route, error against ``native_gemm_ref``, two launches bit-identical,
    queued ms of the kernel, the conventional baseline, one
    ``torch.einsum`` (TF32 off) and the plain version, against the bound.
@@ -518,8 +550,8 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    19: the 36 bf16 Table II cases at ragged extents (``gathered``) and the
    36 with A bf16 and B float32 at n = 256 (``fbatched``, widening) as a
    counted run (72 launches, 36 on each), then both on integer-valued
-   operands bit-identical, then each case of three sets (bf16 at ragged
-   extents and at n = 255, mixed at n = 256): route, error against
+   operands bit-identical, then each case of both sets (bf16 at ragged
+   extents, mixed at n = 256): route, error against
    ``native_gemm_ref``, two launches bit-identical, queued ms of the
    kernel, one ``torch.einsum`` (the mixed set: of A cast to float32, the
    cast included) and the plain version, against the bound; and a
@@ -535,7 +567,7 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
 
 Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13, 14, 19, 20, 15's
 training and serving, 16's layer, training and pipeline, 22, 23, 24, 25 and its
-paged serve, 26, 27 and its paged serve) is driven with every
+paged serve, 26, 27 and its paged serve, 28 and its paged serve) is driven with every
 kernel's launch count set to 0 just before it and read just after;
 launches made to compare, time or tune a kernel do not count.  Phases 5 and 10 also read ``native_gemm``'s
 launches by route, which must be what ``native_route`` gives for each
@@ -578,7 +610,10 @@ layouts, attention at both lengths, casts, times and peak memory under
 ``hubert_train``, and phase 27's launches under ``granite_serve_launches``/
 ``granite_serve_launches_by_route`` and its plans, broadcast checks and
 times, paged launches, layouts, casts, times and peaks under
-``granite_serve``), then
+``granite_serve``, and phase 28's launches under
+``qwen2_moe_serve_launches``/``qwen2_moe_serve_launches_by_route`` and
+its expert plans, MoE checks and times, drops, whole-prompt serve, paged
+launches, layouts, casts, times and peaks under ``qwen2_moe_serve``), then
 ``native_gemm.batched``, the batched route on its own line: phase 13's
 counted launches on it, and its times per train step from phase 18 (every
 path's under ``tc_shapes``), then ``native_gemm.f32``, the fbatched route
@@ -593,9 +628,11 @@ fbatched and gathered lines also carry each route's launches on phase
 one token and in the counted serve; per train step of phase 23; per
 4096-token prefill and in the counted serve of phase 24's jamba; per
 prefill chunk or decode pass and in the counted serve of phase 25's
-gemma2 and phase 27's granite; per train step of phase 26's hubert) and its SSD launch shapes on the mamba2 serve and its launch
-layouts on the jamba, gemma2 and granite serves, summed (``ssm_shapes``,
-``jamba_shapes``, ``gemma2_shapes``, ``granite_shapes``),
+gemma2, phase 27's granite and phase 28's qwen2-moe; per train step of
+phase 26's hubert) and its SSD launch shapes on the mamba2 serve and its
+launch layouts on the jamba, gemma2, granite and qwen2-moe serves, summed
+(``ssm_shapes``, ``jamba_shapes``, ``gemma2_shapes``, ``granite_shapes``,
+``qwen2_moe_shapes``),
 the card's name and power limit as ``nvidia-smi`` prints them, and the
 ``{"ok": true, ...}`` line.  Any failed check raises and exits non-zero without that line.
 """
@@ -3108,8 +3145,9 @@ def sharded_path(dev, working_set, seed: int, counters) -> dict:
 
 # ------------------------------------------------------------------ phase 19
 #: Table II's extents for phase 19 (the counted run first), and Fig. 3's
-#: (benchmarks/fig3_conventional_vs_sb.py ``SIZES``)
-TABLE2_SIZES = (256, 64)
+#: (benchmarks/fig3_conventional_vs_sb.py ``SIZES``); n = 64's set, which
+#: Fig. 3's n = 64 case and ``tools/f32_times.py`` also time, is not run
+TABLE2_SIZES = (256,)
 FIG3_SIZES = (16, 32, 64, 128, 256)
 TABLE2_REPS = 20
 
@@ -3119,7 +3157,7 @@ def f32_products(dev, seed: int, counters) -> dict:
     float32 Table II cases at n = 256 through ``contract(strategy=
     "native")`` with every kernel's count set to 0 just before and read
     just after (36 ``native_gemm`` launches, all fbatched); then each case
-    at n = 256 and 64, and Fig. 3's case 1.3 (``strategy="batched"``, as
+    at ``TABLE2_SIZES``, and Fig. 3's case 1.3 (``strategy="batched"``, as
     the benchmark runs it) at n = 16 to 256: its route, two launches
     bit-identical, its error against ``native_gemm_ref`` within ``TOL``,
     and queued ms of the kernel, of the conventional baseline
@@ -3225,10 +3263,11 @@ def f32_products(dev, seed: int, counters) -> dict:
 
 
 # ------------------------------------------------------------------ phase 20
-#: phase 20's extents besides RAGGED_DIMS: the bf16 Table II cases at n =
-#: GATHER_N (every stride odd: no tensor map reads any case) and the mixed
-#: set (A bf16, B float32) at n = MIXED_N
-GATHER_N, MIXED_N = 255, 256
+#: phase 20's extent besides RAGGED_DIMS: the mixed set (A bf16, B
+#: float32) at n = MIXED_N; the bf16 set at n = 255, which
+#: ``tools/former_generic_times.py`` times, is not run (the ragged set
+#: takes the same route with every stride odd too)
+MIXED_N = 256
 FORMER_REPS = 10
 #: the rows of the launches in which a gathered product's rows must keep
 #: their bits
@@ -3243,9 +3282,8 @@ def former_generic(dev, seed: int, counters) -> dict:
     just before and read just after: 72 ``native_gemm`` launches, 36
     ``gathered`` and 36 ``fbatched``, each within ``TOL`` of
     ``native_gemm_ref``.  (b) Both sets again on integer-valued operands:
-    bit-identical to ``native_gemm_ref``.  (c) Each case of three sets,
-    bf16 at ``RAGGED_DIMS`` and at n = ``GATHER_N`` and mixed at n =
-    ``MIXED_N``: its route, two launches bit-identical, its error within
+    bit-identical to ``native_gemm_ref``.  (c) Each case of both sets,
+    bf16 at ``RAGGED_DIMS`` and mixed at n = ``MIXED_N``: its route, two launches bit-identical, its error within
     ``TOL``, and queued ms of the kernel, of one ``torch.einsum`` on the
     same operands (the mixed set: ``torch.einsum`` of A cast to float32
     and B, the cast included, since no one call takes mixed operands) and
@@ -3261,9 +3299,8 @@ def former_generic(dev, seed: int, counters) -> dict:
     labels = sorted(CASES)
     bf, f32 = torch.bfloat16, torch.float32
     sets = {"bf16 ragged": (RAGGED_DIMS, bf, bf, "gathered"),
-            f"bf16 n={GATHER_N}": (dict.fromkeys("mnpk", GATHER_N), bf, bf, "gathered"),
             f"mixed n={MIXED_N}": (dict.fromkeys("mnpk", MIXED_N), bf, f32, "fbatched")}
-    counted_sets = ("bf16 ragged", f"mixed n={MIXED_N}")
+    counted_sets = tuple(sets)
 
     def operands(spec, dims, a_dt, b_dt, ints=False):
         a, b, _ = modes_of(spec)
@@ -4785,7 +4822,8 @@ def ssm_routes(cfg, L: int | None = None) -> dict:
     """``native_gemm`` launches of one pass of a mamba2 or jamba stack by
     route, from its layer pattern.  On ``wgmma``: in_proj and out_proj of
     each Mamba layer, Q, K, V and O of each attention layer, the 2 or 3
-    products of each dense MLP, the head.  On ``batched``: an attention
+    products of each dense MLP and of each shared expert of a MoE layer
+    (qwen2-moe's 4), the head.  On ``batched``: an attention
     layer's scores and P·V and a MoE layer's 2 or 3 expert products; a
     decode pass's ``bhn,bhnp->bhp`` of each Mamba layer.  A prefill of ``L``
     tokens in chunks of Q (the largest divisor of L up to the chunk) runs
@@ -4807,7 +4845,8 @@ def ssm_routes(cfg, L: int | None = None) -> dict:
     mamba, attn, dense, moe = (n * sum(pick(s) for s in cfg.pattern) for pick in (
         lambda s: s.mixer == "mamba", lambda s: s.mixer == "attn",
         lambda s: s.ff == "dense", lambda s: s.ff == "moe"))
-    routes = {"wgmma": 2 * mamba + 4 * attn + ff * dense + 1,
+    shared = cfg.moe.n_shared if moe else 0
+    routes = {"wgmma": 2 * mamba + 4 * attn + ff * (dense + shared * moe) + 1,
               "batched": 2 * attn + ff * moe + mamba}
     if L is not None and mamba:
         Q = min(cfg.ssm.chunk, L)
@@ -4824,23 +4863,55 @@ def ssm_routes(cfg, L: int | None = None) -> dict:
 
 
 @contextlib.contextmanager
-def served_events(rt, logits: dict, routes: list, forced: dict | None = None):
+def dropped_tokens():
+    """Within the block every GShard dispatch appends ``(tokens per group,
+    capacity, tokens that lost a slot to capacity, routing)`` to the list
+    it yields, ``routing`` on the host: each token's top-k experts ``(g,
+    t, k)``, ``-1 - e`` where capacity dropped the token from expert ``e``
+    (one host read a dispatch)."""
+    from repro_torch.models import moe
+
+    real, seen = moe._dispatch_tensors, []
+
+    def counting(gates, top_w, top_e, n_experts, capacity):
+        dispatch, combine = real(gates, top_w, top_e, n_experts, capacity)
+        kept = dispatch.sum(-1).gather(-1, top_e) > 0
+        routing = torch.where(kept, top_e, -1 - top_e).to(torch.int16).cpu()
+        seen.append((top_e.shape[1], capacity, int((routing < 0).any(-1).sum()), routing))
+        return dispatch, combine
+
+    moe._dispatch_tensors = counting
+    try:
+        yield seen
+    finally:
+        moe._dispatch_tensors = real
+
+
+@contextlib.contextmanager
+def served_events(rt, logits: dict, routes: list, forced: dict | None = None,
+                  drops: list | None = None):
     """Within the block the runtime ``rt`` records every request's logits
     as float32 on the host under ``(rid, tokens generated before)``: a
     prefill's under ``(rid, 0)``, each decode pass's rows under their
     requests; each prefill and decode pass appends ``(kind, length or
     bucket, native_gemm launches by route)`` to ``routes``.  With
     ``forced`` (rid to tokens) every request is fed those tokens in place
-    of its own samples: each decode row runs on the forced token."""
+    of its own samples: each decode row runs on the forced token.  With
+    ``drops`` each pass appends ``(kind, rid or None, length or bucket,
+    its GShard dispatches)``, a dispatch ``(tokens per group, capacity,
+    tokens that lost a slot)`` a MoE layer (:func:`dropped_tokens`)."""
     from repro_torch.kernels.sb_gemm import native_gemm
 
     prefill, decode, sample = rt._run_prefill_chunk_impl, rt._run_decode_impl, rt._sample
 
-    def launched(fn, kind, size):
+    def launched(fn, kind, size, rid=None):
         before = dict(native_gemm.launches_by_route)
-        fn()
+        with dropped_tokens() if drops is not None else contextlib.nullcontext() as seen:
+            fn()
         routes.append((kind, size, {r: n - before[r] for r, n in
                                     native_gemm.launches_by_route.items() if n > before[r]}))
+        if drops is not None:
+            drops.append((kind, rid, size, seen))
 
     def sampled(state, row):
         pos = len(state.request.output)
@@ -4865,7 +4936,7 @@ def served_events(rt, logits: dict, routes: list, forced: dict | None = None):
 
     rt._sample = sampled
     rt._run_prefill_chunk_impl = lambda state, chunk: launched(
-        lambda: prefill(state, chunk), "prefill", chunk)
+        lambda: prefill(state, chunk), "prefill", chunk, state.rid)
     rt._run_decode_impl = decoded
     try:
         yield logits
@@ -4874,18 +4945,18 @@ def served_events(rt, logits: dict, routes: list, forced: dict | None = None):
         rt.logits_probe = None
 
 
-def counted_serve(tag: str, rt, cfg, traffic, warm, counters) -> dict:
+def counted_serve(tag: str, rt, cfg, traffic, warm, counters, drops: list | None = None) -> dict:
     """The main path of a serving phase: ``traffic`` through ``rt`` with
     every kernel's launch count set to 0 just before and read just after.
-    Every request must get its tokens, the warm-up serve's (``warm``),
-    with no bucket entry built and only ``native_gemm`` launched, each
+    Every request must get its tokens, the warm-up serve's (``warm``,
+    where given), with no bucket entry built and only ``native_gemm`` launched, each
     launch on the route ``native_route`` gives and each prefill and decode
     pass by the routes :func:`ssm_routes` derives.  Returns the logits by
     ``(rid, position)`` (``seen``), the launches by kernel (``counted``)
     and by route (``routes``), each prefill's routes by prompt length,
     the decode passes' routes, the peak memory, the serve's seconds and
     its times (``timed``, :func:`timed_serve`'s, every row's logits
-    recorded on the host as it ran).
+    recorded on the host as it ran); ``drops`` as :func:`served_events`'.
     With chunked prefill a prefill is a chunk: the chunks must be those of
     each prompt's ``chunk_schedule``, and ``prefills`` is keyed by chunk."""
     from repro_torch.kernels.sb_gemm import native_gemm
@@ -4899,7 +4970,7 @@ def counted_serve(tag: str, rt, cfg, traffic, warm, counters) -> dict:
         c.launches = 0
     native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
     t0 = time.perf_counter()
-    with native_routes_held() as held, served_events(rt, seen, events):
+    with native_routes_held() as held, served_events(rt, seen, events, drops=drops):
         timed = timed_serve(rt, traffic)
     serve_s = time.perf_counter() - t0
     counted = {c.__name__: c.launches for c in counters}
@@ -4910,7 +4981,7 @@ def counted_serve(tag: str, rt, cfg, traffic, warm, counters) -> dict:
     check(all(r.done and len(r.output) == r.max_new_tokens for r in traffic),
           f"{tag}: not every request finished with its {max_new} tokens: "
           f"{[(r.rid, r.status, len(r.output)) for r in traffic]}")
-    differ = [r.rid for r, w in zip(traffic, warm) if r.output != w.output]
+    differ = [r.rid for r, w in zip(traffic, warm or traffic) if r.output != w.output]
     check(not differ, f"{tag}: tokens differ from the warm-up serve's (a paged serve: the "
                       f"unpaged serve's) for requests {differ}")
     check(rt.buckets.compiles == entries,
@@ -4949,34 +5020,80 @@ def counted_serve(tag: str, rt, cfg, traffic, warm, counters) -> dict:
 
 
 def prefill_vs_forward(tag: str, cfg, params, traffic, seen: dict, dev,
-                       peaks: dict | None = None, label: str = "(a)") -> dict:
+                       peaks: dict | None = None, label: str = "(a)",
+                       beside: dict | None = None, routing: dict | None = None):
     """Check (a) of a serving phase: each request's served prefill logits
     (``seen[(rid, 0)]``), finite and of the vocab's width, within 2e-2 of
     the largest magnitude of ``transformer.forward``'s last position on
     its prompt.  Returns the distances by prompt length; ``peaks``, where
-    given, gets each forward's peak allocated bytes by prompt length."""
+    given, gets each forward's peak allocated bytes by prompt length.
+
+    With ``routing`` (rid to the served prefill's GShard routing, a tensor
+    a MoE layer, :func:`dropped_tokens`), forward's own routing is held to
+    it: a prompt is held to 2e-2 where forward routed every token of
+    every layer as the served prefill did (the same top-k, the same
+    drops).  bf16 bits that differ (forward takes its softmax over S keys,
+    a served row over the runtime's width) flip near-ties, and each flip
+    moves the capacity queue behind it, so elsewhere the distance is
+    logged beside the first layer whose routing differs, where at most
+    5% of the tokens (or one) may choose other experts (a fault of
+    positions, masks or cache moves them all); at least one prompt must
+    route alike.  Then it also takes ``beside`` (logits keyed as
+    ``seen``, held to nothing here) and returns the distances, those of
+    ``beside`` from the same forward, and which prompts routed alike
+    (``alike``) or where they diverged (``diverged``)."""
     from repro_torch.models import transformer
 
-    errs = {}
+    errs, errs_b, alike, diverged = {}, {}, [], {}
     with torch.no_grad():
         for r in traffic:
+            L = len(r.prompt)
             toks = torch.as_tensor(r.prompt, device=dev)[None].long()
             if peaks is not None:
                 torch.cuda.reset_peak_memory_stats()
-            full, _ = transformer.forward(cfg, params, {"tokens": toks})
+            with dropped_tokens() if routing is not None else contextlib.nullcontext() as fwd:
+                full, _ = transformer.forward(cfg, params, {"tokens": toks})
             if peaks is not None:
-                peaks[len(r.prompt)] = torch.cuda.max_memory_allocated()
+                peaks[L] = torch.cuda.max_memory_allocated()
             got = seen[(r.rid, 0)]
             check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (cfg.vocab_size,),
-                  f"{tag}: prefill logits of {len(r.prompt)} not finite or of the wrong shape")
-            errs[len(r.prompt)] = mag_err(got, full[0, -1].cpu())
+                  f"{tag}: prefill logits of {L} not finite or of the wrong shape")
+            last = full[0, -1].cpu()
             del full
-    check(max(errs.values()) <= TOL[torch.bfloat16],
-          f"{tag}: served prefill logits against forward's last position {errs} (limit "
-          f"{TOL[torch.bfloat16]} of the largest magnitude)")
+            errs[L] = mag_err(got, last)
+            if routing is None:
+                continue
+            errs_b[L] = mag_err(beside[(r.rid, 0)], last)
+            served = routing[r.rid]
+            check(len(served) == len(fwd), f"{tag}: {len(fwd)} dispatches in forward, "
+                                           f"{len(served)} in the served prefill of {L}")
+            first = next((i for i, (a, b) in enumerate(zip(fwd, served))
+                          if not torch.equal(a[3], b)), None)
+            if first is None:
+                alike.append(L)
+                continue
+            # the experts each token chose, whether or not capacity kept it
+            chosen = [torch.where(x < 0, -1 - x, x) for x in (fwd[first][3], served[first])]
+            moved = int((chosen[0] != chosen[1]).any(-1).sum())
+            diverged[L] = dict(layer=first, tokens=moved, err=errs[L])
+            check(moved <= max(1, 0.05 * L),
+                  f"{tag}: forward's routing of the {L}-token prompt leaves the served "
+                  f"prefill's at MoE layer {first} for {moved} tokens (over 5%)")
+    held = errs if routing is None else {L: errs[L] for L in alike}
+    check(bool(held) and max(held.values()) <= TOL[torch.bfloat16],
+          f"{tag}: served prefill logits against forward's last position {held} (limit "
+          f"{TOL[torch.bfloat16]} of the largest magnitude; routed alike: {alike})")
     log(f"{tag}: {label} served prefill logits against transformer.forward's last position, by "
         f"prompt length: {', '.join(f'{L}: {e:.3g}' for L, e in errs.items())} of the "
-        f"largest magnitude (limit {TOL[torch.bfloat16]:g})")
+        f"largest magnitude (limit {TOL[torch.bfloat16]:g}"
+        + ("" if routing is None else
+           f" where forward routed as the served prefill in every MoE layer: at {alike}; "
+           f"elsewhere the first layer whose routing differs and the tokens it moves: "
+           + (", ".join(f"{L}: layer {d['layer']}, {d['tokens']} tokens"
+                        for L, d in diverged.items()) or "none"))
+        + ")")
+    if routing is not None:
+        return errs, errs_b, dict(alike=alike, diverged=diverged)
     return errs
 
 
@@ -5493,28 +5610,6 @@ JAMBA_SERVE = dict(arch="jamba-v0.1-52b", periods=1,
                    shape_lens=(128, 512, 4096))
 
 
-@contextlib.contextmanager
-def dropped_tokens():
-    """Within the block every GShard dispatch appends ``(tokens per group,
-    capacity, tokens that lost a slot to capacity)`` to the list it yields
-    (one host read a dispatch)."""
-    from repro_torch.models import moe
-
-    real, seen = moe._dispatch_tensors, []
-
-    def counting(gates, top_w, top_e, n_experts, capacity):
-        dispatch, combine = real(gates, top_w, top_e, n_experts, capacity)
-        lost = int((dispatch.sum((-1, -2)) < top_e.shape[-1]).sum())
-        seen.append((top_e.shape[1], capacity, lost))
-        return dispatch, combine
-
-    moe._dispatch_tensors = counting
-    try:
-        yield seen
-    finally:
-        moe._dispatch_tensors = real
-
-
 def jamba_serve_path(dev, seed: int, counters) -> dict:
     """Phase 24: jamba-v0.1-52b at its published widths, one period deep,
     through ``ServingRuntime`` on the kernel backend (see the module
@@ -5577,7 +5672,7 @@ def jamba_serve_path(dev, seed: int, counters) -> dict:
     # GShard's drops: a prefill routes its prompt as one group, a decode
     # row its token alone (4 slots an expert for its top-2: none drop)
     drops = {}
-    for t, cap, lost in dispatched:
+    for t, cap, lost, _ in dispatched:
         drops.setdefault(t, []).append((cap, lost))
     check(all(lost == 0 for cap, lost in drops.get(1, [])),
           "jamba: a decode row lost an expert slot")
@@ -5710,11 +5805,13 @@ def jamba_serve_path(dev, seed: int, counters) -> dict:
 #: while decoding, 4097 drops key 0 at its last prompt token, 8192 fills
 #: Gemma 2's context), 16 new tokens each, on 4 slots with chunked prefill
 #: in chunks of up to ``chunk`` tokens, unpaged and off the page pool
-#: (``page_size``-row pages, the default pool).  Traced on fake tensors, a
-#: whole 8192-token prompt peaks under 75 GB (1e9) beside the masters, in
-#: ``transformer.forward`` and in the legacy engine's prefill
-#: (``tests/test_torch_gemma2_serve.py``), so (c) and (d) run at every prompt
-GEMMA_SERVE = dict(arch="gemma2-27b", periods=8,
+#: (``page_size``-row pages, the default pool).  Traced on fake tensors at 16
+#: layers, a whole 8192-token prompt peaks under 75 GB (1e9) beside the
+#: masters, in ``transformer.forward`` and in the legacy engine's prefill
+#: (``tests/test_torch_gemma2_serve.py``), so (c) and (d) run at every
+#: prompt; the phase runs 8 layers (16 until phase 28 took its time), its
+#: checks unchanged
+GEMMA_SERVE = dict(arch="gemma2-27b", periods=4,
                    prompts=(64, 511, 2048, 4095, 4096, 4097, 6000, 8192), max_new=16,
                    slots=4, chunk=512, page_size=16)
 
@@ -5751,23 +5848,80 @@ def layer0_last(conf, attn, h, cache, L: int, window, dev):
     return out.float()
 
 
+def layer_drops(tag: str, drops: list, n_moe: int, label: str, lens: dict) -> dict:
+    """The tokens GShard dropped in a serve's passes (:func:`served_events`'
+    ``drops``), by MoE layer: ``{label: {prompt length: [[lost a layer] a
+    prefill]}, label + " decode": [[lost a layer] a pass]}``.  Each pass
+    must dispatch once a MoE layer, and no decode row may lose a slot (one
+    token's top-k in a group of its own)."""
+    prefills, decodes, groups = {}, [], {}
+    for kind, rid, size, seen in drops:
+        check(len(seen) == n_moe, f"{tag}: a {kind} of {size} dispatched {len(seen)} times, "
+                                  f"not once in each of {n_moe} MoE layers")
+        lost = [n for _, _, n, _ in seen]
+        if kind == "decode":
+            decodes.append(lost)
+        else:
+            prefills.setdefault(lens[rid], []).append(lost)
+            groups.setdefault(lens[rid], set()).update((t, cap) for t, cap, *_ in seen)
+    bad = [lost for lost in decodes if any(lost)]
+    check(not bad, f"{tag}: a decode pass dropped tokens {bad}")
+    for L, passes in sorted(prefills.items()):
+        log(f"{tag}: tokens GShard dropped by MoE layer in the prefill of {L} in "
+            f"{len(passes)} {label} pass{'es' if len(passes) > 1 else ''} (groups of (tokens, "
+            f"capacity) {sorted(groups[L])}): {passes if len(passes) > 1 else passes[0]}")
+    log(f"{tag}: {len(decodes)} decode passes, none dropped a token")
+    return {label: prefills, f"{label} decode": decodes}
+
+
+def cast_weights(cfg, params) -> list:
+    """Every weight one pass casts from its f32 master to bf16, each as
+    its call casts it: the head, and each layer's attention projections,
+    dense MLP, routed experts (each stacked over the experts: one cast)
+    and shared experts (one MLP each); the router stays float32."""
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    out = [head]
+    for blk in params["pattern"]:
+        for i in range(cfg.n_periods):
+            out += [w[i] for w in (*blk.get("attn", {}).values(), *blk.get("mlp", {}).values())]
+            if "moe" in blk:
+                m = blk["moe"]
+                out += [m[k][i] for k in ("wi", "wg", "wo") if k in m]
+                out += [w for ws in m.get("shared", {}).values() for w in ws[i]]
+    return out
+
+
 def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: dict,
                    probe) -> dict:
-    """The serving checks of phases 25 and 27: ``cfg`` (published widths,
-    depth cut, the kernel backend) with random weights from ``seed``
-    through ``ServingRuntime(slots, max_len, prefill_chunk=spec["chunk"])``
-    on the greedy requests of ``spec``'s prompts (drawn from ``seed +
-    phase``), ``max_len`` the longest prompt plus ``max_new``: (a) a warm-up
+    """The serving checks of phases 25, 27 and 28: ``cfg`` (published
+    widths, the kernel backend) with random weights from ``seed`` through
+    ``ServingRuntime(slots, max_len, prefill_chunk=spec["chunk"])`` on the
+    greedy requests of ``spec``'s prompts (drawn from ``seed + phase``),
+    ``max_len`` the longest prompt plus ``max_new`` rounded up to a
+    multiple of 16 (bf16 cache rows a tensor map reads): (a) a warm-up
     serve, the counted serve and the paged serve (:func:`counted_serve`:
     every chunk and decode pass by the routes :func:`ssm_routes` derives
     from the layer pattern); (b) the phase's own check, ``probe(params,
     toks, max_len)`` on the longest prompt's tokens ``toks`` (1, L), whose
     dict joins the record; (d) ``ServeEngine``'s tokens; (e) the float32
-    oracle; (c) each served prefill against ``forward``; (f) every launch
-    layout of the longest prompt's last chunk and of a decode pass, the
-    dense weights' casts and one layer's cache rewrite; (g) the times,
-    decode-pass profiles and peaks by stage.  Returns ``native_gemm``'s
-    serving record."""
+    oracle (on ``spec["oracle_slots"]`` slots where given: the same rows,
+    a smaller cache); (c) each served prefill against ``forward``; (f)
+    every launch layout of the longest prompt's last chunk and of a decode
+    pass, the weights' casts and one layer's cache rewrite; (g) the times,
+    decode-pass profiles and peaks by stage.
+
+    A MoE stack's chunked prefill routes each chunk's tokens as dispatch
+    groups of their own (in the JAX package's runtime too), so its
+    capacity drops other tokens than a whole prompt's: for such a stack
+    (c) and (d) hold a serve through ``ServingRuntime(...,
+    chunked_prefill=False)`` (whole-prompt prefill, as ``forward`` and
+    ``ServeEngine`` route) and the chunked serve only at prompts of one
+    chunk (its tokens, and its prefill against ``forward``); elsewhere the
+    chunked prefill's distance from ``forward`` is logged beside the
+    tokens GShard dropped, every MoE layer's, in each chunk (the warm-up
+    serve's, the counted serve's passes), each whole-prompt prefill and
+    each decode pass (none may drop).  Returns ``native_gemm``'s serving
+    record."""
     from repro_torch.models import layers, transformer
     from repro_torch.runtime.buckets import chunk_schedule
     from repro_torch.runtime.engine import ServingRuntime, slot_cache
@@ -5787,6 +5941,8 @@ def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: di
     cfg_t = cfg.with_(contract_backend="torch", contract_strategy="auto")
     cfg32 = cfg_t.with_(dtype="float32")
     G, D = cfg.n_kv_heads, cfg.hd
+    regroups = any(sp.ff == "moe" for sp in cfg.pattern)
+    n_moe = cfg.n_periods * sum(sp.ff == "moe" for sp in cfg.pattern)
     release()
     base = torch.cuda.memory_allocated(dev)
     params = transformer.init_params(torch.Generator(dev).manual_seed(seed), cfg)
@@ -5794,7 +5950,7 @@ def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: di
     masters = torch.cuda.memory_allocated(dev) - base
     log(f"{tag}: random weights drawn on the card, {masters / 1e9:.2f} GB "
         f"({base / 2**30:.2f} GiB allocated before)")
-    max_len = max(spec["prompts"]) + spec["max_new"]
+    max_len = -(-(max(spec["prompts"]) + spec["max_new"]) // 16) * 16
     kw = dict(slots=spec["slots"], max_len=max_len, prefill_chunk=spec["chunk"])
     peaks = {}
 
@@ -5808,8 +5964,16 @@ def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: di
           f"{tag}: the runtime's lattice {rt.lattice.describe()}")
     log(f"{tag}: runtime built, every lattice point {rt.lattice.describe()} run once in "
         f"{time.perf_counter() - t0:.1f} s")
-    warm = rt.serve(traffic_of())
-    lap("warm-up")
+    # a warm-up serve, whose tokens the counted serve must repeat; without
+    # it (``spec["warm_up"]`` false) the runtime's build has run every
+    # lattice point, every bucket entry is built here, and the paged serve
+    # repeats the counted serve's tokens
+    warm = None
+    if spec.get("warm_up", True):
+        warm = rt.serve(traffic_of())
+        lap("warm-up")
+    else:
+        rt.precompile_buckets()
 
     # (a) the main path: every prefill chunk and decode pass by its routes
     traffic = traffic_of()
@@ -5831,6 +5995,7 @@ def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: di
         f"{counted['native_gemm']} in all, the {max(spec['prompts'])}-token prompt's "
         f"{n_pass * len(schedule[max(spec['prompts'])])}; the serve's peak "
         f"{(main['peak'] - masters) / 1e9:.2f} GB above the masters")
+    lens = {r.rid: len(r.prompt) for r in traffic}
     del rt
     release()
     lap("counted serve")
@@ -5845,8 +6010,12 @@ def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: di
     log(f"{tag} paged: pool of {rt_p.pool.usable} usable pages x {rt_p.pool.page_size} rows, "
         f"lattice {rt_p.lattice.describe()}; built with its {entries} bucket entries in "
         f"{time.perf_counter() - t0:.1f} s")
-    traffic_p = traffic_of()
-    paged = counted_serve(f"{tag} paged", rt_p, cfg, traffic_p, traffic, counters)
+    # the paged serve, untimed, records every pass's GShard drops (one host
+    # read a MoE layer): its chunks and decode passes are the counted serve's
+    traffic_p, drops = traffic_of(), []
+    paged = counted_serve(f"{tag} paged", rt_p, cfg, traffic_p, traffic, counters,
+                          drops=drops if regroups else None)
+    dropped = layer_drops(tag, drops, n_moe, "chunk", lens) if regroups else {}
     peaks["paged serve"] = paged["peak"]
     check_pool_whole(rt_p, f"{tag} paged serve")
     stats = rt_p.pool.stats()
@@ -5867,15 +6036,48 @@ def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: di
     release()
     lap("(b)")
 
+    # a MoE stack: the same traffic with whole-prompt prefill, which (c)
+    # and (d) hold (it routes each prompt as forward and ServeEngine do)
+    whole, seen_w = outputs, seen
+    if regroups:
+        torch.cuda.reset_peak_memory_stats()
+        rt_w = ServingRuntime(cfg, params, chunked_prefill=False, precompile=False,
+                              slots=spec["slots"], max_len=max_len)
+        traffic_w, seen_w, events_w, drops_w = traffic_of(), {}, [], []
+        with served_events(rt_w, seen_w, events_w, drops=drops_w):
+            rt_w.serve(traffic_w)
+        peaks["whole-prompt runtime"] = torch.cuda.max_memory_allocated()
+        whole = [r.output for r in traffic_w]
+        for kind, size, by in events_w:
+            check(by == per_pass, f"{tag}: a whole-prompt {kind} of {size} launched by route "
+                                  f"{by}, not {per_pass}")
+        check(sorted(size for kind, size, _ in events_w if kind == "prefill")
+              == sorted(lens.values()), f"{tag}: the whole-prompt runtime's prefills")
+        dropped |= layer_drops(f"{tag} whole-prompt", drops_w, n_moe, "whole", lens)
+        one = [(r, w) for r, w in zip(traffic, traffic_w) if len(schedule[len(r.prompt)]) == 1]
+        differ = [r.rid for r, w in one if r.output != w.output]
+        check(not differ, f"{tag}: at prompts of one chunk the chunked serve's tokens differ "
+                          f"from the whole-prompt serve's for requests {differ}")
+        log(f"{tag}: whole-prompt runtime (chunked_prefill=False): {len(events_w)} passes, "
+            f"each {per_pass}; tokens equal the chunked serve's at the prompts of one chunk "
+            f"({', '.join(str(len(r.prompt)) for r, _ in one)}), differ at "
+            f"{sum(o != w for o, w in zip(outputs, whole))} of {len(traffic)} requests; its "
+            f"peak {peaks['whole-prompt runtime'] / 1e9:.2f} GB allocated")
+        del rt_w
+        release()
+        lap("whole-prompt serve")
+
     # (d) the legacy engine's tokens (whole-prompt prefill beside its
     # 4-slot cache)
     torch.cuda.reset_peak_memory_stats()
     legacy = ServeEngine(cfg, params, slots=spec["slots"], max_len=max_len).serve(traffic_of())
     peaks["legacy"] = torch.cuda.max_memory_allocated()
-    check([r.output for r in legacy] == outputs,
-          f"{tag}: the runtime's tokens differ from ServeEngine's (the legacy oracle)")
-    log(f"{tag}: (d) tokens equal ServeEngine's (whole-prompt prefill, the 4-slot cache "
-        f"held) at every prompt; its peak {peaks['legacy'] / 1e9:.2f} GB allocated")
+    check([r.output for r in legacy] == whole,
+          f"{tag}: the {'whole-prompt ' if regroups else ''}runtime's tokens differ from "
+          f"ServeEngine's (the legacy oracle)")
+    log(f"{tag}: (d) the {'whole-prompt ' if regroups else ''}runtime's tokens equal "
+        f"ServeEngine's (whole-prompt prefill, the 4-slot cache held) at every prompt; its "
+        f"peak {peaks['legacy'] / 1e9:.2f} GB allocated")
     del legacy
     release()
     lap("(d)")
@@ -5886,8 +6088,9 @@ def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: di
     # on the card at a time
     kern_out = {r.rid: list(r.output) for r in traffic}
 
-    def fed(conf, timed):
-        rt_x, seen_x, reqs = ServingRuntime(conf, params, precompile=False, **kw), {}, traffic_of()
+    def fed(conf, timed, slots=spec["slots"]):
+        rt_x, seen_x, reqs = ServingRuntime(conf, params, precompile=False,
+                                            **(kw | dict(slots=slots))), {}, traffic_of()
         with served_events(rt_x, seen_x, [], forced=kern_out):
             res = timed_serve(rt_x, reqs) if timed else rt_x.serve(reqs)
         check(all(r.output == kern_out[r.rid] for r in reqs),
@@ -5897,7 +6100,7 @@ def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: di
     runs["torch"], seen_t = fed(cfg_t, True)
     release()
     torch.cuda.reset_peak_memory_stats()
-    _, ref = fed(cfg32, False)
+    _, ref = fed(cfg32, False, spec.get("oracle_slots", spec["slots"]))
     peaks["float32 oracle"] = torch.cuda.max_memory_allocated()
     release()
     check(seen.keys() == ref.keys() == seen_t.keys()
@@ -5926,15 +6129,42 @@ def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: di
         f"{worst(e_t, False):.3g}; median {sorted(e_t.values())[len(e_t) // 2]:.3g}); limit "
         f"for the kernel {limit:.3g}; kernel against torch directly {direct:.3g}; the "
         f"oracle's argmax is the kernel's token at {agree} of {len(ref)} positions; the "
-        f"float32 runtime's peak {peaks['float32 oracle'] / 1e9:.2f} GB allocated")
+        f"float32 runtime ({spec.get('oracle_slots', spec['slots'])} slots) peaked at "
+        f"{peaks['float32 oracle'] / 1e9:.2f} GB allocated")
     del ref, seen_t
     lap("(e)")
 
-    # (c) each served prefill against transformer.forward's last position,
-    # the longest last, nothing else on the card
+    # (c) each served prefill (a MoE stack's: the whole-prompt serve's)
+    # against transformer.forward's last position, the longest last,
+    # nothing else on the card
     fwd_peaks = {}
-    errs_c = prefill_vs_forward(tag, cfg, params, sorted(
-        traffic_of(), key=lambda r: len(r.prompt)), seen, dev, fwd_peaks, "(c)")
+    ordered = sorted(traffic_of(), key=lambda r: len(r.prompt))
+    chunked_c, routed = {}, {}
+    if not regroups:
+        errs_c = prefill_vs_forward(tag, cfg, params, ordered, seen, dev, fwd_peaks, "(c)")
+    else:
+        errs_c, chunked_c, routed = prefill_vs_forward(
+            tag, cfg, params, ordered, seen_w, dev, fwd_peaks, "(c)", beside=seen,
+            routing={rid: [rt_[3] for rt_ in seen_d] for kind, rid, _, seen_d in drops_w
+                     if kind == "prefill"})
+        # at a prompt of one chunk the chunked serve routes as the whole
+        # prompt: its prefill logits the whole-prompt serve's
+        one = {lens[rid]: mag_err(seen[(rid, 0)], seen_w[(rid, 0)]) for rid in lens
+               if len(schedule[lens[rid]]) == 1}
+        check(max(one.values()) <= TOL[torch.bfloat16],
+              f"{tag}: the chunked serve's prefill logits of one-chunk prompts against the "
+              f"whole-prompt serve's {one} (limit {TOL[torch.bfloat16]})")
+        log(f"{tag}: (c) the chunked serve's prefill logits at the prompts of one chunk "
+            f"against the whole-prompt serve's: "
+            + ", ".join(f"{L}: {e:.3g}" for L, e in one.items()))
+        for L, e in chunked_c.items():
+            n = len(schedule[L])
+            log(f"{tag}: (c) the chunked serve's prefill of {L} ("
+                f"{f'{n} chunks' if n > 1 else 'one chunk'}) against forward's last "
+                f"position: {e:.3g} of the largest magnitude; tokens GShard dropped, summed "
+                f"over the {n_moe} MoE layers: in its chunks "
+                f"{[sum(c) for c in dropped['chunk'][L]]}, in its whole prompt "
+                f"{sum(dropped['whole'][L][0])}")
     peaks["forward"] = max(fwd_peaks.values())
     log(f"{tag}: (c) forward's peak by prompt length, allocated: "
         + ", ".join(f"{n}: {p / 1e9:.2f}" for n, p in fwd_peaks.items()) + " GB")
@@ -5957,13 +6187,11 @@ def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: di
                                                                       toks4)}
     shapes, per_pass_t, by_route = pass_layouts(
         f"{tag}: (f)", passes, torch.Generator(dev).manual_seed(seed + phase), dev)
-    # what a pass pays besides its products: every dense weight's cast to
-    # bf16 (dense() casts its f32 master on every call; the head first),
-    # and one layer's out-of-place cache write (_write_rows) of a decode pass
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    weights = [head] + [
-        w[i] for blk in params["pattern"] for w in (*blk["attn"].values(), *blk["mlp"].values())
-        for i in range(cfg.n_periods)]
+    # what a pass pays besides its products: every weight's cast to bf16
+    # (dense() and moe_ffn cast their f32 masters on every call; the head
+    # first), and one layer's out-of-place cache write (_write_rows) of a
+    # decode pass
+    weights = cast_weights(cfg, params)
     cast_bytes = sum(w.numel() * (w.element_size() + 2) for w in weights)
 
     def cast_all():
@@ -5978,7 +6206,7 @@ def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: di
     write_ms = queued_ms(lambda: layers._write_rows(k0, new, at), 5)
     write_bound = bound(2 * k0.numel() * k0.element_size(), 0, torch.bfloat16)[0]
     n_writes = 2 * len(cfg.pattern) * cfg.n_periods
-    log(f"{tag}: (f) the casts of the {len(weights)} dense weights a pass to bf16 "
+    log(f"{tag}: (f) the casts of the {len(weights)} weights a pass to bf16 "
         f"({cast_bytes / 1e9:.2f} GB read and written): {cast_ms:.3f} ms queued, bound "
         f"{cast_bound:.3f} ms (bytes); one layer's K cache rewrite in a decode pass "
         f"(_write_rows, {tuple(k0.shape)}): {write_ms:.4f} ms queued, bound {write_bound:.4f} "
@@ -6016,6 +6244,7 @@ def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: di
                 launches_per_pass=per_pass, prefill_chunks=n_chunks, decode_passes=len(decodes),
                 paged_launches=paged["counted"]["native_gemm"],
                 paged_launches_by_route=paged["routes"], **found, prefill_logits_err=errs_c,
+                chunked_prefill_logits_err=chunked_c, forward_routing=routed, dropped=dropped,
                 logits_err=dict(kernel=err_k, torch=err_t, kernel_vs_torch=direct),
                 peak_bytes=peaks, master_bytes=masters, forward_peak_bytes=fwd_peaks,
                 shapes=shapes, shapes_by_route=by_route, per_pass=per_pass_t,
@@ -6029,7 +6258,7 @@ def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: di
 
 
 def gemma2_serve_path(dev, seed: int, counters) -> dict:
-    """Phase 25: gemma2-27b at its published widths, 16 of 46 layers,
+    """Phase 25: gemma2-27b at its published widths, 8 of 46 layers,
     through ``ServingRuntime`` with chunked prefill, unpaged and paged, on
     the kernel backend (:func:`serve_at_width`; its (b) is the window at
     width).  Returns ``native_gemm``'s sliding-window serving record."""
@@ -6217,19 +6446,20 @@ def hubert_train_path(dev, seed: int, counters) -> dict:
 # ------------------------------------------------------------------ phase 27
 #: the multi-query cell: granite-20b (src/repro/configs/granite_20b.py) at
 #: its published widths, 48 query heads over one KV head of 128, depth cut
-#: from 52 layers to ``periods`` (phase 25's cut: 6.669B params, 26.68 GB of
-#: f32 masters; at 52 layers 81.26 GB leave the card no room), on the
+#: from 52 layers to ``periods`` (phase 25's cut: 3.637B params, 14.55 GB of
+#: f32 masters; 16 layers until phase 28 took their time; at 52 layers
+#: 81.26 GB leave the card no room), on the
 #: kernel backend; code completion over repository context: 8 greedy
 #: requests of the prompt lengths below (511, 512 and 513 on the chunk's
 #: edge, 4097 one past a page and a chunk edge, 8192 granite-20b-code's
 #: context, arXiv:2405.04324), 16 new tokens each, on 4 slots with chunked
 #: prefill in chunks of up to ``chunk`` tokens, unpaged and off the page
 #: pool (``page_size``-row pages, the default pool).  Traced on fake
-#: tensors, the legacy engine's whole 8192-token prefill and
+#: tensors at 16 layers, the legacy engine's whole 8192-token prefill and
 #: ``transformer.forward`` peak under 62 GB (1e9) with the masters
 #: (``tests/test_torch_granite_serve.py``), so (c) and (d) run at every
 #: prompt
-GRANITE_SERVE = dict(arch="granite-20b", periods=16,
+GRANITE_SERVE = dict(arch="granite-20b", periods=8,
                      prompts=(64, 511, 512, 513, 2048, 4097, 6000, 8192), max_new=16,
                      slots=4, chunk=512, page_size=16)
 #: the attention products of a pass: the scores and P·V
@@ -6269,7 +6499,7 @@ def broadcast_mode(plan, heads: int):
 
 
 def granite_serve_path(dev, seed: int, counters) -> dict:
-    """Phase 27: granite-20b at its published widths, 16 of 52 layers,
+    """Phase 27: granite-20b at its published widths, 8 of 52 layers,
     through ``ServingRuntime`` with chunked prefill, unpaged and paged, on
     the kernel backend (:func:`serve_at_width`; its (b) is the broadcast of
     the one KV head across the 48 query heads).  Returns ``native_gemm``'s
@@ -6419,6 +6649,209 @@ def granite_serve_path(dev, seed: int, counters) -> dict:
     return dict(rec, decode_pv=dict(pv, tiles=tiles), phase_s=took)
 
 
+# ------------------------------------------------------------------ phase 28
+#: the MoE cell: qwen2-moe-a2.7b (src/repro/configs/qwen2_moe_a2p7b.py) at
+#: its published widths and depth (24 layers, no cut: 14.316B params,
+#: 57.26 GB of f32 masters) on the kernel backend; a chat assistant's
+#: traffic, 8 greedy requests of the prompt lengths below (511, 512 and 513
+#: on the chunk edge; 4096 one dispatch group of GROUP_SIZE tokens, 4097
+#: one past a page, a chunk and GROUP_SIZE: its whole prompt routes in 17
+#: groups of 241), ``max_new`` new tokens each, on 4 slots in chunks of up
+#: to 512, unpaged and off the page pool.  Traced on fake tensors at 24
+#: layers (``tests/test_torch_qwen2_moe_serve.py``) a 6000-token prompt
+#: (6016 cache rows) puts the paged decode pass at 76.19 GB (1e9) and a
+#: 4-slot float32 oracle's decode at 85.65, so the longest prompt is 4097
+#: (4112 rows: paged decode 70.20 GB) and the float32 oracle runs on
+#: ``oracle_slots`` slots (71.86 GB; 76.65 on 4).  A pass costs ~0.45 s on
+#: the card (505 contractions and ~6500 device ops, host-bound), so the
+#: phase serves 8 new tokens a request, not 16, and has no warm-up serve:
+#: the runtime's build runs every lattice point, and the paged serve must
+#: repeat the counted serve's tokens
+QWEN2_MOE_SERVE = dict(arch="qwen2-moe-a2.7b",
+                       prompts=(64, 511, 512, 513, 1024, 2048, 4096, 4097), max_new=8,
+                       slots=4, chunk=512, page_size=16, oracle_slots=3, warm_up=False)
+#: the expert products of a MoE layer: up (``wi`` and ``wg``) and down
+EXPERT_SPECS = ("xgce,xef->xgcf", "xgcf,xfe->xgce")
+
+
+def expert_mode(plan, experts: int):
+    """The plan's grid mode of extent ``experts`` that both X and W walk
+    at a stride (the expert as the batch mode), or None."""
+    return next((g for g in plan["grid"] if g[0] == experts and g[1] and g[2]), None)
+
+
+def qwen2_moe_serve_path(dev, seed: int, counters) -> dict:
+    """Phase 28: qwen2-moe-a2.7b at its published widths and depth through
+    ``ServingRuntime`` with chunked prefill, unpaged and paged, on the
+    kernel backend (:func:`serve_at_width`, whose (c) and (d) for a MoE
+    stack hold a whole-prompt serve; its (b) is the experts at width).
+    Returns ``native_gemm``'s MoE serving record."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.sb_gemm import native_gemm
+    from repro_torch.models import layers, moe, transformer
+    from repro_torch.models.tree import tree_map
+    from repro_torch.runtime.engine import slot_cache
+
+    t_start = time.perf_counter()
+    spec = QWEN2_MOE_SERVE
+    cfg = get_config(spec["arch"]).with_(**KERNEL_BACKEND)
+    cfg32 = cfg.with_(contract_backend="torch", contract_strategy="auto", dtype="float32")
+    m, X = cfg.moe, cfg.moe.n_experts
+    check(all(sp.mixer == "attn" and sp.ff == "moe" for sp in cfg.pattern) and m.n_shared > 0
+          and not cfg.tie_embeddings,
+          f"qwen2-moe: pattern {cfg.pattern}, {m.n_shared} shared experts, tied head "
+          f"{cfg.tie_embeddings}: not the published MoE config")
+    log(f"qwen2-moe: {cfg.arch_id} at published widths and depth, "
+        f"{len(cfg.pattern) * cfg.n_periods} layers (no cut); d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of {cfg.hd}; every layer MoE: {X} "
+        f"routed experts top-{m.top_k} (renormalised), d_expert {m.d_expert}, capacity "
+        f"factor {m.capacity_factor}, GShard groups of up to {moe.GROUP_SIZE}, and "
+        f"{m.n_shared} ungated shared experts of {m.d_shared} ({cfg.mlp_act}); vocab "
+        f"{cfg.vocab_size} untied; {cfg.dtype} activations, {cfg.param_dtype} params, "
+        f"contract_backend {cfg.contract_backend}, strategy {cfg.contract_strategy}; "
+        f"{cfg.param_count() / 1e9:.3f}B params, {cfg.param_count(active_only=True) / 1e9:.3f}B "
+        f"active a token")
+
+    def experts_check(params, toks, max_len):
+        # (b) the experts at width: the plans of the three expert products
+        # at the longest prompt's last chunk (layer 0's MoE) and in a 4-slot
+        # decode pass over the full cache width; layer 0's MoE output there
+        # against the float32 torch backend's; the products timed three ways
+        L, rows, slots = toks.shape[1], spec["chunk"], spec["slots"]
+        layer = tree_map(lambda t: t[0], params["pattern"][0])
+
+        def moe_input(conf):
+            # layer 0's MoE input at the last rows: its residual after the
+            # attention (the cache filled by the rows before), normed
+            attn, h, cache = layer0_filled(conf, params, toks, rows, max_len, None, dev)
+            x = params["embed"][toks[:, L - rows:]].to(conf.activation_dtype())
+            x = x + layer0_last(conf, attn, h, cache, L, None, dev).to(x.dtype)
+            return layers.rms_norm(x, layer["norm2"], conf.rms_eps)
+
+        def top(h):
+            gates = torch.softmax(layers.contraction(
+                "gte,ef->gtf", h.float(), layer["moe"]["router"], strategy="direct"), dim=-1)
+            return moe.top_k(gates, m.top_k)[1].sort(dim=-1).values[0]
+
+        with torch.no_grad():
+            h_k = moe_input(cfg)
+            with (recording_plans() as chunk_plans, recording_launch_keys() as chunk_keys,
+                  dropped_tokens() as lost_k):
+                y_k, _ = moe.moe_ffn(cfg, layer["moe"], h_k)
+            with dropped_tokens() as lost_same:
+                y_same, _ = moe.moe_ffn(cfg32, layer["moe"], h_k.float())
+            h_32 = moe_input(cfg32)
+            with dropped_tokens() as lost_32:
+                y_32, _ = moe.moe_ffn(cfg32, layer["moe"], h_32)
+            flips = (top(h_k) != top(h_32)).any(dim=-1)
+            same = ~flips
+            with recording_plans() as decode_plans, recording_launch_keys() as decode_keys:
+                transformer.decode_step(cfg, params, slot_cache(cfg, slots, max_len, device=dev),
+                                        torch.zeros((slots, 1), dtype=torch.long, device=dev))
+        e_same, e_own = mag_err(y_k, y_same), mag_err(y_k, y_32)
+        e_agree = mag_err(y_k[:, same], y_32[:, same]) if bool(same.any()) else 0.0
+        check(e_same <= TOL[torch.bfloat16],
+              f"qwen2-moe: (b) layer 0's MoE at rows {L - rows}-{L - 1}: the kernel's {e_same} "
+              f"from the float32 torch backend's on the same input (limit {TOL[torch.bfloat16]})")
+        log(f"qwen2-moe: (b) layer 0's MoE output (routed and shared experts) at query rows "
+            f"{L - rows}-{L - 1} of the {L}-token prompt, one group of {rows} (capacity "
+            f"{lost_k[0][1]}), of the largest magnitude: the kernel backend against the float32 "
+            f"torch backend on the same (bf16) input {e_same:.3g} (limit "
+            f"{TOL[torch.bfloat16]:g}; drops {lost_k[0][2]} and {lost_same[0][2]}); each from "
+            f"its own layer-0 input: {e_own:.3g}, {e_agree:.3g} over the {int(same.sum())} rows "
+            f"whose top-{m.top_k} sets agree; {int(flips.sum())} of {rows} rows' top-{m.top_k} "
+            f"sets differ between bf16 and float32 (drops {lost_k[0][2]} and {lost_32[0][2]})")
+
+        plans = {}
+        for where, got in (("chunk", chunk_plans), ("decode", decode_plans)):
+            for s_ in EXPERT_SPECS:
+                check(s_ in got, f"qwen2-moe: (b) no {s_} launch in the {where} pass")
+                route, plan, shapes = got[s_][0]
+                p_ = plans[f"{where} {s_}"] = dict(
+                    route=route, shapes=shapes, M=plan["M"], N=plan["N"], K=plan["K"],
+                    grid=plan["grid"], G=plan["G"], tiles=plan["tiles"],
+                    n_split=plan["n_split"], launches=len(got[s_]))
+                check(route == "batched" and expert_mode(plan, X) is not None,
+                      f"qwen2-moe: (b) {s_} in the {where} pass: {p_}, not batched with the "
+                      f"{X} experts a grid mode of X and W")
+        up = plans[f"decode {EXPERT_SPECS[0]}"]
+        mode = broadcast_mode(up, slots)
+        check(mode is not None, f"qwen2-moe: (b) the decode pass's {EXPERT_SPECS[0]}: {up}, no "
+                                f"grid mode of the {slots} slots at W stride 0")
+        w_bytes = int(np.prod(up["shapes"][1])) * 2
+        reread = dict(per_launch=(slots - 1) * w_bytes, per_pass=(slots - 1) * w_bytes
+                      * up["launches"])
+        for key, p_ in plans.items():
+            log(f"qwen2-moe: (b) {key}: [{p_['route']}] A{p_['shapes'][0]} B{p_['shapes'][1]}, "
+                f"M {p_['M']} x N {p_['N']} x K {p_['K']}, grid (extent, X stride, W stride, C "
+                f"stride) {p_['grid']}, {p_['tiles']} tiles, split {p_['n_split']}; "
+                f"x{p_['launches']} in the pass")
+        log(f"qwen2-moe: (b) the decode pass's up-projections: the {slots} slots a grid mode "
+            f"{mode} whose W stride is 0 (dispatch writes expert_in slot-major), so each slot "
+            f"re-reads the {X} experts' {w_bytes / 1e6:.1f} MB of bf16 weights: "
+            f"{reread['per_launch'] / 1e9:.3f} GB more a launch, {reread['per_pass'] / 1e9:.2f} GB "
+            f"a pass ({up['launches']} launches)")
+
+        # the expert products three ways on random operands of the path's
+        # layouts: the kernel (the expert a grid mode, no copy), one einsum,
+        # and the conventional path (expert_in copied to (x, g·c, e), then
+        # one torch.bmm); the comparison launches do not count
+        gen = torch.Generator(dev).manual_seed(seed + 28)
+        saved = native_gemm.launches, dict(native_gemm.launches_by_route)
+        times = {}
+        for where, keys in (("chunk", chunk_keys), ("decode", decode_keys)):
+            for key, (n, layout) in keys.items():
+                s_ = f"{key[0]},{key[1]}->{key[2]}"
+                if s_ not in EXPERT_SPECS:
+                    continue
+                A, B, kw = operands_like(layout, gen, dev)
+
+                def conventional():
+                    return torch.bmm(A.contiguous().view(X, -1, A.shape[-1]), B)
+
+                got = native_gemm(A, B, **kw)
+                e_c = mag_err(conventional().view(got.shape), got)
+                check(e_c <= TOL[torch.bfloat16],
+                      f"qwen2-moe: (b) {s_} copied then torch.bmm {e_c} from the kernel's")
+                t = times[f"{where} {s_}"] = dict(
+                    shapes=(tuple(A.shape), tuple(B.shape)), per_layer=n // (
+                        1 if where == "chunk" else cfg.n_periods),
+                    kernel=queued_ms(lambda: native_gemm(A, B, **kw), 5),
+                    einsum=queued_ms(lambda: torch.einsum(s_, A, B), 5),
+                    copy_then_bmm=queued_ms(conventional, 5), err=e_c)
+                log(f"qwen2-moe: (b) {where} {s_} A{t['shapes'][0]} B{t['shapes'][1]} "
+                    f"(x{t['per_layer']} a layer), queued: kernel {t['kernel']:.4f} ms, einsum "
+                    f"{t['einsum']:.4f} ms, expert_in copied to (x, g·c, e) then torch.bmm "
+                    f"{t['copy_then_bmm']:.4f} ms ({e_c:.3g} from the kernel's)")
+                del A, B, got
+        native_gemm.launches, native_gemm.launches_by_route = saved
+        for where in ("chunk", "decode"):
+            layer_ms = {k: sum(t[k] * t["per_layer"] for w, t in times.items()
+                               if w.startswith(where))
+                        for k in ("kernel", "einsum", "copy_then_bmm")}
+            log(f"qwen2-moe: (b) a layer's three expert products in a {where} pass, queued: "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in layer_ms.items()))
+        return dict(experts=dict(plans=plans, moe_err=dict(same_input=e_same, own_input=e_own,
+                                                           own_input_agreeing=e_agree),
+                                 top_k_flips=int(flips.sum()), rows=rows,
+                                 layer0_dropped=dict(kernel=lost_k[0][2], same_input=lost_same[0][2],
+                                                     float32=lost_32[0][2]),
+                                 reread_bytes=reread, times=times))
+
+    rec = serve_at_width(dev, seed, counters, "qwen2-moe", 28, cfg, spec, experts_check)
+    # the decode pass's expert up-projection by name: each slot re-reads
+    # the weights (ROADMAP R10)
+    up = next(r for r in rec["shapes"]
+              if r["path"] == "decode pass" and r["spec"] == EXPERT_SPECS[0])
+    log(f"qwen2-moe: (f) the decode pass's expert up-projection {up['spec']} [{up['route']}]: "
+        f"{up['ms']:.4f} ms queued ({100 * up['bound_ms'] / up['ms']:.1f}% of its "
+        f"{up['bound_ms']:.4f} ms bound, {up['bound_by']}, each weight read once), einsum "
+        f"{up['library_ms']:.4f} ms, plain {up['plain_ms']:.4f} ms; x{up['launches']} a pass")
+    took = time.perf_counter() - t_start
+    log(f"qwen2-moe: phase 28 took {took:.1f} s (target 150 s)")
+    return dict(rec, decode_up=up, phase_s=took)
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -6533,6 +6966,8 @@ def main() -> int:
     lap("26")
     granite = granite_serve_path(dev, args.seed, counters)
     lap("27")
+    qwen = qwen2_moe_serve_path(dev, args.seed, counters)
+    lap("28")
     log("time by phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
         + f"; all {time.perf_counter() - t0:.1f} s after the device line")
     records = {
@@ -6577,7 +7012,11 @@ def main() -> int:
                          "granite_serve_launches": granite["launches"],
                          "granite_serve_launches_by_route": granite["launches_by_route"],
                          "granite_serve": {k: v for k, v in granite.items()
-                                           if k not in ("launches", "launches_by_route")}}),
+                                           if k not in ("launches", "launches_by_route")},
+                         "qwen2_moe_serve_launches": qwen["launches"],
+                         "qwen2_moe_serve_launches_by_route": qwen["launches_by_route"],
+                         "qwen2_moe_serve": {k: v for k, v in qwen.items()
+                                             if k not in ("launches", "launches_by_route")}}),
         **records,
     }
     # the batched route of native_gemm on its own line: phase 13's counted
@@ -6624,11 +7063,14 @@ def main() -> int:
             "gemma2-27b serve": gemma["launches_by_route"].get(route, 0),
             "hubert-xlarge train step": hubert["launches_per_step"].get(route, 0),
             "granite-20b prefill chunk or decode pass": granite["launches_per_pass"].get(route, 0),
-            "granite-20b serve": granite["launches_by_route"].get(route, 0)}
+            "granite-20b serve": granite["launches_by_route"].get(route, 0),
+            "qwen2-moe-a2.7b prefill chunk or decode pass": qwen["launches_per_pass"].get(route, 0),
+            "qwen2-moe-a2.7b serve": qwen["launches_by_route"].get(route, 0)}
         records[key][2]["ssm_shapes"] = ssm["shapes_by_route"].get(route)
         records[key][2]["jamba_shapes"] = jamba["shapes_by_route"].get(route)
         records[key][2]["gemma2_shapes"] = gemma["shapes_by_route"].get(route)
         records[key][2]["granite_shapes"] = granite["shapes_by_route"].get(route)
+        records[key][2]["qwen2_moe_shapes"] = qwen["shapes_by_route"].get(route)
     kernels = [{"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}",
                 "replaces": f"src/repro/kernels/{tpu}",
@@ -6649,8 +7091,10 @@ def main() -> int:
                                        "gemma2_serve_launches_by_route", "gemma2_serve",
                                        "granite_serve_launches",
                                        "granite_serve_launches_by_route", "granite_serve",
+                                       "qwen2_moe_serve_launches",
+                                       "qwen2_moe_serve_launches_by_route", "qwen2_moe_serve",
                                        "model_launches", "ssm_shapes", "jamba_shapes",
-                                       "gemma2_shapes", "granite_shapes")
+                                       "gemma2_shapes", "granite_shapes", "qwen2_moe_shapes")
                      if k in rec}}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:

@@ -17,10 +17,11 @@ moe_ffn_a2a`) on the rules' mesh, with the shared experts through
 :func:`~repro_torch.models.layers.mlp` and the router statistics
 recomputed (``strategy="direct"``); otherwise, and outside rules, it
 takes the GShard path, as the JAX package does.  One difference:
-``group`` may set the tokens per dispatch group.  A batched decode
-passes the tokens of one row, so that each request routes as its own
-group, as each slot does under the JAX runtime's ``vmap``; one group of
-all rows would change the capacity and so which tokens are dropped.
+``group`` may name the tokens of one request.  A batched decode or
+prefill passes the tokens of one row, so that each request routes in
+groups of its own, as each slot does under the JAX runtime's ``vmap``;
+groups across rows would change the capacity and so which tokens are
+dropped.
 Under a2a each such row takes the JAX package's per-slot decision by its
 own token count (the all-to-all on that row alone, or GShard) and its
 own capacity.
@@ -104,9 +105,12 @@ def moe_ffn(cfg: ModelConfig, params, x, *, capacity: int | None = None,
             group: int | None = None):
     """x: (B, S, E) → (B, S, E), plus aux metrics dict.
 
-    ``group`` caps the tokens per dispatch group (default
-    :data:`GROUP_SIZE`); it is lowered until it divides ``B·S``.  Under
-    a2a a ``group`` below ``B·S`` makes each row a request of its own."""
+    ``group``, where given, is the tokens of one request (a row's ``S``):
+    each request is grouped as the JAX package groups a call of its own,
+    from ``min(GROUP_SIZE, group)`` lowered until it divides ``group``, so
+    no dispatch group straddles two requests.  Without it the ``B·S``
+    tokens are one request.  Under a2a a ``group`` below ``B·S`` makes
+    each row a request of its own."""
     ctr = _ctr(cfg)
     m: MoEConfig = cfg.moe
     B, S, E = x.shape
@@ -119,8 +123,9 @@ def moe_ffn(cfg: ModelConfig, params, x, *, capacity: int | None = None,
         if (T // rows) % rules.mesh.size() == 0:
             return _moe_a2a(cfg, params, x, rules.mesh, rows=rows)
         # a token count the mesh does not divide → the GShard path
-    group = min(GROUP_SIZE if group is None else group, T)
-    while T % group:
+    request = T if group is None else group
+    group = min(GROUP_SIZE, request)
+    while request % group:
         group -= 1
     n_g = T // group
     xt = reshape(x, n_g, group, E)

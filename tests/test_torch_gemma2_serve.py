@@ -2,7 +2,7 @@
 at published width, and its served rows held against the JAX package.
 
 - At published width, 8 periods of a local (window 4096) and a global
-  layer (the depth ``chip_smoke.py`` serves), prefill chunks against the
+  layer (twice the depth ``chip_smoke.py`` serves), prefill chunks against the
   8208-row cache, decode passes over it and the paged views' widths are
   traced on fake tensors under ``utils.CostCounter``: every pass makes 145
   ``native_gemm`` calls (113 ``wgmma``, 32 ``batched``), as
@@ -69,7 +69,8 @@ CHUNK = 4
 WINDOW = 8
 PAGE = 4
 MAX_LEN = max(PROMPTS) + NEW
-#: the published depth chip_smoke.py serves, and its cache width
+#: twice the depth chip_smoke.py serves (a bound on its peaks), and its
+#: cache width
 PERIODS = 8
 ROWS = 8208
 

@@ -2,7 +2,7 @@
 passes at published width, its served rows held against the JAX package,
 and the broadcast of its one KV head held against a copy per query head.
 
-- At published width, 16 of 52 layers (the depth ``chip_smoke.py``
+- At published width, 16 of 52 layers (twice the depth ``chip_smoke.py``
   serves), prefill chunks against the 8208-row cache, decode passes over
   it and the paged views' widths are traced on fake tensors under
   ``utils.CostCounter``: every pass makes 129 ``native_gemm`` calls over
@@ -75,7 +75,8 @@ SLOTS = 4
 CHUNK = 4
 PAGE = 4
 MAX_LEN = max(PROMPTS) + NEW
-#: the published depth cut chip_smoke.py serves, and its cache width
+#: twice the depth chip_smoke.py serves (a bound on its peaks), and its
+#: cache width
 PERIODS = 16
 ROWS = 8208
 SCORES, PV = "bsgrd,btgd->bgrst", "bgrst,btgd->bsgrd"

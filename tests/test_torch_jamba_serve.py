@@ -301,7 +301,7 @@ def test_a_prompt_routed_as_one_group_drops_tokens_at_its_own_capacity():
                     transformer.init_cache(cfg, 1, MAX_LEN, device="cpu"))
                 transformer.decode_step(cfg, tp, cache, toks[:, -1:])
             # (tokens a group, lost) of 4 MoE layers' prefill, then decode
-            lost = [(t, n) for t, _, n in dispatched]
+            lost = [(t, n) for t, _, n, _ in dispatched]
             assert [t for t, _ in lost] == [L] * 4 + [1] * 4
             want, _ = jax_loop(i)
             if capacity_factor is None:
