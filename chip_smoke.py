@@ -85,6 +85,23 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
 7. A profile of one HOOI on the kernel backend: device time by kernel
    name and the device's idle share (the torch and conventional variants'
    profiles were cut for phase 25).
+29. CP-ALS (run right after phase 7), the paper's other decomposition,
+   in float32 with 25 iterations at 512³ rank 10 and 64 and at
+   1024×512×256 rank 16 (``CP_CASES``), each on a tensor made from
+   ``--seed`` (orthonormal factor columns, λ = geomspace(1, 0.2, r), 10%
+   Gaussian noise), three ways as in phase 5 and tuned as in phase 10:
+   (a) the kernel's ``rel_error`` at most 1.001 times the noise share and
+   within 1e-5 of the torch backend's and the conventional baseline's, λ
+   within rtol 1e-4 and each factor column (its sign aligned) within 1e-3
+   of the torch backend's, all finite; (b) the counted run launches
+   ``native_gemm`` alone, 6 an iteration (two an MTTKRP: the Khatri-Rao
+   factor then its product with T, or tensor-times-matrix then the
+   exceptional batched GEMV), each on the route ``native_route`` gives,
+   the baselines none; (c) phase 4's copy check on every contraction of
+   one iteration; (d) phase 10's tuned run; (e) ms per CP-ALS in turns,
+   every launch shape as in phase 6, the init's three ``eigh`` alone,
+   one kernel run's device time by kind (``native_gemm``, ``eigh``, the
+   solves, the rest) and the counted run's peak memory.
 8. Grouped path at full width: the routed experts of qwen2-moe-a2.7b (60
    experts, top-4, d_model 2048 -> d_expert 1408) over 4096 tokens with a
    skewed routing that leaves one expert empty, through ``grouped_matmul``
@@ -565,13 +582,14 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    bit-identical, timed queued against its bound, the plain version and
    one ``torch.einsum``; sums per serve, step or layer of each path.
 
-Each path (5, 10, 8, 9, 11, the paged serve of 11, 12, 13, 14, 19, 20, 15's
+Each path (5, 10, 29 at each case, 8, 9, 11, the paged serve of 11, 12, 13, 14, 19, 20, 15's
 training and serving, 16's layer, training and pipeline, 22, 23, 24, 25 and its
 paged serve, 26, 27 and its paged serve, 28 and its paged serve) is driven with every
 kernel's launch count set to 0 just before it and read just after;
-launches made to compare, time or tune a kernel do not count.  Phases 5 and 10 also read ``native_gemm``'s
-launches by route, which must be what ``native_route`` gives for each
-launch shape (and, in phase 10, what the tuner's winners imply).
+launches made to compare, time or tune a kernel do not count.  Phases 5,
+10 and 29 also read ``native_gemm``'s launches by route, which must be
+what ``native_route`` gives for each launch shape (and, in phases 10 and
+29, what the tuner's winners imply).
 
 Tolerances: integer-valued inputs are exact under any summation order, so
 they must match bit for bit; float32 results may differ from the plain
@@ -586,7 +604,9 @@ library calls compared against run in full float32.
 
 The last lines of stdout are a JSON ``kernels`` record (the grouped and
 attention entries carry their f32 run, the fma route, under ``"fma"``;
-``native_gemm``'s carries the tuned HOOI's launches by route, the
+``native_gemm``'s carries the tuned HOOI's launches by route, phase
+29's launches under ``cp_launches``/``cp_launches_by_route`` and each
+case's checks, times per CP-ALS and launch-shape sums under ``cp``, the
 serving phase's launches, routes, tokens/s and top-shape times (the
 paged serve's under ``serve.paged``) and the training phase's launches
 by route, ms per step, tokens/s, peak memory and top-shape times, and
@@ -649,6 +669,7 @@ import sys
 import time
 from collections import Counter
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -1596,58 +1617,100 @@ def recording_launches():
         ops.native_gemm = real
 
 
-def run_hooi(T, n_iter, variant):
-    from repro_torch.core.tucker import hooi
-
+def run_timed(decompose, T, rank, n_iter: int, variant: str):
+    """``decompose(T, rank)`` (HOOI or CP-ALS) on the card as ``variant``,
+    and its ms."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = hooi(T, RANKS, n_iter=n_iter, **RUNS[variant])
+    res = decompose(T, rank, n_iter=n_iter, **RUNS[variant])
     torch.cuda.synchronize()
     return res, (time.perf_counter() - t0) * 1e3
 
 
-def main_path(T, noise_share, n_iter, counters):
-    """HOOI three ways.  Returns the kernel launches of the counted run,
-    ``native_gemm``'s launches in it by route, and the kernel run's
-    per-shape launches."""
+class Decomposition(NamedTuple):
+    """A decomposition that phases 5, 10 and 29 drive on ``device``:
+    ``run(n_iter, variant)`` runs it as ``variant`` (a key of
+    :data:`RUNS`) and returns (result, ms); ``parts(result)`` gives the
+    result's tensors, each of which must be finite and of the shape at its
+    place in ``shapes``."""
+
+    label: str
+    device: torch.device
+    run: Callable
+    parts: Callable
+    shapes: tuple
+
+    def whole(self, res) -> bool:
+        parts = self.parts(res)
+        return len(parts) == len(self.shapes) and all(
+            tuple(x.shape) == tuple(s) and torch.isfinite(x).all().item()
+            for x, s in zip(parts, self.shapes))
+
+
+def hooi_run(T) -> Decomposition:
+    from repro_torch.core.tucker import hooi
+
+    return Decomposition(f"hooi {T.shape[0]}^3 ranks {RANKS}", T.device,
+                         functools.partial(run_timed, hooi, T, RANKS),
+                         lambda r: (r.core, *r.factors), (RANKS, *zip(T.shape, RANKS)))
+
+
+def counted_turns(dec: Decomposition, n_iter: int, counters) -> tuple:
+    """The turns of phases 5 and 29: a warm-up of each variant (the
+    kernel's records what it launches), the kernel's counted run (every
+    count set to 0 just before and read just after, ``native_gemm``'s
+    launches by route what ``native_route`` gives each recorded launch
+    shape, the peak memory read after it), then torch, conventional,
+    conventional, torch, kernel in turns, in which only the kernel
+    launches the kernel.  Returns the counts, the launches by route, the
+    recorded launches, each variant's last result, its ms per run and the
+    counted run's peak bytes."""
     from repro_torch.kernels.sb_gemm import native_gemm, native_route
 
     # warm-up of each variant; the kernel's one records what it launches
     with recording_launches() as launches:
-        run_hooi(T, n_iter, "kernel")
+        dec.run(n_iter, "kernel")
     for v in ("torch", "conventional"):
-        run_hooi(T, n_iter, v)
+        dec.run(n_iter, v)
 
     # the main path: counts to 0 just before, read just after
     for c in counters:
         c.launches = 0
     native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
-    res_k, ms_k = run_hooi(T, n_iter, "kernel")
+    torch.cuda.reset_peak_memory_stats()
+    res_k, ms_k = dec.run(n_iter, "kernel")
+    peak = torch.cuda.max_memory_allocated()
     counted = {c.__name__: c.launches for c in counters}
     routes = dict(native_gemm.launches_by_route)
-    check(counted["native_gemm"] > 0, "main path launched native_gemm no time")
+    check(counted["native_gemm"] > 0, f"{dec.label}: main path launched native_gemm no time")
     check(counted["native_gemm"] == sum(n for n, _ in launches.values()),
-          f"launch count {counted} differs from the recorded run's")
+          f"{dec.label}: launch count {counted} differs from the recorded run's")
     want_routes = dict.fromkeys(routes, 0)
     for (a, b, c, *_), (n, (A, B, _)) in launches.items():
         want_routes[native_route(A, B, a_modes=a, b_modes=b, c_modes=c)] += n
-    check(routes == want_routes, f"main path routes {routes}, native_route gives {want_routes}")
+    check(routes == want_routes,
+          f"{dec.label}: routes {routes}, native_route gives {want_routes}")
     native_gemm.launches = 0
     results, times = {"kernel": res_k}, {"kernel": [ms_k]}
     for v in ("torch", "conventional", "conventional", "torch", "kernel"):
-        res, ms = run_hooi(T, n_iter, v)
+        res, ms = dec.run(n_iter, v)
         results[v] = res
         times.setdefault(v, []).append(ms)
     check(native_gemm.launches == sum(n for n, _ in launches.values()),
-          "a baseline variant launched the kernel")
+          f"{dec.label}: a baseline variant launched the kernel")
+    return counted, routes, launches, results, times, peak
 
+
+def main_path(dec: Decomposition, noise_share, n_iter, counters):
+    """HOOI three ways.  Returns the kernel launches of the counted run,
+    ``native_gemm``'s launches in it by route, and the kernel run's
+    per-shape launches."""
+    counted, routes, launches, results, times, _ = counted_turns(dec, n_iter, counters)
     rel = {v: r.rel_error.item() for v, r in results.items()}
     check(abs(rel["kernel"] - rel["torch"]) <= 1e-5,
           f"kernel rel_error {rel['kernel']} vs torch {rel['torch']}")
     for v, r in results.items():
-        check(all(torch.isfinite(x).all().item() for x in (r.core, *r.factors)),
-              f"{v}: non-finite result")
-        check(tuple(r.core.shape) == RANKS, f"{v}: core shape {tuple(r.core.shape)}")
+        check(dec.whole(r), f"{v}: non-finite or misshapen")
         check(rel[v] <= noise_share * 1.001, f"{v}: rel_error {rel[v]} above the noise "
                                              f"share {noise_share}")
     A = results["kernel"].factors[0]
@@ -1655,7 +1718,7 @@ def main_path(T, noise_share, n_iter, counters):
           "kernel factors not orthonormal")
     med = {v: sorted(t)[len(t) // 2] for v, t in times.items()}
     for v in VARIANTS:
-        log(f"hooi {T.shape[0]}^3 ranks {RANKS} x{n_iter} [{v}]: {med[v]:.3f} ms per HOOI "
+        log(f"{dec.label} x{n_iter} [{v}]: {med[v]:.3f} ms per HOOI "
             f"(runs {', '.join(f'{t:.3f}' for t in times[v])}), rel_error {rel[v]:.7f}, "
             f"speedup over conventional {med['conventional'] / med[v]:.3f}x")
     log(f"hooi: noise share of ||T|| {noise_share:.7f}; kernel launches per HOOI "
@@ -1670,17 +1733,20 @@ TUNED_REL_TOL = 1e-5
 MAX_FRACTION = 1.05
 
 
-def tuned_path(T, working_set, noise_share, n_iter, counters, hooi_summary) -> dict:
-    """HOOI under ``strategy="tuned"``.  A ``"measure"`` dispatcher with a
-    fresh cache in a temporary directory pretunes the recorded working set
-    on the card (every candidate of every shape measured); the tuned HOOI
-    then runs under ``"cached"``: every lookup a hit, no measurement,
-    ``native_gemm``'s launches by route what the winners imply, and
-    ``rel_error`` within :data:`TUNED_REL_TOL` of the ``auto``+kernel
-    variant's.  Then the cost model fitted on that cache predicts each
-    shape, and one traced tuned iteration must give every ``contract``
-    span a roofline fraction in (0, :data:`MAX_FRACTION`], exported to a
-    Chrome trace that parses.  Returns the tuned run's record."""
+def tuned_path(dec: Decomposition, working_set, noise_share, n_iter, counters,
+               variants) -> dict:
+    """``dec`` (HOOI in phase 10, CP-ALS in 29) under ``strategy="tuned"``.
+    A ``"measure"`` dispatcher with a fresh cache in a temporary directory
+    pretunes the recorded working set on the card (every candidate of
+    every shape measured); the tuned run then goes under ``"cached"``:
+    every lookup a hit, no measurement, ``native_gemm``'s launches by
+    route what the winners imply, and ``rel_error`` within
+    :data:`TUNED_REL_TOL` of the ``auto``+kernel variant's (``variants``
+    holds each variant's ``"ms"`` and ``"rel"``).  Then the cost model
+    fitted on that cache predicts each shape, and one traced tuned
+    iteration must give every ``contract`` span a roofline fraction in
+    (0, :data:`MAX_FRACTION`], exported to a Chrome trace that parses.
+    Returns the tuned run's record."""
     import tempfile
     from collections import Counter
 
@@ -1692,7 +1758,7 @@ def tuned_path(T, working_set, noise_share, n_iter, counters, hooi_summary) -> d
     from repro_torch.tuning.model import kernel_route
     from repro_torch.kernels.sb_gemm import native_gemm
 
-    dev, both = T.device, ("torch", "kernel")
+    dev, both = dec.device, ("torch", "kernel")
     platform = platform_of(dev)
     shapes = {}
     for spec, dims, dt in working_set:
@@ -1730,7 +1796,7 @@ def tuned_path(T, working_set, noise_share, n_iter, counters, hooi_summary) -> d
 
             disp.policy = "cached"
             with native_routes_held() as warm:       # warm-up; launches held to native_route
-                run_hooi(T, n_iter, "tuned")
+                dec.run(n_iter, "tuned")
             looked = Counter()
             real_lookup = disp.lookup
 
@@ -1743,7 +1809,7 @@ def tuned_path(T, working_set, noise_share, n_iter, counters, hooi_summary) -> d
             for c in counters:
                 c.launches = 0
             native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
-            res, ms = run_hooi(T, n_iter, "tuned")
+            res, ms = dec.run(n_iter, "tuned")
             counted = {c.__name__: c.launches for c in counters}
             routes = dict(native_gemm.launches_by_route)
             disp.lookup = real_lookup
@@ -1751,32 +1817,31 @@ def tuned_path(T, working_set, noise_share, n_iter, counters, hooi_summary) -> d
             for key, n in looked.items():
                 if winner_route.get(key):
                     implied[winner_route[key]] += n
-            log(f"tuned hooi: {disp.stats['hits']} lookups, all hits, "
+            log(f"tuned {dec.label}: {disp.stats['hits']} lookups, all hits, "
                 f"{disp.stats['measurements']} measurements; native_gemm launches by route "
                 f"{routes}, implied by the winners {implied}, held in the warm-up run "
                 f"{warm}")
             check(disp.misses == 0 and disp.measurements == 0 and disp.hits > 0
                   and disp.hits == sum(looked.values()),
-                  f"tuned hooi under 'cached': {disp.stats}")
+                  f"tuned {dec.label} under 'cached': {disp.stats}")
             check(set(looked) <= set(shapes), "a tuned lookup outside the pretuned working set")
             check(routes == implied == warm, f"native_gemm routes {routes}, implied {implied}, "
                                              f"warm-up {warm}")
             check(counted["native_gemm"] == sum(routes.values())
                   and counted["grouped_gemm"] == counted["flash_attention"] == 0,
-                  f"tuned hooi launches {counted}")
-            times = [ms, run_hooi(T, n_iter, "tuned")[1]]
+                  f"tuned {dec.label} launches {counted}")
+            times = [ms, dec.run(n_iter, "tuned")[1]]
 
             rel = res.rel_error.item()
-            check(all(torch.isfinite(x).all().item() for x in (res.core, *res.factors))
-                  and tuple(res.core.shape) == RANKS, "tuned hooi: non-finite or misshapen")
-            check(abs(rel - hooi_summary["rel"]["kernel"]) <= TUNED_REL_TOL,
-                  f"tuned rel_error {rel} vs auto+kernel {hooi_summary['rel']['kernel']}")
+            check(dec.whole(res), f"tuned {dec.label}: non-finite or misshapen")
+            check(abs(rel - variants["rel"]["kernel"]) <= TUNED_REL_TOL,
+                  f"tuned rel_error {rel} vs auto+kernel {variants['rel']['kernel']}")
             check(rel <= noise_share * 1.001, f"tuned rel_error {rel} above the noise share")
             med = sorted(times)[len(times) // 2]
-            log(f"hooi {T.shape[0]}^3 ranks {RANKS} x{n_iter} [tuned]: {med:.3f} ms per HOOI "
+            log(f"{dec.label} x{n_iter} [tuned]: {med:.3f} ms a run "
                 f"(runs {', '.join(f'{t:.3f}' for t in times)}), rel_error {rel:.7f} "
-                f"(auto+kernel {hooi_summary['rel']['kernel']:.7f}); beside "
-                + ", ".join(f"{v} {t:.3f} ms" for v, t in hooi_summary["ms"].items()))
+                f"(auto+kernel {variants['rel']['kernel']:.7f}); beside "
+                + ", ".join(f"{v} {t:.3f} ms" for v, t in variants["ms"].items()))
 
             pred = Dispatcher(disp.cache, policy="predict", backends=both)
             model = pred.model()
@@ -1792,10 +1857,10 @@ def tuned_path(T, working_set, noise_share, n_iter, counters, hooi_summary) -> d
 
             tracer = trace.enable_tracing(trace.Tracer())
             try:
-                hooi_traced = run_hooi(T, 1, "tuned")[0]
+                traced = dec.run(1, "tuned")[0]
             finally:
                 trace.disable_tracing()
-            check(torch.isfinite(hooi_traced.rel_error).item(), "traced hooi: non-finite")
+            check(torch.isfinite(traced.rel_error).item(), f"traced {dec.label}: non-finite")
             spans = [e for e in tracer.events() if e["name"] == "contract"]
             fracs = [e["args"].get("roofline_fraction") for e in spans]
             check(spans and all(e["args"].get("roofline_bound_us", 0) > 0 for e in spans),
@@ -1809,7 +1874,7 @@ def tuned_path(T, working_set, noise_share, n_iter, counters, hooi_summary) -> d
                 log(f"trace contract {spec} [{strategy}] x{len(fs)}: roofline_fraction "
                     f"{min(fs):.4f}-{max(fs):.4f} of device time")
             check(not bad, f"roofline fractions outside (0, {MAX_FRACTION}]: {bad[:5]}")
-            path = Path(tmp) / "tuned_hooi_trace.json"
+            path = Path(tmp) / "tuned_trace.json"
             n_ev = export.write_chrome_trace(str(path), tracer)
             summary = export.validate_chrome_trace(str(path))
             check("contract" in summary["names"], "exported trace has no contract span")
@@ -1975,6 +2040,192 @@ def profile_device(label: str, fn, top: int = 10, kinds: dict | None = None) -> 
             for k, (ms, n) in by_kind.items()))
     return dict(busy_ms=busy / 1e3, wall_ms=wall_us / 1e3, idle_share=1 - busy / wall_us,
                 by_kind=by_kind)
+
+
+# ------------------------------------------------------------------ phase 29
+#: phase 29's CP-ALS cases, ``((m, n, p), rank)``, all float32: at 512³ each
+#: MTTKRP forms the Khatri-Rao factor first, its product against T on
+#: ``splitk`` (modes 1 and 3) and ``fbatched`` (mode 2) at rank 10, all on
+#: ``fbatched`` at 64; at 1024×512×256 modes 2 and 3 take
+#: tensor-times-matrix first, then the exceptional batched GEMV
+CP_CASES = (((512, 512, 512), 10), ((512, 512, 512), 64), ((1024, 512, 256), 16))
+CP_ITER = 25
+#: two ``native_gemm`` launches an MTTKRP, three MTTKRPs an iteration
+CP_LAUNCHES_PER_ITER = 6
+#: check (a) against the torch backend: rel_error (absolute, the
+#: conventional variant's too), λ (relative), each factor column with its
+#: sign aligned (absolute)
+CP_REL_TOL, CP_LAMBDA_RTOL, CP_FACTOR_TOL = 1e-5, 1e-4, 1e-3
+#: the device kernels of one CP-ALS, by kind: ``eigh`` (cuSOLVER's
+#: Jacobi sweeps and rotations, ``syevbj_batch`` and ``*_rotate_batch``,
+#: its tridiagonal reduction and LAPACK-named stages) and the solves (LU
+#: and triangular solves)
+EIGH_NAMES = ("syev", "sytrd", "sytd2", "syr2k", "rotate_batch", "ormtr", "orgtr", "stedc",
+              "steqr", "sterf", "laed", "lasr", "latrd", "larf", "heevd", "hetrd")
+SOLVE_NAMES = ("getrf", "getrs", "getf2", "trsm", "laswp", "trsv")
+CP_KINDS = {"native_gemm": lambda name: name.removeprefix("void ").startswith(NATIVE_KERNELS),
+            "eigh": lambda name: any(s in name.lower() for s in EIGH_NAMES),
+            "solves": lambda name: any(s in name.lower() for s in SOLVE_NAMES)}
+
+
+def recoverable_cp(shape, rank: int, seed: int, noise_rel: float = 0.1, device="cuda"):
+    """``Σ_r λ_r a_r ∘ b_r ∘ c_r + noise`` made from a numpy seed: each
+    factor's ``rank`` columns orthonormal (QR of a Gaussian), ``λ =
+    geomspace(1, 0.2, rank)``, the noise Gaussian with its norm
+    ``noise_rel`` times the low-rank part's.  ALS from the HOSVD init
+    reaches the noise floor on it in both packages; on Gaussian factors it
+    can stop far above it, where the packages part
+    (``tests/test_torch_cp.py``).  Returns (T, noise share of ||T||)."""
+    rng = np.random.default_rng(seed)
+    lam = torch.from_numpy(np.geomspace(1.0, 0.2, rank).astype(np.float32)).to(device)
+    A, B, C = (torch.from_numpy(np.linalg.qr(rng.standard_normal((d, rank)))[0]
+                                .astype(np.float32)).to(device) for d in shape)
+    T = torch.einsum("r,mr,nr,pr->mnp", lam, A, B, C).contiguous()
+    N = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
+    N *= noise_rel * torch.linalg.norm(T) / torch.linalg.norm(N)
+    T += N
+    return T, (torch.linalg.norm(N) / torch.linalg.norm(T)).item()
+
+
+def cp_run(T, rank: int) -> Decomposition:
+    from repro_torch.core.cp import cp_als
+
+    return Decomposition(f"cp_als {'x'.join(map(str, T.shape))} rank {rank}", T.device,
+                         functools.partial(run_timed, cp_als, T, rank),
+                         lambda r: (r.weights, *r.factors),
+                         ((rank,), *((d, rank) for d in T.shape)))
+
+
+def aligned_factor_err(got, want) -> float:
+    """Largest difference of two CP factors, each column's sign (which
+    follows the eigenvectors of the init) aligned first."""
+    return max((f * torch.sign((f * g).sum(0)) - g).abs().max().item()
+               for f, g in zip(got.factors, want.factors))
+
+
+def program_steps(progs) -> list:
+    """Every pairwise step of the compiled programs ``progs`` as the
+    ``(spec, dims, dtype)`` that ``record_contractions`` records."""
+    from repro_torch.core.contract import dtype_name
+    from repro_torch.core.notation import parse_spec
+    from repro_torch.core.program import propagate_shapes, step_dims
+
+    steps = []
+    for prog in progs:
+        shapes, dtypes = propagate_shapes(prog.program)
+        steps += [(s.spec, step_dims(parse_spec(s.spec), *(shapes[a] for a in s.args)),
+                   dtype_name(functools.reduce(torch.promote_types, (dtypes[a] for a in s.args))))
+                  for s in prog.program.steps if s.op == "contract"]
+    return steps
+
+
+def cp_case(dev, shape, rank: int, seed: int, n_iter: int, counters) -> dict:
+    """Phase 29 at one case (see the module docstring): checks (a)-(e)."""
+    from repro_torch.core.contract import contract
+    from repro_torch.core.program import record_programs
+    from repro_torch.kernels.sb_gemm import native_route
+
+    t0 = time.perf_counter()
+    T, noise_share = recoverable_cp(shape, rank, seed, device=dev)
+    dec = cp_run(T, rank)
+    tag = dec.label
+    # the working set of (c) and (d): the steps of the three MTTKRP
+    # programs, the only contractions the kernel backend and the tuner
+    # reach (the init's Grams are ``direct``, the reconstruction the
+    # torch backend's)
+    with record_programs() as progs:
+        dec.run(1, "kernel")
+    mttkrps = list({id(p): p for p in progs if p.options.backend == "kernel"}.values())
+    check(len(mttkrps) == 3, f"{tag}: {len(mttkrps)} kernel programs, want 3 MTTKRPs")
+    rec = program_steps(mttkrps)
+    check_copy_freedom(dev, list({s: d for s, d, _ in rec}.items()))
+
+    # (a), (b) and the turns of (e)
+    counted, routes, launches, results, times, peak = counted_turns(dec, n_iter, counters)
+    want = CP_LAUNCHES_PER_ITER * n_iter
+    log(f"{tag} x{n_iter}: native_gemm launches {counted['native_gemm']} by route "
+        f"{routes_text(routes)}, each on native_route's route; torch and conventional "
+        f"launched none")
+    for (a, b, c, *_), (n, (A, B, _)) in sorted(launches.items(), key=lambda x: x[0][:3]):
+        log(f"  {a},{b}->{c} A{tuple(A.shape)}{A.stride()} B{tuple(B.shape)}{B.stride()} "
+            f"x{n} [{native_route(A, B, a_modes=a, b_modes=b, c_modes=c)}]")
+    check(counted["native_gemm"] == want and counted["grouped_gemm"] == 0
+          and counted["flash_attention"] == 0,
+          f"{tag}: launches {counted}, want {want} native_gemm and nothing else")
+    rel = {v: r.rel_error.item() for v, r in results.items()}
+    k, t = results["kernel"], results["torch"]
+    lam_err = ((k.weights - t.weights).abs() / t.weights.abs()).max().item()
+    fac_err = aligned_factor_err(k, t)
+    log(f"{tag}: rel_error kernel {rel['kernel']:.7f}, torch {rel['torch']:.7f}, "
+        f"conventional {rel['conventional']:.7f}; noise share {noise_share:.7f} "
+        f"(kernel / share {rel['kernel'] / noise_share:.6f}); lambda rel. diff {lam_err:.2e}, "
+        f"factor diff (signs aligned) {fac_err:.2e} from torch")
+    for v, r in results.items():
+        check(dec.whole(r), f"{tag} [{v}]: non-finite or misshapen")
+    check(rel["kernel"] <= noise_share * 1.001,
+          f"{tag}: kernel rel_error {rel['kernel']} above the noise share {noise_share}")
+    for v in ("torch", "conventional"):
+        check(abs(rel["kernel"] - rel[v]) <= CP_REL_TOL,
+              f"{tag}: kernel rel_error {rel['kernel']} vs {v} {rel[v]}")
+    check(lam_err <= CP_LAMBDA_RTOL, f"{tag}: lambda {lam_err} from torch's")
+    check(fac_err <= CP_FACTOR_TOL, f"{tag}: factors {fac_err} from torch's")
+    med = {v: sorted(ts)[len(ts) // 2] for v, ts in times.items()}
+    for v in VARIANTS:
+        log(f"{tag} x{n_iter} [{v}]: {med[v]:.3f} ms per CP-ALS (runs "
+            f"{', '.join(f'{x:.3f}' for x in times[v])}), speedup over conventional "
+            f"{med['conventional'] / med[v]:.3f}x")
+
+    # (d)
+    tuned = tuned_path(dec, rec, noise_share, n_iter, counters, {"ms": med, "rel": rel})
+
+    # (e) every launch shape against its bound, the plain version and einsum
+    tot = time_shapes(launches, per="CP-ALS")
+    mttkrp_bytes = T.numel() * T.element_size()
+    mttkrp_flops = 2 * T.numel() * rank
+    reckoned = 3 * n_iter * bound(mttkrp_bytes, mttkrp_flops, T.dtype)[0]
+    log(f"{tag}: {counted['native_gemm']} launches {tot['ms']:.4f} ms queued against a bound "
+        f"of {tot['bound_ms']:.4f} ({tot['bound_by']}; {3 * n_iter} MTTKRPs reading T once "
+        f"each: {reckoned:.4f}), einsum {tot['library_ms']:.4f}; "
+        f"{100 * tot['ms'] / med['kernel']:.1f}% of the {med['kernel']:.3f} ms per CP-ALS")
+    # the init's three eigh alone, then one kernel run's device time by kind
+    grams = [contract(s, T, T, strategy="direct")
+             for s in ("mnp,qnp->mq", "mnp,mqp->nq", "mnp,mnq->pq")]
+    eigh_ms = [cuda_ms(lambda g=g: torch.linalg.eigh(g), 3) for g in grams]
+    log(f"{tag}: eigh of the init's Grams {', '.join(f'{x:.3f}' for x in eigh_ms)} ms "
+        f"({sum(eigh_ms):.3f} ms of {med['kernel']:.3f} per CP-ALS)")
+    prof = profile_device(f"one {tag} [kernel]", lambda: dec.run(n_iter, "kernel"), top=15,
+                          kinds=CP_KINDS)
+    if prof:
+        rest = prof["busy_ms"] - sum(ms for ms, _ in prof["by_kind"].values())
+        log(f"{tag}: device busy {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} "
+            f"(idle share {prof['idle_share']:.3f}); the rest {rest:.3f} ms")
+    log(f"{tag}: peak memory of the counted run {peak / 1e9:.3f} GB; "
+        f"case took {time.perf_counter() - t0:.1f} s")
+    return dict(launches=counted["native_gemm"], launches_by_route=routes, ms=med, rel=rel,
+                noise_share=noise_share, lambda_rel_diff=lam_err, factor_diff=fac_err,
+                tuned=tuned, reckoned_bound_ms=reckoned, eigh_ms=eigh_ms, peak_bytes=peak,
+                profile=prof, **{k: tot[k] for k in ("max_abs_err", "bound_by")},
+                per_cp_als={k: tot[k] for k in ("ms", "call_ms", "plain_ms", "library_ms",
+                                                "library_call_ms", "bound_ms")})
+
+
+def cp_path(dev, seed: int, counters, cases=CP_CASES, n_iter: int = CP_ITER) -> dict:
+    """Phase 29: CP-ALS at each of ``cases`` (see the module docstring).
+    Returns ``native_gemm``'s launches over the cases' counted runs, by
+    route, and each case's record."""
+    t_start = time.perf_counter()
+    recs = {}
+    for shape, rank in cases:
+        recs[f"{'x'.join(map(str, shape))} rank {rank}"] = cp_case(dev, shape, rank, seed,
+                                                                   n_iter, counters)
+        gc.collect()
+        torch.cuda.empty_cache()
+    by_route = Counter()
+    for r in recs.values():
+        by_route.update(r["launches_by_route"])
+    log(f"cp: phase 29 took {time.perf_counter() - t_start:.1f} s")
+    return dict(launches=sum(r["launches"] for r in recs.values()),
+                launches_by_route=dict(by_route), cases=recs)
 
 
 # ------------------------------------------------------------------- phase 8
@@ -6910,17 +7161,21 @@ def main() -> int:
     check_copy_freedom(dev, working_set)
     lap("4")
 
-    counted, routes, launches, hooi_summary = main_path(T, noise_share, args.n_iter, counters)
+    hooi_dec = hooi_run(T)
+    counted, routes, launches, hooi_summary = main_path(hooi_dec, noise_share, args.n_iter,
+                                                        counters)
     check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
           f"HOOI launched another kernel: {counted}")
     lap("5")
-    tuned = tuned_path(T, rec, noise_share, args.n_iter, counters, hooi_summary)
+    tuned = tuned_path(hooi_dec, rec, noise_share, args.n_iter, counters, hooi_summary)
     lap("10")
     tot = time_shapes(launches)
     lap("6")
     profile_hooi(T, args.n_iter, "kernel")
-    del T, launches, rec  # the recorded operands hold the tensor too
+    del T, hooi_dec, launches, rec  # the recorded operands hold the tensor too
     lap("7")
+    cp = cp_path(dev, args.seed, counters)
+    lap("29")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -6975,6 +7230,9 @@ def main() -> int:
                         {**tot, "launches": counted["native_gemm"],
                          "launches_by_route": routes,
                          "tuned_launches_by_route": tuned["launches_by_route"],
+                         "cp_launches": cp["launches"],
+                         "cp_launches_by_route": cp["launches_by_route"],
+                         "cp": cp["cases"],
                          "serve_launches": serve["launches"],
                          "serve_launches_by_route": serve["launches_by_route"],
                          "train_launches": train["launches"],
@@ -7076,6 +7334,7 @@ def main() -> int:
                 "replaces": f"src/repro/kernels/{tpu}",
                 **{k: rec[k] for k in keys},
                 **{k: rec[k] for k in ("launches_by_route", "tuned_launches_by_route",
+                                       "cp_launches", "cp_launches_by_route", "cp",
                                        "serve_launches", "serve_launches_by_route", "serve",
                                        "train_launches", "train_launches_by_route", "train",
                                        "sharded_launches", "sharded_launches_by_route",

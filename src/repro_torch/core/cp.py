@@ -40,7 +40,8 @@ def _solve(mttkrp, X, Y):
 
 
 def cp_als(T, rank: int, *, n_iter: int = 25, strategy="auto",
-           backend="torch") -> CPResult:
+           backend="torch", seed: int = 0) -> CPResult:
+    del seed  # the JAX package's signature; unused there too (the init is HOSVD)
     # HOSVD init: leading eigvecs of each unfolding's Gram matrix, computed
     # as contractions — avoids the random-init ALS swamp.
     A = _nvecs(contract("mnp,qnp->mq", T, T, strategy="direct"), rank)
