@@ -134,8 +134,8 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    and the counted serve launches the routes in that ratio.  The legacy
    ``ServeEngine`` must give the same tokens, and a prefill's logits on
    the kernel backend must be within 2e-2 of the largest magnitude of
-   the torch backend's.  Then the two backends in
-   turns (kernel, torch, torch, kernel): ms per prefill chunk by length,
+   the torch backend's.  Then one timed serve on each backend (kernel,
+   torch; four in turns until phase 30 took their time): ms per prefill chunk by length,
    ms per decode tick by bucket and tokens/s, each chunk and tick timed
    by the host clock between synchronisations; and the top 8
    ``native_gemm`` launch shapes of the counted serve as in phase 6.
@@ -179,7 +179,8 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    relative and each leaf's gradient within 5e-2 of its largest
    magnitude; a ``microbatches=2`` step's parameters within 5e-3 of the
    full batch's; an int8-compressed step finite.  Then ms per step and
-   tokens/s, the backends in turns (kernel, torch, torch, kernel), peak
+   tokens/s, 2 steps on each backend (kernel, torch; four turns until
+   phase 30 took their time), peak
    memory of the counted run, a profile of one step per backend, and the
    top 8 ``native_gemm`` launch shapes of a step as in phase 6.
 14. Sharded contraction: ``make_host_mesh(1, 1)`` starts a world of one
@@ -387,8 +388,9 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    its layout within ``TOL`` of the plain version, bit-identical twice,
    timed queued against its bound, the plain version and one
    ``torch.einsum``; per-step sums, the top 8 by time and each backward
-   layout printed.  (4) ms per step and tokens/s, 2 steps on each backend
-   (the torch backend warmed by one; the turns were cut for phase 25),
+   layout printed.  (4) ms per step and tokens/s, 1 step on each backend
+   (the torch backend warmed by one; the turns were cut for phase 25, the
+   second step for phase 30),
    and one profiled step each (top 8 device kernels, idle share).
 24. Serving a hybrid SSD + GQA + MoE stack at published width, after
    phase 23: jamba-v0.1-52b (d_model 4096, 32 query heads over 8 KV heads
@@ -492,7 +494,8 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    1157, 144, 240), no other kernel, the peak memory; (2) the float32
    oracle, the zero gradient only on ``embed``, which an audio model
    never reads (``unreached_leaves``); (3) every launch layout of a
-   step; (4) ms per step and tokens (frames)/s, 2 steps a backend, one profiled
+   step; (4) ms per step and tokens (frames)/s, 1 step a backend (2 until
+   phase 30), one profiled
    step each with device time summed by kind (``STEP_KINDS``:
    ``native_gemm``'s kernels, f32 adds, fills, copies).  Then (5) the 8
    attention layouts of one layer at 768 frames (every one on
@@ -553,6 +556,37 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
    kernel, ``torch.einsum``, and ``expert_in`` copied to (x, g·c, e) then
    one ``torch.bmm`` (the conventional path).  The decode pass's expert
    up-projection is logged by name beside its bound and einsum.
+30. Serving a vision-language model at published width and depth, after
+   phase 28: internvl2-2b (d_model 2048, 16 heads over 8 KV heads of 128,
+   d_ff 8192 SwiGLU, vocab 92553 padded to 92672, untied; the JAX
+   package's stub frontend: 256 patch positions of 1024 features through
+   one linear projection, prepended to the text), 24 of 24 layers (7.57 GB
+   of f32 masters drawn on the card from ``--seed``), bf16 activations,
+   ``contract_backend="kernel"`` with ``contract_strategy="native"``; a
+   VLM chat endpoint's traffic, one image a request (features N(0, 1)
+   from ``--seed``): 8 requests alone of 32-3840 text tokens and one batch
+   of 4 of 1024, 16 greedy tokens each, through the model's own
+   ``transformer.prefill`` (tokens and features, the whole prompt) and
+   ``decode_step`` on a cache of 4112 rows (``ServingRuntime`` takes no
+   image).  (a) Every prefill 218 launches (170 ``wgmma``: Q, K, V, O
+   and the 3 MLP products a layer, the head, the projector; 48
+   ``batched``: the scores and P·V a layer), every decode pass 217, as
+   ``ssm_routes`` derives them; (b) each cache holds 256 + L rows, zeroed
+   features move the prefill's last logits by more than 10x 2e-2, the
+   projector's launch within 2e-2 of float32 on the same features; (c)
+   every served row (prefill and decode) within 2e-2 of ``forward`` over
+   image, prompt and the tokens before, padded after its last token to
+   the cache's width (forward's softmax rows then as wide as the served
+   ones), and the prefill rows against forward unpadded logged; (d) the
+   batch's rows within 2e-2 of its requests alone fed its tokens, tokens
+   equal wherever the float32 oracle's top-two margin exceeds 2e-2, bit
+   identity logged; (e) every row no farther from the float32 forward
+   (torch backend) fed the same tokens than max(2e-2, 2x the bf16 torch
+   backend's serve); (f) every launch layout of the 4096-position prefill
+   and of a 1-slot and a 4-slot decode pass against bound, plain and
+   einsum, the weights' casts against their byte bound; (g) ms per
+   prefill and decode pass, tokens/s, both backends; the prefill and a
+   4-slot decode pass profiled by kind; peaks by stage.
    Then the seconds of every phase.
 19. Float32 products on ``fbatched``, right after phase 14: the 36 f32
    Table II cases at n = 256 through ``contract(strategy="native")`` as a
@@ -584,7 +618,7 @@ Run from the repository root (it imports ``src/repro_torch``).  Phases:
 
 Each path (5, 10, 29 at each case, 8, 9, 11, the paged serve of 11, 12, 13, 14, 19, 20, 15's
 training and serving, 16's layer, training and pipeline, 22, 23, 24, 25 and its
-paged serve, 26, 27 and its paged serve, 28 and its paged serve) is driven with every
+paged serve, 26, 27 and its paged serve, 28 and its paged serve, 30) is driven with every
 kernel's launch count set to 0 just before it and read just after;
 launches made to compare, time or tune a kernel do not count.  Phases 5,
 10 and 29 also read ``native_gemm``'s launches by route, which must be
@@ -633,7 +667,10 @@ times, paged launches, layouts, casts, times and peaks under
 ``granite_serve``, and phase 28's launches under
 ``qwen2_moe_serve_launches``/``qwen2_moe_serve_launches_by_route`` and
 its expert plans, MoE checks and times, drops, whole-prompt serve, paged
-launches, layouts, casts, times and peaks under ``qwen2_moe_serve``), then
+launches, layouts, casts, times and peaks under ``qwen2_moe_serve``, and
+phase 30's launches under ``internvl2_serve_launches``/
+``internvl2_serve_launches_by_route`` and its checks, layouts, casts,
+times, profiles and peaks under ``internvl2_serve``), then
 ``native_gemm.batched``, the batched route on its own line: phase 13's
 counted launches on it, and its times per train step from phase 18 (every
 path's under ``tc_shapes``), then ``native_gemm.f32``, the fbatched route
@@ -648,11 +685,13 @@ fbatched and gathered lines also carry each route's launches on phase
 one token and in the counted serve; per train step of phase 23; per
 4096-token prefill and in the counted serve of phase 24's jamba; per
 prefill chunk or decode pass and in the counted serve of phase 25's
-gemma2, phase 27's granite and phase 28's qwen2-moe; per train step of
-phase 26's hubert) and its SSD launch shapes on the mamba2 serve and its
-launch layouts on the jamba, gemma2, granite and qwen2-moe serves, summed
-(``ssm_shapes``, ``jamba_shapes``, ``gemma2_shapes``, ``granite_shapes``,
-``qwen2_moe_shapes``),
+gemma2, phase 27's granite and phase 28's qwen2-moe; per prefill, per
+decode pass and in the counted serve of phase 30's internvl2; per train
+step of phase 26's hubert) and its SSD launch shapes on the mamba2 serve
+and its launch layouts on the jamba, gemma2, granite, qwen2-moe and
+internvl2 serves, summed (``ssm_shapes``, ``jamba_shapes``,
+``gemma2_shapes``, ``granite_shapes``, ``qwen2_moe_shapes``,
+``internvl2_shapes``),
 the card's name and power limit as ``nvidia-smi`` prints them, and the
 ``{"ok": true, ...}`` line.  Any failed check raises and exits non-zero without that line.
 """
@@ -2812,7 +2851,7 @@ def serve_path(dev, seed: int, counters) -> dict:
     rt_t.serve(serve_traffic(cfg, seed))
     saved = [c.launches for c in counters]
     runs = {"kernel": [], "torch": []}
-    for backend in ("kernel", "torch", "torch", "kernel"):
+    for backend in runs:
         res = timed_serve(rt if backend == "kernel" else rt_t, serve_traffic(cfg, seed))
         runs[backend].append(res)
         log(f"serve [{backend}]: {res['tokens']} tokens in {res['wall_ms']:.1f} ms, "
@@ -2841,7 +2880,8 @@ def serve_path(dev, seed: int, counters) -> dict:
         c.launches = n
     same = sum(a == b for r in runs["torch"] for a, b in zip(r["outputs"], outputs))
     log(f"serve: the torch backend's greedy tokens equal the kernel backend's in {same} of "
-        f"{2 * len(outputs)} requests (bf16 rounding differs between the two)")
+        f"{len(runs['torch']) * len(outputs)} requests (bf16 rounding differs between the "
+        f"two)")
     del rt_t, legacy
 
     tot = time_shapes(launches, reps=10, per="serve", top=SERVE["top_shapes"])
@@ -3121,7 +3161,7 @@ def train_path(dev, seed: int, counters) -> dict:
                 "torch": make_train_step(cfg_t, TrainConfig(opt=opt))}
     timed_steps(steps_fn["torch"], params, batch, 1)
     runs = {"kernel": [], "torch": []}
-    for backend in ("kernel", "torch", "torch", "kernel"):
+    for backend in runs:
         ms = timed_steps(steps_fn[backend], params, batch, TRAIN["timed_steps"])
         runs[backend] += ms
         log(f"train [{backend}]: ms per step {', '.join(f'{m:.1f}' for m in ms)}, "
@@ -5088,7 +5128,9 @@ def ssm_routes(cfg, L: int | None = None) -> dict:
     contract, or f32) and ``y_inter`` on ``batched``.  A stack without
     Mamba layers (gemma2) launches the same routes whatever ``L``; so does
     one of granite's one KV head, whose one-row passes copy their row
-    (``layers.attention``) to keep the scores and P·V on ``batched``."""
+    (``layers.attention``) to keep the scores and P·V on ``batched``.  A
+    prefill of a stack with a frontend (internvl2's image) also runs the
+    frontend's projection, ``bpf,fe->bpe``, on ``wgmma``."""
     from repro_torch.kernels.sb_gemm import NARROW
 
     n = cfg.n_periods
@@ -5099,6 +5141,8 @@ def ssm_routes(cfg, L: int | None = None) -> dict:
     shared = cfg.moe.n_shared if moe else 0
     routes = {"wgmma": 2 * mamba + 4 * attn + ff * (dense + shared * moe) + 1,
               "batched": 2 * attn + ff * moe + mamba}
+    if L is not None and cfg.frontend is not None:
+        routes["wgmma"] += 1
     if L is not None and mamba:
         Q = min(cfg.ssm.chunk, L)
         while L % Q:
@@ -5348,6 +5392,47 @@ def prefill_vs_forward(tag: str, cfg, params, traffic, seen: dict, dev,
     return errs
 
 
+def oracle_check(tag: str, label: str, seen: dict, seen_t: dict, ref: dict, tokens: dict,
+                 rows: int, what: str = "runtime", oracle: str | None = None,
+                 note: str = "") -> dict:
+    """The float32 oracle check of a serving phase: every row the kernel
+    backend served (``seen``, logits by ``(rid, tokens generated
+    before)``) no farther from the float32 oracle's (``ref``: the torch
+    backend in float32 fed the same tokens) than the larger of 2e-2 and
+    twice the worst of the bf16 torch backend's (``seen_t``), each of the
+    largest magnitude; all three recorded at the same ``rows`` positions.
+    ``tokens`` (rid to the kernel's tokens) counts where the oracle's
+    argmax is the kernel's token; ``what`` names the served path and
+    ``oracle`` the float32 one (``what`` by default); ``note`` ends the
+    log line.  Returns the worst distances, and each row's (``rows``)."""
+    check(seen.keys() == ref.keys() == seen_t.keys() and len(ref) == rows,
+          f"{tag}: logits recorded at {len(seen)}, {len(seen_t)} and {len(ref)} positions")
+    e_k = {k: mag_err(seen[k], ref[k]) for k in ref}
+    e_t = {k: mag_err(seen_t[k], ref[k]) for k in ref}
+    direct = max(mag_err(seen[k], seen_t[k]) for k in ref)
+    err_k, err_t = max(e_k.values()), max(e_t.values())
+    limit = max(TOL[torch.bfloat16], 2 * err_t)
+    far = {k: (e, e_t[k]) for k, e in e_k.items() if e > limit}
+    check(not far, f"{tag}: kernel {what} rows farther from the float32 oracle than {limit} "
+                   f"(the larger of {TOL[torch.bfloat16]} and twice the torch backend's "
+                   f"worst {err_t}): {far}")
+    agree = sum(int(torch.argmax(ref[(rid, pos)])) == tok
+                for rid, toks in tokens.items() for pos, tok in enumerate(toks))
+
+    def worst(errs, pre):
+        return max(e for (_, pos), e in errs.items() if (pos == 0) == pre)
+
+    log(f"{tag}: {label} against the float32 {oracle or what} (torch backend, TF32 off) fed "
+        f"the same tokens, worst of the largest magnitude over {len(ref)} rows: kernel {what} "
+        f"{err_k:.3g} (prefill rows {worst(e_k, True):.3g}, decode rows "
+        f"{worst(e_k, False):.3g}; median {sorted(e_k.values())[len(e_k) // 2]:.3g}), torch "
+        f"backend {what} {err_t:.3g} (prefill {worst(e_t, True):.3g}, decode "
+        f"{worst(e_t, False):.3g}; median {sorted(e_t.values())[len(e_t) // 2]:.3g}); limit "
+        f"for the kernel {limit:.3g}; kernel against torch directly {direct:.3g}; the "
+        f"oracle's argmax is the kernel's token at {agree} of {len(ref)} positions; {note}")
+    return dict(kernel=err_k, torch=err_t, kernel_vs_torch=direct, rows=e_k)
+
+
 def pass_layouts(tag: str, passes: dict, gen, dev, skip=()) -> tuple:
     """Every ``native_gemm`` launch layout of each pass in ``passes`` (name
     to a function that runs it), but the specs in ``skip``, on random
@@ -5593,7 +5678,7 @@ def ssm_serve_path(dev, seed: int, counters) -> dict:
 #: kernel step ``f32_tol`` of each leaf's largest magnitude (and relative on
 #: the loss), the bf16 kernel step the larger of ``bf16_floor`` and twice
 #: the bf16 torch step's distance, its loss ``loss_tol`` relative
-SSM_TRAIN = dict(arch="mamba2-1.3b", seq_len=2048, batch=2, steps=6, timed_steps=2,
+SSM_TRAIN = dict(arch="mamba2-1.3b", seq_len=2048, batch=2, steps=6, timed_steps=1,
                  top_shapes=8, f32_tol=1e-3, bf16_floor=5e-2, loss_tol=2e-2, lr=TRAIN["lr"])
 
 
@@ -5960,33 +6045,9 @@ def jamba_serve_path(dev, seed: int, counters) -> dict:
     rt32, ref = fed(cfg_t.with_(dtype="float32"))
     del rt32
     phase_peak = torch.cuda.max_memory_allocated(dev)
-    check(seen.keys() == ref.keys() == seen_t.keys()
-          and len(ref) == len(traffic) * spec["max_new"],
-          f"jamba: logits recorded at {len(seen)}, {len(seen_t)} and {len(ref)} positions")
-    e_k = {k: mag_err(seen[k], ref[k]) for k in ref}
-    e_t = {k: mag_err(seen_t[k], ref[k]) for k in ref}
-    direct = max(mag_err(seen[k], seen_t[k]) for k in ref)
-    err_k, err_t = max(e_k.values()), max(e_t.values())
-    limit = max(TOL[torch.bfloat16], 2 * err_t)
-    far = {k: (e, e_t[k]) for k, e in e_k.items() if e > limit}
-    check(not far, f"jamba: kernel runtime rows farther from the float32 oracle than {limit} "
-                   f"(the larger of {TOL[torch.bfloat16]} and twice the torch backend's "
-                   f"worst {err_t}): {far}")
-    agree = sum(int(torch.argmax(ref[(rid, pos)])) == tok
-                for rid, toks in kern_out.items() for pos, tok in enumerate(toks))
-
-    def worst(errs, pre):
-        return max(e for (_, pos), e in errs.items() if (pos == 0) == pre)
-
-    log(f"jamba: (c) against the float32 runtime (torch backend, TF32 off) fed the same "
-        f"tokens, worst of the largest magnitude over {len(ref)} rows: kernel runtime "
-        f"{err_k:.3g} (prefill rows {worst(e_k, True):.3g}, decode rows "
-        f"{worst(e_k, False):.3g}; median {sorted(e_k.values())[len(e_k) // 2]:.3g}), torch "
-        f"backend runtime {err_t:.3g} (prefill {worst(e_t, True):.3g}, decode "
-        f"{worst(e_t, False):.3g}; median {sorted(e_t.values())[len(e_t) // 2]:.3g}); limit "
-        f"for the kernel {limit:.3g}; kernel against torch directly {direct:.3g}; the "
-        f"oracle's argmax is the kernel's token at {agree} of {len(ref)} positions; phase "
-        f"peak {phase_peak / 1e9:.2f} GB allocated")
+    errs = oracle_check("jamba", "(c)", seen, seen_t, ref, kern_out,
+                        len(traffic) * spec["max_new"],
+                        note=f"phase peak {phase_peak / 1e9:.2f} GB allocated")
     del ref, seen_t
     lap("(c)")
 
@@ -6037,7 +6098,7 @@ def jamba_serve_path(dev, seed: int, counters) -> dict:
                 prefill_launches_by_route={str(L): prefills[L] for L in spec["prompts"]},
                 decode_launches_by_route=decodes[0], prefill_logits_err=errs_a,
                 dropped={str(L): [lost for _, lost in drops[L]] for L in spec["prompts"]},
-                logits_err=dict(kernel=err_k, torch=err_t, kernel_vs_torch=direct),
+                logits_err={k: v for k, v in errs.items() if k != "rows"},
                 peak_bytes=peak, phase_peak_bytes=phase_peak, master_bytes=masters,
                 shapes=shapes, shapes_by_route=by_route, per_pass=per_pass,
                 moe_cast=dict(ms=cast_ms, bound_ms=cast_bound, bytes=cast_bytes, layers=n_moe),
@@ -6139,6 +6200,36 @@ def cast_weights(cfg, params) -> list:
                 m = blk["moe"]
                 out += [m[k][i] for k in ("wi", "wg", "wo") if k in m]
                 out += [w for ws in m.get("shared", {}).values() for w in ws[i]]
+    return out
+
+
+def weight_casts(cfg, params) -> dict:
+    """What a pass pays besides its products to cast its weights: each of
+    :func:`cast_weights`' weights cast to bf16 once, queued, against the
+    byte bound of reading its f32 master and writing the bf16 copy."""
+    weights = cast_weights(cfg, params)
+    nbytes = sum(w.numel() * (w.element_size() + 2) for w in weights)
+
+    def cast_all():
+        for w in weights:
+            w.to(torch.bfloat16)
+
+    return dict(ms=queued_ms(cast_all, 2), bound_ms=bound(nbytes, 0, torch.bfloat16)[0],
+                bytes=nbytes, weights=len(weights))
+
+
+def profile_passes(tag: str, passes: dict, confs: dict, kinds: dict | None = None) -> dict:
+    """One call of each pass in ``passes`` (name to a function of the
+    config) on each config of ``confs`` (backend to config) under the
+    profiler (:func:`profile_device`, its ``kinds``), keyed ``"{backend}
+    {pass}"``."""
+    out = {}
+    with torch.no_grad():
+        for name, run in passes.items():
+            for backend, conf in confs.items():
+                out[f"{backend} {name}"] = profile_device(
+                    f"one {tag} {name} [{backend}]", functools.partial(run, conf), top=8,
+                    kinds=kinds)
     return out
 
 
@@ -6354,34 +6445,10 @@ def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: di
     _, ref = fed(cfg32, False, spec.get("oracle_slots", spec["slots"]))
     peaks["float32 oracle"] = torch.cuda.max_memory_allocated()
     release()
-    check(seen.keys() == ref.keys() == seen_t.keys()
-          and len(ref) == len(traffic) * spec["max_new"],
-          f"{tag}: logits recorded at {len(seen)}, {len(seen_t)} and {len(ref)} positions")
-    e_k = {k: mag_err(seen[k], ref[k]) for k in ref}
-    e_t = {k: mag_err(seen_t[k], ref[k]) for k in ref}
-    direct = max(mag_err(seen[k], seen_t[k]) for k in ref)
-    err_k, err_t = max(e_k.values()), max(e_t.values())
-    limit = max(TOL[torch.bfloat16], 2 * err_t)
-    far = {k: (e, e_t[k]) for k, e in e_k.items() if e > limit}
-    check(not far, f"{tag}: kernel runtime rows farther from the float32 oracle than {limit} "
-                   f"(the larger of {TOL[torch.bfloat16]} and twice the torch backend's "
-                   f"worst {err_t}): {far}")
-    agree = sum(int(torch.argmax(ref[(rid, pos)])) == tok
-                for rid, toks_ in kern_out.items() for pos, tok in enumerate(toks_))
-
-    def worst(errs, pre):
-        return max(e for (_, pos), e in errs.items() if (pos == 0) == pre)
-
-    log(f"{tag}: (e) against the float32 runtime (torch backend, TF32 off) fed the same "
-        f"tokens, worst of the largest magnitude over {len(ref)} rows: kernel runtime "
-        f"{err_k:.3g} (prefill rows {worst(e_k, True):.3g}, decode rows "
-        f"{worst(e_k, False):.3g}; median {sorted(e_k.values())[len(e_k) // 2]:.3g}), torch "
-        f"backend runtime {err_t:.3g} (prefill {worst(e_t, True):.3g}, decode "
-        f"{worst(e_t, False):.3g}; median {sorted(e_t.values())[len(e_t) // 2]:.3g}); limit "
-        f"for the kernel {limit:.3g}; kernel against torch directly {direct:.3g}; the "
-        f"oracle's argmax is the kernel's token at {agree} of {len(ref)} positions; the "
-        f"float32 runtime ({spec.get('oracle_slots', spec['slots'])} slots) peaked at "
-        f"{peaks['float32 oracle'] / 1e9:.2f} GB allocated")
+    errs = oracle_check(
+        tag, "(e)", seen, seen_t, ref, kern_out, len(traffic) * spec["max_new"],
+        note=f"the float32 runtime ({spec.get('oracle_slots', spec['slots'])} slots) peaked "
+             f"at {peaks['float32 oracle'] / 1e9:.2f} GB allocated")
     del ref, seen_t
     lap("(e)")
 
@@ -6442,24 +6509,16 @@ def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: di
     # (dense() and moe_ffn cast their f32 masters on every call; the head
     # first), and one layer's out-of-place cache write (_write_rows) of a
     # decode pass
-    weights = cast_weights(cfg, params)
-    cast_bytes = sum(w.numel() * (w.element_size() + 2) for w in weights)
-
-    def cast_all():
-        for w in weights:
-            w.to(torch.bfloat16)
-
-    cast_ms = queued_ms(cast_all, 2)
-    cast_bound = bound(cast_bytes, 0, torch.bfloat16)[0]
+    casts = weight_casts(cfg, params)
     k0 = scratch["pattern"][0]["k"][0]
     new = torch.zeros((spec["slots"], 1, G, D), dtype=k0.dtype, device=dev)
     at = torch.full((spec["slots"],), L, dtype=torch.int32, device=dev)
     write_ms = queued_ms(lambda: layers._write_rows(k0, new, at), 5)
     write_bound = bound(2 * k0.numel() * k0.element_size(), 0, torch.bfloat16)[0]
     n_writes = 2 * len(cfg.pattern) * cfg.n_periods
-    log(f"{tag}: (f) the casts of the {len(weights)} weights a pass to bf16 "
-        f"({cast_bytes / 1e9:.2f} GB read and written): {cast_ms:.3f} ms queued, bound "
-        f"{cast_bound:.3f} ms (bytes); one layer's K cache rewrite in a decode pass "
+    log(f"{tag}: (f) the casts of the {casts['weights']} weights a pass to bf16 "
+        f"({casts['bytes'] / 1e9:.2f} GB read and written): {casts['ms']:.3f} ms queued, bound "
+        f"{casts['bound_ms']:.3f} ms (bytes); one layer's K cache rewrite in a decode pass "
         f"(_write_rows, {tuple(k0.shape)}): {write_ms:.4f} ms queued, bound {write_bound:.4f} "
         f"ms; x{n_writes} a pass: {n_writes * write_ms:.3f} ms")
     del new
@@ -6478,13 +6537,9 @@ def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: di
             f"{', '.join(f'{c}: {v:.2f}' for c, v in res['chunk_ms_by_len'].items())}; "
             f"ms per decode pass by bucket: "
             f"{', '.join(f'{b}: {v:.2f} (x{res['ticks_by_bucket'][b]})' for b, v in res['tick_ms_by_bucket'].items())}")
-    profiles = {}
-    with torch.no_grad():
-        for backend, conf in (("kernel", cfg), ("torch", cfg_t)):
-            profiles[f"{backend} decode pass"] = profile_device(
-                f"one {tag} decode pass [{backend}]",
-                functools.partial(passes["decode pass"], conf), top=8)
-    del scratch, passes, params, weights, k0
+    profiles = profile_passes(tag, {"decode pass": passes["decode pass"]},
+                              {"kernel": cfg, "torch": cfg_t})
+    del scratch, passes, params, k0
     release()
     lap("(g)")
     log(f"{tag}: peaks allocated by stage: "
@@ -6496,10 +6551,10 @@ def serve_at_width(dev, seed: int, counters, tag: str, phase: int, cfg, spec: di
                 paged_launches=paged["counted"]["native_gemm"],
                 paged_launches_by_route=paged["routes"], **found, prefill_logits_err=errs_c,
                 chunked_prefill_logits_err=chunked_c, forward_routing=routed, dropped=dropped,
-                logits_err=dict(kernel=err_k, torch=err_t, kernel_vs_torch=direct),
+                logits_err={k: v for k, v in errs.items() if k != "rows"},
                 peak_bytes=peaks, master_bytes=masters, forward_peak_bytes=fwd_peaks,
                 shapes=shapes, shapes_by_route=by_route, per_pass=per_pass_t,
-                weight_cast=dict(ms=cast_ms, bound_ms=cast_bound, bytes=cast_bytes),
+                weight_cast=casts,
                 cache_write=dict(ms=write_ms, bound_ms=write_bound, per_pass=n_writes),
                 profiles=profiles,
                 tokens_per_s={b: r["tokens_per_s"] for b, r in runs.items()},
@@ -6572,7 +6627,7 @@ def gemma2_serve_path(dev, seed: int, counters) -> dict:
 #: at step 4) before they fall; ``aligned_len`` frames, whose bf16
 #: probability rows are a multiple of 16 bytes, time the attention layouts
 #: once more
-HUBERT_TRAIN = dict(arch="hubert-xlarge", seq_len=781, batch=4, steps=6, timed_steps=2,
+HUBERT_TRAIN = dict(arch="hubert-xlarge", seq_len=781, batch=4, steps=6, timed_steps=1,
                     top_shapes=8, f32_tol=1e-3, bf16_floor=5e-2, loss_tol=2e-2, lr=1e-4,
                     aligned_len=768)
 
@@ -7103,6 +7158,438 @@ def qwen2_moe_serve_path(dev, seed: int, counters) -> dict:
     return dict(rec, decode_up=up, phase_s=took)
 
 
+# ------------------------------------------------------------------ phase 30
+#: the vision-language serving cell: internvl2-2b
+#: (src/repro/configs/internvl2_2b.py) at its published widths and depth (24
+#: of 24 layers, no cut: 1.892B params, 7.57 GB of f32 masters) on the kernel
+#: backend; a VLM chat endpoint's requests about one image each: the image
+#: 256 patch positions of 1024 features (the JAX package's stub frontend,
+#: drawn N(0, 1) from the seed) prepended to the text by the frontend's
+#: projection; one request alone (batch 1) of each text prompt length below,
+#: then one batch of ``batch`` requests of ``batch_prompt`` text tokens, each
+#: with its image; ``max_new`` greedy tokens each.  Neither package's
+#: ``ServingRuntime`` takes an image (a ``Request`` carries tokens only, and
+#: a chunked prefill would prepend the image to every chunk), so the serve
+#: is the model's own ``prefill`` of the whole prompt and ``decode_step``
+#: passes; the cache is ``max_len`` rows (the longest prompt, its image and
+#: ``max_new`` rounded up to 16) for every request, so every row's softmax
+#: runs at one width
+VLM_SERVE = dict(arch="internvl2-2b", prompts=(32, 64, 128, 256, 512, 1024, 2048, 3840),
+                 max_new=16, batch=4, batch_prompt=1024)
+#: device kernels a serving pass's profile sums by kind (by name): the
+#: port's products, the library's (the torch backend's), the softmax, and
+#: copies (the weights' casts to bf16 among them)
+SERVE_KINDS = {"native_gemm": STEP_KINDS["native_gemm"],
+               "library GEMM": lambda name: any(k in name.lower() for k in LIBRARY_GEMM),
+               "softmax": lambda name: "softmax" in name.lower(),
+               "copies": STEP_KINDS["copies"]}
+
+
+class VlmRequest(NamedTuple):
+    rid: int
+    prompt: np.ndarray      # (L,) int32 text tokens
+    features: np.ndarray    # (n_positions, feature_dim) float32 patch embeddings
+
+
+def vlm_traffic(cfg, seed: int, spec: dict = VLM_SERVE, salt: int = 30) -> list:
+    """The phase's requests as the batches they are served in: each of
+    ``spec["prompts"]`` alone, then ``spec["batch"]`` requests of
+    ``spec["batch_prompt"]`` text tokens together; text tokens and image
+    features drawn from ``seed + salt``."""
+    rng = np.random.default_rng(seed + salt)
+    fe = cfg.frontend
+    groups = [[n] for n in spec["prompts"]] + [[spec["batch_prompt"]] * spec["batch"]]
+    rids = iter(range(sum(map(len, groups))))
+    return [[VlmRequest(next(rids), rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                        rng.standard_normal((fe.n_positions, fe.feature_dim), dtype=np.float32))
+             for n in group] for group in groups]
+
+
+def vlm_batch(reqs, dev) -> dict:
+    """The model's input batch of ``reqs`` (one text length): tokens and
+    float32 features, which ``_embed_inputs`` casts."""
+    return {"tokens": torch.as_tensor(np.stack([r.prompt for r in reqs]), device=dev).long(),
+            "features": torch.as_tensor(np.stack([r.features for r in reqs]), device=dev)}
+
+
+def vlm_serve(cfg, params, batches, max_len: int, max_new: int, dev,
+              forced: dict | None = None) -> dict:
+    """Greedy serves of a vision-language model through its entry points, a
+    batch at a time: ``transformer.prefill`` of the batch's tokens and
+    features on a fresh ``init_cache(cfg, B, max_len)``, then ``max_new -
+    1`` ``decode_step`` passes, each pass timed by the host clock between
+    device synchronisations.  Every row's logits are kept as float32 on the
+    host under ``(rid, tokens generated before)``; with ``forced`` (rid to
+    tokens) each row is fed those tokens in place of its own argmax.
+    Returns the logits (``seen``), the tokens (``outputs``), each pass's
+    ``(kind, text tokens or slots, native_gemm launches by route)``
+    (``events``), each request's cache length after its prefill
+    (``lengths``), the mean ms of a prefill by ``(slots, text tokens)`` and
+    of a decode pass by slots, and tokens/s over the whole."""
+    from repro_torch.kernels.sb_gemm import native_gemm
+    from repro_torch.models import transformer
+
+    seen, outputs, events, lengths, prefill_ms, decode_ms = {}, {}, [], {}, {}, {}
+
+    def timed(fn, kind, size, into):
+        before = dict(native_gemm.launches_by_route)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        into.setdefault(size if kind == "decode" else (len(reqs), size), []).append(
+            (time.perf_counter() - t0) * 1e3)
+        events.append((kind, size, {r: n - before[r] for r, n in
+                                    native_gemm.launches_by_route.items() if n > before[r]}))
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for reqs in batches:
+            batch, B = vlm_batch(reqs, dev), len(reqs)
+            cache = transformer.init_cache(cfg, B, max_len, device=dev)
+            logits, cache = timed(lambda: transformer.prefill(cfg, params, batch, cache),
+                                  "prefill", len(reqs[0].prompt), prefill_ms)
+            lengths |= dict.fromkeys((r.rid for r in reqs), int(cache["length"]))
+            for pos in range(max_new):
+                if pos:
+                    logits, cache = timed(
+                        lambda: transformer.decode_step(cfg, params, cache, toks), "decode", B,
+                        decode_ms)
+                rows, picked = logits.float().cpu(), []
+                for r, row in zip(reqs, rows):
+                    seen[(r.rid, pos)] = row
+                    picked.append(int(torch.argmax(row)) if forced is None
+                                  else forced[r.rid][pos])
+                    outputs.setdefault(r.rid, []).append(picked[-1])
+                toks = torch.tensor(picked, device=dev)[:, None]
+            del cache, logits
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    tokens = sum(map(len, outputs.values()))
+    return dict(seen=seen, outputs=outputs, events=events, lengths=lengths, wall_ms=wall_ms,
+                tokens=tokens, tokens_per_s=tokens / wall_ms * 1e3,
+                prefill_ms={k: sum(v) / len(v) for k, v in sorted(prefill_ms.items())},
+                decode_ms={k: sum(v) / len(v) for k, v in sorted(decode_ms.items())},
+                decode_passes={k: len(v) for k, v in sorted(decode_ms.items())})
+
+
+def vlm_forward_rows(cfg, params, reqs, outputs: dict, max_new: int, dev,
+                     pad_to: int | None = None) -> dict:
+    """Every row a serve of ``reqs`` gave, as ``transformer.forward`` of
+    each request alone gives it: one forward over the image, the prompt
+    and the first ``max_new - 1`` of its ``outputs``, whose last
+    ``max_new`` positions are the rows ``(rid, 0)`` (the prefill's) to
+    ``(rid, max_new - 1)``, as float32 on the host.  With ``pad_to`` the
+    sequence is padded after its last token (with token 0, which no row
+    before it sees: the mask is causal) to ``pad_to`` positions, so that
+    every softmax row of forward is as wide as a served row against a
+    cache of ``pad_to`` rows."""
+    from repro_torch.models import transformer
+
+    rows = {}
+    with torch.no_grad():
+        for r in reqs:
+            batch = vlm_batch([r], dev)
+            toks = torch.cat([batch["tokens"], torch.as_tensor(
+                outputs[r.rid][:max_new - 1], device=dev)[None].long()], dim=1)
+            n = batch["features"].shape[1] + toks.shape[1]
+            if pad_to is not None:
+                toks = torch.nn.functional.pad(toks, (0, pad_to - n))
+            full, _ = transformer.forward(cfg, params, {"tokens": toks,
+                                                        "features": batch["features"]})
+            tail = full[0, n - max_new:n].cpu()
+            del full
+            rows |= {(r.rid, pos): tail[pos] for pos in range(max_new)}
+    return rows
+
+
+def top2_margin(row) -> float:
+    """The gap between a row's two largest logits over its largest
+    magnitude (the scale of :func:`mag_err`)."""
+    top = torch.topk(row.float(), 2).values
+    return float(top[0] - top[1]) / max(row.float().abs().max().item(),
+                                        torch.finfo(torch.float32).tiny)
+
+
+def internvl2_serve_path(dev, seed: int, counters) -> dict:
+    """Phase 30: internvl2-2b at its published widths and depth, one image
+    a request, through ``transformer.prefill`` and ``decode_step`` on the
+    kernel backend (see :data:`VLM_SERVE` and the module docstring).
+    Returns ``native_gemm``'s vision-language serving record."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.sb_gemm import native_gemm
+    from repro_torch.models import frontend, transformer
+
+    t_start = time.perf_counter()
+    took, mark = {}, [t_start]
+
+    def lap(label):
+        took[label] = round(time.perf_counter() - mark[0], 1)
+        mark[0] = time.perf_counter()
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    spec, tag = VLM_SERVE, "internvl2"
+    cfg = get_config(spec["arch"]).with_(**KERNEL_BACKEND)
+    cfg_t = cfg.with_(contract_backend="torch", contract_strategy="auto")
+    cfg32 = cfg_t.with_(dtype="float32")
+    fe = cfg.frontend
+    check(fe is not None and fe.kind == "vision"
+          and all(sp.mixer == "attn" and sp.ff == "dense" for sp in cfg.pattern),
+          f"{tag}: frontend {fe}, pattern {cfg.pattern}: not the published VLM config")
+    P, bf16_tol = fe.n_positions, TOL[torch.bfloat16]
+    log(f"{tag}: {cfg.arch_id} at published widths and depth, "
+        f"{len(cfg.pattern) * cfg.n_periods} layers (no cut); d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of {cfg.hd}, d_ff {cfg.d_ff} "
+        f"({cfg.mlp_act}), vocab {cfg.vocab_size} untied; {fe.kind} frontend (the JAX "
+        f"package's stub): {fe.n_positions} patch positions of {fe.feature_dim} features "
+        f"projected to d_model and prepended to the text; {cfg.dtype} activations, "
+        f"{cfg.param_dtype} params, contract_backend {cfg.contract_backend}, strategy "
+        f"{cfg.contract_strategy}; {cfg.param_count() / 1e9:.3f}B params without the "
+        f"projector")
+    release()
+    base = torch.cuda.memory_allocated(dev)
+    params = transformer.init_params(torch.Generator(dev).manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    masters = torch.cuda.memory_allocated(dev) - base
+    log(f"{tag}: random weights drawn on the card, {masters / 1e9:.2f} GB "
+        f"({base / 2**30:.2f} GiB allocated before)")
+    max_len = -(-(P + max(spec["prompts"]) + spec["max_new"]) // 16) * 16
+    batches = vlm_traffic(cfg, seed, spec)
+    singles, group = [b[0] for b in batches[:-1]], batches[-1]
+    reqs = singles + group
+    lens = {r.rid: len(r.prompt) for r in reqs}
+    serve = functools.partial(vlm_serve, max_len=max_len, max_new=spec["max_new"], dev=dev)
+    peaks = {}
+    # a warm-up serve of the shortest request's prefill and one decode
+    # pass, whose tokens the counted serve must repeat
+    warm = vlm_serve(cfg, params, batches[:1], max_len, 2, dev)
+    lap("warm-up")
+
+    # (a) the main path, counted: every prefill and decode pass by its routes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    native_gemm.launches_by_route = dict.fromkeys(native_gemm.launches_by_route, 0)
+    with native_routes_held() as held:
+        main = serve(cfg, params, batches)
+    counted = {c.__name__: c.launches for c in counters}
+    routes = dict(native_gemm.launches_by_route)
+    peaks["serve"] = torch.cuda.max_memory_allocated()
+    seen, outputs, events = main["seen"], main["outputs"], main["events"]
+    check(counted["grouped_gemm"] == counted["flash_attention"] == 0,
+          f"{tag}: another kernel launched on the path: {counted}")
+    check(routes == held and counted["native_gemm"] == sum(held.values()),
+          f"{tag}: launches {counted['native_gemm']} by route {routes}, native_route gives "
+          f"{held}")
+    for kind, size, by in events:
+        want = ssm_routes(cfg, size if kind == "prefill" else None)
+        check(by == want, f"{tag}: a {kind} of {size} launched by route {by}, not {want}")
+    per_prefill, per_decode = ssm_routes(cfg, P), ssm_routes(cfg)
+    n_prefills = sum(kind == "prefill" for kind, *_ in events)
+    n_decodes = len(events) - n_prefills
+    check(n_prefills == len(batches) and n_decodes == len(batches) * (spec["max_new"] - 1)
+          and counted["native_gemm"] == n_prefills * sum(per_prefill.values())
+          + n_decodes * sum(per_decode.values()),
+          f"{tag}: {counted['native_gemm']} launches over {n_prefills} prefills and "
+          f"{n_decodes} decode passes, not {per_prefill} a prefill and {per_decode} a pass")
+    check(outputs[0][:2] == warm["outputs"][0], f"{tag}: the counted serve's first tokens of "
+                                                f"request 0 differ from the warm-up serve's")
+    log(f"{tag}: (a) {len(reqs)} requests ({len(singles)} alone, prompts "
+        f"{tuple(lens[r.rid] for r in singles)} text tokens after {P} image positions; "
+        f"{len(group)} together of {spec['batch_prompt']}), {main['tokens']} tokens in "
+        f"{main['wall_ms'] / 1e3:.2f} s; native_gemm launches {counted['native_gemm']} by "
+        f"route {routes}, each on the route native_route gives: {n_prefills} prefills of "
+        f"{sum(per_prefill.values())} {per_prefill} (the projector among them) and "
+        f"{n_decodes} decode passes of {sum(per_decode.values())} {per_decode}; grouped_gemm "
+        f"{counted['grouped_gemm']}, flash_attention {counted['flash_attention']}; peak "
+        f"{peaks['serve'] / 1e9:.2f} GB allocated ({(peaks['serve'] - masters) / 1e9:.2f} "
+        f"above the masters)")
+    lap("counted serve")
+
+    # (b) the image is in the answer: the cache holds the image's rows, the
+    # prefill's last logits move without it, and the projector's launch
+    # holds to float32 on the same (bf16) features
+    short = {rid: n for rid, n in main["lengths"].items() if n != P + lens[rid]}
+    check(not short, f"{tag}: (b) cache lengths after the prefill {short}, not {P} + L")
+    zeroed = {}
+    with torch.no_grad():
+        for r in singles:
+            batch = vlm_batch([r], dev)
+            batch["features"] = torch.zeros_like(batch["features"])
+            logits, _ = transformer.prefill(cfg, params, batch,
+                                            transformer.init_cache(cfg, 1, max_len, device=dev))
+            zeroed[lens[r.rid]] = mag_err(logits[0].cpu(), seen[(r.rid, 0)])
+        x = vlm_batch(singles[-1:], dev)["features"].to(cfg.activation_dtype())
+        before = dict(native_gemm.launches_by_route)
+        y = frontend.apply_frontend(cfg, params["frontend"], x)
+        proj_routes = {k: n - before[k] for k, n in native_gemm.launches_by_route.items()
+                       if n > before[k]}
+        e_proj = mag_err(y, frontend.apply_frontend(cfg32, params["frontend"], x.float()))
+    check(min(zeroed.values()) > 10 * bf16_tol,
+          f"{tag}: (b) zeroed features move the prefill's last logits by {zeroed} of the "
+          f"largest magnitude, not more than {10 * bf16_tol}")
+    check(e_proj <= bf16_tol and proj_routes == {"wgmma": 1},
+          f"{tag}: (b) the projector on {proj_routes}, {e_proj} from float32 on the same "
+          f"features (limit {bf16_tol})")
+    log(f"{tag}: (b) every cache holds {P} + L rows after its prefill; zeroed features move "
+        f"the prefill's last logits by "
+        + ", ".join(f"{n}: {e:.3g}" for n, e in zeroed.items())
+        + f" of the largest magnitude (at least {10 * bf16_tol:g}); the projector "
+        f"bpf,fe->bpe {tuple(x.shape)} x {tuple(params['frontend']['proj'].shape)} on "
+        f"{proj_routes}, {e_proj:.3g} from float32 on the same features (limit {bf16_tol:g})")
+    del x, y
+    release()
+    lap("(b)")
+
+    # (e) the torch backend in bf16 (a serve fed the kernel's tokens: its
+    # times, and the yardstick) and the float32 oracle: the torch backend's
+    # forward in float32 over each request's image, prompt and the tokens
+    # fed before (one pass a request where a fed serve would take 16)
+    runs = {"kernel": main}
+    runs["torch"] = serve(cfg_t, params, batches, forced=outputs)
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    ref = vlm_forward_rows(cfg32, params, reqs, outputs, spec["max_new"], dev)
+    peaks["float32 oracle"] = torch.cuda.max_memory_allocated()
+    release()
+    errs = oracle_check(tag, "(e)", seen, runs["torch"]["seen"], ref, outputs,
+                        len(reqs) * spec["max_new"], what="serve", oracle="forward",
+                        note=f"the float32 forward peaked at "
+                             f"{peaks['float32 oracle'] / 1e9:.2f} GB allocated")
+    lap("(e)")
+
+    # (d) the batch against its requests alone, each fed the batch's tokens
+    alone = serve(cfg, params, [[r] for r in group], forced=outputs)["seen"]
+    rows = list(alone)
+    e_d = {k: mag_err(seen[k], alone[k]) for k in rows}
+    flips = {k: (int(torch.argmax(alone[k])), outputs[k[0]][k[1]], top2_margin(ref[k]))
+             for k in rows if int(torch.argmax(alone[k])) != outputs[k[0]][k[1]]}
+    held_flips = {k: v for k, v in flips.items() if v[2] > bf16_tol}
+    same_bits = [k for k in rows if torch.equal(seen[k], alone[k])]
+    first = min((k[1] for k in rows if k not in same_bits), default=None)
+    check(max(e_d.values()) <= bf16_tol,
+          f"{tag}: (d) the {len(group)}-slot batch's rows against the same requests alone: "
+          f"{max(e_d.values())} (limit {bf16_tol})")
+    check(not held_flips, f"{tag}: (d) the batch's tokens differ from the requests' alone where "
+                          f"the float32 oracle's top-two margin exceeds {bf16_tol}: {held_flips}")
+    log(f"{tag}: (d) the {len(group)}-slot batch against its requests alone (fed the batch's "
+        f"tokens), over {len(rows)} rows: worst {max(e_d.values()):.3g} of the largest "
+        f"magnitude (limit {bf16_tol:g}); argmax differs at {len(flips)} rows, at the float32 "
+        f"oracle's top-two margins {sorted(round(v[2], 5) for v in flips.values())} (limit "
+        f"{bf16_tol:g}: none above); {len(same_bits)} of {len(rows)} rows bit-identical"
+        + ("" if first is None else f", the first pass whose rows differ: "
+           f"{'the prefill' if first == 0 else f'decode pass {first}'}"))
+    del alone
+    lap("(d)")
+
+    # (c) every served row against forward over the image, the prompt and
+    # the tokens before (the prefill's row and each decode step's), the
+    # sequence padded to the cache's width: forward's softmax rows then sum
+    # as the served rows do (CUDA's softmax sums a row in an order set by
+    # its width); the prefill rows of the requests alone also against
+    # forward over image and prompt alone, its rows as wide as the prompt
+    # (logged: ROADMAP B8)
+    torch.cuda.reset_peak_memory_stats()
+    fwd = vlm_forward_rows(cfg, params, reqs, outputs, spec["max_new"], dev, pad_to=max_len)
+    peaks["forward"] = torch.cuda.max_memory_allocated()
+    e_c = {k: mag_err(seen[k], fwd[k]) for k in seen}
+    exact = sum(torch.equal(seen[k], fwd[k]) for k in seen)
+    worst_c = {n: max(e for (rid, _), e in e_c.items() if lens[rid] == n)
+               for n in sorted(set(lens.values()))}
+    check(all(bool(torch.isfinite(fwd[k]).all()) and fwd[k].shape == (cfg.vocab_size,)
+              for k in fwd) and max(e_c.values()) <= bf16_tol,
+          f"{tag}: (c) served rows against forward by prompt length {worst_c} (limit "
+          f"{bf16_tol})")
+    del fwd
+    unpadded = {}
+    with torch.no_grad():
+        for r in singles:
+            full, _ = transformer.forward(cfg, params, vlm_batch([r], dev))
+            unpadded[lens[r.rid]] = mag_err(seen[(r.rid, 0)], full[0, -1].cpu())
+            del full
+    log(f"{tag}: (c) every served row (the prefill's and each decode step's) against "
+        f"transformer.forward over image, prompt and the tokens before, padded to {max_len} "
+        f"positions, worst by prompt length: "
+        + ", ".join(f"{n}: {e:.3g}" for n, e in worst_c.items())
+        + f" of the largest magnitude (limit {bf16_tol:g}); {exact} of {len(e_c)} rows "
+        f"bit-identical; forward's peak {peaks['forward'] / 1e9:.2f} GB allocated.  The "
+        f"prefill rows against forward over image and prompt alone (rows as wide as the "
+        f"prompt; logged, not held): "
+        + ", ".join(f"{n}: {e:.3g}" for n, e in unpadded.items()))
+    release()
+    lap("(c)")
+
+    # (f) every launch layout of the longest prefill and of a 1-slot and a
+    # 4-slot decode pass at the cache's full width; the weights' casts
+    longest = max(singles, key=lambda r: lens[r.rid])
+    L = lens[longest.rid]
+    decode_caches = {B: transformer.init_cache(cfg, B, max_len, device=dev) for B in (1, 4)}
+    step_toks = {B: torch.zeros((B, 1), dtype=torch.long, device=dev) for B in (1, 4)}
+    passes = {f"prefill of {P} + {L}": lambda conf=cfg: transformer.prefill(
+        conf, params, vlm_batch([longest], dev),
+        transformer.init_cache(conf, 1, max_len, device=dev))}
+    for B in (1, 4):
+        passes[f"decode pass of {B} slot{'s' if B > 1 else ''}"] = (
+            lambda conf=cfg, B=B: transformer.decode_step(conf, params, decode_caches[B],
+                                                          step_toks[B]))
+    torch.cuda.reset_peak_memory_stats()
+    shapes, per_pass_t, by_route = pass_layouts(
+        f"{tag}: (f)", passes, torch.Generator(dev).manual_seed(seed + 30), dev)
+    peaks["layouts"] = torch.cuda.max_memory_allocated()
+    casts = weight_casts(cfg, params)
+    log(f"{tag}: (f) the casts of the {casts['weights']} weights a decode pass to bf16 (a "
+        f"prefill adds the projector's) ({casts['bytes'] / 1e9:.2f} GB read and written): "
+        f"{casts['ms']:.3f} ms queued, bound {casts['bound_ms']:.3f} ms (bytes)")
+    lap("(f)")
+
+    # (g) the times of the kernel's counted serve and the torch backend's
+    # fed serve; where the longest prefill and a 4-slot decode pass spend
+    # device time on each backend
+    for backend, res in runs.items():
+        log(f"{tag} [{backend}]: {res['tokens']} tokens in {res['wall_ms']:.1f} ms, "
+            f"{res['tokens_per_s']:.2f} tokens/s; ms per prefill by (slots, text tokens): "
+            + ", ".join(f"{b}x{n}: {v:.2f}" for (b, n), v in res["prefill_ms"].items())
+            + "; ms per decode pass by slots: "
+            + ", ".join(f"{b}: {v:.2f} (x{res['decode_passes'][b]})"
+                        for b, v in res["decode_ms"].items()))
+    prefill_name = next(iter(passes))
+    profiles = profile_passes(tag, {k: passes[k] for k in (prefill_name, "decode pass of 4 slots")},
+                              {"kernel": cfg, "torch": cfg_t}, kinds=SERVE_KINDS)
+    del passes, decode_caches, params
+    release()
+    lap("(g)")
+    took_s = time.perf_counter() - t_start
+    log(f"{tag}: peaks allocated by stage: "
+        + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in peaks.items())
+        + f"; phase 30 took {took_s:.1f} s (target 75 s): "
+        + ", ".join(f"{k} {v} s" for k, v in took.items()))
+    return dict(launches=counted["native_gemm"], launches_by_route=routes,
+                prefill_launches_by_route=per_prefill, decode_launches_by_route=per_decode,
+                prefills=n_prefills, decode_passes=n_decodes, zeroed_features_err=zeroed,
+                projector=dict(err=e_proj, routes=proj_routes),
+                forward_err=dict(worst_by_prompt=worst_c, bit_identical=exact, rows=len(e_c),
+                                 unpadded_prefill=unpadded),
+                batch_vs_alone=dict(err=max(e_d.values()), argmax_flips=len(flips),
+                                    bit_identical=len(same_bits), rows=len(rows),
+                                    first_pass_differing=first),
+                logits_err={k: v for k, v in errs.items() if k != "rows"},
+                peak_bytes=peaks, master_bytes=masters,
+                shapes=shapes, shapes_by_route=by_route, per_pass=per_pass_t,
+                weight_cast=casts, profiles=profiles,
+                tokens_per_s={b: r["tokens_per_s"] for b, r in runs.items()},
+                runs={b: {k: r[k] for k in ("wall_ms", "tokens", "tokens_per_s", "decode_ms",
+                                             "decode_passes")}
+                      | dict(prefill_ms={f"{s}x{n}": v for (s, n), v in r["prefill_ms"].items()})
+                      for b, r in runs.items()},
+                phase_s=took_s, seconds=took)
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -7223,6 +7710,8 @@ def main() -> int:
     lap("27")
     qwen = qwen2_moe_serve_path(dev, args.seed, counters)
     lap("28")
+    vlm = internvl2_serve_path(dev, args.seed, counters)
+    lap("30")
     log("time by phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
         + f"; all {time.perf_counter() - t0:.1f} s after the device line")
     records = {
@@ -7274,6 +7763,10 @@ def main() -> int:
                          "qwen2_moe_serve_launches": qwen["launches"],
                          "qwen2_moe_serve_launches_by_route": qwen["launches_by_route"],
                          "qwen2_moe_serve": {k: v for k, v in qwen.items()
+                                             if k not in ("launches", "launches_by_route")},
+                         "internvl2_serve_launches": vlm["launches"],
+                         "internvl2_serve_launches_by_route": vlm["launches_by_route"],
+                         "internvl2_serve": {k: v for k, v in vlm.items()
                                              if k not in ("launches", "launches_by_route")}}),
         **records,
     }
@@ -7323,12 +7816,16 @@ def main() -> int:
             "granite-20b prefill chunk or decode pass": granite["launches_per_pass"].get(route, 0),
             "granite-20b serve": granite["launches_by_route"].get(route, 0),
             "qwen2-moe-a2.7b prefill chunk or decode pass": qwen["launches_per_pass"].get(route, 0),
-            "qwen2-moe-a2.7b serve": qwen["launches_by_route"].get(route, 0)}
+            "qwen2-moe-a2.7b serve": qwen["launches_by_route"].get(route, 0),
+            "internvl2-2b prefill": vlm["prefill_launches_by_route"].get(route, 0),
+            "internvl2-2b decode pass": vlm["decode_launches_by_route"].get(route, 0),
+            "internvl2-2b serve": vlm["launches_by_route"].get(route, 0)}
         records[key][2]["ssm_shapes"] = ssm["shapes_by_route"].get(route)
         records[key][2]["jamba_shapes"] = jamba["shapes_by_route"].get(route)
         records[key][2]["gemma2_shapes"] = gemma["shapes_by_route"].get(route)
         records[key][2]["granite_shapes"] = granite["shapes_by_route"].get(route)
         records[key][2]["qwen2_moe_shapes"] = qwen["shapes_by_route"].get(route)
+        records[key][2]["internvl2_shapes"] = vlm["shapes_by_route"].get(route)
     kernels = [{"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}",
                 "replaces": f"src/repro/kernels/{tpu}",
@@ -7352,8 +7849,11 @@ def main() -> int:
                                        "granite_serve_launches_by_route", "granite_serve",
                                        "qwen2_moe_serve_launches",
                                        "qwen2_moe_serve_launches_by_route", "qwen2_moe_serve",
+                                       "internvl2_serve_launches",
+                                       "internvl2_serve_launches_by_route", "internvl2_serve",
                                        "model_launches", "ssm_shapes", "jamba_shapes",
-                                       "gemma2_shapes", "granite_shapes", "qwen2_moe_shapes")
+                                       "gemma2_shapes", "granite_shapes", "qwen2_moe_shapes",
+                                       "internvl2_shapes")
                      if k in rec}}
                for name, (src, tpu, rec) in records.items()]
     for k in kernels:
